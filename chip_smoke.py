@@ -19,8 +19,10 @@ build of PyTorch. Phases, each fatal on failure:
 5. every distinct GEMM shape the serving run issued, held against the plain
    version and timed: kernel, plain version and torch.matmul (a yardstick
    only; the port never calls it), beside the H100's bound for that shape;
-6. where a step's time goes: one decode step and one chunk call, their
-   device span, host issue time and GEMM kernel time;
+6. where a step's time goes: one decode step and one chunk call timed with
+   CUDA events, then traced with torch.profiler (device idle share, in-step
+   GEMM time, the largest non-GEMM kernels), and one traced engine run for
+   the idle share of serving as a whole;
 7. full-width logits of one chunk call, through the kernel and with every
    product through `matmul_ref`.
 
@@ -129,14 +131,6 @@ def _gemm_inputs(dev, g, m: int, n: int, k: int, dtype) -> tuple:
     a = torch.randn((m, k), generator=g, device=dev).to(dtype)
     b = (torch.randn((k, n), generator=g, device=dev) / k ** 0.5).to(dtype)
     return a, b
-
-
-def _time_kernel(a, b, out_dtype, flush: torch.Tensor) -> float:
-    """The kernel's median ms on these operands."""
-    from repro_torch.kernels.tiled_matmul import tiled_matmul
-
-    return _time_ms(lambda: tiled_matmul(a, b, out_dtype=out_dtype), flush,
-                    10)
 
 
 def phase_build() -> None:
@@ -299,11 +293,10 @@ def phase_serve(dev):
     return eng, params, cfg, shapes, launches
 
 
-def phase_serving_shapes(dev, shapes) -> tuple[dict, dict]:
+def phase_serving_shapes(dev, shapes) -> dict:
     """Hold the kernel against its plain version at every serving shape and
     time kernel, plain version and torch.matmul; returns the per-kernel
-    JSON entry (times summed over the serving run's launches) and the
-    kernel's time per shape."""
+    JSON entry (times summed over the serving run's launches)."""
     from repro_torch.kernels.ref import matmul_ref
     from repro_torch.kernels.tiled_matmul import tiled_matmul
 
@@ -314,7 +307,6 @@ def phase_serving_shapes(dev, shapes) -> tuple[dict, dict]:
     failed = []
     _say("[shapes] M N K out count kernel_ms plain_ms library_ms bound_ms "
          "bound_by max_abs max_rel")
-    kernel_ms = {}
     for key, count in sorted(shapes.items(), key=lambda kv: kv[0][:3]):
         m, n, k, in_dt, out_dt = key
         a, b = _gemm_inputs(dev, g, m, n, k, in_dt)
@@ -326,17 +318,18 @@ def phase_serving_shapes(dev, shapes) -> tuple[dict, dict]:
         if not ok:
             failed.append((m, n, k))
         del got, want
-        kernel_ms[key] = _time_kernel(a, b, out_dt, flush)
+        kernel_ms = _time_ms(lambda: tiled_matmul(a, b, out_dtype=out_dt),
+                             flush, 10)
         plain_ms = _time_ms(lambda: matmul_ref(a, b, out_dtype=out_dt),
                             flush, 5)
         library_ms = _time_ms(lambda: torch.matmul(a, b), flush, 10)
         ops_s, bytes_s = _bound_s(m, n, k, in_dt, out_dt)
         bound_ms = 1e3 * max(ops_s, bytes_s)
         _say(f"[shapes] {m} {n} {k} {str(out_dt).split('.')[-1]} {count} "
-             f"{kernel_ms[key]:.4f} {plain_ms:.4f} {library_ms:.4f} "
+             f"{kernel_ms:.4f} {plain_ms:.4f} {library_ms:.4f} "
              f"{bound_ms:.4f} {'operations' if ops_s > bytes_s else 'bytes'} "
              f"{err:.3g} {rel:.3g}")
-        tot["ms"] += count * kernel_ms[key]
+        tot["ms"] += count * kernel_ms
         tot["plain_ms"] += count * plain_ms
         tot["library_ms"] += count * library_ms
         tot["bound_ms"] += count * bound_ms
@@ -352,23 +345,96 @@ def phase_serving_shapes(dev, shapes) -> tuple[dict, dict]:
             "bound_ms": tot["bound_ms"],
             "bound_by": ("operations" if tot["ops_ms"] > tot["bytes_ms"]
                          else "bytes"),
-            "library_ms": tot["library_ms"], "max_abs_err": worst}, kernel_ms
+            "library_ms": tot["library_ms"], "max_abs_err": worst}
 
 
-def phase_forwards(dev, eng, params, cfg, kernel_ms: dict) -> None:
-    """Where a step's time goes: one decode step over the full slot table
-    and one 8x64 chunk call. For each: its span on the device (CUDA events),
-    the host's time to issue it (no synchronisation inside), and the sum of
-    its GEMM launches' kernel times (per-shape times from phase 5, L2
-    flushed). A span close to the host time means the host bounds the
-    step; the rest of the span beyond the GEMMs is attention, norms, RoPE,
-    embedding and cache writes."""
+def _busy_us(intervals: list) -> float:
+    """Length of the union of (start, end) intervals."""
+    busy, reach = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e > reach:
+            busy += e - max(s, reach)
+            reach = e
+    return busy
+
+
+def _trace(runs: list) -> dict:
+    """Run each (label, fn) of `runs` in order under torch.profiler (host
+    and device activity), each inside a `record_function` range and
+    followed by a synchronisation. Returns {label: [one dict per run]}:
+    window (range start to the run's last device event), host (the range's
+    own length: the host's time to issue the run), busy (union of kernels,
+    copies and sets), idle share, GEMM kernel time and count, kernel count,
+    and device time per kernel name. An empty dict means the profiler saw
+    no device activity."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    tags = [f"{label}#{i}" for i, (label, _) in enumerate(runs)]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for tag, (_, fn) in zip(tags, runs):
+            with record_function(tag):
+                fn()
+            torch.cuda.synchronize()
+    path = ROOT / "build" / "chip_smoke_trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    path.unlink()
+    ranges = sorted((float(e["ts"]), float(e["dur"]), e["name"])
+                    for e in events if e.get("cat") == "user_annotation"
+                    and e.get("name") in tags)
+    device = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+                     e["name"], e["cat"]) for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    if not device or len(ranges) != len(tags):
+        return {}
+    out: dict = collections.defaultdict(list)
+    for i, (ts, dur, tag) in enumerate(ranges):
+        nxt = ranges[i + 1][0] if i + 1 < len(ranges) else float("inf")
+        mine = [d for d in device if ts <= d[0] < nxt]
+        if not mine:
+            return {}
+        window = max(d[1] for d in mine) - ts
+        busy = _busy_us([d[:2] for d in mine])
+        per_name = collections.Counter()
+        for s, e, name, cat in mine:
+            per_name[name if cat == "kernel" else cat] += e - s
+        gemm = [d for d in mine if d[3] == "kernel"
+                and ("gemm_bf16_kernel" in d[2] or "gemm_f32_kernel" in d[2])]
+        out[tag.rsplit("#", 1)[0]].append(dict(
+            window_ms=window / 1e3, host_ms=dur / 1e3, busy_ms=busy / 1e3,
+            idle=1.0 - busy / window,
+            gemm_ms=sum(e - s for s, e, *_ in gemm) / 1e3, n_gemm=len(gemm),
+            n_kernels=sum(d[3] == "kernel" for d in mine),
+            per_name=per_name))
+    return out
+
+
+def _short(name: str) -> str:
+    """A kernel's demangled name cut to its template head."""
+    name = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return name.split("(")[0].split("<")[0][-60:]
+
+
+def phase_forwards(dev, eng, params, cfg) -> None:
+    """Where a step's time goes. One decode step over the full slot table
+    and one 8x64 chunk call, each timed without a profiler (CUDA-event
+    span, host issue time) and then traced with torch.profiler, 3 runs
+    each: per run, the device's busy time and idle share within the run's
+    window, the in-step GEMM kernel time and count (197 expected), and the
+    non-GEMM kernels that take the most time. Then an engine run (4
+    requests of 64 prompt tokens, 8 new tokens each), untraced and then
+    traced, gives the idle share of serving as a whole, host sampling and
+    copies included. The profiler slows the host's issue, so each idle
+    share is also given against the untraced span."""
+    from repro_torch.serving.engine import Request
+
     B, W, C = eng.max_batch, 8, 64
     rng = np.random.default_rng(3)
     tok = torch.as_tensor(rng.integers(0, cfg.vocab, B), device=dev)
     toks = torch.as_tensor(rng.integers(0, cfg.vocab, (W, C)), device=dev)
     lens = torch.full((W,), C, device=dev)
-    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     dstate = eng.model.init_state(cfg, B, eng.max_len, device=dev)
     dstate["index"].fill_(256)
     cstate = eng.model.init_state(cfg, W, eng.max_len, device=dev)
@@ -379,16 +445,21 @@ def phase_forwards(dev, eng, params, cfg, kernel_ms: dict) -> None:
     def chunk():
         eng.model.prefill_chunk(params, toks, lens, dict(cstate), cfg)
 
-    g = torch.Generator(dev).manual_seed(4)
-    for label, fn, gemms in (
-            (f"decode step, {B} slots at position 256", decode,
-             _forward_gemms(cfg, B, B)),
-            (f"chunk call {W}x{C}", chunk, _forward_gemms(cfg, W * C, W))):
+    def serve(first_uid):
+        for uid in range(first_uid, first_uid + 4):
+            eng.submit(Request(uid=uid, prompt=rng.integers(
+                0, cfg.vocab, C).astype(np.int32), max_new_tokens=8))
+        eng.run_until_empty()
+
+    labels = {"decode": f"decode step, {B} slots at position 256",
+              "chunk": f"chunk call {W}x{C}",
+              "serve": "engine run, 4 requests x (64 prompt + 8 new) tokens"}
+    untraced = {}
+    for key, fn in (("decode", decode), ("chunk", chunk)):
         fn()
         torch.cuda.synchronize()
         spans, hosts = [], []
         for _ in range(5):
-            flush.zero_()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -398,16 +469,47 @@ def phase_forwards(dev, eng, params, cfg, kernel_ms: dict) -> None:
             end.record()
             end.synchronize()
             spans.append(start.elapsed_time(end))
-        for key in gemms:
-            if key not in kernel_ms:
-                kernel_ms[key] = _time_kernel(
-                    *_gemm_inputs(dev, g, *key[:4]), key[4], flush)
-        gemm = sum(n * kernel_ms[key] for key, n in gemms.items())
-        span = statistics.median(spans)
-        _say(f"[forward] {label}: device span {span:.2f} ms, host issue "
-             f"{statistics.median(hosts):.2f} ms, GEMM kernels {gemm:.2f} ms "
-             f"({100 * gemm / span:.1f}% of the span) over "
-             f"{sum(gemms.values())} launches")
+        untraced[key] = (statistics.median(spans), statistics.median(hosts))
+        _say(f"[forward] {labels[key]}, no profiler: device span "
+             f"{untraced[key][0]:.2f} ms, host issue {untraced[key][1]:.2f} "
+             f"ms (medians of 5)")
+    t0 = time.perf_counter()
+    serve(1000)
+    torch.cuda.synchronize()
+    untraced["serve"] = (1e3 * (time.perf_counter() - t0), None)
+    _say(f"[forward] {labels['serve']}, no profiler: wall "
+         f"{untraced['serve'][0]:.2f} ms")
+    traced = _trace([("decode", decode)] * 3 + [("chunk", chunk)] * 3
+                    + [("serve", lambda: serve(2000))])
+    if not traced:
+        _say("[trace] the profiler recorded no device activity: idle share "
+             "and in-step GEMM time not measured")
+        return
+    for key, runs in traced.items():
+        for r in runs:
+            _say(f"[trace] {labels[key]}: window {r['window_ms']:.2f} ms, "
+                 f"host issue {r['host_ms']:.2f} ms, device busy "
+                 f"{r['busy_ms']:.2f} ms, idle share {r['idle']:.4f}, GEMM "
+                 f"kernels {r['gemm_ms']:.2f} ms over {r['n_gemm']} launches "
+                 f"({100 * r['gemm_ms'] / r['window_ms']:.1f}% of the "
+                 f"window), {r['n_kernels']} kernels in all")
+        total = sum((r["per_name"] for r in runs), collections.Counter())
+        top = [(n, t) for n, t in total.most_common()
+               if "gemm_bf16_kernel" not in n and "gemm_f32_kernel" not in n]
+        _say(f"[trace] {labels[key]}: top non-GEMM device time per run: "
+             + "; ".join(f"{_short(n)} {t / 1e3 / len(runs):.2f} ms"
+                         for n, t in top[:6]))
+        # the profiler slows the host, not the card: the traced busy time
+        # over the untraced span is the idle share without the profiler
+        busy = statistics.median(r["busy_ms"] for r in runs)
+        _say(f"[trace] {labels[key]}: idle share without the profiler, 1 - "
+             f"busy {busy:.2f} ms / untraced {untraced[key][0]:.2f} ms = "
+             f"{1 - busy / untraced[key][0]:.4f}")
+    per_forward = sum(_forward_gemms(cfg, 1, 1).values())
+    for key in ("decode", "chunk"):
+        if any(r["n_gemm"] != per_forward for r in traced[key]):
+            raise SystemExit(f"the traced {key} forward did not launch the "
+                             f"kernel {per_forward} times")
 
 
 def phase_logits(dev, eng, params, cfg) -> None:
@@ -469,8 +571,8 @@ def main() -> int:
     phase_build()
     phase_kernel_cases(dev)
     eng, params, cfg, shapes, launches = phase_serve(dev)
-    entry, kernel_ms = phase_serving_shapes(dev, shapes)
-    phase_forwards(dev, eng, params, cfg, kernel_ms)
+    entry = phase_serving_shapes(dev, shapes)
+    phase_forwards(dev, eng, params, cfg)
     phase_logits(dev, eng, params, cfg)
     _say(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     _say(_nvidia_smi())

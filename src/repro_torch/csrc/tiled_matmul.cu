@@ -373,15 +373,13 @@ cudaError_t launch_tile(const GemmArgs& g, int bm, int bn, int bk,
                         cudaStream_t stream) {
   if (bm == 64 && bn == 64 && bk == 32)
     return launch<Tin, Tout, 64, 64, 32>(g, stream);
-  if (bm == 128 && bn == 128 && bk == 32)
-    return launch<Tin, Tout, 128, 128, 32>(g, stream);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16. Tile (bm, bn, bk) must be one of
-// the instantiated shapes: (64, 64, 32) or (128, 128, 32).
+// dtype codes: 0 = float32, 1 = bfloat16. Tile (bm, bn, bk) must be an
+// instantiated shape; the only one is (64, 64, 32).
 extern "C" int repro_tiled_matmul(const void* a, const void* b,
                                   const void* c_in, void* out, int64_t M,
                                   int64_t N, int64_t K, int64_t sam,

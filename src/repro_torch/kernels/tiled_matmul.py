@@ -45,7 +45,7 @@ class BlockConfig:
         return (self.block_m, self.block_n, self.block_k)
 
 
-TILE_SHAPES = ((64, 64, 32), (128, 128, 32))
+TILE_SHAPES = ((64, 64, 32),)
 DEFAULT_CONFIG = BlockConfig(64, 64, 32)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535
