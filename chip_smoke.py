@@ -8,17 +8,24 @@ build of PyTorch. Phases, each fatal on failure:
 
 1. the card (nvidia-smi name and power limit, torch and CUDA versions);
 2. build: the hand-written GEMM compiled from ``src/repro_torch/csrc`` by
-   nvcc, with the seconds it took and ptxas's register/spill report;
+   nvcc, with the seconds it took, ptxas's register/spill/shared-memory
+   report per kernel, and each tile's shared memory held against
+   `BlockConfig.smem_bytes`;
 3. the kernel against its plain version (`matmul_ref`) on the card: the
    shapes, layouts, alpha/beta, bf16-in/f32-out and K=4096 cases of the
-   JAX package's kernel tests, for every compiled tile shape;
+   JAX package's kernel tests plus the fast paths' boundary cases (M around
+   8, 64 and 128, ragged N and K, split K), on every path that takes each
+   case, with each fast-path result bit-identical over two launches;
 4. serve: full-width, full-depth qwen2-7b with seeded random weights; the
    continuous-batching engine answers 10 requests (prompts of 16-300
-   tokens, 8-32 new tokens) and the kernel's launch counter must equal
-   197 x the chunk and decode forwards dispatched;
+   tokens, 8-32 new tokens); the kernel's launch counter must equal 197 x
+   the chunk and decode forwards dispatched, every one of them on the
+   stream or wgmma path and none on the general path;
 5. every distinct GEMM shape the serving run issued, held against the plain
-   version and timed: kernel, plain version and torch.matmul (a yardstick
-   only; the port never calls it), beside the H100's bound for that shape;
+   version and timed: the kernel on the path `plan` chose, the general path
+   at the same shape ("v3_ms", the first version of the kernel), the plain
+   version and torch.matmul (a yardstick only; the port never calls it),
+   beside the H100's bound for that shape, and the sums per path;
 6. where a step's time goes: one decode step and one chunk call timed with
    CUDA events, then traced with torch.profiler (device idle share, in-step
    GEMM time, the largest non-GEMM kernels), and one traced engine run for
@@ -34,6 +41,7 @@ from __future__ import annotations
 
 import collections
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -61,6 +69,9 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # relative error near 1 and chance top-1 agreement.
 LOGITS_REL_L2_MAX = 5e-2
 LOGITS_TOP1_MIN = 0.75
+# the kernels of csrc/tiled_matmul.cu: stream, wgmma, general (bf16, f32)
+GEMM_KERNELS = ("gemm_stream_kernel", "gemm_wgmma_kernel", "gemm_bf16_kernel",
+                "gemm_f32_kernel")
 
 
 def _say(*parts) -> None:
@@ -96,12 +107,16 @@ def _bound_s(m: int, n: int, k: int, in_dtype, out_dtype) -> tuple:
 
 def _time_ms(fn, flush: torch.Tensor, reps: int) -> float:
     """Median milliseconds of `fn` over `reps` runs, CUDA events, with the
-    L2 cache flushed (a 256 MB write) before each run."""
+    L2 cache flushed (a 256 MB write) before each run. A ~1 ms device sleep
+    after the flush keeps the card busy while the host issues `fn`, so the
+    host's time in the wrapper never shows up as idle time between the
+    events."""
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(2_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -134,32 +149,96 @@ def _gemm_inputs(dev, g, m: int, n: int, k: int, dtype) -> tuple:
 
 
 def phase_build() -> None:
-    """Build the port's CUDA sources with nvcc (timed) and load them."""
+    """Build the port's CUDA sources with nvcc (timed) and load them; print
+    ptxas's registers, spills and static shared memory for every kernel,
+    and check each compiled tile's shared memory against `BlockConfig`."""
     from repro_torch.kernels import _build
+    from repro_torch.kernels.tiled_matmul import (_PATH_CODE, BlockConfig,
+                                                  TILE_SHAPES)
 
     info = _build.build()
-    _build.load_library()
+    lib = _build.load_library()
     _say(f"[build] {info.path.name}: {'built' if info.built else 'cached'} "
          f"in {info.seconds:.1f} s (nvcc {' '.join(_build.NVCC_FLAGS)})")
-    for line in info.log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            _say("[build]   " + line.strip())
+    for name, report in _ptxas_report(info.log):
+        _say(f"[build]   {name}: {report}")
+    wrong = []
+    for tile in TILE_SHAPES:
+        cfg = BlockConfig(*tile)
+        for dt, code in ((torch.bfloat16, 1), (torch.float32, 0)):
+            if code == 0 and cfg.path != "general":
+                continue
+            have = lib.repro_tiled_matmul_smem(_PATH_CODE[cfg.path], code,
+                                               *tile)
+            want = cfg.smem_bytes(torch.tensor([], dtype=dt).element_size())
+            _say(f"[build] {cfg.path} tile {tile} {str(dt).split('.')[-1]}: "
+                 f"{have} bytes of shared memory per block (BlockConfig "
+                 f"says {want})")
+            if have != want:
+                wrong.append((tile, dt))
+    if wrong:
+        raise SystemExit(f"BlockConfig.smem_bytes disagrees with the kernel "
+                         f"for {wrong}")
+
+
+def _ptxas_report(log: str) -> list:
+    """(kernel, "registers ...; spills ...") per compiled kernel from the
+    `-Xptxas -v` log, with each mangled name cut to the kernel and its
+    template arguments (output type, the integers, the vector-tile flag)."""
+    out, name = [], None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            mangled = entry.group(1)
+            base = re.search(r"gemm_\w+?_kernel", mangled)
+            ints = re.findall(r"Li(\d+)E", mangled)
+            name = (f"{base.group(0) if base else mangled}<"
+                    f"{'bf16' if 'bfloat16' in mangled else 'f32'} out"
+                    f"{''.join(',' + i for i in ints)}"
+                    f"{',vector tiles' if 'Lb1E' in mangled else ''}>")
+            spills = ""
+        elif name and "spill" in line:
+            spills = line.split(":", 1)[-1].strip()
+        elif name and "registers" in line:
+            out.append((name, line.split(":", 1)[-1].strip() + "; " + spills))
+            name = None
+    return out
+
+
+def _run_path(fn, *args, **kw):
+    """(path, result) of one tiled_matmul call: the path whose launch
+    counter moved."""
+    from repro_torch.kernels.tiled_matmul import tiled_matmul
+
+    before = dict(tiled_matmul.launches_by_path)
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    moved = [p for p, n in tiled_matmul.launches_by_path.items()
+             if n != before[p]]
+    if len(moved) != 1:
+        raise SystemExit(f"one call moved the path counters {moved}")
+    return moved[0], out
 
 
 def phase_kernel_cases(dev) -> None:
-    """The JAX package's kernel-test cases, kernel vs plain version, for
-    every compiled tile shape."""
+    """The JAX package's kernel-test cases and each path's boundary cases,
+    kernel vs plain version, on every path and tile that takes the case:
+    the path `plan` chooses, the general path forced, and every fast-path
+    tile of `candidate_tiles` forced where `plan` chose a fast path. Each
+    fast-path result must also be bit-identical over two launches."""
     from repro_torch.kernels.ref import matmul_ref
-    from repro_torch.kernels.tiled_matmul import (BlockConfig, TILE_SHAPES,
+    from repro_torch.kernels.tiled_matmul import (DEFAULT_CONFIG,
+                                                  candidate_tiles,
                                                   tiled_matmul)
 
     g = torch.Generator(dev).manual_seed(0)
+    bf16 = torch.bfloat16
 
     def rand(shape, dtype):
         return torch.randn(shape, generator=g, device=dev).to(dtype)
 
     cases = []   # (label, in dtype, kwargs for both functions, a, b, c)
-    for dt in (torch.float32, torch.bfloat16):
+    for dt in (torch.float32, bf16):
         for m, n, k in [(16, 128, 128), (32, 256, 256), (40, 200, 300),
                         (1, 128, 512), (128, 1, 64), (17, 129, 257)]:
             cases.append((f"shape {m}x{n}x{k} {dt}", dt, {},
@@ -177,49 +256,77 @@ def phase_kernel_cases(dev) -> None:
                       rand((32, 64), torch.float32),
                       rand((64, 128), torch.float32),
                       rand((32, 128), torch.float32)))
-    cases.append(("bf16 in, f32 out", torch.bfloat16,
-                  dict(out_dtype=torch.float32),
-                  rand((32, 64), torch.bfloat16),
-                  rand((64, 128), torch.bfloat16), None))
-    cases.append(("bf16 in, bf16 out, f32 C, beta=0.3", torch.bfloat16,
-                  dict(beta=0.3), rand((16, 32), torch.bfloat16),
-                  rand((32, 128), torch.bfloat16),
+    cases.append(("bf16 in, f32 out", bf16, dict(out_dtype=torch.float32),
+                  rand((32, 64), bf16), rand((64, 128), bf16), None))
+    cases.append(("bf16 in, bf16 out, f32 C, beta=0.3", bf16, dict(beta=0.3),
+                  rand((16, 32), bf16), rand((32, 128), bf16),
                   rand((16, 128), torch.float32)))
-    cases.append(("bf16 16-byte vector tiles 64x256x512", torch.bfloat16, {},
-                  rand((64, 512), torch.bfloat16),
-                  rand((512, 256), torch.bfloat16), None))
-    cases.append(("bf16 vector tiles over views, ragged last vector",
-                  torch.bfloat16, {},
-                  rand((70, 296), torch.bfloat16)[:, :293],
-                  rand((293, 208), torch.bfloat16)[:, :203], None))
+    cases.append(("bf16 16-byte vector tiles 64x256x512", bf16, {},
+                  rand((64, 512), bf16), rand((512, 256), bf16), None))
+    cases.append(("bf16 views of 16-byte rows, ragged last vector", bf16, {},
+                  rand((70, 296), bf16)[:, :293],
+                  rand((293, 208), bf16)[:, :203], None))
+    cases.append(("bf16 view off a 16-byte boundary", bf16, {},
+                  rand((20, 136), bf16)[:, 1:129], rand((128, 72), bf16),
+                  None))
     cases.append(("K=4096 f32", torch.float32, {},
                   rand((8, 4096), torch.float32),
                   rand((4096, 128), torch.float32), None))
-    cases.append(("K=4096 bf16 0.01s, f32 out", torch.bfloat16,
+    cases.append(("K=4096 bf16 0.01s, f32 out", bf16,
                   dict(out_dtype=torch.float32),
-                  torch.full((8, 4096), 0.01, dtype=torch.bfloat16, device=dev),
-                  torch.full((4096, 128), 0.01, dtype=torch.bfloat16,
-                             device=dev), None))
-    failed = []
-    for tile in TILE_SHAPES:
-        cfg = BlockConfig(*tile)
-        for label, dt, kw, a, b, c in cases:
-            got = tiled_matmul(a, b, c, config=cfg, **kw)
-            torch.cuda.synchronize()
-            c_ref = c.to(kw.get("out_dtype") or a.dtype) if c is not None else c
-            want = matmul_ref(a, b, c_ref, **kw)
+                  torch.full((8, 4096), 0.01, dtype=bf16, device=dev),
+                  torch.full((4096, 128), 0.01, dtype=bf16, device=dev), None))
+    # the fast paths' boundaries: M around the 8-row stream tiles, the
+    # stream/wgmma threshold and the 128-row wgmma tile; N = 200 and 136
+    # not a multiple of any tile; K = 296 (4.6 K tiles, split in 2) and
+    # K = 40 (one short K tile); beta with C; f32 and bf16 out
+    for m in (1, 4, 8, 63, 64, 65, 127, 128, 129):
+        cases.append((f"edge M={m} N=200 K=296, alpha=0.5 beta=0.5 with f32 "
+                      "C, f32 out", bf16,
+                      dict(alpha=0.5, beta=0.5, out_dtype=torch.float32),
+                      rand((m, 296), bf16), rand((296, 200), bf16),
+                      rand((m, 200), torch.float32)))
+    for m in (4, 65, 129):
+        cases.append((f"edge M={m} N=136 K=40, bf16 out", bf16, {},
+                      rand((m, 40), bf16), rand((40, 136), bf16), None))
+    for m in (8, 128):
+        cases.append((f"split-K M={m} N=520 K=3584, beta=1 with bf16 C", bf16,
+                      dict(beta=1.0), rand((m, 3584), bf16),
+                      rand((3584, 520), bf16), rand((m, 520), bf16)))
+    failed, seen = [], collections.Counter()
+    for label, dt, kw, a, b, c in cases:
+        c_ref = c.to(kw.get("out_dtype") or a.dtype) if c is not None else c
+        want = matmul_ref(a, b, c_ref, **kw)
+        chosen, _ = _run_path(tiled_matmul, a, b, c, **kw)
+        configs = [None, DEFAULT_CONFIG]
+        if chosen != "general":
+            configs += candidate_tiles(want.shape[0])
+        for cfg in configs:
+            path, got = _run_path(tiled_matmul, a, b, c, config=cfg, **kw)
             err, rel, ok = _close(got, want, dt)
-            _say(f"[kernel {tile}] {label}: max_abs {err:.3g} max_rel "
-                 f"{rel:.3g} tol {TOL[dt]:g} {'ok' if ok else 'FAIL'}")
-            if not ok:
-                failed.append((tile, label))
+            same = True
+            if path != "general":
+                same = torch.equal(got, _run_path(tiled_matmul, a, b, c,
+                                                  config=cfg, **kw)[1])
+            how = "chosen by plan" if cfg is None else f"forced {cfg.as_tuple()}"
+            _say(f"[kernel {path}] {label} ({how}): max_abs {err:.3g} "
+                 f"max_rel {rel:.3g} tol {TOL[dt]:g}"
+                 f"{'' if path == 'general' else f', rerun bit-identical {same}'}"
+                 f" {'ok' if ok and same else 'FAIL'}")
+            seen[path] += 1
+            if not (ok and same):
+                failed.append((path, label))
+    _say(f"[kernel] cases run per path: {dict(seen)}")
     if failed:
         raise SystemExit(f"kernel disagrees with its plain version: {failed}")
+    if set(seen) != {"stream", "wgmma", "general"}:
+        raise SystemExit(f"a path ran no case: {dict(seen)}")
 
 
 def phase_serve(dev):
     """Serve 10 requests on full qwen2-7b; returns (engine, params, cfg,
-    the GEMM shapes the run issued with their launch counts)."""
+    the GEMM shapes the run issued with their launch counts, the launches
+    per kernel path)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.kernels.tiled_matmul import tiled_matmul
@@ -260,9 +367,12 @@ def phase_serve(dev):
     ops.tiled_matmul = recording
     try:
         tiled_matmul.launches = 0
+        tiled_matmul.launches_by_path.update(
+            dict.fromkeys(tiled_matmul.launches_by_path, 0))
         results = eng.run_until_empty()
         torch.cuda.synchronize()
         launches = tiled_matmul.launches
+        by_path = dict(tiled_matmul.launches_by_path)
     finally:
         ops.tiled_matmul = tiled_matmul
     rep = eng.report()
@@ -280,6 +390,13 @@ def phase_serve(dev):
     if launches != per_forward * forwards or launches == 0:
         raise SystemExit("the serving path did not launch the kernel "
                          f"{per_forward} times per forward")
+    _say(f"[serve] launches per path: stream {by_path['stream']}, wgmma "
+         f"{by_path['wgmma']}, general {by_path['general']} (every bf16 "
+         f"serving GEMM must take a fast path)")
+    if (by_path["general"] != 0 or by_path["stream"] == 0
+            or by_path["wgmma"] == 0 or sum(by_path.values()) != launches):
+        raise SystemExit(f"serving launches by path {by_path}: expected all "
+                         "on stream and wgmma, none on general")
     by_uid = {r.uid: r for r in results}
     if sorted(by_uid) != [r.uid for r in reqs]:
         raise SystemExit(f"requests unanswered: {sorted(by_uid)}")
@@ -290,62 +407,104 @@ def phase_serve(dev):
                 or not ((0 <= res.tokens) & (res.tokens < cfg.vocab)).all()):
             raise SystemExit(f"request {r.uid}: {res.n_tokens} tokens, "
                              f"budget {budget}")
-    return eng, params, cfg, shapes, launches
+    return eng, params, cfg, shapes, by_path
 
 
 def phase_serving_shapes(dev, shapes) -> dict:
-    """Hold the kernel against its plain version at every serving shape and
-    time kernel, plain version and torch.matmul; returns the per-kernel
-    JSON entry (times summed over the serving run's launches)."""
+    """Hold the kernel against its plain version at every serving shape, on
+    the path `plan` chooses and on the general path (the first version of
+    the kernel, "v3"), and time both beside the plain version and
+    torch.matmul. Returns {path: per-kernel JSON entry}, times summed over
+    the serving run's launches of the shapes that took that path."""
     from repro_torch.kernels.ref import matmul_ref
-    from repro_torch.kernels.tiled_matmul import tiled_matmul
+    from repro_torch.kernels.tiled_matmul import (DEFAULT_CONFIG,
+                                                  candidate_tiles, plan,
+                                                  tiled_matmul)
 
     g = torch.Generator(dev).manual_seed(1)
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
-    tot = collections.Counter()
-    worst = 0.0
+    tot: dict = collections.defaultdict(collections.Counter)
+    worst: dict = collections.Counter()
     failed = []
-    _say("[shapes] M N K out count kernel_ms plain_ms library_ms bound_ms "
-         "bound_by max_abs max_rel")
+    _say("[shapes] M N K out count path kernel_ms v3_ms plain_ms library_ms "
+         "bound_ms bound_by bound/kernel library/kernel max_abs max_rel")
     for key, count in sorted(shapes.items(), key=lambda kv: kv[0][:3]):
         m, n, k, in_dt, out_dt = key
         a, b = _gemm_inputs(dev, g, m, n, k, in_dt)
-        got = tiled_matmul(a, b, out_dtype=out_dt)
         want = matmul_ref(a, b, out_dtype=out_dt)
-        torch.cuda.synchronize()
+        path, got = _run_path(tiled_matmul, a, b, out_dtype=out_dt)
         err, rel, ok = _close(got, want, in_dt)
-        worst = max(worst, err)
-        if not ok:
-            failed.append((m, n, k))
+        v3_ok = _close(tiled_matmul(a, b, config=DEFAULT_CONFIG,
+                                    out_dtype=out_dt), want, in_dt)[2]
+        torch.cuda.synchronize()
+        worst[path] = max(worst[path], err)
+        if not (ok and v3_ok):
+            failed.append((m, n, k, path if not ok else "general"))
         del got, want
         kernel_ms = _time_ms(lambda: tiled_matmul(a, b, out_dtype=out_dt),
                              flush, 10)
+        v3_ms = _time_ms(lambda: tiled_matmul(a, b, config=DEFAULT_CONFIG,
+                                              out_dtype=out_dt), flush, 10)
         plain_ms = _time_ms(lambda: matmul_ref(a, b, out_dtype=out_dt),
                             flush, 5)
         library_ms = _time_ms(lambda: torch.matmul(a, b), flush, 10)
         ops_s, bytes_s = _bound_s(m, n, k, in_dt, out_dt)
         bound_ms = 1e3 * max(ops_s, bytes_s)
         _say(f"[shapes] {m} {n} {k} {str(out_dt).split('.')[-1]} {count} "
-             f"{kernel_ms:.4f} {plain_ms:.4f} {library_ms:.4f} "
-             f"{bound_ms:.4f} {'operations' if ops_s > bytes_s else 'bytes'} "
+             f"{path} {kernel_ms:.4f} {v3_ms:.4f} {plain_ms:.4f} "
+             f"{library_ms:.4f} {bound_ms:.4f} "
+             f"{'operations' if ops_s > bytes_s else 'bytes'} "
+             f"{bound_ms / kernel_ms:.3f} {library_ms / kernel_ms:.3f} "
              f"{err:.3g} {rel:.3g}")
-        tot["ms"] += count * kernel_ms
-        tot["plain_ms"] += count * plain_ms
-        tot["library_ms"] += count * library_ms
-        tot["bound_ms"] += count * bound_ms
-        tot["ops_ms"] += count * 1e3 * ops_s
-        tot["bytes_ms"] += count * 1e3 * bytes_s
+        # every compiled fast tile that can take the shape, forced: the
+        # candidates an autotuner would choose among
+        sweep = []
+        for cfg in candidate_tiles(m):
+            p = plan(m, n, k, a.stride(), b.stride(), 0, 0, in_dt, out_dt,
+                     config=cfg)
+            ok = _close(tiled_matmul(a, b, config=cfg, out_dtype=out_dt),
+                        matmul_ref(a, b, out_dtype=out_dt), in_dt)[2]
+            if not ok:
+                failed.append((m, n, k, cfg.as_tuple()))
+            t_ms = _time_ms(lambda: tiled_matmul(a, b, config=cfg,
+                                                 out_dtype=out_dt), flush, 10)
+            sweep.append(f"{p.path} {cfg.as_tuple()} x{p.splits} {t_ms:.4f}")
+        _say(f"[sweep] {m} {n} {k}: " + "; ".join(sweep))
+        for t in (tot[path], tot["all"]):
+            t["ms"] += count * kernel_ms
+            t["v3_ms"] += count * v3_ms
+            t["plain_ms"] += count * plain_ms
+            t["library_ms"] += count * library_ms
+            t["bound_ms"] += count * bound_ms
+            t["ops_ms"] += count * 1e3 * ops_s
+            t["bytes_ms"] += count * 1e3 * bytes_s
     if failed:
         raise SystemExit(f"kernel disagrees at serving shapes {failed}")
-    _say(f"[shapes] summed over the serving run's launches: kernel "
-         f"{tot['ms']:.2f} ms, plain {tot['plain_ms']:.2f} ms, torch.matmul "
-         f"{tot['library_ms']:.2f} ms, bound {tot['bound_ms']:.2f} ms "
-         f"(operations {tot['ops_ms']:.2f} ms, bytes {tot['bytes_ms']:.2f} ms)")
-    return {"ms": tot["ms"], "plain_ms": tot["plain_ms"],
-            "bound_ms": tot["bound_ms"],
-            "bound_by": ("operations" if tot["ops_ms"] > tot["bytes_ms"]
+    entries = {}
+    for path, t in sorted(tot.items()):
+        _say(f"[shapes] summed over the serving run's launches ({path}): "
+             f"kernel {t['ms']:.2f} ms, v3 (general path) {t['v3_ms']:.2f} "
+             f"ms, plain {t['plain_ms']:.2f} ms, torch.matmul "
+             f"{t['library_ms']:.2f} ms, bound {t['bound_ms']:.2f} ms "
+             f"(operations {t['ops_ms']:.2f} ms, bytes {t['bytes_ms']:.2f} "
+             "ms)")
+        if path == "all":
+            continue
+        entries[path] = {
+            "ms": t["ms"], "v3_ms": t["v3_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": ("operations" if t["ops_ms"] > t["bytes_ms"]
                          else "bytes"),
-            "library_ms": tot["library_ms"], "max_abs_err": worst}
+            "library_ms": t["library_ms"], "max_abs_err": worst[path]}
+    _say(f"[shapes] fast paths against the general path over the serving "
+         f"launches: {tot['all']['ms']:.2f} ms against "
+         f"{tot['all']['v3_ms']:.2f} ms (x{tot['all']['v3_ms'] / tot['all']['ms']:.2f})")
+    return entries
+
+
+def _is_gemm(name: str) -> bool:
+    """Whether a traced kernel is one of the hand-written GEMM's kernels."""
+    return any(k in name for k in GEMM_KERNELS)
 
 
 def _busy_us(intervals: list) -> float:
@@ -400,8 +559,7 @@ def _trace(runs: list) -> dict:
         per_name = collections.Counter()
         for s, e, name, cat in mine:
             per_name[name if cat == "kernel" else cat] += e - s
-        gemm = [d for d in mine if d[3] == "kernel"
-                and ("gemm_bf16_kernel" in d[2] or "gemm_f32_kernel" in d[2])]
+        gemm = [d for d in mine if d[3] == "kernel" and _is_gemm(d[2])]
         out[tag.rsplit("#", 1)[0]].append(dict(
             window_ms=window / 1e3, host_ms=dur / 1e3, busy_ms=busy / 1e3,
             idle=1.0 - busy / window,
@@ -494,8 +652,7 @@ def phase_forwards(dev, eng, params, cfg) -> None:
                  f"({100 * r['gemm_ms'] / r['window_ms']:.1f}% of the "
                  f"window), {r['n_kernels']} kernels in all")
         total = sum((r["per_name"] for r in runs), collections.Counter())
-        top = [(n, t) for n, t in total.most_common()
-               if "gemm_bf16_kernel" not in n and "gemm_f32_kernel" not in n]
+        top = [(n, t) for n, t in total.most_common() if not _is_gemm(n)]
         _say(f"[trace] {labels[key]}: top non-GEMM device time per run: "
              + "; ".join(f"{_short(n)} {t / 1e3 / len(runs):.2f} ms"
                          for n, t in top[:6]))
@@ -570,17 +727,21 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build()
     phase_kernel_cases(dev)
-    eng, params, cfg, shapes, launches = phase_serve(dev)
-    entry = phase_serving_shapes(dev, shapes)
+    eng, params, cfg, shapes, by_path = phase_serve(dev)
+    entries = phase_serving_shapes(dev, shapes)
     phase_forwards(dev, eng, params, cfg)
     phase_logits(dev, eng, params, cfg)
     _say(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     _say(_nvidia_smi())
+    # one entry per path the serving run takes; the general path serves no
+    # bf16 projection (phase 4 checks 0 launches there), and its time at the
+    # same shapes is each entry's v3_ms
     _say(json.dumps({"kernels": [{
-        "name": "tiled_matmul", "route": "cuda",
+        "name": f"tiled_matmul[{path}]", "route": "cuda",
         "source": "src/repro_torch/csrc/tiled_matmul.cu",
         "replaces": "src/repro/kernels/tiled_matmul.py:57",
-        "launches": launches, **entry}]}))
+        "launches": by_path[path], **entries[path]}
+        for path in ("stream", "wgmma")]}))
     _say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,8 +3,11 @@
 Every projection of the model calls `matmul` (or `linear`), which reaches
 the hand-written Hopper GEMM through `tiled_matmul`. Dispatch follows the
 tensor's device: a CUDA tensor launches the kernel, a CPU tensor (the tests)
-runs its plain version. Every call uses one fixed block config,
-`DEFAULT_CONFIG`, unless the caller passes another.
+runs its plain version. On the card, `tiled_matmul.plan` picks the path,
+tile and K-splits of each call from its dtype, layout, alignment and shape
+(the bf16 projections of the serving path take ``stream`` for M <= 64 and
+``wgmma`` above); a caller that passes ``config=`` gets that compiled tile
+or a ValueError.
 """
 
 from __future__ import annotations
@@ -13,8 +16,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels.tiled_matmul import (BlockConfig, DEFAULT_CONFIG,
-                                              tiled_matmul)
+from repro_torch.kernels.tiled_matmul import BlockConfig, tiled_matmul
 
 SSM_SERVE_GRAIN = 8  # min prefill bucket == SSM serve-scan block
 
@@ -56,7 +58,7 @@ def matmul(
     n, kb = b.shape if transpose_b else b.shape[::-1]
     if kb != k:
         raise ValueError(f"contraction mismatch {k} vs {kb}")
-    out = tiled_matmul(a.reshape(-1, k), b, config=config or DEFAULT_CONFIG,
+    out = tiled_matmul(a.reshape(-1, k), b, config=config,
                        transpose_b=transpose_b,
                        out_dtype=out_dtype or a.dtype)
     return out.reshape(*lead, n)
@@ -75,6 +77,6 @@ def gemm(a, b, c=None, *, alpha=1.0, beta=0.0, transpose_a=False,
          transpose_b=False, config: BlockConfig | None = None,
          out_dtype=None) -> torch.Tensor:
     """Full BLAS-3 surface (rank-2 only) — used by benchmarks and tests."""
-    return tiled_matmul(a, b, c, config=config or DEFAULT_CONFIG,
+    return tiled_matmul(a, b, c, config=config,
                         transpose_a=transpose_a, transpose_b=transpose_b,
                         alpha=alpha, beta=beta, out_dtype=out_dtype)

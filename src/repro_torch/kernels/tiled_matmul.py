@@ -6,9 +6,15 @@ accumulation. Where the TPU wrapper zero-pads operands to block multiples,
 this one hands the kernel strides and shapes; the kernel masks the ragged
 edge itself, and the transposed layouts are strides, not copies.
 
+The kernel has three paths, and `plan` picks one per call from dtype,
+layout, alignment and shape: ``stream`` (split-K weight streaming for
+M <= 64, the decode GEMMs), ``wgmma`` (TMA and warpgroup MMA for M > 64, the
+prefill chunks) and ``general`` (everything else: f32, transposed layouts,
+unaligned views).
+
 A CPU tensor is computed by the plain version (`ref.matmul_ref`); a CUDA
 tensor launches the kernel or raises. ``tiled_matmul.launches`` counts the
-kernel launches.
+kernel launches, ``tiled_matmul.launches_by_path`` the launches per path.
 """
 
 from __future__ import annotations
@@ -19,51 +25,232 @@ import torch
 
 from repro_torch.kernels.ref import matmul_ref
 
+GENERAL, STREAM, WGMMA = "general", "stream", "wgmma"
+_PATH_CODE = {GENERAL: 0, STREAM: 1, WGMMA: 2}
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+# every compiled tile, (block_m, block_n, block_k), and the path it belongs
+# to; a stream tile's block_m is the activation rows it pads M up to
+TILE_PATHS = {
+    (64, 64, 32): GENERAL,
+    (8, 64, 64): STREAM, (16, 64, 64): STREAM, (32, 64, 64): STREAM,
+    (64, 64, 64): STREAM,
+    (128, 256, 64): WGMMA, (128, 128, 64): WGMMA, (128, 64, 64): WGMMA,
+}
+TILE_SHAPES = tuple(TILE_PATHS)
+FAST_STAGES = 4      # shared-memory ring depth of both fast paths
+STREAM_MAX_M = 64    # the stream path takes M <= 64, wgmma M > 64
+WAVE_CTAS = 132      # the H100's SMs: tiles x splits should cover them
+STREAM_WAVES = 4
+# H100 SXM dense bf16 tensor-core rate and HBM rate (NVIDIA data sheet): a
+# GEMM whose FLOPs take longer than its bytes is bound by operations
+PEAK_BF16_FLOPS, HBM_BYTES_PER_S = 989e12, 3.35e12
+MIN_SPLIT_K_TILES = 2
+_MAX_GRID_Y = 65535
+
 
 @dataclasses.dataclass(frozen=True)
 class BlockConfig:
     """One thread block's output tile and K step — the Hopper analogue of
     the TPU's VMEM block config. Only the shapes in `TILE_SHAPES` are
-    compiled into the kernel."""
+    compiled into the kernel; each belongs to one path."""
 
     block_m: int = 64
     block_n: int = 64
     block_k: int = 32
 
+    @property
+    def path(self) -> str | None:
+        """The kernel path that compiles this tile (None: not compiled)."""
+        return TILE_PATHS.get(self.as_tuple())
+
     def smem_bytes(self, in_bytes: int = 2) -> int:
-        """Static shared memory of one block: the padded A and B tiles,
-        plus (bf16) the eight warps' 16x16 fp32 epilogue staging tiles."""
+        """Shared memory of one block, static plus dynamic.
+
+        general: the padded A and B tiles (static), plus (bf16) the eight
+        warps' 16x16 fp32 epilogue staging tiles. stream: a ring of
+        `FAST_STAGES` (block_k x block_n) weight and (block_m x block_k)
+        activation tiles plus a 16-byte split flag. wgmma: 1024 bytes of
+        alignment slack, the ring of (block_m x block_k) A and
+        (block_k x block_n) B tiles, two 8-byte mbarriers per stage and the
+        flag. The fast paths' memory is dynamic and above 48 KB, so the
+        kernel opts into it once per instantiation."""
+        bm, bn, bk = self.as_tuple()
+        if self.path == STREAM:
+            return FAST_STAGES * (bk * bn + bm * bk) * 2 + 16
+        if self.path == WGMMA:
+            return (1024 + FAST_STAGES * (bm * bk + bk * bn) * 2
+                    + 16 * FAST_STAGES + 16)
         if in_bytes == 4:   # f32 path: A tile padded by one column
-            return 4 * (self.block_m * (self.block_k + 1)
-                        + self.block_k * self.block_n)
-        return (in_bytes * (self.block_m * (self.block_k + 8)
-                            + self.block_k * (self.block_n + 8))
-                + 8 * 16 * 16 * 4)
+            return 4 * (bm * (bk + 1) + bk * bn)
+        return in_bytes * (bm * (bk + 8) + bk * (bn + 8)) + 8 * 16 * 16 * 4
 
     def as_tuple(self) -> tuple[int, int, int]:
         """(block_m, block_n, block_k)."""
         return (self.block_m, self.block_n, self.block_k)
 
 
-TILE_SHAPES = ((64, 64, 32),)
-DEFAULT_CONFIG = BlockConfig(64, 64, 32)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_GRID_Y = 65535
+DEFAULT_CONFIG = BlockConfig(64, 64, 32)   # the general path's tile
+_STREAM_TILES = [BlockConfig(*t) for t, p in TILE_PATHS.items() if p == STREAM]
+_WGMMA_TILES = [BlockConfig(*t) for t, p in TILE_PATHS.items() if p == WGMMA]
 
 
-def _launch(a, b, c_in, out, m, n, k, sa, sb, sc, alpha, beta, config):
+def candidate_tiles(m: int) -> list[BlockConfig]:
+    """Every compiled fast-path tile that can take an M-row GEMM of the fast
+    layout: for M <= 64 the narrowest stream tile that holds M, then every
+    wgmma tile (which takes any M)."""
+    stream = [t for t in _STREAM_TILES if t.block_m >= m][:1]
+    return stream + _WGMMA_TILES
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """Which path a GEMM takes, with which tile and how many K-splits."""
+
+    path: str
+    tile: BlockConfig
+    splits: int
+
+    def tiles(self, m: int, n: int) -> int:
+        """Output tiles of an (m, n) product: the grid without splits."""
+        return -(-m // self.tile.block_m) * -(-n // self.tile.block_n)
+
+
+def _require_compiled(config: BlockConfig | None) -> None:
+    if config is not None and config.path is None:
+        raise ValueError(f"block config {config.as_tuple()} is not compiled; "
+                         f"choose one of {TILE_SHAPES}")
+
+
+def _fast_layout(n, k, a_strides, b_strides, a_ptr_mod16, b_ptr_mod16,
+                 in_dtype) -> bool:
+    return (in_dtype == torch.bfloat16 and k >= 1
+            and a_strides[1] == 1 and b_strides[1] == 1
+            and a_strides[0] % 8 == 0 and b_strides[0] % 8 == 0
+            and a_strides[0] >= k and b_strides[0] >= n
+            and a_ptr_mod16 == 0 and b_ptr_mod16 == 0)
+
+
+def _splits(path: str, tile: BlockConfig, tiles: int, k: int) -> int:
+    if path == WGMMA and tiles >= WAVE_CTAS // 2:
+        return 1
+    one_wave = -(-WAVE_CTAS // tiles)
+    want = one_wave
+    if path == STREAM:
+        # a stream CTA is small, so aim for STREAM_WAVES CTAs per SM to keep
+        # more weight bytes in flight, as long as the fp32 partials (8
+        # bytes per output per split, written and read back) stay under a
+        # quarter of the weight bytes (2 per weight)
+        want = max(one_wave, min(-(-STREAM_WAVES * WAVE_CTAS // tiles),
+                                 k // (16 * tile.block_m)))
+    return max(1, min(want, -(-k // tile.block_k) // MIN_SPLIT_K_TILES))
+
+
+def _wgmma_tile(m: int, n: int, k: int, out_dtype) -> BlockConfig:
+    out_bytes = 4 if out_dtype == torch.float32 else 2
+    ops_bound = (2 * m * n * k / PEAK_BF16_FLOPS
+                 > (2 * (m * k + k * n) + out_bytes * m * n) / HBM_BYTES_PER_S)
+    tiles = [t for t in _WGMMA_TILES if not (ops_bound and t.block_n == 64)]
+    for need in (WAVE_CTAS, WAVE_CTAS // 2):     # widest first
+        for t in tiles:
+            if Plan(WGMMA, t, 1).tiles(m, n) >= need:
+                return t
+    return tiles[-1]
+
+
+def plan(m: int, n: int, k: int, a_strides, b_strides, a_ptr_mod16: int,
+         b_ptr_mod16: int, in_dtype: torch.dtype, out_dtype: torch.dtype,
+         config: BlockConfig | None = None) -> Plan:
+    """Choose the kernel path, tile and K-splits of C = op(A) @ op(B).
+
+    `a_strides` are op(A)'s (m, k) strides and `b_strides` op(B)'s (k, n)
+    strides, in elements; the `*_ptr_mod16` are the base addresses modulo
+    16. The rule:
+
+    - The fast paths take bf16 inputs (f32 or bf16 out) whose op(A) rows
+      are K-contiguous and whose B rows are N-contiguous (every projection
+      of the serving path), with row strides that are multiples of 8
+      elements and no shorter than the row, 16-byte aligned bases and
+      K >= 1. Everything else takes ``general`` with `DEFAULT_CONFIG`.
+    - Among the fast paths, M <= 64 takes ``stream`` with the narrowest
+      activation tile that holds M (8, 16, 32 or 64 rows); M > 64 takes
+      ``wgmma`` with the widest tile (128 x 256, 128 or 64) whose output
+      tiles alone cover a wave of 132 CTAs, else the widest whose tiles
+      cover half a wave, else the narrowest. A GEMM bound by operations
+      (2MNK at 989 TFLOP/s longer than its bytes at 3.35 TB/s) skips the
+      64-wide tile, which moves 1.5x the operand bytes per FLOP of the
+      128-wide one.
+    - Splits: enough that output tiles x splits cover a wave of 132 CTAs
+      (the H100's SMs; 1 where the tiles already do). ``stream`` aims for
+      4 waves, as far as the fp32 partials stay under a quarter of the
+      weight bytes (splits <= K / (16 block_m)). ``wgmma`` does not split
+      tiles that cover half a wave: there a second split only adds a second
+      wave and the partials' round trip. Never so many that a split gets
+      fewer than 2 K tiles of 64.
+
+    A `config` forces its tile (and so its path); it raises ValueError if
+    the tile is not compiled or its path cannot take this GEMM."""
+    _require_compiled(config)
+    if out_dtype not in _DTYPE_CODE:
+        raise ValueError(f"unsupported out_dtype {out_dtype}")
+    fast = _fast_layout(n, k, a_strides, b_strides, a_ptr_mod16, b_ptr_mod16,
+                        in_dtype)
+    if config is not None and config.path == GENERAL:
+        return Plan(GENERAL, config, 1)
+    if config is None and not fast:
+        return Plan(GENERAL, DEFAULT_CONFIG, 1)
+    if not fast:
+        raise ValueError(
+            f"the {config.path} tile {config.as_tuple()} takes bf16 inputs "
+            "with K-contiguous op(A) rows and N-contiguous B rows, 16-byte "
+            "aligned; this GEMM takes the general path")
+    if config is None:
+        if m <= STREAM_MAX_M:
+            config = next(t for t in _STREAM_TILES if t.block_m >= m)
+        else:
+            config = _wgmma_tile(m, n, k, out_dtype)
+    if config.path == STREAM and m > config.block_m:
+        raise ValueError(f"the stream tile {config.as_tuple()} holds at most "
+                         f"{config.block_m} rows, not {m}")
+    tiles = Plan(config.path, config, 1).tiles(m, n)
+    return Plan(config.path, config, _splits(config.path, config, tiles, k))
+
+
+# one int32 counter per output tile for the split-K hand-off, per device;
+# every launch leaves them at zero
+_COUNTERS: dict[int, torch.Tensor] = {}
+
+
+def _tile_counters(device: torch.device, n: int) -> torch.Tensor:
+    buf = _COUNTERS.get(device.index)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _COUNTERS[device.index] = buf
+    return buf
+
+
+def _launch(a, b, c_in, out, m, n, k, sa, sb, sc, alpha, beta, p: Plan):
     from repro_torch.kernels._build import load_library
 
+    ws = counters = None
+    if p.splits > 1:
+        ws = torch.empty(p.splits * m * n, dtype=torch.float32,
+                         device=a.device)
+        counters = _tile_counters(a.device, p.tiles(m, n))
     lib = load_library()
     err = lib.repro_tiled_matmul(
         a.data_ptr(), b.data_ptr(),
         c_in.data_ptr() if c_in is not None else None, out.data_ptr(),
         m, n, k, sa[0], sa[1], sb[0], sb[1], sc[0], sc[1],
         float(alpha), float(beta),
-        _DTYPE_CODE[a.dtype], _DTYPE_CODE[out.dtype], *config.as_tuple(),
+        _DTYPE_CODE[a.dtype], _DTYPE_CODE[out.dtype], _PATH_CODE[p.path],
+        *p.tile.as_tuple(), p.splits,
+        ws.data_ptr() if ws is not None else None,
+        counters.data_ptr() if counters is not None else None,
         torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"tiled_matmul launch failed: cudaError {err}")
+        raise RuntimeError(f"tiled_matmul launch failed ({p}): cudaError "
+                           f"{err}")
 
 
 def tiled_matmul(
@@ -71,7 +258,7 @@ def tiled_matmul(
     b: torch.Tensor,
     c: torch.Tensor | None = None,
     *,
-    config: BlockConfig = DEFAULT_CONFIG,
+    config: BlockConfig | None = None,
     transpose_a: bool = False,
     transpose_b: bool = False,
     alpha: float = 1.0,
@@ -83,7 +270,8 @@ def tiled_matmul(
     a: (M, K), or (K, M) if transpose_a; b: (K, N), or (N, K) if
     transpose_b. Inputs float32 or bfloat16 (both the same), output float32
     or bfloat16 (default ``a.dtype``). `c` (M, N) is rounded to `out_dtype`
-    before the beta term, as the TPU kernel does."""
+    before the beta term, as the TPU kernel does. `config` forces a
+    compiled tile (see `plan`); by default `plan` chooses."""
     if a.dim() != 2 or b.dim() != 2:
         raise ValueError("tiled_matmul expects rank-2 operands")
     m, ka = (a.shape[1], a.shape[0]) if transpose_a else a.shape
@@ -100,6 +288,7 @@ def tiled_matmul(
                         f"{a.dtype} and {b.dtype}")
     if out_dtype not in _DTYPE_CODE:
         raise TypeError(f"unsupported out_dtype {out_dtype}")
+    _require_compiled(config)
     c_in = c.to(out_dtype) if c is not None and beta != 0.0 else None
     devices = {t.device for t in (a, b, c_in) if t is not None}
     if len(devices) != 1:
@@ -110,20 +299,21 @@ def tiled_matmul(
                           out_dtype=out_dtype)
     if a.device.type != "cuda":
         raise ValueError(f"tiled_matmul runs on cuda or cpu, not {a.device}")
-    if config.as_tuple() not in TILE_SHAPES:
-        raise ValueError(f"block config {config.as_tuple()} is not compiled; "
-                         f"choose one of {TILE_SHAPES}")
-    if -(-m // config.block_m) > _MAX_GRID_Y:
-        raise ValueError(f"M={m} exceeds the grid's row-block limit")
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if m == 0 or n == 0:
         return out
     sa = a.stride()[::-1] if transpose_a else a.stride()      # (m, k)
     sb = b.stride()[::-1] if transpose_b else b.stride()      # (k, n)
     sc = c_in.stride() if c_in is not None else (0, 0)
-    _launch(a, b, c_in, out, m, n, ka, sa, sb, sc, alpha, beta, config)
+    p = plan(m, n, ka, sa, sb, a.data_ptr() % 16, b.data_ptr() % 16,
+             a.dtype, out_dtype, config=config)
+    if p.path != STREAM and -(-m // p.tile.block_m) > _MAX_GRID_Y:
+        raise ValueError(f"M={m} exceeds the grid's row-block limit")
+    _launch(a, b, c_in, out, m, n, ka, sa, sb, sc, alpha, beta, p)
     tiled_matmul.launches += 1
+    tiled_matmul.launches_by_path[p.path] += 1
     return out
 
 
 tiled_matmul.launches = 0
+tiled_matmul.launches_by_path = {STREAM: 0, WGMMA: 0, GENERAL: 0}

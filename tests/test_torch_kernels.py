@@ -26,8 +26,9 @@ from repro.kernels.ref import matmul_ref as jmatmul_ref
 from repro.kernels.tiled_matmul import BlockConfig as JBlockConfig
 from repro.kernels.tiled_matmul import tiled_matmul as jtiled_matmul
 from repro_torch.kernels import ops
-from repro_torch.kernels.tiled_matmul import (BlockConfig, DEFAULT_CONFIG,
-                                              TILE_SHAPES, tiled_matmul)
+from repro_torch.kernels.tiled_matmul import (
+    DEFAULT_CONFIG, GENERAL, STREAM, TILE_SHAPES, WAVE_CTAS, WGMMA,
+    BlockConfig, candidate_tiles, plan, tiled_matmul)
 
 jax.config.update("jax_enable_x64", False)
 
@@ -181,12 +182,37 @@ class TestWrapperChecks:
 
     def test_block_config_shapes(self):
         assert DEFAULT_CONFIG.as_tuple() in TILE_SHAPES
-        big = BlockConfig(128, 128, 32)
-        # 128x40 + 32x136 bf16 tiles + 8 warps x 16x16 f32 staging
-        assert big.smem_bytes() == 2 * (128 * 40 + 32 * 136) + 8192
-        assert big.smem_bytes(4) == 4 * (128 * 33 + 32 * 128)
-        assert all(BlockConfig(*t).smem_bytes() < 48 * 1024
-                   for t in TILE_SHAPES)
+        assert DEFAULT_CONFIG.path == GENERAL
+        assert {BlockConfig(*t).path for t in TILE_SHAPES} == {
+            GENERAL, STREAM, WGMMA}
+        # general: 64x40 + 32x72 bf16 tiles + 8 warps x 16x16 f32 staging,
+        # static and under 48 KB
+        assert DEFAULT_CONFIG.smem_bytes() == 2 * (64 * 40 + 32 * 72) + 8192
+        assert DEFAULT_CONFIG.smem_bytes(4) == 4 * (64 * 33 + 32 * 64)
+        assert DEFAULT_CONFIG.smem_bytes() < 48 * 1024
+        # stream: 4 stages of a 64x64 weight tile and a 64x64 activation
+        # tile, plus the split flag: dynamic, above 48 KB
+        assert BlockConfig(64, 64, 64).smem_bytes() == \
+            4 * (64 * 64 + 64 * 64) * 2 + 16 > 48 * 1024
+        assert BlockConfig(8, 64, 64).smem_bytes() == \
+            4 * (64 * 64 + 8 * 64) * 2 + 16
+        # wgmma: 1024-byte alignment slack, 4 stages of 128x64 A and 64x128
+        # B, two mbarriers per stage and the flag
+        big = BlockConfig(128, 128, 64)
+        assert big.smem_bytes() == 1024 + 4 * (128 * 64 + 64 * 128) * 2 \
+            + 4 * 16 + 16
+        assert 48 * 1024 < big.smem_bytes() <= 227 * 1024
+        assert BlockConfig(128, 128, 32).path is None
+
+    def test_uncompiled_config_raises(self):
+        with pytest.raises(ValueError, match="not compiled"):
+            tiled_matmul(torch.ones(4, 8), torch.ones(8, 4),
+                         config=BlockConfig(32, 32, 32))
+        with pytest.raises(ValueError, match="not compiled"):
+            _plan(4, 512, 3584, config=BlockConfig(128, 128, 32))
+        with pytest.raises(ValueError, match="not compiled"):
+            ops.matmul(torch.ones(2, 8), torch.ones(8, 4),
+                       config=BlockConfig(16, 16, 16))
 
 
 class TestOps:
@@ -226,3 +252,145 @@ class TestOps:
         for chunk in (1, 8, 24, 64, 256, 10_000):
             assert ops.chunk_buckets(max_len, chunk, grain) == \
                 jops.chunk_buckets(max_len, chunk, grain)
+
+
+QWEN2_7B_SERVING_NK = [(512, 3584), (3584, 3584), (18944, 3584),
+                       (3584, 18944), (152064, 3584)]
+
+
+def _plan(m, n, k, *, a_strides=None, b_strides=None, a_mod=0, b_mod=0,
+          dtype=torch.bfloat16, out_dtype=torch.bfloat16, config=None):
+    return plan(m, n, k, a_strides or (k, 1), b_strides or (n, 1), a_mod,
+                b_mod, dtype, out_dtype, config=config)
+
+
+class TestPlan:
+    """`plan` is the path rule: a pure function of shapes, strides,
+    alignment and dtypes, so it is held here on the CPU."""
+
+    @pytest.mark.parametrize("n,k", QWEN2_7B_SERVING_NK)
+    @pytest.mark.parametrize("m", [4, 8, 64, 128, 256, 512])
+    def test_serving_shapes_take_a_fast_path_that_fills_the_card(self, m, n,
+                                                                 k):
+        p = _plan(m, n, k)
+        assert p.path == (STREAM if m <= 64 else WGMMA)
+        assert p.tile.path == p.path
+        # a wave of CTAs; wgmma leaves tiles that cover half a wave unsplit
+        assert (p.tiles(m, n) * p.splits >= WAVE_CTAS
+                or (p.path == WGMMA and p.splits == 1
+                    and p.tiles(m, n) >= WAVE_CTAS // 2))
+        # every split is at least 2 K tiles of 64 deep
+        assert -(-k // p.tile.block_k) // p.splits >= 2
+        if p.path == STREAM:
+            assert p.tile.block_m >= m and (p.tile.block_m // 2 < m
+                                            or p.tile.block_m == 8)
+
+    def test_decode_k_v_keeps_more_than_100_ctas_busy(self):
+        p = _plan(4, 512, 3584)
+        assert p.tiles(4, 512) * p.splits > 100
+
+    def test_the_lm_head_and_wide_shapes_need_no_split(self):
+        assert _plan(4, 152064, 3584).splits == 1
+        assert _plan(512, 18944, 3584).splits == 1
+
+    @pytest.mark.parametrize("m,n,k,tile,splits", [
+        # too few tiles for half a wave: the 64-wide tile, split to a wave
+        (128, 512, 3584, (128, 64, 64), 17),
+        (128, 3584, 3584, (128, 64, 64), 3),
+        (512, 512, 3584, (128, 64, 64), 5),
+        # half a wave of 64-wide tiles: unsplit
+        (256, 3584, 3584, (128, 64, 64), 1),
+        # wide N covers a wave unsplit with wider tiles
+        (128, 18944, 3584, (128, 128, 64), 1),
+        (256, 18944, 3584, (128, 256, 64), 1),
+        (512, 18944, 3584, (128, 256, 64), 1),
+        # bound by operations: no 64-wide tile; 112 128-wide tiles unsplit
+        (512, 3584, 18944, (128, 128, 64), 1),
+        (512, 3584, 3584, (128, 128, 64), 1),
+    ])
+    def test_wgmma_tile_rule(self, m, n, k, tile, splits):
+        p = _plan(m, n, k)
+        assert (p.path, p.tile.as_tuple(), p.splits) == (WGMMA, tile, splits)
+
+    def test_candidate_tiles(self):
+        assert [t.as_tuple() for t in candidate_tiles(4)] == [
+            (8, 64, 64), (128, 256, 64), (128, 128, 64), (128, 64, 64)]
+        assert [t.as_tuple() for t in candidate_tiles(65)] == [
+            (128, 256, 64), (128, 128, 64), (128, 64, 64)]
+        for m in (1, 33, 64, 65, 512):
+            for t in candidate_tiles(m):
+                assert _plan(m, 3584, 3584, config=t).tile == t
+
+    def test_f32_out_keeps_the_fast_path(self):
+        assert _plan(4, 152064, 3584, out_dtype=torch.float32).path == STREAM
+
+    @pytest.mark.parametrize("case", [
+        "f32", "transpose_a", "transpose_b", "unaligned_a", "unaligned_b",
+        "row_stride_a", "row_stride_b", "broadcast_rows", "k0"])
+    def test_everything_else_takes_general(self, case):
+        m, n, k = 8, 512, 3584
+        kw = {
+            "f32": dict(dtype=torch.float32, out_dtype=torch.float32),
+            # op(A) of a (K, M) tensor: M-contiguous
+            "transpose_a": dict(a_strides=(1, m)),
+            # op(B) of an (N, K) tensor: K-contiguous
+            "transpose_b": dict(b_strides=(1, k)),
+            "unaligned_a": dict(a_mod=2),
+            "unaligned_b": dict(b_mod=8),
+            # a view of rows 3587 wide: not a multiple of 8 elements
+            "row_stride_a": dict(a_strides=(3587, 1)),
+            "row_stride_b": dict(b_strides=(515, 1)),
+            "broadcast_rows": dict(a_strides=(0, 1)),
+        }.get(case, {})
+        p = _plan(m, n, 0 if case == "k0" else k, **kw)
+        assert (p.path, p.tile, p.splits) == (GENERAL, DEFAULT_CONFIG, 1)
+
+    def test_wrapper_strides_route_transposes_to_general(self):
+        """The wrapper hands `plan` op(A)'s and op(B)'s strides; transposed
+        operands of contiguous tensors are not K- or N-contiguous there."""
+        a = torch.zeros(3584, 8, dtype=torch.bfloat16)        # (K, M)
+        b = torch.zeros(512, 3584, dtype=torch.bfloat16)      # (N, K)
+        assert plan(8, 512, 3584, a.stride()[::-1], (512, 1), 0, 0,
+                    a.dtype, a.dtype).path == GENERAL
+        assert plan(8, 512, 3584, (3584, 1), b.stride()[::-1], 0, 0,
+                    a.dtype, a.dtype).path == GENERAL
+        view = torch.zeros(70, 296, dtype=torch.bfloat16)[:, 1:294]
+        assert view.stride() == (296, 1)      # aligned stride, odd base:
+        assert plan(70, 64, 293, view.stride(), (64, 1),        # general
+                    view.storage_offset() * 2 % 16, 0, view.dtype,
+                    view.dtype).path == GENERAL
+
+    def test_views_of_16_byte_rows_take_the_fast_paths(self):
+        """A [:, :293] view of 296-wide rows keeps 16-byte aligned rows and
+        base: the fast paths take it and mask the ragged edge."""
+        assert _plan(70, 203, 293, a_strides=(296, 1),
+                     b_strides=(208, 1)).path == WGMMA
+        assert _plan(5, 203, 293, a_strides=(296, 1),
+                     b_strides=(208, 1)).path == STREAM
+
+    def test_config_forces_its_tile_or_raises(self):
+        p = _plan(8, 512, 3584, config=BlockConfig(128, 128, 64))
+        assert (p.path, p.tile) == (WGMMA, BlockConfig(128, 128, 64))
+        assert _plan(8, 512, 3584, config=DEFAULT_CONFIG).path == GENERAL
+        with pytest.raises(ValueError, match="at most 8 rows"):
+            _plan(9, 512, 3584, config=BlockConfig(8, 64, 64))
+        with pytest.raises(ValueError, match="general path"):
+            _plan(8, 512, 3584, dtype=torch.float32,
+                  out_dtype=torch.float32, config=BlockConfig(64, 64, 64))
+        with pytest.raises(ValueError, match="general path"):
+            _plan(200, 512, 3584, a_mod=4, config=BlockConfig(128, 64, 64))
+
+    @pytest.mark.parametrize("m", [1, 4, 8, 9, 16, 17, 32, 33, 63, 64])
+    def test_stream_tile_is_the_narrowest_that_holds_m(self, m):
+        p = _plan(m, 3584, 3584)
+        want = next(r for r in (8, 16, 32, 64) if r >= m)
+        assert (p.path, p.tile.block_m) == (STREAM, want)
+
+    @pytest.mark.parametrize("m,n,k", [(65, 200, 296), (129, 520, 3584),
+                                       (512, 512, 3584), (1, 200, 40)])
+    def test_splits_never_exceed_the_k_tiles(self, m, n, k):
+        p = _plan(m, n, k)
+        assert 1 <= p.splits <= max(1, -(-k // 64) // 2)
+
+    def test_plan_is_deterministic(self):
+        assert _plan(64, 3584, 18944) == _plan(64, 3584, 18944)
