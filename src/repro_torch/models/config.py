@@ -1,6 +1,6 @@
 """Model configuration — the port's own copy of the JAX package's
 `repro.models.config.ModelConfig` (kept whole, so the two compare field by
-field) and of `kv_cache_bytes`.
+field), of `kv_cache_bytes` and of `gemm_shape_counts`.
 
 One dataclass, many families. `kind` selects the forward function:
   dense        - standard decoder-only transformer (GQA, RoPE, opt. QKV bias)
@@ -188,3 +188,44 @@ def kv_cache_bytes(cfg: ModelConfig, tokens: int,
     else:
         per_tok = 2 * cfg.kv_heads * cfg.hd
     return int(tokens) * per_tok * L * int(dtype_bytes)
+
+
+def gemm_shape_counts(cfg: ModelConfig, n_tokens: int,
+                      head_tokens: int | None = None
+                      ) -> dict[tuple[int, int, int], float]:
+    """Dominant (m, n, k) GEMMs of one forward pass over `n_tokens` rows,
+    with per-step multiplicities — the denominator the serving engine's
+    energy attribution needs (one decode step issues each projection once
+    per layer, K and V separately, but the LM head only once).
+
+    `head_tokens` sizes the LM-head GEMM's rows separately: training
+    unembeds every position (default, = n_tokens), but a serving prefill
+    unembeds only each row's last position, so the engine passes its row
+    count (see `lm_prefill`). Zero-row GEMMs are dropped.
+
+    The reference's counts cut to the dense kind the port serves: its
+    MLA, MoE, SSM, hybrid and encoder-decoder fleets, its tensor-parallel
+    shards and its cache-sized rows come with the slices that port those
+    models.
+    """
+    if cfg.kind != "dense":
+        raise NotImplementedError(
+            f"the port counts kind='dense' GEMMs only, not {cfg.kind!r}")
+    t = int(n_tokens)
+    d, hd, kv, L = cfg.d_model, cfg.hd, cfg.kv_heads, cfg.n_layers
+    counts: dict[tuple[int, int, int], float] = {}
+
+    def add(shape: tuple[int, int, int], n: float) -> None:
+        if shape[0] <= 0 or n <= 0:
+            return
+        counts[shape] = counts.get(shape, 0.0) + n
+
+    add((t, cfg.n_heads * hd, d), L)                # Q projection
+    add((t, kv * hd, d), 2 * L)                     # K and V projections
+    add((t, d, cfg.n_heads * hd), L)                # output projection
+    add((int(head_tokens) if head_tokens is not None else t,
+         cfg.vocab, d), 1)                          # LM head
+    if cfg.d_ff:
+        add((t, cfg.d_ff, d), (2 if cfg.gated_mlp else 1) * L)  # up (gate)
+        add((t, d, cfg.d_ff), L)                    # down projection
+    return counts

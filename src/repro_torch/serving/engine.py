@@ -12,9 +12,11 @@ parks in the lane, and is spliced into a free decode slot (FIFO).
 
 Streams match the JAX engine's token for token: the same admission order,
 chunk buckets, splice order and host numpy sampler with per-(seed, uid)
-Gumbel streams. Energy, the model clock, pretuning, paged KV, serial and
-wave admission, adoption and replay, `chunk_policy` and tp are not ported
-yet (ROADMAP queue A); nothing here reports a placeholder for them.
+Gumbel streams. `pretune` tunes the engine's GEMM fleet with the paper's
+autotuner, as the JAX engine's does. Energy, the model clock, paged KV,
+serial and wave admission, adoption and replay, `chunk_policy` and tp are
+not ported yet (ROADMAP queue A); nothing here reports a placeholder for
+them.
 
 Where the JAX engine donates the decode state to its jitted calls, this
 engine updates the KV tensors in place.
@@ -115,11 +117,25 @@ class ServingEngine:
                  max_batch: int = 8, max_len: int = 512,
                  greedy: bool = True, seed: int = 0,
                  chunk_tokens: int = 64,
+                 pretune: bool = False, tune_objective: str = "runtime",
+                 tune_rank_mode: str = "auto",
+                 chip: str | None = None,
                  device: str | torch.device = "cuda"):
         """`chunk_tokens` caps one chunk call's tokens per row; it must be
         a multiple of `ops.SSM_SERVE_GRAIN` or at least `max_len`, as in
         the JAX engine. `device` holds the decode state and must be where
-        `params` live."""
+        `params` live.
+
+        `pretune=True` batch-tunes the engine's GEMM fleet up front, as the
+        JAX engine does: every shape the batched prefill, the decode step
+        and each (admission-width x chunk-bucket) chunk call issues
+        (`ops.serving_gemm_fleet`) goes through one `ops.warm_gemm_cache`
+        pass (predictor-ranked, verified on the chip's substrate, cached
+        per chip and artifact), and `self.pretuned` holds the winners.
+        `tune_objective` picks the paper's objective ("runtime", "energy",
+        "power", "edp"), `tune_rank_mode` the candidate-ranking path, and
+        `chip` the chip to tune for (default: the active chip of
+        `ops.force_chip`, whose winners the projections then launch)."""
         self.device = resolve_device(device)
         if params.device.type != self.device.type:
             raise ValueError(f"params on {params.device}, engine on "
@@ -142,6 +158,21 @@ class ServingEngine:
         # admission-lane capacity: prefill and first-token sampling for up
         # to this many in-flight requests, decoupled from free slots
         self.lane_width = 2 * max_batch
+        if chip is not None:
+            # validate eagerly: a chip typo must raise here
+            from repro_torch.core.chips import get_chip
+
+            chip = get_chip(chip).name
+        self.chip = chip
+        self.pretuned: dict[tuple, object] = {}
+        if pretune:
+            fleet = ops.serving_gemm_fleet(
+                cfg, max_batch=max_batch, max_len=max_len,
+                chunk_tokens=chunk_tokens, lane_width=self.lane_width)
+            self.pretuned = ops.warm_gemm_cache(
+                fleet, dtype=cfg.activation_dtype,
+                objective=tune_objective, chip=chip,
+                rank_mode=tune_rank_mode)
         self.queue: deque[Request] = deque()
         self._stepper = None
         self._state_axes = L.state_batch_axes(

@@ -242,3 +242,107 @@ def test_engine_bf16_launches_take_the_fast_paths(dev):
     assert moved["stream"] > 0 and moved["wgmma"] > 0
     assert moved["stream"] + moved["wgmma"] == (7 * cfg.n_layers + 1) * (
         rep["chunk_steps"] + rep["decode_steps"])
+
+
+# ---------------------------------------------------------------------------
+# the paper's loop on the card: scorer, runner, tuned launches
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def h100_table():
+    from repro_torch.core.profiler import collect_dataset
+
+    return collect_dataset(n_configs=600, seed=0, chip="h100")
+
+
+@pytest.mark.parametrize("model", ("rf", "gbdt", "linreg", "stacking"))
+def test_torch_scorer_on_card_is_bit_identical_to_numpy(dev, h100_table,
+                                                         model):
+    """float64 on the card: every family, descaling, exp and residual
+    anchors included, gives numpy `predict`'s bits."""
+    from repro_torch.core.mlperf.torchpredict import TorchEstimator
+    from repro_torch.core.predictor import PerfPredictor
+
+    pred = PerfPredictor(model=model, residual=True, fast=True,
+                         chip="h100").fit(h100_table)
+    X = np.stack([h100_table[k] for k in pred.feature_names], axis=1)
+    got = pred.torch_predictor(device=dev, x64=True)(X)
+    assert got.is_cuda and got.dtype == torch.float64
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  pred.predict_matrix(h100_table))
+    Xs = pred.scaler.transform(X)
+    np.testing.assert_array_equal(
+        TorchEstimator(pred.model, x64=True, device=dev).predict(Xs),
+        np.asarray(pred.model.predict(Xs)).reshape(len(Xs), -1))
+
+
+def test_card_measure_fn_times_each_compiled_tile(dev):
+    """A valid row, timed, for every compiled tile on a layout its path
+    takes; an invalid row, launching nothing, for tiles that cannot take
+    the config."""
+    from repro_torch.core.hwsim import GemmConfig
+    from repro_torch.core.profiler import card_measure_fn, tile_stages
+
+    measure = card_measure_fn(device=dev, reps=3)
+    assert measure.power_source == "model"
+    for tile in TILE_SHAPES:
+        general = BlockConfig(*tile).path == "general"
+        cfg = GemmConfig(m=min(tile[0], 64), n=512, k=1024, block_m=tile[0],
+                         block_n=tile[1], block_k=tile[2],
+                         dtype="f32" if general else "bf16",
+                         layout="tn" if general else "nn", alpha=0.5,
+                         beta=1.0, stages=tile_stages(tile))
+        before = tiled_matmul.launches
+        tel = measure(cfg)
+        assert tel.valid and np.isfinite(tel.runtime_ms), tile
+        assert 0.0 < tel.runtime_ms < 50.0
+        assert tel.tflops == pytest.approx(
+            2 * cfg.m * cfg.n * cfg.k / tel.runtime_ms / 1e9)
+        assert np.isfinite(tel.power_w) and tel.power_w > 0
+        assert tiled_matmul.launches - before == 4   # warm-up + 3 runs
+    before = tiled_matmul.launches
+    for bad in (GemmConfig(m=65, n=512, k=1024, block_m=64, block_n=64,
+                           block_k=64),                     # stream, M > 64
+                GemmConfig(m=128, n=512, k=1024, block_m=128, block_n=128,
+                           block_k=64, layout="nt")):       # wgmma, B^T
+        tel = measure(bad)
+        assert not tel.valid and np.isnan(tel.runtime_ms)
+    assert tiled_matmul.launches == before
+
+
+def test_matmul_launches_the_installed_winner(dev, h100_table):
+    from repro_torch.core.autotuner import GemmAutotuner, set_tuner
+    from repro_torch.core.predictor import PerfPredictor
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(dev).manual_seed(0)
+    a = torch.randn((64, 3584), generator=g, device=dev).to(torch.bfloat16)
+    w = (torch.randn((3584, 512), generator=g, device=dev) / 60).to(
+        torch.bfloat16)
+    try:
+        # a winner forced into the table: plan would take stream here
+        ops._TUNED[(64, 512, 3584, torch.bfloat16, "runtime")] = \
+            BlockConfig(128, 64, 64)
+        before = dict(tiled_matmul.launches_by_path)
+        got = ops.matmul(a, w)
+        torch.cuda.synchronize()
+        assert tiled_matmul.launches_by_path["wgmma"] == before["wgmma"] + 1
+        _assert_close(got, matmul_ref(a, w), TOL[torch.bfloat16])
+        # a tuner's winner, verified on the card, installed and launched
+        ops._TUNED.clear()
+        pred = PerfPredictor(model="rf", residual=True, fast=True,
+                             chip="h100").fit(h100_table)
+        set_tuner(GemmAutotuner(pred, chip="h100", device=dev,
+                                verify_top_k=2))
+        best = ops.warm_gemm_cache([(64, 512, 3584)], strict=True)[
+            (64, 512, 3584)]
+        assert ops._tuned_config(64, 512, 3584, torch.bfloat16) == best
+        before = dict(tiled_matmul.launches_by_path)
+        ops.matmul(a, w)
+        torch.cuda.synchronize()
+        assert tiled_matmul.launches_by_path[best.path] == \
+            before[best.path] + 1
+    finally:
+        ops._TUNED.clear()
+        set_tuner(None)
