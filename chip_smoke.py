@@ -42,7 +42,19 @@ build of PyTorch. Phases, each fatal on failure:
    shape at its tuned tile, `plan`'s tile and the general path, and serve
    the same 10 requests with
    `ServingEngine(pretune=True)`: every launch on its tuned tile,
-   full-width logits within phase 7's bounds.
+   full-width logits within phase 7's bounds;
+9. the energy half of the loop: read the card through NVML (name, enforced
+   power limit, idle power, the energy counter's period), measure a
+   stratified sample of phase 8's rows for power (`card_measure_fn(
+   power=True)`: whole counter periods of back-to-back launches), fit the
+   Random Forest on 80% of them and hold its held-out power R2 (at least
+   0.5) and median error beside the paper's, tune the serving fleet for
+   energy (every candidate measured for power on the card) and give each
+   serving shape's joules at its energy-tuned tile, `plan`'s tile and the
+   general path, then serve the 10 requests with the energy-tuned and the
+   runtime-tuned engine, each run metered by the energy counter: the
+   engine's modelled J/token and model clock (the "h100" model) beside the
+   measured J/token and mean power.
 
 It prints a JSON line of per-kernel numbers and, last, the device line.
 Without a GPU, or without the repository beside it, it exits non-zero.
@@ -87,6 +99,18 @@ LOGITS_TOP1_MIN = 0.75
 LOOP_MIN_ROWS = 2076 + 519
 LOOP_MIN_R2 = 0.8
 PAPER_RUNTIME_R2, PAPER_RUNTIME_MEAN_PCT = 0.98, 15.57
+# phase 9: rows measured for power (fewer if the probed counter period would
+# take the sweep past its budget), and the held-out power R2 below which the
+# pipeline is broken (swapped columns or the simulator's power give about 0
+# or below). The paper's power figures on its RTX 4070 are printed beside
+# the card's.
+POWER_ROWS = 1000
+POWER_SWEEP_BUDGET_S = 540.0
+POWER_MIN_R2 = 0.5
+# the largest compute- and memory-bound rows are measured again over this
+# many counter periods, beside their sweep window
+LONG_WINDOW_PERIODS = 20
+PAPER_POWER_R2, PAPER_POWER_MEDIAN_PCT = 0.78, 5.42
 # a decode step's host issue time with the tuned lookup may not exceed
 # plan's rule's by more than this factor (one dictionary hit per GEMM
 # costs microseconds; per-call tuning would cost far more)
@@ -346,7 +370,7 @@ def phase_serve(dev):
     eng = ServingEngine(api, params, cfg, max_batch=4, max_len=512,
                         chunk_tokens=64, device=dev)
     shapes: collections.Counter = collections.Counter()
-    by_path = _serve_requests("serve", eng, cfg, shapes)
+    by_path, _ = _serve_requests("serve", eng, cfg, shapes)
     _say(f"[serve] launches per path: stream {by_path['stream']}, wgmma "
          f"{by_path['wgmma']}, general {by_path['general']} (every bf16 "
          f"serving GEMM must take a fast path)")
@@ -384,12 +408,12 @@ def _recording(log: collections.Counter):
     return recording
 
 
-def _serve_requests(tag: str, eng, cfg, log: collections.Counter) -> dict:
+def _serve_requests(tag: str, eng, cfg, log: collections.Counter) -> tuple:
     """Answer the 10 requests of `_requests` on `eng`, recording every GEMM
     launch in `log` (see `_recording`); the launch counters are set to 0
     just before the run and read just after. Checks every request finishes
     at its budget and the kernel launched 197 times per forward; returns
-    the launches per path."""
+    (the launches per path, the results)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.tiled_matmul import tiled_matmul
 
@@ -435,7 +459,7 @@ def _serve_requests(tag: str, eng, cfg, log: collections.Counter) -> dict:
                 or not ((0 <= res.tokens) & (res.tokens < cfg.vocab)).all()):
             raise SystemExit(f"request {r.uid}: {res.n_tokens} tokens, "
                              f"budget {budget}")
-    return by_path
+    return by_path, results
 
 
 def phase_serving_shapes(dev, shapes) -> dict:
@@ -759,8 +783,10 @@ def phase_logits(dev, eng, params, cfg, W: int = 16, tag: str = "logits",
         raise SystemExit("full-width logits disagree with the plain version")
 
 
-def phase_loop(dev, api, params, cfg, shapes, untraced) -> None:
-    """The paper's loop on the card: profile, fit, score, tune, serve."""
+def phase_loop(dev, api, params, cfg, shapes, untraced) -> tuple:
+    """The paper's loop on the card: profile, fit, score, tune, serve.
+    Returns (the profiled table, the tuner, its runtime winners, the
+    serving fleet)."""
     from repro_torch.core.autotuner import (H100_VERIFY_TOP_K, GemmAutotuner,
                                             set_tuner)
     from repro_torch.core.features import (features_matrix,
@@ -816,8 +842,8 @@ def phase_loop(dev, api, params, cfg, shapes, untraced) -> None:
          f"{rep['runtime_ms']['median_pct_err']:.2f}%; tflops R2 "
          f"{rep['tflops']['r2']:.4f} (the paper on the RTX 4070: R2 "
          f"{PAPER_RUNTIME_R2:g}, mean error {PAPER_RUNTIME_MEAN_PCT:g}%. "
-         "Power and energy in this table are the simulator's, so no power "
-         "R2 is given)")
+         "Power and energy in this table are the simulator's; phase 9 "
+         "measures power on the card)")
     if not r2 >= LOOP_MIN_R2:
         raise SystemExit(f"held-out runtime R2 {r2:.4f} < {LOOP_MIN_R2}")
 
@@ -908,7 +934,7 @@ def phase_loop(dev, api, params, cfg, shapes, untraced) -> None:
     if any(eng.pretuned.get(s_) != tuned[s_] for s_ in fleet):
         raise SystemExit("the engine's pretuned tiles differ from the fleet's")
     log: collections.Counter = collections.Counter()
-    by_path = _serve_requests("tuned serve", eng, cfg, log)
+    by_path, _ = _serve_requests("tuned serve", eng, cfg, log)
     _say(f"[tuned serve] launches per path: {by_path}")
     phase_logits(dev, eng, params, cfg, W=8, tag="tuned logits", log=log)
     off = {key: c for key, c in log.items()
@@ -940,6 +966,242 @@ def phase_loop(dev, api, params, cfg, shapes, untraced) -> None:
         raise SystemExit("the tuned lookup slowed the decode step's issue")
     _say(f"[loop] phase 8 took {time.perf_counter() - t_phase:.1f} s on "
          f"{_nvidia_smi()}")
+    return table, tuner, tuned, fleet
+
+
+def _next_step(card) -> int:
+    """The energy counter's value at its next step (raises after 5 s
+    without one)."""
+    first, t0 = card.energy_mj(), time.perf_counter()
+    while (now := card.energy_mj()) == first:
+        if time.perf_counter() - t0 > 5.0:
+            raise SystemExit("the energy counter stopped stepping")
+    return now
+
+
+def _metered(card, fn):
+    """(fn's result, joules, seconds): `fn` run from one step of the energy
+    counter, and the card metered to the first step after it finished (so
+    up to one counter period of idle tail is counted with it)."""
+    start = _next_step(card)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    end = _next_step(card)
+    return out, (end - start) / 1e3, time.perf_counter() - t0
+
+
+def _long_window(dev, card, period: float, m: int, n: int, k: int,
+                 tile: tuple, dtype: str):
+    """One power window of `LONG_WINDOW_PERIODS` counter periods of a
+    row-major (m, n, k) GEMM in `dtype` ("bf16" or "f32") at `tile`:
+    whether a sweep row's short window reads the power the card holds."""
+    from repro_torch.core import nvml
+    from repro_torch.core.profiler import graph_pump, time_ms
+    from repro_torch.kernels.tiled_matmul import BlockConfig, tiled_matmul
+
+    a, b = _gemm_inputs(dev, torch.Generator(dev).manual_seed(5), m, n, k,
+                        torch.float32 if dtype == "f32" else torch.bfloat16)
+
+    def fn():
+        return tiled_matmul(a, b, config=BlockConfig(*tile))
+
+    ms = time_ms(fn, torch.empty(2 ** 28, dtype=torch.uint8, device=dev), 3)
+    pump, _ = graph_pump(fn, ms)
+    win = nvml.measure_window(card.energy_mj, pump, period_s=period,
+                              periods=LONG_WINDOW_PERIODS)
+    torch.cuda.synchronize()
+    return win
+
+
+def phase_energy(dev, api, params, cfg, shapes, table, tuner, runtime_won,
+                 fleet) -> None:
+    """The energy half of the paper's loop on the card: NVML, a power
+    sweep, the power target, the energy objective, and serving joules,
+    modelled against measured."""
+    from repro_torch.core import nvml
+    from repro_torch.core.chips import get_chip
+    from repro_torch.core.predictor import PerfPredictor
+    from repro_torch.core.profiler import (card_measure_fn, paper_split,
+                                           power_sample, probe_energy_period,
+                                           profile_configs)
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.tiled_matmul import (DEFAULT_CONFIG, TILE_PATHS,
+                                                  plan)
+    from repro_torch.serving.engine import ServingEngine
+
+    t_phase = time.perf_counter()
+    # 1. the card through NVML
+    card = nvml.open_card(dev)
+    limit = card.power_limit_w()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        card.energy_mj()
+    read_ms = 1e3 * (time.perf_counter() - t0) / 10
+    _say(f"[nvml] {card.name()} (PCI {card.key}): enforced power limit "
+         f"{limit:.2f} W; nvidia-smi says {_nvidia_smi()}; "
+         f"temperature {card.temperature_c():.0f} C; one energy-counter "
+         f"read {read_ms:.2f} ms")
+    torch.cuda.synchronize()
+    period = probe_energy_period(card, dev)
+    idle = nvml.measure_window(card.energy_mj, lambda: 0, period_s=period)
+    _say(f"[nvml] energy counter period {1e3 * period:.2f} ms (median "
+         f"step while a GEMM runs back to back); idle power "
+         f"{idle.watts:.2f} W over {idle.seconds:.3f} s with nothing "
+         f"running (the card warm from phases 1-8; NVML's own power "
+         f"reading then {card.power_w():.2f} W); a power window lasts "
+         f"{nvml.window_seconds(period):.3f} s after a warm-up of about "
+         "one period")
+
+    # 2. the power sweep: a stratified sample of phase 8's rows
+    spec = get_chip("h100")
+    row_s = (nvml.WINDOW_PERIODS + 1) * period + 0.05
+    n = min(POWER_ROWS, int(POWER_SWEEP_BUDGET_S / row_s))
+    sample = power_sample(table, n, seed=0)
+    t0 = time.perf_counter()
+    ptable = profile_configs(sample, chip="h100", measure_fn=card_measure_fn(
+        device=dev, power=True, period_s=period))
+    sweep_s = time.perf_counter() - t0
+    pw, tc = ptable["power_w"], ptable["temperature_c"]
+    lb = ptable["launch_bound"]
+    per_path = collections.Counter(
+        TILE_PATHS[(int(a), int(b), int(c))] for a, b, c in zip(
+            ptable["block_m"], ptable["block_n"], ptable["block_k"]))
+    _say(f"[power] measured {len(pw)} of {len(table['runtime_ms'])} rows "
+         f"for power (stratified by path and M; {n} asked at about "
+         f"{row_s:.2f} s a row) in {sweep_s:.1f} s; rows per path "
+         f"{dict(sorted(per_path.items()))}; power {pw.min():.1f}-"
+         f"{pw.max():.1f} W, median {np.median(pw):.1f} W; temperature "
+         f"{np.nanmin(tc):.0f}-{np.nanmax(tc):.0f} C; busy share "
+         f"{ptable['busy_share'].min():.3f}-{ptable['busy_share'].max():.3f},"
+         f" {int(lb.sum())} rows flagged launch_bound (below 0.9); "
+         f"{int((pw > limit).sum())} rows above the enforced limit of "
+         f"{limit:g} W; power_source {sorted(set(ptable['power_source']))}")
+    if set(ptable["power_source"]) != {"nvml"}:
+        raise SystemExit("rows of the power table are not the card's")
+    if len(pw) < 0.9 * n or not (np.isfinite(pw).all() and (pw > 0).all()):
+        raise SystemExit("the power sweep lost rows or read no power")
+    flops = ptable["m"] * ptable["n"] * ptable["k"]
+    for bound, size, what in (("compute", flops, "2MNK"),
+                              ("memory", ptable["bytes_accessed"], "bytes")):
+        idx = np.flatnonzero(ptable["bound"] == bound)
+        if not idx.size:
+            _say(f"[power] no {bound}-bound row in the sample")
+            continue
+        i = idx[np.argmax(size[idx])]
+        m, n, k = (int(ptable[d][i]) for d in "mnk")
+        tile = tuple(int(ptable[f"block_{d}"][i]) for d in "mnk")
+        long = _long_window(dev, card, period, m, n, k, tile,
+                            str(ptable["dtype"][i]))
+        _say(f"[power] largest {bound}-bound row (by {what}): {m}x{n}x{k} "
+             f"{ptable['dtype'][i]} tile {tile} "
+             f"{ptable['runtime_ms'][i]:.4f} ms at {pw[i]:.1f} W over "
+             f"{nvml.WINDOW_PERIODS} counter periods, {long.watts:.1f} W over "
+             f"{LONG_WINDOW_PERIODS} ({long.seconds:.2f} s) (the h100 spec's "
+             f"estimates: idle {spec.idle_power_w:g} W, idle + mxu "
+             f"{spec.idle_power_w + spec.mxu_power_w:g} W, idle + hbm "
+             f"{spec.idle_power_w + spec.hbm_power_w:g} W)")
+
+    # 3. the power target: the Random Forest on 80% of the measured rows
+    tr, te = paper_split(ptable)
+    t0 = time.perf_counter()
+    pred = PerfPredictor(model="rf", residual=True, chip="h100").fit(tr)
+    fit_s = time.perf_counter() - t0
+    rep = pred.evaluate(te)
+    r2 = rep["power_w"]["r2"]
+    _say(f"[power] Random Forest (100 trees, depth 6, residual=True) fitted "
+         f"on {len(tr['power_w'])} rows in {fit_s:.1f} s; held out "
+         f"{len(te['power_w'])} rows: power_w R2 {r2:.4f} (min "
+         f"{POWER_MIN_R2:g}), median error "
+         f"{rep['power_w']['median_pct_err']:.2f}%, mean error "
+         f"{rep['power_w']['mean_pct_err']:.2f}%; energy_j R2 "
+         f"{rep['energy_j']['r2']:.4f}, median error "
+         f"{rep['energy_j']['median_pct_err']:.2f}%; runtime_ms R2 "
+         f"{rep['runtime_ms']['r2']:.4f} (the paper on the RTX 4070: power "
+         f"R2 {PAPER_POWER_R2:g}, median error {PAPER_POWER_MEDIAN_PCT:g}%)")
+    if not POWER_MIN_R2 <= r2 < 0.99999:
+        raise SystemExit(f"held-out power R2 {r2:.4f} outside "
+                         f"[{POWER_MIN_R2}, 1)")
+
+    # 4. the energy objective: tune the fleet, every candidate measured for
+    # power on the card
+    t0 = time.perf_counter()
+    won = ops.warm_gemm_cache(fleet, objective="energy", strict=True)
+    tune_s = time.perf_counter() - t0
+    flat, tel = tuner.last_verification
+    measured = {(c.m, c.n, c.k, c.block_m, c.block_n, c.block_k):
+                (tel["runtime_ms"][i], tel["power_w"][i], tel["energy_j"][i])
+                for i, c in enumerate(flat)}
+    differ = [s_ for s_ in fleet if won[s_] != runtime_won[s_]]
+    _say(f"[energy] tuned {len(won)} fleet shapes for energy in "
+         f"{tune_s:.1f} s ({len(flat)} candidates measured for power); "
+         f"{len(differ)} shapes won by another tile than for runtime: "
+         + "; ".join(f"{s_} {runtime_won[s_].as_tuple()}->"
+                     f"{won[s_].as_tuple()}" for s_ in differ))
+    if sorted(won) != sorted(fleet):
+        raise SystemExit("the energy tuner left fleet shapes untuned")
+    _say("[energy] M N K launches | tile ms W mJ/launch for: energy-tuned; "
+         "plan's; general")
+    sums = collections.Counter()
+    for key, count in sorted(shapes.items(), key=lambda kv: kv[0][:3]):
+        m, n, k, in_dt, out_dt, _ = key
+        rule = plan(m, n, k, (k, 1), (n, 1), 0, 0, in_dt, in_dt).tile
+        cols = []
+        for name, tile in (("energy", won[(m, n, k)]), ("plan", rule),
+                           ("general", DEFAULT_CONFIG)):
+            got = measured.get((m, n, k, *tile.as_tuple()))
+            if got is None:
+                raise SystemExit(f"{(m, n, k)}: tile {tile.as_tuple()} was "
+                                 "not measured for power")
+            ms, watts, joules = got
+            sums[name] += count * joules
+            cols.append(f"{tile.as_tuple()} {ms:.4f} {watts:.1f} "
+                        f"{1e3 * joules:.4f}")
+        _say(f"[energy] {m} {n} {k} {count} | " + "; ".join(cols))
+    _say(f"[energy] joules summed over the serving run's launches: "
+         f"energy-tuned {sums['energy']:.3f} J, plan's tile "
+         f"{sums['plan']:.3f} J, general path {sums['general']:.3f} J "
+         f"(energy-tuned / plan {sums['energy'] / sums['plan']:.3f}, "
+         f"general / energy-tuned {sums['general'] / sums['energy']:.2f})")
+
+    # 5. serving joules, modelled against measured
+    for objective, winners in (("energy", won), ("runtime", runtime_won)):
+        tag = f"{objective} serve"
+        eng = ServingEngine(api, params, cfg, max_batch=4, max_len=512,
+                            chunk_tokens=64, pretune=True,
+                            tune_objective=objective, device=dev)
+        if any(eng.pretuned.get(s_) != winners[s_] for s_ in fleet):
+            raise SystemExit(f"the {objective} engine's tiles differ from "
+                             "the fleet's")
+        log: collections.Counter = collections.Counter()
+        (by_path, results), joules, secs = _metered(
+            card, lambda: _serve_requests(tag, eng, cfg, log))
+        srep = eng.report()
+        toks = srep["generated_tokens"]
+        off = {key: c for key, c in log.items()
+               if key[5] is None or key[5] != eng.pretuned.get(
+                   key[:3], DEFAULT_CONFIG).as_tuple()}
+        attributed = sum(r.energy_j for r in results)
+        _say(f"[{tag}] the h100 model: {srep['j_per_token']:.4f} J/token, "
+             f"{srep['model_tokens_per_s']:.1f} tokens/s on the model clock,"
+             f" mean TTFT {statistics.mean(r.ttft_model_s for r in results):.4f}"
+             f" s on the model clock, {srep['energy_j']:.3f} J modelled "
+             f"({srep['idle_energy_j']:.3f} J of it idle shares)")
+        _say(f"[{tag}] the card (NVML): {joules:.3f} J over {secs:.3f} s "
+             f"metered for {toks} tokens = {joules / toks:.4f} J/token, mean "
+             f"power {joules / secs:.1f} W; measured / modelled J/token "
+             f"{joules / toks / srep['j_per_token']:.2f}; launches per path "
+             f"{by_path}, off their tuned tile {sum(off.values())}")
+        if off:
+            raise SystemExit(f"launches off their tuned tile: {off}")
+        if not all(r.energy_j > 0 for r in results):
+            raise SystemExit("a request was attributed no energy")
+        if abs(srep["energy_j"] - attributed - srep["idle_energy_j"]) > \
+                1e-9 * srep["energy_j"]:
+            raise SystemExit("the report's joules are not the requests' "
+                             "plus the idle shares")
+    _say(f"[energy] phase 9 took {time.perf_counter() - t_phase:.1f} s on "
+         f"{_nvidia_smi()}")
 
 
 def main() -> int:
@@ -965,7 +1227,8 @@ def main() -> int:
     entries = phase_serving_shapes(dev, shapes)
     untraced = phase_forwards(dev, eng, params, cfg)
     phase_logits(dev, eng, params, cfg)
-    phase_loop(dev, api, params, cfg, shapes, untraced)
+    loop = phase_loop(dev, api, params, cfg, shapes, untraced)
+    phase_energy(dev, api, params, cfg, shapes, *loop)
     _say(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     _say(_nvidia_smi())
     # one entry per path the serving run takes; the general path serves no

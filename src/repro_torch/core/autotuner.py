@@ -15,7 +15,10 @@ written GEMM's compiled tiles that `plan` accepts for the shape (one
 `stream` tile: the narrowest that holds M), and the measurement substrate
 is the card itself: the top-k are timed with CUDA events
 (`profiler.card_measure_fn`), and the process-wide H100 tuner times all of
-them (`H100_VERIFY_TOP_K`). The tuner picks a tile, as the reference
+them (`H100_VERIFY_TOP_K`). For the "energy", "power" and "edp" objectives
+each candidate is also measured for power through NVML
+(`card_measure_fn(power=True)`), so those objectives rank joules the card
+measured; "runtime" keeps the runtime-only runner. The tuner picks a tile, as the reference
 does; `plan` still sets the path and the K-splits for it.
 
 `rank()` scores through the torch scorer on the tuner's device when that
@@ -156,7 +159,10 @@ class GemmAutotuner:
         self.artifact_fingerprint = predictor.fingerprint()
         self._winner_cache_size = winner_cache_size
         self._cache: OrderedDict[str, tuple[int, int, int]] = OrderedDict()
-        self._card_measure: Callable | None = None
+        # the card's runners, keyed by whether they read power
+        self._card_measure: dict[bool, Callable] = {}
+        # the last verification sweep: (configs, telemetry arrays)
+        self.last_verification: tuple[list[GemmConfig], dict] | None = None
         # (m, n, k, dtype) -> (candidate configs, feature table) — one bucket
         # per GEMM-call signature on this tuner's (chip, dtype) grid.
         self._cand_cache: OrderedDict[
@@ -400,15 +406,19 @@ class GemmAutotuner:
     def _key(m: int, n: int, k: int, dtype: str, objective: str) -> str:
         return f"{m},{n},{k},{dtype},{objective}"
 
-    def _verify(self, cfgs: list[GemmConfig], measure_fn=None) -> dict:
-        """Measure the flat top-k list on the chip's substrate."""
+    def _verify(self, cfgs: list[GemmConfig], measure_fn=None,
+                objective: str = "runtime") -> dict:
+        """Measure the flat top-k list on the chip's substrate (on the
+        card, with its power read for every objective but "runtime")."""
         if measure_fn is not None:
             return measure_fn(cfgs)
         if self.on_card:
-            if self._card_measure is None:
-                self._card_measure = measure_many(
-                    card_measure_fn(device=self.device))
-            return self._card_measure(cfgs)
+            power = objective != "runtime"
+            if power not in self._card_measure:
+                self._card_measure[power] = measure_many(
+                    card_measure_fn(device=self.device, power=True) if power
+                    else card_measure_fn(device=self.device))
+            return self._card_measure[power](cfgs)
         return self.sim.measure_batch(cfgs)
 
     def best_config(self, m: int, n: int, k: int, *, dtype: str = "bf16",
@@ -496,7 +506,8 @@ class GemmAutotuner:
         if groups:
             # one batched verification sweep across all shapes
             flat = [c for _, top in groups for c in top]
-            tel = self._verify(flat, measure_fn)
+            tel = self._verify(flat, measure_fn, objective)
+            self.last_verification = (flat, tel)
             meas = self._objective_scores(
                 {t: np.asarray(tel[t], dtype=np.float64)
                  for t in ("runtime_ms", "power_w", "energy_j")},

@@ -19,15 +19,20 @@ The port's copy of the JAX package's `repro.core.profiler` adds that runner
 for the H100: `card_measure_fn` times the hand-written GEMM
 (`kernels.tiled_matmul`) at one configuration with CUDA events, and
 `h100_sweep_configs` is the sweep it profiles — the compiled tiles over
-GEMM shapes of the H100's serving range. Runtime is measured; power and
-energy are not yet read from the card and come from the simulator at the
-"h100" spec (the table's ``power_source`` column says "model").
+GEMM shapes of the H100's serving range. Runtime is always measured. With
+``power=True`` the runner also reads the card's own power through NVML
+(`core.nvml`): the GEMM runs back to back for a window of whole energy-
+counter periods, and the row's ``power_source`` column says "nvml".
+Without it, power and energy are the "h100" simulator's figures and the
+column says "model". `power_sample` picks the rows a power sweep measures.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import itertools
+import math
 import statistics
 import time
 from collections.abc import Callable, Iterable
@@ -35,6 +40,7 @@ from collections.abc import Callable, Iterable
 import numpy as np
 import torch
 
+from repro_torch.core import nvml
 from repro_torch.core.chips import DTYPE_BYTES, TPU_V5E, ChipSpec
 from repro_torch.core.features import (
     NUMERIC_FEATURES,
@@ -196,6 +202,9 @@ def profile_configs(
         row["hbm_utilization"] = tel.hbm_utilization
         row["temperature_c"] = tel.temperature_c
         row["bound"] = tel.bound
+        if isinstance(tel, CardTelemetry):
+            row["busy_share"] = tel.busy_share
+            row["launch_bound"] = tel.launch_bound
         if power_source is not None:
             row["power_source"] = power_source
         rows.append(row)
@@ -208,6 +217,8 @@ def profile_configs(
         vals = [r[key] for r in rows]
         if isinstance(vals[0], str):
             table[key] = np.array(vals, dtype=object)
+        elif isinstance(vals[0], bool):
+            table[key] = np.array(vals, dtype=bool)
         else:
             table[key] = np.array(vals, dtype=np.float64)
     return table
@@ -360,8 +371,108 @@ def time_ms(fn: Callable[[], object], flush: torch.Tensor,
 
 _TORCH_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
+# Power windows. A unit of work is a CUDA graph of back-to-back launches of
+# one GEMM that takes about POWER_UNIT_S on the card (at most
+# MAX_UNIT_LAUNCHES launches), and POWER_DEPTH units stay queued, so the card
+# stays fed whatever a launch costs the host, and through a read of the
+# energy counter (milliseconds on the H100 machine; `chip_smoke.py` phase 9
+# prints it). A window whose launches x kernel time cover less than
+# LAUNCH_BOUND_BELOW of it measured a card that idled between launches; its
+# row is flagged `launch_bound`.
+POWER_UNIT_S = 5e-3
+POWER_DEPTH = 4
+MAX_UNIT_LAUNCHES = 1024
+LAUNCH_BOUND_BELOW = 0.9
 
-def card_measure_fn(*, device: str | torch.device = "cuda", reps: int = 5
+
+@dataclasses.dataclass
+class CardTelemetry(GemmTelemetry):
+    """A row measured for power on the card: the device's busy share of the
+    power window (launches x kernel time / window) and whether it fell
+    below `LAUNCH_BOUND_BELOW`."""
+
+    busy_share: float = float("nan")
+    launch_bound: bool = False
+
+
+def power_row(tel: GemmTelemetry, win, launches: int,
+              temperature_c: float) -> CardTelemetry:
+    """A timed row with its power window (`nvml.PowerWindow`) in which
+    `launches` of the GEMM finished: `power_w` is the window's watts,
+    `energy_j` that power over the row's runtime, and the busy share
+    launches x `runtime_ms` / window, flagged `launch_bound` below
+    `LAUNCH_BOUND_BELOW` (the share passes 1 where back-to-back launches
+    with a warm L2 run faster than the flushed `runtime_ms`)."""
+    busy = launches * tel.runtime_ms / (1e3 * win.seconds)
+    return CardTelemetry(**{
+        **dataclasses.asdict(tel), "power_w": win.watts,
+        "energy_j": win.watts * tel.runtime_ms / 1e3,
+        "temperature_c": temperature_c},
+        busy_share=busy, launch_bound=busy < LAUNCH_BOUND_BELOW)
+
+
+def graph_pump(fn: Callable[[], object], kernel_ms: float
+               ) -> tuple[Callable[[], int], int]:
+    """Capture `fn` (one launch on the current stream) into a CUDA graph of
+    enough back-to-back launches to last about `POWER_UNIT_S`, given that
+    one launch takes `kernel_ms`. Returns ``(pump, launches per unit)``:
+    `pump()` keeps `POWER_DEPTH` replays queued on the current stream and
+    returns how many finished since its last call. `fn` must have run once
+    before (so its scratch is allocated), and its launches must keep fixed
+    pointers across replays (the split-K counters do; its workspace and
+    output come from the graph's pool)."""
+    n = int(min(MAX_UNIT_LAUNCHES,
+                max(1, math.ceil(POWER_UNIT_S * 1e3 / max(kernel_ms, 1e-6)))))
+    main = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    side.wait_stream(main)
+    graph = torch.cuda.CUDAGraph()
+    # capture_begin/end rather than `torch.cuda.graph`, which collects
+    # garbage and empties the allocator's cache on every capture
+    with torch.cuda.stream(side):
+        graph.capture_begin()
+        try:
+            for _ in range(n):
+                fn()
+        finally:
+            graph.capture_end()
+    main.wait_stream(side)
+    inflight: collections.deque = collections.deque()
+
+    def pump() -> int:
+        done = 0
+        while inflight and inflight[0].query():
+            inflight.popleft()
+            done += 1
+        while len(inflight) < POWER_DEPTH:
+            graph.replay()
+            ev = torch.cuda.Event()
+            ev.record()
+            inflight.append(ev)
+        return done
+
+    return pump, n
+
+
+def probe_energy_period(card, device: str | torch.device = "cuda") -> float:
+    """The period of the card's energy counter (`nvml.probe_period`), polled
+    while a steady bf16 GEMM (2048 x 4096 x 4096, about 0.1 ms a launch)
+    runs back to back."""
+    dev = resolve_device(device)
+    g = torch.Generator(dev).manual_seed(0)
+    a = torch.randn((2048, 4096), generator=g, device=dev).to(torch.bfloat16)
+    b = torch.randn((4096, 4096), generator=g, device=dev).to(torch.bfloat16)
+    fn = lambda: tiled_matmul(a, b)
+    fn()
+    torch.cuda.synchronize()
+    pump, _ = graph_pump(fn, 0.1)
+    period = nvml.probe_period(card.energy_mj, pump)
+    torch.cuda.synchronize()
+    return period
+
+
+def card_measure_fn(*, device: str | torch.device = "cuda", reps: int = 5,
+                    power: bool = False, period_s: float | None = None
                     ) -> Callable[[GemmConfig], GemmTelemetry]:
     """The wall-clock runner: `measure(cfg) -> GemmTelemetry` launches
     `tiled_matmul(..., config=BlockConfig(block_m, block_n, block_k))` on
@@ -371,19 +482,37 @@ def card_measure_fn(*, device: str | torch.device = "cuda", reps: int = 5
     card; the runner raises without one), grown as shapes need, so a sweep
     allocates them once.
 
-    `runtime_ms`, `tflops` and the utilizations are measured. `power_w` and
-    `energy_j` are not: they are the "h100" simulator's noise-free figures
-    at that configuration, and the runner's ``power_source`` attribute
-    ("model") marks them so in the profiled table. A tile whose path cannot
-    take the configuration — `plan` raises ValueError — gives an invalid
-    row and launches nothing; any other error propagates.
+    `runtime_ms`, `tflops` and the utilizations are measured. Without
+    `power`, `power_w` and `energy_j` are the "h100" simulator's noise-free
+    figures at that configuration, `temperature_c` is NaN, and the runner's
+    ``power_source`` attribute ("model") marks them so in the profiled
+    table. With ``power=True`` they are the card's (``power_source``
+    "nvml"), read through NVML (`core.nvml`, which raises if NVML is
+    missing): after the timing, the same GEMM runs back to back (CUDA
+    graph replays, `graph_pump`) through a warm-up of about one
+    energy-counter period and a window of whole periods
+    (`nvml.measure_window`). `power_w` is the counter's change over
+    the window's wall time — the whole board, idle floor included, as the
+    paper's NVML reading was — and `energy_j` is `power_w` x `runtime_ms`,
+    the simulator's and the paper's definition. The row is a
+    `CardTelemetry` with the window's busy share and `launch_bound` flag,
+    and `temperature_c` from NVML. `period_s` is the counter's period
+    (`probe_energy_period` measures it when None, and the runner's
+    ``period_s`` attribute holds it).
 
-    Split-K launches share one counter buffer per device, so the runner
-    must own the stream while it measures.
+    A tile whose path cannot take the configuration — `plan` raises
+    ValueError — gives an invalid row and launches nothing; any other error
+    propagates. Split-K launches share one counter buffer per device, so
+    the runner must own the stream while it measures.
     """
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise ValueError(f"the card's measure_fn times on cuda, not {dev}")
+    card = None
+    if power:
+        card = nvml.open_card(dev)
+        if period_s is None:
+            period_s = probe_energy_period(card, dev)
     sim = TpuGemmSimulator(chip="h100", noise=0.0)
     peak = sim.chip.peak_flops
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
@@ -417,25 +546,91 @@ def card_measure_fn(*, device: str | torch.device = "cuda", reps: int = 5
                 model, runtime_ms=float("nan"), power_w=float("nan"),
                 energy_j=float("nan"), tflops=0.0, bound="invalid",
                 temperature_c=float("nan"), valid=False)
-        ms = time_ms(lambda: tiled_matmul(
-            a, b, c, config=tile, transpose_a=ta, transpose_b=tb,
-            alpha=cfg.alpha, beta=cfg.beta, out_dtype=dt), flush, reps)
+
+        def fn():
+            return tiled_matmul(a, b, c, config=tile, transpose_a=ta,
+                                transpose_b=tb, alpha=cfg.alpha,
+                                beta=cfg.beta, out_dtype=dt)
+
+        ms = time_ms(fn, flush, reps)
         flops = 2.0 * m * n * k
         in_b = DTYPE_BYTES[cfg.dtype]
         nbytes = in_b * (m * k + k * n) + in_b * m * n * (
             2 if cfg.beta != 0.0 else 1)
         compute_ms = flops / peak[cfg.dtype] * 1e3
         memory_ms = nbytes / sim.chip.hbm_bw * 1e3
-        return dataclasses.replace(
+        tel = dataclasses.replace(
             model, runtime_ms=ms, tflops=flops / (ms / 1e3) / 1e12,
             compute_time_ms=compute_ms, memory_time_ms=memory_ms,
             overhead_ms=max(ms - max(compute_ms, memory_ms), 0.0),
             mxu_utilization=compute_ms / ms, hbm_utilization=memory_ms / ms,
             bound="compute" if compute_ms >= memory_ms else "memory",
             temperature_c=float("nan"), valid=True)
+        if card is None:
+            return tel
+        pump, per_unit = graph_pump(fn, ms)
+        win = nvml.measure_window(card.energy_mj, pump, period_s=period_s)
+        torch.cuda.synchronize()
+        return power_row(tel, win, win.units * per_unit,
+                         card.temperature_c())
 
-    measure.power_source = "model"
+    measure.power_source = "nvml" if power else "model"
+    measure.period_s = period_s
     return measure
+
+
+def power_sample(table: dict[str, np.ndarray], n: int, seed: int = 0
+                 ) -> list[GemmConfig]:
+    """A seeded sample of `n` valid rows of a profiled table, as the
+    `GemmConfig`s to measure for power: stratified by kernel path and by M,
+    each (path, M) stratum taking its share of `n` in proportion to its
+    rows (at least one row each while `n` allows). Returns every row when
+    `n` is not below the table's length."""
+    paths = np.array([TILE_PATHS[(int(a), int(b), int(c))] for a, b, c in
+                      zip(table["block_m"], table["block_n"],
+                          table["block_k"])])
+    ms = np.asarray(table["m"]).astype(np.int64)
+    rows = len(ms)
+    rng = np.random.default_rng(seed)
+    if n >= rows:
+        chosen = np.arange(rows)
+    else:
+        strata: dict[tuple[str, int], list[int]] = {}
+        for i, key in enumerate(zip(paths, ms)):
+            strata.setdefault(key, []).append(i)
+        keys = sorted(strata)
+        share = {key: len(strata[key]) * n / rows for key in keys}
+        take = {key: min(len(strata[key]), max(1, int(share[key])))
+                for key in keys}
+        # hand the rounding's leftovers to the strata with the largest
+        # remainders, then trim from the largest if the floor of one
+        # overshot
+        left = n - sum(take.values())
+        for key in sorted(keys, key=lambda k_: share[k_] - int(share[k_]),
+                          reverse=True):
+            if left <= 0:
+                break
+            if take[key] < len(strata[key]):
+                take[key] += 1
+                left -= 1
+        while sum(take.values()) > n:
+            big = max(keys, key=lambda k_: take[k_])
+            take[big] -= 1
+        chosen = np.sort(np.concatenate([
+            rng.choice(strata[key], size=take[key], replace=False)
+            for key in keys if take[key]]))
+    layouts = np.asarray(table["layout"])
+    dtypes = np.asarray(table["dtype"])
+    return [GemmConfig(
+        m=int(table["m"][i]), n=int(table["n"][i]), k=int(table["k"][i]),
+        block_m=int(table["block_m"][i]), block_n=int(table["block_n"][i]),
+        block_k=int(table["block_k"][i]), dtype=str(dtypes[i]),
+        layout=str(layouts[i]), alpha=float(table["alpha"][i]),
+        beta=float(table["beta"][i]),
+        stages=tile_stages((int(table["block_m"][i]),
+                            int(table["block_n"][i]),
+                            int(table["block_k"][i]))))
+        for i in chosen]
 
 
 def measure_many(measure: Callable[[GemmConfig], GemmTelemetry]

@@ -17,6 +17,7 @@ each tuned shape at its winner (see `_tuned_config`).
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
@@ -28,6 +29,8 @@ _CHIP: str = "h100"
 # tile, and the tuner they came from
 _TUNED: dict[tuple, BlockConfig] = {}
 _TUNED_BY = None
+# the objective whose installed winners `matmul` launches by default
+_OBJECTIVE = "runtime"
 
 
 def force_chip(chip: str) -> None:
@@ -118,6 +121,21 @@ def warm_gemm_cache(shapes, *, dtype: str = "bfloat16",
             _TUNED[(m, n, k, tdt, objective)] = cfg
     return dict(zip(shapes, best))
 
+@contextlib.contextmanager
+def launch_objective(objective: str):
+    """Within the block, `matmul` launches the installed winners of
+    `objective` ("runtime", "energy", "power", "edp") where its caller
+    names none: how a serving engine pretuned for an objective runs the
+    tiles it priced. The JAX package's engine has no such switch and
+    launches runtime winners whatever it was tuned for."""
+    global _OBJECTIVE
+    before, _OBJECTIVE = _OBJECTIVE, objective
+    try:
+        yield
+    finally:
+        _OBJECTIVE = before
+
+
 SSM_SERVE_GRAIN = 8  # min prefill bucket == SSM serve-scan block
 
 
@@ -190,13 +208,14 @@ def matmul(
     b: torch.Tensor,
     *,
     config: BlockConfig | None = None,
-    objective: str = "runtime",
+    objective: str | None = None,
     transpose_b: bool = False,
     out_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """out = a @ op(b) over the last axis of `a`; leading dims are batch.
     fp32 accumulation; the output dtype defaults to ``a.dtype``. Without
-    `config`, a shape with an installed winner for `objective` takes it
+    `config`, a shape with an installed winner for `objective` (default:
+    the one `launch_objective` set, else "runtime") takes it
     (`_tuned_config`; winners are tuned on the "nn" layout, so only for
     ``transpose_b=False``), any other `plan`'s rule."""
     *lead, k = a.shape
@@ -205,7 +224,8 @@ def matmul(
         raise ValueError(f"contraction mismatch {k} vs {kb}")
     a2 = a.reshape(-1, k)
     if config is None and not transpose_b:
-        config = _tuned_config(a2.shape[0], n, k, a.dtype, objective)
+        config = _tuned_config(a2.shape[0], n, k, a.dtype,
+                               objective or _OBJECTIVE)
     out = tiled_matmul(a2, b, config=config,
                        transpose_b=transpose_b,
                        out_dtype=out_dtype or a.dtype)

@@ -13,10 +13,30 @@ parks in the lane, and is spliced into a free decode slot (FIFO).
 Streams match the JAX engine's token for token: the same admission order,
 chunk buckets, splice order and host numpy sampler with per-(seed, uid)
 Gumbel streams. `pretune` tunes the engine's GEMM fleet with the paper's
-autotuner, as the JAX engine's does. Energy, the model clock, paged KV,
-serial and wave admission, adoption and replay, `chunk_policy` and tp are
-not ported yet (ROADMAP queue A); nothing here reports a placeholder for
-them.
+autotuner, as the JAX engine's does.
+
+Energy and the model clock follow the JAX engine: every chunk call and
+decode step is priced by the analytical GEMM fleet model
+(`core.energy.gemm_fleet_energy`, at the engine's pretuned tiles); its
+predicted step time advances the model clock (`model_clock_s`,
+`Result.ttft_model_s`) and its energy is shared out per lane row and per
+decode slot (`Result.energy_j`), the shares of pad rows and dead slots
+going to `idle_energy_j`. These are a model's numbers, never the card's:
+the card's own joules are read by `core.nvml`. Two deliberate differences
+from the JAX engine:
+
+- ``chip=None`` prices on the card the port runs on (`ops._CHIP`, "h100"),
+  not on the TPU v5e;
+- a failure of the energy model raises, where the JAX engine warns and
+  reads its telemetry as zeros.
+
+And one where the JAX engine is at fault (ROADMAP queue C): an engine
+pretuned for another objective than "runtime" launches that objective's
+winners (`ops.launch_objective`), so it runs the tiles it prices.
+
+Paged KV, serial and wave admission, adoption and replay, `chunk_policy`
+and tp are not ported yet (ROADMAP queue A); nothing here reports a
+placeholder for them.
 
 Where the JAX engine donates the decode state to its jitted calls, this
 engine updates the KV tensors in place.
@@ -47,11 +67,13 @@ class Request:
     max_new_tokens: int = 32
     eos_id: int | None = None
     submit_s: float = 0.0       # stamped by ServingEngine.submit
+    submit_model_s: float = 0.0  # engine model-clock at submission
 
 
 @dataclasses.dataclass
 class Result:
-    """A finished request's tokens plus latency telemetry (host clock)."""
+    """A finished request's tokens plus latency telemetry (host clock and
+    model clock) and its attributed energy (the energy model's)."""
 
     uid: int
     tokens: np.ndarray          # generated ids (includes EOS if emitted)
@@ -60,16 +82,22 @@ class Result:
     n_tokens: int = 0           # generated-token count
     queue_s: float = 0.0        # submit -> prefill start
     ttft_s: float = 0.0         # submit -> first token
+    ttft_model_s: float = 0.0   # submit -> first token, model clock
     decode_s: float = 0.0       # first token -> last token
     tokens_per_s: float = 0.0
+    energy_j: float = 0.0       # attributed prefill + resident-step energy
+    energy_per_token_j: float = 0.0
+    prefill_energy_j: float = 0.0  # the chunk calls' share of energy_j
 
 
 @dataclasses.dataclass
 class _Slot:
     req: Request
     tokens: list[int]
+    prefill_energy_j: float
     t_start: float              # prefill start (wall)
     t_first: float              # first-token time (wall)
+    t_first_model: float = 0.0  # first-token time (model clock)
     steps: int = 0              # resident decode iterations so far
     rng: np.random.Generator | None = None   # per-request sampling stream
 
@@ -84,6 +112,7 @@ class _Admission:
     req: Request
     row: int = -1
     base: int = 0
+    chunk_energy_j: float = 0.0
     t_start: float = 0.0        # first chunk dispatch (wall)
     rng: np.random.Generator | None = None
     ready: _Slot | None = None  # prefilled + first token sampled
@@ -134,8 +163,10 @@ class ServingEngine:
         per chip and artifact), and `self.pretuned` holds the winners.
         `tune_objective` picks the paper's objective ("runtime", "energy",
         "power", "edp"), `tune_rank_mode` the candidate-ranking path, and
-        `chip` the chip to tune for (default: the active chip of
-        `ops.force_chip`, whose winners the projections then launch)."""
+        `chip` the chip to tune for and to price energy on (default: the
+        active chip of `ops.force_chip`, whose winners the projections then
+        launch). The engine's projections launch `tune_objective`'s
+        winners."""
         self.device = resolve_device(device)
         if params.device.type != self.device.type:
             raise ValueError(f"params on {params.device}, engine on "
@@ -164,6 +195,7 @@ class ServingEngine:
 
             chip = get_chip(chip).name
         self.chip = chip
+        self.tune_objective = tune_objective
         self.pretuned: dict[tuple, object] = {}
         if pretune:
             fleet = ops.serving_gemm_fleet(
@@ -175,6 +207,7 @@ class ServingEngine:
                 rank_mode=tune_rank_mode)
         self.queue: deque[Request] = deque()
         self._stepper = None
+        self._step_energy_cache: dict[tuple, object] = {}
         self._state_axes = L.state_batch_axes(
             model.init_state(cfg, 1, max_len, device="meta"),
             model.init_state(cfg, 2, max_len, device="meta"))
@@ -182,8 +215,40 @@ class ServingEngine:
             "decode_steps": 0, "chunk_steps": 0,
             "resident_slot_steps": 0, "slot_steps": 0,
             "generated_tokens": 0, "requests": 0, "wall_s": 0.0,
-            "lane_rebuilds": 0,
+            "lane_rebuilds": 0, "energy_j": 0.0, "idle_energy_j": 0.0,
+            # the model clock: predicted seconds of dispatched engine calls
+            # (the energy model's step_s), advanced per chunk call and
+            # decode step
+            "model_s": 0.0,
         }
+
+    # ------------------------------------------------------------------
+    # model clock
+    # ------------------------------------------------------------------
+    def _tick(self, step_s: float) -> None:
+        """Advance the model clock by one dispatched call's predicted
+        time."""
+        self._stats["model_s"] += step_s
+
+    @property
+    def model_clock_s(self) -> float:
+        """Current model-clock reading: predicted seconds of every call
+        this engine has dispatched, monotone across runs."""
+        return self._stats["model_s"]
+
+    @property
+    def chip_spec(self):
+        """The `ChipSpec` this engine prices energy on: `chip`, else the
+        card the port runs on (`ops._CHIP`)."""
+        from repro_torch.core.chips import get_chip
+
+        return get_chip(self.chip or ops._CHIP)
+
+    @property
+    def idle_power_w(self) -> float:
+        """The priced chip's idle-floor power (`ChipSpec.idle_power_w`;
+        one chip, tp = 1)."""
+        return self.chip_spec.idle_power_w
 
     # ------------------------------------------------------------------
     # queue
@@ -203,6 +268,7 @@ class ServingEngine:
                 f"max_len={self.max_len} (need >= 1 decode position)")
         if req.submit_s == 0.0:
             req.submit_s = time.perf_counter()
+        req.submit_model_s = self.model_clock_s
         self.queue.append(req)
 
     def _budget(self, req: Request) -> int:
@@ -242,6 +308,87 @@ class ServingEngine:
         return out
 
     # ------------------------------------------------------------------
+    # energy model
+    # ------------------------------------------------------------------
+    def _kv_gather_bytes(self, batch_rows: int) -> float:
+        """Non-GEMM KV-cache HBM traffic one call issues: attention reads
+        each row's cached keys and values once (the dense layout)."""
+        from repro_torch.models.config import kv_cache_bytes
+
+        return float(kv_cache_bytes(self.cfg, batch_rows * self.max_len))
+
+    def _step_energy(self, key, n_rows: int, head_rows: int | None = None,
+                     batch_rows: int | None = None):
+        """Predicted `StepEnergyEstimate` for a step over `n_rows` GEMM
+        rows (decode: max_batch; chunk: padded token count, with the LM
+        head sized to the rows actually unembedded), with the KV reads of
+        `batch_rows` rows as extra HBM bytes, cached per key. Raises when
+        the energy model fails."""
+        hit = self._step_energy_cache.get(key)
+        if hit is not None:
+            return hit
+        from repro_torch.core.energy import gemm_fleet_energy
+        from repro_torch.models.config import gemm_shape_counts
+
+        est = gemm_fleet_energy(
+            gemm_shape_counts(self.cfg, n_rows, head_tokens=head_rows),
+            chip=self.chip_spec, dtype=self.cfg.activation_dtype,
+            configs=self.pretuned or None,
+            extra_hbm_bytes=self._kv_gather_bytes(batch_rows or 0),
+            name=f"{self.cfg.name}:{key}")
+        self._step_energy_cache[key] = est
+        return est
+
+    @staticmethod
+    def _cost(est) -> tuple[float, float, object]:
+        """(energy_j, step_s, estimate) of a priced step."""
+        return (est.energy_j, est.step_s, est)
+
+    def _decode_cost(self) -> tuple[float, float, object]:
+        """(energy_j, predicted step_s, est) of one lockstep decode
+        step."""
+        return self._cost(self._step_energy(
+            ("decode", self.max_batch), self.max_batch,
+            batch_rows=self.max_batch))
+
+    def _chunk_cost(self, width: int, chunk: int
+                    ) -> tuple[float, float, object]:
+        """(energy_j, step_s, est) of one admission chunk call: `width`
+        lane rows of `chunk` tokens, LM head over last-valid positions."""
+        return self._cost(self._step_energy(
+            ("chunk", int(width), int(chunk)),
+            int(width * chunk), int(width), batch_rows=int(width)))
+
+    def decode_step_estimate(self):
+        """Predicted `StepEnergyEstimate` of one lockstep decode step over
+        the full slot table."""
+        return self._decode_cost()[2]
+
+    def fused_step_estimate(self, width: int, chunk: int):
+        """Predicted cost of one *fused* engine step — the decode fleet
+        (max_batch rows) plus one chunk call's fleet (`width` x `chunk`
+        rows) priced through a single duty-cycle power model
+        (`core.energy.fused_step_energy`). Cached per (width, chunk)."""
+        key = ("fused", int(width), int(chunk))
+        hit = self._step_energy_cache.get(key)
+        if hit is not None:
+            return hit
+        from repro_torch.core.energy import fused_step_energy
+        from repro_torch.models.config import gemm_shape_counts
+
+        decode = gemm_shape_counts(self.cfg, self.max_batch)
+        ch = gemm_shape_counts(self.cfg, width * chunk, head_tokens=width)
+        est = fused_step_energy(
+            decode, ch, chip=self.chip_spec,
+            dtype=self.cfg.activation_dtype,
+            configs=self.pretuned or None,
+            extra_hbm_bytes=(self._kv_gather_bytes(self.max_batch)
+                             + self._kv_gather_bytes(width)),
+            name=f"{self.cfg.name}:fused:{width}x{chunk}")
+        self._step_energy_cache[key] = est
+        return est
+
+    # ------------------------------------------------------------------
     # device calls
     # ------------------------------------------------------------------
     def _init_state(self, batch: int) -> dict:
@@ -257,36 +404,52 @@ class ServingEngine:
     def _logits(self, logits: torch.Tensor) -> np.ndarray:
         return logits.float().cpu().numpy()
 
-    def _finish(self, slot: _Slot, now: float, results: list[Result]) -> None:
+    def _finish(self, slot: _Slot, now: float, decode_energy_j: float,
+                results: list[Result]) -> None:
         req = slot.req
         n_tok = len(slot.tokens)
         decode_s = max(now - slot.t_first, 0.0)
+        energy = (slot.prefill_energy_j
+                  + slot.steps * decode_energy_j / self.max_batch)
         self._stats["generated_tokens"] += n_tok
+        self._stats["energy_j"] += energy
         self._stats["requests"] += 1
         results.append(Result(
             uid=req.uid, tokens=np.array(slot.tokens, np.int32),
             prompt_len=len(req.prompt), steps=slot.steps, n_tokens=n_tok,
             queue_s=max(slot.t_start - req.submit_s, 0.0),
             ttft_s=max(slot.t_first - req.submit_s, 0.0),
+            ttft_model_s=max(slot.t_first_model - req.submit_model_s, 0.0),
             decode_s=decode_s,
-            tokens_per_s=(n_tok / decode_s if decode_s > 0 else 0.0)))
+            tokens_per_s=(n_tok / decode_s if decode_s > 0 else 0.0),
+            energy_j=energy, energy_per_token_j=energy / max(n_tok, 1),
+            prefill_energy_j=slot.prefill_energy_j))
 
-    def _decode_step(self, slots, batch_state, token_buf, results):
+    def _decode_step(self, slots, batch_state, token_buf, decode_cost,
+                     results):
         """One lockstep decode step over the slot table; retires finished
         slots in place. Returns the new batch state."""
+        decode_energy_j, decode_step_s, _ = decode_cost
         B = self.max_batch
         active = np.array([s is not None for s in slots])
         if not active.any():
             return batch_state
-        logits, batch_state = self.model.decode_step(
-            self.params, torch.as_tensor(token_buf, device=self.device),
-            batch_state, self.cfg)
+        self._tick(decode_step_s)
+        with ops.launch_objective(self.tune_objective):
+            logits, batch_state = self.model.decode_step(
+                self.params, torch.as_tensor(token_buf, device=self.device),
+                batch_state, self.cfg)
         cur = self._sample(self._logits(logits),
                            [s.rng if s is not None else None for s in slots])
         now = time.perf_counter()
+        n_active = int(active.sum())
         self._stats["decode_steps"] += 1
         self._stats["slot_steps"] += B
-        self._stats["resident_slot_steps"] += int(active.sum())
+        self._stats["resident_slot_steps"] += n_active
+        # dead slots still execute: their share of the step's energy is
+        # charged to the engine (idle), not to any request
+        self._stats["idle_energy_j"] += (
+            (B - n_active) * decode_energy_j / B)
         for b in range(B):
             slot = slots[b]
             if slot is None:
@@ -298,7 +461,7 @@ class ServingEngine:
             req = slot.req
             if (req.eos_id is not None and tok == req.eos_id) or (
                     len(slot.tokens) >= self._budget(req)):
-                self._finish(slot, now, results)
+                self._finish(slot, now, decode_energy_j, results)
                 slots[b] = None      # retired mid-decode; refilled
                 token_buf[b] = 0     # next loop iteration
         return batch_state
@@ -339,6 +502,8 @@ class ServingEngine:
         B = self.max_batch
         results: list[Result] = []
         lv = _LiveState(B)
+        decode_cost = self._decode_cost()
+        decode_energy_j = decode_cost[0]
 
         def zero_lane_row(r: int) -> None:
             if lv.zero_src is None:
@@ -411,13 +576,18 @@ class ServingEngine:
                 lens[a.row] = n
                 if a.t_start == 0.0:
                     a.t_start = t_disp
-            logits, lv.adm_state = self.model.prefill_chunk(
-                self.params, torch.as_tensor(toks, device=self.device),
-                torch.as_tensor(lens, device=self.device), lv.adm_state,
-                self.cfg)
+            with ops.launch_objective(self.tune_objective):
+                logits, lv.adm_state = self.model.prefill_chunk(
+                    self.params, torch.as_tensor(toks, device=self.device),
+                    torch.as_tensor(lens, device=self.device), lv.adm_state,
+                    self.cfg)
             logits = self._logits(logits)
             now = time.perf_counter()
+            est_j, est_s, _ = self._chunk_cost(W, C)
+            self._tick(est_s)
             self._stats["chunk_steps"] += 1
+            # lane pad and parked rows are executed spend with no owner
+            self._stats["idle_energy_j"] += (W - len(pending)) * est_j / W
             keep: list[_Admission] = []
             freed = False
             for a in lv.adm:
@@ -425,17 +595,20 @@ class ServingEngine:
                     keep.append(a)
                     continue
                 a.base += int(lens[a.row])
+                a.chunk_energy_j += est_j / W
                 if a.base < len(a.req.prompt):
                     keep.append(a)
                     continue
                 tok = int(self._sample(logits[a.row:a.row + 1], [a.rng])[0])
-                srec = _Slot(req=a.req, tokens=[tok], t_start=a.t_start,
-                             t_first=now, rng=a.rng)
+                srec = _Slot(req=a.req, tokens=[tok],
+                             prefill_energy_j=a.chunk_energy_j,
+                             t_start=a.t_start, t_first=now,
+                             t_first_model=self.model_clock_s, rng=a.rng)
                 # EOS or a budget of one on the first token: finished
                 # before occupying a decode slot
                 if (a.req.eos_id is not None and tok == a.req.eos_id) or (
                         1 >= self._budget(a.req)):
-                    self._finish(srec, now, results)
+                    self._finish(srec, now, decode_energy_j, results)
                     lv.lane_free.append(a.row)
                     lv.lane_dirty.add(a.row)
                     freed = True
@@ -470,7 +643,8 @@ class ServingEngine:
             splice_ready()
             # one lockstep decode step over the residents
             lv.batch_state = self._decode_step(
-                lv.slots, lv.batch_state, lv.token_buf, results)
+                lv.slots, lv.batch_state, lv.token_buf, decode_cost,
+                results)
             self._stats["wall_s"] += time.perf_counter() - t_it0
             new, emitted = results[emitted:], len(results)
             yield new
@@ -480,10 +654,18 @@ class ServingEngine:
     # ------------------------------------------------------------------
     def report(self) -> dict:
         """Engine-level serving report: counts, occupancy, host-clock
-        throughput."""
+        throughput, and the energy model's clock and joules.
+
+        `energy_j` / `j_per_token` count *total* modelled spend — the
+        per-request attributed energy plus the idle share of decode steps
+        run with dead slots and of chunk-call pad rows."""
         s = self._stats
         toks = s["generated_tokens"]
+        total_j = s["energy_j"] + s["idle_energy_j"]
         return {
+            "model_s": s["model_s"],
+            "model_tokens_per_s": (toks / s["model_s"]
+                                   if s["model_s"] > 0 else 0.0),
             "requests": s["requests"],
             "generated_tokens": toks,
             "decode_steps": s["decode_steps"],
@@ -495,4 +677,8 @@ class ServingEngine:
             "lane_rebuilds": s["lane_rebuilds"],
             "wall_s": s["wall_s"],
             "tokens_per_s": toks / s["wall_s"] if s["wall_s"] > 0 else 0.0,
+            "energy_j": total_j,
+            "attributed_energy_j": s["energy_j"],
+            "idle_energy_j": s["idle_energy_j"],
+            "j_per_token": total_j / toks if toks else 0.0,
         }

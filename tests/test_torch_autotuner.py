@@ -190,6 +190,45 @@ def test_measure_fn_is_called_once_with_the_flat_top_k(preds):
     assert len(calls) == 1
 
 
+@pytest.mark.parametrize("objective", ("runtime", "energy", "power", "edp"))
+def test_h100_energy_objectives_verify_on_the_power_runner(preds, monkeypatch,
+                                                           objective):
+    """On the card, every objective but "runtime" verifies with the runner
+    that reads power (`card_measure_fn(power=True)`), so those objectives
+    rank measured joules; the winner is the measured best, and the sweep
+    is kept in `last_verification`."""
+    port, _ = preds["h100"]
+    made = []
+    sim = TpuGemmSimulator(chip="h100", seed=2)
+
+    def factory(*, device="cuda", reps=5, power=False):
+        made.append(power)
+
+        def measure(cfg):
+            return dataclasses.replace(
+                telemetry_row(sim.measure_batch([cfg]), 0), valid=True)
+
+        measure.power_source = "nvml" if power else "model"
+        return measure
+
+    monkeypatch.setattr(autotuner, "card_measure_fn", factory)
+    tuner = autotuner.GemmAutotuner(port, chip="h100", device="cpu",
+                                    verify_top_k=autotuner.H100_VERIFY_TOP_K)
+    best = tuner.tune_many(H100_SHAPES, objective=objective)
+    tuner.tune_many(H100_SHAPES[:2], objective=objective)    # cached
+    assert made == [objective != "runtime"]
+    flat, tel = tuner.last_verification
+    score = tuner._objective_scores(
+        {t: np.asarray(tel[t], dtype=np.float64)
+         for t in ("runtime_ms", "power_w", "energy_j")}, objective)
+    for (m, n, k), won in zip(H100_SHAPES, best):
+        mine = [i for i, c in enumerate(flat) if (c.m, c.n, c.k) == (m, n, k)]
+        assert len(mine) == len(autotuner.h100_candidate_tiles(m, n, k))
+        i = min(mine, key=lambda j: score[j])
+        assert won.as_tuple() == (flat[i].block_m, flat[i].block_n,
+                                  flat[i].block_k)
+
+
 def test_h100_verification_runs_on_the_card_runner(preds, monkeypatch):
     port, _ = preds["h100"]
     calls: list = []

@@ -346,3 +346,45 @@ def test_matmul_launches_the_installed_winner(dev, h100_table):
     finally:
         ops._TUNED.clear()
         set_tuner(None)
+
+
+def test_power_window_of_a_large_gemm_reads_the_card(dev):
+    """NVML on the card: one power window of a large bf16 GEMM reads
+    between the idle power and 1.1 x the enforced limit, the energy counter
+    only grows, and the power runner tags its rows "nvml"."""
+    from repro_torch.core import nvml
+    from repro_torch.core.hwsim import GemmConfig
+    from repro_torch.core.profiler import (card_measure_fn, graph_pump,
+                                           probe_energy_period, time_ms)
+
+    card = nvml.open_card(dev)
+    limit = card.power_limit_w()
+    assert 100.0 < limit <= 1000.0
+    period = probe_energy_period(card, dev)
+    assert 0.0 < period < 1.0
+    reads = []
+
+    def read():
+        reads.append(card.energy_mj())
+        return reads[-1]
+
+    idle = nvml.measure_window(read, lambda: 0, period_s=period)
+    g = torch.Generator(dev).manual_seed(0)
+    a = torch.randn((4096, 4096), generator=g, device=dev).to(torch.bfloat16)
+    b = torch.randn((4096, 4096), generator=g, device=dev).to(torch.bfloat16)
+    fn = lambda: tiled_matmul(a, b)
+    ms = time_ms(fn, torch.empty(2 ** 28, dtype=torch.uint8, device=dev), 3)
+    pump, per_unit = graph_pump(fn, ms)
+    busy = nvml.measure_window(read, pump, period_s=period)
+    torch.cuda.synchronize()
+    assert 0.0 < idle.watts < busy.watts < 1.1 * limit
+    assert busy.seconds >= nvml.window_seconds(period) - period
+    assert busy.units * per_unit * ms / 1e3 > 0.9 * busy.seconds
+    assert all(x <= y for x, y in zip(reads, reads[1:]))
+    measure = card_measure_fn(device=dev, power=True, period_s=period)
+    assert measure.power_source == "nvml"
+    tel = measure(GemmConfig(m=2048, n=4096, k=4096, block_m=128,
+                             block_n=256, block_k=64, stages=4))
+    assert idle.watts < tel.power_w < 1.1 * limit
+    assert tel.energy_j == pytest.approx(tel.power_w * tel.runtime_ms / 1e3)
+    assert np.isfinite(tel.temperature_c) and not tel.launch_bound
