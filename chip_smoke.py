@@ -18,9 +18,9 @@ build of PyTorch. Phases, each fatal on failure:
    case, with each fast-path result bit-identical over two launches;
 4. serve: full-width, full-depth qwen2-7b with seeded random weights; the
    continuous-batching engine answers 10 requests (prompts of 16-300
-   tokens, 8-32 new tokens); the kernel's launch counter must equal 197 x
-   the chunk and decode forwards dispatched, every one of them on the
-   stream or wgmma path and none on the general path;
+   tokens, 8-32 new tokens); the kernel's launch counter must equal the
+   GEMMs of one forward (197 for qwen2-7b) x the forwards dispatched, every
+   one of them on the stream or wgmma path and none on the general path;
 5. every distinct GEMM shape the serving run issued, held against the plain
    version and timed: the kernel on the path `plan` chose, the general path
    at the same shape ("v3_ms", the first version of the kernel), the plain
@@ -54,7 +54,22 @@ build of PyTorch. Phases, each fatal on failure:
    general path, then serve the 10 requests with the energy-tuned and the
    runtime-tuned engine, each run metered by the energy counter: the
    engine's modelled J/token and model clock (the "h100" model) beside the
-   measured J/token and mean power.
+   measured J/token and mean power;
+10. the rest of dense serving at `plan`'s tiles: full-width, full-depth
+   qwen2.5-14b served five ways on the same 10 requests — (a) chunked on the
+   dense KV cache, (b) on the paged KV cache without prefix reuse (a chunk
+   call and decode steps through a paged and a dense state bit-identical
+   first, then the engine's first tokens under phase 7's top-1 rule),
+   (c) a shared-prefix workload (one 256-token
+   system prompt ahead of each request) dense and paged with prefix reuse
+   at half the default page pool (prefix hits, fewer chunk steps, first
+   tokens agreeing with the dense run under phase 7's top-1 rule), (d)
+   serial admission (first tokens under the same rule) and (e) the wave
+   loop — with launches checked per forward in every run; its full-width
+   logits (phase 7's check) and its serving shapes timed as in phase 5;
+   then codeqwen1.5-7b (32 KV heads, d_ff 13440) and starcoder2-3b (GELU
+   FFN, K/V projections of N = 256), each with the logits check and one
+   chunked run.
 
 It prints a JSON line of per-kernel numbers and, last, the device line.
 Without a GPU, or without the repository beside it, it exits non-zero.
@@ -115,6 +130,8 @@ PAPER_POWER_R2, PAPER_POWER_MEDIAN_PCT = 0.78, 5.42
 # plan's rule's by more than this factor (one dictionary hit per GEMM
 # costs microseconds; per-call tuning would cost far more)
 HOST_ISSUE_MAX_RATIO = 1.5
+# phase 10: the shared system prompt of the prefix workload, in tokens
+PREFIX_TOKENS = 256
 # the kernels of csrc/tiled_matmul.cu: stream, wgmma, general (bf16, f32)
 GEMM_KERNELS = ("gemm_stream_kernel", "gemm_wgmma_kernel", "gemm_bf16_kernel",
                 "gemm_f32_kernel")
@@ -153,13 +170,14 @@ def _bound_s(m: int, n: int, k: int, in_dtype, out_dtype) -> tuple:
 
 def _forward_gemms(cfg, rows: int, head_rows: int) -> collections.Counter:
     """{(M, N, K, in dtype, out dtype): launches} of one forward over `rows`
-    token rows that unembeds `head_rows` of them: q, k, v, o, up, gate and
-    down per layer, then the f32-out LM head."""
+    token rows that unembeds `head_rows` of them: q, k, v, o, up, gate (a
+    gated FFN only) and down per layer, then the f32-out LM head."""
     d, f = cfg.d_model, cfg.d_ff
     q, kv = cfg.n_heads * cfg.hd, cfg.kv_heads * cfg.hd
     dt = getattr(torch, cfg.activation_dtype)
     out = collections.Counter()
-    for n, k in ((q, d), (kv, d), (kv, d), (d, q), (f, d), (f, d), (d, f)):
+    ffn = ((f, d), (f, d), (d, f)) if cfg.gated_mlp else ((f, d), (d, f))
+    for n, k in ((q, d), (kv, d), (kv, d), (d, q)) + ffn:
         out[(rows, n, k, dt, dt)] += cfg.n_layers
     out[(head_rows, cfg.vocab, d, dt, torch.float32)] += 1
     return out
@@ -347,30 +365,39 @@ def phase_kernel_cases(dev) -> None:
         raise SystemExit(f"a path ran no case: {dict(seen)}")
 
 
-def phase_serve(dev):
-    """Serve 10 requests on full qwen2-7b; returns (engine, model API,
-    params, cfg, the GEMM launches the run issued by (M, N, K, in dtype,
-    out dtype, None), the launches per kernel path)."""
+def _init_model(dev, arch: str, tag: str) -> tuple:
+    """(cfg, model API, params) of the published config `arch` at full
+    width and depth, with random weights from a seeded CUDA generator."""
     from repro_torch.configs import get_config
     from repro_torch.models.registry import get_model
-    from repro_torch.serving.engine import ServingEngine
 
-    cfg = get_config("qwen2-7b")
+    cfg = get_config(arch)
     api = get_model(cfg)
     t0 = time.perf_counter()
     params = api.init(cfg, torch.Generator(dev).manual_seed(0), device=dev)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in params.parameters())
     n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
-    _say(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model},"
-         f" heads {cfg.n_heads}/{cfg.kv_heads}, d_ff {cfg.d_ff}, vocab "
-         f"{cfg.vocab}, {cfg.param_dtype}; {n_params / 1e9:.3f} B params, "
+    _say(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model},"
+         f" heads {cfg.n_heads}/{cfg.kv_heads}, d_ff {cfg.d_ff} "
+         f"({'gated' if cfg.gated_mlp else 'GELU'} FFN), vocab {cfg.vocab}, "
+         f"{cfg.param_dtype}; {n_params / 1e9:.3f} B params, "
          f"{n_bytes / 1e9:.2f} GB, random init in "
          f"{time.perf_counter() - t0:.1f} s")
+    return cfg, api, params
+
+
+def phase_serve(dev):
+    """Serve 10 requests on full qwen2-7b; returns (engine, model API,
+    params, cfg, the GEMM launches the run issued by (M, N, K, in dtype,
+    out dtype, None), the launches per kernel path)."""
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg, api, params = _init_model(dev, "qwen2-7b", "serve")
     eng = ServingEngine(api, params, cfg, max_batch=4, max_len=512,
                         chunk_tokens=64, device=dev)
     shapes: collections.Counter = collections.Counter()
-    by_path, _ = _serve_requests("serve", eng, cfg, shapes)
+    by_path, _, _ = _serve_requests("serve", eng, cfg, shapes)
     _say(f"[serve] launches per path: stream {by_path['stream']}, wgmma "
          f"{by_path['wgmma']}, general {by_path['general']} (every bf16 "
          f"serving GEMM must take a fast path)")
@@ -408,16 +435,47 @@ def _recording(log: collections.Counter):
     return recording
 
 
-def _serve_requests(tag: str, eng, cfg, log: collections.Counter) -> tuple:
-    """Answer the 10 requests of `_requests` on `eng`, recording every GEMM
-    launch in `log` (see `_recording`); the launch counters are set to 0
-    just before the run and read just after. Checks every request finishes
-    at its budget and the kernel launched 197 times per forward; returns
-    (the launches per path, the results)."""
+def _prefix_requests(cfg) -> list:
+    """10 requests whose prompts are one 256-token system prompt followed by
+    16-64 tokens of their own, 8-32 new tokens each, from a seeded
+    generator: how chat and coding assistants send a long system prompt
+    ahead of each user turn."""
+    from repro_torch.serving.engine import Request
+
+    rng = np.random.default_rng(1)
+    system = rng.integers(0, cfg.vocab, PREFIX_TOKENS)
+    return [Request(uid=100 + i, prompt=np.concatenate(
+                [system, rng.integers(0, cfg.vocab, int(rng.integers(16, 65)))]
+            ).astype(np.int32), max_new_tokens=int(rng.integers(8, 33)))
+            for i in range(10)]
+
+
+def _forwards(eng, run: dict) -> int:
+    """The forwards one run of `eng` dispatched, from its report's counters
+    over the run (`run`): chunk calls and decode steps, plus one
+    single-shot prefill per request under serial admission, or one per
+    wave of up to max_batch requests in the wave loop."""
+    n = run["chunk_steps"] + run["decode_steps"]
+    if eng.mode == "wave":
+        n += -(-run["requests"] // eng.max_batch)
+    elif eng.admission == "serial":
+        n += run["requests"]
+    return n
+
+
+def _serve_requests(tag: str, eng, cfg, log: collections.Counter,
+                    reqs: list | None = None) -> tuple:
+    """Answer `reqs` (default: the 10 of `_requests`) on `eng`, recording
+    every GEMM launch in `log` (see `_recording`); the launch counters are
+    set to 0 just before the run and read just after. Checks every request
+    finishes at its budget and the kernel launched one forward's GEMMs per
+    forward dispatched (and one LM head per forward); returns (the launches
+    per path, the results, the report's numeric counters over this run)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.tiled_matmul import tiled_matmul
 
-    reqs = _requests(cfg)
+    reqs = _requests(cfg) if reqs is None else reqs
+    rep0 = eng.report()
     for r in reqs:
         eng.submit(r)
     shapes: collections.Counter = collections.Counter()
@@ -433,9 +491,16 @@ def _serve_requests(tag: str, eng, cfg, log: collections.Counter) -> tuple:
     finally:
         ops.tiled_matmul = tiled_matmul
     log.update(shapes)
-    rep = eng.report()
+    rep1 = eng.report()
+    rep = {k: v - rep0[k] for k, v in rep1.items()
+           if isinstance(v, (int, float)) and not isinstance(v, bool)}
+    rep["tokens_per_s"] = (rep["generated_tokens"] / rep["wall_s"]
+                           if rep["wall_s"] > 0 else 0.0)
+    rep["slot_occupancy"] = (rep["resident_slot_steps"] / rep["slot_steps"]
+                             if rep["slot_steps"] else 0.0)
     per_forward = sum(_forward_gemms(cfg, 1, 1).values())
-    forwards = rep["chunk_steps"] + rep["decode_steps"]
+    forwards = _forwards(eng, rep)
+    heads = sum(c for key, c in shapes.items() if key[1] == cfg.vocab)
     _say(f"[{tag}] {rep['requests']} requests, {rep['generated_tokens']} "
          f"tokens, {rep['chunk_steps']} chunk steps, {rep['decode_steps']} "
          f"decode steps, wall {rep['wall_s']:.3f} s, "
@@ -444,9 +509,10 @@ def _serve_requests(tag: str, eng, cfg, log: collections.Counter) -> tuple:
          f"{max(r.ttft_s for r in results):.3f} s, slot occupancy "
          f"{rep['slot_occupancy']:.3f}, lane rebuilds {rep['lane_rebuilds']}")
     _say(f"[{tag}] kernel launches {launches} = {per_forward} x {forwards} "
-         f"forwards? {launches == per_forward * forwards}")
+         f"forwards? {launches == per_forward * forwards}; LM heads "
+         f"{heads}")
     if (launches != per_forward * forwards or launches == 0
-            or sum(by_path.values()) != launches):
+            or sum(by_path.values()) != launches or heads != forwards):
         raise SystemExit("the serving path did not launch the kernel "
                          f"{per_forward} times per forward")
     by_uid = {r.uid: r for r in results}
@@ -459,15 +525,16 @@ def _serve_requests(tag: str, eng, cfg, log: collections.Counter) -> tuple:
                 or not ((0 <= res.tokens) & (res.tokens < cfg.vocab)).all()):
             raise SystemExit(f"request {r.uid}: {res.n_tokens} tokens, "
                              f"budget {budget}")
-    return by_path, results
+    return by_path, results, rep
 
 
-def phase_serving_shapes(dev, shapes) -> dict:
+def phase_serving_shapes(dev, shapes, tag: str = "shapes") -> dict:
     """Hold the kernel against its plain version at every serving shape, on
     the path `plan` chooses and on the general path (the first version of
     the kernel, "v3"), and time both beside the plain version and
     torch.matmul. Returns {path: per-kernel JSON entry}, times summed over
-    the serving run's launches of the shapes that took that path."""
+    the serving run's launches of the shapes that took that path. `tag`
+    heads the printed lines."""
     from repro_torch.core.profiler import time_ms
     from repro_torch.kernels.ref import matmul_ref
     from repro_torch.kernels.tiled_matmul import (DEFAULT_CONFIG,
@@ -479,7 +546,7 @@ def phase_serving_shapes(dev, shapes) -> dict:
     tot: dict = collections.defaultdict(collections.Counter)
     worst: dict = collections.Counter()
     failed = []
-    _say("[shapes] M N K out count path kernel_ms v3_ms plain_ms library_ms "
+    _say(f"[{tag}] M N K out count path kernel_ms v3_ms plain_ms library_ms "
          "bound_ms bound_by bound/kernel library/kernel max_abs max_rel")
     for key, count in sorted(shapes.items(), key=lambda kv: kv[0][:3]):
         m, n, k, in_dt, out_dt, _ = key
@@ -503,7 +570,7 @@ def phase_serving_shapes(dev, shapes) -> dict:
         library_ms = time_ms(lambda: torch.matmul(a, b), flush, 10)
         ops_s, bytes_s = _bound_s(m, n, k, in_dt, out_dt)
         bound_ms = 1e3 * max(ops_s, bytes_s)
-        _say(f"[shapes] {m} {n} {k} {str(out_dt).split('.')[-1]} {count} "
+        _say(f"[{tag}] {m} {n} {k} {str(out_dt).split('.')[-1]} {count} "
              f"{path} {kernel_ms:.4f} {v3_ms:.4f} {plain_ms:.4f} "
              f"{library_ms:.4f} {bound_ms:.4f} "
              f"{'operations' if ops_s > bytes_s else 'bytes'} "
@@ -522,7 +589,7 @@ def phase_serving_shapes(dev, shapes) -> dict:
             t_ms = time_ms(lambda: tiled_matmul(a, b, config=cfg,
                                                  out_dtype=out_dt), flush, 10)
             sweep.append(f"{p.path} {cfg.as_tuple()} x{p.splits} {t_ms:.4f}")
-        _say(f"[sweep] {m} {n} {k}: " + "; ".join(sweep))
+        _say(f"[{tag} sweep] {m} {n} {k}: " + "; ".join(sweep))
         for t in (tot[path], tot["all"]):
             t["ms"] += count * kernel_ms
             t["v3_ms"] += count * v3_ms
@@ -535,7 +602,7 @@ def phase_serving_shapes(dev, shapes) -> dict:
         raise SystemExit(f"kernel disagrees at serving shapes {failed}")
     entries = {}
     for path, t in sorted(tot.items()):
-        _say(f"[shapes] summed over the serving run's launches ({path}): "
+        _say(f"[{tag}] summed over the serving run's launches ({path}): "
              f"kernel {t['ms']:.2f} ms, v3 (general path) {t['v3_ms']:.2f} "
              f"ms, plain {t['plain_ms']:.2f} ms, torch.matmul "
              f"{t['library_ms']:.2f} ms, bound {t['bound_ms']:.2f} ms "
@@ -549,7 +616,7 @@ def phase_serving_shapes(dev, shapes) -> dict:
             "bound_by": ("operations" if t["ops_ms"] > t["bytes_ms"]
                          else "bytes"),
             "library_ms": t["library_ms"], "max_abs_err": worst[path]}
-    _say(f"[shapes] fast paths against the general path over the serving "
+    _say(f"[{tag}] fast paths against the general path over the serving "
          f"launches: {tot['all']['ms']:.2f} ms against "
          f"{tot['all']['v3_ms']:.2f} ms (x{tot['all']['v3_ms'] / tot['all']['ms']:.2f})")
     return entries
@@ -934,7 +1001,7 @@ def phase_loop(dev, api, params, cfg, shapes, untraced) -> tuple:
     if any(eng.pretuned.get(s_) != tuned[s_] for s_ in fleet):
         raise SystemExit("the engine's pretuned tiles differ from the fleet's")
     log: collections.Counter = collections.Counter()
-    by_path, _ = _serve_requests("tuned serve", eng, cfg, log)
+    by_path, _, _ = _serve_requests("tuned serve", eng, cfg, log)
     _say(f"[tuned serve] launches per path: {by_path}")
     phase_logits(dev, eng, params, cfg, W=8, tag="tuned logits", log=log)
     off = {key: c for key, c in log.items()
@@ -1174,7 +1241,7 @@ def phase_energy(dev, api, params, cfg, shapes, table, tuner, runtime_won,
             raise SystemExit(f"the {objective} engine's tiles differ from "
                              "the fleet's")
         log: collections.Counter = collections.Counter()
-        (by_path, results), joules, secs = _metered(
+        (by_path, results, _), joules, secs = _metered(
             card, lambda: _serve_requests(tag, eng, cfg, log))
         srep = eng.report()
         toks = srep["generated_tokens"]
@@ -1204,6 +1271,203 @@ def phase_energy(dev, api, params, cfg, shapes, table, tuner, runtime_won,
          f"{_nvidia_smi()}")
 
 
+def _first_token_share(got: list, want: list) -> tuple:
+    """(share of requests whose first tokens agree, share whose whole
+    streams agree) of two runs' results over the same uids."""
+    want = {r.uid: r for r in want}
+    first = [int(r.tokens[0] == want[r.uid].tokens[0]) for r in got]
+    whole = [int(np.array_equal(r.tokens, want[r.uid].tokens)) for r in got]
+    return statistics.mean(first), statistics.mean(whole)
+
+
+def _free() -> None:
+    """Collect what the caller dropped and hand its memory on the card back
+    to the allocator."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _paged_forward_check(dev, api, params, cfg, W: int = 8, C: int = 64,
+                         steps: int = 2) -> None:
+    """The paged layout at full width, exactly: one W x C chunk call and
+    `steps` decode steps through a dense state and through a paged state
+    whose rows own shuffled pages of a larger pool. Both issue the same
+    GEMMs at the same shapes, so logits and cached keys and values must be
+    bit-identical. (Two engine runs need not be: the paged lane narrows to
+    the rows still prefilling while the dense lane keeps its parked rows,
+    so their chunk GEMMs differ in M, and `plan` may then pick another
+    split count or path, which rounds differently in bf16.)"""
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import init_kv_page_pool
+
+    T, max_len = 64, 512
+    n_pg = max_len // T
+    rng = np.random.default_rng(6)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (W, C)), device=dev)
+    lens = torch.as_tensor(rng.integers(1, C + 1, W), device=dev)
+    pages = 1 + rng.permutation(2 * W * n_pg)[:W * n_pg]
+    table = torch.as_tensor(pages.reshape(W, n_pg), device=dev)
+    dense = api.init_state(cfg, W, max_len, device=dev)
+    pool = init_kv_page_pool(cfg, 2 * W * n_pg + 1, T, device=dev)
+    paged = {"kv": {**pool, "table": table[None].expand(cfg.n_layers, W,
+                                                         n_pg)},
+             "index": torch.zeros(W, dtype=torch.long, device=dev)}
+    same = []
+    got = [api.prefill_chunk(params, toks, lens, st, cfg)
+           for st in (dense, paged)]
+    for step in range(steps + 1):
+        (ld, dense), (lp, paged) = got
+        same.append(torch.equal(ld, lp))
+        if step == steps:
+            break
+        tok = ld.argmax(-1)
+        got = [api.decode_step(params, tok, st, cfg)
+               for st in (dense, paged)]
+    torch.cuda.synchronize()
+    idx = dense["index"]
+    valid = torch.arange(max_len, device=dev)[None, :] < idx[:, None]
+    kv_same = all(
+        torch.equal(dense["kv"][k][i][valid],
+                    L.paged_gather(pool[f"{k}_pages"][i], table)[valid])
+        for k in ("k", "v") for i in range(cfg.n_layers))
+    _say(f"[dense] {cfg.name} paged state against dense state, the same "
+         f"{W}x{C} chunk call and {steps} decode steps at full width: "
+         f"logits bit-identical {same}, cached keys and values of all "
+         f"{cfg.n_layers} layers bit-identical {kv_same}")
+    if not (all(same) and kv_same):
+        raise SystemExit("the paged layout changed a forward's output")
+
+
+def phase_dense(dev) -> dict:
+    """The rest of dense serving at `plan`'s tiles (no tuned winner is
+    installed): qwen2.5-14b served chunked, paged, with prefix reuse,
+    serially and in waves; then codeqwen1.5-7b and starcoder2-3b. Returns
+    {"entries": qwen2.5-14b's per-path timing (phase 5's form), "launches":
+    {model: launches per path}}."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import ServingEngine
+
+    t_phase = time.perf_counter()
+    ops._TUNED.clear()
+    launches: dict = collections.defaultdict(collections.Counter)
+    untuned: collections.Counter = collections.Counter()
+
+    def run(tag, eng, cfg, log, reqs=None) -> tuple:
+        """One checked serving run at plan's tiles, none on general."""
+        rec: collections.Counter = collections.Counter()
+        by_path, res, rep = _serve_requests(tag, eng, cfg, rec, reqs)
+        log.update(rec)
+        untuned.update({k: c for k, c in rec.items() if k[5] is not None})
+        launches[cfg.name].update(by_path)
+        if by_path["general"] or untuned:
+            raise SystemExit(f"[{tag}] launches on general or off plan's "
+                             f"tiles: {by_path}, {dict(untuned)}")
+        return res, rep
+
+    # qwen2.5-14b at full width and depth
+    cfg, api, params = _init_model(dev, "qwen2.5-14b", "dense")
+
+    def engine(**kw):
+        return ServingEngine(api, params, cfg, max_batch=4, max_len=512,
+                             chunk_tokens=64, device=dev, **kw)
+
+    name = cfg.name
+    shapes: collections.Counter = collections.Counter()
+    other: collections.Counter = collections.Counter()
+    eng_a = engine()
+    res_a, rep_a = run(f"dense {name} (a) chunked", eng_a, cfg, shapes)
+    _paged_forward_check(dev, api, params, cfg)
+    eng_b = engine(kv_layout="paged", prefix_cache=False)
+    res_b, _ = run(f"dense {name} (b) paged", eng_b, cfg, other)
+    first, whole = _first_token_share(res_b, res_a)
+    _say(f"[dense] {name} (b) paged without prefix reuse against (a): "
+         f"first tokens agree {first:.2f} (min {LOGITS_TOP1_MIN:g}), whole "
+         f"streams {whole:.2f}; pages {eng_b.report()['paging']}")
+    if first < LOGITS_TOP1_MIN:
+        raise SystemExit("the paged engine's first tokens disagree")
+    del eng_b
+    _free()
+
+    # (c) a shared system prompt: request 0 alone (its prompt's pages are
+    # registered when its prefill ends), then the other 9 together
+    full_pool = engine(kv_layout="paged")._allocator.num_pages
+    prefix: dict = {}
+    for layout, kw in (("dense", {}),
+                       ("paged", dict(kv_layout="paged", prefix_cache=True,
+                                      num_pages=full_pool // 2))):
+        eng = engine(**kw)
+        reqs = _prefix_requests(cfg)
+        tag = f"dense {name} (c) prefix {layout}"
+        run(f"{tag}, request 0", eng, cfg, other, reqs[:1])
+        res, rep = run(f"{tag}, the other 9", eng, cfg, other, reqs[1:])
+        prefix[layout] = (res, rep, eng.report().get("paging"))
+        del eng
+        _free()
+    (res_d, rep_d, _), (res_p, rep_p, paging) = prefix["dense"], \
+        prefix["paged"]
+    first, whole = _first_token_share(res_p, res_d)
+    _say(f"[dense] {name} (c) the 9 sharing a {PREFIX_TOKENS}-token prefix, "
+         f"paged with prefix reuse ({full_pool // 2} of {full_pool} pages) "
+         f"against dense: chunk steps {rep_p['chunk_steps']} against "
+         f"{rep_d['chunk_steps']}; prefix hits {paging['prefix_hits']} "
+         f"({paging['prefix_hit_tokens']} tokens), COW forks "
+         f"{paging['cow_forks']}, peak pages in use {paging['peak_in_use']};"
+         f" mean TTFT {statistics.mean(r.ttft_s for r in res_p):.3f} s "
+         f"against {statistics.mean(r.ttft_s for r in res_d):.3f} s; first "
+         f"tokens agree {first:.2f} (min {LOGITS_TOP1_MIN:g}), whole streams"
+         f" {whole:.2f}; the h100 model's J/token "
+         f"{rep_p['energy_j'] / rep_p['generated_tokens']:.4f} against "
+         f"{rep_d['energy_j'] / rep_d['generated_tokens']:.4f}")
+    if not (paging["prefix_hits"] > 0
+            and rep_p["chunk_steps"] < rep_d["chunk_steps"]
+            and first >= LOGITS_TOP1_MIN):
+        raise SystemExit("prefix reuse missed, saved no chunk step or "
+                         "changed the first tokens")
+
+    # (d) serial admission, (e) the wave loop
+    res_s, _ = run(f"dense {name} (d) serial", engine(admission="serial"),
+                   cfg, other)
+    first, whole = _first_token_share(res_s, res_a)
+    _say(f"[dense] {name} (d) serial against (a) chunked: first tokens "
+         f"agree {first:.2f} (min {LOGITS_TOP1_MIN:g}), whole streams "
+         f"{whole:.2f}; mean TTFT {statistics.mean(r.ttft_s for r in res_s):.3f}"
+         f" s against {statistics.mean(r.ttft_s for r in res_a):.3f} s")
+    if first < LOGITS_TOP1_MIN:
+        raise SystemExit("serial admission's first tokens disagree")
+    run(f"dense {name} (e) wave", engine(mode="wave"), cfg, other,
+        _requests(cfg)[:4])
+    _free()
+
+    phase_logits(dev, eng_a, params, cfg, tag=f"dense logits {name}")
+    entries = phase_serving_shapes(dev, shapes, tag=f"dense shapes {name}")
+    del eng_a, params
+    _free()
+
+    # codeqwen1.5-7b and starcoder2-3b
+    for arch in ("codeqwen1.5-7b", "starcoder2-3b"):
+        cfg, api, params = _init_model(dev, arch, "dense")
+        eng = ServingEngine(api, params, cfg, max_batch=4, max_len=512,
+                            chunk_tokens=64, device=dev)
+        phase_logits(dev, eng, params, cfg, tag=f"dense logits {arch}")
+        run(f"dense {arch} chunked", eng, cfg, other)
+        del eng, params
+        _free()
+
+    for model, by_path in launches.items():
+        _say(f"[dense] launches per path, {model}: stream "
+             f"{by_path['stream']}, wgmma {by_path['wgmma']}, general "
+             f"{by_path['general']}")
+    total = sum(launches.values(), collections.Counter())
+    if total["stream"] == 0 or total["wgmma"] == 0:
+        raise SystemExit(f"phase 10 left a fast path unlaunched: {total}")
+    _say(f"[dense] phase 10 took {time.perf_counter() - t_phase:.1f} s on "
+         f"{_nvidia_smi()}")
+    return {"entries": entries, "launches": dict(launches)}
+
+
 def main() -> int:
     """Run every phase; returns the exit code."""
     if not torch.cuda.is_available():
@@ -1229,6 +1493,9 @@ def main() -> int:
     phase_logits(dev, eng, params, cfg)
     loop = phase_loop(dev, api, params, cfg, shapes, untraced)
     phase_energy(dev, api, params, cfg, shapes, *loop)
+    del eng, params, loop
+    _free()
+    phase_dense(dev)
     _say(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     _say(_nvidia_smi())
     # one entry per path the serving run takes; the general path serves no

@@ -4,22 +4,26 @@
     cfg = get_config("qwen2-7b")            # full config
     cfg = get_config("qwen2-7b", smoke=True)
 
-Only the dense `qwen2-7b` is ported so far. Asking for another of the JAX
+The four dense configs are ported: `qwen2-7b`, `qwen2.5-14b`,
+`codeqwen1.5-7b` and `starcoder2-3b`. Asking for another of the JAX
 package's architectures raises `NotImplementedError` naming the ROADMAP item
 (queue A) that ports its family.
 """
 
 from __future__ import annotations
 
-from repro_torch.configs import qwen2_7b
+from repro_torch.configs import (codeqwen1_5_7b, qwen2_5_14b, qwen2_7b,
+                                  starcoder2_3b)
 
-PORTED = {"qwen2-7b": qwen2_7b}
+PORTED = {
+    "codeqwen1.5-7b": codeqwen1_5_7b,
+    "starcoder2-3b": starcoder2_3b,
+    "qwen2.5-14b": qwen2_5_14b,
+    "qwen2-7b": qwen2_7b,
+}
 
 # the JAX package's other architectures -> the ROADMAP item that ports them
 NOT_YET_PORTED = {
-    "codeqwen1.5-7b": "A2 (the other dense configs)",
-    "qwen2.5-14b": "A2 (the other dense configs)",
-    "starcoder2-3b": "A2 (the other dense configs)",
     "olmoe-1b-7b": "A4 (MoE/MLA)",
     "deepseek-v2-236b": "A4 (MoE/MLA)",
     "falcon-mamba-7b": "A5 (SSM/hybrid)",

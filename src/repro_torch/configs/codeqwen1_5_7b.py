@@ -1,0 +1,38 @@
+"""codeqwen1.5-7b — 32L d_model=4096 32H (kv=32) d_ff=13440 vocab=92416,
+QKV bias (qwen1.5 arch) [hf:Qwen/CodeQwen1.5-7B]."""
+
+from repro_torch.models.config import ModelConfig
+
+
+def full_config() -> ModelConfig:
+    """The published codeqwen1.5-7b (multi-head attention: 32 KV heads)."""
+    return ModelConfig(
+        name="codeqwen1.5-7b",
+        kind="dense",
+        n_layers=32,
+        d_model=4096,
+        n_heads=32,
+        n_kv_heads=32,
+        d_ff=13440,
+        vocab=92416,
+        qkv_bias=True,
+        rope_theta=1e6,
+    )
+
+
+def smoke_config() -> ModelConfig:
+    """2 layers, d_model 64, f32: the size the CPU tests run."""
+    return ModelConfig(
+        name="codeqwen1.5-7b-smoke",
+        kind="dense",
+        n_layers=2,
+        d_model=64,
+        n_heads=4,
+        n_kv_heads=4,
+        d_ff=192,
+        vocab=256,
+        qkv_bias=True,
+        param_dtype="float32",
+        activation_dtype="float32",
+        remat=False,
+    )

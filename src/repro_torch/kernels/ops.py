@@ -163,22 +163,25 @@ def chunk_buckets(max_len: int, chunk_tokens: int,
 
 
 def serving_gemm_fleet(cfg, *, max_batch: int, max_len: int,
-                       chunk_tokens: int,
-                       lane_width: int | None = None,
-                       include_slot_prefill: bool = True
+                       include_slot_prefill: bool = True,
+                       chunk_tokens: int | None = None,
+                       lane_width: int | None = None
                        ) -> list[tuple[int, int, int]]:
-    """Every GEMM shape the continuous serving engine will trace: the
-    batched prefill (max_batch * max_len rows, LM head over max_batch last
-    positions), the lockstep decode step (max_batch rows), and the
-    chunked-admission prefill grid: each (admission-width, chunk-bucket)
-    pair the chunk scheduler can issue (pow2 widths up to the lane width x
-    the chunk buckets up to `chunk_tokens`, LM head over the admission
-    rows), plus width-1 rows at the prefill buckets past the chunk cap.
-    Feed to `warm_gemm_cache` so every shape the engine issues has its
-    tuned tile before the first request.
+    """Every GEMM shape a serving engine will trace: the batched prefill
+    (max_batch * max_len rows, LM head over max_batch last positions), the
+    lockstep decode step (max_batch rows), and — for continuous batching
+    (`include_slot_prefill`) — the admission prefills: with `chunk_tokens`
+    (chunked admission) each (admission-width, chunk-bucket) pair the chunk
+    scheduler can issue (pow2 widths up to `lane_width`, default
+    `max_batch`, x the chunk buckets up to `chunk_tokens`, LM head over the
+    admission rows), plus width-1 rows at the prefill buckets past the
+    chunk cap; without it (``admission="serial"``) the width-1 single-shot
+    slot prefills at every prefill bucket. Feed to `warm_gemm_cache` so
+    every shape the engine issues has its tuned tile before the first
+    request.
 
-    The reference's fleet for the dense engine the port serves (its
-    tensor-parallel shards, paged-KV rows and encoder-decoder / vision
+    The reference's fleet for the dense family at tp=1 (its MLA `kv_cap`,
+    tensor-parallel shards, SSM grain and encoder-decoder / vision
     admission grids come with the slices that port those features).
     """
     from repro_torch.models.config import gemm_shape_counts
@@ -187,15 +190,21 @@ def serving_gemm_fleet(cfg, *, max_batch: int, max_len: int,
                                   head_tokens=max_batch))
     fleet |= set(gemm_shape_counts(cfg, max_batch))
     if include_slot_prefill:
-        # chunked admission rounds the lane up to the next pow2, so
-        # pre-tune the full pow2 ladder through the lane cap
-        cap = lane_width if lane_width is not None else max_batch
-        widths = {1}
-        a = 1
-        while a < cap:
-            a *= 2
-            widths.add(a)
-        chunks = chunk_buckets(max_len, chunk_tokens)
+        if chunk_tokens is None:
+            # serial admission: single-shot slot prefills only ever run at
+            # width 1
+            widths = {1}
+            chunks = prefill_buckets(max_len)
+        else:
+            # chunked admission rounds the lane up to the next pow2, so
+            # pre-tune the full pow2 ladder through the lane cap
+            cap = lane_width if lane_width is not None else max_batch
+            widths = {1}
+            a = 1
+            while a < cap:
+                a *= 2
+                widths.add(a)
+            chunks = chunk_buckets(max_len, chunk_tokens)
         for b in set(chunks) | set(prefill_buckets(max_len)):
             # buckets past the chunk cap only ever run at width 1
             for w in (sorted(widths) if b in chunks else [1]):

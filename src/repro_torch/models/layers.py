@@ -4,11 +4,13 @@ The counterparts of the dense parts of the JAX package's
 `repro.models.layers`, with its layouts: weights are (d_in, d_out) with
 ``y = x @ w``, activations (B, S, ...), KV caches (B, max_len, KV, hd) per
 layer. Every projection goes through `kernels.ops.matmul`, so on the card
-each one is a launch of the hand-written GEMM. Attention, norms and RoPE are
-plain PyTorch, as the JAX package leaves them to XLA.
+each one is a launch of the hand-written GEMM. Attention, norms, RoPE and
+the paged-KV primitives are plain PyTorch, as the JAX package leaves them to
+XLA.
 
 Where the JAX package is functional, the port writes KV state in place:
-`cache_update` and `insert_slot_state` modify the tensors they are given.
+`cache_update`, `paged_cache_update`, `copy_pool_pages` and
+`insert_slot_state` modify the tensors they are given.
 """
 
 from __future__ import annotations
@@ -91,12 +93,15 @@ def attention_mask(Sq: int, Sk: int, *, causal: bool,
 
 def _sdpa_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 causal: bool, q_offset: torch.Tensor | int = 0,
-                kv_len: torch.Tensor | int | None = None) -> torch.Tensor:
+                kv_len: torch.Tensor | int | None = None,
+                kv_valid: torch.Tensor | None = None) -> torch.Tensor:
     """One query block. q: (B, Sq, H, hd); k/v: (B, Sk, KV, hd).
 
     Both products take the input values exactly and accumulate in f32 (the
     JAX package's ``preferred_element_type=float32``); softmax in f32; the
-    weights are rounded to q's dtype before the PV product."""
+    weights are rounded to q's dtype before the PV product. `kv_valid`
+    (B, Sk) ANDs an extra key-validity mask in: the paged-KV page-table
+    mask."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     qg = q.reshape(B, Sq, KV, H // KV, hd)
@@ -104,6 +109,9 @@ def _sdpa_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           k.float()) / math.sqrt(hd)
     mask = attention_mask(Sq, Sk, causal=causal, q_offset=q_offset,
                           kv_len=kv_len, device=q.device)
+    if kv_valid is not None:
+        kvm = kv_valid[:, None, :]                        # (B, 1, Sk)
+        mask = kvm if mask is None else (mask & kvm)
     if mask is not None:
         scores = torch.where(mask[:, None, None], scores, -1e30)
     w = torch.softmax(scores, dim=-1)
@@ -113,16 +121,17 @@ def _sdpa_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
           causal: bool, q_offset: torch.Tensor | int = 0,
-          kv_len: torch.Tensor | int | None = None) -> torch.Tensor:
+          kv_len: torch.Tensor | int | None = None,
+          kv_valid: torch.Tensor | None = None) -> torch.Tensor:
     """Exact attention, query-chunked so peak score memory is
     O(Q_CHUNK x Sk) instead of O(Sq x Sk)."""
     Sq = q.shape[1]
     if Sq <= Q_CHUNK or Sq % Q_CHUNK != 0:
         return _sdpa_block(q, k, v, causal=causal, q_offset=q_offset,
-                           kv_len=kv_len)
+                           kv_len=kv_len, kv_valid=kv_valid)
     return torch.cat([
         _sdpa_block(q[:, i:i + Q_CHUNK], k, v, causal=causal,
-                    q_offset=q_offset + i, kv_len=kv_len)
+                    q_offset=q_offset + i, kv_len=kv_len, kv_valid=kv_valid)
         for i in range(0, Sq, Q_CHUNK)], dim=1)
 
 
@@ -166,6 +175,112 @@ def cache_update(cache: torch.Tensor, update: torch.Tensor,
     return cache
 
 
+# ---------------- paged KV cache ----------------
+#
+# The paged layout replaces each row's dense (max_len, ...) cache with a
+# shared pool of fixed-size pages, (P, T, ...) per layer, plus a per-row
+# page table (B, n) of physical page ids mapping logical page slot j to
+# pool page table[b, j]. Page 0 is the reserved null page (see
+# `serving.paging.NULL_PAGE`): rows point unreserved slots — and dead or
+# padded rows their whole table — at it, writes through it are dropped, and
+# reads from it are masked by `page_valid_mask`. Attention gathers each
+# row's pages back into a dense (B, n*T, ...) view per layer, so with
+# n*T == max_len the masked score tensor is bit-identical to the dense
+# path's (everything behind the mask is replaced by the same -1e30): the
+# engine's paged-vs-dense parity rests on this.
+
+
+def paged_gather(pages: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Gather a dense per-row view from the page pool.
+
+    pages: (P, T, ...) one layer's pool; table: (B, n) integer physical
+    page ids. Returns (B, n*T, ...): row b's logical positions in order (a
+    transient copy; the resident footprint stays the pool's)."""
+    B, n = table.shape
+    T = pages.shape[1]
+    out = pages[table.long()]                               # (B, n, T, ...)
+    return out.reshape((B, n * T) + tuple(pages.shape[2:]))
+
+
+def paged_cache_update(pages: torch.Tensor, update: torch.Tensor,
+                       table: torch.Tensor, index: torch.Tensor | int,
+                       update_lens: torch.Tensor | None = None
+                       ) -> torch.Tensor:
+    """Scatter `update` (B, S, ...) into the page pool **in place** at each
+    row's logical positions ``index[b] .. index[b] + S`` (translated through
+    `table`). Returns `pages`.
+
+    The paged counterpart of `cache_update`: `index` is scalar or (B,),
+    `update_lens` (B,) limits each row's write to its valid tokens. Invalid
+    positions — past `update_lens`, past the table, or mapping to the null
+    page (dead rows) — write nothing, so pad junk and dead slots never
+    corrupt a shared page. Live rows write only pages they own alone (the
+    allocator's copy-on-write contract), so valid writes never collide.
+
+    Torch has no dropping scatter (the JAX package routes invalid positions
+    out of bounds with ``mode="drop"``), and filtering them out by a mask
+    would cost a device-to-host sync per call. Instead every invalid
+    position is pointed at the null page's first row and writes back that
+    row's own value, read before the scatter: the null page keeps its bytes
+    exactly, the scatter's shape is fixed, and nothing waits on the host."""
+    B, S = update.shape[:2]
+    P, T = pages.shape[:2]
+    n = table.shape[1]
+    dev = pages.device
+    index = torch.as_tensor(index, device=dev).long()
+    if index.dim() == 0:
+        index = index.expand(B)
+    pos = index[:, None] + torch.arange(S, device=dev)[None, :]   # (B, S)
+    slot = torch.div(pos, T, rounding_mode="floor")      # logical page slot
+    phys = torch.gather(table.long(), 1, slot.clamp(0, n - 1))
+    valid = (slot < n) & (phys != 0)
+    if update_lens is not None:
+        valid &= (torch.arange(S, device=dev)[None, :]
+                  < update_lens.long()[:, None])
+    flat_pool = pages.view((P * T,) + tuple(pages.shape[2:]))
+    flat = torch.where(valid, phys * T + pos % T, 0).reshape(B * S)
+    upd = update.reshape((B * S,) + tuple(update.shape[2:])).to(pages.dtype)
+    keep = valid.reshape((B * S,) + (1,) * (upd.dim() - 1))
+    flat_pool[flat] = torch.where(keep, upd, flat_pool[0])
+    return pages
+
+
+def page_valid_mask(table: torch.Tensor, Sk: int) -> torch.Tensor:
+    """(B, Sk) bool — True where a gathered view position maps to a real
+    (non-null) page. Sk must equal n*T for the (B, n) table."""
+    B, n = table.shape
+    return (table != 0).repeat_interleave(Sk // n, dim=1)
+
+
+def paged_attention_mask(Sq: int, Sk: int, table: torch.Tensor, *,
+                         causal: bool,
+                         q_offset: torch.Tensor | int = 0,
+                         kv_len: torch.Tensor | int | None = None
+                         ) -> torch.Tensor:
+    """`attention_mask` AND page-table validity: the paged-KV mask. Where
+    every in-range logical position has a real page (the allocator reserves
+    a request's full capacity up front) it equals the dense mask on every
+    unmasked position."""
+    mask = attention_mask(Sq, Sk, causal=causal, q_offset=q_offset,
+                          kv_len=kv_len, device=table.device)
+    pv = page_valid_mask(table, Sk)[:, None, :]            # (B, 1, Sk)
+    return pv if mask is None else (mask & pv)
+
+
+def copy_pool_pages(pool: dict, src: torch.Tensor,
+                    dst: torch.Tensor) -> dict:
+    """Copy pool pages src[i] -> dst[i] on every leaf and every layer,
+    **in place**: the device half of the allocator's copy-on-write fork and
+    partial-page snapshot. Leaves are (L, P, T, ...), src/dst (C,) integer
+    page ids; a ``"table"`` leaf is left alone. The source pages are read
+    whole before any is written. Returns `pool`."""
+    src, dst = src.long(), dst.long()
+    for name, leaf in pool.items():
+        if name != "table":
+            leaf[:, dst] = leaf[:, src]
+    return pool
+
+
 def attention_apply(
     p: Params,
     x: torch.Tensor,
@@ -177,12 +292,17 @@ def attention_apply(
     cache_index: torch.Tensor | int | None = None,
     seq_lens: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, dict | None]:
-    """GQA self-attention with RoPE and an optional dense KV cache.
+    """GQA self-attention with RoPE and an optional KV cache, dense or
+    paged.
 
-    With `kv_cache` ({"k", "v"}: (B, max_len, KV, hd) each) the new keys and
-    values are written in place at `cache_index` (scalar or per row;
-    `seq_lens` masks a chunk's write to each row's valid tokens) and the
-    queries attend over the cached prefix. Returns (y, cache)."""
+    With a dense `kv_cache` ({"k", "v"}: (B, max_len, KV, hd) each) the new
+    keys and values are written in place at `cache_index` (scalar or per
+    row; `seq_lens` masks a chunk's write to each row's valid tokens) and the
+    queries attend over the cached prefix. A paged `kv_cache` ({"k_pages",
+    "v_pages"}: (P, T, KV, hd) pools, "table": (B, n) page ids) is written in
+    place through the table and read back as each row's gathered (B, n*T)
+    view under the page-validity mask, with the same contracts. Returns
+    (y, cache)."""
     B, S, _ = x.shape
     H, KV, hd = config.n_heads, config.kv_heads, config.hd
     q = ops.matmul(x, p["wq"])
@@ -197,7 +317,18 @@ def attention_apply(
     v = v.reshape(B, S, KV, hd)
 
     new_cache = None
-    if kv_cache is not None:
+    if kv_cache is not None and "k_pages" in kv_cache:
+        table = kv_cache["table"]
+        ck = paged_cache_update(kv_cache["k_pages"], k, table, cache_index,
+                                update_lens=seq_lens)
+        cv = paged_cache_update(kv_cache["v_pages"], v, table, cache_index,
+                                update_lens=seq_lens)
+        new_cache = {"k_pages": ck, "v_pages": cv, "table": table}
+        ck_d, cv_d = paged_gather(ck, table), paged_gather(cv, table)
+        out = _sdpa(q, ck_d.to(q.dtype), cv_d.to(q.dtype), causal=True,
+                    q_offset=cache_index, kv_len=cache_index + S,
+                    kv_valid=page_valid_mask(table, ck_d.shape[1]))
+    elif kv_cache is not None:
         ck = cache_update(kv_cache["k"], k, cache_index, update_lens=seq_lens)
         cv = cache_update(kv_cache["v"], v, cache_index, update_lens=seq_lens)
         new_cache = {"k": ck, "v": cv}

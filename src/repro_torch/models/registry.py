@@ -5,6 +5,7 @@
     logits, state = model.prefill(params, batch, cfg)
     logits, state = model.prefill_chunk(params, tokens, lengths, state, cfg)
     logits, state = model.decode_step(params, token, state, cfg)
+    pool = model.init_page_pool(cfg, num_pages, page_size)   # paged KV
 """
 
 from __future__ import annotations
@@ -33,6 +34,10 @@ class ModelApi:
     # the first chunk writes into: (cfg, batch, max_len, *, device) -> state
     prefill_chunk: Callable
     init_state: Callable
+    # paged-KV pool: (cfg, num_pages, page_size, *, device) -> pool leaves
+    # (L, P, T, ...); the engine pairs it with per-row page tables (see
+    # serving.paging)
+    init_page_pool: Callable
 
 
 def _zero_index_state(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -51,6 +56,8 @@ def _dense_api() -> ModelApi:
             cfg, b, ml, device=device),
         prefill_chunk=tfm.lm_prefill_chunk,
         init_state=_zero_index_state,
+        init_page_pool=lambda cfg, n, t, *, device="cuda": (
+            tfm.init_kv_page_pool(cfg, n, t, device=device)),
     )
 
 

@@ -1,5 +1,6 @@
 """Decoder-only dense transformer: the module holding the weights, its
-initialisation, and the serving forwards (prefill, chunked prefill, decode).
+initialisation, the KV caches (dense and paged), and the serving forwards
+(prefill, chunked prefill, decode).
 
 The counterpart of the JAX package's `repro.models.transformer` for dense
 blocks at tp=1. The parameter tree mirrors the JAX one — ``embed.table``,
@@ -149,9 +150,12 @@ def _unembed(model: TransformerLM, x: torch.Tensor,
 def _run_blocks(model: TransformerLM, x: torch.Tensor, cfg: ModelConfig, *,
                 positions, cache: dict, cache_index, seq_lens=None):
     """Every block in order over per-layer views of `cache` (written in
-    place)."""
+    place). Every leaf of `cache` is stacked on a leading layer axis: the
+    dense cache's "k"/"v", or the paged cache's "k_pages"/"v_pages" pools
+    and its "table" (one table per layer, as in the JAX package, usually a
+    broadcast view of one)."""
     for i, blk in enumerate(model.blocks):
-        layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
+        layer_cache = {name: leaf[i] for name, leaf in cache.items()}
         x, _ = dense_block_apply(blk, x, cfg, positions=positions,
                                  cache=layer_cache, cache_index=cache_index,
                                  seq_lens=seq_lens)
@@ -168,6 +172,19 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
     dev = resolve_device(device)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def init_kv_page_pool(cfg: ModelConfig, num_pages: int, page_size: int,
+                      dtype: torch.dtype = torch.bfloat16, *,
+                      device: str | torch.device = "cuda") -> dict:
+    """Zeroed paged KV pool: `num_pages` shared pages of `page_size` tokens
+    per layer, (L, P, T, KV, hd) per leaf (page 0 reserved as the null page,
+    see `serving.paging`). The engine pairs it with a per-row page table to
+    form the paged decode cache {"k_pages", "v_pages", "table"}."""
+    shape = (cfg.n_layers, num_pages, page_size, cfg.kv_heads, cfg.hd)
+    dev = resolve_device(device)
+    return {"k_pages": torch.zeros(shape, dtype=dtype, device=dev),
+            "v_pages": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
 @torch.no_grad()

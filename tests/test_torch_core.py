@@ -169,10 +169,29 @@ def test_gemm_shape_counts_equal_the_reference():
     dict(max_batch=4, max_len=512, chunk_tokens=64, lane_width=8),
     dict(max_batch=2, max_len=64, chunk_tokens=64),
     dict(max_batch=3, max_len=128, chunk_tokens=32, include_slot_prefill=False),
+    # serial admission: no chunk grid, width-1 slot prefills
+    dict(max_batch=4, max_len=512),
+    dict(max_batch=2, max_len=64, lane_width=8),
 ))
 def test_serving_gemm_fleet_equals_the_reference(kw):
     assert (ops.serving_gemm_fleet(get_config("qwen2-7b"), **kw)
             == jops.serving_gemm_fleet(jget_config("qwen2-7b"), **kw))
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "codeqwen1.5-7b",
+                                  "starcoder2-3b"])
+def test_other_dense_configs_count_and_fleet_as_the_reference(arch):
+    """The GEMM counts (two FFN GEMMs per layer for starcoder2's GELU FFN)
+    and the chunked and serial fleets of the other dense configs."""
+    cfg, jcfg = get_config(arch), jget_config(arch)
+    for kw in ({}, {"head_tokens": 4}):
+        for t in (1, 4, 512):
+            assert gemm_shape_counts(cfg, t, **kw) == jgemm_shape_counts(
+                jcfg, t, **kw)
+    for kw in (dict(max_batch=4, max_len=512, chunk_tokens=64, lane_width=8),
+               dict(max_batch=4, max_len=512)):
+        assert (ops.serving_gemm_fleet(cfg, **kw)
+                == jops.serving_gemm_fleet(jcfg, **kw))
 
 
 def test_paper_split_equals_the_reference():

@@ -245,6 +245,73 @@ def test_engine_bf16_launches_take_the_fast_paths(dev):
 
 
 # ---------------------------------------------------------------------------
+# the paged KV cache on the card
+# ---------------------------------------------------------------------------
+
+
+def test_paged_cache_update_keeps_the_null_page_without_a_sync(dev):
+    """Writes through a dead row, past a row's length and onto a null
+    table entry are dropped: page 0 keeps its bytes, every other page
+    equals the CPU's result, and the scatter makes no host sync."""
+    from repro_torch.models import layers as L
+
+    g = torch.Generator(dev).manual_seed(3)
+    P, T, KV, hd = 9, 8, 2, 16
+    pool = torch.randn((P, T, KV, hd), generator=g, device=dev).to(
+        torch.bfloat16)
+    upd = torch.randn((3, 12, KV, hd), generator=g, device=dev).to(
+        torch.bfloat16)
+    # row 0 live across a page boundary, row 1 dead (all null), row 2
+    # running onto a null entry of its table
+    table = torch.tensor([[1, 2, 3, 4], [0, 0, 0, 0], [5, 6, 0, 0]],
+                         device=dev)
+    index = torch.tensor([3, 0, 10], device=dev)
+    lens = torch.tensor([12, 12, 9], device=dev)
+    cpu = pool.cpu()
+    L.paged_cache_update(cpu, upd.cpu(), table.cpu(), index.cpu(),
+                         lens.cpu())
+    page0 = pool[0].clone()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = L.paged_cache_update(pool, upd, table, index, lens)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert out is pool
+    assert torch.equal(pool[0], page0)
+    assert torch.equal(pool.cpu(), cpu)
+
+
+def test_paged_engine_streams_equal_the_dense_engine_on_card(dev):
+    """The smoke engine on the card over the paged KV layout, with and
+    without prefix reuse, generates the dense layout's streams."""
+    cfg, api, _, gpu = _smoke_pair(dev)
+    rng = np.random.default_rng(4)
+    shared = rng.integers(0, cfg.vocab, 20)
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab, 3 + i)])
+               if i % 2 == 0 else rng.integers(0, cfg.vocab, 6 + 3 * i)
+               for i in range(7)]
+
+    def serve(**kw):
+        eng = ServingEngine(api, gpu, cfg, max_batch=2, max_len=64,
+                            chunk_tokens=16, device=dev, **kw)
+        out = {}
+        for first, last in ((0, 1), (1, 7)):   # request 0 registers first
+            for uid in range(first, last):
+                eng.submit(Request(uid=uid, prompt=prompts[uid].astype(
+                    np.int32), max_new_tokens=6))
+            out.update({r.uid: r.tokens.tolist()
+                        for r in eng.run_until_empty()})
+        return out, eng.report()
+
+    dense, _ = serve()
+    for prefix_cache in (False, True):
+        paged, rep = serve(kv_layout="paged", page_size=8,
+                           prefix_cache=prefix_cache)
+        assert paged == dense
+        assert (rep["paging"]["prefix_hits"] > 0) == prefix_cache
+
+# ---------------------------------------------------------------------------
 # the paper's loop on the card: scorer, runner, tuned launches
 # ---------------------------------------------------------------------------
 

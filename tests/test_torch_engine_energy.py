@@ -61,7 +61,8 @@ def engines(served, **kw):
     kw.setdefault("max_len", 64)
     kw.setdefault("chunk_tokens", 16)
     return (ServingEngine(api, params, cfg, device="cpu", **kw),
-            JServingEngine(japi, jparams, jcfg, mode="continuous", **kw))
+            JServingEngine(japi, jparams, jcfg,
+                           **{"mode": "continuous", **kw}))
 
 
 def serve(eng, reqs, request_cls):
@@ -117,6 +118,54 @@ def test_energy_and_model_clock_match_the_jax_engine(served, greedy, seed,
     assert peng.model_clock_s == pytest.approx(jeng.model_clock_s, rel=RTOL)
     _rel(prep["energy_j"],
          sum(r.energy_j for r in got.values()) + prep["idle_energy_j"])
+
+
+@pytest.mark.parametrize("mode", ("paged", "paged_no_prefix", "serial",
+                                  "wave"))
+@pytest.mark.parametrize("greedy,seed", [(True, 0), (False, 7)])
+def test_energy_on_the_other_paths_matches_the_jax_engine(served, mode,
+                                                          greedy, seed):
+    """The paged layout (priced at 2x the dense KV bytes), serial admission
+    (single-shot slot prefills) and the wave loop (prefill split over the
+    wave, every row resident to its end): every request's joules, prefill
+    share, J/token and model-clock TTFT, and the report's model seconds and
+    joules, equal the JAX engine's on the same chip."""
+    kw = {"paged": dict(kv_layout="paged", page_size=8),
+          "paged_no_prefix": dict(kv_layout="paged", page_size=8,
+                                  prefix_cache=False),
+          "serial": dict(admission="serial"),
+          "wave": dict(mode="wave")}[mode]
+    peng, jeng = engines(served, chip="tpu_v5e", greedy=greedy, seed=seed,
+                         **kw)
+    reqs = workload(seed=seed)
+    got, want = {}, {}
+    for eng, cls, out in ((peng, Request, got), (jeng, JRequest, want)):
+        for part in (reqs[:1], reqs[1:]):    # request 0 registers first
+            out.update(serve(eng, part, cls))
+    assert sorted(got) == sorted(want)
+    for uid, w in want.items():
+        g = got[uid]
+        np.testing.assert_array_equal(g.tokens, w.tokens)
+        assert g.steps == w.steps
+        _rel(g.energy_j, w.energy_j)
+        _rel(g.energy_per_token_j, w.energy_per_token_j)
+        _rel(g.ttft_model_s, w.ttft_model_s)
+        assert 0 < g.prefill_energy_j <= g.energy_j
+    prep, jrep = peng.report(), jeng.report()
+    for key in REPORT_KEYS:
+        _rel(prep[key], jrep[key])
+    assert prep.get("paging") == jrep.get("paging")
+    assert peng.model_clock_s == pytest.approx(jeng.model_clock_s, rel=RTOL)
+    _rel(prep["energy_j"],
+         sum(r.energy_j for r in got.values()) + prep["idle_energy_j"])
+
+
+def test_paged_layout_prices_twice_the_kv_bytes(served):
+    dense, _ = engines(served, chip="tpu_v5e")
+    paged, jpaged = engines(served, chip="tpu_v5e", kv_layout="paged",
+                            page_size=8)
+    assert paged._kv_gather_bytes(4) == 2 * dense._kv_gather_bytes(4) > 0
+    assert paged._kv_gather_bytes(4) == jpaged._kv_gather_bytes(4)
 
 
 def test_step_estimates_match_the_jax_engine(served):

@@ -312,6 +312,100 @@ class TestPlan:
         p = _plan(m, n, k)
         assert (p.path, p.tile.as_tuple(), p.splits) == (WGMMA, tile, splits)
 
+    # plan's (path, tile, splits) for every serving shape of the other
+    # dense configs: the chunked fleet (max_batch 4, max_len 512, chunk 64,
+    # lane 8) and the serial one, by (N, K) and then M. A stream tile is
+    # named by its rows, a wgmma tile (128 rows) by its width
+    OTHER_DENSE_PLANS = {
+        "qwen2.5-14b": {
+            (152064, 5120): {m: ("s", 8, 1) for m in (1, 2, 4, 8)},
+            (1024, 5120): {4: ("s", 8, 33), 8: ("s", 8, 33),
+                           16: ("s", 16, 20), 32: ("s", 32, 10),
+                           64: ("s", 64, 9), 128: ("w", 64, 9),
+                           256: ("w", 64, 5), 512: ("w", 128, 5),
+                           2048: ("w", 128, 1)},
+            (5120, 5120): {4: ("s", 8, 7), 8: ("s", 8, 7), 16: ("s", 16, 7),
+                           32: ("s", 32, 7), 64: ("s", 64, 5),
+                           128: ("w", 64, 1), 256: ("w", 64, 1),
+                           512: ("w", 128, 1), 2048: ("w", 256, 1)},
+            (5120, 13824): {4: ("s", 8, 7), 8: ("s", 8, 7),
+                            16: ("s", 16, 7), 32: ("s", 32, 7),
+                            64: ("s", 64, 7), 128: ("w", 64, 1),
+                            256: ("w", 64, 1), 512: ("w", 128, 1),
+                            2048: ("w", 256, 1)},
+            (13824, 5120): {4: ("s", 8, 3), 8: ("s", 8, 3),
+                            16: ("s", 16, 3), 32: ("s", 32, 3),
+                            64: ("s", 64, 3), 128: ("w", 64, 1),
+                            256: ("w", 128, 1), 512: ("w", 256, 1),
+                            2048: ("w", 256, 1)},
+        },
+        "codeqwen1.5-7b": {
+            (92416, 4096): {m: ("s", 8, 1) for m in (1, 2, 4, 8)},
+            (4096, 4096): {4: ("s", 8, 9), 8: ("s", 8, 9), 16: ("s", 16, 9),
+                           32: ("s", 32, 8), 64: ("s", 64, 4),
+                           128: ("w", 64, 3), 256: ("w", 64, 1),
+                           512: ("w", 128, 1), 2048: ("w", 256, 1)},
+            (4096, 13440): {4: ("s", 8, 9), 8: ("s", 8, 9),
+                            16: ("s", 16, 9), 32: ("s", 32, 9),
+                            64: ("s", 64, 9), 128: ("w", 64, 3),
+                            256: ("w", 64, 1), 512: ("w", 128, 1),
+                            2048: ("w", 256, 1)},
+            (13440, 4096): {4: ("s", 8, 3), 8: ("s", 8, 3),
+                            16: ("s", 16, 3), 32: ("s", 32, 3),
+                            64: ("s", 64, 3), 128: ("w", 64, 1),
+                            256: ("w", 128, 1), 512: ("w", 256, 1),
+                            2048: ("w", 256, 1)},
+        },
+        "starcoder2-3b": {
+            (49152, 3072): {m: ("s", 8, 1) for m in (1, 2, 4, 8)},
+            (256, 3072): {4: ("s", 8, 24), 8: ("s", 8, 24),
+                          16: ("s", 16, 24), 32: ("s", 32, 24),
+                          64: ("s", 64, 24), 128: ("w", 64, 24),
+                          256: ("w", 64, 17), 512: ("w", 64, 9),
+                          2048: ("w", 64, 3)},
+            (3072, 3072): {4: ("s", 8, 11), 8: ("s", 8, 11),
+                           16: ("s", 16, 11), 32: ("s", 32, 6),
+                           64: ("s", 64, 3), 128: ("w", 64, 3),
+                           256: ("w", 64, 1), 512: ("w", 128, 1),
+                           2048: ("w", 256, 1)},
+            (3072, 12288): {4: ("s", 8, 11), 8: ("s", 8, 11),
+                            16: ("s", 16, 11), 32: ("s", 32, 11),
+                            64: ("s", 64, 11), 128: ("w", 64, 3),
+                            256: ("w", 64, 1), 512: ("w", 128, 1),
+                            2048: ("w", 256, 1)},
+            (12288, 3072): {4: ("s", 8, 3), 8: ("s", 8, 3),
+                            16: ("s", 16, 3), 32: ("s", 32, 3),
+                            64: ("s", 64, 3), 128: ("w", 64, 1),
+                            256: ("w", 128, 1), 512: ("w", 256, 1),
+                            2048: ("w", 256, 1)},
+        },
+    }
+
+    @pytest.mark.parametrize("arch", sorted(OTHER_DENSE_PLANS))
+    def test_other_dense_serving_shapes_take_their_pinned_plan(self, arch):
+        """Every GEMM the chunked or serial engine issues for qwen2.5-14b,
+        codeqwen1.5-7b and starcoder2-3b takes a fast path (the LM head
+        with f32 out), none the general one, at the pinned tile and
+        splits."""
+        from repro_torch.configs import get_config
+
+        cfg = get_config(arch)
+        fleet = set(ops.serving_gemm_fleet(
+            cfg, max_batch=4, max_len=512, chunk_tokens=64, lane_width=8))
+        fleet |= set(ops.serving_gemm_fleet(cfg, max_batch=4, max_len=512))
+        want = self.OTHER_DENSE_PLANS[arch]
+        assert fleet == {(m, n, k) for (n, k), ms in want.items()
+                         for m in ms}
+        for m, n, k in sorted(fleet):
+            out = torch.float32 if n == cfg.vocab else torch.bfloat16
+            p = _plan(m, n, k, out_dtype=out)
+            path, size, splits = want[(n, k)][m]
+            assert p.path == {"s": STREAM, "w": WGMMA}[path], (m, n, k)
+            assert p.tile.as_tuple() == ((size, 64, 64) if path == "s"
+                                         else (128, size, 64)), (m, n, k)
+            assert p.splits == splits, (m, n, k)
+            assert -(-k // p.tile.block_k) // p.splits >= 2
+
     def test_candidate_tiles(self):
         assert [t.as_tuple() for t in candidate_tiles(4)] == [
             (8, 64, 64), (128, 256, 64), (128, 128, 64), (128, 64, 64)]

@@ -70,15 +70,29 @@ def smoke():
 # ---------------------------------------------------------------------------
 
 
+DENSE_ARCHS = ("qwen2-7b", "qwen2.5-14b", "codeqwen1.5-7b", "starcoder2-3b")
+
+
 @pytest.mark.parametrize("smoke_cfg", [False, True])
 def test_config_equals_jax_field_by_field(smoke_cfg):
-    port = get_config("qwen2-7b", smoke=smoke_cfg)
-    ref = jget_config("qwen2-7b", smoke=smoke_cfg)
-    assert ([f.name for f in dataclasses.fields(port)]
-            == [f.name for f in dataclasses.fields(ref)])
-    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
-    assert (port.hd, port.kv_heads, port.n_params()) == \
-        (ref.hd, ref.kv_heads, ref.n_params())
+    """Every dense config the port serves, full and smoke."""
+    for arch in DENSE_ARCHS:
+        port = get_config(arch, smoke=smoke_cfg)
+        ref = jget_config(arch, smoke=smoke_cfg)
+        assert ([f.name for f in dataclasses.fields(port)]
+                == [f.name for f in dataclasses.fields(ref)])
+        assert dataclasses.asdict(port) == dataclasses.asdict(ref), arch
+        assert (port.hd, port.kv_heads, port.n_params()) == \
+            (ref.hd, ref.kv_heads, ref.n_params())
+
+
+def test_the_four_dense_configs_are_ported():
+    from repro_torch.configs import list_archs
+
+    assert sorted(list_archs()) == sorted(DENSE_ARCHS)
+    for arch in ("deepseek-v2-236b", "falcon-mamba-7b", "qwen2-vl-2b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            get_config(arch)
 
 
 def test_unported_archs_and_kinds_name_their_roadmap_item():
@@ -274,6 +288,91 @@ def _tokens(shape, seed, vocab=256):
 
 def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.asarray(a)).long()
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "codeqwen1.5-7b",
+                                  "qwen2.5-14b"])
+def test_other_dense_configs_prefill_matches_jax(arch):
+    """The GELU FFN without gate (starcoder2), multi-head attention with
+    as many KV heads as heads (codeqwen) and qwen2.5-14b's smoke config:
+    prefill logits and cache against the JAX package's. Both packages are
+    given an f32 KV cache, so nothing is rounded to bf16 on the way and the
+    f32 tolerance holds for the whole model (with the default bf16 cache
+    one key flipped by a bf16 step moves codeqwen's logits by 2.6e-4)."""
+    from repro.models import transformer as jtfm
+    from repro_torch.models import transformer as tfm
+
+    jcfg = jget_config(arch, smoke=True)
+    japi = jget_model(jcfg)
+    jparams = japi.init(jax.random.key(2), jcfg)
+    cfg = get_config(arch, smoke=True)
+    api = get_model(cfg)
+    params = params_from_numpy(_to_numpy_tree(jparams), cfg, device="cpu")
+    assert ("w_gate" in params.blocks[0].mlp) == cfg.gated_mlp
+    toks, lens = _tokens((3, 12), 11), np.array([12, 5, 9], np.int32)
+    jl, js = japi.prefill(
+        jparams, {"tokens": jnp.asarray(toks), "lengths": jnp.asarray(lens),
+                  "cache": jtfm.init_kv_cache(jcfg, 3, 32, jnp.float32)},
+        jcfg, max_len=32)
+    tl, ts = api.prefill(
+        params, {"tokens": _t(toks), "lengths": _t(lens),
+                 "cache": tfm.init_kv_cache(cfg, 3, 32, torch.float32,
+                                            device="cpu")},
+        cfg, max_len=32)
+    np.testing.assert_allclose(_np(tl), _np(jl), **TOL)
+    assert ts["index"].tolist() == lens.tolist()
+    for k in "kv":
+        np.testing.assert_allclose(_np(ts["kv"][k]), _np(js["kv"][k]), **TOL)
+
+
+def test_paged_prefill_chunk_and_decode_match_jax(smoke):
+    """Two chunk calls and two decode steps through the paged cache: the
+    rows own shuffled pages of one pool, a dead row points at the null
+    page; logits, the pool and the index against the JAX package's paged
+    forward, and the logits bit-identical to the port's dense forward."""
+    cfg, api, params, jcfg, japi, jparams = smoke
+    W, C, T, n = 3, 8, 8, 4
+    table = np.array([[5, 2, 9, 7], [0, 0, 0, 0], [3, 11, 1, 8]], np.int32)
+    pool = api.init_page_pool(cfg, 13, T, device="cpu")
+    jpool = jax.tree.map(jnp.asarray, {k: _np(v) for k, v in pool.items()})
+    jpool = {k: v.astype(jnp.bfloat16) for k, v in jpool.items()}
+    jtable = jnp.broadcast_to(jnp.asarray(table)[None], (cfg.n_layers, W, n))
+    tstate = {"kv": {**pool, "table": torch.from_numpy(table).long()[None]
+                     .expand(cfg.n_layers, W, n)},
+              "index": torch.zeros(W, dtype=torch.long)}
+    jstate = {"kv": {**jpool, "table": jtable},
+              "index": jnp.zeros((W,), jnp.int32)}
+    dstate = api.init_state(cfg, W, n * T, device="cpu")
+    prompts = [_tokens((n,), 50 + n) for n in (13, 0, 9)]
+    base = np.zeros(W, np.int32)
+    for step in range(2):
+        toks = np.zeros((W, C), np.int32)
+        lens = np.zeros(W, np.int32)
+        for r, p in enumerate(prompts):
+            k = min(C, len(p) - base[r])
+            toks[r, :k] = p[base[r]:base[r] + k]
+            lens[r] = k
+        jl, jstate = japi.prefill_chunk(jparams, jnp.asarray(toks),
+                                        jnp.asarray(lens), jstate, jcfg)
+        tl, tstate = api.prefill_chunk(params, _t(toks), _t(lens), tstate,
+                                       cfg)
+        dl, dstate = api.prefill_chunk(params, _t(toks), _t(lens), dstate,
+                                       cfg)
+        np.testing.assert_allclose(_np(tl), _np(jl), **TOL_MODEL)
+        assert torch.equal(tl[[0, 2]], dl[[0, 2]])
+        base += lens
+    tok = _tokens((W,), 60)
+    for step in range(2):
+        jl, jstate = japi.decode_step(jparams, jnp.asarray(tok), jstate, jcfg)
+        tl, tstate = api.decode_step(params, _t(tok), tstate, cfg)
+        dl, dstate = api.decode_step(params, _t(tok), dstate, cfg)
+        np.testing.assert_allclose(_np(tl), _np(jl), **TOL_MODEL)
+        assert torch.equal(tl[[0, 2]], dl[[0, 2]])
+        tok = np.asarray(jl).argmax(-1).astype(np.int32)
+    assert tstate["index"].tolist() == np.asarray(jstate["index"]).tolist()
+    for k in ("k_pages", "v_pages"):
+        _cache_close(tstate["kv"][k], jstate["kv"][k])
+        assert not tstate["kv"][k][:, 0].any()       # the null page
 
 
 def test_lm_prefill_matches_jax(smoke):
