@@ -15,7 +15,10 @@ build of PyTorch. Phases, each fatal on failure:
    shapes, layouts, alpha/beta, bf16-in/f32-out and K=4096 cases of the
    JAX package's kernel tests plus the fast paths' boundary cases (M around
    8, 64 and 128, ragged N and K, split K), on every path that takes each
-   case, with each fast-path result bit-identical over two launches;
+   case, with each fast-path result bit-identical over two launches; then
+   fault C1's check: for every serving (N, K) of the six configs and both
+   output dtypes, the rows of an M = 4 call bit-equal to the same rows of
+   M = 1, 8, 64, 65, 128 and 512 calls;
 4. serve: full-width, full-depth qwen2-7b with seeded random weights; the
    continuous-batching engine answers 10 requests (prompts of 16-300
    tokens, 8-32 new tokens); the kernel's launch counter must equal the
@@ -59,17 +62,30 @@ build of PyTorch. Phases, each fatal on failure:
    qwen2.5-14b served five ways on the same 10 requests — (a) chunked on the
    dense KV cache, (b) on the paged KV cache without prefix reuse (a chunk
    call and decode steps through a paged and a dense state bit-identical
-   first, then the engine's first tokens under phase 7's top-1 rule),
-   (c) a shared-prefix workload (one 256-token
-   system prompt ahead of each request) dense and paged with prefix reuse
-   at half the default page pool (prefix hits, fewer chunk steps, first
-   tokens agreeing with the dense run under phase 7's top-1 rule), (d)
-   serial admission (first tokens under the same rule) and (e) the wave
-   loop — with launches checked per forward in every run; its full-width
+   first), (c) a shared-prefix workload (one 256-token system prompt ahead
+   of each request) dense and paged with prefix reuse at half the default
+   page pool (prefix hits, fewer chunk steps), (d) serial admission and (e)
+   the wave loop — with launches checked per forward in every run, and
+   the streams of (b), (c) and (d) identical to the dense or chunked run's
+   (where they are not, a per-layer, per-op diff of one row at two batch
+   sizes names the first op whose bits depend on the batch; a plain-torch
+   op keeps that gate on first tokens, the GEMM fails it); its full-width
    logits (phase 7's check) and its serving shapes timed as in phase 5;
    then codeqwen1.5-7b (32 KV heads, d_ff 13440) and starcoder2-3b (GELU
    FFN, K/V projections of N = 256), each with the logits check and one
-   chunked run.
+   chunked run;
+11. MoE and MLA serving at `plan`'s tiles: full-width, full-depth
+   olmoe-1b-7b (64 experts top-8) served chunked, then in the wave loop a
+   64-token request alone and beside 3 others (per-row expert capacity
+   binds at S = 64; the streams must be identical), then the shared-prefix
+   workload dense and paged; and deepseek-v2-236b at full width cut to 8
+   of its 60 layers (the whole model is six times the card), served
+   chunked on the dense latent cache and on the paged latent pool; each
+   with the logits check, launches per forward from the model's structure
+   (81; 11 L + 1) and its serving shapes timed.
+
+After phase 10, ``build/serving_shapes.json`` holds qwen2-7b's and
+qwen2.5-14b's serving launches by shape, for ``tools/gemm_sums.py``.
 
 It prints a JSON line of per-kernel numbers and, last, the device line.
 Without a GPU, or without the repository beside it, it exits non-zero.
@@ -168,19 +184,59 @@ def _bound_s(m: int, n: int, k: int, in_dtype, out_dtype) -> tuple:
     return ops_s, bytes_s
 
 
-def _forward_gemms(cfg, rows: int, head_rows: int) -> collections.Counter:
-    """{(M, N, K, in dtype, out dtype): launches} of one forward over `rows`
-    token rows that unembeds `head_rows` of them: q, k, v, o, up, gate (a
-    gated FFN only) and down per layer, then the f32-out LM head."""
-    d, f = cfg.d_model, cfg.d_ff
-    q, kv = cfg.n_heads * cfg.hd, cfg.kv_heads * cfg.hd
-    dt = getattr(torch, cfg.activation_dtype)
-    out = collections.Counter()
-    ffn = ((f, d), (f, d), (d, f)) if cfg.gated_mlp else ((f, d), (d, f))
-    for n, k in ((q, d), (kv, d), (kv, d), (d, q)) + ffn:
-        out[(rows, n, k, dt, dt)] += cfg.n_layers
-    out[(head_rows, cfg.vocab, d, dt, torch.float32)] += 1
-    return out
+def _gemms_per_forward(cfg) -> int:
+    """The hand-written GEMM's launches in one forward, from the model's
+    structure (not from `gemm_shape_counts`, the reference's analytical
+    estimate, which counts routed experts that are einsums and leaves the
+    router out). Per layer: dense q, k, v, o, up, gate (a gated FFN only)
+    and down; moe q, k, v, o and the router; mla_moe w_dq and w_uq (or
+    w_uq alone), w_dkv, w_kpe, w_uk, w_uv, wo, the router and the shared
+    experts' SwiGLU (gate, up, down). Then the LM head: 197 for qwen2-7b,
+    81 for olmoe-1b-7b, 11 L + 1 for deepseek-v2-236b."""
+    if cfg.kind == "dense":
+        per_layer = 4 + (3 if cfg.gated_mlp else 2)
+    elif cfg.kind == "moe":
+        per_layer = 5
+    else:
+        per_layer = ((2 if cfg.q_lora_rank else 1) + 6
+                     + (3 if cfg.n_shared_experts else 0))
+    return per_layer * cfg.n_layers + 1
+
+
+def _is_router(cfg, key) -> bool:
+    """Whether a recorded launch (M, N, K, in, out, tile) is a router's:
+    N = the experts, K = d_model, f32 out."""
+    return (bool(cfg.n_experts) and key[1] == cfg.n_experts
+            and key[2] == cfg.d_model and key[4] == torch.float32)
+
+
+def _serving_nk() -> list:
+    """(N, K, out dtype) of every projection the six served configs launch:
+    the engine's GEMM fleet (chunked and serial, max_batch 4, max_len 512)
+    with bf16 out and the LM head with f32, plus what the MoE families
+    launch beyond that fleet: the router (f32 out) and deepseek's shared
+    experts' SwiGLU. (The fleet's routed-expert shapes are einsums, never
+    launched; they are kept, as plain GEMM shapes.)"""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+
+    out = set()
+    for arch in ("qwen2-7b", "qwen2.5-14b", "codeqwen1.5-7b", "starcoder2-3b",
+                 "olmoe-1b-7b", "deepseek-v2-236b"):
+        cfg = get_config(arch)
+        fleet = set(ops.serving_gemm_fleet(cfg, max_batch=4, max_len=512,
+                                           chunk_tokens=64, lane_width=8))
+        fleet |= set(ops.serving_gemm_fleet(cfg, max_batch=4, max_len=512))
+        for _, n, k in fleet:
+            out.add((n, k, torch.float32 if n == cfg.vocab
+                     else torch.bfloat16))
+        if cfg.n_experts:
+            out.add((cfg.n_experts, cfg.d_model, torch.float32))
+            f = cfg.d_ff_expert * cfg.n_shared_experts
+            if f:
+                out |= {(f, cfg.d_model, torch.bfloat16),
+                        (cfg.d_model, f, torch.bfloat16)}
+    return sorted(out, key=lambda x: (x[0], x[1]))
 
 
 def _gemm_inputs(dev, g, m: int, n: int, k: int, dtype) -> tuple:
@@ -363,24 +419,94 @@ def phase_kernel_cases(dev) -> None:
         raise SystemExit(f"kernel disagrees with its plain version: {failed}")
     if set(seen) != {"stream", "wgmma", "general"}:
         raise SystemExit(f"a path ran no case: {dict(seen)}")
+    _row_invariance(dev)
 
 
-def _init_model(dev, arch: str, tag: str) -> tuple:
+ROW_INVARIANCE_M = (1, 8, 64, 65, 128, 512)
+
+
+def _norm_rows(dev, g) -> None:
+    """rmsnorm (plain torch: its mean square is a CUDA reduction whose
+    thread layout follows the row count) gives row 0 the same bits at 1,
+    4, 16 and 512 rows, for the served widths: the exact stream gates of
+    phases 10 and 11 rest on it as on the GEMM's row invariance."""
+    from repro_torch.models.layers import rmsnorm
+
+    for d in (2048, 3072, 3584, 4096, 5120):
+        x = torch.randn((512, d), generator=g, device=dev).to(torch.bfloat16)
+        p = {"scale": torch.ones(d, dtype=torch.bfloat16, device=dev)}
+        rows = [rmsnorm(p, x[:m], 1e-6)[0] for m in (1, 4, 16, 512)]
+        same = all(torch.equal(r, rows[0]) for r in rows)
+        _say(f"[kernel rows] rmsnorm over d = {d}, row 0 at 1, 4, 16 and 512 "
+             f"rows bit-equal: {same}")
+        if not same:
+            raise SystemExit(f"rmsnorm's row bits depend on the row count at "
+                             f"d = {d}")
+
+
+def _row_invariance(dev) -> None:
+    """Fault C1: for every serving (N, K) of the six configs (`_serving_nk`)
+    and both output dtypes, the rows of an M = 4 call are bit-equal to the
+    same rows inside M = 1, 8, 64, 65, 128 and 512 calls: across stream
+    tiles, the stream/wgmma boundary and wgmma's tiles, spread or walking
+    (`plan`'s K segments depend on N and K only)."""
+    from repro_torch.kernels.tiled_matmul import plan, tiled_matmul
+
+    g = torch.Generator(dev).manual_seed(5)
+    t0 = time.perf_counter()
+    bad, plans = [], collections.Counter()
+    shapes = _serving_nk()
+    for n, k, _ in shapes:
+        a = torch.randn((512, k), generator=g, device=dev).to(torch.bfloat16)
+        b = (torch.randn((k, n), generator=g, device=dev) / k ** 0.5).to(
+            torch.bfloat16)
+        for out in (torch.bfloat16, torch.float32):
+            want = tiled_matmul(a[:4], b, out_dtype=out)
+            for m in ROW_INVARIANCE_M:
+                p = plan(m, n, k, a.stride(), b.stride(), 0, 0, a.dtype, out)
+                plans[(p.path, "walk" if p.path == "wgmma" and p.splits == 1
+                       and p.segments > 1 else "spread")] += 1
+                got = tiled_matmul(a[:m], b, out_dtype=out)
+                r = min(m, 4)
+                if not torch.equal(got[:r], want[:r]):
+                    bad.append((m, n, k, str(out).split(".")[-1]))
+        del a, b, want, got
+    torch.cuda.synchronize()
+    _norm_rows(dev, g)
+    _say(f"[kernel rows] {len(shapes)} serving (N, K) x 2 output dtypes x M "
+         f"in {ROW_INVARIANCE_M}: rows 0-3 bit-equal to the M = 4 call's "
+         f"{not bad} ({len(bad)} mismatches; plans {dict(plans)}) in "
+         f"{time.perf_counter() - t0:.1f} s")
+    if bad:
+        raise SystemExit(f"a row's GEMM bits depend on M: {bad[:10]}")
+
+
+def _init_model(dev, arch: str, tag: str, layers: int | None = None
+                ) -> tuple:
     """(cfg, model API, params) of the published config `arch` at full
-    width and depth, with random weights from a seeded CUDA generator."""
+    width (and full depth unless `layers` cuts it), with random weights
+    from a seeded CUDA generator."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.models.registry import get_model
 
     cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     api = get_model(cfg)
     t0 = time.perf_counter()
     params = api.init(cfg, torch.Generator(dev).manual_seed(0), device=dev)
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()          # the init's f32 draws
     n_params = sum(p.numel() for p in params.parameters())
     n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    ffn = (f"{cfg.n_experts} experts top-{cfg.top_k}, d_ff_expert "
+           f"{cfg.d_ff_expert}, {cfg.n_shared_experts} shared"
+           if cfg.n_experts else
+           f"d_ff {cfg.d_ff} ({'gated' if cfg.gated_mlp else 'GELU'} FFN)")
     _say(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model},"
-         f" heads {cfg.n_heads}/{cfg.kv_heads}, d_ff {cfg.d_ff} "
-         f"({'gated' if cfg.gated_mlp else 'GELU'} FFN), vocab {cfg.vocab}, "
+         f" heads {cfg.n_heads}/{cfg.kv_heads}, {ffn}, vocab {cfg.vocab}, "
          f"{cfg.param_dtype}; {n_params / 1e9:.3f} B params, "
          f"{n_bytes / 1e9:.2f} GB, random init in "
          f"{time.perf_counter() - t0:.1f} s")
@@ -498,9 +624,10 @@ def _serve_requests(tag: str, eng, cfg, log: collections.Counter,
                            if rep["wall_s"] > 0 else 0.0)
     rep["slot_occupancy"] = (rep["resident_slot_steps"] / rep["slot_steps"]
                              if rep["slot_steps"] else 0.0)
-    per_forward = sum(_forward_gemms(cfg, 1, 1).values())
+    per_forward = _gemms_per_forward(cfg)
     forwards = _forwards(eng, rep)
     heads = sum(c for key, c in shapes.items() if key[1] == cfg.vocab)
+    routers = sum(c for key, c in shapes.items() if _is_router(cfg, key))
     _say(f"[{tag}] {rep['requests']} requests, {rep['generated_tokens']} "
          f"tokens, {rep['chunk_steps']} chunk steps, {rep['decode_steps']} "
          f"decode steps, wall {rep['wall_s']:.3f} s, "
@@ -510,9 +637,12 @@ def _serve_requests(tag: str, eng, cfg, log: collections.Counter,
          f"{rep['slot_occupancy']:.3f}, lane rebuilds {rep['lane_rebuilds']}")
     _say(f"[{tag}] kernel launches {launches} = {per_forward} x {forwards} "
          f"forwards? {launches == per_forward * forwards}; LM heads "
-         f"{heads}")
+         f"{heads}" + (f"; routers {routers} (= {cfg.n_layers} x "
+                       f"{forwards}? {routers == cfg.n_layers * forwards})"
+                       if cfg.n_experts else ""))
     if (launches != per_forward * forwards or launches == 0
-            or sum(by_path.values()) != launches or heads != forwards):
+            or sum(by_path.values()) != launches or heads != forwards
+            or (cfg.n_experts and routers != cfg.n_layers * forwards)):
         raise SystemExit("the serving path did not launch the kernel "
                          f"{per_forward} times per forward")
     by_uid = {r.uid: r for r in results}
@@ -546,13 +676,15 @@ def phase_serving_shapes(dev, shapes, tag: str = "shapes") -> dict:
     tot: dict = collections.defaultdict(collections.Counter)
     worst: dict = collections.Counter()
     failed = []
-    _say(f"[{tag}] M N K out count path kernel_ms v3_ms plain_ms library_ms "
-         "bound_ms bound_by bound/kernel library/kernel max_abs max_rel")
+    _say(f"[{tag}] M N K out count path tile splits/segments kernel_ms v3_ms "
+         "plain_ms library_ms bound_ms bound_by bound/kernel library/kernel "
+         "max_abs max_rel")
     for key, count in sorted(shapes.items(), key=lambda kv: kv[0][:3]):
         m, n, k, in_dt, out_dt, _ = key
         a, b = _gemm_inputs(dev, g, m, n, k, in_dt)
         want = matmul_ref(a, b, out_dtype=out_dt)
         path, got = _run_path(tiled_matmul, a, b, out_dtype=out_dt)
+        chosen = plan(m, n, k, a.stride(), b.stride(), 0, 0, in_dt, out_dt)
         err, rel, ok = _close(got, want, in_dt)
         v3_ok = _close(tiled_matmul(a, b, config=DEFAULT_CONFIG,
                                     out_dtype=out_dt), want, in_dt)[2]
@@ -571,7 +703,8 @@ def phase_serving_shapes(dev, shapes, tag: str = "shapes") -> dict:
         ops_s, bytes_s = _bound_s(m, n, k, in_dt, out_dt)
         bound_ms = 1e3 * max(ops_s, bytes_s)
         _say(f"[{tag}] {m} {n} {k} {str(out_dt).split('.')[-1]} {count} "
-             f"{path} {kernel_ms:.4f} {v3_ms:.4f} {plain_ms:.4f} "
+             f"{path} {chosen.tile.as_tuple()} {chosen.splits}/"
+             f"{chosen.segments} {kernel_ms:.4f} {v3_ms:.4f} {plain_ms:.4f} "
              f"{library_ms:.4f} {bound_ms:.4f} "
              f"{'operations' if ops_s > bytes_s else 'bytes'} "
              f"{bound_ms / kernel_ms:.3f} {library_ms / kernel_ms:.3f} "
@@ -588,7 +721,8 @@ def phase_serving_shapes(dev, shapes, tag: str = "shapes") -> dict:
                 failed.append((m, n, k, cfg.as_tuple()))
             t_ms = time_ms(lambda: tiled_matmul(a, b, config=cfg,
                                                  out_dtype=out_dt), flush, 10)
-            sweep.append(f"{p.path} {cfg.as_tuple()} x{p.splits} {t_ms:.4f}")
+            sweep.append(f"{p.path} {cfg.as_tuple()} x{p.splits}/"
+                         f"{p.segments} {t_ms:.4f}")
         _say(f"[{tag} sweep] {m} {n} {k}: " + "; ".join(sweep))
         for t in (tot[path], tot["all"]):
             t["ms"] += count * kernel_ms
@@ -799,7 +933,7 @@ def phase_forwards(dev, eng, params, cfg) -> dict:
         _say(f"[trace] {labels[key]}: idle share without the profiler, 1 - "
              f"busy {busy:.2f} ms / untraced {untraced[key][0]:.2f} ms = "
              f"{1 - busy / untraced[key][0]:.4f}")
-    per_forward = sum(_forward_gemms(cfg, 1, 1).values())
+    per_forward = _gemms_per_forward(cfg)
     for key in ("decode", "chunk"):
         if any(r["n_gemm"] != per_forward for r in traced[key]):
             raise SystemExit(f"the traced {key} forward did not launch the "
@@ -807,14 +941,32 @@ def phase_forwards(dev, eng, params, cfg) -> dict:
     return untraced
 
 
+def _rel_top1(got: torch.Tensor, want: torch.Tensor) -> tuple:
+    """(relative L2, top-1 agreement) of two logit tensors."""
+    return (((got - want).norm() / want.norm()).item(),
+            (got.argmax(-1) == want.argmax(-1)).float().mean().item())
+
+
 def phase_logits(dev, eng, params, cfg, W: int = 16, tag: str = "logits",
                  log: collections.Counter | None = None) -> None:
     """One W x 64 chunk call at full width through the kernel, then with
     every product through `matmul_ref`; the kernel's launches are recorded
-    in `log` (see `_recording`) when one is given."""
+    in `log` (see `_recording`) when one is given.
+
+    For the MoE families the plain run replays the kernel run's routing
+    (each layer's expert ids, slots, kept tokens and gates), so the two
+    differ only in the GEMMs' rounding, as for a dense model: routing is a
+    discrete function of the router's logits, and under a binding
+    capacity one token sent to another expert moves every later token of
+    its row (first come, first served), so free routing turns a rounding
+    difference into a different computation. The free-routing distance is
+    printed beside it, with torch.matmul's (cuBLAS bf16 through every
+    product, free routing) from the same plain run as a yardstick of that
+    sensitivity."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import matmul_ref
     from repro_torch.kernels.tiled_matmul import tiled_matmul
+    from repro_torch.models import moe
 
     C = 64
     rng = np.random.default_rng(2)
@@ -830,21 +982,53 @@ def phase_logits(dev, eng, params, cfg, W: int = 16, tag: str = "logits",
     def plain(a, b, c=None, *, config=None, **kw):
         return matmul_ref(a, b, c, **kw)
 
+    def library(a, b, c=None, *, config=None, transpose_b=False,
+                out_dtype=None, **kw):
+        return torch.matmul(a, b.T if transpose_b else b).to(
+            out_dtype or a.dtype)
+
+    route, routes = moe.route, []
+
+    def recorded(*a, **kw):
+        routes.append(route(*a, **kw))
+        return routes[-1]
+
+    def replayed(*a, **kw):
+        return routes.pop(0)
+
     if log is not None:
         ops.tiled_matmul = _recording(log)
     try:
+        moe.route = recorded
         got = run()
+        moe.route = route
         ops.tiled_matmul = plain
         want = run()
+        if cfg.n_experts:
+            moe.route = replayed
+            frozen = run()
+            moe.route = route
+            ops.tiled_matmul = library
+            lib = run()
     finally:
         ops.tiled_matmul = tiled_matmul
-    rel = ((got - want).norm() / want.norm()).item()
-    top1 = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+        moe.route = route
+    rel, top1 = _rel_top1(got, want)
     finite = bool(torch.isfinite(got).all())
+    if cfg.n_experts:
+        rel_free, top1_free = rel, top1
+        lib_rel, lib_top1 = _rel_top1(lib, want)
+        rel, top1 = _rel_top1(got, frozen)
+        _say(f"[{tag}] free routing: the kernel against the plain version "
+             f"relative L2 {rel_free:.3e}, top-1 {top1_free:.3f}; "
+             f"torch.matmul against the plain version {lib_rel:.3e}, top-1 "
+             f"{lib_top1:.3f} (the model's sensitivity to GEMM rounding)")
     _say(f"[{tag}] chunk call {W}x{C}: logits {tuple(got.shape)} "
          f"{got.dtype}, finite {finite}, relative L2 {rel:.3e} (max "
          f"{LOGITS_REL_L2_MAX:g}), top-1 agreement {top1:.3f} (min "
-         f"{LOGITS_TOP1_MIN:g})")
+         f"{LOGITS_TOP1_MIN:g})"
+         + (", the plain run on the kernel run's routing"
+            if cfg.n_experts else ""))
     if (not finite or got.shape != (W, cfg.vocab) or rel > LOGITS_REL_L2_MAX
             or top1 < LOGITS_TOP1_MIN):
         raise SystemExit("full-width logits disagree with the plain version")
@@ -1280,6 +1464,181 @@ def _first_token_share(got: list, want: list) -> tuple:
     return statistics.mean(first), statistics.mean(whole)
 
 
+class _Taps:
+    """Record, in call order, row 0 of the output of each plain-torch op
+    and GEMM a forward runs (rmsnorm, RoPE, attention, the MoE FFN and its
+    routing, SwiGLU, every `ops.matmul`, each block), each flattened
+    position by position, so two forwards of the same row at different
+    batch sizes can be compared op by op (`_first_diff`)."""
+
+    def __init__(self, batch: int):
+        self.batch, self.layer, self.log = batch, -1, []
+
+    def _wrap(self, name: str, fn, pick=lambda out: out):
+        def tapped(*args, **kw):
+            out = fn(*args, **kw)
+            t = pick(out)
+            if torch.is_tensor(t) and t.dim() >= 2 and (
+                    t.shape[0] % self.batch == 0):
+                # row 0 as (positions, width): (B, S, ...) outputs by
+                # position, (B * S, width) ones by token
+                row = (t[0].reshape(t.shape[1], -1) if t.dim() >= 3 else
+                       t.reshape(self.batch, -1, t.shape[-1])[0])
+                self.log.append((f"layer {self.layer} {name}",
+                                 row.detach().float().clone()))
+            return out
+        return tapped
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        from repro_torch.models import layers as L
+        from repro_torch.models import moe
+        from repro_torch.models import transformer as tfm
+
+        self._saved = [(mod, name, getattr(mod, name)) for mod, name in (
+            (ops, "matmul"), (L, "rmsnorm"), (L, "apply_rope"), (L, "_sdpa"),
+            (L, "swiglu_apply"), (moe, "moe_ffn"), (moe, "route"),
+            (moe, "mla_apply"), (tfm, "block_apply"))]
+        first = lambda out: out[0]
+        for mod, name, fn in self._saved:
+            if name == "block_apply":
+                def block_apply(cfg, _fn=fn):
+                    inner = _fn(cfg)
+
+                    def run(*a, **kw):
+                        self.layer += 1
+                        return self._wrap("block output", inner, first)(
+                            *a, **kw)
+                    return run
+                setattr(mod, name, block_apply)
+            elif name == "matmul":
+                def matmul(a, b, _fn=fn, **kw):
+                    n = b.shape[0] if kw.get("transpose_b") else b.shape[1]
+                    return self._wrap(f"GEMM N={n} K={a.shape[-1]}", _fn)(
+                        a, b, **kw)
+                setattr(mod, name, matmul)
+            elif name == "route":
+                setattr(mod, name, self._wrap(
+                    "MoE routing (expert ids)", fn,
+                    lambda r: r["idx"].reshape(-1, 1)))
+            else:
+                pick = first if name in ("moe_ffn", "mla_apply") else (
+                    lambda out: out)
+                setattr(mod, name, self._wrap(name, fn, pick))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+def _first_diff(tag: str, run_a, batch_a: int, run_b, batch_b: int,
+                positions: int | None = None) -> str | None:
+    """Run two forwards of the same row 0 at batch sizes `batch_a` and
+    `batch_b` under `_Taps`; print the per-layer difference of row 0's
+    hidden state and the first op whose row-0 output differs (over the
+    positions both runs have, at most `positions`). Returns that op's
+    name, or None when every op agrees bit for bit."""
+    logs = []
+    for run, batch in ((run_a, batch_a), (run_b, batch_b)):
+        with _Taps(batch) as taps:
+            run()
+        torch.cuda.synchronize()
+        logs.append(taps.log)
+    layers, first = [], None
+    for (name, a), (name_b, b) in zip(*logs):
+        if name != name_b:
+            raise SystemExit(f"[{tag}] the two forwards ran different ops: "
+                             f"{name} against {name_b}")
+        n = min(a.shape[0], b.shape[0], positions or a.shape[0])
+        diff = (a[:n] - b[:n]).abs().max().item() if n else 0.0
+        if first is None and not torch.equal(a[:n], b[:n]):
+            first = (name, diff)
+        if name.endswith("block output"):
+            layers.append(f"{name.split()[1]}: {diff:.3g}")
+    _say(f"[{tag}] per-layer max |diff| of row 0's hidden state, batch "
+         f"{batch_a} against {batch_b}: " + ", ".join(layers))
+    _say(f"[{tag}] first op whose row-0 output differs: "
+         + (f"{first[0]} (max |diff| {first[1]:.3g})" if first else
+            "none: every op bit-identical"))
+    return first[0] if first else None
+
+
+def _row_probe(dev, api, params, cfg, tag: str, widths=(1, 8), C: int = 64,
+               decode_widths=(1, 4), serial: int | None = None) -> list:
+    """Where a row's bits first depend on its batch: one row's prompt chunk
+    in a chunk call `widths[0]` rows wide against one `widths[1]` rows wide
+    (the other rows random), one decode step of that row at
+    `decode_widths`, and (with `serial`, a bucket) the row's single-shot
+    prefill of the same C tokens padded to that bucket against its chunk.
+    Prints `_first_diff` for each; returns the first differing op of each
+    pair (None: none)."""
+    rng = np.random.default_rng(9)
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (max(widths), C)),
+                           device=dev)
+    lens = torch.full((max(widths),), C, device=dev)
+
+    def chunk(w):
+        def run():
+            st = api.init_state(cfg, w, 512, device=dev)
+            api.prefill_chunk(params, toks[:w], lens[:w], st, cfg)
+        return run
+
+    def decode(w):
+        def run():
+            st = api.init_state(cfg, w, 512, device=dev)
+            st["index"].fill_(C)
+            api.decode_step(params, toks[:w, 0], st, cfg)
+        return run
+
+    out = [_first_diff(f"{tag} chunk {widths[0]}x{C} vs {widths[1]}x{C}",
+                       chunk(widths[0]), widths[0], chunk(widths[1]),
+                       widths[1]),
+           _first_diff(f"{tag} decode {decode_widths[0]} vs "
+                       f"{decode_widths[1]} rows", decode(decode_widths[0]),
+                       decode_widths[0], decode(decode_widths[1]),
+                       decode_widths[1])]
+    if serial:
+        # the row's C tokens right-padded to the serial bucket: the same
+        # cache contents and last position as its chunk, at another M and
+        # query length
+        prompt = torch.zeros((1, serial), dtype=toks.dtype, device=dev)
+        prompt[0, :C] = toks[0]
+
+        def whole():
+            api.prefill(params, {"tokens": prompt, "lengths": torch.full(
+                (1,), C, device=dev)}, cfg, max_len=512)
+        out.append(_first_diff(f"{tag} serial prefill 1x{serial} vs chunk "
+                               f"{widths[1]}x{C}", whole, 1,
+                               chunk(widths[1]), widths[1], positions=C))
+    return out
+
+
+def _stream_gate(tag: str, got: list, want: list, probe) -> None:
+    """Whole token streams of two runs must be identical. If they are not,
+    `probe()` (a `_row_probe`) names the first op whose row bits depend on
+    the batch: a plain-torch op keeps the gate on first tokens (phase 7's
+    top-1 rule) and is printed as the cause; the hand-written GEMM, or no
+    op at all, fails the phase."""
+    first, whole = _first_token_share(got, want)
+    _say(f"[{tag}] first tokens agree {first:.2f}, whole streams "
+         f"{whole:.2f} (gate: identical)")
+    if whole == 1.0:
+        return
+    causes = [c for c in probe() if c is not None]
+    gemm = [c for c in causes if " GEMM " in c]
+    _say(f"[{tag}] streams differ; ops whose row bits depend on the batch: "
+         f"{causes or 'none found'}")
+    if not causes or gemm:
+        raise SystemExit(f"[{tag}] streams differ and the probe names "
+                         f"{gemm or 'no op'}")
+    if first < LOGITS_TOP1_MIN:
+        raise SystemExit(f"[{tag}] first tokens disagree beyond the plain-"
+                         f"torch op {causes[0]}")
+    _say(f"[{tag}] gate kept on first tokens (min {LOGITS_TOP1_MIN:g}): the "
+         f"first difference is the plain-torch op {causes[0]}")
+
+
 def _free() -> None:
     """Collect what the caller dropped and hand its memory on the card back
     to the allocator."""
@@ -1296,10 +1655,9 @@ def _paged_forward_check(dev, api, params, cfg, W: int = 8, C: int = 64,
     `steps` decode steps through a dense state and through a paged state
     whose rows own shuffled pages of a larger pool. Both issue the same
     GEMMs at the same shapes, so logits and cached keys and values must be
-    bit-identical. (Two engine runs need not be: the paged lane narrows to
-    the rows still prefilling while the dense lane keeps its parked rows,
-    so their chunk GEMMs differ in M, and `plan` may then pick another
-    split count or path, which rounds differently in bf16.)"""
+    bit-identical. (Two engine runs issue chunk GEMMs of other M — the
+    paged lane narrows to the rows still prefilling while the dense lane
+    keeps its parked rows — and are compared by `_stream_gate`.)"""
     from repro_torch.models import layers as L
     from repro_torch.models.transformer import init_kv_page_pool
 
@@ -1341,12 +1699,66 @@ def _paged_forward_check(dev, api, params, cfg, W: int = 8, C: int = 64,
         raise SystemExit("the paged layout changed a forward's output")
 
 
+def _prefix_pair(tag: str, engine, cfg, run, log, probe) -> None:
+    """The shared-prefix workload (`_prefix_requests`) served dense and
+    paged with prefix reuse at half the default page pool: request 0 alone
+    (its prompt's pages are registered when its prefill ends), then the
+    other 9 together. Prefix reuse must hit and save chunk steps. The paged
+    streams must equal the dense ones (`_stream_gate`), except for the MoE
+    families under a binding capacity: there a row's expert capacity comes
+    from its chunk's length, and a prefix hit changes the chunk buckets of
+    the rest of the prompt (the JAX package's contract too: cross-chunk-
+    grid parity is out of it, `tests/test_moe_capacity.py`), so their
+    streams are held to phase 7's first-token rule."""
+    full_pool = engine(kv_layout="paged")._allocator.num_pages
+    prefix: dict = {}
+    for layout, kw in (("dense", {}),
+                       ("paged", dict(kv_layout="paged", prefix_cache=True,
+                                      num_pages=full_pool // 2))):
+        eng = engine(**kw)
+        reqs = _prefix_requests(cfg)
+        name = f"{tag} (c) prefix {layout}"
+        run(f"{name}, request 0", eng, cfg, log, reqs[:1])
+        res, rep = run(f"{name}, the other 9", eng, cfg, log, reqs[1:])
+        prefix[layout] = (res, rep, eng.report().get("paging"))
+        del eng
+        _free()
+    (res_d, rep_d, _), (res_p, rep_p, paging) = prefix["dense"], \
+        prefix["paged"]
+    if cfg.n_experts:
+        first, whole = _first_token_share(res_p, res_d)
+        _say(f"[{tag} (c) prefix reuse against dense] first tokens agree "
+             f"{first:.2f} (min {LOGITS_TOP1_MIN:g}), whole streams "
+             f"{whole:.2f} (per-row capacity follows the chunk buckets, "
+             "which a prefix hit changes)")
+        if first < LOGITS_TOP1_MIN:
+            raise SystemExit("prefix reuse changed the first tokens")
+    else:
+        _stream_gate(f"{tag} (c) prefix reuse against dense", res_p, res_d,
+                     probe)
+    _say(f"[{tag}] (c) the 9 sharing a {PREFIX_TOKENS}-token prefix, "
+         f"paged with prefix reuse ({full_pool // 2} of {full_pool} pages) "
+         f"against dense: chunk steps {rep_p['chunk_steps']} against "
+         f"{rep_d['chunk_steps']}; prefix hits {paging['prefix_hits']} "
+         f"({paging['prefix_hit_tokens']} tokens), COW forks "
+         f"{paging['cow_forks']}, peak pages in use {paging['peak_in_use']};"
+         f" mean TTFT {statistics.mean(r.ttft_s for r in res_p):.3f} s "
+         f"against {statistics.mean(r.ttft_s for r in res_d):.3f} s; the "
+         f"h100 model's J/token "
+         f"{rep_p['energy_j'] / rep_p['generated_tokens']:.4f} against "
+         f"{rep_d['energy_j'] / rep_d['generated_tokens']:.4f}")
+    if not (paging["prefix_hits"] > 0
+            and rep_p["chunk_steps"] < rep_d["chunk_steps"]):
+        raise SystemExit("prefix reuse missed or saved no chunk step")
+
+
 def phase_dense(dev) -> dict:
     """The rest of dense serving at `plan`'s tiles (no tuned winner is
     installed): qwen2.5-14b served chunked, paged, with prefix reuse,
     serially and in waves; then codeqwen1.5-7b and starcoder2-3b. Returns
     {"entries": qwen2.5-14b's per-path timing (phase 5's form), "launches":
-    {model: launches per path}}."""
+    {model: launches per path}, "shapes": {"qwen2.5-14b": (a)'s launches by
+    shape}}."""
     from repro_torch.kernels import ops
     from repro_torch.serving.engine import ServingEngine
 
@@ -1382,61 +1794,33 @@ def phase_dense(dev) -> dict:
     _paged_forward_check(dev, api, params, cfg)
     eng_b = engine(kv_layout="paged", prefix_cache=False)
     res_b, _ = run(f"dense {name} (b) paged", eng_b, cfg, other)
-    first, whole = _first_token_share(res_b, res_a)
-    _say(f"[dense] {name} (b) paged without prefix reuse against (a): "
-         f"first tokens agree {first:.2f} (min {LOGITS_TOP1_MIN:g}), whole "
-         f"streams {whole:.2f}; pages {eng_b.report()['paging']}")
-    if first < LOGITS_TOP1_MIN:
-        raise SystemExit("the paged engine's first tokens disagree")
+    _say(f"[dense] {name} (b) pages {eng_b.report()['paging']}")
+    probed: list = []
+
+    def probe():
+        """`_row_probe` of qwen2.5-14b, run once on the first failing gate:
+        lane widths 1 and 8, decode 1 and 4 rows, a serial 512 bucket."""
+        if not probed:
+            probed.extend(_row_probe(dev, api, params, cfg,
+                                     f"dense {name} probe", serial=512))
+        return probed
+
+    _stream_gate(f"dense {name} (b) paged without prefix reuse against (a)",
+                 res_b, res_a, probe)
     del eng_b
     _free()
 
-    # (c) a shared system prompt: request 0 alone (its prompt's pages are
-    # registered when its prefill ends), then the other 9 together
-    full_pool = engine(kv_layout="paged")._allocator.num_pages
-    prefix: dict = {}
-    for layout, kw in (("dense", {}),
-                       ("paged", dict(kv_layout="paged", prefix_cache=True,
-                                      num_pages=full_pool // 2))):
-        eng = engine(**kw)
-        reqs = _prefix_requests(cfg)
-        tag = f"dense {name} (c) prefix {layout}"
-        run(f"{tag}, request 0", eng, cfg, other, reqs[:1])
-        res, rep = run(f"{tag}, the other 9", eng, cfg, other, reqs[1:])
-        prefix[layout] = (res, rep, eng.report().get("paging"))
-        del eng
-        _free()
-    (res_d, rep_d, _), (res_p, rep_p, paging) = prefix["dense"], \
-        prefix["paged"]
-    first, whole = _first_token_share(res_p, res_d)
-    _say(f"[dense] {name} (c) the 9 sharing a {PREFIX_TOKENS}-token prefix, "
-         f"paged with prefix reuse ({full_pool // 2} of {full_pool} pages) "
-         f"against dense: chunk steps {rep_p['chunk_steps']} against "
-         f"{rep_d['chunk_steps']}; prefix hits {paging['prefix_hits']} "
-         f"({paging['prefix_hit_tokens']} tokens), COW forks "
-         f"{paging['cow_forks']}, peak pages in use {paging['peak_in_use']};"
-         f" mean TTFT {statistics.mean(r.ttft_s for r in res_p):.3f} s "
-         f"against {statistics.mean(r.ttft_s for r in res_d):.3f} s; first "
-         f"tokens agree {first:.2f} (min {LOGITS_TOP1_MIN:g}), whole streams"
-         f" {whole:.2f}; the h100 model's J/token "
-         f"{rep_p['energy_j'] / rep_p['generated_tokens']:.4f} against "
-         f"{rep_d['energy_j'] / rep_d['generated_tokens']:.4f}")
-    if not (paging["prefix_hits"] > 0
-            and rep_p["chunk_steps"] < rep_d["chunk_steps"]
-            and first >= LOGITS_TOP1_MIN):
-        raise SystemExit("prefix reuse missed, saved no chunk step or "
-                         "changed the first tokens")
+    # (c) a shared system prompt, dense and paged with prefix reuse
+    _prefix_pair(f"dense {name}", engine, cfg, run, other, probe)
 
     # (d) serial admission, (e) the wave loop
     res_s, _ = run(f"dense {name} (d) serial", engine(admission="serial"),
                    cfg, other)
-    first, whole = _first_token_share(res_s, res_a)
-    _say(f"[dense] {name} (d) serial against (a) chunked: first tokens "
-         f"agree {first:.2f} (min {LOGITS_TOP1_MIN:g}), whole streams "
-         f"{whole:.2f}; mean TTFT {statistics.mean(r.ttft_s for r in res_s):.3f}"
-         f" s against {statistics.mean(r.ttft_s for r in res_a):.3f} s")
-    if first < LOGITS_TOP1_MIN:
-        raise SystemExit("serial admission's first tokens disagree")
+    _say(f"[dense] {name} (d) serial: mean TTFT "
+         f"{statistics.mean(r.ttft_s for r in res_s):.3f} s against "
+         f"{statistics.mean(r.ttft_s for r in res_a):.3f} s chunked")
+    _stream_gate(f"dense {name} (d) serial against (a) chunked", res_s,
+                 res_a, probe)
     run(f"dense {name} (e) wave", engine(mode="wave"), cfg, other,
         _requests(cfg)[:4])
     _free()
@@ -1465,7 +1849,153 @@ def phase_dense(dev) -> dict:
         raise SystemExit(f"phase 10 left a fast path unlaunched: {total}")
     _say(f"[dense] phase 10 took {time.perf_counter() - t_phase:.1f} s on "
          f"{_nvidia_smi()}")
+    return {"entries": entries, "launches": dict(launches),
+            "shapes": {name: shapes}}
+
+
+# phase 11: deepseek-v2-236b's depth on one card. The whole model is 239.4 B
+# parameters (478.7 GB in bf16); a layer is 3.97 B (7.94 GB), the
+# embedding and head 2.1 GB, and the init's largest f32 draw (one layer's
+# 160 x 5120 x 1536 experts) 5.0 GB. 8 layers are 65.7 GB and leave the
+# 80 GB card room for that draw, the caches, the plain version's f32
+# copies in the logits check and the allocator's slack.
+DEEPSEEK_LAYERS = 8
+# phase 11 (b): the prompt length of the capacity check (olmoe's capacity
+# factor 1.25 gives 10 slots per row and expert at S = 64 and top-8 of 64)
+CAPACITY_PROMPT = 64
+
+
+def phase_moe(dev) -> dict:
+    """MoE and MLA serving at `plan`'s tiles: full-width, full-depth
+    olmoe-1b-7b served (a) chunked on the dense KV cache (and on the paged
+    cache without prefix reuse: identical streams), (b) in the wave loop, a
+    64-token request alone and then beside 3 others of its length (per-row
+    expert capacity binds; the streams must be identical; beside it one
+    row's ops at batch 1 and 4, compared bit for bit), and (c) the
+    shared-prefix workload dense and paged with prefix reuse;
+    then deepseek-v2-236b at full width cut to `DEEPSEEK_LAYERS` layers,
+    served chunked on the dense latent cache and on the paged latent pool
+    (identical streams).
+    Each model: the logits check, launches per forward from the model's
+    structure (81 for olmoe, 11 L + 1 for deepseek), none on general, the
+    routers counted apart, and its serving shapes timed as in phase 5.
+    Returns {"entries": {model: per-path timing}, "launches": {model:
+    launches per path}}."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe
+    from repro_torch.serving.engine import Request, ServingEngine
+
+    t_phase = time.perf_counter()
+    ops._TUNED.clear()
+    launches: dict = collections.defaultdict(collections.Counter)
+    entries: dict = {}
+
+    def run(tag, eng, cfg, log, reqs=None) -> tuple:
+        """One checked serving run at plan's tiles, none on general."""
+        rec: collections.Counter = collections.Counter()
+        by_path, res, rep = _serve_requests(tag, eng, cfg, rec, reqs)
+        log.update(rec)
+        launches[cfg.name].update(by_path)
+        if by_path["general"] or any(k[5] is not None for k in rec):
+            raise SystemExit(f"[{tag}] launches on general or off plan's "
+                             f"tiles: {by_path}")
+        return res, rep
+
+    def engines(api, params, cfg):
+        return lambda **kw: ServingEngine(api, params, cfg, max_batch=4,
+                                          max_len=512, chunk_tokens=64,
+                                          device=dev, **kw)
+
+    # olmoe-1b-7b at full width and depth
+    cfg, api, params = _init_model(dev, "olmoe-1b-7b", "moe")
+    name, engine = cfg.name, engines(api, params, cfg)
+    shapes: collections.Counter = collections.Counter()
+    other: collections.Counter = collections.Counter()
+    eng_a = engine()
+    res_a, _ = run(f"moe {name} (a) chunked", eng_a, cfg, shapes)
+    phase_logits(dev, eng_a, params, cfg, tag=f"moe logits {name}")
+    # one row at two batch sizes, op by op: the evidence behind (b)
+    probed = _row_probe(dev, api, params, cfg, f"moe {name} probe",
+                        widths=(1, 4))
+    res_p, _ = run(f"moe {name} paged, no prefix reuse",
+                   engine(kv_layout="paged", prefix_cache=False), cfg, other)
+    _stream_gate(f"moe {name} paged without prefix reuse against (a)", res_p,
+                 res_a, lambda: probed)
+
+    rng = np.random.default_rng(7)
+    prompts = rng.integers(0, cfg.vocab, (4, CAPACITY_PROMPT)).astype(
+        np.int32)
+    waves = {}
+    for n in (1, 4):
+        # sampled (seeded per request), so the stream does not collapse to
+        # one token as a random model's greedy stream does
+        res, _ = run(f"moe {name} (b) wave of {n}",
+                     engine(mode="wave", greedy=False, seed=3), cfg, other,
+                     [Request(uid=i, prompt=prompts[i].copy(),
+                              max_new_tokens=16) for i in range(n)])
+        waves[n] = [r for r in res if r.uid == 0]
+    _say(f"[moe] {name} (b) capacity {moe.capacity(cfg, CAPACITY_PROMPT)} "
+         f"slots per row and expert at S = {CAPACITY_PROMPT} (cf "
+         f"{cfg.capacity_factor}, top-{cfg.top_k} of {cfg.n_experts}); "
+         f"request 0 alone: {waves[1][0].tokens.tolist()}")
+    _stream_gate(f"moe {name} (b) request 0 alone against beside 3 others",
+                 waves[1], waves[4], lambda: probed)
+    _prefix_pair(f"moe {name}", engine, cfg, run, other, lambda: probed)
+    entries[name] = phase_serving_shapes(dev, shapes, tag=f"moe shapes {name}")
+    del eng_a, params, engine
+    _free()
+
+    # deepseek-v2-236b at full width, cut in depth
+    full = get_config("deepseek-v2-236b")
+    cfg, api, params = _init_model(dev, "deepseek-v2-236b", "mla",
+                                   layers=DEEPSEEK_LAYERS)
+    name, engine = cfg.name, engines(api, params, cfg)
+    cut = cfg.n_params() / full.n_params()
+    _say(f"[mla] {name} cut in depth to {cfg.n_layers} of {full.n_layers} "
+         f"layers ({cfg.n_params() / 1e9:.1f} of {full.n_params() / 1e9:.1f}"
+         f" B params, {100 * cut:.1f}%), full width: d_model {cfg.d_model}, "
+         f"{cfg.n_heads} heads of {cfg.hd}, kv_lora {cfg.kv_lora_rank}, "
+         f"q_lora {cfg.q_lora_rank}, rope {cfg.rope_head_dim}, "
+         f"{cfg.n_experts} routed experts top-{cfg.top_k}, "
+         f"{cfg.n_shared_experts} shared, vocab {cfg.vocab}; memory "
+         f"allocated {torch.cuda.memory_allocated() / 1e9:.1f} GB of "
+         f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f}")
+    shapes = collections.Counter()
+    eng_a = engine()
+    phase_logits(dev, eng_a, params, cfg, W=8, tag=f"mla logits {name}")
+    res_a, _ = run(f"mla {name} (a) chunked, dense latent cache", eng_a, cfg,
+                   shapes)
+    res_p, _ = run(f"mla {name} (b) paged latent pool",
+                   engine(kv_layout="paged"), cfg, other)
+    _stream_gate(f"mla {name} (b) paged against (a)", res_p, res_a,
+                 lambda: _row_probe(dev, api, params, cfg,
+                                    f"mla {name} probe"))
+    entries[name] = phase_serving_shapes(dev, shapes, tag=f"mla shapes {name}")
+    del eng_a, params, engine
+    _free()
+
+    for model, by_path in launches.items():
+        _say(f"[moe] launches per path, {model}: stream {by_path['stream']}, "
+             f"wgmma {by_path['wgmma']}, general {by_path['general']}")
+    _say(f"[moe] phase 11 took {time.perf_counter() - t_phase:.1f} s on "
+         f"{_nvidia_smi()}")
     return {"entries": entries, "launches": dict(launches)}
+
+
+SHAPES_FILE = ROOT / "build" / "serving_shapes.json"
+
+
+def _write_shapes(by_model: dict) -> None:
+    """Write each model's serving launches by shape ((M, N, K, in dtype, out
+    dtype) and count) to `SHAPES_FILE`, for `tools/gemm_sums.py` to time
+    the same launches with another checkout's kernel."""
+    out = {model: [[m, n, k, str(i).split(".")[-1], str(o).split(".")[-1], c]
+                   for (m, n, k, i, o, _), c in sorted(
+                       shapes.items(), key=lambda kv: kv[0][:3])]
+           for model, shapes in by_model.items()}
+    SHAPES_FILE.parent.mkdir(parents=True, exist_ok=True)
+    SHAPES_FILE.write_text(json.dumps(out))
 
 
 def main() -> int:
@@ -1495,7 +2025,9 @@ def main() -> int:
     phase_energy(dev, api, params, cfg, shapes, *loop)
     del eng, params, loop
     _free()
-    phase_dense(dev)
+    dense = phase_dense(dev)
+    _write_shapes({"qwen2-7b": shapes, **dense["shapes"]})
+    phase_moe(dev)
     _say(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     _say(_nvidia_smi())
     # one entry per path the serving run takes; the general path serves no

@@ -5,14 +5,16 @@
     cfg = get_config("qwen2-7b", smoke=True)
 
 The four dense configs are ported: `qwen2-7b`, `qwen2.5-14b`,
-`codeqwen1.5-7b` and `starcoder2-3b`. Asking for another of the JAX
+`codeqwen1.5-7b` and `starcoder2-3b`; and the two MoE ones: `olmoe-1b-7b`
+and `deepseek-v2-236b` (MLA). Asking for another of the JAX
 package's architectures raises `NotImplementedError` naming the ROADMAP item
 (queue A) that ports its family.
 """
 
 from __future__ import annotations
 
-from repro_torch.configs import (codeqwen1_5_7b, qwen2_5_14b, qwen2_7b,
+from repro_torch.configs import (codeqwen1_5_7b, deepseek_v2_236b,
+                                  olmoe_1b_7b, qwen2_5_14b, qwen2_7b,
                                   starcoder2_3b)
 
 PORTED = {
@@ -20,12 +22,12 @@ PORTED = {
     "starcoder2-3b": starcoder2_3b,
     "qwen2.5-14b": qwen2_5_14b,
     "qwen2-7b": qwen2_7b,
+    "olmoe-1b-7b": olmoe_1b_7b,
+    "deepseek-v2-236b": deepseek_v2_236b,
 }
 
 # the JAX package's other architectures -> the ROADMAP item that ports them
 NOT_YET_PORTED = {
-    "olmoe-1b-7b": "A4 (MoE/MLA)",
-    "deepseek-v2-236b": "A4 (MoE/MLA)",
     "falcon-mamba-7b": "A5 (SSM/hybrid)",
     "zamba2-2.7b": "A5 (SSM/hybrid)",
     "seamless-m4t-medium": "A6 (encdec/vlm)",

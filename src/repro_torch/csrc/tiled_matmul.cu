@@ -41,11 +41,23 @@
 //   the CUDA cores for f32 (no TF32). It is the first version of this
 //   kernel, kept for the cases the fast paths do not take.
 //
-// Split-K (both fast paths): every split writes its fp32 partial tile to a
-// workspace the wrapper allocates (splits x M x N). The CTA that finishes a
-// tile last, found through an int32 counter per tile that it then resets to
-// 0, sums the partials in split order and runs the epilogue. There are no
-// float atomics, so the result is bit-identical from run to run.
+// K segments (both fast paths): a row's result must not depend on how many
+// rows share the call, nor on which path `plan` picks for that M. So K is cut
+// into `segments` contiguous runs of K tiles, a count that depends on N and K
+// only; each run is summed from a fresh fp32 accumulator and the runs' sums
+// are then added in order, starting from 0. mma.sync m16n8k16 (stream) and
+// wgmma m64nNk16 (wgmma) give the same fp32 sum over the same run of K tiles
+// on the H100 (the row-invariance check of chip_smoke.py's phase 3), so both
+// paths give a row the same bits at any M. `stream` gives each segment a CTA
+// of its own ("spread"); `wgmma` either does the same or, where the tiles
+// alone fill the card, walks a tile's segments in one CTA, adding each
+// segment's accumulator into a running total ("walk"; the 128x256 tile has no
+// registers for the total, so it walks only a single segment). Spread
+// segments write their fp32 partial tiles to a workspace the wrapper
+// allocates (segments x M x N); the CTA that finishes a tile last, found
+// through an int32 counter per tile that it then resets to 0, sums the
+// partials in segment order and runs the epilogue. There are no float
+// atomics, so the result is also bit-identical from run to run.
 //
 // Plain C entry point (loaded with ctypes); returns a cudaError_t after the
 // launch. Launches on the caller's stream, allocates nothing.
@@ -846,13 +858,16 @@ __device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t da,
 
 // One CTA: output tile [m0, m0 + 128) x [n0, n0 + BN) over the K tiles of
 // split blockIdx.z. Warps 0-7 are two consumer warpgroups (rows 0-63 and
-// 64-127 of the tile); lane 0 of warp 8 is the TMA producer.
+// 64-127 of the tile); lane 0 of warp 8 is the TMA producer. With
+// splits == 1 and segments > 1 the CTA walks all `segments` K segments,
+// summing each from zero and adding it into a running total (not compiled
+// for BN = 256); otherwise splits == segments and the CTA owns one.
 template <typename Tout, int BN>
 __global__ void __launch_bounds__(kWgThreads, 1)
     gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
                       const __grid_constant__ CUtensorMap tma_b,
                       const GemmArgs g, float* __restrict__ ws,
-                      int* __restrict__ counters, int splits) {
+                      int* __restrict__ counters, int splits, int segments) {
   constexpr int BM = kWgBM, BK = kWgBK, S = kWgStages;
   constexpr int A_BYTES = BM * BK * 2, BOX_BYTES = BK * 64 * 2;
   constexpr int STAGE = A_BYTES + BK * BN * 2;
@@ -899,8 +914,30 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       }
     }
   } else {
+    // walk: the running total of the segments before the current one, and
+    // the K tile where the next segment starts
+    constexpr bool kCanWalk = BN != 256;
+    float total[kCanWalk ? BN / 2 : 1];
+    int seg = 1;
+    int64_t next = kt * seg / segments;
+    if constexpr (kCanWalk) {
+#pragma unroll
+      for (int r = 0; r < BN / 2; ++r) total[r] = 0.0f;
+    }
     for (int i = 0; i < nt; ++i) {
       const int s = i % S;
+      if constexpr (kCanWalk) {
+        if (splits == 1 && i == next) {  // segment seg - 1 ends: bank it
+          wgmma_wait<0>();
+          fence_acc(acc);
+#pragma unroll
+          for (int r = 0; r < BN / 2; ++r) {
+            total[r] += acc[r];
+            acc[r] = 0.0f;
+          }
+          next = kt * ++seg / segments;
+        }
+      }
       mbar_wait(&full[s], (i / S) & 1);
       const unsigned char* st = ring + s * STAGE;
       const uint64_t da = make_desc(st + wg * 64 * 128, 16, 1024);
@@ -918,6 +955,12 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     }
     wgmma_wait<0>();
     fence_acc(acc);
+    if constexpr (kCanWalk) {
+      if (splits == 1 && segments > 1) {  // the last segment, then the total
+#pragma unroll
+        for (int r = 0; r < BN / 2; ++r) acc[r] = total[r] + acc[r];
+      }
+    }
   }
 
   // acc[4 i + e] of consumer thread t is the tile's (row, col) =
@@ -1020,8 +1063,10 @@ cudaError_t launch_stream(const GemmArgs& g, int splits, float* ws,
 }
 
 template <typename Tout, int BN>
-cudaError_t launch_wgmma(const GemmArgs& g, int splits, float* ws,
-                         int* counters, cudaStream_t stream) {
+cudaError_t launch_wgmma(const GemmArgs& g, int splits, int segments,
+                         float* ws, int* counters, cudaStream_t stream) {
+  if (splits != 1 && splits != segments) return cudaErrorInvalidValue;
+  if (BN == 256 && splits == 1 && segments > 1) return cudaErrorInvalidValue;
   CUtensorMap ma, mb;
   if (!bf16_map(&ma, g.a, g.M, g.K, g.sam, kWgBM) ||
       !bf16_map(&mb, g.b, g.K, g.N, g.sbk, kWgBK))
@@ -1034,21 +1079,24 @@ cudaError_t launch_wgmma(const GemmArgs& g, int splits, float* ws,
   const dim3 grid(static_cast<unsigned>((g.N + BN - 1) / BN),
                   static_cast<unsigned>((g.M + kWgBM - 1) / kWgBM),
                   static_cast<unsigned>(splits));
-  kernel<<<grid, kWgThreads, smem, stream>>>(ma, mb, g, ws, counters, splits);
+  kernel<<<grid, kWgThreads, smem, stream>>>(ma, mb, g, ws, counters, splits,
+                                             segments);
   return cudaGetLastError();
 }
 
 // The fast paths take bf16 with op(A) rows and B rows contiguous (checked
 // here again; `plan` checks alignment too). Tiles: stream (8 MT, 64, 64)
-// with M <= 8 MT; wgmma (128, 64 | 128 | 256, 64).
+// with M <= 8 MT, one CTA per segment (splits == segments); wgmma (128, 64 |
+// 128 | 256, 64), spread (splits == segments) or walking (splits == 1).
 template <typename Tout>
 cudaError_t launch_fast(const GemmArgs& g, int path, int bm, int bn, int bk,
-                        int splits, float* ws, int* counters,
+                        int splits, int segments, float* ws, int* counters,
                         cudaStream_t stream) {
   const int64_t kt = (g.K + 63) / 64;
-  if (g.sak != 1 || g.sbn != 1 || g.K < 1 || splits < 1 || splits > kt ||
-      (splits > 1 && (ws == nullptr || counters == nullptr)))
+  if (g.sak != 1 || g.sbn != 1 || g.K < 1 || splits < 1 || segments < 1 ||
+      segments > kt || (splits > 1 && (ws == nullptr || counters == nullptr)))
     return cudaErrorInvalidValue;
+  if (path == 1 && splits != segments) return cudaErrorInvalidValue;
   if (path == 1 && bn == kStreamBN && bk == kStreamBK && g.M <= bm) {
     if (bm == 8) return launch_stream<Tout, 1>(g, splits, ws, counters, stream);
     if (bm == 16) return launch_stream<Tout, 2>(g, splits, ws, counters, stream);
@@ -1056,9 +1104,12 @@ cudaError_t launch_fast(const GemmArgs& g, int path, int bm, int bn, int bk,
     if (bm == 64) return launch_stream<Tout, 8>(g, splits, ws, counters, stream);
   }
   if (path == 2 && bm == kWgBM && bk == kWgBK) {
-    if (bn == 256) return launch_wgmma<Tout, 256>(g, splits, ws, counters, stream);
-    if (bn == 128) return launch_wgmma<Tout, 128>(g, splits, ws, counters, stream);
-    if (bn == 64) return launch_wgmma<Tout, 64>(g, splits, ws, counters, stream);
+    if (bn == 256)
+      return launch_wgmma<Tout, 256>(g, splits, segments, ws, counters, stream);
+    if (bn == 128)
+      return launch_wgmma<Tout, 128>(g, splits, segments, ws, counters, stream);
+    if (bn == 64)
+      return launch_wgmma<Tout, 64>(g, splits, segments, ws, counters, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -1076,8 +1127,10 @@ int smem_of(Kernel kernel, int dynamic_bytes) {
 // 2 = wgmma. Tile (bm, bn, bk) must be one the path instantiates: general
 // (64, 64, 32); stream (8 | 16 | 32 | 64, 64, 64); wgmma (128, 64 | 128 |
 // 256, 64).
-// `splits` K-splits (fast paths) need a (splits, M, N) fp32 workspace and
-// one zeroed int32 counter per output tile; the kernel leaves them zeroed.
+// `segments` K segments (fast paths; see above), spread over `splits` CTAs
+// per output tile (splits == segments) or walked by one (splits == 1, wgmma
+// only). splits > 1 needs a (splits, M, N) fp32 workspace and one zeroed
+// int32 counter per output tile; the kernel leaves them zeroed.
 extern "C" int repro_tiled_matmul(const void* a, const void* b,
                                   const void* c_in, void* out, int64_t M,
                                   int64_t N, int64_t K, int64_t sam,
@@ -1085,8 +1138,8 @@ extern "C" int repro_tiled_matmul(const void* a, const void* b,
                                   int64_t scm, int64_t scn, float alpha,
                                   float beta, int in_dtype, int out_dtype,
                                   int path, int bm, int bn, int bk, int splits,
-                                  void* workspace, void* counters,
-                                  void* stream) {
+                                  int segments, void* workspace,
+                                  void* counters, void* stream) {
   const GemmArgs g{a,   b,   c_in, out, M,   N,     K,   sam,
                    sak, sbk, sbn,  scm, scn, alpha, beta};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1105,9 +1158,11 @@ extern "C" int repro_tiled_matmul(const void* a, const void* b,
   }
   if (in_dtype != 1) return cudaErrorInvalidValue;
   if (out_dtype == 0)
-    return launch_fast<float>(g, path, bm, bn, bk, splits, ws, cnt, s);
+    return launch_fast<float>(g, path, bm, bn, bk, splits, segments, ws, cnt,
+                              s);
   if (out_dtype == 1)
-    return launch_fast<__nv_bfloat16>(g, path, bm, bn, bk, splits, ws, cnt, s);
+    return launch_fast<__nv_bfloat16>(g, path, bm, bn, bk, splits, segments,
+                                      ws, cnt, s);
   return cudaErrorInvalidValue;
 }
 

@@ -165,7 +165,8 @@ def chunk_buckets(max_len: int, chunk_tokens: int,
 def serving_gemm_fleet(cfg, *, max_batch: int, max_len: int,
                        include_slot_prefill: bool = True,
                        chunk_tokens: int | None = None,
-                       lane_width: int | None = None
+                       lane_width: int | None = None,
+                       kv_cap: int | None = None
                        ) -> list[tuple[int, int, int]]:
     """Every GEMM shape a serving engine will trace: the batched prefill
     (max_batch * max_len rows, LM head over max_batch last positions), the
@@ -180,15 +181,26 @@ def serving_gemm_fleet(cfg, *, max_batch: int, max_len: int,
     every shape the engine issues has its tuned tile before the first
     request.
 
-    The reference's fleet for the dense family at tp=1 (its MLA `kv_cap`,
-    tensor-parallel shards, SSM grain and encoder-decoder / vision
-    admission grids come with the slices that port those features).
+    `kv_cap` is the per-row cached-token capacity that sizes MLA's
+    whole-cache ``w_uk``/``w_uv`` decompression rows (default `max_len`;
+    the paged engine's gathered view spans n_row_pages x page_size).
+
+    The reference's fleet for the dense, MoE and MLA-MoE families at tp=1
+    (its tensor-parallel shards, SSM grain and encoder-decoder / vision
+    admission grids come with the slices that port those features). Like
+    the reference's, it comes from `gemm_shape_counts`, so for the MoE
+    families it holds the routed-expert shapes that `matmul` never
+    launches (the experts are einsums) and lacks the router that it does
+    (ROADMAP queue C).
     """
     from repro_torch.models.config import gemm_shape_counts
 
+    cap_len = kv_cap if kv_cap is not None else max_len
     fleet = set(gemm_shape_counts(cfg, max_batch * max_len,
-                                  head_tokens=max_batch))
-    fleet |= set(gemm_shape_counts(cfg, max_batch))
+                                  head_tokens=max_batch,
+                                  kv_rows=max_batch * cap_len))
+    fleet |= set(gemm_shape_counts(cfg, max_batch,
+                                   kv_rows=max_batch * cap_len))
     if include_slot_prefill:
         if chunk_tokens is None:
             # serial admission: single-shot slot prefills only ever run at
@@ -208,7 +220,8 @@ def serving_gemm_fleet(cfg, *, max_batch: int, max_len: int,
         for b in set(chunks) | set(prefill_buckets(max_len)):
             # buckets past the chunk cap only ever run at width 1
             for w in (sorted(widths) if b in chunks else [1]):
-                fleet |= set(gemm_shape_counts(cfg, w * b, head_tokens=w))
+                fleet |= set(gemm_shape_counts(cfg, w * b, head_tokens=w,
+                                               kv_rows=w * cap_len))
     return sorted(fleet)
 
 

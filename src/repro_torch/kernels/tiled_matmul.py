@@ -10,7 +10,9 @@ The kernel has three paths, and `plan` picks one per call from dtype,
 layout, alignment and shape: ``stream`` (split-K weight streaming for
 M <= 64, the decode GEMMs), ``wgmma`` (TMA and warpgroup MMA for M > 64, the
 prefill chunks) and ``general`` (everything else: f32, transposed layouts,
-unaligned views).
+unaligned views). On both fast paths a row's bits do not depend on M: K is
+cut into segments by (N, K) alone (`k_segments`), which both paths sum in
+the same order.
 
 A CPU tensor is computed by the plain version (`ref.matmul_ref`); a CUDA
 tensor launches the kernel or raises. ``tiled_matmul.launches`` counts the
@@ -46,6 +48,13 @@ STREAM_WAVES = 4
 # GEMM whose FLOPs take longer than its bytes is bound by operations
 PEAK_BF16_FLOPS, HBM_BYTES_PER_S = 989e12, 3.35e12
 MIN_SPLIT_K_TILES = 2
+FAST_BLOCK_K = 64    # the K step of every fast-path tile
+# K segments are sized for the decode GEMMs: the 8-row stream tile
+SEGMENT_ROWS = 8
+# wgmma spreads a shape's segments over CTAs (one each) only where its tiles
+# cover less than half a wave and tiles x segments stay within 4 waves;
+# elsewhere one CTA walks all of a tile's segments
+SPREAD_MAX_CTAS = STREAM_WAVES * WAVE_CTAS
 _MAX_GRID_Y = 65535
 
 
@@ -105,11 +114,14 @@ def candidate_tiles(m: int) -> list[BlockConfig]:
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """Which path a GEMM takes, with which tile and how many K-splits."""
+    """Which path a GEMM takes, with which tile, its K segments and the
+    CTAs each output tile's segments are spread over (`splits`: one CTA
+    per segment, or 1 where a CTA walks them all)."""
 
     path: str
     tile: BlockConfig
     splits: int
+    segments: int = 1
 
     def tiles(self, m: int, n: int) -> int:
         """Output tiles of an (m, n) product: the grid without splits."""
@@ -131,37 +143,53 @@ def _fast_layout(n, k, a_strides, b_strides, a_ptr_mod16, b_ptr_mod16,
             and a_ptr_mod16 == 0 and b_ptr_mod16 == 0)
 
 
-def _splits(path: str, tile: BlockConfig, tiles: int, k: int) -> int:
-    if path == WGMMA and tiles >= WAVE_CTAS // 2:
-        return 1
+def k_segments(n: int, k: int) -> int:
+    """The K segments of an (N, K) fast-path product: a function of N and K
+    alone, so every M sums a row in the same order. Sized for the decode
+    GEMMs on the 8-row stream tile, one CTA per segment: enough that the
+    N / 64 column tiles x segments cover a wave of 132 CTAs, and up to 4
+    waves to keep more weight bytes in flight while the fp32 partials (8
+    bytes per output per segment, written and read back) stay under a
+    quarter of the weight bytes (segments <= K / 128); never so many that a
+    segment gets fewer than 2 K tiles of 64."""
+    tiles = -(-n // 64)
     one_wave = -(-WAVE_CTAS // tiles)
-    want = one_wave
-    if path == STREAM:
-        # a stream CTA is small, so aim for STREAM_WAVES CTAs per SM to keep
-        # more weight bytes in flight, as long as the fp32 partials (8
-        # bytes per output per split, written and read back) stay under a
-        # quarter of the weight bytes (2 per weight)
-        want = max(one_wave, min(-(-STREAM_WAVES * WAVE_CTAS // tiles),
-                                 k // (16 * tile.block_m)))
-    return max(1, min(want, -(-k // tile.block_k) // MIN_SPLIT_K_TILES))
+    want = max(one_wave, min(-(-STREAM_WAVES * WAVE_CTAS // tiles),
+                             k // (16 * SEGMENT_ROWS)))
+    return max(1, min(want, -(-k // FAST_BLOCK_K) // MIN_SPLIT_K_TILES))
 
 
-def _wgmma_tile(m: int, n: int, k: int, out_dtype) -> BlockConfig:
+def _wgmma_splits(tile: BlockConfig, tiles: int, segments: int) -> int:
+    """1 (one CTA walks a tile's segments) or `segments` (one CTA each)."""
+    if segments > 1 and tile.block_n == 256:
+        return segments            # no registers for a walk's running total
+    if tiles >= WAVE_CTAS // 2 or tiles * segments > SPREAD_MAX_CTAS:
+        return 1
+    return segments
+
+
+def _wgmma_tile(m: int, n: int, k: int, out_dtype,
+                segments: int) -> BlockConfig:
     out_bytes = 4 if out_dtype == torch.float32 else 2
     ops_bound = (2 * m * n * k / PEAK_BF16_FLOPS
                  > (2 * (m * k + k * n) + out_bytes * m * n) / HBM_BYTES_PER_S)
     tiles = [t for t in _WGMMA_TILES if not (ops_bound and t.block_n == 64)]
+    choice = tiles[-1]
     for need in (WAVE_CTAS, WAVE_CTAS // 2):     # widest first
-        for t in tiles:
-            if Plan(WGMMA, t, 1).tiles(m, n) >= need:
-                return t
-    return tiles[-1]
+        fits = [t for t in tiles if Plan(WGMMA, t, 1).tiles(m, n) >= need]
+        if fits:
+            choice = fits[0]
+            break
+    if choice.block_n == 256 and segments > 1:   # it cannot walk segments
+        choice = BlockConfig(128, 128, 64)
+    return choice
 
 
 def plan(m: int, n: int, k: int, a_strides, b_strides, a_ptr_mod16: int,
          b_ptr_mod16: int, in_dtype: torch.dtype, out_dtype: torch.dtype,
          config: BlockConfig | None = None) -> Plan:
-    """Choose the kernel path, tile and K-splits of C = op(A) @ op(B).
+    """Choose the kernel path, tile, K segments and CTA splits of
+    C = op(A) @ op(B).
 
     `a_strides` are op(A)'s (m, k) strides and `b_strides` op(B)'s (k, n)
     strides, in elements; the `*_ptr_mod16` are the base addresses modulo
@@ -179,17 +207,26 @@ def plan(m: int, n: int, k: int, a_strides, b_strides, a_ptr_mod16: int,
       cover half a wave, else the narrowest. A GEMM bound by operations
       (2MNK at 989 TFLOP/s longer than its bytes at 3.35 TB/s) skips the
       64-wide tile, which moves 1.5x the operand bytes per FLOP of the
-      128-wide one.
-    - Splits: enough that output tiles x splits cover a wave of 132 CTAs
-      (the H100's SMs; 1 where the tiles already do). ``stream`` aims for
-      4 waves, as far as the fp32 partials stay under a quarter of the
-      weight bytes (splits <= K / (16 block_m)). ``wgmma`` does not split
-      tiles that cover half a wave: there a second split only adds a second
-      wave and the partials' round trip. Never so many that a split gets
-      fewer than 2 K tiles of 64.
+      128-wide one; a shape of more than one K segment takes 128 x 128
+      where the rule picks 128 x 256, whose CTA has no registers to walk
+      segments.
+    - K segments: `k_segments(N, K)`, whatever M and the path. ``stream``
+      gives each segment a CTA (splits = segments). ``wgmma`` does the same
+      where its tiles cover less than half a wave and tiles x segments stay
+      within 4 waves (528 CTAs), and otherwise walks a tile's segments in
+      one CTA (splits = 1).
+
+    So a row's result is the same at every M and on both fast paths: the
+    segments are summed from zero in order on both, and the H100's
+    mma.sync and wgmma give the same fp32 sum over a segment (the
+    row-invariance check of ``chip_smoke.py``'s phase 3 and
+    ``tests/test_torch_cuda.py``). ``general`` is exempt: it serves no
+    serving launch (0 of 137,833 in ``chip_smoke.py``'s phase 10, PR 15),
+    only f32, transposed and unaligned operands.
 
     A `config` forces its tile (and so its path); it raises ValueError if
-    the tile is not compiled or its path cannot take this GEMM."""
+    the tile is not compiled or its path cannot take this GEMM. A forced
+    128 x 256 tile spreads its segments."""
     _require_compiled(config)
     if out_dtype not in _DTYPE_CODE:
         raise ValueError(f"unsupported out_dtype {out_dtype}")
@@ -204,16 +241,20 @@ def plan(m: int, n: int, k: int, a_strides, b_strides, a_ptr_mod16: int,
             f"the {config.path} tile {config.as_tuple()} takes bf16 inputs "
             "with K-contiguous op(A) rows and N-contiguous B rows, 16-byte "
             "aligned; this GEMM takes the general path")
+    segments = k_segments(n, k)
     if config is None:
         if m <= STREAM_MAX_M:
             config = next(t for t in _STREAM_TILES if t.block_m >= m)
         else:
-            config = _wgmma_tile(m, n, k, out_dtype)
+            config = _wgmma_tile(m, n, k, out_dtype, segments)
     if config.path == STREAM and m > config.block_m:
         raise ValueError(f"the stream tile {config.as_tuple()} holds at most "
                          f"{config.block_m} rows, not {m}")
-    tiles = Plan(config.path, config, 1).tiles(m, n)
-    return Plan(config.path, config, _splits(config.path, config, tiles, k))
+    if config.path == STREAM:
+        return Plan(STREAM, config, segments, segments)
+    tiles = Plan(WGMMA, config, 1).tiles(m, n)
+    return Plan(WGMMA, config, _wgmma_splits(config, tiles, segments),
+                segments)
 
 
 # one int32 counter per output tile for the split-K hand-off, per device;
@@ -244,7 +285,7 @@ def _launch(a, b, c_in, out, m, n, k, sa, sb, sc, alpha, beta, p: Plan):
         m, n, k, sa[0], sa[1], sb[0], sb[1], sc[0], sc[1],
         float(alpha), float(beta),
         _DTYPE_CODE[a.dtype], _DTYPE_CODE[out.dtype], _PATH_CODE[p.path],
-        *p.tile.as_tuple(), p.splits,
+        *p.tile.as_tuple(), p.splits, p.segments,
         ws.data_ptr() if ws is not None else None,
         counters.data_ptr() if counters is not None else None,
         torch.cuda.current_stream(a.device).cuda_stream)

@@ -12,8 +12,8 @@ One dataclass, many families. `kind` selects the forward function:
   encdec       - encoder-decoder with cross attention (Seamless-M4T)
   vlm          - decoder-only with M-RoPE + patch-embedding input (Qwen2-VL)
 
-The port serves only `dense` so far; the other kinds are carried so that a
-config means the same thing in both packages.
+The port serves `dense`, `moe` and `mla_moe` so far; the other kinds are
+carried so that a config means the same thing in both packages.
 """
 
 from __future__ import annotations
@@ -191,7 +191,8 @@ def kv_cache_bytes(cfg: ModelConfig, tokens: int,
 
 
 def gemm_shape_counts(cfg: ModelConfig, n_tokens: int,
-                      head_tokens: int | None = None
+                      head_tokens: int | None = None,
+                      kv_rows: int | None = None
                       ) -> dict[tuple[int, int, int], float]:
     """Dominant (m, n, k) GEMMs of one forward pass over `n_tokens` rows,
     with per-step multiplicities — the denominator the serving engine's
@@ -201,16 +202,26 @@ def gemm_shape_counts(cfg: ModelConfig, n_tokens: int,
     `head_tokens` sizes the LM-head GEMM's rows separately: training
     unembeds every position (default, = n_tokens), but a serving prefill
     unembeds only each row's last position, so the engine passes its row
-    count (see `lm_prefill`). Zero-row GEMMs are dropped.
+    count (see `lm_prefill`). `kv_rows` sizes MLA's cache-wide K/V
+    decompression (``w_uk``/``w_uv`` run over every cached row each step,
+    B x max_len; default n_tokens, the no-cache case). Zero-row GEMMs are
+    dropped.
 
-    The reference's counts cut to the dense kind the port serves: its
-    MLA, MoE, SSM, hybrid and encoder-decoder fleets, its tensor-parallel
-    shards and its cache-sized rows come with the slices that port those
-    models.
+    Counts are the reference's analytical estimate: MoE expert GEMMs are
+    counted ``top_k`` (routed) plus ``n_shared_experts`` times per layer at
+    full `n_tokens` rows, and the router is left out. (So they are not the
+    launches of `ops.matmul`: the routed experts are einsums that never
+    reach the hand-written GEMM, the router does, and the shared experts
+    run as one SwiGLU of n_shared x d_ff_expert.)
+
+    The reference's counts at tp = 1 cut to the kinds the port serves
+    (dense, moe, mla_moe): its SSM, hybrid and encoder-decoder fleets and
+    its tensor-parallel shards come with the slices that port them.
     """
-    if cfg.kind != "dense":
+    if cfg.kind not in ("dense", "moe", "mla_moe"):
         raise NotImplementedError(
-            f"the port counts kind='dense' GEMMs only, not {cfg.kind!r}")
+            f"the port counts dense, moe and mla_moe GEMMs, not "
+            f"{cfg.kind!r}")
     t = int(n_tokens)
     d, hd, kv, L = cfg.d_model, cfg.hd, cfg.kv_heads, cfg.n_layers
     counts: dict[tuple[int, int, int], float] = {}
@@ -220,12 +231,36 @@ def gemm_shape_counts(cfg: ModelConfig, n_tokens: int,
             return
         counts[shape] = counts.get(shape, 0.0) + n
 
-    add((t, cfg.n_heads * hd, d), L)                # Q projection
-    add((t, kv * hd, d), 2 * L)                     # K and V projections
-    add((t, d, cfg.n_heads * hd), L)                # output projection
+    if cfg.kind == "mla_moe" and cfg.kv_lora_rank:
+        # multi-head latent attention traces its own projection fleet
+        # (moe.mla_apply), not the generic Q/K/V/O skeleton
+        r, rq, pe = cfg.kv_lora_rank, cfg.q_lora_rank, cfg.rope_head_dim
+        kvr = int(kv_rows) if kv_rows is not None else t
+        if rq:
+            add((t, rq, d), L)                       # w_dq (Q compress)
+            add((t, cfg.n_heads * (hd + pe), rq), L)  # w_uq
+        else:
+            add((t, cfg.n_heads * (hd + pe), d), L)  # w_uq
+        add((t, r, d), L)                            # w_dkv (KV compress)
+        add((t, pe, d), L)                           # w_kpe (RoPE key)
+        add((kvr, cfg.n_heads * hd, r), 2 * L)       # w_uk / w_uv
+        add((t, d, cfg.n_heads * hd), L)             # output projection
+    else:
+        add((t, cfg.n_heads * hd, d), L)             # Q projection
+        add((t, kv * hd, d), 2 * L)                  # K and V projections
+        add((t, d, cfg.n_heads * hd), L)             # output projection
     add((int(head_tokens) if head_tokens is not None else t,
-         cfg.vocab, d), 1)                          # LM head
-    if cfg.d_ff:
-        add((t, cfg.d_ff, d), (2 if cfg.gated_mlp else 1) * L)  # up (gate)
-        add((t, d, cfg.d_ff), L)                    # down projection
+         cfg.vocab, d), 1)                           # LM head
+    ff = cfg.d_ff_expert if cfg.n_experts else cfg.d_ff
+    if ff:
+        gate_mult = 2 if cfg.gated_mlp else 1
+        if cfg.n_experts:
+            add((t, ff, d), gate_mult * cfg.top_k * L)   # routed experts
+            add((t, d, ff), cfg.top_k * L)
+            if cfg.n_shared_experts:
+                add((t, ff, d), gate_mult * cfg.n_shared_experts * L)
+                add((t, d, ff), cfg.n_shared_experts * L)
+        else:
+            add((t, ff, d), gate_mult * L)           # up (and gate)
+            add((t, d, ff), L)                       # down projection
     return counts

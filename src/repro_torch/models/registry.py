@@ -1,4 +1,4 @@
-"""Uniform model API over the ported families (dense only so far).
+"""Uniform model API over the ported families: dense, moe and mla_moe.
 
     model = get_model(cfg)
     params = model.init(cfg, torch.Generator("cuda").manual_seed(0))
@@ -43,28 +43,31 @@ class ModelApi:
 def _zero_index_state(cfg: ModelConfig, batch: int, max_len: int, *,
                       device: str | torch.device = "cuda") -> dict:
     dev = resolve_device(device)
-    return {"kv": tfm.init_kv_cache(cfg, batch, max_len, device=dev),
+    return {"kv": tfm.init_cache(cfg, batch, max_len, device=dev),
             "index": torch.zeros((batch,), dtype=torch.long, device=dev)}
 
 
-def _dense_api() -> ModelApi:
+def _lm_api() -> ModelApi:
+    """The API of the `TransformerLM` families (dense, moe, mla_moe): the
+    forwards pick the block function by ``cfg.kind``, `init_cache` and
+    `init_page_pool` the KV or MLA latent layout."""
     return ModelApi(
         init=tfm.lm_init,
         prefill=tfm.lm_prefill,
         decode_step=tfm.lm_decode_step,
-        init_cache=lambda cfg, b, ml, *, device="cuda": tfm.init_kv_cache(
+        init_cache=lambda cfg, b, ml, *, device="cuda": tfm.init_cache(
             cfg, b, ml, device=device),
         prefill_chunk=tfm.lm_prefill_chunk,
         init_state=_zero_index_state,
         init_page_pool=lambda cfg, n, t, *, device="cuda": (
-            tfm.init_kv_page_pool(cfg, n, t, device=device)),
+            tfm.init_page_pool(cfg, n, t, device=device)),
     )
 
 
+_FAMILIES = ("dense", "moe", "mla_moe")
+
 # the JAX package's other families -> the ROADMAP item that ports them
 _NOT_YET_PORTED = {
-    "moe": "A4 (MoE/MLA)",
-    "mla_moe": "A4 (MoE/MLA)",
     "mamba1": "A5 (SSM/hybrid)",
     "mamba2": "A5 (SSM/hybrid)",
     "hybrid": "A5 (SSM/hybrid)",
@@ -76,8 +79,8 @@ _NOT_YET_PORTED = {
 def get_model(cfg: ModelConfig) -> ModelApi:
     """The `ModelApi` of ``cfg.kind``; unported kinds raise
     `NotImplementedError` naming their ROADMAP item."""
-    if cfg.kind == "dense":
-        return _dense_api()
+    if cfg.kind in _FAMILIES:
+        return _lm_api()
     if cfg.kind in _NOT_YET_PORTED:
         raise NotImplementedError(
             f"kind={cfg.kind!r} is not ported yet: ROADMAP queue "

@@ -1,7 +1,8 @@
 """Continuous-batching serving engine with chunked admission prefill.
 
 The counterpart of the JAX package's `repro.serving.engine.ServingEngine`
-for the dense family at tp=1, with its serving loops:
+for the dense, MoE and MLA-MoE families at tp=1 (`SERVED_KINDS`), with its
+serving loops:
 
 - continuous mode, ``admission="chunked"`` (the default): the engine keeps
   one batched decode state of ``max_batch`` fixed slots. Every engine step
@@ -26,8 +27,12 @@ Streams match the JAX engine's token for token in every mode: the same
 admission order, buckets, splice order, page allocation and host numpy
 sampler with per-(seed, uid) Gumbel streams. Inside the port the layouts
 and admissions agree as in the JAX package: paged equals dense, serial
-equals chunked, prefix reuse changes no stream (on the CPU exactly; on the
-card a different M may change the GEMM's tile and so its bf16 rounding).
+equals chunked, prefix reuse changes no stream, on the CPU and on the card
+(where a row's GEMM bits do not depend on M, `kernels.tiled_matmul.plan`).
+For the MoE families a prefix hit
+changes the chunk lengths that size a row's expert capacity, so under a
+binding capacity factor prefix reuse may change a stream, in the JAX
+package too.
 `pretune` tunes the engine's GEMM fleet with the paper's autotuner, as the
 JAX engine's does.
 
@@ -51,7 +56,7 @@ pretuned for another objective than "runtime" launches that objective's
 winners (`ops.launch_objective`), so it runs the tiles it prices.
 
 Not ported yet (ROADMAP queue A): the other families and their admission
-hooks (A4-A6), tp (A7), and what only the fleet scheduler and fault
+hooks (A5, A6), tp (A7), and what only the fleet scheduler and fault
 recovery call (A8): `chunk_policy`, replay requests, `adopt`,
 `checkpoint_inflight`, `retune` and page pressure
 (`inject_page_pressure`, `release_page_pressure`). Nothing here reports a
@@ -75,6 +80,11 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
+
+
+# the families the engine serves, in every mode: dense, OLMoE-style MoE and
+# DeepSeek-V2 MLA-MoE (the other kinds: ROADMAP A5, A6)
+SERVED_KINDS = ("dense", "moe", "mla_moe")
 
 
 @dataclasses.dataclass
@@ -177,7 +187,7 @@ class ServingEngine:
                  device: str | torch.device = "cuda"):
         """`mode` picks the serving loop: "continuous" (slot table with
         mid-decode retire and refill), "wave" (batch of waves) or "auto"
-        (continuous, which the dense family supports).
+        (continuous, which every served family supports).
 
         `admission` picks how continuous mode prefills: "chunked" (prompts
         feed through the decode loop `chunk_tokens` tokens per engine
@@ -214,9 +224,9 @@ class ServingEngine:
         if params.device.type != self.device.type:
             raise ValueError(f"params on {params.device}, engine on "
                              f"{self.device}")
-        if cfg.kind != "dense":
+        if cfg.kind not in SERVED_KINDS:
             raise NotImplementedError(
-                f"the port serves kind='dense' only, not {cfg.kind!r}")
+                f"the port serves kind in {SERVED_KINDS}, not {cfg.kind!r}")
         self.model = model
         self.params = params
         self.cfg = cfg
@@ -409,17 +419,21 @@ class ServingEngine:
                      batch_rows: int | None = None):
         """Predicted `StepEnergyEstimate` for a step over `n_rows` GEMM
         rows (decode: max_batch; chunk: padded token count, with the LM
-        head sized to the rows actually unembedded), with the KV reads of
-        `batch_rows` rows as extra HBM bytes, cached per key. Raises when
-        the energy model fails."""
+        head sized to the rows actually unembedded and MLA's cache-wide
+        K/V decompression sized to batch_rows * max_len), with the KV reads
+        of `batch_rows` rows as extra HBM bytes, cached per key. Raises
+        when the energy model fails."""
         hit = self._step_energy_cache.get(key)
         if hit is not None:
             return hit
         from repro_torch.core.energy import gemm_fleet_energy
         from repro_torch.models.config import gemm_shape_counts
 
+        kv_rows = (batch_rows * self.max_len
+                   if batch_rows is not None else None)
         est = gemm_fleet_energy(
-            gemm_shape_counts(self.cfg, n_rows, head_tokens=head_rows),
+            gemm_shape_counts(self.cfg, n_rows, head_tokens=head_rows,
+                              kv_rows=kv_rows),
             chip=self.chip_spec, dtype=self.cfg.activation_dtype,
             configs=self.pretuned or None,
             extra_hbm_bytes=self._kv_gather_bytes(batch_rows or 0),
@@ -473,8 +487,10 @@ class ServingEngine:
         from repro_torch.core.energy import fused_step_energy
         from repro_torch.models.config import gemm_shape_counts
 
-        decode = gemm_shape_counts(self.cfg, self.max_batch)
-        ch = gemm_shape_counts(self.cfg, width * chunk, head_tokens=width)
+        decode = gemm_shape_counts(self.cfg, self.max_batch,
+                                   kv_rows=self.max_batch * self.max_len)
+        ch = gemm_shape_counts(self.cfg, width * chunk, head_tokens=width,
+                               kv_rows=width * self.max_len)
         est = fused_step_energy(
             decode, ch, chip=self.chip_spec,
             dtype=self.cfg.activation_dtype,

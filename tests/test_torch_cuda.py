@@ -146,6 +146,52 @@ def test_fast_paths_are_bit_identical_run_to_run(dev, m, n, k):
     assert torch.equal(first, second)
 
 
+# (N, K) of serving projections: qwen2-7b's five (the LM head with f32
+# out), olmoe-1b-7b's router (f32 out) and attention, deepseek-v2-236b's
+# MLA projections and router; and a ragged one
+ROW_INVARIANCE_NK = [
+    (512, 3584, torch.bfloat16), (3584, 3584, torch.bfloat16),
+    (18944, 3584, torch.bfloat16), (3584, 18944, torch.bfloat16),
+    (152064, 3584, torch.float32), (64, 2048, torch.float32),
+    (2048, 2048, torch.bfloat16), (160, 5120, torch.float32),
+    (64, 5120, torch.bfloat16), (512, 5120, torch.bfloat16),
+    (24576, 1536, torch.bfloat16), (16384, 512, torch.bfloat16),
+    (5120, 16384, torch.bfloat16), (200, 296, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("n,k,out_dtype", ROW_INVARIANCE_NK)
+def test_a_rows_bits_do_not_depend_on_m(dev, n, k, out_dtype):
+    """The rows of an M = 4 call are bit-equal to the same rows inside
+    M = 1, 8, 64, 65, 128 and 512 calls: across the stream tiles, the
+    stream/wgmma boundary and the wgmma tiles, spread or walking (`plan`'s
+    K segments depend on N and K only)."""
+    g = torch.Generator(dev).manual_seed(3)
+    a = torch.randn((512, k), generator=g, device=dev).to(torch.bfloat16)
+    b = (torch.randn((k, n), generator=g, device=dev) / k ** 0.5).to(
+        torch.bfloat16)
+    want = tiled_matmul(a[:4], b, out_dtype=out_dtype)
+    for m in (1, 8, 64, 65, 128, 512):
+        got = tiled_matmul(a[:m], b, out_dtype=out_dtype)
+        r = min(m, 4)
+        assert torch.equal(got[:r], want[:r]), m
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("d", [2048, 3584, 5120])
+def test_rmsnorm_row_does_not_depend_on_the_row_count(dev, d):
+    """rmsnorm gives row 0 the same bits at 1, 4, 16 and 512 rows: with the
+    GEMM's row invariance, what keeps a request's stream independent of
+    its batch on the card."""
+    from repro_torch.models.layers import rmsnorm
+
+    g = torch.Generator(dev).manual_seed(4)
+    x = torch.randn((512, d), generator=g, device=dev).to(torch.bfloat16)
+    p = {"scale": torch.ones(d, dtype=torch.bfloat16, device=dev)}
+    want = rmsnorm(p, x[:1], 1e-6)[0]
+    for m in (4, 16, 512):
+        assert torch.equal(rmsnorm(p, x[:m], 1e-6)[0], want), m
+
+
 def test_kernel_rejects_uncompiled_tiles(dev):
     a = torch.ones(8, 8, device=dev)
     with pytest.raises(ValueError, match="not compiled"):

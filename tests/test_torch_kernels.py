@@ -27,8 +27,8 @@ from repro.kernels.tiled_matmul import BlockConfig as JBlockConfig
 from repro.kernels.tiled_matmul import tiled_matmul as jtiled_matmul
 from repro_torch.kernels import ops
 from repro_torch.kernels.tiled_matmul import (
-    DEFAULT_CONFIG, GENERAL, STREAM, TILE_SHAPES, WAVE_CTAS, WGMMA,
-    BlockConfig, candidate_tiles, plan, tiled_matmul)
+    DEFAULT_CONFIG, GENERAL, SPREAD_MAX_CTAS, STREAM, TILE_SHAPES, WAVE_CTAS,
+    WGMMA, BlockConfig, candidate_tiles, k_segments, plan, tiled_matmul)
 
 jax.config.update("jax_enable_x64", False)
 
@@ -254,6 +254,8 @@ class TestOps:
                 jops.chunk_buckets(max_len, chunk, grain)
 
 
+SIX_ARCHS = ("qwen2-7b", "qwen2.5-14b", "codeqwen1.5-7b", "starcoder2-3b",
+             "olmoe-1b-7b", "deepseek-v2-236b")
 QWEN2_7B_SERVING_NK = [(512, 3584), (3584, 3584), (18944, 3584),
                        (3584, 18944), (152064, 3584)]
 
@@ -275,12 +277,23 @@ class TestPlan:
         p = _plan(m, n, k)
         assert p.path == (STREAM if m <= 64 else WGMMA)
         assert p.tile.path == p.path
-        # a wave of CTAs; wgmma leaves tiles that cover half a wave unsplit
-        assert (p.tiles(m, n) * p.splits >= WAVE_CTAS
-                or (p.path == WGMMA and p.splits == 1
-                    and p.tiles(m, n) >= WAVE_CTAS // 2))
-        # every split is at least 2 K tiles of 64 deep
-        assert -(-k // p.tile.block_k) // p.splits >= 2
+        assert p.segments == k_segments(n, k)
+        if p.path == STREAM:
+            # one CTA per segment, and a wave of them
+            assert p.splits == p.segments
+            assert p.tiles(m, n) * p.splits >= WAVE_CTAS
+        elif p.splits > 1:
+            # wgmma spreads segments only over tiles under half a wave
+            assert p.splits == p.segments
+            assert p.tiles(m, n) < WAVE_CTAS // 2
+            assert p.tiles(m, n) * p.splits <= SPREAD_MAX_CTAS
+        else:
+            # and walks them where the tiles cover half a wave, or where
+            # spreading would take more than 4 waves of CTAs
+            assert (p.tiles(m, n) >= WAVE_CTAS // 2
+                    or p.tiles(m, n) * p.segments > SPREAD_MAX_CTAS)
+        # every segment is at least 2 K tiles of 64 deep
+        assert -(-k // p.tile.block_k) // p.segments >= 2
         if p.path == STREAM:
             assert p.tile.block_m >= m and (p.tile.block_m // 2 < m
                                             or p.tile.block_m == 8)
@@ -294,17 +307,22 @@ class TestPlan:
         assert _plan(512, 18944, 3584).splits == 1
 
     @pytest.mark.parametrize("m,n,k,tile,splits", [
-        # too few tiles for half a wave: the 64-wide tile, split to a wave
-        (128, 512, 3584, (128, 64, 64), 17),
-        (128, 3584, 3584, (128, 64, 64), 3),
-        (512, 512, 3584, (128, 64, 64), 5),
-        # half a wave of 64-wide tiles: unsplit
+        # too few tiles for half a wave: the 64-wide tile, its 28 segments
+        # spread over 224 CTAs
+        (128, 512, 3584, (128, 64, 64), 28),
+        # spreading would take more than 4 waves: one CTA walks the segments
+        (128, 3584, 3584, (128, 64, 64), 1),
+        (512, 512, 3584, (128, 64, 64), 1),
+        # half a wave of 64-wide tiles: walked
         (256, 3584, 3584, (128, 64, 64), 1),
-        # wide N covers a wave unsplit with wider tiles
+        # wide N covers a wave with wider tiles; two segments, so 128 x 128
+        # where the rule would take 128 x 256
         (128, 18944, 3584, (128, 128, 64), 1),
-        (256, 18944, 3584, (128, 256, 64), 1),
-        (512, 18944, 3584, (128, 256, 64), 1),
-        # bound by operations: no 64-wide tile; 112 128-wide tiles unsplit
+        (256, 18944, 3584, (128, 128, 64), 1),
+        (512, 18944, 3584, (128, 128, 64), 1),
+        # one segment (the LM head): 128 x 256 stays
+        (512, 152064, 3584, (128, 256, 64), 1),
+        # bound by operations: no 64-wide tile; 112 128-wide tiles walked
         (512, 3584, 18944, (128, 128, 64), 1),
         (512, 3584, 3584, (128, 128, 64), 1),
     ])
@@ -315,69 +333,70 @@ class TestPlan:
     # plan's (path, tile, splits) for every serving shape of the other
     # dense configs: the chunked fleet (max_batch 4, max_len 512, chunk 64,
     # lane 8) and the serial one, by (N, K) and then M. A stream tile is
-    # named by its rows, a wgmma tile (128 rows) by its width
+    # named by its rows, a wgmma tile (128 rows) by its width; splits are
+    # the CTAs a tile's K segments are spread over (1: walked)
     OTHER_DENSE_PLANS = {
         "qwen2.5-14b": {
             (152064, 5120): {m: ("s", 8, 1) for m in (1, 2, 4, 8)},
             (1024, 5120): {4: ("s", 8, 33), 8: ("s", 8, 33),
-                           16: ("s", 16, 20), 32: ("s", 32, 10),
-                           64: ("s", 64, 9), 128: ("w", 64, 9),
-                           256: ("w", 64, 5), 512: ("w", 128, 5),
+                           16: ("s", 16, 33), 32: ("s", 32, 33),
+                           64: ("s", 64, 33), 128: ("w", 64, 33),
+                           256: ("w", 64, 1), 512: ("w", 128, 1),
                            2048: ("w", 128, 1)},
             (5120, 5120): {4: ("s", 8, 7), 8: ("s", 8, 7), 16: ("s", 16, 7),
-                           32: ("s", 32, 7), 64: ("s", 64, 5),
+                           32: ("s", 32, 7), 64: ("s", 64, 7),
                            128: ("w", 64, 1), 256: ("w", 64, 1),
-                           512: ("w", 128, 1), 2048: ("w", 256, 1)},
+                           512: ("w", 128, 1), 2048: ("w", 128, 1)},
             (5120, 13824): {4: ("s", 8, 7), 8: ("s", 8, 7),
                             16: ("s", 16, 7), 32: ("s", 32, 7),
                             64: ("s", 64, 7), 128: ("w", 64, 1),
                             256: ("w", 64, 1), 512: ("w", 128, 1),
-                            2048: ("w", 256, 1)},
+                            2048: ("w", 128, 1)},
             (13824, 5120): {4: ("s", 8, 3), 8: ("s", 8, 3),
                             16: ("s", 16, 3), 32: ("s", 32, 3),
                             64: ("s", 64, 3), 128: ("w", 64, 1),
-                            256: ("w", 128, 1), 512: ("w", 256, 1),
-                            2048: ("w", 256, 1)},
+                            256: ("w", 128, 1), 512: ("w", 128, 1),
+                            2048: ("w", 128, 1)},
         },
         "codeqwen1.5-7b": {
             (92416, 4096): {m: ("s", 8, 1) for m in (1, 2, 4, 8)},
             (4096, 4096): {4: ("s", 8, 9), 8: ("s", 8, 9), 16: ("s", 16, 9),
-                           32: ("s", 32, 8), 64: ("s", 64, 4),
-                           128: ("w", 64, 3), 256: ("w", 64, 1),
-                           512: ("w", 128, 1), 2048: ("w", 256, 1)},
+                           32: ("s", 32, 9), 64: ("s", 64, 9),
+                           128: ("w", 64, 1), 256: ("w", 64, 1),
+                           512: ("w", 128, 1), 2048: ("w", 128, 1)},
             (4096, 13440): {4: ("s", 8, 9), 8: ("s", 8, 9),
                             16: ("s", 16, 9), 32: ("s", 32, 9),
-                            64: ("s", 64, 9), 128: ("w", 64, 3),
+                            64: ("s", 64, 9), 128: ("w", 64, 1),
                             256: ("w", 64, 1), 512: ("w", 128, 1),
-                            2048: ("w", 256, 1)},
+                            2048: ("w", 128, 1)},
             (13440, 4096): {4: ("s", 8, 3), 8: ("s", 8, 3),
                             16: ("s", 16, 3), 32: ("s", 32, 3),
                             64: ("s", 64, 3), 128: ("w", 64, 1),
-                            256: ("w", 128, 1), 512: ("w", 256, 1),
-                            2048: ("w", 256, 1)},
+                            256: ("w", 128, 1), 512: ("w", 128, 1),
+                            2048: ("w", 128, 1)},
         },
         "starcoder2-3b": {
             (49152, 3072): {m: ("s", 8, 1) for m in (1, 2, 4, 8)},
             (256, 3072): {4: ("s", 8, 24), 8: ("s", 8, 24),
                           16: ("s", 16, 24), 32: ("s", 32, 24),
                           64: ("s", 64, 24), 128: ("w", 64, 24),
-                          256: ("w", 64, 17), 512: ("w", 64, 9),
-                          2048: ("w", 64, 3)},
+                          256: ("w", 64, 24), 512: ("w", 64, 24),
+                          2048: ("w", 64, 1)},
             (3072, 3072): {4: ("s", 8, 11), 8: ("s", 8, 11),
-                           16: ("s", 16, 11), 32: ("s", 32, 6),
-                           64: ("s", 64, 3), 128: ("w", 64, 3),
+                           16: ("s", 16, 11), 32: ("s", 32, 11),
+                           64: ("s", 64, 11), 128: ("w", 64, 11),
                            256: ("w", 64, 1), 512: ("w", 128, 1),
-                           2048: ("w", 256, 1)},
+                           2048: ("w", 128, 1)},
             (3072, 12288): {4: ("s", 8, 11), 8: ("s", 8, 11),
                             16: ("s", 16, 11), 32: ("s", 32, 11),
-                            64: ("s", 64, 11), 128: ("w", 64, 3),
+                            64: ("s", 64, 11), 128: ("w", 64, 11),
                             256: ("w", 64, 1), 512: ("w", 128, 1),
-                            2048: ("w", 256, 1)},
+                            2048: ("w", 128, 1)},
             (12288, 3072): {4: ("s", 8, 3), 8: ("s", 8, 3),
                             16: ("s", 16, 3), 32: ("s", 32, 3),
                             64: ("s", 64, 3), 128: ("w", 64, 1),
-                            256: ("w", 128, 1), 512: ("w", 256, 1),
-                            2048: ("w", 256, 1)},
+                            256: ("w", 128, 1), 512: ("w", 128, 1),
+                            2048: ("w", 128, 1)},
         },
     }
 
@@ -404,7 +423,8 @@ class TestPlan:
             assert p.tile.as_tuple() == ((size, 64, 64) if path == "s"
                                          else (128, size, 64)), (m, n, k)
             assert p.splits == splits, (m, n, k)
-            assert -(-k // p.tile.block_k) // p.splits >= 2
+            assert p.segments == k_segments(n, k), (m, n, k)
+            assert -(-k // p.tile.block_k) // p.segments >= 2
 
     def test_candidate_tiles(self):
         assert [t.as_tuple() for t in candidate_tiles(4)] == [
@@ -485,6 +505,31 @@ class TestPlan:
     def test_splits_never_exceed_the_k_tiles(self, m, n, k):
         p = _plan(m, n, k)
         assert 1 <= p.splits <= max(1, -(-k // 64) // 2)
+        assert 1 <= p.segments <= max(1, -(-k // 64) // 2)
+        assert p.splits in (1, p.segments)
+
+    @pytest.mark.parametrize("arch", SIX_ARCHS)
+    def test_segments_do_not_depend_on_m(self, arch):
+        """Fault C1: for every serving (N, K) of the config (the engine's
+        fleet, plus what it launches beyond the reference's count: the
+        router with f32 out and deepseek's shared-expert SwiGLU), the K
+        segment count is one number for every M in 1..512 and both output
+        dtypes, on whichever fast path and tile `plan` picks."""
+        from repro_torch.configs import get_config
+
+        cfg = get_config(arch)
+        fleet = set(ops.serving_gemm_fleet(
+            cfg, max_batch=4, max_len=512, chunk_tokens=64, lane_width=8))
+        nk = {(n, k) for _, n, k in fleet}
+        if cfg.n_experts:
+            f = cfg.d_ff_expert * cfg.n_shared_experts
+            nk |= {(cfg.n_experts, cfg.d_model)}
+            nk |= {(f, cfg.d_model), (cfg.d_model, f)} if f else set()
+        for n, k in sorted(nk):
+            seen = {_plan(m, n, k, out_dtype=out).segments
+                    for m in range(1, 513)
+                    for out in (torch.bfloat16, torch.float32)}
+            assert seen == {k_segments(n, k)}, (n, k, seen)
 
     def test_plan_is_deterministic(self):
         assert _plan(64, 3584, 18944) == _plan(64, 3584, 18944)

@@ -87,20 +87,33 @@ def test_config_equals_jax_field_by_field(smoke_cfg):
 
 
 def test_the_four_dense_configs_are_ported():
+    """The four dense configs and, since the MoE slice, the two MoE ones."""
     from repro_torch.configs import list_archs
 
-    assert sorted(list_archs()) == sorted(DENSE_ARCHS)
-    for arch in ("deepseek-v2-236b", "falcon-mamba-7b", "qwen2-vl-2b"):
+    assert sorted(list_archs()) == sorted(
+        DENSE_ARCHS + ("olmoe-1b-7b", "deepseek-v2-236b"))
+    for arch in ("falcon-mamba-7b", "qwen2-vl-2b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_config(arch)
 
 
-def test_unported_archs_and_kinds_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("olmoe-1b-7b")
-    moe = dataclasses.replace(get_config("qwen2-7b", smoke=True), kind="moe")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(moe)
+@pytest.mark.parametrize("arch,item", [
+    ("falcon-mamba-7b", "A5"), ("zamba2-2.7b", "A5"),
+    ("seamless-m4t-medium", "A6"), ("qwen2-vl-2b", "A6")])
+def test_unported_archs_and_kinds_name_their_roadmap_item(arch, item):
+    """The SSM and encdec/vlm archs and kinds still raise, naming their
+    ROADMAP item; moe and mla_moe are served."""
+    with pytest.raises(NotImplementedError, match=f"ROADMAP queue {item}"):
+        get_config(arch)
+    kind = jget_config(arch).kind
+    other = dataclasses.replace(get_config("qwen2-7b", smoke=True),
+                                kind=kind)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP queue {item}"):
+        get_model(other)
+    for kind in ("moe", "mla_moe"):
+        cfg = dataclasses.replace(get_config("qwen2-7b", smoke=True),
+                                  kind=kind)
+        assert get_model(cfg).prefill_chunk is not None
 
 
 @pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
