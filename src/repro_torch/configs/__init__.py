@@ -5,17 +5,18 @@
     cfg = get_config("qwen2-7b", smoke=True)
 
 The four dense configs are ported: `qwen2-7b`, `qwen2.5-14b`,
-`codeqwen1.5-7b` and `starcoder2-3b`; and the two MoE ones: `olmoe-1b-7b`
-and `deepseek-v2-236b` (MLA). Asking for another of the JAX
-package's architectures raises `NotImplementedError` naming the ROADMAP item
-(queue A) that ports its family.
+`codeqwen1.5-7b` and `starcoder2-3b`; the two MoE ones: `olmoe-1b-7b`
+and `deepseek-v2-236b` (MLA); and the SSM and hybrid ones: `falcon-mamba-7b`
+(Mamba1) and `zamba2-2.7b` (Mamba2 with shared attention). Asking for
+another of the JAX package's architectures raises `NotImplementedError`
+naming the ROADMAP item (queue A) that ports its family.
 """
 
 from __future__ import annotations
 
 from repro_torch.configs import (codeqwen1_5_7b, deepseek_v2_236b,
-                                  olmoe_1b_7b, qwen2_5_14b, qwen2_7b,
-                                  starcoder2_3b)
+                                  falcon_mamba_7b, olmoe_1b_7b, qwen2_5_14b,
+                                  qwen2_7b, starcoder2_3b, zamba2_2_7b)
 
 PORTED = {
     "codeqwen1.5-7b": codeqwen1_5_7b,
@@ -24,12 +25,12 @@ PORTED = {
     "qwen2-7b": qwen2_7b,
     "olmoe-1b-7b": olmoe_1b_7b,
     "deepseek-v2-236b": deepseek_v2_236b,
+    "falcon-mamba-7b": falcon_mamba_7b,
+    "zamba2-2.7b": zamba2_2_7b,
 }
 
 # the JAX package's other architectures -> the ROADMAP item that ports them
 NOT_YET_PORTED = {
-    "falcon-mamba-7b": "A5 (SSM/hybrid)",
-    "zamba2-2.7b": "A5 (SSM/hybrid)",
     "seamless-m4t-medium": "A6 (encdec/vlm)",
     "qwen2-vl-2b": "A6 (encdec/vlm)",
 }

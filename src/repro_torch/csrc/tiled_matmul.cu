@@ -23,7 +23,12 @@
 //   in flight. The product runs as Ct = Bt * At with mma.sync m16n8k16: the
 //   weights fill the 16-row operand (ldmatrix.trans reads the N-contiguous
 //   tile), and the M <= 64 activation rows fill n = 8 * ceil(M / 8), so a
-//   4-row decode wastes at most half of each mma instead of 15/16.
+//   4-row decode wastes at most half of each mma instead of 15/16. The
+//   weights may also be stored (N, K), K-contiguous (a tied LM head reads
+//   the embedding table so): that layout loads its tile n-row by n-row, as
+//   the activations are loaded, and the plain ldmatrix reads the same
+//   operand Bt[n, k], so both layouts issue the same mma.sync sequence on
+//   the same values and give a row the same bits.
 // * wgmma (the same layouts, M > 64): the prefill chunks, bound by
 //   tensor-core FLOPs (989 TFLOP/s bf16) from M ~ 300 up, and below that by
 //   the weight bytes. A 128 x BN x 64 tile, BN = 256, 128 or 64 (`plan`
@@ -34,7 +39,8 @@
 //   mbarriers, and two consumer warpgroups each issue wgmma.m64nBNk16 from
 //   shared memory (A K-major, B MN-major) into fp32 registers. TMA
 //   zero-fills the boxes past M, N and K, so only the epilogue masks.
-// * general (every other case: f32, transposed layouts, unaligned views):
+// * general (every other case: f32, transposed A, a transposed B at
+//   M > 64, unaligned views):
 //   one 256-thread block per 64x64 output tile with the K loop inside,
 //   masked strided loads prefetched into registers a K step ahead, 16-byte
 //   vector tiles where rows allow, WMMA 16x16x16 for bf16 and fp32 FMA on
@@ -104,6 +110,7 @@ struct GemmArgs {
   int64_t sbk, sbn;  // op(B)[k, n] = b[k * sbk + n * sbn]
   int64_t scm, scn;  // C_in[m, n] = c_in[m * scm + n * scn]
   float alpha, beta;
+  int b_nk;          // fast paths: B stored (N, K), K-contiguous (sbk == 1)
 };
 
 // One thread's share of a ROWS x COLS tile of a strided (R, C) matrix:
@@ -552,8 +559,9 @@ __device__ __forceinline__ int swz(int r, int c) {
 
 // One CTA: output columns [n0, n0 + 64) for every row (M <= 8 * MT), over
 // the K tiles of split blockIdx.y. Warp w computes the 16 x (8 * MT) block
-// Ct[n0 + 16w .. +16, 0 .. 8 * MT).
-template <typename Tout, int MT>
+// Ct[n0 + 16w .. +16, 0 .. 8 * MT). BNK: B is stored (N, K), K-contiguous,
+// and its tile is kept as Bs[n][k]; else (K, N) and Bs[k][n].
+template <typename Tout, int MT, bool BNK>
 __global__ void __launch_bounds__(kStreamThreads)
     gemm_stream_kernel(const GemmArgs g, float* __restrict__ ws,
                        int* __restrict__ counters, int splits) {
@@ -573,18 +581,25 @@ __global__ void __launch_bounds__(kStreamThreads)
   const int64_t t0 = kt * split / splits;
   const int nt = static_cast<int>(kt * (split + 1) / splits - t0);
 
-  // K tile t0 + i into ring slot i % S: the weight tile row by row (k), the
-  // activation tile row by row (m), zero past N, K and M.
+  // K tile t0 + i into ring slot i % S: the weight tile row by row (k, or n
+  // for BNK), the activation tile row by row (m), zero past N, K and M.
   const auto load = [&](int i) {
     __nv_bfloat16* Bs = smem + (i % S) * STAGE;
     __nv_bfloat16* As = Bs + B_ELEMS;
     const int64_t k0 = (t0 + i) * BK;
-    for (int j = tid; j < BK * 8; j += NT) {
+    for (int j = tid; j < (BNK ? BN : BK) * 8; j += NT) {
       const int r = j / 8, c = j % 8;
-      const int64_t gk = k0 + r, gn = n0 + c * 8;
-      const int64_t left = gk < g.K ? g.N - gn : 0;
-      const int bytes = left <= 0 ? 0 : (left >= 8 ? 16 : 2 * static_cast<int>(left));
-      cp_async16(Bs + swz(r, c), bytes ? B + gk * g.sbk + gn : B, bytes);
+      if constexpr (BNK) {
+        const int64_t gn = n0 + r, gk = k0 + c * 8;
+        const int64_t left = gn < g.N ? g.K - gk : 0;
+        const int bytes = left <= 0 ? 0 : (left >= 8 ? 16 : 2 * static_cast<int>(left));
+        cp_async16(Bs + swz(r, c), bytes ? B + gn * g.sbn + gk : B, bytes);
+      } else {
+        const int64_t gk = k0 + r, gn = n0 + c * 8;
+        const int64_t left = gk < g.K ? g.N - gn : 0;
+        const int bytes = left <= 0 ? 0 : (left >= 8 ? 16 : 2 * static_cast<int>(left));
+        cp_async16(Bs + swz(r, c), bytes ? B + gk * g.sbk + gn : B, bytes);
+      }
     }
     for (int j = tid; j < MP * 8; j += NT) {
       const int r = j / 8, c = j % 8;
@@ -617,10 +632,16 @@ __global__ void __launch_bounds__(kStreamThreads)
 #pragma unroll
     for (int kk = 0; kk < BK; kk += 16) {
       // 16 x 16 operand Bt[n, k]: matrices (n lo, k lo), (n hi, k lo),
-      // (n lo, k hi), (n hi, k hi), read transposed from Bs[k][n]
+      // (n lo, k hi), (n hi, k hi), read transposed from Bs[k][n], or as
+      // they lie from Bs[n][k]
       uint32_t af[4];
-      const int k = kk + row8 + ((mat >> 1) << 3);
-      ldsm_x4_trans(af, Bs + swz(k, 2 * warp + (mat & 1)));
+      if constexpr (BNK) {
+        const int n = 16 * warp + ((mat & 1) << 3) + row8;
+        ldsm_x4(af, Bs + swz(n, (kk >> 3) + (mat >> 1)));
+      } else {
+        const int k = kk + row8 + ((mat >> 1) << 3);
+        ldsm_x4_trans(af, Bs + swz(k, 2 * warp + (mat & 1)));
+      }
       if constexpr (MT == 1) {
         uint32_t bf[2];
         ldsm_x2(bf, As + swz(row8, (kk >> 3) + (mat & 1)));
@@ -1048,12 +1069,12 @@ cudaError_t allow_smem(Kernel kernel, int bytes, unsigned& done) {
   return err;
 }
 
-template <typename Tout, int MT>
+template <typename Tout, int MT, bool BNK>
 cudaError_t launch_stream(const GemmArgs& g, int splits, float* ws,
                           int* counters, cudaStream_t stream) {
   constexpr int smem = stream_smem_bytes(8 * MT);
   static unsigned done = 0;
-  const auto kernel = gemm_stream_kernel<Tout, MT>;
+  const auto kernel = gemm_stream_kernel<Tout, MT, BNK>;
   cudaError_t err = allow_smem(kernel, smem, done);
   if (err != cudaSuccess) return err;
   const dim3 grid(static_cast<unsigned>((g.N + kStreamBN - 1) / kStreamBN),
@@ -1084,7 +1105,18 @@ cudaError_t launch_wgmma(const GemmArgs& g, int splits, int segments,
   return cudaGetLastError();
 }
 
-// The fast paths take bf16 with op(A) rows and B rows contiguous (checked
+template <typename Tout, bool BNK>
+cudaError_t launch_stream_tile(const GemmArgs& g, int bm, int splits, float* ws,
+                               int* counters, cudaStream_t stream) {
+  if (bm == 8) return launch_stream<Tout, 1, BNK>(g, splits, ws, counters, stream);
+  if (bm == 16) return launch_stream<Tout, 2, BNK>(g, splits, ws, counters, stream);
+  if (bm == 32) return launch_stream<Tout, 4, BNK>(g, splits, ws, counters, stream);
+  if (bm == 64) return launch_stream<Tout, 8, BNK>(g, splits, ws, counters, stream);
+  return cudaErrorInvalidValue;
+}
+
+// The fast paths take bf16 with op(A) rows contiguous and B rows contiguous,
+// (K, N) N-contiguous or, on stream only, (N, K) K-contiguous (b_nk; checked
 // here again; `plan` checks alignment too). Tiles: stream (8 MT, 64, 64)
 // with M <= 8 MT, one CTA per segment (splits == segments); wgmma (128, 64 |
 // 128 | 256, 64), spread (splits == segments) or walking (splits == 1).
@@ -1093,16 +1125,15 @@ cudaError_t launch_fast(const GemmArgs& g, int path, int bm, int bn, int bk,
                         int splits, int segments, float* ws, int* counters,
                         cudaStream_t stream) {
   const int64_t kt = (g.K + 63) / 64;
-  if (g.sak != 1 || g.sbn != 1 || g.K < 1 || splits < 1 || segments < 1 ||
-      segments > kt || (splits > 1 && (ws == nullptr || counters == nullptr)))
+  if (g.sak != 1 || (g.b_nk ? g.sbk : g.sbn) != 1 || g.K < 1 || splits < 1 ||
+      segments < 1 || segments > kt ||
+      (splits > 1 && (ws == nullptr || counters == nullptr)))
     return cudaErrorInvalidValue;
   if (path == 1 && splits != segments) return cudaErrorInvalidValue;
-  if (path == 1 && bn == kStreamBN && bk == kStreamBK && g.M <= bm) {
-    if (bm == 8) return launch_stream<Tout, 1>(g, splits, ws, counters, stream);
-    if (bm == 16) return launch_stream<Tout, 2>(g, splits, ws, counters, stream);
-    if (bm == 32) return launch_stream<Tout, 4>(g, splits, ws, counters, stream);
-    if (bm == 64) return launch_stream<Tout, 8>(g, splits, ws, counters, stream);
-  }
+  if (path == 1 && bn == kStreamBN && bk == kStreamBK && g.M <= bm)
+    return g.b_nk ? launch_stream_tile<Tout, true>(g, bm, splits, ws, counters, stream)
+                  : launch_stream_tile<Tout, false>(g, bm, splits, ws, counters, stream);
+  if (g.b_nk) return cudaErrorInvalidValue;
   if (path == 2 && bm == kWgBM && bk == kWgBK) {
     if (bn == 256)
       return launch_wgmma<Tout, 256>(g, splits, segments, ws, counters, stream);
@@ -1124,7 +1155,9 @@ int smem_of(Kernel kernel, int dynamic_bytes) {
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16. path: 0 = general, 1 = stream,
-// 2 = wgmma. Tile (bm, bn, bk) must be one the path instantiates: general
+// 2 = wgmma. b_nk: op(B) is an (N, K) K-contiguous matrix read through its
+// strides (sbk = 1), taken by stream (and general, which reads any strides).
+// Tile (bm, bn, bk) must be one the path instantiates: general
 // (64, 64, 32); stream (8 | 16 | 32 | 64, 64, 64); wgmma (128, 64 | 128 |
 // 256, 64).
 // `segments` K segments (fast paths; see above), spread over `splits` CTAs
@@ -1138,10 +1171,10 @@ extern "C" int repro_tiled_matmul(const void* a, const void* b,
                                   int64_t scm, int64_t scn, float alpha,
                                   float beta, int in_dtype, int out_dtype,
                                   int path, int bm, int bn, int bk, int splits,
-                                  int segments, void* workspace,
+                                  int segments, int b_nk, void* workspace,
                                   void* counters, void* stream) {
-  const GemmArgs g{a,   b,   c_in, out, M,   N,     K,   sam,
-                   sak, sbk, sbn,  scm, scn, alpha, beta};
+  const GemmArgs g{a,   b,   c_in, out,   M,    N,   K,   sam,
+                   sak, sbk, sbn,  scm, scn, alpha, beta, b_nk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* ws = static_cast<float*>(workspace);
   int* cnt = static_cast<int*>(counters);
@@ -1177,10 +1210,10 @@ extern "C" int repro_tiled_matmul_smem(int path, int in_dtype, int bm, int bn,
                : smem_of(gemm_bf16_kernel<float, 64, 64, 32, true>, 0);
   if (in_dtype != 1 || bk != 64) return -1;
   if (path == 1 && bn == kStreamBN) {
-    if (bm == 8) return smem_of(gemm_stream_kernel<float, 1>, stream_smem_bytes(8));
-    if (bm == 16) return smem_of(gemm_stream_kernel<float, 2>, stream_smem_bytes(16));
-    if (bm == 32) return smem_of(gemm_stream_kernel<float, 4>, stream_smem_bytes(32));
-    if (bm == 64) return smem_of(gemm_stream_kernel<float, 8>, stream_smem_bytes(64));
+    if (bm == 8) return smem_of(gemm_stream_kernel<float, 1, false>, stream_smem_bytes(8));
+    if (bm == 16) return smem_of(gemm_stream_kernel<float, 2, false>, stream_smem_bytes(16));
+    if (bm == 32) return smem_of(gemm_stream_kernel<float, 4, false>, stream_smem_bytes(32));
+    if (bm == 64) return smem_of(gemm_stream_kernel<float, 8, false>, stream_smem_bytes(64));
   }
   if (path == 2 && bm == kWgBM) {
     if (bn == 256) return smem_of(gemm_wgmma_kernel<float, 256>, wgmma_smem_bytes(256));

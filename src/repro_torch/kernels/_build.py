@@ -30,9 +30,9 @@ _P, _I64, _I32, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_f
 # ctypes would pass them as 32-bit ints
 _SIGNATURES = {
     # (a, b, c_in, out, M, N, K, sam, sak, sbk, sbn, scm, scn, alpha, beta,
-    #  in_dtype, out_dtype, path, bm, bn, bk, splits, segments, workspace,
-    #  counters, stream) -> cudaError_t
-    "repro_tiled_matmul": ([_P] * 4 + [_I64] * 9 + [_F32] * 2 + [_I32] * 8
+    #  in_dtype, out_dtype, path, bm, bn, bk, splits, segments, b_nk,
+    #  workspace, counters, stream) -> cudaError_t
+    "repro_tiled_matmul": ([_P] * 4 + [_I64] * 9 + [_F32] * 2 + [_I32] * 9
                            + [_P] * 3, _I32),
     # (path, in_dtype, bm, bn, bk) -> shared memory bytes of one block, or -1
     "repro_tiled_matmul_smem": ([_I32] * 5, _I32),

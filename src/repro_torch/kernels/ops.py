@@ -166,7 +166,8 @@ def serving_gemm_fleet(cfg, *, max_batch: int, max_len: int,
                        include_slot_prefill: bool = True,
                        chunk_tokens: int | None = None,
                        lane_width: int | None = None,
-                       kv_cap: int | None = None
+                       kv_cap: int | None = None,
+                       grain: int = SSM_SERVE_GRAIN
                        ) -> list[tuple[int, int, int]]:
     """Every GEMM shape a serving engine will trace: the batched prefill
     (max_batch * max_len rows, LM head over max_batch last positions), the
@@ -184,14 +185,16 @@ def serving_gemm_fleet(cfg, *, max_batch: int, max_len: int,
     `kv_cap` is the per-row cached-token capacity that sizes MLA's
     whole-cache ``w_uk``/``w_uv`` decompression rows (default `max_len`;
     the paged engine's gathered view spans n_row_pages x page_size).
+    `grain` is the engine's SSM serve-scan block (the prefill-bucket
+    floor).
 
-    The reference's fleet for the dense, MoE and MLA-MoE families at tp=1
-    (its tensor-parallel shards, SSM grain and encoder-decoder / vision
-    admission grids come with the slices that port those features). Like
-    the reference's, it comes from `gemm_shape_counts`, so for the MoE
-    families it holds the routed-expert shapes that `matmul` never
-    launches (the experts are einsums) and lacks the router that it does
-    (ROADMAP queue C).
+    The reference's fleet for the dense, MoE, MLA-MoE, SSM and hybrid
+    families at tp=1 (its tensor-parallel shards and encoder-decoder /
+    vision admission grids come with the slices that port those
+    features). Like the reference's, it comes from `gemm_shape_counts`, so
+    for the MoE families it holds the routed-expert shapes that `matmul`
+    never launches (the experts are einsums) and lacks the router that it
+    does, and for mamba1 it lacks x_proj and dt_proj (ROADMAP queue C).
     """
     from repro_torch.models.config import gemm_shape_counts
 
@@ -206,7 +209,7 @@ def serving_gemm_fleet(cfg, *, max_batch: int, max_len: int,
             # serial admission: single-shot slot prefills only ever run at
             # width 1
             widths = {1}
-            chunks = prefill_buckets(max_len)
+            chunks = prefill_buckets(max_len, grain)
         else:
             # chunked admission rounds the lane up to the next pow2, so
             # pre-tune the full pow2 ladder through the lane cap
@@ -216,8 +219,8 @@ def serving_gemm_fleet(cfg, *, max_batch: int, max_len: int,
             while a < cap:
                 a *= 2
                 widths.add(a)
-            chunks = chunk_buckets(max_len, chunk_tokens)
-        for b in set(chunks) | set(prefill_buckets(max_len)):
+            chunks = chunk_buckets(max_len, chunk_tokens, grain)
+        for b in set(chunks) | set(prefill_buckets(max_len, grain)):
             # buckets past the chunk cap only ever run at width 1
             for w in (sorted(widths) if b in chunks else [1]):
                 fleet |= set(gemm_shape_counts(cfg, w * b, head_tokens=w,

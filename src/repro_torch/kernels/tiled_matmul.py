@@ -8,11 +8,12 @@ edge itself, and the transposed layouts are strides, not copies.
 
 The kernel has three paths, and `plan` picks one per call from dtype,
 layout, alignment and shape: ``stream`` (split-K weight streaming for
-M <= 64, the decode GEMMs), ``wgmma`` (TMA and warpgroup MMA for M > 64, the
-prefill chunks) and ``general`` (everything else: f32, transposed layouts,
-unaligned views). On both fast paths a row's bits do not depend on M: K is
-cut into segments by (N, K) alone (`k_segments`), which both paths sum in
-the same order.
+M <= 64, the decode GEMMs, with B stored (K, N) or, for a tied LM head,
+(N, K)), ``wgmma`` (TMA and warpgroup MMA for M > 64, the prefill chunks)
+and ``general`` (everything else: f32, transposed A, a transposed B at
+M > 64, unaligned views). On both fast paths a row's bits do not depend on
+M: K is cut into segments by (N, K) alone (`k_segments`), which both paths
+sum in the same order.
 
 A CPU tensor is computed by the plain version (`ref.matmul_ref`); a CUDA
 tensor launches the kernel or raises. ``tiled_matmul.launches`` counts the
@@ -122,6 +123,7 @@ class Plan:
     tile: BlockConfig
     splits: int
     segments: int = 1
+    b_nk: bool = False     # stream reads B stored (N, K), K-contiguous
 
     def tiles(self, m: int, n: int) -> int:
         """Output tiles of an (m, n) product: the grid without splits."""
@@ -134,13 +136,28 @@ def _require_compiled(config: BlockConfig | None) -> None:
                          f"choose one of {TILE_SHAPES}")
 
 
+def _fast_a(k, a_strides, a_ptr_mod16, in_dtype) -> bool:
+    return (in_dtype == torch.bfloat16 and k >= 1 and a_strides[1] == 1
+            and a_strides[0] % 8 == 0 and a_strides[0] >= k
+            and a_ptr_mod16 == 0)
+
+
 def _fast_layout(n, k, a_strides, b_strides, a_ptr_mod16, b_ptr_mod16,
                  in_dtype) -> bool:
-    return (in_dtype == torch.bfloat16 and k >= 1
-            and a_strides[1] == 1 and b_strides[1] == 1
-            and a_strides[0] % 8 == 0 and b_strides[0] % 8 == 0
-            and a_strides[0] >= k and b_strides[0] >= n
-            and a_ptr_mod16 == 0 and b_ptr_mod16 == 0)
+    """Both fast paths' layout: B rows N-contiguous, op(B) strides
+    (ldb, 1)."""
+    return (_fast_a(k, a_strides, a_ptr_mod16, in_dtype)
+            and b_strides[1] == 1 and b_strides[0] % 8 == 0
+            and b_strides[0] >= n and b_ptr_mod16 == 0)
+
+
+def _nk_layout(n, k, a_strides, b_strides, a_ptr_mod16, b_ptr_mod16,
+               in_dtype) -> bool:
+    """``stream``'s second layout: B stored (N, K) with K-contiguous rows,
+    op(B) strides (1, ldb) (a tied LM head's embedding table)."""
+    return (_fast_a(k, a_strides, a_ptr_mod16, in_dtype)
+            and b_strides[0] == 1 and b_strides[1] % 8 == 0
+            and b_strides[1] >= k and b_ptr_mod16 == 0)
 
 
 def k_segments(n: int, k: int) -> int:
@@ -199,7 +216,11 @@ def plan(m: int, n: int, k: int, a_strides, b_strides, a_ptr_mod16: int,
       are K-contiguous and whose B rows are N-contiguous (every projection
       of the serving path), with row strides that are multiples of 8
       elements and no shorter than the row, 16-byte aligned bases and
-      K >= 1. Everything else takes ``general`` with `DEFAULT_CONFIG`.
+      K >= 1. ``stream`` also takes B stored (N, K) with K-contiguous rows
+      under the same tests (op(B) strides (1, ldb): a tied LM head's
+      embedding table, `ops.matmul(..., transpose_b=True)`) where M <= 64;
+      that layout at M > 64 (training) takes ``general``, as does
+      everything else, with `DEFAULT_CONFIG`.
     - Among the fast paths, M <= 64 takes ``stream`` with the narrowest
       activation tile that holds M (8, 16, 32 or 64 rows); M > 64 takes
       ``wgmma`` with the widest tile (128 x 256, 128 or 64) whose output
@@ -220,9 +241,12 @@ def plan(m: int, n: int, k: int, a_strides, b_strides, a_ptr_mod16: int,
     segments are summed from zero in order on both, and the H100's
     mma.sync and wgmma give the same fp32 sum over a segment (the
     row-invariance check of ``chip_smoke.py``'s phase 3 and
-    ``tests/test_torch_cuda.py``). ``general`` is exempt: it serves no
-    serving launch (0 of 137,833 in ``chip_smoke.py``'s phase 10, PR 15),
-    only f32, transposed and unaligned operands.
+    ``tests/test_torch_cuda.py``). The (N, K) layout on ``stream`` issues
+    the same mma.sync sequence on the same values as the (K, N) one, so a
+    tied head's row has the same bits at every M <= 64 (serving never
+    unembeds more than 2 x max_batch rows in one call). ``general`` is
+    exempt: it serves no serving launch (``chip_smoke.py`` checks 0 on it
+    in every serving run), only f32, transposed and unaligned operands.
 
     A `config` forces its tile (and so its path); it raises ValueError if
     the tile is not compiled or its path cannot take this GEMM. A forced
@@ -232,15 +256,18 @@ def plan(m: int, n: int, k: int, a_strides, b_strides, a_ptr_mod16: int,
         raise ValueError(f"unsupported out_dtype {out_dtype}")
     fast = _fast_layout(n, k, a_strides, b_strides, a_ptr_mod16, b_ptr_mod16,
                         in_dtype)
+    nk = not fast and _nk_layout(n, k, a_strides, b_strides, a_ptr_mod16,
+                                 b_ptr_mod16, in_dtype)
     if config is not None and config.path == GENERAL:
         return Plan(GENERAL, config, 1)
-    if config is None and not fast:
+    if config is None and not (fast or (nk and m <= STREAM_MAX_M)):
         return Plan(GENERAL, DEFAULT_CONFIG, 1)
-    if not fast:
+    if not (fast or (nk and (config is None or config.path == STREAM))):
         raise ValueError(
             f"the {config.path} tile {config.as_tuple()} takes bf16 inputs "
-            "with K-contiguous op(A) rows and N-contiguous B rows, 16-byte "
-            "aligned; this GEMM takes the general path")
+            "with K-contiguous op(A) rows and N-contiguous B rows (stream "
+            "also K-contiguous (N, K) B), 16-byte aligned; this GEMM takes "
+            "the general path")
     segments = k_segments(n, k)
     if config is None:
         if m <= STREAM_MAX_M:
@@ -251,7 +278,7 @@ def plan(m: int, n: int, k: int, a_strides, b_strides, a_ptr_mod16: int,
         raise ValueError(f"the stream tile {config.as_tuple()} holds at most "
                          f"{config.block_m} rows, not {m}")
     if config.path == STREAM:
-        return Plan(STREAM, config, segments, segments)
+        return Plan(STREAM, config, segments, segments, b_nk=nk)
     tiles = Plan(WGMMA, config, 1).tiles(m, n)
     return Plan(WGMMA, config, _wgmma_splits(config, tiles, segments),
                 segments)
@@ -285,7 +312,7 @@ def _launch(a, b, c_in, out, m, n, k, sa, sb, sc, alpha, beta, p: Plan):
         m, n, k, sa[0], sa[1], sb[0], sb[1], sc[0], sc[1],
         float(alpha), float(beta),
         _DTYPE_CODE[a.dtype], _DTYPE_CODE[out.dtype], _PATH_CODE[p.path],
-        *p.tile.as_tuple(), p.splits, p.segments,
+        *p.tile.as_tuple(), p.splits, p.segments, int(p.b_nk),
         ws.data_ptr() if ws is not None else None,
         counters.data_ptr() if counters is not None else None,
         torch.cuda.current_stream(a.device).cuda_stream)

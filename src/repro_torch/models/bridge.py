@@ -1,11 +1,12 @@
 """Move parameters between the JAX package's pytree and the port's module.
 
 The JAX tree is nested dicts with ``blocks`` leaves stacked on a leading L
-axis. The bridge takes it as numpy arrays (the caller converts JAX arrays,
-so the port never sees JAX) and unstacks it per layer. A block's groups may
-nest (the MoE FFN's ``moe.router``, ``moe.experts``, ``moe.shared_mlp``):
-a `nn.ParameterDict` is a group of leaves, a `nn.ModuleDict` a group of
-groups.
+axis (hybrid: on (n_groups, attn_every), beside its unstacked
+``shared_attn`` block). The bridge takes it as numpy arrays (the caller
+converts JAX arrays, so the port never sees JAX) and unstacks it per layer.
+A block's groups may nest (the MoE FFN's ``moe.router``, ``moe.experts``,
+``moe.shared_mlp``): a `nn.ParameterDict` is a group of leaves, a
+`nn.ModuleDict` a group of groups.
 """
 
 from __future__ import annotations
@@ -15,14 +16,28 @@ import torch
 from torch import nn
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.hybrid import HybridLM
 from repro_torch.models.transformer import TransformerLM
 
 
-def _top_level(model: TransformerLM) -> dict:
+def _top_level(model: nn.Module) -> dict:
     top = {"embed": model.embed, "ln_f": model.ln_f}
     if model.head is not None:
         top["head"] = model.head
     return top
+
+
+def _shared_blocks(model: nn.Module) -> dict:
+    """Unstacked blocks at the top level: hybrid's ``shared_attn``."""
+    return ({"shared_attn": model.shared_attn}
+            if isinstance(model, HybridLM) else {})
+
+
+def _map(fn, tree):
+    """`fn` applied to every leaf of a nested dict of arrays."""
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(np.asarray(tree))
 
 
 def _block_groups(blk: nn.Module) -> dict:
@@ -59,19 +74,28 @@ def _load(group: nn.Module, tree: dict, i: int | None, where: str) -> None:
 
 @torch.no_grad()
 def params_from_numpy(tree: dict, cfg: ModelConfig,
-                      device: str | torch.device = "cuda") -> TransformerLM:
-    """The JAX parameter tree (numpy leaves) as a `TransformerLM` on
-    `device`, each leaf cast to ``cfg.param_dtype``."""
-    model = TransformerLM(cfg, device)
-    top = _top_level(model)
-    _check_keys(tree, list(top) + ["blocks"], "params")
+                      device: str | torch.device = "cuda") -> nn.Module:
+    """The JAX parameter tree (numpy leaves) as a `TransformerLM` (a
+    `HybridLM` for kind hybrid) on `device`, each leaf cast to its
+    parameter's dtype (``cfg.param_dtype``; the SSM's A_log and D stay
+    float32)."""
+    model = (HybridLM if cfg.kind == "hybrid" else TransformerLM)(cfg, device)
+    top, shared = _top_level(model), _shared_blocks(model)
+    _check_keys(tree, list(top) + list(shared) + ["blocks"], "params")
     for key, group in top.items():
         _load(group, tree[key], None, key)
+    for key, blk in shared.items():
+        _check_keys(tree[key], _block_groups(blk), key)
+        for g, group in _block_groups(blk).items():
+            _load(group, tree[key][g], None, f"{key}.{g}")
+    blocks = tree["blocks"]
+    if isinstance(model, HybridLM):
+        blocks = _map(lambda a: a.reshape(-1, *a.shape[2:]), blocks)
     groups = _block_groups(model.blocks[0])
-    _check_keys(tree["blocks"], groups, "blocks")
+    _check_keys(blocks, groups, "blocks")
     for i, blk in enumerate(model.blocks):
         for g, group in _block_groups(blk).items():
-            _load(group, tree["blocks"][g], i, f"blocks.{g}")
+            _load(group, blocks[g], i, f"blocks.{g}")
     return model
 
 
@@ -91,12 +115,19 @@ def _dump(groups: list[nn.Module]) -> dict:
     return out
 
 
-def params_to_numpy(model: TransformerLM) -> dict:
+def params_to_numpy(model: nn.Module) -> dict:
     """The inverse of `params_from_numpy`: float32 numpy leaves, ``blocks``
-    stacked on a leading L axis."""
+    stacked on a leading L axis (hybrid: (n_groups, attn_every))."""
     tree = {key: {n: _np32(p) for n, p in group.items()}
             for key, group in _top_level(model).items()}
+    for key, blk in _shared_blocks(model).items():
+        tree[key] = _map(lambda a: a[0], {
+            g: _dump([group]) for g, group in _block_groups(blk).items()})
     tree["blocks"] = {
         g: _dump([_block_groups(blk)[g] for blk in model.blocks])
         for g in _block_groups(model.blocks[0])}
+    if isinstance(model, HybridLM):
+        tree["blocks"] = _map(
+            lambda a: a.reshape(*model.group_shape, *a.shape[1:]),
+            tree["blocks"])
     return tree

@@ -12,8 +12,9 @@ One dataclass, many families. `kind` selects the forward function:
   encdec       - encoder-decoder with cross attention (Seamless-M4T)
   vlm          - decoder-only with M-RoPE + patch-embedding input (Qwen2-VL)
 
-The port serves `dense`, `moe` and `mla_moe` so far; the other kinds are
-carried so that a config means the same thing in both packages.
+The port serves `dense`, `moe`, `mla_moe`, `mamba1`, `mamba2` and
+`hybrid` so far; `encdec` and `vlm` are carried so that a config means the
+same thing in both packages.
 """
 
 from __future__ import annotations
@@ -212,18 +213,32 @@ def gemm_shape_counts(cfg: ModelConfig, n_tokens: int,
     full `n_tokens` rows, and the router is left out. (So they are not the
     launches of `ops.matmul`: the routed experts are einsums that never
     reach the hand-written GEMM, the router does, and the shared experts
-    run as one SwiGLU of n_shared x d_ff_expert.)
+    run as one SwiGLU of n_shared x d_ff_expert.) Likewise Mamba1's
+    in_proj and out_proj are counted but not its x_proj and dt_proj, which
+    `ssm.mamba1_block_apply` launches too (ROADMAP queue C). Mamba1/Mamba2
+    have no Q/K/V/O; hybrid counts its `n_layers // attn_every` shared
+    attention applications and their FFN.
 
     The reference's counts at tp = 1 cut to the kinds the port serves
-    (dense, moe, mla_moe): its SSM, hybrid and encoder-decoder fleets and
-    its tensor-parallel shards come with the slices that port them.
+    (dense, moe, mla_moe, mamba1, mamba2, hybrid): its encoder-decoder
+    fleet and its tensor-parallel shards come with the slices that port
+    them.
     """
-    if cfg.kind not in ("dense", "moe", "mla_moe"):
+    if cfg.kind not in ("dense", "moe", "mla_moe", "mamba1", "mamba2",
+                        "hybrid"):
         raise NotImplementedError(
-            f"the port counts dense, moe and mla_moe GEMMs, not "
-            f"{cfg.kind!r}")
+            f"the port counts dense, moe, mla_moe, mamba1, mamba2 and "
+            f"hybrid GEMMs, not {cfg.kind!r}")
     t = int(n_tokens)
     d, hd, kv, L = cfg.d_model, cfg.hd, cfg.kv_heads, cfg.n_layers
+    # mamba1/mamba2 are attention-free; hybrid (Zamba2) runs one shared
+    # attention block every attn_every layers
+    if cfg.kind in ("mamba1", "mamba2"):
+        attn_layers = 0
+    elif cfg.kind == "hybrid":
+        attn_layers = max(L // max(cfg.attn_every, 1), 1)
+    else:
+        attn_layers = L
     counts: dict[tuple[int, int, int], float] = {}
 
     def add(shape: tuple[int, int, int], n: float) -> None:
@@ -245,22 +260,34 @@ def gemm_shape_counts(cfg: ModelConfig, n_tokens: int,
         add((t, pe, d), L)                           # w_kpe (RoPE key)
         add((kvr, cfg.n_heads * hd, r), 2 * L)       # w_uk / w_uv
         add((t, d, cfg.n_heads * hd), L)             # output projection
-    else:
-        add((t, cfg.n_heads * hd, d), L)             # Q projection
-        add((t, kv * hd, d), 2 * L)                  # K and V projections
-        add((t, d, cfg.n_heads * hd), L)             # output projection
+    elif attn_layers:
+        add((t, cfg.n_heads * hd, d), attn_layers)   # Q projection
+        add((t, kv * hd, d), 2 * attn_layers)        # K and V projections
+        add((t, d, cfg.n_heads * hd), attn_layers)   # output projection
     add((int(head_tokens) if head_tokens is not None else t,
          cfg.vocab, d), 1)                           # LM head
     ff = cfg.d_ff_expert if cfg.n_experts else cfg.d_ff
     if ff:
+        ffn_layers = attn_layers if cfg.kind == "hybrid" else L
         gate_mult = 2 if cfg.gated_mlp else 1
         if cfg.n_experts:
-            add((t, ff, d), gate_mult * cfg.top_k * L)   # routed experts
-            add((t, d, ff), cfg.top_k * L)
+            add((t, ff, d), gate_mult * cfg.top_k * ffn_layers)  # routed
+            add((t, d, ff), cfg.top_k * ffn_layers)
             if cfg.n_shared_experts:
-                add((t, ff, d), gate_mult * cfg.n_shared_experts * L)
-                add((t, d, ff), cfg.n_shared_experts * L)
+                add((t, ff, d), gate_mult * cfg.n_shared_experts * ffn_layers)
+                add((t, d, ff), cfg.n_shared_experts * ffn_layers)
         else:
-            add((t, ff, d), gate_mult * L)           # up (and gate)
-            add((t, d, ff), L)                       # down projection
+            add((t, ff, d), gate_mult * ffn_layers)  # up (and gate)
+            add((t, d, ff), ffn_layers)              # down projection
+    if cfg.kind == "mamba1":
+        add((t, 2 * cfg.d_inner, d), L)              # SSM in_proj
+        add((t, d, cfg.d_inner), L)                  # SSM out_proj
+    elif cfg.kind in ("mamba2", "hybrid"):
+        # the SSD in_proj also carries the B/C state projections and the
+        # per-head dt channel (see ssm.Mamba2Block)
+        di = cfg.d_inner
+        n_in = (2 * di + 2 * cfg.ssm_ngroups * cfg.ssm_state
+                + di // max(cfg.ssm_headdim, 1))
+        add((t, n_in, d), L)                         # SSD in_proj
+        add((t, d, di), L)                           # SSD out_proj
     return counts

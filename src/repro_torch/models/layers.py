@@ -27,6 +27,20 @@ from repro_torch.models.config import ModelConfig
 Params = Mapping[str, torch.Tensor]
 
 
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a config's spelling ("bfloat16", "float32")."""
+    return getattr(torch, name)
+
+
+def frozen_params(device, dtype, **shapes) -> torch.nn.ParameterDict:
+    """Uninitialised, frozen parameters of the given shapes."""
+    return torch.nn.ParameterDict({
+        name: torch.nn.Parameter(torch.empty(shape, dtype=dtype,
+                                             device=device),
+                                 requires_grad=False)
+        for name, shape in shapes.items()})
+
+
 # ---------------- norms ----------------
 
 def rmsnorm(p: Params, x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -62,6 +76,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------- attention ----------------
 
 Q_CHUNK = 1024  # query-block size for memory-bounded exact attention
+# On the card cuBLAS picks a batched GEMM's kernel, and with it the order in
+# which each dot product is summed, by shape: calls of fewer than 32 query
+# rows (a decode step, an 8- or 16-token chunk) get other kernels than every
+# longer call, and other ones from one batch size to the next, so a row's
+# scores and output would depend on the call it rides in (measured on the
+# H100: `chip_smoke.py` phase 12). There the queries are padded to
+# Q_MIN_CUDA rows and the pad cut off after: every call sums a row alike.
+Q_MIN_CUDA = 32
 
 
 def _per_row(v: torch.Tensor | int, device) -> torch.Tensor:
@@ -124,8 +146,14 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
           kv_len: torch.Tensor | int | None = None,
           kv_valid: torch.Tensor | None = None) -> torch.Tensor:
     """Exact attention, query-chunked so peak score memory is
-    O(Q_CHUNK x Sk) instead of O(Sq x Sk)."""
+    O(Q_CHUNK x Sk) instead of O(Sq x Sk); on the card, fewer than
+    `Q_MIN_CUDA` queries are zero-padded to that many (see there)."""
     Sq = q.shape[1]
+    if q.is_cuda and Sq < Q_MIN_CUDA:
+        pad = q.new_zeros((q.shape[0], Q_MIN_CUDA - Sq, *q.shape[2:]))
+        return _sdpa(torch.cat([q, pad], dim=1), k, v, causal=causal,
+                     q_offset=q_offset, kv_len=kv_len,
+                     kv_valid=kv_valid)[:, :Sq]
     if Sq <= Q_CHUNK or Sq % Q_CHUNK != 0:
         return _sdpa_block(q, k, v, causal=causal, q_offset=q_offset,
                            kv_len=kv_len, kv_valid=kv_valid)

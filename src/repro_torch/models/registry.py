@@ -1,11 +1,12 @@
-"""Uniform model API over the ported families: dense, moe and mla_moe.
+"""Uniform model API over the ported families: dense, moe, mla_moe,
+mamba1, mamba2 and hybrid.
 
     model = get_model(cfg)
     params = model.init(cfg, torch.Generator("cuda").manual_seed(0))
     logits, state = model.prefill(params, batch, cfg)
     logits, state = model.prefill_chunk(params, tokens, lengths, state, cfg)
     logits, state = model.decode_step(params, token, state, cfg)
-    pool = model.init_page_pool(cfg, num_pages, page_size)   # paged KV
+    pool = model.init_page_pool(cfg, num_pages, page_size)  # KV kinds only
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from typing import Callable
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models import hybrid
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 
@@ -34,10 +36,11 @@ class ModelApi:
     # the first chunk writes into: (cfg, batch, max_len, *, device) -> state
     prefill_chunk: Callable
     init_state: Callable
-    # paged-KV pool: (cfg, num_pages, page_size, *, device) -> pool leaves
-    # (L, P, T, ...); the engine pairs it with per-row page tables (see
-    # serving.paging)
-    init_page_pool: Callable
+    # paged-KV pool for the families the engine can serve paged: (cfg,
+    # num_pages, page_size, *, device) -> pool leaves (L, P, T, ...); the
+    # engine pairs it with per-row page tables (see serving.paging). SSM
+    # and hybrid state is O(1) per row and stays dense: None.
+    init_page_pool: Callable | None = None
 
 
 def _zero_index_state(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -47,10 +50,11 @@ def _zero_index_state(cfg: ModelConfig, batch: int, max_len: int, *,
             "index": torch.zeros((batch,), dtype=torch.long, device=dev)}
 
 
-def _lm_api() -> ModelApi:
-    """The API of the `TransformerLM` families (dense, moe, mla_moe): the
-    forwards pick the block function by ``cfg.kind``, `init_cache` and
-    `init_page_pool` the KV or MLA latent layout."""
+def _lm_api(paged: bool) -> ModelApi:
+    """The API of the `TransformerLM` families (dense, moe, mla_moe, mamba1,
+    mamba2): the forwards pick the block function by ``cfg.kind``,
+    `init_cache` the KV, MLA latent or SSM state layout, and `init_page_pool`
+    (only where `paged`) the KV or MLA latent pool."""
     return ModelApi(
         init=tfm.lm_init,
         prefill=tfm.lm_prefill,
@@ -59,18 +63,36 @@ def _lm_api() -> ModelApi:
             cfg, b, ml, device=device),
         prefill_chunk=tfm.lm_prefill_chunk,
         init_state=_zero_index_state,
-        init_page_pool=lambda cfg, n, t, *, device="cuda": (
-            tfm.init_page_pool(cfg, n, t, device=device)),
+        init_page_pool=(lambda cfg, n, t, *, device="cuda": (
+            tfm.init_page_pool(cfg, n, t, device=device))) if paged else None,
     )
 
 
-_FAMILIES = ("dense", "moe", "mla_moe")
+def _hybrid_api() -> ModelApi:
+    """The API of the hybrid family (`hybrid.HybridLM`); its state key is
+    ``"cache"``, as in the reference."""
+    return ModelApi(
+        init=hybrid.hybrid_init,
+        prefill=hybrid.hybrid_prefill,
+        decode_step=hybrid.hybrid_decode_step,
+        init_cache=lambda cfg, b, ml, *, device="cuda": (
+            hybrid.init_hybrid_cache(cfg, b, ml, device=device)),
+        prefill_chunk=hybrid.hybrid_prefill_chunk,
+        init_state=hybrid.init_hybrid_state,
+    )
+
+
+_FAMILIES = {
+    "dense": lambda: _lm_api(paged=True),
+    "moe": lambda: _lm_api(paged=True),
+    "mla_moe": lambda: _lm_api(paged=True),
+    "mamba1": lambda: _lm_api(paged=False),
+    "mamba2": lambda: _lm_api(paged=False),
+    "hybrid": _hybrid_api,
+}
 
 # the JAX package's other families -> the ROADMAP item that ports them
 _NOT_YET_PORTED = {
-    "mamba1": "A5 (SSM/hybrid)",
-    "mamba2": "A5 (SSM/hybrid)",
-    "hybrid": "A5 (SSM/hybrid)",
     "encdec": "A6 (encdec/vlm)",
     "vlm": "A6 (encdec/vlm)",
 }
@@ -80,7 +102,7 @@ def get_model(cfg: ModelConfig) -> ModelApi:
     """The `ModelApi` of ``cfg.kind``; unported kinds raise
     `NotImplementedError` naming their ROADMAP item."""
     if cfg.kind in _FAMILIES:
-        return _lm_api()
+        return _FAMILIES[cfg.kind]()
     if cfg.kind in _NOT_YET_PORTED:
         raise NotImplementedError(
             f"kind={cfg.kind!r} is not ported yet: ROADMAP queue "

@@ -1,17 +1,18 @@
-"""Decoder-only transformer: the module holding the weights, its
-initialisation, the KV caches (dense and paged), and the serving forwards
-(prefill, chunked prefill, decode).
+"""Decoder-only LM stack: the module holding the weights, its
+initialisation, the caches (dense and paged KV, SSM state), and the serving
+forwards (prefill, chunked prefill, decode).
 
 The counterpart of the JAX package's `repro.models.transformer` at tp=1,
-for dense, MoE (`moe.moe_block_apply`) and MLA-MoE
-(`moe.mla_moe_block_apply`) blocks. The parameter tree mirrors the JAX one
-— ``embed.table``, per layer ``ln1/attn/ln2`` and ``mlp`` or ``moe``
-(``router``, ``experts``, ``shared_mlp``), ``ln_f.scale``, ``head.w`` —
-except that layers are a list of modules rather than leaves stacked on an L
-axis (the port runs a Python loop where JAX runs ``lax.scan``).
+for dense, MoE (`moe.moe_block_apply`), MLA-MoE (`moe.mla_moe_block_apply`),
+Mamba1 and Mamba2 (`ssm.mamba1_block_apply`, `ssm.mamba2_block_apply`)
+blocks. The parameter tree mirrors the JAX one — ``embed.table``, per layer
+``ln1/attn/ln2`` and ``mlp`` or ``moe`` (``router``, ``experts``,
+``shared_mlp``), or ``ln/ssm``, ``ln_f.scale``, ``head.w`` — except that
+layers are a list of modules rather than leaves stacked on an L axis (the
+port runs a Python loop where JAX runs ``lax.scan``).
 
-The serving forwards write the KV cache of the state they are given in
-place (JAX donates and rebinds it) and return the state with its advanced
+The serving forwards write the cache of the state they are given in place
+(JAX donates and rebinds it) and return the state with its advanced
 ``index``.
 """
 
@@ -25,19 +26,10 @@ from torch import nn
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
+from repro_torch.models import ssm
 from repro_torch.models.config import ModelConfig
-
-
-def _dtype(name: str) -> torch.dtype:
-    return getattr(torch, name)
-
-
-def _params(device, dtype, **shapes) -> nn.ParameterDict:
-    """Uninitialised, frozen parameters of the given shapes."""
-    return nn.ParameterDict({
-        name: nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                           requires_grad=False)
-        for name, shape in shapes.items()})
+from repro_torch.models.layers import frozen_params as _params
+from repro_torch.models.layers import torch_dtype as _dtype
 
 
 def _mlp_shapes(cfg: ModelConfig, d_ff: int) -> dict:
@@ -125,15 +117,17 @@ class MLAMoEBlock(nn.Module):
         self.moe = _moe_groups(cfg, device, dt)
 
 
-# the block module of each kind the port serves
-BLOCKS = {"dense": DenseBlock, "moe": MoEBlock, "mla_moe": MLAMoEBlock}
+# the block module of each kind `TransformerLM` holds (hybrid has its own
+# module, `hybrid.HybridLM`)
+BLOCKS = {"dense": DenseBlock, "moe": MoEBlock, "mla_moe": MLAMoEBlock,
+          "mamba1": ssm.Mamba1Block, "mamba2": ssm.Mamba2Block}
 
 
 class TransformerLM(nn.Module):
-    """The weights of a decoder-only LM of a kind in `BLOCKS` (dense, MoE or
-    MLA-MoE blocks), allocated uninitialised on `device` (the card unless
-    the caller asks for the CPU). Fill them with `lm_init` or
-    `bridge.params_from_numpy`."""
+    """The weights of a decoder-only LM of a kind in `BLOCKS` (dense, MoE,
+    MLA-MoE, Mamba1 or Mamba2 blocks), allocated uninitialised on `device`
+    (the card unless the caller asks for the CPU). Fill them with `lm_init`
+    or `bridge.params_from_numpy`."""
 
     def __init__(self, cfg: ModelConfig, device: str | torch.device = "cuda"):
         """Allocate every parameter, uninitialised, on `device`."""
@@ -157,17 +151,17 @@ class TransformerLM(nn.Module):
 
 
 @torch.no_grad()
-def lm_init(cfg: ModelConfig, generator: torch.Generator, *,
-            device: str | torch.device = "cuda") -> TransformerLM:
-    """Random weights drawn from `generator` (which must live on `device`),
-    with the JAX package's scales: every projection N(0, 1/d_in), d_in its
-    second-to-last axis (``wo`` over H*hd, ``w_down`` over d_ff, the
-    experts (E, d, f) over d and (E, f, d) over f, the router over d),
-    N(0, 0.02) embeddings, unit norms, zero biases. Each tensor is drawn in
-    f32 on the device and cast on its own, so no f32 copy of the whole model
-    ever exists (the largest transient is one tensor: a deepseek-v2-236b
-    layer's (160, 5120, 1536) experts, 5.0 GB)."""
-    model = TransformerLM(cfg, device)
+def init_weights(model: nn.Module, cfg: ModelConfig,
+                 generator: torch.Generator) -> nn.Module:
+    """Fill `model`'s parameters from `generator` (which must live on the
+    model's device) with the JAX package's scales: every projection
+    N(0, 1/d_in), d_in its second-to-last axis (``wo`` over H*hd,
+    ``w_down`` over d_ff, the experts (E, d, f) over d and (E, f, d) over
+    f, the router over d), N(0, 0.02) embeddings, unit norms, zero biases,
+    and the SSM leaves as `ssm.init_ssm_leaf` sets them. Each tensor is
+    drawn in f32 on the device and cast on its own, so no f32 copy of the
+    whole model ever exists (the largest transient is one tensor: a
+    deepseek-v2-236b layer's (160, 5120, 1536) experts, 5.0 GB)."""
     if generator.device.type != model.device.type:
         raise ValueError(f"generator on {generator.device}, model on "
                          f"{model.device}")
@@ -177,13 +171,20 @@ def lm_init(cfg: ModelConfig, generator: torch.Generator, *,
             w.fill_(1.0)
         elif leaf in ("bq", "bk", "bv"):
             w.zero_()
-        else:
+        elif not ssm.init_ssm_leaf(name, w, cfg, generator):
             scale = 0.02 if name == "embed.table" else (
                 1.0 / math.sqrt(w.shape[-2]))
             w.copy_(torch.randn(w.shape, generator=generator,
                                 device=w.device,
                                 dtype=torch.float32).mul_(scale))
     return model
+
+
+def lm_init(cfg: ModelConfig, generator: torch.Generator, *,
+            device: str | torch.device = "cuda") -> TransformerLM:
+    """A `TransformerLM` on `device` with random weights drawn from
+    `generator` (see `init_weights`)."""
+    return init_weights(TransformerLM(cfg, device), cfg, generator)
 
 
 def dense_block_apply(blk: DenseBlock, x: torch.Tensor, cfg: ModelConfig, *,
@@ -202,11 +203,15 @@ def dense_block_apply(blk: DenseBlock, x: torch.Tensor, cfg: ModelConfig, *,
 
 
 def block_apply(cfg: ModelConfig):
-    """The block function of ``cfg.kind``."""
+    """The block function of ``cfg.kind`` (for hybrid: its Mamba2
+    backbone's)."""
     from repro_torch.models import moe
 
     return {"dense": dense_block_apply, "moe": moe.moe_block_apply,
-            "mla_moe": moe.mla_moe_block_apply}[cfg.kind]
+            "mla_moe": moe.mla_moe_block_apply,
+            "mamba1": ssm.mamba1_block_apply,
+            "mamba2": ssm.mamba2_block_apply,
+            "hybrid": ssm.mamba2_block_apply}[cfg.kind]
 
 
 def _embed(model: TransformerLM, tokens: torch.Tensor,
@@ -254,7 +259,12 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device: str | torch.device = "cuda") -> dict:
     """The zeroed dense cache of ``cfg.kind``: the MLA latent cache
-    (`moe.init_mla_cache`) for mla_moe, else the KV cache."""
+    (`moe.init_mla_cache`) for mla_moe, the f32 SSM state for mamba1 and
+    mamba2 (O(1) per row: `max_len` is not used), else the KV cache."""
+    if cfg.kind == "mamba1":
+        return ssm.init_mamba1_cache(cfg, batch, device=device)
+    if cfg.kind == "mamba2":
+        return ssm.init_mamba2_cache(cfg, batch, device=device)
     if cfg.kind == "mla_moe":
         from repro_torch.models.moe import init_mla_cache
 

@@ -1,8 +1,8 @@
 """Continuous-batching serving engine with chunked admission prefill.
 
 The counterpart of the JAX package's `repro.serving.engine.ServingEngine`
-for the dense, MoE and MLA-MoE families at tp=1 (`SERVED_KINDS`), with its
-serving loops:
+for the dense, MoE, MLA-MoE, Mamba1, Mamba2 and hybrid families at tp=1
+(`SERVED_KINDS`), with its serving loops:
 
 - continuous mode, ``admission="chunked"`` (the default): the engine keeps
   one batched decode state of ``max_batch`` fixed slots. Every engine step
@@ -22,6 +22,16 @@ serving loops:
   registered prefix maps its pages copy-on-write and skips those chunks;
 - the wave loop (``mode="wave"``): one batched prefill of up to
   ``max_batch`` requests, then lockstep decode until all of them finish.
+
+The SSM and hybrid families carry their conv and scan state across chunk
+boundaries bit-exactly: chunk boundaries and prefill buckets stay multiples
+of the serve-scan grain (`ssm_serve_grain`, default `ops.SSM_SERVE_GRAIN`),
+the only unaligned bucket (a max_len that is not a multiple) is dropped for
+a non-final chunk, and an attention-free row has no length bound, so its
+prompt may be longer than ``max_len`` (it scans through in chunks, and the
+bucket ladder doubles past max_len for a serial prefill). Their state is
+O(1) per row, so they are served on the dense layout only, as in the JAX
+engine.
 
 Streams match the JAX engine's token for token in every mode: the same
 admission order, buckets, splice order, page allocation and host numpy
@@ -55,9 +65,9 @@ And one where the JAX engine is at fault (ROADMAP queue C): an engine
 pretuned for another objective than "runtime" launches that objective's
 winners (`ops.launch_objective`), so it runs the tiles it prices.
 
-Not ported yet (ROADMAP queue A): the other families and their admission
-hooks (A5, A6), tp (A7), and what only the fleet scheduler and fault
-recovery call (A8): `chunk_policy`, replay requests, `adopt`,
+Not ported yet (ROADMAP queue A): the encoder-decoder and vision families
+and their admission hooks (A6), tp (A7), and what only the fleet scheduler
+and fault recovery call (A8): `chunk_policy`, replay requests, `adopt`,
 `checkpoint_inflight`, `retune` and page pressure
 (`inject_page_pressure`, `release_page_pressure`). Nothing here reports a
 placeholder for them.
@@ -82,9 +92,14 @@ from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
 
 
-# the families the engine serves, in every mode: dense, OLMoE-style MoE and
-# DeepSeek-V2 MLA-MoE (the other kinds: ROADMAP A5, A6)
-SERVED_KINDS = ("dense", "moe", "mla_moe")
+# the families the engine serves, in every mode: dense, OLMoE-style MoE,
+# DeepSeek-V2 MLA-MoE, Mamba1, Mamba2 and the Zamba2 hybrid (encdec and vlm:
+# ROADMAP A6)
+SERVED_KINDS = ("dense", "moe", "mla_moe", "mamba1", "mamba2", "hybrid")
+# the families whose cache the paged layout supports: per-token KV (or MLA
+# latent) rows that page cleanly; SSM/hybrid state is O(1) per row (or
+# mixed) and stays dense
+PAGED_KINDS = ("dense", "moe", "mla_moe")
 
 
 @dataclasses.dataclass
@@ -184,6 +199,7 @@ class ServingEngine:
                  pretune: bool = False, tune_objective: str = "runtime",
                  tune_rank_mode: str = "auto",
                  chip: str | None = None,
+                 ssm_serve_grain: int | None = None,
                  device: str | torch.device = "cuda"):
         """`mode` picks the serving loop: "continuous" (slot table with
         mid-decode retire and refill), "wave" (batch of waves) or "auto"
@@ -194,8 +210,14 @@ class ServingEngine:
         step, queued admissions batched into one bucketed call) or
         "serial" (each request prefills alone in one single-shot call,
         stalling the loop for the whole prompt). `chunk_tokens` must be a
-        multiple of `ops.SSM_SERVE_GRAIN` or at least `max_len`, as in the
+        multiple of the SSM serve grain or at least `max_len`, as in the
         JAX engine.
+
+        `ssm_serve_grain` widens the SSM serve-scan block (default
+        `ops.SSM_SERVE_GRAIN`): a power-of-two multiple of it. Chunk
+        boundaries and prefill buckets align to the grain, so long SSM
+        prompts scan in fewer, larger blocks per call; the engine's config
+        carries it (``cfg.ssm_serve_grain``).
 
         `kv_layout` picks the KV-cache layout: "dense" (one max_len buffer
         per decode slot and lane row) or "paged" (a shared pool of
@@ -203,8 +225,8 @@ class ServingEngine:
         allocator of `serving.paging`, and — with `prefix_cache` —
         shared-prefix page reuse across requests). `num_pages` sizes the
         pool (default: full capacity for every slot and lane row plus the
-        null page). Paged serving requires continuous chunked admission and
-        `page_size` dividing `max_len`.
+        null page). Paged serving requires continuous chunked admission, a
+        `PAGED_KINDS` family and `page_size` dividing `max_len`.
 
         `device` holds the decode state and must be where `params` live.
 
@@ -227,6 +249,16 @@ class ServingEngine:
         if cfg.kind not in SERVED_KINDS:
             raise NotImplementedError(
                 f"the port serves kind in {SERVED_KINDS}, not {cfg.kind!r}")
+        grain = int(ssm_serve_grain) if ssm_serve_grain else 0
+        if grain and (grain < ops.SSM_SERVE_GRAIN
+                      or grain % ops.SSM_SERVE_GRAIN
+                      or grain & (grain - 1)):
+            raise ValueError(
+                f"ssm_serve_grain={grain} must be a power-of-two "
+                f"multiple of {ops.SSM_SERVE_GRAIN}")
+        self.ssm_grain = grain or ops.SSM_SERVE_GRAIN
+        if grain:
+            cfg = dataclasses.replace(cfg, ssm_serve_grain=grain)
         self.model = model
         self.params = params
         self.cfg = cfg
@@ -241,10 +273,20 @@ class ServingEngine:
         self.mode = mode
         self.admission = admission
         if (admission == "chunked" and chunk_tokens < max_len
-                and chunk_tokens % ops.SSM_SERVE_GRAIN):
+                and chunk_tokens % self.ssm_grain):
+            # chunk boundaries must stay multiples of the SSM serve-scan
+            # block or chunked prefill loses bit parity for SSM families
             raise ValueError(
                 f"chunk_tokens={chunk_tokens} must be a multiple of "
-                f"{ops.SSM_SERVE_GRAIN} (or >= max_len)")
+                f"{self.ssm_grain} (or >= max_len)")
+        if (admission == "chunked" and cfg.sub_quadratic
+                and cfg.attention_free and max_len < self.ssm_grain):
+            # attention-free prompts may exceed max_len (multi-chunk), and
+            # non-final chunk boundaries then need a grain-aligned bucket,
+            # which a sub-grain bucket ladder cannot provide
+            raise ValueError(
+                f"max_len={max_len} < {self.ssm_grain} cannot serve "
+                f"chunked SSM prefill; raise max_len or use wave mode")
         self.chunk_tokens = chunk_tokens
         # admission-lane capacity: prefill and first-token sampling for up
         # to this many in-flight requests, decoupled from free slots
@@ -258,6 +300,11 @@ class ServingEngine:
         if kv_layout == "paged":
             from repro_torch.serving.paging import PageAllocator
 
+            if cfg.kind not in PAGED_KINDS:
+                raise ValueError(
+                    f"kv_layout='paged' unsupported for kind="
+                    f"{cfg.kind!r} (SSM/hybrid state is O(1) per row, "
+                    f"not per token); use dense")
             if mode == "wave" or admission != "chunked":
                 raise ValueError(
                     "kv_layout='paged' requires continuous serving with "
@@ -287,7 +334,8 @@ class ServingEngine:
                 cfg, max_batch=max_batch, max_len=max_len,
                 include_slot_prefill=self._continuous_supported(),
                 chunk_tokens=chunk_tokens if chunked else None,
-                lane_width=self.lane_width if chunked else None)
+                lane_width=self.lane_width if chunked else None,
+                grain=self.ssm_grain)
             self.pretuned = ops.warm_gemm_cache(
                 fleet, dtype=cfg.activation_dtype,
                 objective=tune_objective, chip=chip,
@@ -346,13 +394,22 @@ class ServingEngine:
         one extra `serve_step()` after the last retirement."""
         return bool(self.queue) or self._stepper is not None
 
+    def _row_capacity(self) -> int | None:
+        """Per-row cache capacity in tokens, or None when unbounded: the
+        one length bound `submit` and `_budget` apply. Attention KV caches
+        hold `max_len` rows; attention-free SSM state is O(1) per row, so
+        its capacity is unbounded (long prompts scan through in chunks)."""
+        return None if self.cfg.attention_free else self.max_len
+
     def submit(self, req: Request) -> None:
         """Queue a request (stamps its submit time). The prompt must leave
-        at least one decode position in a row's `max_len` cache."""
-        if len(req.prompt) >= self.max_len:
+        at least one decode position in a row's `max_len` cache, unless
+        the family is attention-free."""
+        cap = self._row_capacity()
+        if cap is not None and len(req.prompt) >= cap:
             raise ValueError(
                 f"prompt of {len(req.prompt)} tokens does not fit "
-                f"max_len={self.max_len} (need >= 1 decode position)")
+                f"max_len={cap} (need >= 1 decode position)")
         if req.submit_s == 0.0:
             req.submit_s = time.perf_counter()
         req.submit_model_s = self.model_clock_s
@@ -360,21 +417,33 @@ class ServingEngine:
 
     def _budget(self, req: Request) -> int:
         """Effective token budget: >= 1, bounded by the row's remaining
-        cache room (max_len minus its own prompt length)."""
-        return max(1, min(req.max_new_tokens, self.max_len - len(req.prompt)))
+        cache room (its capacity minus its own prompt length; unbounded
+        for attention-free rows)."""
+        cap = self._row_capacity()
+        if cap is None:
+            return max(1, req.max_new_tokens)
+        return max(1, min(req.max_new_tokens, cap - len(req.prompt)))
 
     def _bucket(self, n: int) -> int:
         """Smallest prefill bucket holding `n` prompt tokens (a serial
-        slot prefill's rows): a bisect over `ops.prefill_buckets`, the
-        ladder `serving_gemm_fleet` pre-tunes."""
-        buckets = ops.prefill_buckets(self.max_len)
-        return buckets[min(bisect.bisect_left(buckets, n),
-                           len(buckets) - 1)]
+        slot prefill's rows): a bisect over `ops.prefill_buckets` at the
+        SSM grain, the ladder `serving_gemm_fleet` pre-tunes.
+        Attention-free prompts may exceed max_len; the ladder keeps
+        doubling past it."""
+        buckets = ops.prefill_buckets(self.max_len, self.ssm_grain)
+        i = bisect.bisect_left(buckets, n)
+        if i < len(buckets):
+            return buckets[i]
+        b = buckets[-1]
+        while b < n:
+            b *= 2
+        return b
 
     def _chunk_bucket(self, n: int) -> int:
         """Smallest chunk bucket holding `n` remaining prompt tokens,
         capped at `chunk_tokens`."""
-        buckets = ops.chunk_buckets(self.max_len, self.chunk_tokens)
+        buckets = ops.chunk_buckets(self.max_len, self.chunk_tokens,
+                                    self.ssm_grain)
         i = bisect.bisect_left(buckets, n)
         return buckets[min(i, len(buckets) - 1)]
 
@@ -747,8 +816,16 @@ class ServingEngine:
             # shortest-remainder-first bucket: short admissions finish in
             # cheap narrow calls; long prompts still progress min(C, rem)
             # tokens per step
-            C = self._chunk_bucket(min(len(a.req.prompt) - a.base
-                                       for a in pending))
+            rem = [len(a.req.prompt) - a.base for a in pending]
+            C = self._chunk_bucket(min(rem))
+            if self.cfg.sub_quadratic and any(r > C for r in rem):
+                # a non-final chunk boundary must stay a multiple of the SSM
+                # serve-scan block or the carried state loses bit parity
+                # with the unchunked prefill; the only unaligned bucket is a
+                # non-multiple max_len, so drop to the widest aligned one
+                # (validated to exist at construction)
+                while C % self.ssm_grain:
+                    C = self._chunk_bucket(C // 2)
             toks = np.zeros((W, C), np.int32)
             lens = np.zeros(W, np.int64)
             t_disp = time.perf_counter()

@@ -161,7 +161,7 @@ def test_gemm_shape_counts_equal_the_reference():
             assert gemm_shape_counts(cfg, t, **kw) == jgemm_shape_counts(
                 jcfg, t, **kw)
     with pytest.raises(NotImplementedError, match="dense"):
-        gemm_shape_counts(dataclasses.replace(cfg, kind="mamba1"), 4)
+        gemm_shape_counts(dataclasses.replace(cfg, kind="encdec"), 4)
 
 
 @pytest.mark.parametrize("kw", (

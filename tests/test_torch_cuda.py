@@ -177,6 +177,74 @@ def test_a_rows_bits_do_not_depend_on_m(dev, n, k, out_dtype):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("m", [1, 4, 8, 9, 64])
+@pytest.mark.parametrize("n,k", [(65024, 4096), (200, 296)])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_transpose_b_stream_matches_plain_version(dev, m, n, k, out_dtype):
+    """A tied LM head's layout, B stored (N, K) K-contiguous, on stream
+    (ragged N and K included): the plain version's result, bit-identical
+    over two launches, and bit-equal to the (K, N) layout's."""
+    g = torch.Generator(dev).manual_seed(6)
+    a = torch.randn((m, k), generator=g, device=dev).to(torch.bfloat16)
+    table = (torch.randn((n, k), generator=g, device=dev) / k ** 0.5).to(
+        torch.bfloat16)
+    run = lambda: tiled_matmul(a, table, transpose_b=True,  # noqa: E731
+                               out_dtype=out_dtype)
+    took, got = _path_of(run)
+    assert took == "stream"
+    want = matmul_ref(a, table, transpose_b=True, out_dtype=out_dtype)
+    _assert_close(got, want, TOL[torch.bfloat16])
+    assert torch.equal(got, run())
+    assert torch.equal(got, tiled_matmul(a, table.T.contiguous(),
+                                         out_dtype=out_dtype))
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_transpose_b_rows_bits_do_not_depend_on_m(dev, out_dtype):
+    """On the (N, K) layout the rows of an M = 4 call are bit-equal to the
+    same rows of M = 1, 8 and 64 calls."""
+    g = torch.Generator(dev).manual_seed(7)
+    n, k = 65024, 4096
+    a = torch.randn((64, k), generator=g, device=dev).to(torch.bfloat16)
+    table = (torch.randn((n, k), generator=g, device=dev) / k ** 0.5).to(
+        torch.bfloat16)
+    want = tiled_matmul(a[:4], table, transpose_b=True, out_dtype=out_dtype)
+    for m in (1, 8, 64):
+        got = tiled_matmul(a[:m], table, transpose_b=True,
+                           out_dtype=out_dtype)
+        r = min(m, 4)
+        assert torch.equal(got[:r], want[:r]), m
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("H,KV,hd", [(32, 32, 80), (28, 4, 128),
+                                     (40, 8, 128)])
+def test_attention_row_does_not_depend_on_the_call(dev, H, KV, hd):
+    """Row 0's attention output, at one position over the same keys, is the
+    same bits in a decode step (1 query), 8- and 16-token chunks and a
+    300-query prefill, at batch 1 to 8: cuBLAS sums a short call's dot
+    products in another order, so the card pads short calls to
+    `Q_MIN_CUDA` queries."""
+    from repro_torch.models.layers import _sdpa
+
+    g = torch.Generator(dev).manual_seed(8)
+    q = torch.randn((8, 512, H, hd), generator=g, device=dev).to(
+        torch.bfloat16)
+    k = torch.randn((8, 512, KV, hd), generator=g, device=dev).to(
+        torch.bfloat16)
+    v = torch.randn((8, 512, KV, hd), generator=g, device=dev).to(
+        torch.bfloat16)
+    pos = 200
+    want = _sdpa(q[:4, :300], k[:4], v[:4], causal=True, q_offset=0,
+                 kv_len=300)[0, pos]
+    for B in (1, 2, 3, 4, 8):
+        for Sq in (1, 8, 16, 64):
+            off = torch.full((B,), pos, device=dev)
+            got = _sdpa(q[:B, pos:pos + Sq], k[:B], v[:B], causal=True,
+                        q_offset=off, kv_len=off + Sq)[0, 0]
+            assert torch.equal(got, want), (B, Sq)
+
+
 @pytest.mark.parametrize("d", [2048, 3584, 5120])
 def test_rmsnorm_row_does_not_depend_on_the_row_count(dev, d):
     """rmsnorm gives row 0 the same bits at 1, 4, 16 and 512 rows: with the
@@ -501,3 +569,35 @@ def test_power_window_of_a_large_gemm_reads_the_card(dev):
     assert idle.watts < tel.power_w < 1.1 * limit
     assert tel.energy_j == pytest.approx(tel.power_w * tel.runtime_ms / 1e3)
     assert np.isfinite(tel.temperature_c) and not tel.launch_bound
+
+
+@pytest.mark.parametrize("arch,per_forward", [("falcon-mamba-7b", 4 * 2 + 1),
+                                              ("zamba2-2.7b",
+                                               2 * 4 + 7 * 2 + 1)])
+def test_ssm_smoke_models_on_card_match_cpu(dev, arch, per_forward):
+    """The SSM and hybrid smoke models: two chunk calls (one row at 0
+    tokens) and two decode steps on the card and on the CPU, the same
+    weights; f32 logits agree to 1e-4, and every projection and head is a
+    kernel launch on the card."""
+    cfg = get_config(arch, smoke=True)
+    api = get_model(cfg)
+    cpu = api.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gpu = params_from_numpy(params_to_numpy(cpu), cfg, dev)
+    rng = np.random.default_rng(5)
+    states = {d: api.init_state(cfg, 3, 32, device=d) for d in ("cpu", dev)}
+    before = tiled_matmul.launches
+    out = {}
+    for _ in range(2):
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab, (3, 8)))
+        lens = torch.tensor([8, 3, 0])
+        for d, p in (("cpu", cpu), (dev, gpu)):
+            out[d], states[d] = api.prefill_chunk(p, toks.to(d), lens.to(d),
+                                                  states[d], cfg)
+        _assert_close(out[dev].cpu(), out["cpu"], 1e-4)
+    for _ in range(2):
+        tok = torch.as_tensor(rng.integers(0, cfg.vocab, 3))
+        for d, p in (("cpu", cpu), (dev, gpu)):
+            out[d], states[d] = api.decode_step(p, tok.to(d), states[d], cfg)
+        _assert_close(out[dev].cpu(), out["cpu"], 1e-4)
+    torch.cuda.synchronize()
+    assert tiled_matmul.launches - before == 4 * per_forward

@@ -87,3 +87,22 @@ def test_cuda_tensor_never_takes_the_plain_version():
     calls = [n for n in ast.walk(fn) if isinstance(n, ast.Call)
              and getattr(n.func, "id", "") == "matmul_ref"]
     assert len(calls) == 1          # the CPU branch only
+
+
+def test_ssm_and_hybrid_entry_points_default_to_the_card():
+    """The SSM and hybrid modules' allocators default to the card too."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is usable")
+    from repro_torch.configs import get_config
+    from repro_torch.models import hybrid, ssm
+    from repro_torch.models.registry import get_model
+    from repro_torch.models.transformer import TransformerLM
+
+    mamba = get_config("falcon-mamba-7b", smoke=True)
+    zamba = get_config("zamba2-2.7b", smoke=True)
+    for make in (lambda: TransformerLM(mamba), lambda: hybrid.HybridLM(zamba),
+                 lambda: ssm.init_mamba1_cache(mamba, 1),
+                 lambda: hybrid.init_hybrid_cache(zamba, 1, 8),
+                 lambda: get_model(zamba).init_state(zamba, 1, 8)):
+        with pytest.raises(RuntimeError, match="GPU"):
+            make()

@@ -180,6 +180,23 @@ class TestWrapperChecks:
         tiled_matmul(torch.ones(4, 8), torch.ones(8, 4))
         assert tiled_matmul.launches == before
 
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_cpu_transpose_b_runs_the_plain_version(self, dtype):
+        """A tied head's ``transpose_b`` call on CPU tensors is the plain
+        version's, bit for bit, whatever layout `plan` would pick on the
+        card, and launches nothing."""
+        from repro_torch.kernels.ref import matmul_ref
+
+        g = torch.Generator().manual_seed(0)
+        a = torch.randn(4, 64, generator=g).to(dtype)
+        table = torch.randn(200, 64, generator=g).to(dtype)      # (N, K)
+        before = dict(tiled_matmul.launches_by_path)
+        got = ops.matmul(a, table, transpose_b=True, out_dtype=torch.float32)
+        want = matmul_ref(a, table, transpose_b=True,
+                          out_dtype=torch.float32)
+        assert torch.equal(got, want)
+        assert tiled_matmul.launches_by_path == before
+
     def test_block_config_shapes(self):
         assert DEFAULT_CONFIG.as_tuple() in TILE_SHAPES
         assert DEFAULT_CONFIG.path == GENERAL
@@ -254,8 +271,9 @@ class TestOps:
                 jops.chunk_buckets(max_len, chunk, grain)
 
 
-SIX_ARCHS = ("qwen2-7b", "qwen2.5-14b", "codeqwen1.5-7b", "starcoder2-3b",
-             "olmoe-1b-7b", "deepseek-v2-236b")
+SERVED_ARCHS = ("qwen2-7b", "qwen2.5-14b", "codeqwen1.5-7b",
+                "starcoder2-3b", "olmoe-1b-7b", "deepseek-v2-236b",
+                "falcon-mamba-7b", "zamba2-2.7b")
 QWEN2_7B_SERVING_NK = [(512, 3584), (3584, 3584), (18944, 3584),
                        (3584, 18944), (152064, 3584)]
 
@@ -426,6 +444,115 @@ class TestPlan:
             assert p.segments == k_segments(n, k), (m, n, k)
             assert -(-k // p.tile.block_k) // p.segments >= 2
 
+    # (N, K) -> (K segments, (wgmma tile width, splits) at M = 128, 256,
+    # 512 and 2048); at M <= 64 each takes the narrowest stream tile with
+    # one CTA per segment. Beyond the engine's fleet: mamba1's x_proj and
+    # dt_proj (on its strided view of x_proj's output, row stride 288).
+    SSM_PLANS = {
+        "falcon-mamba-7b": {
+            (4096, 8192): (9, ((64, 1), (64, 1), (128, 1), (128, 1))),
+            (16384, 4096): (3, ((64, 1), (128, 1), (128, 1), (128, 1))),
+            (288, 8192): (64, ((64, 64), (64, 1), (64, 1), (64, 1))),
+            (8192, 256): (2, ((64, 1), (64, 1), (128, 1), (128, 1))),
+        },
+        "zamba2-2.7b": {
+            (2560, 2560): (14, ((64, 1), (64, 1), (128, 1), (128, 1))),
+            (2560, 5120): (14, ((64, 1), (64, 1), (128, 1), (128, 1))),
+            (2560, 10240): (14, ((64, 1), (64, 1), (128, 1), (128, 1))),
+            (10240, 2560): (4, ((64, 1), (128, 1), (128, 1), (128, 1))),
+            (10448, 2560): (4, ((64, 1), (128, 1), (128, 1), (128, 1))),
+        },
+    }
+
+    @pytest.mark.parametrize("arch", sorted(SSM_PLANS))
+    def test_ssm_serving_shapes_take_their_pinned_plan(self, arch):
+        """Every GEMM the chunked or serial engine issues for falcon-mamba-7b
+        and zamba2-2.7b takes a fast path at the pinned tile, splits and
+        segments, none the general one: zamba2's in_proj (N = 10448, ragged
+        against every tile), mamba1's strided dt_proj view, and the LM
+        heads (f32 out) at every row count a serving call unembeds, the tied
+        one on ``stream``'s (N, K) layout with one segment."""
+        from repro_torch.configs import get_config
+
+        cfg = get_config(arch)
+        fleet = set(ops.serving_gemm_fleet(
+            cfg, max_batch=4, max_len=512, chunk_tokens=64, lane_width=8))
+        fleet |= set(ops.serving_gemm_fleet(cfg, max_batch=4, max_len=512))
+        heads = {m for m, n, _ in fleet if n == cfg.vocab}
+        assert heads == {1, 2, 4, 8}
+        want = self.SSM_PLANS[arch]
+        body = {(n, k) for _, n, k in fleet if n != cfg.vocab}
+        assert body <= set(want) and len(set(want) - body) == (
+            2 if cfg.kind == "mamba1" else 0)
+        ms = (1, 4, 8, 9, 16, 33, 64, 128, 256, 512, 2048)
+        for (n, k), (segments, wide) in want.items():
+            a_strides = (288, 1) if (n, k) == (8192, 256) else None
+            for m in ms:
+                p = _plan(m, n, k, a_strides=a_strides)
+                assert p.segments == segments == k_segments(n, k), (m, n, k)
+                if m <= 64:
+                    assert (p.path, p.splits) == (STREAM, segments)
+                    assert p.tile.block_m == next(r for r in (8, 16, 32, 64)
+                                                  if r >= m)
+                else:
+                    tile, splits = wide[(128, 256, 512, 2048).index(m)]
+                    assert p.path == WGMMA and p.tile == BlockConfig(
+                        128, tile, 64) and p.splits == splits, (m, n, k)
+        n, k = cfg.vocab, cfg.d_model
+        for m in sorted(heads):
+            p = _plan(m, n, k, b_strides=(1, k) if cfg.tie_embeddings
+                      else None, out_dtype=torch.float32)
+            assert (p.path, p.tile.block_m, p.b_nk) == (
+                STREAM, 8, cfg.tie_embeddings)
+            assert p.splits == p.segments == k_segments(n, k)
+        assert k_segments(65024, 4096) == 1
+
+    @pytest.mark.parametrize("m", [1, 2, 4, 8, 9, 16, 33, 64])
+    def test_tied_head_takes_stream_on_the_nk_layout(self, m):
+        """B stored (N, K) with K-contiguous rows (op(B) strides (1, ldb)):
+        stream with the narrowest tile at M <= 64, as the (K, N) layout."""
+        n, k = 65024, 4096
+        p = _plan(m, n, k, b_strides=(1, k), out_dtype=torch.float32)
+        q = _plan(m, n, k, out_dtype=torch.float32)
+        assert (p.path, p.tile, p.splits, p.segments) == (
+            q.path, q.tile, q.splits, q.segments)
+        assert p.b_nk and not q.b_nk
+
+    @pytest.mark.parametrize("case,kw", [
+        ("ldb not a multiple of 8", dict(b_strides=(1, 4100))),
+        ("ldb shorter than K", dict(b_strides=(1, 4088))),
+        ("base off 16 bytes", dict(b_strides=(1, 4096), b_mod=8)),
+        ("f32", dict(b_strides=(1, 4096), dtype=torch.float32,
+                     out_dtype=torch.float32)),
+        ("M > 64", dict(b_strides=(1, 4096), m=65)),
+    ])
+    def test_nk_layout_needs_aligned_rows_and_at_most_64_rows(self, case,
+                                                              kw):
+        kw = dict(kw)
+        m = kw.pop("m", 8)
+        assert _plan(m, 65024, 4096, **kw).path == GENERAL, case
+
+    def test_nk_layout_forced_tiles(self):
+        """A forced stream tile takes the (N, K) layout; a forced wgmma
+        tile raises (wgmma reads (K, N) weights only)."""
+        p = _plan(8, 512, 3584, b_strides=(1, 3584),
+                  config=BlockConfig(16, 64, 64))
+        assert (p.path, p.tile.block_m, p.b_nk) == (STREAM, 16, True)
+        with pytest.raises(ValueError, match="general path"):
+            _plan(8, 512, 3584, b_strides=(1, 3584),
+                  config=BlockConfig(128, 128, 64))
+
+    def test_strided_dt_proj_view_takes_a_fast_path(self):
+        """mamba1's dt_proj reads the first 256 columns of x_proj's (t, 288)
+        output: a view with row stride 288 (a multiple of 8, at least K)."""
+        proj = torch.zeros(5, 288, dtype=torch.bfloat16)
+        dt_low = proj[:, :256]
+        assert dt_low.stride() == (288, 1)
+        for m, path in ((5, STREAM), (300, WGMMA)):
+            p = plan(m, 8192, 256, dt_low.stride(), (8192, 1), 0, 0,
+                     dt_low.dtype, dt_low.dtype)
+            assert p.path == path
+
     def test_candidate_tiles(self):
         assert [t.as_tuple() for t in candidate_tiles(4)] == [
             (8, 64, 64), (128, 256, 64), (128, 128, 64), (128, 64, 64)]
@@ -442,7 +569,9 @@ class TestPlan:
         "f32", "transpose_a", "transpose_b", "unaligned_a", "unaligned_b",
         "row_stride_a", "row_stride_b", "broadcast_rows", "k0"])
     def test_everything_else_takes_general(self, case):
-        m, n, k = 8, 512, 3584
+        # a transposed B takes stream up to 64 rows (the tied LM head), and
+        # general above
+        m, n, k = 65 if case == "transpose_b" else 8, 512, 3584
         kw = {
             "f32": dict(dtype=torch.float32, out_dtype=torch.float32),
             # op(A) of a (K, M) tensor: M-contiguous
@@ -460,14 +589,19 @@ class TestPlan:
         assert (p.path, p.tile, p.splits) == (GENERAL, DEFAULT_CONFIG, 1)
 
     def test_wrapper_strides_route_transposes_to_general(self):
-        """The wrapper hands `plan` op(A)'s and op(B)'s strides; transposed
-        operands of contiguous tensors are not K- or N-contiguous there."""
+        """The wrapper hands `plan` op(A)'s and op(B)'s strides; a
+        transposed A of a contiguous tensor is not K-contiguous there, and a
+        transposed B (K-contiguous rows of an (N, K) tensor) takes general
+        above 64 rows (stream at most 64: the tied LM head)."""
         a = torch.zeros(3584, 8, dtype=torch.bfloat16)        # (K, M)
         b = torch.zeros(512, 3584, dtype=torch.bfloat16)      # (N, K)
         assert plan(8, 512, 3584, a.stride()[::-1], (512, 1), 0, 0,
                     a.dtype, a.dtype).path == GENERAL
-        assert plan(8, 512, 3584, (3584, 1), b.stride()[::-1], 0, 0,
+        assert plan(65, 512, 3584, (3584, 1), b.stride()[::-1], 0, 0,
                     a.dtype, a.dtype).path == GENERAL
+        p = plan(8, 512, 3584, (3584, 1), b.stride()[::-1], 0, 0, a.dtype,
+                 a.dtype)
+        assert (p.path, p.b_nk) == (STREAM, True)
         view = torch.zeros(70, 296, dtype=torch.bfloat16)[:, 1:294]
         assert view.stride() == (296, 1)      # aligned stride, odd base:
         assert plan(70, 64, 293, view.stride(), (64, 1),        # general
@@ -508,13 +642,15 @@ class TestPlan:
         assert 1 <= p.segments <= max(1, -(-k // 64) // 2)
         assert p.splits in (1, p.segments)
 
-    @pytest.mark.parametrize("arch", SIX_ARCHS)
+    @pytest.mark.parametrize("arch", SERVED_ARCHS)
     def test_segments_do_not_depend_on_m(self, arch):
         """Fault C1: for every serving (N, K) of the config (the engine's
         fleet, plus what it launches beyond the reference's count: the
-        router with f32 out and deepseek's shared-expert SwiGLU), the K
-        segment count is one number for every M in 1..512 and both output
-        dtypes, on whichever fast path and tile `plan` picks."""
+        router with f32 out and deepseek's shared-expert SwiGLU, mamba1's
+        x_proj and dt_proj, the latter on its strided view), the K segment
+        count is one number for every M in 1..512 and both output dtypes,
+        on whichever fast path and tile `plan` picks; a tied head's
+        (N, K) layout has the same count at every M <= 64."""
         from repro_torch.configs import get_config
 
         cfg = get_config(arch)
@@ -525,11 +661,23 @@ class TestPlan:
             f = cfg.d_ff_expert * cfg.n_shared_experts
             nk |= {(cfg.n_experts, cfg.d_model)}
             nk |= {(f, cfg.d_model), (cfg.d_model, f)} if f else set()
+        a_strides = {}
+        if cfg.kind == "mamba1":
+            r, proj = cfg.d_model // 16, cfg.d_model // 16 + 2 * cfg.ssm_state
+            nk |= {(proj, cfg.d_inner), (cfg.d_inner, r)}
+            a_strides[(cfg.d_inner, r)] = (proj, 1)
         for n, k in sorted(nk):
-            seen = {_plan(m, n, k, out_dtype=out).segments
+            seen = {_plan(m, n, k, a_strides=a_strides.get((n, k)),
+                          out_dtype=out).segments
                     for m in range(1, 513)
                     for out in (torch.bfloat16, torch.float32)}
             assert seen == {k_segments(n, k)}, (n, k, seen)
+        if cfg.tie_embeddings:
+            n, k = cfg.vocab, cfg.d_model
+            seen = {_plan(m, n, k, b_strides=(1, k),
+                          out_dtype=torch.float32).segments
+                    for m in range(1, 65)}
+            assert seen == {k_segments(n, k)}
 
     def test_plan_is_deterministic(self):
         assert _plan(64, 3584, 18944) == _plan(64, 3584, 18944)

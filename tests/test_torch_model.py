@@ -87,22 +87,24 @@ def test_config_equals_jax_field_by_field(smoke_cfg):
 
 
 def test_the_four_dense_configs_are_ported():
-    """The four dense configs and, since the MoE slice, the two MoE ones."""
+    """The four dense configs and, since the MoE slice, the two MoE ones;
+    since the SSM slice, falcon-mamba-7b and zamba2-2.7b."""
     from repro_torch.configs import list_archs
 
     assert sorted(list_archs()) == sorted(
-        DENSE_ARCHS + ("olmoe-1b-7b", "deepseek-v2-236b"))
-    for arch in ("falcon-mamba-7b", "qwen2-vl-2b"):
+        DENSE_ARCHS + ("olmoe-1b-7b", "deepseek-v2-236b", "falcon-mamba-7b",
+                       "zamba2-2.7b"))
+    for arch in ("seamless-m4t-medium", "qwen2-vl-2b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_config(arch)
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("falcon-mamba-7b", "A5"), ("zamba2-2.7b", "A5"),
     ("seamless-m4t-medium", "A6"), ("qwen2-vl-2b", "A6")])
 def test_unported_archs_and_kinds_name_their_roadmap_item(arch, item):
-    """The SSM and encdec/vlm archs and kinds still raise, naming their
-    ROADMAP item; moe and mla_moe are served."""
+    """The encdec/vlm archs and kinds still raise, naming their ROADMAP
+    item; moe, mla_moe and (since the SSM slice) mamba1, mamba2 and hybrid
+    are served."""
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue {item}"):
         get_config(arch)
     kind = jget_config(arch).kind
@@ -110,7 +112,7 @@ def test_unported_archs_and_kinds_name_their_roadmap_item(arch, item):
                                 kind=kind)
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue {item}"):
         get_model(other)
-    for kind in ("moe", "mla_moe"):
+    for kind in ("moe", "mla_moe", "mamba1", "mamba2", "hybrid"):
         cfg = dataclasses.replace(get_config("qwen2-7b", smoke=True),
                                   kind=kind)
         assert get_model(cfg).prefill_chunk is not None
