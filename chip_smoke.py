@@ -21,8 +21,11 @@ build of PyTorch. Phases, each fatal on failure:
    out); then fault C1's check: for every serving (N, K) of the eight
    configs and both output dtypes, the rows of an M = 4 call bit-equal to
    the same rows of M = 1, 8, 64, 65, 128 and 512 calls (a tied head on its
-   (N, K) layout at M = 1, 8 and 64), and fault C2's: attention's row 0 the
-   same bits in decode steps, short chunks and a long prefill;
+   (N, K) layout at M = 1, 8 and 64; seamless-m4t-medium's untied head on
+   its padded rows, ldb 256208), and fault C2's: attention's row 0 the
+   same bits in decode steps, short chunks and a long prefill; and the
+   encoder's non-causal attention gives row 0 the same bits over 8-512
+   keys (its admission bucket) and batch 1-8;
 4. serve: full-width, full-depth qwen2-7b with seeded random weights; the
    continuous-batching engine answers 10 requests (prompts of 16-300
    tokens, 8-32 new tokens); the kernel's launch counter must equal the
@@ -96,14 +99,27 @@ build of PyTorch. Phases, each fatal on failure:
    the model's structure (257 and 172), none on general, and its serving
    shapes timed; for falcon-mamba-7b also one 700-token prompt past
    max_len = 512, chunked and in the wave loop (identical streams). The
-   phase prints its seconds and each model's peak device memory.
+   phase prints its seconds and each model's peak device memory;
+13. encoder-decoder and vision serving at `plan`'s tiles: full-width,
+   full-depth seamless-m4t-medium (12 + 12 layers, the LM head of vocab
+   256206 on padded rows) and qwen2-vl-2b (28 layers, M-RoPE), each
+   request carrying its modality input (a source of 24-200 frames; a patch
+   grid of up to 32 x 32, one request text-only), each with the logits
+   check after admission (the admission's leaves, cross-KV or the patch
+   prefix's KV, against the plain run too), the 10 requests chunked,
+   serially, in the wave loop and on the paged KV layout (streams
+   identical to the chunked run's), launches per forward from the model's
+   structure (97 and 197) plus per admission call (96 and 196), none on
+   general, the admission's time per request, and its serving shapes
+   timed. The phase prints its seconds and each model's peak device
+   memory.
 
 After phase 10, ``build/serving_shapes.json`` holds qwen2-7b's and
 qwen2.5-14b's serving launches by shape, for ``tools/gemm_sums.py``.
 
 It prints a JSON line of per-kernel numbers (launches and times summed
-over phases 4-5 and 12, the runs of the port's main paths) and, last, the
-device line.
+over phases 4-5, 12 and 13, the runs of the port's main paths) and, last,
+the device line.
 Without a GPU, or without the repository beside it, it exits non-zero.
 """
 
@@ -211,23 +227,43 @@ def _gemms_per_forward(cfg) -> int:
     router and the shared experts' SwiGLU (gate, up, down); mamba1 in_proj,
     x_proj, dt_proj and out_proj; mamba2 in_proj and out_proj, and for
     hybrid each of the n_layers / attn_every applications of the shared
-    block (q, k, v, o, gate, up, down). Then the LM head: 197 for qwen2-7b,
-    81 for olmoe-1b-7b, 11 L + 1 for deepseek-v2-236b, 257 for
-    falcon-mamba-7b, 172 for zamba2-2.7b."""
+    block (q, k, v, o, gate, up, down); encdec's decoder self q, k, v, o,
+    cross q and o and its FFN; vlm as dense. Then the LM head: 197 for
+    qwen2-7b and qwen2-vl-2b, 81 for olmoe-1b-7b, 11 L + 1 for
+    deepseek-v2-236b, 257 for falcon-mamba-7b, 172 for zamba2-2.7b, 97 for
+    seamless-m4t-medium. An admission call is counted apart
+    (`_gemms_per_admission`)."""
+    mlp = 3 if cfg.gated_mlp else 2
+    if cfg.kind == "encdec":
+        return cfg.n_layers * (6 + mlp) + 1
     if cfg.kind == "mamba1":
         return 4 * cfg.n_layers + 1
     if cfg.kind in ("mamba2", "hybrid"):
         shared = (cfg.n_layers // cfg.attn_every) * (
             4 + (3 if cfg.gated_mlp else 2)) if cfg.kind == "hybrid" else 0
         return 2 * cfg.n_layers + shared + 1
-    if cfg.kind == "dense":
-        per_layer = 4 + (3 if cfg.gated_mlp else 2)
+    if cfg.kind in ("dense", "vlm"):
+        per_layer = 4 + mlp
     elif cfg.kind == "moe":
         per_layer = 5
     else:
         per_layer = ((2 if cfg.q_lora_rank else 1) + 6
                      + (3 if cfg.n_shared_experts else 0))
     return per_layer * cfg.n_layers + 1
+
+
+def _gemms_per_admission(cfg) -> int:
+    """The hand-written GEMM's launches in one prefill-once admission call:
+    encdec's encoder (q, k, v, o and the FFN a layer) and each decoder
+    layer's cross-KV (k and v), 96 for seamless-m4t-medium; vlm's patch
+    prefix through the decoder without the head, 196 for qwen2-vl-2b; 0
+    for the other families."""
+    mlp = 3 if cfg.gated_mlp else 2
+    if cfg.kind == "encdec":
+        return cfg.n_encoder_layers * (4 + mlp) + 2 * cfg.n_layers
+    if cfg.kind == "vlm":
+        return cfg.n_layers * (4 + mlp)
+    return 0
 
 
 def _is_router(cfg, key) -> bool:
@@ -239,13 +275,17 @@ def _is_router(cfg, key) -> bool:
 
 SERVED_ARCHS = ("qwen2-7b", "qwen2.5-14b", "codeqwen1.5-7b", "starcoder2-3b",
                 "olmoe-1b-7b", "deepseek-v2-236b", "falcon-mamba-7b",
-                "zamba2-2.7b")
+                "zamba2-2.7b", "seamless-m4t-medium", "qwen2-vl-2b")
+# each config's row capacity in the serving phases (512 unless listed):
+# qwen2-vl-2b's rows hold a 1024-patch image ahead of the prompt
+MAX_LEN = {"qwen2-vl-2b": 2048}
 
 
 def _serving_nk() -> list:
-    """(N, K, out dtype) of every projection the eight served configs
+    """(N, K, out dtype) of every projection the ten served configs
     launch: the engine's GEMM fleet (chunked and serial, max_batch 4,
-    max_len 512) with bf16 out and the LM head with f32, plus what the MoE
+    max_len 512 or `MAX_LEN`, the admit families' admission grid included)
+    with bf16 out and the LM head with f32, plus what the MoE
     and Mamba1 families launch beyond that fleet: the router (f32 out),
     deepseek's shared experts' SwiGLU, mamba1's x_proj and dt_proj. (The
     fleet's routed-expert shapes are einsums, never launched; they are
@@ -256,9 +296,10 @@ def _serving_nk() -> list:
     out = set()
     for arch in SERVED_ARCHS:
         cfg = get_config(arch)
-        fleet = set(ops.serving_gemm_fleet(cfg, max_batch=4, max_len=512,
+        ml = MAX_LEN.get(arch, 512)
+        fleet = set(ops.serving_gemm_fleet(cfg, max_batch=4, max_len=ml,
                                            chunk_tokens=64, lane_width=8))
-        fleet |= set(ops.serving_gemm_fleet(cfg, max_batch=4, max_len=512))
+        fleet |= set(ops.serving_gemm_fleet(cfg, max_batch=4, max_len=ml))
         for _, n, k in fleet:
             out.add((n, k, torch.float32 if n == cfg.vocab
                      else torch.bfloat16))
@@ -284,11 +325,21 @@ def _tied_heads() -> list:
         get_config, SERVED_ARCHS) if cfg.tie_embeddings})
 
 
+def _weight(dev, g, k: int, n: int, dtype) -> torch.Tensor:
+    """A random (K, N) weight scaled to O(1) outputs, stored as the port
+    stores its weights: rows padded to a multiple of 8 columns
+    (`transformer.head_params`; only seamless-m4t-medium's head, N =
+    256206, is not a multiple already)."""
+    store = torch.empty((k, -(-n // 8) * 8), dtype=dtype, device=dev)
+    w = store[:, :n]
+    w.copy_(torch.randn((k, n), generator=g, device=dev) / k ** 0.5)
+    return w
+
+
 def _gemm_inputs(dev, g, m: int, n: int, k: int, dtype) -> tuple:
-    """Random (M, K) activations and (K, N) weights scaled to O(1) outputs."""
+    """Random (M, K) activations and a (K, N) `_weight`."""
     a = torch.randn((m, k), generator=g, device=dev).to(dtype)
-    b = (torch.randn((k, n), generator=g, device=dev) / k ** 0.5).to(dtype)
-    return a, b
+    return a, _weight(dev, g, k, n, dtype)
 
 
 def phase_build() -> None:
@@ -494,6 +545,34 @@ def phase_kernel_cases(dev) -> None:
                     if not (ok and same):
                         failed.append((path, label))
         del table
+    # an untied head whose vocab is not a multiple of 8 (seamless-m4t-medium,
+    # N = 256206) on its padded rows (ldb 256208): stream at M <= 64 with
+    # f32 out, the split-K epilogue's scalar tail (N % 4 = 2), and general
+    # forced
+    head = _weight(dev, g, 1024, 256206, bf16)
+    for m in (1, 4, 8, 9, 64):
+        a = rand((m, 1024), bf16)
+        label = f"padded head M={m} N=256206 K=1024 ldb 256208, f32 out"
+        want = matmul_ref(a, head, out_dtype=torch.float32)
+        for cfg in (None, DEFAULT_CONFIG):
+            path, got = _run_path(tiled_matmul, a, head, config=cfg,
+                                  out_dtype=torch.float32)
+            err, rel, ok = _close(got, want, bf16)
+            same = True
+            if cfg is None:
+                ok = ok and path == "stream"
+                same = torch.equal(got, _run_path(
+                    tiled_matmul, a, head, out_dtype=torch.float32)[1])
+            how = ("chosen by plan" if cfg is None
+                   else f"forced {cfg.as_tuple()}")
+            _say(f"[kernel {path}] {label} ({how}): max_abs {err:.3g} "
+                 f"max_rel {rel:.3g} tol {TOL[bf16]:g}"
+                 f"{'' if cfg else f', rerun bit-identical {same}'}"
+                 f" {'ok' if ok and same else 'FAIL'}")
+            seen[path] += 1
+            if not (ok and same):
+                failed.append((path, label))
+    del head
     _say(f"[kernel] cases run per path: {dict(seen)}")
     if failed:
         raise SystemExit(f"kernel disagrees with its plain version: {failed}")
@@ -512,7 +591,7 @@ def _norm_rows(dev, g) -> None:
     phases 10 and 11 rest on it as on the GEMM's row invariance."""
     from repro_torch.models.layers import rmsnorm
 
-    for d in (2048, 3072, 3584, 4096, 5120):
+    for d in (1024, 1536, 2048, 3072, 3584, 4096, 5120):
         x = torch.randn((512, d), generator=g, device=dev).to(torch.bfloat16)
         p = {"scale": torch.ones(d, dtype=torch.bfloat16, device=dev)}
         rows = [rmsnorm(p, x[:m], 1e-6)[0] for m in (1, 4, 16, 512)]
@@ -593,6 +672,52 @@ def _attention_rows(dev, g) -> None:
         raise SystemExit(f"attention's row bits depend on the call: {bad}")
 
 
+def _encoder_attention_rows(dev, g) -> None:
+    """The encoder's attention is non-causal over keys masked per row
+    (`kv_len`), and its key count is the admission's bucket, which depends
+    on the requests admitted with it (8-512 keys at max_len 512). For the
+    encdec configs' head layout, row 0 with 6, 24 and 200 valid keys, in
+    calls of every bucket Sk that holds them (Sk queries, as the encoder
+    runs) at batch 1-8 (the other rows of random lengths), must give the
+    same bits as its first call: otherwise a request's encoding, and so
+    its stream, would depend on who shares its admission."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import _sdpa
+
+    layouts = sorted({(c.n_heads, c.kv_heads, c.hd) for c in map(
+        get_config, SERVED_ARCHS) if c.kind == "encdec"})
+    bad = []
+    for H, KV, hd in layouts:
+        q = torch.randn((8, 512, H, hd), generator=g, device=dev).to(
+            torch.bfloat16)
+        k, v = (torch.randn((8, 512, KV, hd), generator=g, device=dev).to(
+            torch.bfloat16) for _ in range(2))
+        cases = 0
+        for n in (6, 24, 200):
+            lens = torch.randint(1, 513, (8,), generator=g, device=dev)
+            want = None
+            for sk in (8, 16, 32, 64, 128, 256, 512):
+                if sk < n:
+                    continue
+                for nb in (1, 2, 3, 4, 8):
+                    kl = lens[:nb].clamp(max=sk)
+                    kl[0] = n
+                    got = _sdpa(q[:nb, :sk], k[:nb, :sk], v[:nb, :sk],
+                                causal=False, kv_len=kl)[0, :n]
+                    want = got if want is None else want
+                    cases += 1
+                    if not torch.equal(got, want):
+                        bad.append((H, KV, hd, n, sk, nb))
+        del q, k, v
+        _say(f"[kernel rows] encoder attention heads {H}/{KV} of {hd}, row 0 "
+             f"with 6/24/200 valid keys in {cases} calls over Sk 8-512 and "
+             f"batch 1-8 bit-equal to its first call: "
+             f"{not any(b[:3] == (H, KV, hd) for b in bad)}")
+    if bad:
+        raise SystemExit(f"encoder attention's row bits depend on the call: "
+                         f"{bad[:10]}")
+
+
 def _row_invariance(dev) -> None:
     """Fault C1: for every serving (N, K) of the eight configs (`_serving_nk`)
     and both output dtypes, the rows of an M = 4 call are bit-equal to the
@@ -607,8 +732,7 @@ def _row_invariance(dev) -> None:
     shapes = _serving_nk()
     for n, k, _ in shapes:
         a = torch.randn((512, k), generator=g, device=dev).to(torch.bfloat16)
-        b = (torch.randn((k, n), generator=g, device=dev) / k ** 0.5).to(
-            torch.bfloat16)
+        b = _weight(dev, g, k, n, torch.bfloat16)
         for out in (torch.bfloat16, torch.float32):
             want = tiled_matmul(a[:4], b, out_dtype=out)
             for m in ROW_INVARIANCE_M:
@@ -641,6 +765,7 @@ def _row_invariance(dev) -> None:
     torch.cuda.synchronize()
     _norm_rows(dev, g)
     _attention_rows(dev, g)
+    _encoder_attention_rows(dev, g)
     _say(f"[kernel rows] {len(shapes)} serving (N, K) x 2 output dtypes x M "
          f"in {ROW_INVARIANCE_M}, and {len(tied)} tied head(s) on the (N, K) "
          f"layout at M in (1, 8, 64): rows 0-3 bit-equal to the M = 4 "
@@ -701,15 +826,41 @@ def phase_serve(dev):
     return eng, api, params, cfg, shapes, by_path
 
 
+# phase 13's modality inputs, one per request of `_requests`: source
+# frames (seamless-m4t-medium: 24-200, straddling the 32-256 buckets) and
+# patch grids (qwen2-vl-2b: two full 32 x 32 images, smaller ones and one
+# text-only request)
+SOURCE_FRAMES = (24, 200, 40, 130, 64, 180, 33, 77, 150, 100)
+PATCH_GRIDS = ((32, 32), (16, 16), None, (32, 32), (8, 12), (24, 24),
+               (4, 4), (16, 32), (12, 12), (20, 16))
+
+
+def _extras(cfg, i: int) -> dict | None:
+    """Request `i`'s modality input for an admit family (None for the other
+    families and a text-only request): random embeddings from a seeded
+    generator, as the stubbed frontends would hand them over."""
+    rng = np.random.default_rng(100 + i)
+    if cfg.kind == "encdec":
+        return {"src_embeds": rng.standard_normal(
+            (SOURCE_FRAMES[i % 10], cfg.d_model)).astype(np.float32)}
+    if cfg.kind == "vlm" and PATCH_GRIDS[i % 10] is not None:
+        gh, gw = PATCH_GRIDS[i % 10]
+        return {"patch_embeds": rng.standard_normal(
+            (gh * gw, cfg.d_model)).astype(np.float32), "grid_hw": (gh, gw)}
+    return None
+
+
 def _requests(cfg) -> list:
     """The 10 requests every serving run answers: prompts of 16-300
-    tokens, 8-32 new tokens each, from a seeded generator."""
+    tokens, 8-32 new tokens each, from a seeded generator (with an admit
+    family's modality input, `_extras`)."""
     from repro_torch.serving.engine import Request
 
     rng = np.random.default_rng(0)
     prompt_lens = [16, 300, 45, 130, 64, 250, 23, 77, 190, 31]
     return [Request(uid=i, prompt=rng.integers(0, cfg.vocab, n).astype(
-                np.int32), max_new_tokens=int(rng.integers(8, 33)))
+                np.int32), max_new_tokens=int(rng.integers(8, 33)),
+                extras=_extras(cfg, i))
             for i, n in enumerate(prompt_lens)]
 
 
@@ -762,8 +913,9 @@ def _serve_requests(tag: str, eng, cfg, log: collections.Counter,
     every GEMM launch in `log` (see `_recording`); the launch counters are
     set to 0 just before the run and read just after. Checks every request
     finishes at its budget and the kernel launched one forward's GEMMs per
-    forward dispatched (and one LM head per forward); returns (the launches
-    per path, the results, the report's numeric counters over this run)."""
+    forward dispatched and one admission's per admission call (and one LM
+    head per forward); returns (the launches per path, the results, the
+    report's numeric counters over this run)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.tiled_matmul import tiled_matmul
 
@@ -792,7 +944,10 @@ def _serve_requests(tag: str, eng, cfg, log: collections.Counter,
     rep["slot_occupancy"] = (rep["resident_slot_steps"] / rep["slot_steps"]
                              if rep["slot_steps"] else 0.0)
     per_forward = _gemms_per_forward(cfg)
+    per_admit = _gemms_per_admission(cfg)
     forwards = _forwards(eng, rep)
+    admits = rep["admit_calls"]
+    want = per_forward * forwards + per_admit * admits
     heads = sum(c for key, c in shapes.items() if key[1] == cfg.vocab)
     routers = sum(c for key, c in shapes.items() if _is_router(cfg, key))
     _say(f"[{tag}] {rep['requests']} requests, {rep['generated_tokens']} "
@@ -803,15 +958,18 @@ def _serve_requests(tag: str, eng, cfg, log: collections.Counter,
          f"{max(r.ttft_s for r in results):.3f} s, slot occupancy "
          f"{rep['slot_occupancy']:.3f}, lane rebuilds {rep['lane_rebuilds']}")
     _say(f"[{tag}] kernel launches {launches} = {per_forward} x {forwards} "
-         f"forwards? {launches == per_forward * forwards}; LM heads "
+         f"forwards" + (f" + {per_admit} x {admits} admission calls"
+                        if per_admit else "")
+         + f"? {launches == want}; LM heads "
          f"{heads}" + (f"; routers {routers} (= {cfg.n_layers} x "
                        f"{forwards}? {routers == cfg.n_layers * forwards})"
                        if cfg.n_experts else ""))
-    if (launches != per_forward * forwards or launches == 0
+    if (launches != want or launches == 0
             or sum(by_path.values()) != launches or heads != forwards
             or (cfg.n_experts and routers != cfg.n_layers * forwards)):
         raise SystemExit("the serving path did not launch the kernel "
-                         f"{per_forward} times per forward")
+                         f"{per_forward} times per forward and {per_admit} "
+                         "per admission")
     by_uid = {r.uid: r for r in results}
     if sorted(by_uid) != [r.uid for r in reqs]:
         raise SystemExit(f"requests unanswered: {sorted(by_uid)}")
@@ -1150,7 +1308,10 @@ def phase_logits(dev, eng, params, cfg, W: int = 16, tag: str = "logits",
     on its own (`_block_errors`: its residual update through the kernel
     and through the plain version on the same input and state), and the
     whole forward to the larger of the bound and twice torch.matmul's
-    distance."""
+    distance. The admit families first admit the W rows' modality inputs
+    (`_extras`) in one call, through the kernel or the plain version as the
+    chunk, and the admission's leaves (encdec's cross-KV, vlm's patch
+    prefix KV) are held to the same bound as the logits."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import matmul_ref
     from repro_torch.kernels.tiled_matmul import tiled_matmul
@@ -1160,10 +1321,21 @@ def phase_logits(dev, eng, params, cfg, W: int = 16, tag: str = "logits",
     rng = np.random.default_rng(2)
     toks = torch.as_tensor(rng.integers(0, cfg.vocab, (W, C)), device=dev)
     lens = torch.as_tensor(rng.integers(1, C + 1, W), device=dev)
+    api = eng.model
+    extras = ([_extras(cfg, i) for i in range(W)] if api.admit is not None
+              else None)
+    admitted: list = []
 
     def run():
-        state = eng.model.init_state(cfg, W, eng.max_len, device=dev)
-        logits, _ = eng.model.prefill_chunk(params, toks, lens, state, cfg)
+        state = api.init_state(cfg, W, eng.max_len, device=dev)
+        if extras is not None:
+            bucket = eng._bucket(max(max(api.admit_dims(cfg, e))
+                                     for e in extras) or 1)
+            state = api.admit(params, api.pack_admit(
+                cfg, extras, W, bucket, device=dev), state, cfg)
+            admitted.append({k: state["kv"][k].clone() for k in (
+                ("xk", "xv") if cfg.kind == "encdec" else ("k", "v"))})
+        logits, _ = api.prefill_chunk(params, toks, lens, state, cfg)
         torch.cuda.synchronize()
         return logits
 
@@ -1205,6 +1377,20 @@ def phase_logits(dev, eng, params, cfg, W: int = 16, tag: str = "logits",
     rel, top1 = _rel_top1(got, want)
     finite = bool(torch.isfinite(got).all())
     bound = LOGITS_REL_L2_MAX
+    if extras is not None:
+        # the admission's leaves, kernel run against plain run (vlm: the KV
+        # rows the patch prefix wrote; both runs' chunks had not run yet)
+        leaf_rel = {k: ((admitted[0][k].float() - admitted[1][k].float())
+                        .norm() / admitted[1][k].float().norm()).item()
+                    for k in admitted[0]}
+        _say(f"[{tag}] admission of {W} rows "
+             f"({sum(e is not None for e in extras)} with a modality input):"
+             f" its leaves against the plain run, relative L2 "
+             + ", ".join(f"{k} {v:.3e}" for k, v in sorted(leaf_rel.items()))
+             + f" (max {LOGITS_REL_L2_MAX:g})")
+        if not all(v <= LOGITS_REL_L2_MAX for v in leaf_rel.values()):
+            raise SystemExit(f"[{tag}] admission leaves disagree with the "
+                             "plain version")
     if cfg.sub_quadratic:
         lib_rel, lib_top1 = _rel_top1(lib, want)
         _say(f"[{tag}] torch.matmul against the plain version: relative L2 "
@@ -1714,9 +1900,10 @@ def _first_token_share(got: list, want: list) -> tuple:
 
 class _Taps:
     """Record, in call order, row 0 of the output of each plain-torch op
-    and GEMM a forward runs (rmsnorm, RoPE, attention, the MoE FFN and its
-    routing, SwiGLU, the SSM's causal conv, scans and Mamba1 core, every
-    `ops.matmul`, each block), each flattened
+    and GEMM a forward runs (rmsnorm, RoPE and M-RoPE, attention, the MoE
+    FFN and its routing, SwiGLU, the SSM's causal conv, scans and Mamba1
+    core, every `ops.matmul`, each block: encdec's encoder and decoder
+    blocks too), each flattened
     position by position, so two forwards of the same row at different
     batch sizes can be compared op by op (`_first_diff`)."""
 
@@ -1740,18 +1927,28 @@ class _Taps:
 
     def __enter__(self):
         from repro_torch.kernels import ops
+        from repro_torch.models import encdec, moe, ssm
         from repro_torch.models import layers as L
-        from repro_torch.models import moe, ssm
         from repro_torch.models import transformer as tfm
 
         self._saved = [(mod, name, getattr(mod, name)) for mod, name in (
-            (ops, "matmul"), (L, "rmsnorm"), (L, "apply_rope"), (L, "_sdpa"),
-            (L, "swiglu_apply"), (moe, "moe_ffn"), (moe, "route"),
-            (moe, "mla_apply"), (ssm, "causal_conv"), (ssm, "mamba1_scan"),
-            (ssm, "ssd_scan"), (ssm, "_mamba1_core"), (tfm, "block_apply"))]
+            (ops, "matmul"), (L, "rmsnorm"), (L, "apply_rope"),
+            (L, "apply_mrope"), (L, "_sdpa"), (L, "swiglu_apply"),
+            (moe, "moe_ffn"), (moe, "route"), (moe, "mla_apply"),
+            (ssm, "causal_conv"), (ssm, "mamba1_scan"), (ssm, "ssd_scan"),
+            (ssm, "_mamba1_core"), (tfm, "block_apply"),
+            (encdec, "enc_block_apply"), (encdec, "dec_serve_block"))]
         first = lambda out: out[0]
         for mod, name, fn in self._saved:
-            if name == "block_apply":
+            if name in ("enc_block_apply", "dec_serve_block"):
+                def block(*a, _fn=fn, _name=name, **kw):
+                    self.layer += 1
+                    return self._wrap(
+                        f"{_name.split('_')[0]} block output", _fn,
+                        first if _name == "dec_serve_block"
+                        else (lambda out: out))(*a, **kw)
+                setattr(mod, name, block)
+            elif name == "block_apply":
                 def block_apply(cfg, _fn=fn):
                     inner = _fn(cfg)
 
@@ -1817,7 +2014,7 @@ def _first_diff(tag: str, run_a, batch_a: int, run_b, batch_b: int,
 
 def _row_probe(dev, api, params, cfg, tag: str, widths=(1, 8), C: int = 64,
                decode_widths=(1, 4), serial: int | None = None,
-               wave: tuple | None = None) -> list:
+               wave: tuple | None = None, max_len: int = 512) -> list:
     """Where a row's bits first depend on its batch: one row's prompt chunk
     in a chunk call `widths[0]` rows wide against one `widths[1]` rows wide
     (the other rows random), one decode step of that row at
@@ -1825,17 +2022,31 @@ def _row_probe(dev, api, params, cfg, tag: str, widths=(1, 8), C: int = 64,
     prefill of the same C tokens padded to that bucket against its chunk,
     and (with `wave`, (rows, S)) the row's C tokens in a wave prefill of
     `rows` right-padded rows S long (the others S tokens) against its
-    chunk. Prints `_first_diff` for each; returns the first differing op
-    of each pair (None: none)."""
+    chunk. For an admit family each chunk call follows the admission of
+    its rows' modality inputs (`_extras`; row 0's is request 0's, the
+    others' larger, so the encoder runs at another bucket as well as
+    another batch). Prints `_first_diff` for each; returns the first
+    differing op of each pair (None: none)."""
+    from repro_torch.kernels import ops
+
     rng = np.random.default_rng(9)
     toks = torch.as_tensor(rng.integers(0, cfg.vocab, (max(widths), C)),
                            device=dev)
     lens = torch.full((max(widths),), C, device=dev)
 
+    def admitted(w):
+        st = api.init_state(cfg, w, max_len, device=dev)
+        if api.admit is None:
+            return st
+        extras = [_extras(cfg, i) for i in range(w)]
+        need = max(max(api.admit_dims(cfg, e)) for e in extras) or 1
+        bucket = min(b for b in ops.prefill_buckets(max_len) if b >= need)
+        return api.admit(params, api.pack_admit(cfg, extras, w, bucket,
+                                                device=dev), st, cfg)
+
     def chunk(w):
         def run():
-            st = api.init_state(cfg, w, 512, device=dev)
-            api.prefill_chunk(params, toks[:w], lens[:w], st, cfg)
+            api.prefill_chunk(params, toks[:w], lens[:w], admitted(w), cfg)
         return run
 
     # the decode steps read a cache of random values (the same rows at
@@ -1847,15 +2058,18 @@ def _row_probe(dev, api, params, cfg, tag: str, widths=(1, 8), C: int = 64,
     filled = L.tree_map(
         lambda t: (torch.randn(t.shape, generator=gen, device=dev).mul_(
             0.1).to(t.dtype) if t.is_floating_point() else t),
-        api.init_state(cfg, wmax, 512, device=dev))
-    axes = L.state_batch_axes(api.init_state(cfg, 1, 512, device="meta"),
-                              api.init_state(cfg, 2, 512, device="meta"))
+        api.init_state(cfg, wmax, max_len, device=dev))
+    axes = L.state_batch_axes(
+        api.init_state(cfg, 1, max_len, device="meta"),
+        api.init_state(cfg, 2, max_len, device="meta"))
 
     def decode(w):
         def run():
             st = L.tree_map(lambda t, ax: t.clone() if ax < 0 else
                             t.narrow(ax, 0, w).clone(), filled, axes)
             st["index"].fill_(C)
+            if "src_len" in st:
+                st["src_len"].fill_(C)
             api.decode_step(params, toks[:w, 0], st, cfg)
         return run
 
@@ -2372,6 +2586,127 @@ def phase_ssm(dev) -> dict:
     return {"entries": entries, "launches": dict(launches)}
 
 
+def _admit_ms(dev, eng, cfg, reqs: list) -> str:
+    """The admission call's time per request, CUDA events around the call
+    (median of 5 after a warm-up): request 0 alone, and `reqs`' first four
+    in one packed call (as chunked admission packs a step's arrivals)."""
+    from repro_torch.core.profiler import time_ms
+
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    out = []
+    for group in (reqs[:1], reqs[:4]):
+        w = len(group)
+        need = max(max(eng._admit_dims(r)) for r in group) or 1
+        bucket = eng._bucket(need)
+        packed = eng.model.pack_admit(cfg, [r.extras for r in group], w,
+                                      bucket, device=dev)
+        state = eng._init_state(w)
+        ms = time_ms(lambda: eng.model.admit(eng.params, packed, state, cfg),
+                     flush, 5)
+        out.append(f"{w} x {bucket} rows {ms:.3f} ms ({ms / w:.3f} ms a "
+                   f"request)")
+        del state
+    return "; ".join(out)
+
+
+def phase_admit(dev) -> dict:
+    """Encoder-decoder and vision serving at `plan`'s tiles: full-width,
+    full-depth seamless-m4t-medium (max_len 512; the LM head on padded rows)
+    and qwen2-vl-2b (max_len 2048: a 32 x 32 image and a 300-token prompt
+    in a row), one model on the card at a time. Each: the logits check after
+    admission (`phase_logits`), the 10 requests with their modality inputs
+    chunked, serially, in the wave loop and on the paged KV layout (streams
+    identical to the chunked ones: `_stream_gate`, with `_row_probe` behind
+    it, the encoder included), launches per forward and per admission call
+    from the model's structure (97 + 96 and 197 + 196) and none on general,
+    the admission's time per request, its serving shapes timed as in phase
+    5, and its peak device memory. Returns {"entries": {model: per-path
+    timing}, "launches": {model: launches per path}}."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import ServingEngine
+
+    t_phase = time.perf_counter()
+    ops._TUNED.clear()
+    launches: dict = collections.defaultdict(collections.Counter)
+    entries: dict = {}
+
+    def run(tag, eng, cfg, log) -> tuple:
+        """One checked serving run at plan's tiles, none on general."""
+        rec: collections.Counter = collections.Counter()
+        by_path, res, rep = _serve_requests(tag, eng, cfg, rec)
+        log.update(rec)
+        launches[cfg.name].update(by_path)
+        if by_path["general"] or any(k[5] is not None for k in rec):
+            raise SystemExit(f"[{tag}] launches on general or off plan's "
+                             f"tiles: {by_path}")
+        return res, rep
+
+    for arch in ("seamless-m4t-medium", "qwen2-vl-2b"):
+        t_model = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        cfg, api, params = _init_model(dev, arch, "admit")
+        name, ml = cfg.name, MAX_LEN.get(arch, 512)
+
+        def engine(**kw):
+            return ServingEngine(api, params, cfg, max_batch=4, max_len=ml,
+                                 chunk_tokens=64, page_size=64, device=dev,
+                                 **kw)
+
+        reqs = _requests(cfg)
+        _say(f"[admit] {name}: kind {cfg.kind}, max_len {ml}, "
+             + (f"{cfg.n_encoder_layers} encoder layers, sources of "
+                f"{min(SOURCE_FRAMES)}-{max(SOURCE_FRAMES)} frames, "
+                if cfg.kind == "encdec" else
+                f"M-RoPE sections {cfg.mrope_sections}, patch prefixes of "
+                f"{sorted({a * b for a, b in filter(None, PATCH_GRIDS)})} "
+                f"and one text-only request, ")
+             + f"head stride {params.head['w'].stride()}; "
+             f"{_gemms_per_forward(cfg)} GEMMs per forward, "
+             f"{_gemms_per_admission(cfg)} per admission call")
+        probed: list = []
+
+        def probe():
+            """`_row_probe`, run once on the first failing gate."""
+            if not probed:
+                probed.extend(_row_probe(dev, api, params, cfg,
+                                         f"admit {name} probe", max_len=ml))
+            return probed
+
+        shapes: collections.Counter = collections.Counter()
+        other: collections.Counter = collections.Counter()
+        eng_a = engine()
+        phase_logits(dev, eng_a, params, cfg, W=8, tag=f"admit logits {name}")
+        res_a, _ = run(f"admit {name} (a) chunked", eng_a, cfg, shapes)
+        for mode, kw in (("(b) serial", dict(admission="serial")),
+                         ("(c) wave", dict(mode="wave")),
+                         ("(d) paged", dict(kv_layout="paged"))):
+            eng = engine(**kw)
+            res, _ = run(f"admit {name} {mode}", eng, cfg, other)
+            if mode == "(d) paged":
+                pg = eng.report()["paging"]
+                _say(f"[admit] {name} (d) paged: prefix hits "
+                     f"{pg['prefix_hits']} (admit families never reuse), "
+                     f"peak pages {pg['peak_in_use']}")
+                if pg["prefix_hits"]:
+                    raise SystemExit(f"[admit] {name}: a prefix hit")
+            _stream_gate(f"admit {name} {mode} against (a) chunked", res,
+                         res_a, probe)
+            del eng
+        _say(f"[admit] {name} admission call: "
+             f"{_admit_ms(dev, eng_a, cfg, reqs)}")
+        entries[name] = phase_serving_shapes(dev, shapes,
+                                             tag=f"admit shapes {name}")
+        _say(f"[admit] {name}: launches per path {dict(launches[name])}; "
+             f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.2f}"
+             f" GB; {time.perf_counter() - t_model:.1f} s")
+        del eng_a, params, engine
+        _free()
+
+    _say(f"[admit] phase 13 took {time.perf_counter() - t_phase:.1f} s on "
+         f"{_nvidia_smi()}")
+    return {"entries": entries, "launches": dict(launches)}
+
+
 def _merge_entries(groups: list) -> dict:
     """Per-path JSON entries summed over `groups` (each phase 5's form):
     times and bounds added, the bound's kind from the summed operations and
@@ -2439,14 +2774,18 @@ def main() -> int:
     _write_shapes({"qwen2-7b": shapes, **dense["shapes"]})
     phase_moe(dev)
     ssm = phase_ssm(dev)
+    admit = phase_admit(dev)
     _say(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     _say(_nvidia_smi())
     # one entry per path the serving runs take, over the main paths' runs:
-    # qwen2-7b (phases 4-5) and the SSM and hybrid models (phase 12); the
-    # general path serves no bf16 projection (both phases check 0 launches
-    # there), and its time at the same shapes is each entry's v3_ms
-    launched = sum(ssm["launches"].values(), collections.Counter(by_path))
-    merged = _merge_entries([entries, *ssm["entries"].values()])
+    # qwen2-7b (phases 4-5), the SSM and hybrid models (phase 12) and the
+    # encoder-decoder and vision models (phase 13); the general path serves
+    # no bf16 projection (every phase checks 0 launches there), and its
+    # time at the same shapes is each entry's v3_ms
+    launched = sum([*ssm["launches"].values(), *admit["launches"].values()],
+                   collections.Counter(by_path))
+    merged = _merge_entries([entries, *ssm["entries"].values(),
+                             *admit["entries"].values()])
     _say(json.dumps({"kernels": [{
         "name": f"tiled_matmul[{path}]", "route": "cuda",
         "source": "src/repro_torch/csrc/tiled_matmul.cu",

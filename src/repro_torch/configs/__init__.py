@@ -4,19 +4,21 @@
     cfg = get_config("qwen2-7b")            # full config
     cfg = get_config("qwen2-7b", smoke=True)
 
-The four dense configs are ported: `qwen2-7b`, `qwen2.5-14b`,
-`codeqwen1.5-7b` and `starcoder2-3b`; the two MoE ones: `olmoe-1b-7b`
-and `deepseek-v2-236b` (MLA); and the SSM and hybrid ones: `falcon-mamba-7b`
-(Mamba1) and `zamba2-2.7b` (Mamba2 with shared attention). Asking for
-another of the JAX package's architectures raises `NotImplementedError`
-naming the ROADMAP item (queue A) that ports its family.
+Every architecture of the JAX package is ported: the four dense configs
+`qwen2-7b`, `qwen2.5-14b`, `codeqwen1.5-7b` and `starcoder2-3b`; the two
+MoE ones, `olmoe-1b-7b` and `deepseek-v2-236b` (MLA); the SSM and hybrid
+ones, `falcon-mamba-7b` (Mamba1) and `zamba2-2.7b` (Mamba2 with shared
+attention); and the encoder-decoder `seamless-m4t-medium` and the
+vision-language `qwen2-vl-2b` (their modality frontends stubbed, as in the
+reference). An unknown name raises `KeyError`.
 """
 
 from __future__ import annotations
 
 from repro_torch.configs import (codeqwen1_5_7b, deepseek_v2_236b,
                                   falcon_mamba_7b, olmoe_1b_7b, qwen2_5_14b,
-                                  qwen2_7b, starcoder2_3b, zamba2_2_7b)
+                                  qwen2_7b, qwen2_vl_2b, seamless_m4t_medium,
+                                  starcoder2_3b, zamba2_2_7b)
 
 PORTED = {
     "codeqwen1.5-7b": codeqwen1_5_7b,
@@ -27,12 +29,8 @@ PORTED = {
     "deepseek-v2-236b": deepseek_v2_236b,
     "falcon-mamba-7b": falcon_mamba_7b,
     "zamba2-2.7b": zamba2_2_7b,
-}
-
-# the JAX package's other architectures -> the ROADMAP item that ports them
-NOT_YET_PORTED = {
-    "seamless-m4t-medium": "A6 (encdec/vlm)",
-    "qwen2-vl-2b": "A6 (encdec/vlm)",
+    "seamless-m4t-medium": seamless_m4t_medium,
+    "qwen2-vl-2b": qwen2_vl_2b,
 }
 
 
@@ -43,9 +41,6 @@ def list_archs() -> list[str]:
 
 def get_config(arch: str, smoke: bool = False):
     """The published config of `arch`, or its reduced smoke variant."""
-    if arch in NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"{arch} is not ported yet: ROADMAP queue {NOT_YET_PORTED[arch]}")
     if arch not in PORTED:
         raise KeyError(f"unknown arch {arch!r}; ported: {list_archs()}")
     mod = PORTED[arch]

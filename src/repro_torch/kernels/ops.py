@@ -188,10 +188,14 @@ def serving_gemm_fleet(cfg, *, max_batch: int, max_len: int,
     `grain` is the engine's SSM serve-scan block (the prefill-bucket
     floor).
 
-    The reference's fleet for the dense, MoE, MLA-MoE, SSM and hybrid
-    families at tp=1 (its tensor-parallel shards and encoder-decoder /
-    vision admission grids come with the slices that port those
-    features). Like the reference's, it comes from `gemm_shape_counts`, so
+    For the admit families (encdec, vlm) it adds the prefill-once
+    admission grid: the encoder and cross-KV (encdec) or the patch prefix
+    through the decoder (vlm, no LM head) over every prefill bucket (an
+    admission is not capped at `chunk_tokens`) at pow2 widths through the
+    lane cap and the full batch (the wave admits a whole batch at once).
+
+    The reference's fleet at tp=1 (its tensor-parallel shards come with
+    ROADMAP A7). Like the reference's, it comes from `gemm_shape_counts`, so
     for the MoE families it holds the routed-expert shapes that `matmul`
     never launches (the experts are einsums) and lacks the router that it
     does, and for mamba1 it lacks x_proj and dt_proj (ROADMAP queue C).
@@ -225,6 +229,21 @@ def serving_gemm_fleet(cfg, *, max_batch: int, max_len: int,
             for w in (sorted(widths) if b in chunks else [1]):
                 fleet |= set(gemm_shape_counts(cfg, w * b, head_tokens=w,
                                                kv_rows=w * cap_len))
+    if cfg.kind in ("encdec", "vlm"):
+        cap = lane_width if lane_width is not None else max_batch
+        widths = {1, max_batch}
+        a = 1
+        while a < cap:
+            a *= 2
+            widths.add(a)
+        for b in prefill_buckets(max_len, grain):
+            for w in sorted(widths):
+                if cfg.kind == "encdec":
+                    fleet |= set(gemm_shape_counts(
+                        cfg, 0, head_tokens=0, src_tokens=w * b))
+                else:
+                    fleet |= set(gemm_shape_counts(cfg, w * b,
+                                                   head_tokens=0))
     return sorted(fleet)
 
 

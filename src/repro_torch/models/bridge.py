@@ -2,7 +2,8 @@
 
 The JAX tree is nested dicts with ``blocks`` leaves stacked on a leading L
 axis (hybrid: on (n_groups, attn_every), beside its unstacked
-``shared_attn`` block). The bridge takes it as numpy arrays (the caller
+``shared_attn`` block; encdec: ``encoder`` and ``decoder`` stacks beside
+``enc_ln_f``; vlm: the dense tree). The bridge takes it as numpy arrays (the caller
 converts JAX arrays, so the port never sees JAX) and unstacks it per layer.
 A block's groups may nest (the MoE FFN's ``moe.router``, ``moe.experts``,
 ``moe.shared_mlp``): a `nn.ParameterDict` is a group of leaves, a
@@ -16,6 +17,7 @@ import torch
 from torch import nn
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.hybrid import HybridLM
 from repro_torch.models.transformer import TransformerLM
 
@@ -24,7 +26,16 @@ def _top_level(model: nn.Module) -> dict:
     top = {"embed": model.embed, "ln_f": model.ln_f}
     if model.head is not None:
         top["head"] = model.head
+    if isinstance(model, EncDecLM):
+        top["enc_ln_f"] = model.enc_ln_f
     return top
+
+
+def _stacks(model: nn.Module) -> dict:
+    """The block lists the JAX tree stacks on a leading L axis."""
+    if isinstance(model, EncDecLM):
+        return {"encoder": model.encoder, "decoder": model.decoder}
+    return {"blocks": model.blocks}
 
 
 def _shared_blocks(model: nn.Module) -> dict:
@@ -76,26 +87,28 @@ def _load(group: nn.Module, tree: dict, i: int | None, where: str) -> None:
 def params_from_numpy(tree: dict, cfg: ModelConfig,
                       device: str | torch.device = "cuda") -> nn.Module:
     """The JAX parameter tree (numpy leaves) as a `TransformerLM` (a
-    `HybridLM` for kind hybrid) on `device`, each leaf cast to its
-    parameter's dtype (``cfg.param_dtype``; the SSM's A_log and D stay
-    float32)."""
-    model = (HybridLM if cfg.kind == "hybrid" else TransformerLM)(cfg, device)
-    top, shared = _top_level(model), _shared_blocks(model)
-    _check_keys(tree, list(top) + list(shared) + ["blocks"], "params")
+    `HybridLM` for kind hybrid, an `EncDecLM` for encdec) on `device`, each
+    leaf cast to its parameter's dtype (``cfg.param_dtype``; the SSM's
+    A_log and D stay float32)."""
+    model = {"hybrid": HybridLM, "encdec": EncDecLM}.get(
+        cfg.kind, TransformerLM)(cfg, device)
+    top, shared, stacks = (_top_level(model), _shared_blocks(model),
+                           _stacks(model))
+    _check_keys(tree, list(top) + list(shared) + list(stacks), "params")
     for key, group in top.items():
         _load(group, tree[key], None, key)
     for key, blk in shared.items():
         _check_keys(tree[key], _block_groups(blk), key)
         for g, group in _block_groups(blk).items():
             _load(group, tree[key][g], None, f"{key}.{g}")
-    blocks = tree["blocks"]
-    if isinstance(model, HybridLM):
-        blocks = _map(lambda a: a.reshape(-1, *a.shape[2:]), blocks)
-    groups = _block_groups(model.blocks[0])
-    _check_keys(blocks, groups, "blocks")
-    for i, blk in enumerate(model.blocks):
-        for g, group in _block_groups(blk).items():
-            _load(group, blocks[g], i, f"blocks.{g}")
+    for key, stack in stacks.items():
+        blocks = tree[key]
+        if isinstance(model, HybridLM):
+            blocks = _map(lambda a: a.reshape(-1, *a.shape[2:]), blocks)
+        _check_keys(blocks, _block_groups(stack[0]), key)
+        for i, blk in enumerate(stack):
+            for g, group in _block_groups(blk).items():
+                _load(group, blocks[g], i, f"{key}.{g}")
     return model
 
 
@@ -116,16 +129,17 @@ def _dump(groups: list[nn.Module]) -> dict:
 
 
 def params_to_numpy(model: nn.Module) -> dict:
-    """The inverse of `params_from_numpy`: float32 numpy leaves, ``blocks``
-    stacked on a leading L axis (hybrid: (n_groups, attn_every))."""
+    """The inverse of `params_from_numpy`: float32 numpy leaves, each
+    stack of blocks on a leading L axis (hybrid: (n_groups,
+    attn_every))."""
     tree = {key: {n: _np32(p) for n, p in group.items()}
             for key, group in _top_level(model).items()}
     for key, blk in _shared_blocks(model).items():
         tree[key] = _map(lambda a: a[0], {
             g: _dump([group]) for g, group in _block_groups(blk).items()})
-    tree["blocks"] = {
-        g: _dump([_block_groups(blk)[g] for blk in model.blocks])
-        for g in _block_groups(model.blocks[0])}
+    for key, stack in _stacks(model).items():
+        tree[key] = {g: _dump([_block_groups(blk)[g] for blk in stack])
+                     for g in _block_groups(stack[0])}
     if isinstance(model, HybridLM):
         tree["blocks"] = _map(
             lambda a: a.reshape(*model.group_shape, *a.shape[1:]),

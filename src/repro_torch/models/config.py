@@ -12,9 +12,7 @@ One dataclass, many families. `kind` selects the forward function:
   encdec       - encoder-decoder with cross attention (Seamless-M4T)
   vlm          - decoder-only with M-RoPE + patch-embedding input (Qwen2-VL)
 
-The port serves `dense`, `moe`, `mla_moe`, `mamba1`, `mamba2` and
-`hybrid` so far; `encdec` and `vlm` are carried so that a config means the
-same thing in both packages.
+The port serves every kind.
 """
 
 from __future__ import annotations
@@ -178,7 +176,9 @@ def kv_cache_bytes(cfg: ModelConfig, tokens: int,
     """Bytes of KV (or MLA latent) cache for `tokens` cached positions,
     summed over layers. Attention-free families cache O(1) state per row,
     not per token — 0 here; hybrid counts only its shared attention
-    blocks."""
+    blocks. For encdec it is the decoder's self-attention cache, and one
+    row's cross-KV (``xk``/``xv`` of as many source rows) is the same
+    size; vlm's patch prefix sits in the KV cache like text."""
     if cfg.attention_free:
         return 0
     L = cfg.n_layers
@@ -193,7 +193,8 @@ def kv_cache_bytes(cfg: ModelConfig, tokens: int,
 
 def gemm_shape_counts(cfg: ModelConfig, n_tokens: int,
                       head_tokens: int | None = None,
-                      kv_rows: int | None = None
+                      kv_rows: int | None = None,
+                      src_tokens: int | None = None
                       ) -> dict[tuple[int, int, int], float]:
     """Dominant (m, n, k) GEMMs of one forward pass over `n_tokens` rows,
     with per-step multiplicities — the denominator the serving engine's
@@ -205,8 +206,13 @@ def gemm_shape_counts(cfg: ModelConfig, n_tokens: int,
     unembeds only each row's last position, so the engine passes its row
     count (see `lm_prefill`). `kv_rows` sizes MLA's cache-wide K/V
     decompression (``w_uk``/``w_uv`` run over every cached row each step,
-    B x max_len; default n_tokens, the no-cache case). Zero-row GEMMs are
-    dropped.
+    B x max_len; default n_tokens, the no-cache case). `src_tokens` sizes
+    encdec's prefill-once admission: the encoder stack and every decoder
+    layer's cross-KV projection run over the source rows once per request
+    (`encdec.encdec_admit`), so the engine prices an admission with
+    ``n_tokens=0, src_tokens=T`` and its other calls with no source; the
+    decoder's cross-attention Q and O are counted on every call. Zero-row
+    GEMMs are dropped.
 
     Counts are the reference's analytical estimate: MoE expert GEMMs are
     counted ``top_k`` (routed) plus ``n_shared_experts`` times per layer at
@@ -217,18 +223,11 @@ def gemm_shape_counts(cfg: ModelConfig, n_tokens: int,
     in_proj and out_proj are counted but not its x_proj and dt_proj, which
     `ssm.mamba1_block_apply` launches too (ROADMAP queue C). Mamba1/Mamba2
     have no Q/K/V/O; hybrid counts its `n_layers // attn_every` shared
-    attention applications and their FFN.
+    attention applications and their FFN; vlm counts as dense.
 
-    The reference's counts at tp = 1 cut to the kinds the port serves
-    (dense, moe, mla_moe, mamba1, mamba2, hybrid): its encoder-decoder
-    fleet and its tensor-parallel shards come with the slices that port
-    them.
+    The reference's counts at tp = 1: its tensor-parallel shards come with
+    the slice that ports them (ROADMAP A7).
     """
-    if cfg.kind not in ("dense", "moe", "mla_moe", "mamba1", "mamba2",
-                        "hybrid"):
-        raise NotImplementedError(
-            f"the port counts dense, moe, mla_moe, mamba1, mamba2 and "
-            f"hybrid GEMMs, not {cfg.kind!r}")
     t = int(n_tokens)
     d, hd, kv, L = cfg.d_model, cfg.hd, cfg.kv_heads, cfg.n_layers
     # mamba1/mamba2 are attention-free; hybrid (Zamba2) runs one shared
@@ -246,7 +245,26 @@ def gemm_shape_counts(cfg: ModelConfig, n_tokens: int,
             return
         counts[shape] = counts.get(shape, 0.0) + n
 
-    if cfg.kind == "mla_moe" and cfg.kv_lora_rank:
+    src = int(src_tokens) if src_tokens is not None else 0
+    if cfg.kind == "encdec":
+        # decoder: self-attention Q/K/V/O over the call's rows plus the
+        # cross-attention Q/O that read the admission-time cross-KV
+        add((t, cfg.n_heads * hd, d), 2 * L)         # self + cross Q
+        add((t, kv * hd, d), 2 * L)                  # self K and V
+        add((t, d, cfg.n_heads * hd), 2 * L)         # self + cross O
+        if src:
+            # prefill-once admission: the encoder stack and each decoder
+            # layer's cross-KV projection over the source rows
+            eL = cfg.n_encoder_layers
+            gm = 2 if cfg.gated_mlp else 1
+            add((src, cfg.n_heads * hd, d), eL)
+            add((src, kv * hd, d), 2 * eL)
+            add((src, d, cfg.n_heads * hd), eL)
+            if cfg.d_ff:
+                add((src, cfg.d_ff, d), gm * eL)
+                add((src, d, cfg.d_ff), eL)
+            add((src, kv * hd, d), 2 * L)            # cross-KV projection
+    elif cfg.kind == "mla_moe" and cfg.kv_lora_rank:
         # multi-head latent attention traces its own projection fleet
         # (moe.mla_apply), not the generic Q/K/V/O skeleton
         r, rq, pe = cfg.kv_lora_rank, cfg.q_lora_rank, cfg.rope_head_dim

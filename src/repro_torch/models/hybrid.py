@@ -57,7 +57,7 @@ class HybridLM(nn.Module):
         self.shared_attn = tfm.DenseBlock(cfg, dev)
         self.ln_f = L.frozen_params(dev, dt, scale=(cfg.d_model,))
         self.head = (None if cfg.tie_embeddings
-                     else L.frozen_params(dev, dt, w=(cfg.d_model, cfg.vocab)))
+                     else tfm.head_params(dev, dt, cfg.d_model, cfg.vocab))
 
     @property
     def device(self) -> torch.device:

@@ -73,6 +73,23 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: tuple[int, int, int]) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE. x: (B, S, H, hd); positions: (B, S, 3)
+    (t, h, w) ids. The hd/2 frequency channels are cut into (t, h, w)
+    sections, each rotated by its own position stream; angles in f32, split
+    halves as `apply_rope`."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)          # (hd/2,)
+    sec = torch.cat([torch.full((s,), i, dtype=torch.long, device=x.device)
+                     for i, s in enumerate(sections)])        # (hd/2,)
+    ang = positions.float().index_select(-1, sec) * freqs     # (B, S, hd/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
 # ---------------- attention ----------------
 
 Q_CHUNK = 1024  # query-block size for memory-bounded exact attention
@@ -147,7 +164,10 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
           kv_valid: torch.Tensor | None = None) -> torch.Tensor:
     """Exact attention, query-chunked so peak score memory is
     O(Q_CHUNK x Sk) instead of O(Sq x Sk); on the card, fewer than
-    `Q_MIN_CUDA` queries are zero-padded to that many (see there)."""
+    `Q_MIN_CUDA` queries are zero-padded to that many (see there). The
+    key count needs no such padding: a row's bits do not depend on it on
+    the card (the encoder's keys are its admission bucket, 8-512 at
+    max_len 512; `chip_smoke.py` phase 3's encoder attention line)."""
     Sq = q.shape[1]
     if q.is_cuda and Sq < Q_MIN_CUDA:
         pad = q.new_zeros((q.shape[0], Q_MIN_CUDA - Sq, *q.shape[2:]))
@@ -319,9 +339,10 @@ def attention_apply(
     kv_cache: dict | None = None,
     cache_index: torch.Tensor | int | None = None,
     seq_lens: torch.Tensor | None = None,
+    kv_lens: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, dict | None]:
-    """GQA self-attention with RoPE and an optional KV cache, dense or
-    paged.
+    """GQA self-attention with RoPE (M-RoPE where ``config.mrope``, with
+    (B, S, 3) `positions`) and an optional KV cache, dense or paged.
 
     With a dense `kv_cache` ({"k", "v"}: (B, max_len, KV, hd) each) the new
     keys and values are written in place at `cache_index` (scalar or per
@@ -329,8 +350,13 @@ def attention_apply(
     queries attend over the cached prefix. A paged `kv_cache` ({"k_pages",
     "v_pages"}: (P, T, KV, hd) pools, "table": (B, n) page ids) is written in
     place through the table and read back as each row's gathered (B, n*T)
-    view under the page-validity mask, with the same contracts. Returns
-    (y, cache)."""
+    view under the page-validity mask, with the same contracts.
+
+    Without a cache, `kv_lens` (B,) masks each row's keys to its valid
+    rows. Causal attention hides right-pad keys by itself (they sit after
+    every valid query); non-causal attention over a right-padded batch (the
+    encoder) must pass `kv_lens`, or the pad keys take softmax weight.
+    Returns (y, cache)."""
     B, S, _ = x.shape
     H, KV, hd = config.n_heads, config.kv_heads, config.hd
     q = ops.matmul(x, p["wq"])
@@ -340,8 +366,14 @@ def attention_apply(
         q = q + p["bq"].to(q.dtype)
         k = k + p["bk"].to(k.dtype)
         v = v + p["bv"].to(v.dtype)
-    q = apply_rope(q.reshape(B, S, H, hd), positions, config.rope_theta)
-    k = apply_rope(k.reshape(B, S, KV, hd), positions, config.rope_theta)
+    def rope(t):
+        if config.mrope:
+            return apply_mrope(t, positions, config.rope_theta,
+                               config.mrope_sections)
+        return apply_rope(t, positions, config.rope_theta)
+
+    q = rope(q.reshape(B, S, H, hd))
+    k = rope(k.reshape(B, S, KV, hd))
     v = v.reshape(B, S, KV, hd)
 
     new_cache = None
@@ -365,7 +397,7 @@ def attention_apply(
         out = _sdpa(q, ck.to(q.dtype), cv.to(q.dtype), causal=True,
                     q_offset=cache_index, kv_len=cache_index + S)
     else:
-        out = _sdpa(q, k, v, causal=causal)
+        out = _sdpa(q, k, v, causal=causal, kv_len=kv_lens)
     y = ops.matmul(out.reshape(B, S, H * hd), p["wo"])
     return y, new_cache
 

@@ -1,5 +1,5 @@
-"""Uniform model API over the ported families: dense, moe, mla_moe,
-mamba1, mamba2 and hybrid.
+"""Uniform model API over every family: dense, moe, mla_moe, mamba1,
+mamba2, hybrid, encdec and vlm.
 
     model = get_model(cfg)
     params = model.init(cfg, torch.Generator("cuda").manual_seed(0))
@@ -7,6 +7,8 @@ mamba1, mamba2 and hybrid.
     logits, state = model.prefill_chunk(params, tokens, lengths, state, cfg)
     logits, state = model.decode_step(params, token, state, cfg)
     pool = model.init_page_pool(cfg, num_pages, page_size)  # KV kinds only
+    state = model.admit(params, model.pack_admit(cfg, extras, w, bucket),
+                        state, cfg)                          # encdec, vlm
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ from typing import Callable
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import hybrid
+from repro_torch.models import encdec, hybrid, vlm
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 
@@ -29,7 +31,9 @@ class ModelApi:
     init: Callable          # (cfg, generator, *, device) -> params module
     prefill: Callable       # (params, batch, cfg, max_len=) -> (logits, state)
     decode_step: Callable   # (params, token, state, cfg) -> (logits, state)
-    init_cache: Callable    # (cfg, batch, max_len, *, device) -> cache
+    # (cfg, batch, max_len, *, device) -> cache; None for encdec, whose
+    # cache is only ever built inside its decode state
+    init_cache: Callable | None
     # chunked-admission prefill: (params, tokens (B, C), lengths (B,),
     # state, cfg) -> (last-valid logits (B, V), state); state carries a
     # per-row base ``index``. `init_state` builds the zeroed decode state
@@ -41,6 +45,20 @@ class ModelApi:
     # engine pairs it with per-row page tables (see serving.paging). SSM
     # and hybrid state is O(1) per row and stays dense: None.
     init_page_pool: Callable | None = None
+    # prefill-once admission of the modality families (encdec: source
+    # encoding and cross-KV; vlm: the patch prefix). A family is an "admit
+    # family" iff `admit` is not None.
+    #   admit_dims(cfg, extras) -> (prefix rows, source rows), host ints:
+    #     the cache rows the admission writes ahead of the prompt, and the
+    #     side (non-cache) source rows it encodes; raises on bad extras.
+    #   pack_admit(cfg, extras_list, width, bucket, *, device) -> the
+    #     admission batch (rows padded to `width`, sequence to `bucket`).
+    #   admit(params, packed, state, cfg) -> state: writes the admission's
+    #     leaves of a `width`-row state in place (the wave admits a whole
+    #     batch in one call; chunked admission packs a step's fresh rows).
+    admit_dims: Callable | None = None
+    pack_admit: Callable | None = None
+    admit: Callable | None = None
 
 
 def _zero_index_state(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -82,6 +100,45 @@ def _hybrid_api() -> ModelApi:
     )
 
 
+def _kv_pool(cfg, n, t, *, device="cuda"):
+    return tfm.init_kv_page_pool(cfg, n, t, device=device)
+
+
+def _encdec_api() -> ModelApi:
+    """The encoder-decoder family (`encdec.EncDecLM`); only the decoder's
+    self-attention KV pages, the cross-KV stays a dense per-row leaf."""
+    return ModelApi(
+        init=encdec.encdec_init,
+        prefill=encdec.encdec_prefill,
+        decode_step=encdec.encdec_decode_step,
+        init_cache=None,
+        prefill_chunk=encdec.encdec_prefill_chunk,
+        init_state=encdec.encdec_init_state,
+        init_page_pool=_kv_pool,
+        admit_dims=encdec.encdec_admit_dims,
+        pack_admit=encdec.encdec_pack_admit,
+        admit=encdec.encdec_admit,
+    )
+
+
+def _vlm_api() -> ModelApi:
+    """The vision-language family: a dense `TransformerLM` with M-RoPE and
+    a patch-prefix admission; pages its KV like a dense LM."""
+    return ModelApi(
+        init=vlm.vlm_init,
+        prefill=vlm.vlm_prefill,
+        decode_step=vlm.vlm_decode_step,
+        init_cache=lambda cfg, b, ml, *, device="cuda": tfm.init_kv_cache(
+            cfg, b, ml, device=device),
+        prefill_chunk=vlm.vlm_prefill_chunk,
+        init_state=vlm.vlm_init_state,
+        init_page_pool=_kv_pool,
+        admit_dims=vlm.vlm_admit_dims,
+        pack_admit=vlm.vlm_pack_admit,
+        admit=vlm.vlm_admit,
+    )
+
+
 _FAMILIES = {
     "dense": lambda: _lm_api(paged=True),
     "moe": lambda: _lm_api(paged=True),
@@ -89,22 +146,13 @@ _FAMILIES = {
     "mamba1": lambda: _lm_api(paged=False),
     "mamba2": lambda: _lm_api(paged=False),
     "hybrid": _hybrid_api,
-}
-
-# the JAX package's other families -> the ROADMAP item that ports them
-_NOT_YET_PORTED = {
-    "encdec": "A6 (encdec/vlm)",
-    "vlm": "A6 (encdec/vlm)",
+    "encdec": _encdec_api,
+    "vlm": _vlm_api,
 }
 
 
 def get_model(cfg: ModelConfig) -> ModelApi:
-    """The `ModelApi` of ``cfg.kind``; unported kinds raise
-    `NotImplementedError` naming their ROADMAP item."""
+    """The `ModelApi` of ``cfg.kind``; an unknown kind raises KeyError."""
     if cfg.kind in _FAMILIES:
         return _FAMILIES[cfg.kind]()
-    if cfg.kind in _NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"kind={cfg.kind!r} is not ported yet: ROADMAP queue "
-            f"{_NOT_YET_PORTED[cfg.kind]}")
     raise KeyError(f"unknown model kind {cfg.kind!r}")

@@ -117,10 +117,26 @@ class MLAMoEBlock(nn.Module):
         self.moe = _moe_groups(cfg, device, dt)
 
 
-# the block module of each kind `TransformerLM` holds (hybrid has its own
-# module, `hybrid.HybridLM`)
+# the block module of each kind `TransformerLM` holds (hybrid and encdec
+# have their own modules, `hybrid.HybridLM` and `encdec.EncDecLM`; vlm is a
+# dense stack with M-RoPE)
 BLOCKS = {"dense": DenseBlock, "moe": MoEBlock, "mla_moe": MLAMoEBlock,
-          "mamba1": ssm.Mamba1Block, "mamba2": ssm.Mamba2Block}
+          "mamba1": ssm.Mamba1Block, "mamba2": ssm.Mamba2Block,
+          "vlm": DenseBlock}
+
+
+def head_params(device, dt, d_model: int, vocab: int) -> nn.ParameterDict:
+    """The untied LM head ``w`` (d_model, vocab). Its storage rows are
+    padded to a multiple of 8 columns and ``w`` is the (d_model, vocab)
+    view of them, so the GEMM's fast paths, which read B rows whose
+    stride is a multiple of 8 elements, take it whatever the vocab
+    (seamless-m4t-medium's 256206 is not a multiple of 8: stored
+    contiguously its head would take ``general``). Only the view is a
+    parameter: what the bridge and `init_weights` see."""
+    store = torch.empty((d_model, -(-vocab // 8) * 8), dtype=dt,
+                        device=device)
+    return nn.ParameterDict({"w": nn.Parameter(store[:, :vocab],
+                                               requires_grad=False)})
 
 
 class TransformerLM(nn.Module):
@@ -142,7 +158,7 @@ class TransformerLM(nn.Module):
             BLOCKS[cfg.kind](cfg, dev) for _ in range(cfg.n_layers))
         self.ln_f = _params(dev, dt, scale=(cfg.d_model,))
         self.head = (None if cfg.tie_embeddings
-                     else _params(dev, dt, w=(cfg.d_model, cfg.vocab)))
+                     else head_params(dev, dt, cfg.d_model, cfg.vocab))
 
     @property
     def device(self) -> torch.device:
@@ -211,7 +227,8 @@ def block_apply(cfg: ModelConfig):
             "mla_moe": moe.mla_moe_block_apply,
             "mamba1": ssm.mamba1_block_apply,
             "mamba2": ssm.mamba2_block_apply,
-            "hybrid": ssm.mamba2_block_apply}[cfg.kind]
+            "hybrid": ssm.mamba2_block_apply,
+            "vlm": dense_block_apply}[cfg.kind]
 
 
 def _embed(model: TransformerLM, tokens: torch.Tensor,
@@ -228,16 +245,18 @@ def _unembed(model: TransformerLM, x: torch.Tensor,
 
 
 def _run_blocks(model: TransformerLM, x: torch.Tensor, cfg: ModelConfig, *,
-                positions, cache: dict, cache_index, seq_lens=None):
-    """Every block in order (the block function of ``cfg.kind``) over
-    per-layer views of `cache` (written in place). Every leaf of `cache` is
+                positions, cache: dict, cache_index, seq_lens=None,
+                block=None, blocks=None):
+    """Every block in order (`blocks`, default ``model.blocks``, through
+    `block`, default the block function of ``cfg.kind``) over per-layer
+    views of `cache` (written in place). Every leaf of `cache` is
     stacked on a leading layer axis: the dense cache's "k"/"v" (MLA:
     "c_kv"/"k_pe"), or the paged cache's pools ("k_pages"/"v_pages", MLA:
     "c_kv_pages"/"k_pe_pages") and its "table" (one table per layer, as in
     the JAX package, usually a broadcast view of one). The blocks' aux
     losses are dropped: serving has no use for them."""
-    apply = block_apply(cfg)
-    for i, blk in enumerate(model.blocks):
+    apply = block or block_apply(cfg)
+    for i, blk in enumerate(model.blocks if blocks is None else blocks):
         layer_cache = {name: leaf[i] for name, leaf in cache.items()}
         x = apply(blk, x, cfg, positions=positions, cache=layer_cache,
                   cache_index=cache_index, seq_lens=seq_lens)[0]
@@ -333,7 +352,8 @@ def lm_prefill(model: TransformerLM, batch: dict, cfg: ModelConfig,
 @torch.no_grad()
 def lm_prefill_chunk(model: TransformerLM, tokens: torch.Tensor,
                      lengths: torch.Tensor, state: dict, cfg: ModelConfig,
-                     positions: torch.Tensor | None = None
+                     positions: torch.Tensor | None = None, *,
+                     block=None, blocks=None
                      ) -> tuple[torch.Tensor, dict]:
     """One admission-prefill chunk of the serving loop.
 
@@ -344,7 +364,9 @@ def lm_prefill_chunk(model: TransformerLM, tokens: torch.Tensor,
     row writes nothing. Returns each row's logits at its last valid position
     (clamped to 0 for zero-length rows) and the state with
     ``index + lengths``. Prefilling a prompt in chunks gives the logits of a
-    single `lm_prefill` over the whole prompt."""
+    single `lm_prefill` over the whole prompt. `positions` overrides the
+    rotary positions (vlm's M-RoPE triples), `block` and `blocks` the block
+    function and stack (encdec's decoder; see `_run_blocks`)."""
     B, S = tokens.shape
     dev = tokens.device
     base = state["index"].long()
@@ -353,7 +375,7 @@ def lm_prefill_chunk(model: TransformerLM, tokens: torch.Tensor,
         positions = base[:, None] + torch.arange(S, device=dev)[None, :]
     x = _run_blocks(model, _embed(model, tokens, cfg), cfg,
                     positions=positions, cache=state["kv"], cache_index=base,
-                    seq_lens=lengths)
+                    seq_lens=lengths, block=block, blocks=blocks)
     x = L.rmsnorm(model.ln_f, x, cfg.norm_eps)
     last = x[torch.arange(B, device=dev), (lengths - 1).clamp(min=0)][:, None]
     logits = _unembed(model, last, cfg)
@@ -362,18 +384,21 @@ def lm_prefill_chunk(model: TransformerLM, tokens: torch.Tensor,
 
 @torch.no_grad()
 def lm_decode_step(model: TransformerLM, token: torch.Tensor, state: dict,
-                   cfg: ModelConfig, positions: torch.Tensor | None = None
+                   cfg: ModelConfig, positions: torch.Tensor | None = None,
+                   *, block=None, blocks=None
                    ) -> tuple[torch.Tensor, dict]:
     """One-token decode. token: (B,) int; state: {"kv", "index"}, where
     ``index`` is a scalar (every row at one position) or (B,) (each slot at
-    its own position). Returns (logits (B, V) f32, state with index + 1)."""
+    its own position). Returns (logits (B, V) f32, state with index + 1).
+    `positions`, `block` and `blocks` as in `lm_prefill_chunk`."""
     B = token.shape[0]
     idx = state["index"]
     if positions is None:
         positions = (idx.long().expand(B) if idx.dim() == 0
                      else idx.long())[:, None]
     x = _run_blocks(model, _embed(model, token[:, None], cfg), cfg,
-                    positions=positions, cache=state["kv"], cache_index=idx)
+                    positions=positions, cache=state["kv"], cache_index=idx,
+                    block=block, blocks=blocks)
     x = L.rmsnorm(model.ln_f, x, cfg.norm_eps)
     logits = _unembed(model, x, cfg)
     return logits[:, 0], {"kv": state["kv"], "index": idx + 1}

@@ -1,8 +1,7 @@
 """Continuous-batching serving engine with chunked admission prefill.
 
 The counterpart of the JAX package's `repro.serving.engine.ServingEngine`
-for the dense, MoE, MLA-MoE, Mamba1, Mamba2 and hybrid families at tp=1
-(`SERVED_KINDS`), with its serving loops:
+for every family at tp=1 (`SERVED_KINDS`), with its serving loops:
 
 - continuous mode, ``admission="chunked"`` (the default): the engine keeps
   one batched decode state of ``max_batch`` fixed slots. Every engine step
@@ -22,6 +21,20 @@ for the dense, MoE, MLA-MoE, Mamba1, Mamba2 and hybrid families at tp=1
   registered prefix maps its pages copy-on-write and skips those chunks;
 - the wave loop (``mode="wave"``): one batched prefill of up to
   ``max_batch`` requests, then lockstep decode until all of them finish.
+
+The encoder-decoder and vision families are *admit families*: their
+modality inputs (``Request.extras``: source embeddings, or a patch prefix
+and its grid) run through one prefill-once admission call
+(`ModelApi.admit`) whose outputs are leaves of the decode state (encdec's
+cross-KV and ``src_len``, vlm's patch KV rows and ``pos_off``); the text
+prompt then chunks like any other. Chunked admission packs a step's fresh
+admissions into one call at a pow2 width and the largest bucket among
+them; serial admission runs admit plus one full-prompt chunk, and the wave
+admits its whole batch in one call and then runs one chunk: the path of
+chunked admission, so the streams agree. On the paged layout only the
+decoder's self-attention KV pages; the other admission leaves stay dense
+per request, and admit families opt out of prefix reuse (their KV depends
+on the modality input, not the tokens alone).
 
 The SSM and hybrid families carry their conv and scan state across chunk
 boundaries bit-exactly: chunk boundaries and prefill buckets stay multiples
@@ -65,8 +78,7 @@ And one where the JAX engine is at fault (ROADMAP queue C): an engine
 pretuned for another objective than "runtime" launches that objective's
 winners (`ops.launch_objective`), so it runs the tiles it prices.
 
-Not ported yet (ROADMAP queue A): the encoder-decoder and vision families
-and their admission hooks (A6), tp (A7), and what only the fleet scheduler
+Not ported yet (ROADMAP queue A): tp (A7), and what only the fleet scheduler
 and fault recovery call (A8): `chunk_policy`, replay requests, `adopt`,
 `checkpoint_inflight`, `retune` and page pressure
 (`inject_page_pressure`, `release_page_pressure`). Nothing here reports a
@@ -93,13 +105,14 @@ from repro_torch.models.config import ModelConfig
 
 
 # the families the engine serves, in every mode: dense, OLMoE-style MoE,
-# DeepSeek-V2 MLA-MoE, Mamba1, Mamba2 and the Zamba2 hybrid (encdec and vlm:
-# ROADMAP A6)
-SERVED_KINDS = ("dense", "moe", "mla_moe", "mamba1", "mamba2", "hybrid")
+# DeepSeek-V2 MLA-MoE, Mamba1, Mamba2, the Zamba2 hybrid, and the admit
+# families: the Seamless-M4T encoder-decoder and the Qwen2-VL vision LM
+SERVED_KINDS = ("dense", "moe", "mla_moe", "mamba1", "mamba2", "hybrid",
+                "encdec", "vlm")
 # the families whose cache the paged layout supports: per-token KV (or MLA
-# latent) rows that page cleanly; SSM/hybrid state is O(1) per row (or
-# mixed) and stays dense
-PAGED_KINDS = ("dense", "moe", "mla_moe")
+# latent) rows that page cleanly (encdec: its decoder's self-attention KV);
+# SSM/hybrid state is O(1) per row (or mixed) and stays dense
+PAGED_KINDS = ("dense", "moe", "mla_moe", "encdec", "vlm")
 
 
 @dataclasses.dataclass
@@ -112,6 +125,10 @@ class Request:
     eos_id: int | None = None
     submit_s: float = 0.0       # stamped by ServingEngine.submit
     submit_model_s: float = 0.0  # engine model-clock at submission
+    # modality inputs of the admit families' prefill-once admission:
+    # encdec {"src_embeds": (T, d)}, vlm {"patch_embeds": (P, d),
+    # "grid_hw": (gh, gw)}; None for a text-only request
+    extras: dict | None = None
 
 
 @dataclasses.dataclass
@@ -146,6 +163,10 @@ class _Slot:
     rng: np.random.Generator | None = None   # per-request sampling stream
     pages: list[int] | None = None  # paged layout: owned/shared page ids
     index: int = 0              # paged layout: host-tracked cache position
+    # paged admit families: the request's dense admission leaves (encdec
+    # cross-KV and src_len, vlm pos_off), batch 1, joined into each call
+    extra_top: dict | None = None
+    extra_kv: dict | None = None
 
 
 @dataclasses.dataclass
@@ -164,6 +185,9 @@ class _Admission:
     ready: _Slot | None = None  # prefilled + first token sampled
     first_tok: int = 0
     pages: list[int] | None = None  # paged layout: reserved page ids
+    prefix: int = 0             # paged layout: admission-prefix cache rows
+    extra_top: dict | None = None   # paged admit families (see _Slot)
+    extra_kv: dict | None = None
 
 
 class _LiveState:
@@ -351,6 +375,8 @@ class ServingEngine:
             "resident_slot_steps": 0, "slot_steps": 0,
             "generated_tokens": 0, "requests": 0, "wall_s": 0.0,
             "lane_rebuilds": 0, "energy_j": 0.0, "idle_energy_j": 0.0,
+            # prefill-once admission calls (admit families)
+            "admit_calls": 0,
             # the model clock: predicted seconds of dispatched engine calls
             # (the energy model's step_s), advanced per chunk call and
             # decode step
@@ -401,15 +427,33 @@ class ServingEngine:
         its capacity is unbounded (long prompts scan through in chunks)."""
         return None if self.cfg.attention_free else self.max_len
 
+    def _admit_dims(self, req: Request) -> tuple[int, int]:
+        """(cache-prefix rows, side source rows) the request's admission
+        consumes ahead of its prompt: (0, 0) for a family without admission
+        hooks. Raises on extras the family cannot admit (an encdec request
+        without source embeddings)."""
+        if self.model.admit_dims is None:
+            return (0, 0)
+        return self.model.admit_dims(self.cfg, req.extras)
+
     def submit(self, req: Request) -> None:
-        """Queue a request (stamps its submit time). The prompt must leave
-        at least one decode position in a row's `max_len` cache, unless
-        the family is attention-free."""
+        """Queue a request (stamps its submit time). One per-row bound for
+        every family: the admission prefix and the prompt must leave at
+        least one decode position in a row's `max_len` cache, and an encdec
+        source must fit the row's cross-KV capacity (`max_len` rows); an
+        attention-free row is unbounded."""
+        prefix, src = self._admit_dims(req)
         cap = self._row_capacity()
-        if cap is not None and len(req.prompt) >= cap:
-            raise ValueError(
-                f"prompt of {len(req.prompt)} tokens does not fit "
-                f"max_len={cap} (need >= 1 decode position)")
+        if cap is not None:
+            if prefix + len(req.prompt) >= cap:
+                raise ValueError(
+                    f"admission prefix {prefix} + prompt of "
+                    f"{len(req.prompt)} tokens does not fit max_len={cap} "
+                    f"(need >= 1 decode position)")
+            if src > cap:
+                raise ValueError(
+                    f"source of {src} rows does not fit the per-row "
+                    f"cross-KV capacity max_len={cap}")
         if req.submit_s == 0.0:
             req.submit_s = time.perf_counter()
         req.submit_model_s = self.model_clock_s
@@ -417,12 +461,14 @@ class ServingEngine:
 
     def _budget(self, req: Request) -> int:
         """Effective token budget: >= 1, bounded by the row's remaining
-        cache room (its capacity minus its own prompt length; unbounded
-        for attention-free rows)."""
+        cache room (its capacity minus its admission prefix and its own
+        prompt; unbounded for attention-free rows)."""
         cap = self._row_capacity()
         if cap is None:
             return max(1, req.max_new_tokens)
-        return max(1, min(req.max_new_tokens, cap - len(req.prompt)))
+        prefix, _ = self._admit_dims(req)
+        return max(1, min(req.max_new_tokens,
+                          cap - prefix - len(req.prompt)))
 
     def _bucket(self, n: int) -> int:
         """Smallest prefill bucket holding `n` prompt tokens (a serial
@@ -478,18 +524,24 @@ class ServingEngine:
         """Non-GEMM KV-cache HBM traffic one call issues: attention reads
         each row's cached keys and values once under the dense layout; the
         paged layout first materialises the gathered per-row view through
-        the page table and then reads it — 2x the cache bytes."""
+        the page table and then reads it — 2x the cache bytes. An encdec
+        call also reads each row's dense cross-KV (`max_len` source
+        rows)."""
         from repro_torch.models.config import kv_cache_bytes
 
         scale = 2.0 if self.kv_layout == "paged" else 1.0
+        if self.cfg.kind == "encdec":
+            scale += 1.0
         return scale * kv_cache_bytes(self.cfg, batch_rows * self.max_len)
 
     def _step_energy(self, key, n_rows: int, head_rows: int | None = None,
-                     batch_rows: int | None = None):
+                     batch_rows: int | None = None,
+                     src_rows: int | None = None):
         """Predicted `StepEnergyEstimate` for a step over `n_rows` GEMM
         rows (decode: max_batch; chunk: padded token count, with the LM
         head sized to the rows actually unembedded and MLA's cache-wide
-        K/V decompression sized to batch_rows * max_len), with the KV reads
+        K/V decompression sized to batch_rows * max_len; an encdec
+        admission's encoder and cross-KV over `src_rows`), with the KV reads
         of `batch_rows` rows as extra HBM bytes, cached per key. Raises
         when the energy model fails."""
         hit = self._step_energy_cache.get(key)
@@ -502,7 +554,7 @@ class ServingEngine:
                    if batch_rows is not None else None)
         est = gemm_fleet_energy(
             gemm_shape_counts(self.cfg, n_rows, head_tokens=head_rows,
-                              kv_rows=kv_rows),
+                              kv_rows=kv_rows, src_tokens=src_rows),
             chip=self.chip_spec, dtype=self.cfg.activation_dtype,
             configs=self.pretuned or None,
             extra_hbm_bytes=self._kv_gather_bytes(batch_rows or 0),
@@ -538,6 +590,20 @@ class ServingEngine:
         return self._cost(self._step_energy(
             ("chunk", int(width), int(chunk)),
             int(width * chunk), int(width), batch_rows=int(width)))
+
+    def _admit_cost(self, width: int, bucket: int
+                    ) -> tuple[float, float, object]:
+        """(energy_j, step_s, est) of one prefill-once admission call:
+        encdec prices the encoder and every decoder layer's cross-KV over
+        `width * bucket` source rows (no decoder rows); vlm the patch prefix
+        through the decoder. Neither runs the LM head."""
+        if self.cfg.kind == "encdec":
+            return self._cost(self._step_energy(
+                ("admit", int(width), int(bucket)), 0, 0,
+                batch_rows=int(width), src_rows=int(width * bucket)))
+        return self._cost(self._step_energy(
+            ("admit", int(width), int(bucket)), int(width * bucket), 0,
+            batch_rows=int(width)))
 
     def decode_step_estimate(self):
         """Predicted `StepEnergyEstimate` of one lockstep decode step over
@@ -575,12 +641,17 @@ class ServingEngine:
     # ------------------------------------------------------------------
     def _continuous_supported(self) -> bool:
         """Whether the family has what continuous serving in the engine's
-        layout and admission needs (the JAX engine's test, cut to the
-        families the port serves)."""
+        layout and admission needs (the JAX engine's test): admit families
+        run serial admission through admit + one full-prompt chunk, the
+        path of chunked admission."""
+        if (self.model.admit_dims is not None
+                and (self.model.admit is None
+                     or self.model.pack_admit is None)):
+            return False
         if self.kv_layout == "paged":
             return (self.model.prefill_chunk is not None
                     and self.model.init_page_pool is not None)
-        if self.admission == "chunked":
+        if self.admission == "chunked" or self.model.admit is not None:
             return (self.model.prefill_chunk is not None
                     and self.model.init_state is not None)
         return (self.model.init_cache is not None
@@ -599,14 +670,47 @@ class ServingEngine:
     def _logits(self, logits: torch.Tensor) -> np.ndarray:
         return logits.float().cpu().numpy()
 
+    def _admit_rows(self, reqs: list[Request], width: int
+                    ) -> tuple[dict, float]:
+        """Prefill-once admission of `reqs` into a fresh `width`-row zero
+        state, in one call at the bucket of the largest prefix or source
+        among them (the wave admits its whole batch; chunked admission packs
+        a step's fresh admissions). Returns (admitted state, the call's
+        energy)."""
+        dims = [self._admit_dims(r) for r in reqs]
+        bucket = self._bucket(max(max(p, s) for p, s in dims) or 1)
+        packed = self.model.pack_admit(
+            self.cfg, [r.extras for r in reqs], width, bucket,
+            device=self.device)
+        with ops.launch_objective(self.tune_objective):
+            state = self.model.admit(self.params, packed,
+                                     self._init_state(width), self.cfg)
+        adm_j, adm_s, _ = self._admit_cost(width, bucket)
+        self._tick(adm_s)
+        self._stats["admit_calls"] += 1
+        return state, adm_j
+
     def _prefill_slot(self, req: Request, rng) -> tuple[int, dict, float]:
         """Single-shot slot prefill (``admission="serial"``): one request
-        alone, right-padded to a pow2 bucket; samples its first token.
-        Returns (first token, batch-1 slot state, prefill energy)."""
+        alone, right-padded to a pow2 bucket; samples its first token. Admit
+        families run their admission call plus one full-prompt chunk, the
+        path of chunked admission. Returns (first token, batch-1 slot state,
+        prefill energy)."""
         n = len(req.prompt)
         bucket = self._bucket(n)
         toks = np.zeros((1, bucket), np.int32)
         toks[0, :n] = req.prompt
+        if self.model.admit is not None:
+            state, adm_j = self._admit_rows([req], 1)
+            with ops.launch_objective(self.tune_objective):
+                logits, state = self.model.prefill_chunk(
+                    self.params, torch.as_tensor(toks, device=self.device),
+                    torch.as_tensor([n], device=self.device), state,
+                    self.cfg)
+            pre_j, pre_s, _ = self._chunk_cost(1, bucket)
+            self._tick(pre_s)
+            tok = int(self._sample(self._logits(logits), [rng])[0])
+            return tok, state, adm_j + pre_j
         with ops.launch_objective(self.tune_objective):
             logits, state = self.model.prefill(
                 self.params,
@@ -806,12 +910,33 @@ class ServingEngine:
                 lv.lane_dirty.clear()
                 self._stats["lane_rebuilds"] += 1
             lv.lane_free.sort()
+            fresh: list[_Admission] = []
             for a in lv.adm:
                 if a.row < 0:
                     a.row = lv.lane_free.pop(0)
-                    if a.row in lv.lane_dirty:
+                    if self.model.admit is not None:
+                        # the admission splice below overwrites the whole
+                        # row: no zeroing needed
+                        lv.lane_dirty.discard(a.row)
+                        fresh.append(a)
+                    elif a.row in lv.lane_dirty:
                         lv.lane_dirty.discard(a.row)
                         zero_lane_row(a.row)
+            if fresh:
+                # prefill-once admission: one packed call over this step's
+                # fresh admissions, each row spliced into its lane row
+                Wb = 1
+                while Wb < len(fresh):
+                    Wb *= 2
+                t_adm = time.perf_counter()
+                src_state, adm_j = self._admit_rows(
+                    [a.req for a in fresh], Wb)
+                for i, a in enumerate(fresh):
+                    self._splice(lv.adm_state, src_state, i, a.row)
+                    a.chunk_energy_j += adm_j / Wb
+                    if a.t_start == 0.0:
+                        a.t_start = t_adm
+                del src_state
             pending = [a for a in lv.adm if a.ready is None]
             # shortest-remainder-first bucket: short admissions finish in
             # cheap narrow calls; long prompts still progress min(C, rem)
@@ -972,15 +1097,33 @@ class ServingEngine:
         for i, r in enumerate(batch_reqs):
             toks[i, :lens[i]] = r.prompt           # right-pad + lengths
         t0 = time.perf_counter()
-        with ops.launch_objective(self.tune_objective):
-            logits, state = self.model.prefill(
-                self.params,
-                {"tokens": torch.as_tensor(toks, device=self.device),
-                 "lengths": torch.as_tensor(lens, device=self.device)},
-                self.cfg, max_len=self.max_len)
-        logits = self._logits(logits)
-        t_first = time.perf_counter()
-        prefill_j, prefill_s, _ = self._prefill_cost(B * S, head_rows=B)
+        if self.model.admit is not None:
+            # admit families: one batched admission of all B rows, then one
+            # full-width chunk over the right-padded prompts (the path of
+            # chunked admission)
+            state, adm_j = self._admit_rows(batch_reqs, B)
+            Sb = self._bucket(S)
+            wt = np.zeros((B, Sb), np.int32)
+            wt[:, :S] = toks
+            with ops.launch_objective(self.tune_objective):
+                logits, state = self.model.prefill_chunk(
+                    self.params, torch.as_tensor(wt, device=self.device),
+                    torch.as_tensor(lens, device=self.device), state,
+                    self.cfg)
+            logits = self._logits(logits)
+            t_first = time.perf_counter()
+            prefill_j, prefill_s, _ = self._chunk_cost(B, Sb)
+            prefill_j += adm_j
+        else:
+            with ops.launch_objective(self.tune_objective):
+                logits, state = self.model.prefill(
+                    self.params,
+                    {"tokens": torch.as_tensor(toks, device=self.device),
+                     "lengths": torch.as_tensor(lens, device=self.device)},
+                    self.cfg, max_len=self.max_len)
+            logits = self._logits(logits)
+            t_first = time.perf_counter()
+            prefill_j, prefill_s, _ = self._prefill_cost(B * S, head_rows=B)
         self._tick(prefill_s)
         t_first_model = self.model_clock_s
         decode_energy_j, decode_step_s, _ = self._cost(
@@ -1080,6 +1223,13 @@ class ServingEngine:
           prefix registry (plus a frozen snapshot of a partial last page)
           for later requests to map copy-on-write.
 
+        Admit families run their admission at `admit_from_queue`, one
+        request at a time: the vlm patch prefix writes rows [0, prefix) of
+        the reserved pages and the text starts past them; encdec's cross-KV
+        and ``src_len`` (vlm's ``pos_off``) are dense batch-1 leaves of the
+        request, joined along the batch axis into every call's state, as
+        the JAX engine does. They never match nor register a prefix.
+
         Streams equal the dense layout's: the gathered per-row view spans
         the same max_len positions under the same masks, and every
         unmasked position holds the same written values. The allocator's
@@ -1101,6 +1251,48 @@ class ServingEngine:
         adm: list[_Admission] = []
         alloc = self._allocator
         pool = self._pool
+        admit_family = self.model.admit is not None
+        # admit families' dense per-request leaves: every leaf of the dense
+        # state but the index and the KV that has a paged twin in the pool
+        spec = self.model.init_state(self.cfg, 1, self.max_len,
+                                     device="meta")
+        extra_top_keys = [k for k in spec if k not in ("kv", "index")]
+        extra_kv_keys = [k for k in spec["kv"]
+                         if f"{k}_pages" not in pool and k not in pool]
+
+        def zero_leaf(leaf, ax: int, width: int) -> torch.Tensor:
+            shape = list(leaf.shape)
+            shape[ax] = width
+            return torch.zeros(shape, dtype=leaf.dtype, device=self.device)
+
+        def zero_extras(width: int) -> tuple[dict, dict]:
+            """Zeroed extra leaves of `width` rows."""
+            axes = self._state_axes
+            return ({k: zero_leaf(spec[k], axes[k], width)
+                     for k in extra_top_keys},
+                    {k: zero_leaf(spec["kv"][k], axes["kv"][k], width)
+                     for k in extra_kv_keys})
+
+        def gather_extras(recs: list, width: int) -> tuple[dict, dict]:
+            """Each call's extra leaves: the records' batch-1 leaves (zero
+            rows for empty slots and pad rows) joined along each leaf's
+            batch axis. Records are `_Admission`s or `_Slot`s."""
+            if not admit_family:
+                return {}, {}
+            rows = list(recs[:width]) + [None] * (width - len(recs[:width]))
+            ztop, zkv = zero_extras(1)
+            axes = self._state_axes
+
+            def join(key, leaves, zero, ax):
+                return torch.cat([(leaves(r)[key] if r is not None
+                                   and leaves(r) else zero[key])
+                                  for r in rows], dim=ax)
+
+            top = {k: join(k, lambda r: r.extra_top, ztop, axes[k])
+                   for k in extra_top_keys}
+            kvx = {k: join(k, lambda r: r.extra_kv, zkv, axes["kv"][k])
+                   for k in extra_kv_keys}
+            return top, kvx
 
         def dev_table(rows: list[list[int] | None], width: int):
             """(L, width, n_pg) device table from per-row page lists (rows
@@ -1127,9 +1319,11 @@ class ServingEngine:
             covers their full reservation (see the docstring above)."""
             while self.queue and len(adm) < self.lane_width:
                 req = self.queue[0]
+                prefix, src = self._admit_dims(req)
                 try:
                     a = alloc.admit(np.asarray(req.prompt, np.int32),
-                                    self._budget(req))
+                                    self._budget(req), prefix_rows=prefix,
+                                    reuse=not admit_family)
                 except PageCacheFull:
                     # under pool pressure the prefix registry is a cache,
                     # not a promise: shed it (sole-owner pages free now,
@@ -1143,8 +1337,29 @@ class ServingEngine:
                 self.queue.popleft()
                 apply_copies(a.copies)
                 rng = None if self.greedy else self._req_rng(req.uid)
-                adm.append(_Admission(req=req, rng=rng, base=a.base,
-                                      pages=a.pages))
+                rec = _Admission(req=req, rng=rng, base=a.base,
+                                 pages=a.pages, prefix=prefix)
+                if admit_family and (prefix or src):
+                    bucket = self._bucket(max(prefix, src))
+                    packed = self.model.pack_admit(
+                        self.cfg, [req.extras], 1, bucket,
+                        device=self.device)
+                    top0, kv0 = zero_extras(1)
+                    st = {"kv": {**pool, "table": dev_table([a.pages], 1),
+                                 **kv0},
+                          "index": torch.zeros(1, dtype=torch.long,
+                                               device=self.device), **top0}
+                    with ops.launch_objective(self.tune_objective):
+                        st = self.model.admit(self.params, packed, st,
+                                              self.cfg)
+                    rec.extra_top = {k: st[k] for k in extra_top_keys}
+                    rec.extra_kv = {k: st["kv"][k] for k in extra_kv_keys}
+                    adm_j, adm_s, _ = self._admit_cost(1, bucket)
+                    self._tick(adm_s)
+                    self._stats["admit_calls"] += 1
+                    rec.chunk_energy_j += adm_j
+                    rec.t_start = time.perf_counter()
+                adm.append(rec)
 
         def splice_ready() -> None:
             """Move parked admissions into free decode slots: a host move
@@ -1181,17 +1396,23 @@ class ServingEngine:
             lens = np.zeros(W, np.int64)
             base = np.zeros(W, np.int64)
             rows: list[list[int] | None] = [None] * W
+            recs: list[_Admission | None] = [None] * W
             t_disp = time.perf_counter()
             for a in pending:
                 n = min(C, len(a.req.prompt) - a.base)
                 toks[a.row, :n] = a.req.prompt[a.base:a.base + n]
                 lens[a.row] = n
-                base[a.row] = a.base
+                # cache positions sit past the admission prefix (vlm patch
+                # rows fill [0, prefix) of the row's pages)
+                base[a.row] = a.prefix + a.base
                 rows[a.row] = a.pages
+                recs[a.row] = a
                 if a.t_start == 0.0:
                     a.t_start = t_disp
-            state = {"kv": {**pool, "table": dev_table(rows, W)},
-                     "index": torch.as_tensor(base, device=self.device)}
+            extra_top, extra_kv = gather_extras(recs, W)
+            state = {"kv": {**pool, "table": dev_table(rows, W), **extra_kv},
+                     "index": torch.as_tensor(base, device=self.device),
+                     **extra_top}
             with ops.launch_objective(self.tune_objective):
                 logits, _ = self.model.prefill_chunk(
                     self.params, torch.as_tensor(toks, device=self.device),
@@ -1215,16 +1436,20 @@ class ServingEngine:
                 if a.base < plen:
                     keep.append(a)
                     continue
-                # prompt fully cached: publish its pages to the prefix
-                # registry (may snapshot a partial last page)
-                apply_copies(alloc.register(
-                    np.asarray(a.req.prompt, np.int32), a.pages, a.base))
+                if not admit_family:
+                    # prompt fully cached: publish its pages to the prefix
+                    # registry (may snapshot a partial last page); admit
+                    # families never do: their KV depends on the modality
+                    # input, so token-prefix reuse would be unsound
+                    apply_copies(alloc.register(
+                        np.asarray(a.req.prompt, np.int32), a.pages, a.base))
                 tok = int(self._sample(logits[a.row:a.row + 1], [a.rng])[0])
                 srec = _Slot(req=a.req, tokens=[tok],
                              prefill_energy_j=a.chunk_energy_j,
                              t_start=a.t_start, t_first=now,
                              t_first_model=self.model_clock_s, rng=a.rng,
-                             pages=a.pages, index=plen)
+                             pages=a.pages, index=a.prefix + plen,
+                             extra_top=a.extra_top, extra_kv=a.extra_kv)
                 if (a.req.eos_id is not None and tok == a.req.eos_id) or (
                         self._budget(a.req) <= 1):
                     self._finish(srec, now, decode_energy_j, results)
@@ -1245,11 +1470,14 @@ class ServingEngine:
             if not any(s is not None for s in slots):
                 return
             self._tick(decode_cost[1])
+            extra_top, extra_kv = gather_extras(slots, B)
             state = {"kv": {**pool, "table": dev_table(
-                         [s.pages if s else None for s in slots], B)},
+                         [s.pages if s else None for s in slots], B),
+                         **extra_kv},
                      "index": torch.as_tensor(
                          [s.index if s else 0 for s in slots],
-                         device=self.device)}
+                         device=self.device),
+                     **extra_top}
             with ops.launch_objective(self.tune_objective):
                 logits, _ = self.model.decode_step(
                     self.params, torch.as_tensor(token_buf,
@@ -1332,6 +1560,7 @@ class ServingEngine:
             "slot_occupancy": (s["resident_slot_steps"] / s["slot_steps"]
                                if s["slot_steps"] else 0.0),
             "lane_rebuilds": s["lane_rebuilds"],
+            "admit_calls": s["admit_calls"],
             "wall_s": s["wall_s"],
             "tokens_per_s": toks / s["wall_s"] if s["wall_s"] > 0 else 0.0,
             "energy_j": total_j,

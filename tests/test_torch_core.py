@@ -160,8 +160,14 @@ def test_gemm_shape_counts_equal_the_reference():
         for t in (0, 1, 4, 64, 2048):
             assert gemm_shape_counts(cfg, t, **kw) == jgemm_shape_counts(
                 jcfg, t, **kw)
-    with pytest.raises(NotImplementedError, match="dense"):
-        gemm_shape_counts(dataclasses.replace(cfg, kind="encdec"), 4)
+    # every kind is counted since the encdec/vlm slice: encdec's decoder
+    # with its cross Q/O, and its admission over `src_tokens`
+    ecfg = dataclasses.replace(cfg, kind="encdec", n_encoder_layers=2)
+    jecfg = dataclasses.replace(jcfg, kind="encdec", n_encoder_layers=2)
+    for kw in ({}, {"src_tokens": 64}, {"head_tokens": 0,
+                                         "src_tokens": 256}):
+        assert gemm_shape_counts(ecfg, 4, **kw) == jgemm_shape_counts(
+            jecfg, 4, **kw)
 
 
 @pytest.mark.parametrize("kw", (

@@ -245,6 +245,77 @@ def test_attention_row_does_not_depend_on_the_call(dev, H, KV, hd):
             assert torch.equal(got, want), (B, Sq)
 
 
+def test_encoder_attention_row_does_not_depend_on_the_call(dev):
+    """Non-causal attention over keys masked by a per-row `kv_len` (the
+    encoder's, seamless-m4t-medium's 16 heads of 64) gives row 0 the same
+    bits whatever the call's key count (its admission bucket, 8 to 512)
+    and batch (1 to 8)."""
+    from repro_torch.models.layers import _sdpa
+
+    g = torch.Generator(dev).manual_seed(9)
+    H, hd = 16, 64
+    q, k, v = (torch.randn((8, 512, H, hd), generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(3))
+    for n in (6, 24, 200):
+        lens = torch.randint(1, 513, (8,), generator=g, device=dev)
+        want = None
+        for sk in (8, 16, 32, 64, 128, 256, 512):
+            if sk < n:
+                continue
+            for B in (1, 2, 3, 4, 8):
+                kl = lens[:B].clamp(max=sk)
+                kl[0] = n
+                got = _sdpa(q[:B, :sk], k[:B, :sk], v[:B, :sk], causal=False,
+                            kv_len=kl)[0, :n]
+                if want is None:
+                    want = got
+                assert torch.equal(got, want), (n, sk, B)
+
+
+def test_apply_mrope_on_card_matches_cpu(dev):
+    """qwen2-vl-2b's M-RoPE (sections 16/24/24 of 128) on the card against
+    the CPU at 1e-5: f32 angles, cos and sin may differ in the last bit."""
+    from repro_torch.models.layers import apply_mrope
+
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(size=(2, 40, 12, 128)).astype(
+        np.float32))
+    pos = torch.from_numpy(rng.integers(0, 2048, (2, 40, 3)))
+    want = apply_mrope(x, pos, 1e6, (16, 24, 24))
+    got = apply_mrope(x.to(dev), pos.to(dev), 1e6, (16, 24, 24))
+    _assert_close(got.cpu(), want, 1e-5)
+
+
+def test_padded_head_takes_stream_and_keeps_a_rows_bits(dev):
+    """seamless-m4t-medium's LM head (N = 256206, K = 1024, f32 out) on its
+    padded rows (ldb 256208, `transformer.head_params`): ``stream``, against
+    the plain version, and row 0-3's bits the same at M = 1, 4 and 64 (the
+    split-K epilogue's scalar tail, N % 4 = 2)."""
+    from repro_torch.models.transformer import head_params
+
+    n, k = 256206, 1024
+    w = head_params(dev, torch.bfloat16, k, n)["w"]
+    assert w.stride() == (256208, 1)
+    g = torch.Generator(dev).manual_seed(10)
+    w.copy_(torch.randn((k, n), generator=g, device=dev) / k ** 0.5)
+    a = torch.randn((64, k), generator=g, device=dev).to(torch.bfloat16)
+    want4 = None
+    for m in (1, 4, 64):
+        p = plan(m, n, k, a.stride(), w.stride(), 0, 0, a.dtype,
+                 torch.float32)
+        assert p.path == "stream"
+        before = tiled_matmul.launches_by_path["stream"]
+        got = tiled_matmul(a[:m], w, out_dtype=torch.float32)
+        assert tiled_matmul.launches_by_path["stream"] == before + 1
+        _assert_close(got, matmul_ref(a[:m], w, out_dtype=torch.float32),
+                      TOL[torch.float32])
+        if m == 4:
+            want4 = got
+    assert torch.equal(got[:1], tiled_matmul(a[:1], w,
+                                             out_dtype=torch.float32))
+    assert torch.equal(got[:4], want4)
+
+
 @pytest.mark.parametrize("d", [2048, 3584, 5120])
 def test_rmsnorm_row_does_not_depend_on_the_row_count(dev, d):
     """rmsnorm gives row 0 the same bits at 1, 4, 16 and 512 rows: with the
@@ -601,3 +672,53 @@ def test_ssm_smoke_models_on_card_match_cpu(dev, arch, per_forward):
         _assert_close(out[dev].cpu(), out["cpu"], 1e-4)
     torch.cuda.synchronize()
     assert tiled_matmul.launches - before == 4 * per_forward
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "qwen2-vl-2b"])
+def test_admit_smoke_models_on_card_match_cpu(dev, arch):
+    """The encdec and vlm smoke models: one admission (two rows, one vlm row
+    text-only), two chunk calls (one row at 0 tokens) and two decode steps
+    on the card and on the CPU, the same weights; f32 logits agree to 1e-4,
+    and every projection of the admission, the chunks and the steps is a
+    kernel launch on the card."""
+    cfg = get_config(arch, smoke=True)
+    api = get_model(cfg)
+    cpu = api.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gpu = params_from_numpy(params_to_numpy(cpu), cfg, dev)
+    rng = np.random.default_rng(6)
+    if cfg.kind == "encdec":
+        extras = [{"src_embeds": rng.normal(size=(t, cfg.d_model)).astype(
+            np.float32)} for t in (12, 5)]
+    else:
+        extras = [{"patch_embeds": rng.normal(size=(6, cfg.d_model)).astype(
+            np.float32), "grid_hw": (2, 3)}, None]
+    mlp = 3 if cfg.gated_mlp else 2
+    per_forward = cfg.n_layers * (4 + mlp + (2 if cfg.kind == "encdec"
+                                             else 0)) + 1
+    per_admit = (cfg.n_encoder_layers * (4 + mlp) + 2 * cfg.n_layers
+                 if cfg.kind == "encdec" else cfg.n_layers * (4 + mlp))
+    before = tiled_matmul.launches
+    states = {}
+    for d, p in (("cpu", cpu), (dev, gpu)):
+        # f32 caches: a bf16 cache rounds a key written and read in one
+        # call on either side of a bf16 step where the card's and the CPU's
+        # f32 sums differ in the last bit, which moves the logits past 1e-4
+        st = api.init_state(cfg, 2, 32, device=d)
+        st["kv"] = {k: v.float() for k, v in st["kv"].items()}
+        states[d] = api.admit(p, api.pack_admit(cfg, extras, 2, 16, device=d),
+                              st, cfg)
+    out = {}
+    for _ in range(2):
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 8)))
+        lens = torch.tensor([8, 0])
+        for d, p in (("cpu", cpu), (dev, gpu)):
+            out[d], states[d] = api.prefill_chunk(p, toks.to(d), lens.to(d),
+                                                  states[d], cfg)
+        _assert_close(out[dev].cpu(), out["cpu"], 1e-4)
+    for _ in range(2):
+        tok = torch.as_tensor(rng.integers(0, cfg.vocab, 2))
+        for d, p in (("cpu", cpu), (dev, gpu)):
+            out[d], states[d] = api.decode_step(p, tok.to(d), states[d], cfg)
+        _assert_close(out[dev].cpu(), out["cpu"], 1e-4)
+    torch.cuda.synchronize()
+    assert tiled_matmul.launches - before == per_admit + 4 * per_forward

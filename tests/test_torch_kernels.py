@@ -273,7 +273,19 @@ class TestOps:
 
 SERVED_ARCHS = ("qwen2-7b", "qwen2.5-14b", "codeqwen1.5-7b",
                 "starcoder2-3b", "olmoe-1b-7b", "deepseek-v2-236b",
-                "falcon-mamba-7b", "zamba2-2.7b")
+                "falcon-mamba-7b", "zamba2-2.7b", "seamless-m4t-medium",
+                "qwen2-vl-2b")
+# the admit families serve at their chip_smoke.py row capacities
+MAX_LEN = {"qwen2-vl-2b": 2048}
+
+
+def _head_strides(cfg) -> tuple:
+    """op(B) strides of the config's untied LM head as the port stores it
+    (`transformer.head_params`: rows padded to a multiple of 8)."""
+    from repro_torch.models.transformer import head_params
+
+    return head_params("meta", torch.bfloat16, cfg.d_model,
+                       cfg.vocab)["w"].stride()
 QWEN2_7B_SERVING_NK = [(512, 3584), (3584, 3584), (18944, 3584),
                        (3584, 18944), (152064, 3584)]
 
@@ -507,6 +519,68 @@ class TestPlan:
             assert p.splits == p.segments == k_segments(n, k)
         assert k_segments(65024, 4096) == 1
 
+    # (N, K) -> (K segments, (wgmma tile width, splits) at M = 128, 256,
+    # 512 and 2048); at M <= 64 each takes the narrowest stream tile with
+    # one CTA per segment. The encoder's, the cross-KV's and the patch
+    # prefix's admission GEMMs run at up to 8 x the largest bucket rows.
+    ADMIT_PLANS = {
+        "seamless-m4t-medium": {
+            (1024, 1024): (8, ((64, 8), (64, 8), (64, 8), (128, 1))),
+            (1024, 4096): (32, ((64, 32), (64, 1), (128, 1), (128, 1))),
+            (4096, 1024): (8, ((64, 8), (64, 1), (128, 1), (128, 1))),
+        },
+        "qwen2-vl-2b": {
+            (256, 1536): (12, ((64, 12), (64, 12), (64, 12), (64, 1))),
+            (1536, 1536): (12, ((64, 12), (64, 1), (128, 1), (128, 1))),
+            (1536, 8960): (22, ((64, 22), (64, 1), (128, 1), (128, 1))),
+            (8960, 1536): (4, ((64, 1), (128, 1), (128, 1), (128, 1))),
+        },
+    }
+
+    @pytest.mark.parametrize("arch", sorted(ADMIT_PLANS))
+    def test_admit_family_serving_shapes_take_their_pinned_plan(self, arch):
+        """Every GEMM the chunked, serial or wave engine issues for
+        seamless-m4t-medium (max_len 512) and qwen2-vl-2b (max_len 2048),
+        admissions included, takes a fast path at the pinned tile, splits
+        and segments, none the general one; the LM heads (f32 out) take
+        ``stream`` at every row count a call unembeds, seamless's on its
+        padded rows (ldb 256208), which it could not stored contiguously
+        (ldb 256206 is not a multiple of 8)."""
+        from repro_torch.configs import get_config
+
+        cfg = get_config(arch)
+        ml = MAX_LEN.get(arch, 512)
+        fleet = set(ops.serving_gemm_fleet(
+            cfg, max_batch=4, max_len=ml, chunk_tokens=64, lane_width=8))
+        fleet |= set(ops.serving_gemm_fleet(cfg, max_batch=4, max_len=ml))
+        heads = {m for m, n, _ in fleet if n == cfg.vocab}
+        assert heads == {1, 2, 4, 8}
+        want = self.ADMIT_PLANS[arch]
+        assert {(n, k) for _, n, k in fleet if n != cfg.vocab} == set(want)
+        assert max(m for m, _, _ in fleet) == 8 * ml
+        ms = sorted({m for m, _, _ in fleet} | {9, 33, 128, 256, 512, 2048})
+        for (n, k), (segments, wide) in want.items():
+            for m in ms:
+                p = _plan(m, n, k)
+                assert p.segments == segments == k_segments(n, k), (m, n, k)
+                if m <= 64:
+                    assert (p.path, p.splits) == (STREAM, segments)
+                else:
+                    assert p.path == WGMMA, (m, n, k)
+                if m in (128, 256, 512, 2048):
+                    tile, splits = wide[(128, 256, 512, 2048).index(m)]
+                    assert p.tile == BlockConfig(128, tile, 64) and (
+                        p.splits == splits), (m, n, k)
+        n, k = cfg.vocab, cfg.d_model
+        strides = _head_strides(cfg)
+        assert strides[0] % 8 == 0 and strides[0] - n < 8
+        for m in sorted(heads):
+            p = _plan(m, n, k, b_strides=strides, out_dtype=torch.float32)
+            assert (p.path, p.tile.block_m) == (STREAM, 8)
+            assert p.splits == p.segments == k_segments(n, k) == 1
+        contiguous = _plan(1, n, k, out_dtype=torch.float32).path
+        assert contiguous == (GENERAL if n % 8 else STREAM)
+
     @pytest.mark.parametrize("m", [1, 2, 4, 8, 9, 16, 33, 64])
     def test_tied_head_takes_stream_on_the_nk_layout(self, m):
         """B stored (N, K) with K-contiguous rows (op(B) strides (1, ldb)):
@@ -654,8 +728,9 @@ class TestPlan:
         from repro_torch.configs import get_config
 
         cfg = get_config(arch)
+        ml = MAX_LEN.get(arch, 512)
         fleet = set(ops.serving_gemm_fleet(
-            cfg, max_batch=4, max_len=512, chunk_tokens=64, lane_width=8))
+            cfg, max_batch=4, max_len=ml, chunk_tokens=64, lane_width=8))
         nk = {(n, k) for _, n, k in fleet}
         if cfg.n_experts:
             f = cfg.d_ff_expert * cfg.n_shared_experts
@@ -666,8 +741,11 @@ class TestPlan:
             r, proj = cfg.d_model // 16, cfg.d_model // 16 + 2 * cfg.ssm_state
             nk |= {(proj, cfg.d_inner), (cfg.d_inner, r)}
             a_strides[(cfg.d_inner, r)] = (proj, 1)
+        b_strides = {} if cfg.tie_embeddings else {
+            (cfg.vocab, cfg.d_model): _head_strides(cfg)}
         for n, k in sorted(nk):
             seen = {_plan(m, n, k, a_strides=a_strides.get((n, k)),
+                          b_strides=b_strides.get((n, k)),
                           out_dtype=out).segments
                     for m in range(1, 513)
                     for out in (torch.bfloat16, torch.float32)}

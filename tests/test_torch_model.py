@@ -88,34 +88,39 @@ def test_config_equals_jax_field_by_field(smoke_cfg):
 
 def test_the_four_dense_configs_are_ported():
     """The four dense configs and, since the MoE slice, the two MoE ones;
-    since the SSM slice, falcon-mamba-7b and zamba2-2.7b."""
+    since the SSM slice, falcon-mamba-7b and zamba2-2.7b; since the
+    encdec/vlm slice, seamless-m4t-medium and qwen2-vl-2b: every
+    architecture of the JAX package."""
+    from repro.configs import list_archs as jlist_archs
     from repro_torch.configs import list_archs
 
     assert sorted(list_archs()) == sorted(
         DENSE_ARCHS + ("olmoe-1b-7b", "deepseek-v2-236b", "falcon-mamba-7b",
-                       "zamba2-2.7b"))
-    for arch in ("seamless-m4t-medium", "qwen2-vl-2b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_config(arch)
+                       "zamba2-2.7b", "seamless-m4t-medium", "qwen2-vl-2b"))
+    assert sorted(list_archs()) == sorted(jlist_archs())
 
 
 @pytest.mark.parametrize("arch,item", [
     ("seamless-m4t-medium", "A6"), ("qwen2-vl-2b", "A6")])
 def test_unported_archs_and_kinds_name_their_roadmap_item(arch, item):
-    """The encdec/vlm archs and kinds still raise, naming their ROADMAP
-    item; moe, mla_moe and (since the SSM slice) mamba1, mamba2 and hybrid
-    are served."""
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue {item}"):
-        get_config(arch)
+    """The last archs and kinds that named a ROADMAP item (A6, encdec/vlm)
+    are served since that slice: their configs resolve, their kinds have a
+    chunked prefill and an admission, and no name is left unported (an
+    unknown arch or kind raises KeyError)."""
+    assert get_config(arch).kind == jget_config(arch).kind
     kind = jget_config(arch).kind
-    other = dataclasses.replace(get_config("qwen2-7b", smoke=True),
-                                kind=kind)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue {item}"):
-        get_model(other)
+    api = get_model(dataclasses.replace(get_config("qwen2-7b", smoke=True),
+                                        kind=kind))
+    assert api.prefill_chunk is not None and api.admit is not None
     for kind in ("moe", "mla_moe", "mamba1", "mamba2", "hybrid"):
         cfg = dataclasses.replace(get_config("qwen2-7b", smoke=True),
                                   kind=kind)
         assert get_model(cfg).prefill_chunk is not None
+    with pytest.raises(KeyError):
+        get_config(f"{arch}-{item}")
+    with pytest.raises(KeyError):
+        get_model(dataclasses.replace(get_config("qwen2-7b", smoke=True),
+                                      kind=item))
 
 
 @pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
