@@ -114,12 +114,31 @@ build of PyTorch. Phases, each fatal on failure:
    timed. The phase prints its seconds and each model's peak device
    memory.
 
+14. the predictor-driven fleet scheduler and fault recovery at `plan`'s
+   tiles, run between phases 9 and 10 on phase 4's qwen2-7b weights,
+   which every member shares: the JAX package's fleet mix (4 batch prompts
+   of 384 tokens ahead of 12 interactive prompts of 8-16, budgets 4, 8 or
+   32) with an interactive TTFT bound on the fleet model clock; (a) a
+   two-member fleet (one member priced on the h100, one on the RTX 4070)
+   and each member alone: every request finished once, streams identical,
+   launches 197 per forward summed over the members, none on general, the
+   fleet ledger holding every request's joules, attainment and J/token
+   against the best single engine printed; (b) three members under a fault
+   plan on the model clock (artifact corruption: tuning degraded and no
+   launch off `plan`'s tile; a stall the straggler detector flags, its rows
+   migrating; a crash that loses device state, its requests replaying)
+   against the fault-free fleet: nothing lost, migrated and replayed
+   streams identical, replays append-only; (c) two paged members with half
+   of each pool squeezed while their first requests run: streams identical
+   to (a)'s and the pages returned. Its shapes are timed as in phase 5; it
+   prints its seconds and peak device memory.
+
 After phase 10, ``build/serving_shapes.json`` holds qwen2-7b's and
 qwen2.5-14b's serving launches by shape, for ``tools/gemm_sums.py``.
 
 It prints a JSON line of per-kernel numbers (launches and times summed
-over phases 4-5, 12 and 13, the runs of the port's main paths) and, last,
-the device line.
+over phases 4-5, 12, 13 and 14, the runs of the port's main paths) and,
+last, the device line.
 Without a GPU, or without the repository beside it, it exits non-zero.
 """
 
@@ -164,11 +183,12 @@ LOOP_MIN_ROWS = 2076 + 519
 LOOP_MIN_R2 = 0.8
 PAPER_RUNTIME_R2, PAPER_RUNTIME_MEAN_PCT = 0.98, 15.57
 # phase 9: rows measured for power (fewer if the probed counter period would
-# take the sweep past its budget), and the held-out power R2 below which the
-# pipeline is broken (swapped columns or the simulator's power give about 0
-# or below). The paper's power figures on its RTX 4070 are printed beside
-# the card's.
-POWER_ROWS = 1000
+# take the sweep past its budget; about 0.55 s a row, so 800 rows keep the
+# whole script, phase 14 included, about 100 s under its 1,100 s cap), and
+# the held-out power R2 below which the pipeline is broken (swapped columns
+# or the simulator's power give about 0 or below). The paper's power figures
+# on its RTX 4070 are printed beside the card's.
+POWER_ROWS = 800
 POWER_SWEEP_BUDGET_S = 540.0
 POWER_MIN_R2 = 0.5
 # the largest compute- and memory-bound rows are measured again over this
@@ -2707,6 +2727,292 @@ def phase_admit(dev) -> dict:
     return {"entries": entries, "launches": dict(launches)}
 
 
+# phase 14: the fleet mix of the JAX package's serving bench
+# (`benchmarks/bench_serving.py` `_fleet_workload`: long best-effort
+# "batch" prompts queued ahead of a burst of short SLO-bound "interactive"
+# ones) at the card's geometry, on fleets of qwen2-7b engines that share
+# phase 4's weights
+FLEET_LONG, FLEET_SHORT = 4, 12
+FLEET_LONG_LEN = 384
+FLEET_SHORT_LEN = (8, 16)
+FLEET_BUDGETS = (4, 8, 32)
+# (a)'s two members in the reference's two-member shape: one priced on the
+# card, one on the paper's RTX 4070 (both run on the one H100); (b)'s three
+FLEET_CHIPS = {"h100": "h100", "ada": "rtx4070"}
+CHAOS_CHIPS = {"h100-a": "h100", "h100-b": "h100", "ada": "rtx4070"}
+# the interactive TTFT bound on the fleet model clock: this many times the
+# h100 model's TTFT of a 16-token prompt on an idle member (one 1 x 16
+# chunk step), room for the chunk steps of the batch prompts ahead of it
+FLEET_SLO_STEPS = 4.0
+# the JAX package's fleet smoke gates (attainment, fleet J/token over the
+# best single engine's), set for its tiny model: printed beside the card's
+# run, not gated
+REF_ATTAIN_MIN, REF_JTOK_RATIO_MAX = 0.95, 1.0
+# (b)'s fault plan, in fractions of the fault-free run's makespan: predictor
+# artifact corruption on h100-b, a stall of ada (step time x8; the
+# straggler detector must flag it after `CHAOS_PATIENCE` slow steps and the
+# scheduler evict it, its rows migrating), then a crash of h100-b that loses
+# its device state (its requests replay)
+CHAOS_CORRUPT_AT = 0.05
+CHAOS_STALL_AT, CHAOS_STALL_FOR, CHAOS_STALL_FACTOR = 0.1, 0.5, 8.0
+CHAOS_CRASH_AT = 0.45
+CHAOS_PATIENCE = 2
+
+
+def _fleet_requests(cfg) -> list:
+    """(Request, SLA class) of the fleet mix, fresh objects from a seeded
+    generator: `FLEET_LONG` batch prompts of `FLEET_LONG_LEN` tokens ahead
+    of `FLEET_SHORT` interactive prompts of 8-16, budgets from
+    `FLEET_BUDGETS`."""
+    from repro_torch.serving.engine import Request
+
+    rng = np.random.default_rng(0)
+    out = []
+    for uid in range(FLEET_LONG + FLEET_SHORT):
+        batch = uid < FLEET_LONG
+        n = (FLEET_LONG_LEN if batch else
+             int(rng.integers(FLEET_SHORT_LEN[0], FLEET_SHORT_LEN[1] + 1)))
+        prompt = rng.integers(0, cfg.vocab, n).astype(np.int32)
+        out.append((Request(uid=uid, prompt=prompt, max_new_tokens=int(
+            rng.choice(FLEET_BUDGETS))), "batch" if batch else "interactive"))
+    return out
+
+
+def _fleet_engine(api, params, cfg, dev, chip: str, **kw):
+    """One fleet member: phase 4's geometry, priced on `chip`."""
+    from repro_torch.serving.engine import ServingEngine
+
+    return ServingEngine(api, params, cfg, max_batch=4, max_len=512,
+                         chunk_tokens=64, chip=chip, device=dev, **kw)
+
+
+def _serve_fleet(tag: str, sched, cfg, log: collections.Counter) -> tuple:
+    """Serve the fleet mix through `sched` with the launch counters set to
+    0 just before and read just after, every GEMM launch recorded in `log`.
+    Gates: every request has one terminal disposition and finishes once,
+    launches = one forward's GEMMs x the forwards every member dispatched,
+    each at `plan`'s tile and none on general, the fleet ledger sums from
+    the members and holds every request's joules. Returns ({uid: Result},
+    the report, the requests, the launches per path)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.tiled_matmul import tiled_matmul
+
+    reqs = _fleet_requests(cfg)
+    for r, sla in reqs:
+        sched.submit(r, sla=sla)
+    shapes: collections.Counter = collections.Counter()
+    ops.tiled_matmul = _recording(shapes)
+    try:
+        tiled_matmul.launches = 0
+        tiled_matmul.launches_by_path.update(
+            dict.fromkeys(tiled_matmul.launches_by_path, 0))
+        t0 = time.perf_counter()
+        results = sched.run_until_empty()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = tiled_matmul.launches
+        by_path = dict(tiled_matmul.launches_by_path)
+    finally:
+        ops.tiled_matmul = tiled_matmul
+    log.update(shapes)
+    rep = sched.report()
+    engines = rep["engines"]
+    forwards = sum(e["engine"]["chunk_steps"] + e["engine"]["decode_steps"]
+                   for e in engines.values())
+    per_forward = _gemms_per_forward(cfg)
+    tuned = sum(c for key, c in shapes.items() if key[5] is not None)
+    toks = rep["generated_tokens"]
+    _say(f"[fleet {tag}] {len(results)} requests, {toks} tokens, wall "
+         f"{wall:.3f} s, {toks / wall:.2f} tokens/s; routed "
+         + ", ".join(f"{n} {e['routed']}" for n, e in engines.items())
+         + f"; makespan {rep['makespan_model_s']:.4f} s, fleet "
+         f"{rep['fleet_energy_j']:.2f} J, {rep['fleet_j_per_token']:.4f} "
+         f"J/token (model clock, the energy model's members), attainment "
+         f"{rep['attainment']:.3f}, parks {rep['parks']}, drains "
+         f"{rep['drains']}")
+    _say(f"[fleet {tag}] kernel launches {launches} = {per_forward} x "
+         f"{forwards} forwards? {launches == per_forward * forwards}; by "
+         f"path {by_path}; off plan's tile {tuned}")
+    if (launches != per_forward * forwards or launches == 0
+            or by_path["general"] != 0 or sum(by_path.values()) != launches
+            or tuned):
+        raise SystemExit(f"[fleet {tag}] the members did not launch the "
+                         f"kernel {per_forward} times per forward at plan's "
+                         "tiles")
+    log_ = sched.request_log
+    by_uid = {r.uid: r for r in results}
+    uids = [r.uid for r, _ in reqs]
+    if (sorted(log_) != uids or sorted(by_uid) != uids
+            or len(results) != len(uids)
+            or any(d["status"] != "ok" for d in log_.values())):
+        raise SystemExit(f"[fleet {tag}] requests not finished exactly once: "
+                         f"{sorted(by_uid)}, dispositions "
+                         f"{ {u: d['status'] for u, d in log_.items()} }")
+    ledger = sum(e["engine"]["energy_j"] + e["gap_idle_j"]
+                 for e in engines.values())
+    attributed = sum(r.energy_j for r in results)
+    if (abs(ledger - rep["fleet_energy_j"]) > 1e-9 * rep["fleet_energy_j"]
+            or attributed > rep["fleet_energy_j"] * (1 + 1e-9)):
+        raise SystemExit(f"[fleet {tag}] ledger {rep['fleet_energy_j']} J "
+                         f"against members {ledger} J, requests "
+                         f"{attributed} J")
+    rep["wall_s"] = wall
+    return by_uid, rep, reqs, by_path
+
+
+def _same_streams(tag: str, got: dict, want: dict, probe) -> None:
+    """`_stream_gate` over two runs' results by uid."""
+    _stream_gate(tag, [got[u] for u in sorted(got)],
+                 [want[u] for u in sorted(want)], probe)
+
+
+def phase_fleet(dev, api, params, cfg) -> dict:
+    """The predictor-driven fleet scheduler and fault recovery on the card,
+    on phase 4's qwen2-7b weights, shared by every member, at `plan`'s
+    tiles: (a) routing: the fleet mix through a two-member fleet and
+    through each member alone (`route_to`), streams identical; (b) chaos:
+    a three-member fleet under artifact corruption, a stall the straggler
+    detector must catch (rows migrate) and a crash that loses device state
+    (requests replay), against the same fleet without faults; (c) page
+    pressure: two paged members, half of each pool squeezed while its first
+    requests are served. Returns {"entries": per-path timing of the
+    phase's shapes, "launches": launches per path}."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.faults import FaultEvent, FaultPlan
+    from repro_torch.serving.scheduler import FleetScheduler, SLAClass
+    from repro_torch.train.ft import StragglerConfig
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    ops._TUNED.clear()
+    log: collections.Counter = collections.Counter()
+    launched: collections.Counter = collections.Counter()
+    probe = lambda: _row_probe(dev, api, params, cfg, "fleet probe")
+    idle_s = _fleet_engine(api, params, cfg, dev, "h100").fused_step_estimate(
+        1, 16).step_s
+    slo = FLEET_SLO_STEPS * idle_s
+    _say(f"[fleet] interactive TTFT SLO {slo * 1e3:.3f} ms on the fleet "
+         f"model clock: {FLEET_SLO_STEPS:g} x the h100 model's TTFT of a "
+         f"16-token prompt on an idle member ({idle_s * 1e3:.3f} ms)")
+
+    def fleet(chips, policy: dict | None = None, **kw):
+        engines = {name: _fleet_engine(api, params, cfg, dev, chip)
+                   for name, chip in chips.items()}
+        return FleetScheduler(engines, sla={
+            "interactive": SLAClass("interactive", slo, **(policy or {})),
+            "batch": SLAClass("batch", None)}, **kw)
+
+    # (a) routing
+    runs = {}
+    for label, route_to in (("fleet", None), ("h100", "h100"),
+                            ("ada", "ada")):
+        by_uid, rep, _, by_path = _serve_fleet(
+            f"(a) {label}", fleet(FLEET_CHIPS, route_to=route_to), cfg, log)
+        runs[label] = (by_uid, rep)
+        launched.update(by_path)
+    ref = runs["fleet"][0]
+    for label in ("h100", "ada"):
+        _same_streams(f"fleet (a) {label} alone against the fleet",
+                      runs[label][0], ref, probe)
+    best = min(("h100", "ada"), key=lambda n: runs[n][1]["fleet_j_per_token"])
+    ratio = (runs["fleet"][1]["fleet_j_per_token"]
+             / runs[best][1]["fleet_j_per_token"])
+    _say(f"[fleet (a)] attainment {runs['fleet'][1]['attainment']:.3f} (the "
+         f"reference's smoke gate >= {REF_ATTAIN_MIN}), fleet J/token over "
+         f"the best single engine ({best}) {ratio:.4f} (gate <= "
+         f"{REF_JTOK_RATIO_MAX}): the h100 model's numbers, not gated here")
+
+    # (b) chaos, against the same three-member fleet without faults
+    defer = {"policy": "defer", "defer_s": 0.01, "max_defers": 2}
+    base, base_rep, _, by_path = _serve_fleet(
+        "(b) no faults", fleet(CHAOS_CHIPS, defer), cfg, log)
+    launched.update(by_path)
+    _same_streams("fleet (b) no faults against (a)", base, ref, probe)
+    H = base_rep["makespan_model_s"]
+    plan = FaultPlan([
+        FaultEvent(CHAOS_CORRUPT_AT * H, "artifact_corruption", "h100-b"),
+        FaultEvent(CHAOS_STALL_AT * H, "stall", "ada",
+                   factor=CHAOS_STALL_FACTOR,
+                   duration_s=CHAOS_STALL_FOR * H),
+        FaultEvent(CHAOS_CRASH_AT * H, "crash", "h100-b", state_lost=True),
+    ], seed=0)
+    sched = fleet(CHAOS_CHIPS, defer, fault_plan=plan,
+                  straggler_cfg=StragglerConfig(patience=CHAOS_PATIENCE))
+    got, rep, reqs, by_path = _serve_fleet("(b) chaos", sched, cfg, log)
+    launched.update(by_path)
+    faults, engines, rlog = rep["faults"], rep["engines"], sched.request_log
+    migrated = sorted(u for u, d in rlog.items() if d["migrations"])
+    replayed = {r.uid: list(r.replay or []) for r, _ in reqs
+                if rlog[r.uid]["retries"]}
+    _say(f"[fleet (b)] plan {[(e['kind'], e['member'], round(e['t_model_s'], 5), e['fired']) for e in faults['plan']['events']]}; "
+         f"evictions {faults['evictions']}, crashes {faults['crashes']}, "
+         f"migrations {faults['migrations']} (uids {migrated}), replays "
+         f"{faults['replays']} (emitted before the crash: "
+         f"{ {u: len(t) for u, t in replayed.items()} }), lost "
+         f"{faults['lost_energy_j']:.3f} J, degraded "
+         f"{faults['degraded_members']} "
+         f"({engines['h100-b']['engine']['tuning_degraded_reason']!r})")
+    fired = all(e["fired"] for e in faults["plan"]["events"])
+    if not (fired and faults["degraded_members"] == ["h100-b"]
+            and engines["ada"]["evictions"] >= 1 and migrated
+            and engines["h100-b"]["crashed"] and faults["crashes"] == 1
+            and any(replayed.values()) and faults["lost_energy_j"] > 0.0
+            and not ops._TUNED):
+        raise SystemExit("[fleet (b)] the fault plan did not play out: "
+                         f"{faults}")
+    for uid, prefix in replayed.items():
+        if got[uid].tokens.tolist()[:len(prefix)] != prefix:
+            raise SystemExit(f"[fleet (b)] request {uid}'s replay rewrote "
+                             "tokens it had streamed")
+    _same_streams("fleet (b) chaos against no faults", got, base, probe)
+
+    # (c) page pressure: each paged member serves half the mix (its batch
+    # prompts and 3 interactive ones under pressure, then the rest), its
+    # pool just large enough for the first part at once
+    split = {"h100-a": [], "h100-b": []}
+    for (r, _), name in zip(_fleet_requests(cfg), [
+            "h100-a", "h100-a", "h100-b", "h100-b"] + ["h100-a", "h100-b"]
+            * (FLEET_SHORT // 2)):
+        split[name].append(r)
+    paged = {}
+    for name, reqs in split.items():
+        first = [r for r in reqs if r.uid < FLEET_LONG] + [
+            r for r in reqs if r.uid >= FLEET_LONG][:3]
+        rest = [r for r in reqs if r not in first]
+        pages = sum(-(-(len(r.prompt) + r.max_new_tokens) // 64)
+                    for r in first)
+        eng = _fleet_engine(api, params, cfg, dev, "h100", kv_layout="paged",
+                            page_size=64, num_pages=pages + 1)
+        taken = eng.inject_page_pressure(pages // 2)
+        by_path, res, run = _serve_requests(f"fleet (c) {name} squeezed",
+                                            eng, cfg, log, first)
+        launched.update(by_path)
+        returned = eng.release_page_pressure()
+        by_path, res2, run2 = _serve_requests(f"fleet (c) {name} released",
+                                              eng, cfg, log, rest)
+        launched.update(by_path)
+        pg = eng.report()["paging"]
+        _say(f"[fleet (c)] {name}: pool {pages} pages, {taken} squeezed for "
+             f"{len(first)} requests ({run['chunk_steps']} chunk steps, "
+             f"{run['decode_steps']} decode steps), {returned} returned; "
+             f"then {len(rest)} requests; peak in use {pg['peak_in_use']}, "
+             f"registry sheds {pg['registry_sheds']}, evictions "
+             f"{pg['evictions']}; at the end {pg['pages_in_use']} in use, "
+             f"{pg['registry_entries']} registry entries, squeezed "
+             f"{pg['squeezed']}")
+        if (taken != pages // 2 or returned != taken or pg["squeezed"]
+                or pg["pages_in_use"] != pg["registry_entries"]):
+            raise SystemExit(f"[fleet (c)] {name}: pages not returned: {pg}")
+        paged.update({r.uid: r for r in res + res2})
+    _same_streams("fleet (c) paged under pressure against (a)", paged, ref,
+                  probe)
+    entries = phase_serving_shapes(dev, log, tag="fleet shapes")
+    _say(f"[fleet] launches per path {dict(launched)}; peak device memory "
+         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; phase 14 took "
+         f"{time.perf_counter() - t_phase:.1f} s on {_nvidia_smi()}")
+    return {"entries": entries, "launches": launched}
+
+
 def _merge_entries(groups: list) -> dict:
     """Per-path JSON entries summed over `groups` (each phase 5's form):
     times and bounds added, the bound's kind from the summed operations and
@@ -2768,6 +3074,7 @@ def main() -> int:
     phase_logits(dev, eng, params, cfg)
     loop = phase_loop(dev, api, params, cfg, shapes, untraced)
     phase_energy(dev, api, params, cfg, shapes, *loop)
+    fleet = phase_fleet(dev, api, params, cfg)
     del eng, params, loop
     _free()
     dense = phase_dense(dev)
@@ -2778,14 +3085,14 @@ def main() -> int:
     _say(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     _say(_nvidia_smi())
     # one entry per path the serving runs take, over the main paths' runs:
-    # qwen2-7b (phases 4-5), the SSM and hybrid models (phase 12) and the
-    # encoder-decoder and vision models (phase 13); the general path serves
-    # no bf16 projection (every phase checks 0 launches there), and its
-    # time at the same shapes is each entry's v3_ms
-    launched = sum([*ssm["launches"].values(), *admit["launches"].values()],
-                   collections.Counter(by_path))
+    # qwen2-7b (phases 4-5), the SSM and hybrid models (phase 12), the
+    # encoder-decoder and vision models (phase 13) and the fleets (phase
+    # 14); the general path serves no bf16 projection (every phase checks 0
+    # launches there), and its time at the same shapes is each entry's v3_ms
+    launched = sum([*ssm["launches"].values(), *admit["launches"].values(),
+                    fleet["launches"]], collections.Counter(by_path))
     merged = _merge_entries([entries, *ssm["entries"].values(),
-                             *admit["entries"].values()])
+                             *admit["entries"].values(), fleet["entries"]])
     _say(json.dumps({"kernels": [{
         "name": f"tiled_matmul[{path}]", "route": "cuda",
         "source": "src/repro_torch/csrc/tiled_matmul.cu",

@@ -79,8 +79,33 @@ DEFAULT_ARTIFACTS_DIR = os.path.join(
 # untuned default: the general path's tile, the one compiled tile that takes
 # every GEMM (the role the reference's BlockConfig(128, 128, 128) plays)
 BASELINE = DEFAULT_CONFIG
+# the JAX package's untuned default, BlockConfig(128, 128, 128): what its
+# degraded mode prices on the reference's chips
+REFERENCE_BASELINE = BlockConfig(128, 128, 128)
 
 _CACHE_FILE_VERSION = 1
+
+
+def baseline_configs(shapes, chip: ChipSpec | str,
+                     dtype: str = "bf16") -> dict[tuple, BlockConfig]:
+    """Map every (m, n, k) shape to its untuned tile on `chip`: the
+    degraded-mode table a serving engine prices with when a predictor
+    artifact is corrupt (`ServingEngine.retune`), so pricing and scheduling
+    keep working and the fallback shows in reports.
+
+    The reference maps every shape to its BASELINE. Here the table only
+    prices and launches nothing (`matmul` reads the installed winners, and
+    a degraded retune installs none), so each shape gets the tile an
+    untuned shape is priced at (`energy.default_tile`): on the "h100" the
+    one `plan` launches, on the reference's chips the reference's BASELINE,
+    so the degraded prices there equal the reference's."""
+    from repro_torch.core.energy import default_tile
+
+    on_card = get_chip(chip).name == H100.name
+    return {tuple(int(x) for x in s):
+            (BlockConfig(*default_tile(*s, chip, dtype)) if on_card
+             else REFERENCE_BASELINE)
+            for s in shapes}
 _TORCH_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 # the most candidates `h100_candidate_tiles` returns (the general tile, one
 # stream tile, the wgmma tiles): an H100 tuner verifies this many, so it

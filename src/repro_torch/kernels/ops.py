@@ -121,6 +121,45 @@ def warm_gemm_cache(shapes, *, dtype: str = "bfloat16",
             _TUNED[(m, n, k, tdt, objective)] = cfg
     return dict(zip(shapes, best))
 
+
+def warm_fleet_gemm_cache(specs, *, objective: str = "runtime",
+                          rank_mode: str = "auto"
+                          ) -> list[dict[tuple, BlockConfig]]:
+    """Warm a fleet of serving engines in one batched tuning pass per
+    chip, as the reference does.
+
+    `specs` is one dict per engine: a ``cfg`` plus `serving_gemm_fleet`'s
+    keyword arguments (``max_batch``, ``max_len``, ``chunk_tokens``,
+    ``lane_width``, ``grain``, ...) and optionally ``chip`` (None: the
+    active chip) and ``dtype``. Engines sharing a (chip, dtype) are unioned
+    into one shape fleet and tuned together. Returns one {shape:
+    BlockConfig} per spec (its own shapes only), for
+    `ServingEngine.pretuned`; a tuner failure gives {} for its group, as in
+    `warm_gemm_cache`. Only the active chip's winners are installed
+    (`warm_gemm_cache`'s rule): a member priced on another chip gets its
+    winners back and launches none of them."""
+    from repro_torch.core.chips import get_chip
+
+    fleets: list[list[tuple[int, int, int]]] = []
+    keys: list[tuple[str, str]] = []
+    groups: dict[tuple[str, str], set] = {}
+    for sp in specs:
+        kw = {k: v for k, v in sp.items() if k not in ("cfg", "chip", "dtype")}
+        fleet = serving_gemm_fleet(sp["cfg"], **kw)
+        chip = sp.get("chip")
+        key = (get_chip(chip).name if chip else _CHIP,
+               sp.get("dtype", "bfloat16"))
+        fleets.append(fleet)
+        keys.append(key)
+        groups.setdefault(key, set()).update(fleet)
+    tuned = {(chip, dtype): warm_gemm_cache(
+                 sorted(shapes), dtype=dtype, objective=objective, chip=chip,
+                 rank_mode=rank_mode)
+             for (chip, dtype), shapes in groups.items()}
+    return [{s: tuned[key][s] for s in fleet if s in tuned[key]}
+            for fleet, key in zip(fleets, keys)]
+
+
 @contextlib.contextmanager
 def launch_objective(objective: str):
     """Within the block, `matmul` launches the installed winners of

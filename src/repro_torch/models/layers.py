@@ -462,3 +462,17 @@ def insert_slot_state(batch_state, slot_state, axes, slot: int):
 
     tree_map(insert, batch_state, slot_state, axes)
     return batch_state
+
+
+def state_structures_match(a, b) -> bool:
+    """True when two decode-state trees (tensors, or meta tensors of the
+    same shapes) share their keys, per-leaf shapes and dtypes: the check
+    before a checkpointed batch-1 row is spliced into another engine's
+    state (`ServingEngine.adopt`), where a family or geometry mismatch
+    shows as a key or shape difference before any device op runs."""
+    if isinstance(a, Mapping) or isinstance(b, Mapping):
+        return (isinstance(a, Mapping) and isinstance(b, Mapping)
+                and a.keys() == b.keys()
+                and all(state_structures_match(a[k], b[k]) for k in a))
+    return (torch.is_tensor(a) and torch.is_tensor(b)
+            and tuple(a.shape) == tuple(b.shape) and a.dtype == b.dtype)

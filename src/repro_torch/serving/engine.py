@@ -78,11 +78,19 @@ And one where the JAX engine is at fault (ROADMAP queue C): an engine
 pretuned for another objective than "runtime" launches that objective's
 winners (`ops.launch_objective`), so it runs the tiles it prices.
 
-Not ported yet (ROADMAP queue A): tp (A7), and what only the fleet scheduler
-and fault recovery call (A8): `chunk_policy`, replay requests, `adopt`,
-`checkpoint_inflight`, `retune` and page pressure
-(`inject_page_pressure`, `release_page_pressure`). Nothing here reports a
-placeholder for them.
+The hooks of the fleet scheduler and fault recovery
+(`serving.scheduler`, `serving.faults`) are the JAX engine's: a
+`chunk_policy` consulted by the chunk stage, the `lane_view` and
+`backlog_tokens` routing reads, replay requests (`Request.replay`, chunked
+dense serving only), `checkpoint_inflight` and `adopt` (a decode-state
+row moved between engines that share one params object,
+`state_compatible`), `charge_lost_energy`, `retune` and page pressure
+(`inject_page_pressure`, `release_page_pressure`). A checkpointed row is
+a clone: the port's decode state is updated in place, so a view of a
+failed member's cache would change under it. A degraded `retune` prices at
+`autotuner.baseline_configs` and installs no winner, so it launches what
+it launched before. The engine is one card: `tp` is 1 (tensor
+parallelism is ROADMAP A7).
 
 Where the JAX engine donates the decode state to its jitted calls, this
 engine updates the KV tensors and the page pool in place.
@@ -125,6 +133,13 @@ class Request:
     eos_id: int | None = None
     submit_s: float = 0.0       # stamped by ServingEngine.submit
     submit_model_s: float = 0.0  # engine model-clock at submission
+    sla: str | None = None      # SLA-class name (FleetScheduler telemetry)
+    # tokens a failed attempt already emitted (fault recovery): the request
+    # prefills over prompt + replay[:-1] and decodes from the last emitted
+    # token, so the client-visible stream stays an append-only continuation
+    # and the final Result carries the whole stream once. Chunked dense
+    # serving only.
+    replay: list[int] | None = None
     # modality inputs of the admit families' prefill-once admission:
     # encdec {"src_embeds": (T, d)}, vlm {"patch_embeds": (P, d),
     # "grid_hw": (gh, gw)}; None for a text-only request
@@ -188,10 +203,16 @@ class _Admission:
     prefix: int = 0             # paged layout: admission-prefix cache rows
     extra_top: dict | None = None   # paged admit families (see _Slot)
     extra_kv: dict | None = None
+    # the tokens the chunks prefill: the prompt, extended by a replayed
+    # request's emitted tokens but the last (which is decoded, not
+    # prefilled)
+    eff: np.ndarray | None = None
 
 
 class _LiveState:
-    """The stepper's state across yields: slot table, decode state, lane."""
+    """The stepper's state across yields: slot table, decode state, lane.
+    Held on the engine (`_live`) so `checkpoint_inflight` can take rows out
+    of it when the fleet scheduler declares this member failed."""
 
     __slots__ = ("slots", "batch_state", "token_buf", "adm", "adm_state",
                  "adm_w", "lane_free", "lane_dirty", "zero_src")
@@ -367,6 +388,26 @@ class ServingEngine:
         self.queue: deque[Request] = deque()
         self._stepper = None
         self._step_energy_cache: dict[tuple, object] = {}
+        # the model clock: predicted seconds of every dispatched call; the
+        # fleet scheduler also moves it forward over idle gaps and stalls
+        self._clock = 0.0
+        # scheduler hooks: `chunk_policy` is an optional callable (engine,
+        # pending) -> int | None consulted by the chunk stage, `pending`
+        # the (Request, remaining tokens) of the rows still prefilling; a
+        # returned token count snaps up the chunk-bucket ladder, None keeps
+        # the shortest-remainder default. `_live` holds the stepper's state
+        # and `_lane_view` the admission snapshot routing reads, refreshed
+        # after every step
+        self.chunk_policy = None
+        self._live: _LiveState | None = None
+        self._lane_view = {"pending": 0, "pending_tokens": 0, "parked": 0,
+                           "resident": 0, "in_flight": 0}
+        # fault recovery: decode-state rows checkpointed off a failed fleet
+        # member, waiting here for a free slot (`adopt`); the flag `retune`
+        # sets when it degrades
+        self._adopted: deque[dict] = deque()
+        self.tuning_degraded = False
+        self._degraded_reason: str | None = None
         self._state_axes = L.state_batch_axes(
             model.init_state(cfg, 1, max_len, device="meta"),
             model.init_state(cfg, 2, max_len, device="meta"))
@@ -377,10 +418,13 @@ class ServingEngine:
             "lane_rebuilds": 0, "energy_j": 0.0, "idle_energy_j": 0.0,
             # prefill-once admission calls (admit families)
             "admit_calls": 0,
-            # the model clock: predicted seconds of dispatched engine calls
-            # (the energy model's step_s), advanced per chunk call and
-            # decode step
+            # predicted seconds of dispatched engine calls (the energy
+            # model's step_s), advanced per chunk call and decode step
             "model_s": 0.0,
+            # fault recovery: the spend of failed attempts that had to be
+            # replayed (charged here, to the failed member, never to a
+            # request) and rows adopted from a failed member
+            "lost_energy_j": 0.0, "adopted_in": 0,
         }
 
     # ------------------------------------------------------------------
@@ -389,13 +433,21 @@ class ServingEngine:
     def _tick(self, step_s: float) -> None:
         """Advance the model clock by one dispatched call's predicted
         time."""
+        self._clock += step_s
         self._stats["model_s"] += step_s
 
     @property
     def model_clock_s(self) -> float:
         """Current model-clock reading: predicted seconds of every call
-        this engine has dispatched, monotone across runs."""
-        return self._stats["model_s"]
+        this engine has dispatched (plus the idle gaps and stall dilation
+        a fleet scheduler adds), monotone across runs and `reset_stats`.
+        The fleet scheduler orders engine steps by it."""
+        return self._clock
+
+    @property
+    def tp(self) -> int:
+        """Chips per engine: one (tensor parallelism is ROADMAP A7)."""
+        return 1
 
     @property
     def chip_spec(self):
@@ -416,9 +468,26 @@ class ServingEngine:
     # ------------------------------------------------------------------
     @property
     def has_work(self) -> bool:
-        """True while requests are queued or in flight. May stay True for
-        one extra `serve_step()` after the last retirement."""
-        return bool(self.queue) or self._stepper is not None
+        """True while requests are queued or in flight (adopted rows
+        included). May stay True for one extra `serve_step()` after the
+        last retirement."""
+        return (bool(self.queue) or bool(self._adopted)
+                or self._stepper is not None)
+
+    @property
+    def lane_view(self) -> dict:
+        """The admission lane as of the last `serve_step`: rows still
+        prefilling (`pending`, `pending_tokens`), parked rows waiting for
+        a decode slot, resident decode slots, and in-flight admissions."""
+        return dict(self._lane_view)
+
+    @property
+    def backlog_tokens(self) -> int:
+        """Prompt tokens still to prefill: queued prompts plus the
+        unwritten rest of in-flight admissions (the fleet scheduler's TTFT
+        prediction divides it by chunk throughput)."""
+        return (sum(len(r.prompt) for r in self.queue)
+                + int(self._lane_view["pending_tokens"]))
 
     def _row_capacity(self) -> int | None:
         """Per-row cache capacity in tokens, or None when unbounded: the
@@ -696,6 +765,9 @@ class ServingEngine:
         families run their admission call plus one full-prompt chunk, the
         path of chunked admission. Returns (first token, batch-1 slot state,
         prefill energy)."""
+        if req.replay:
+            raise ValueError(
+                "replay requests require chunked admission (serve_step)")
         n = len(req.prompt)
         bucket = self._bucket(n)
         toks = np.zeros((1, bucket), np.int32)
@@ -830,7 +902,7 @@ class ServingEngine:
         that observes the drained loop; poll `has_work` to drive to
         exhaustion."""
         if self._stepper is None:
-            if not self.queue:
+            if not self.queue and not self._adopted:
                 return []
             if (self.mode == "wave" or self.admission != "chunked"
                     or self.kv_layout != "dense"
@@ -845,6 +917,8 @@ class ServingEngine:
             return next(self._stepper)
         except StopIteration:
             self._stepper = None
+            self._live = None
+            self._lane_view = dict.fromkeys(self._lane_view, 0)
             return []
 
     def _chunked_stepper(self):
@@ -856,7 +930,7 @@ class ServingEngine:
         and index, so it is zeroed by a one-row splice first."""
         B = self.max_batch
         results: list[Result] = []
-        lv = _LiveState(B)
+        lv = self._live = _LiveState(B)
         decode_cost = self._decode_cost()
         decode_energy_j = decode_cost[0]
 
@@ -864,6 +938,34 @@ class ServingEngine:
             if lv.zero_src is None:
                 lv.zero_src = self._init_state(1)
             self._splice(lv.adm_state, lv.zero_src, 0, r)
+
+        def adopt_ready() -> None:
+            """Splice adopted decode-state rows (checkpointed off a failed
+            fleet member) into free decode slots. The row's spend so far
+            rides in as its prefill energy, so the final Result covers both
+            attempts; a row already at its end retires at once."""
+            free = [b for b in range(B) if lv.slots[b] is None]
+            now = time.perf_counter()
+            while self._adopted and free:
+                rec = self._adopted.popleft()
+                b = free.pop(0)
+                if lv.batch_state is None:
+                    lv.batch_state = self._init_state(B)
+                self._splice(lv.batch_state, rec["state"], 0, b)
+                req = rec["req"]
+                slot = _Slot(req=req, tokens=[int(t) for t in rec["tokens"]],
+                             prefill_energy_j=float(rec["energy_j"]),
+                             t_start=now, t_first=now,
+                             t_first_model=self.model_clock_s,
+                             rng=rec.get("rng"))
+                self._stats["adopted_in"] += 1
+                tok = slot.tokens[-1]
+                if (req.eos_id is not None and tok == req.eos_id) or (
+                        len(slot.tokens) >= self._budget(req)):
+                    self._finish(slot, now, decode_energy_j, results)
+                    continue
+                lv.slots[b] = slot
+                lv.token_buf[b] = tok
 
         def splice_ready() -> None:
             """Move parked admissions into free decode slots, FIFO by
@@ -941,8 +1043,15 @@ class ServingEngine:
             # shortest-remainder-first bucket: short admissions finish in
             # cheap narrow calls; long prompts still progress min(C, rem)
             # tokens per step
-            rem = [len(a.req.prompt) - a.base for a in pending]
+            rem = [len(a.eff) - a.base for a in pending]
             C = self._chunk_bucket(min(rem))
+            if self.chunk_policy is not None:
+                # the scheduler's override; every ladder bucket is valid
+                # (chunk boundaries stay bucket and grain aligned)
+                want = self.chunk_policy(
+                    self, [(a.req, len(a.eff) - a.base) for a in pending])
+                if want:
+                    C = self._chunk_bucket(int(want))
             if self.cfg.sub_quadratic and any(r > C for r in rem):
                 # a non-final chunk boundary must stay a multiple of the SSM
                 # serve-scan block or the carried state loses bit parity
@@ -955,8 +1064,8 @@ class ServingEngine:
             lens = np.zeros(W, np.int64)
             t_disp = time.perf_counter()
             for a in pending:
-                n = min(C, len(a.req.prompt) - a.base)
-                toks[a.row, :n] = a.req.prompt[a.base:a.base + n]
+                n = min(C, len(a.eff) - a.base)
+                toks[a.row, :n] = a.eff[a.base:a.base + n]
                 lens[a.row] = n
                 if a.t_start == 0.0:
                     a.t_start = t_disp
@@ -980,18 +1089,32 @@ class ServingEngine:
                     continue
                 a.base += int(lens[a.row])
                 a.chunk_energy_j += est_j / W
-                if a.base < len(a.req.prompt):
+                if a.base < len(a.eff):
                     keep.append(a)
                     continue
-                tok = int(self._sample(logits[a.row:a.row + 1], [a.rng])[0])
-                srec = _Slot(req=a.req, tokens=[tok],
+                replay = a.req.replay
+                if replay:
+                    # fault replay: the emitted tokens are forced, not
+                    # resampled, so the stream continues append-only; a
+                    # sampled row burns the failed attempt's Gumbel draws
+                    # so its later tokens keep their bits
+                    if a.rng is not None:
+                        for _ in replay:
+                            a.rng.gumbel(size=logits.shape[-1])
+                    tok = int(replay[-1])
+                    toks0 = [int(t) for t in replay]
+                else:
+                    tok = int(self._sample(logits[a.row:a.row + 1],
+                                           [a.rng])[0])
+                    toks0 = [tok]
+                srec = _Slot(req=a.req, tokens=toks0,
                              prefill_energy_j=a.chunk_energy_j,
                              t_start=a.t_start, t_first=now,
                              t_first_model=self.model_clock_s, rng=a.rng)
-                # EOS or a budget of one on the first token: finished
-                # before occupying a decode slot
+                # EOS or a spent budget on the first (or last replayed)
+                # token: finished before occupying a decode slot
                 if (a.req.eos_id is not None and tok == a.req.eos_id) or (
-                        1 >= self._budget(a.req)):
+                        len(toks0) >= self._budget(a.req)):
                     self._finish(srec, now, decode_energy_j, results)
                     lv.lane_free.append(a.row)
                     lv.lane_dirty.add(a.row)
@@ -1008,30 +1131,48 @@ class ServingEngine:
             return freed
 
         emitted = 0
-        while self.queue or lv.adm or any(s is not None for s in lv.slots):
+        while (self.queue or self._adopted or lv.adm
+               or any(s is not None for s in lv.slots)):
             t_it0 = time.perf_counter()
-            # admit + chunk: fill free lane rows from the queue and run one
-            # chunk call; a request finishing on its first token frees its
-            # row again, so keep admitting while the queue has work
+            # adopt + admit + chunk: splice adopted rows, fill free lane
+            # rows from the queue and run one chunk call; a request
+            # finishing on its first token frees its row again, so keep
+            # admitting while the queue has work
+            adopt_ready()
             splice_ready()
             while True:
                 while self.queue and len(lv.adm) < self.lane_width:
                     req = self.queue.popleft()
                     rng = None if self.greedy else self._req_rng(req.uid)
-                    lv.adm.append(_Admission(req=req, rng=rng))
+                    eff = np.asarray(req.prompt, np.int32)
+                    if req.replay and len(req.replay) > 1:
+                        eff = np.concatenate(
+                            [eff, np.asarray(req.replay[:-1], np.int32)])
+                    lv.adm.append(_Admission(req=req, rng=rng, eff=eff))
                 if not any(a.ready is None for a in lv.adm):
                     break
                 freed = chunk_stage()
                 if not (freed and self.queue):
                     break
+            adopt_ready()
             splice_ready()
             # one lockstep decode step over the residents
             lv.batch_state = self._decode_step(
                 lv.slots, lv.batch_state, lv.token_buf, decode_cost,
                 results)
             self._stats["wall_s"] += time.perf_counter() - t_it0
+            pending_n = sum(a.ready is None for a in lv.adm)
+            self._lane_view = {
+                "pending": pending_n,
+                "pending_tokens": sum(len(a.eff) - a.base for a in lv.adm
+                                      if a.ready is None),
+                "parked": len(lv.adm) - pending_n,
+                "resident": sum(s is not None for s in lv.slots),
+                "in_flight": len(lv.adm),
+            }
             new, emitted = results[emitted:], len(results)
             yield new
+        self._live = None
 
     def _run_serial(self) -> list[Result]:
         """Serial admission: each request prefills alone (one single-shot
@@ -1087,6 +1228,9 @@ class ServingEngine:
         shows the waste)."""
         if not self.queue:
             return []
+        if any(r.replay for r in self.queue):
+            raise ValueError(
+                "replay requests require chunked admission (serve_step)")
         t_run0 = time.perf_counter()
         batch_reqs = [self.queue.popleft()
                       for _ in range(min(self.max_batch, len(self.queue)))]
@@ -1190,6 +1334,176 @@ class ServingEngine:
         return results
 
     # ------------------------------------------------------------------
+    # fault recovery (serving.faults, serving.scheduler)
+    # ------------------------------------------------------------------
+    def state_compatible(self, other: "ServingEngine") -> bool:
+        """True when a decode-state row checkpointed from `other` continues
+        here bit for bit: the same model API and params objects, config,
+        cache geometry, dense layout and sampling (seed, greedy). The
+        scheduler migrates such rows and replays the rest."""
+        return (self.model is other.model
+                and self.params is other.params
+                and self.cfg == other.cfg
+                and self.max_len == other.max_len
+                and self.tp == other.tp
+                and self.kv_layout == "dense"
+                and other.kv_layout == "dense"
+                and self.seed == other.seed
+                and self.greedy == other.greedy)
+
+    def checkpoint_inflight(self, *, state_lost: bool = False
+                            ) -> list[dict]:
+        """Take every in-flight request out for recovery on another
+        member, then clear this engine (a crash: queue, lane and slot
+        table are gone afterwards).
+
+        Each record carries the request, its emitted tokens, its
+        attributable energy so far, its sampling stream, its
+        engine-relative TTFT once its first token was out, and, for rows
+        whose device state survives (decode slots and parked admissions,
+        unless ``state_lost``), a clone of its batch-1 decode state for
+        `adopt` on a compatible member. Mid-prefill admissions and queued
+        requests restart from scratch; their partial chunk energy is the
+        failed attempt's lost spend (`charge_lost_energy`)."""
+        records: list[dict] = []
+        lv = self._live
+        decode_j = self._decode_cost()[0]
+
+        def rec(req, tokens, state, energy, rng, ttft, lost=0.0):
+            records.append({
+                "req": req, "tokens": list(tokens), "state": state,
+                "energy_j": float(energy), "rng": rng,
+                "ttft_model_s": ttft, "lost_energy_j": float(lost)})
+
+        def row(state, i):
+            # a clone: the source state is written in place by whatever
+            # runs on this engine next
+            if state_lost or state is None:
+                return None
+            return L.tree_map(torch.clone, L.take_slot_state(
+                state, self._state_axes, i))
+
+        if lv is not None:
+            for b, slot in enumerate(lv.slots):
+                if slot is None:
+                    continue
+                state = row(lv.batch_state, b)
+                energy = (slot.prefill_energy_j
+                          + slot.steps * decode_j / self.max_batch)
+                rec(slot.req, slot.tokens, state, energy, slot.rng,
+                    max(slot.t_first_model - slot.req.submit_model_s, 0.0),
+                    lost=0.0 if state is not None else energy)
+            for a in lv.adm:
+                if a.ready is not None:
+                    state = row(lv.adm_state, a.row)
+                    energy = a.ready.prefill_energy_j
+                    rec(a.req, a.ready.tokens, state, energy, a.rng,
+                        max(a.ready.t_first_model - a.req.submit_model_s,
+                            0.0),
+                        lost=0.0 if state is not None else energy)
+                else:
+                    # mid-prefill: partial chunks cannot move; the spend so
+                    # far is lost with the failed attempt
+                    rec(a.req, [], None, 0.0, None, None,
+                        lost=a.chunk_energy_j)
+        for r in self._adopted:
+            records.append(dict(r) if not state_lost
+                           else {**r, "state": None,
+                                 "lost_energy_j": r["energy_j"],
+                                 "energy_j": 0.0})
+        for req in self.queue:
+            rec(req, req.replay or [], None, 0.0, None, None)
+        self.queue.clear()
+        self._adopted.clear()
+        self._stepper = None
+        self._live = None
+        self._lane_view = dict.fromkeys(self._lane_view, 0)
+        return records
+
+    def adopt(self, record: dict) -> None:
+        """Take a checkpointed decode-state row from a failed member
+        (migration). It waits in the adoption queue until a decode slot
+        frees; `has_work` counts it. Raises for a record without state or
+        with a state of another structure: the scheduler replays those."""
+        if record.get("state") is None:
+            raise ValueError(
+                "adopt needs a checkpointed state row; replay lost-state "
+                "requests instead")
+        if self.kv_layout != "dense" or self.admission != "chunked":
+            raise ValueError(
+                "adoption requires chunked continuous serving on the "
+                "dense KV layout")
+        spec = self.model.init_state(self.cfg, 1, self.max_len,
+                                     device="meta")
+        if not L.state_structures_match(record["state"], spec):
+            raise ValueError(
+                "checkpointed state row is structurally incompatible "
+                "with this engine's decode state")
+        self._adopted.append(record)
+
+    def charge_lost_energy(self, j: float) -> None:
+        """Charge the spend of a failed attempt whose work is replayed:
+        real spend with no surviving owner, folded into this engine's idle
+        share (so fleet ledgers still sum) and kept in `lost_energy_j`."""
+        self._stats["idle_energy_j"] += float(j)
+        self._stats["lost_energy_j"] += float(j)
+
+    def retune(self, *, objective: str = "runtime",
+               rank_mode: str = "auto", _inject=None) -> bool:
+        """Tune the engine's GEMM fleet again mid-run
+        (`ops.warm_gemm_cache(strict=True)`); on success the engine
+        launches `objective`'s winners. On an `ArtifactError` (a corrupt or
+        missing predictor artifact, or the injected fault ``_inject``) it
+        degrades instead of raising: pricing falls back to
+        `autotuner.baseline_configs`, nothing is installed, so every launch
+        keeps its tile, serving continues and `report()` carries
+        ``tuning_degraded`` with the reason. Returns True when tuning
+        succeeded, False when it degraded."""
+        from repro_torch.core.predictor import ArtifactError
+
+        chunked = self.admission == "chunked"
+        fleet = ops.serving_gemm_fleet(
+            self.cfg, max_batch=self.max_batch, max_len=self.max_len,
+            include_slot_prefill=self._continuous_supported(),
+            chunk_tokens=self.chunk_tokens if chunked else None,
+            lane_width=self.lane_width if chunked else None,
+            grain=self.ssm_grain)
+        try:
+            if _inject is not None:
+                raise _inject
+            self.pretuned = ops.warm_gemm_cache(
+                fleet, dtype=self.cfg.activation_dtype,
+                objective=objective, chip=self.chip, rank_mode=rank_mode,
+                strict=True)
+            self.tune_objective = objective
+            self.tuning_degraded = False
+            self._degraded_reason = None
+        except ArtifactError as e:
+            from repro_torch.core.autotuner import baseline_configs
+
+            self.pretuned = baseline_configs(fleet, self.chip_spec,
+                                             self.cfg.activation_dtype)
+            self.tuning_degraded = True
+            self._degraded_reason = str(e)
+        # the step estimates were priced at the old tiles
+        self._step_energy_cache.clear()
+        return not self.tuning_degraded
+
+    def inject_page_pressure(self, pages: int) -> int:
+        """Squeeze `pages` pages out of the paged KV pool (an external
+        tenant, a chaos fault). Returns how many were taken;
+        `release_page_pressure` gives them back."""
+        if self._allocator is None:
+            raise ValueError("page pressure requires kv_layout='paged'")
+        return self._allocator.squeeze(pages)
+
+    def release_page_pressure(self) -> int:
+        """Return every squeezed page to the paged KV pool."""
+        if self._allocator is None:
+            raise ValueError("page pressure requires kv_layout='paged'")
+        return self._allocator.unsqueeze()
+
+    # ------------------------------------------------------------------
     # the paged layout
     # ------------------------------------------------------------------
     def _ensure_pool(self) -> None:
@@ -1239,6 +1553,8 @@ class ServingEngine:
         from repro_torch.serving.paging import PageCacheFull
 
         self._ensure_pool()
+        if any(r.replay for r in self.queue):
+            raise ValueError("replay requests require the dense KV layout")
         t_run0 = time.perf_counter()
         B = self.max_batch
         n_pg = self._n_row_pages
@@ -1567,4 +1883,11 @@ class ServingEngine:
             "attributed_energy_j": s["energy_j"],
             "idle_energy_j": s["idle_energy_j"],
             "j_per_token": total_j / toks if toks else 0.0,
+            # fault recovery: replayed work charged to this engine as the
+            # failed attempt, rows adopted from failed members, and whether
+            # tuning fell back to `autotuner.baseline_configs`
+            "lost_energy_j": s["lost_energy_j"],
+            "adopted_in": s["adopted_in"],
+            "tuning_degraded": self.tuning_degraded,
+            "tuning_degraded_reason": self._degraded_reason,
         }

@@ -722,3 +722,111 @@ def test_admit_smoke_models_on_card_match_cpu(dev, arch):
         _assert_close(out[dev].cpu(), out["cpu"], 1e-4)
     torch.cuda.synchronize()
     assert tiled_matmul.launches - before == per_admit + 4 * per_forward
+
+
+# ---------------------------------------------------------------------------
+# the fleet scheduler and fault recovery on the card
+# ---------------------------------------------------------------------------
+
+
+def _bf16_smoke(dev):
+    """The smoke config in bf16 (its projections take the fast paths) with
+    random weights on the card, and a seeded workload of 7 requests."""
+    cfg = dataclasses.replace(get_config("qwen2-7b", smoke=True),
+                              param_dtype="bfloat16",
+                              activation_dtype="bfloat16")
+    api = get_model(cfg)
+    params = api.init(cfg, torch.Generator(dev).manual_seed(0), device=dev)
+    rng = np.random.default_rng(8)
+    reqs = [(uid, rng.integers(0, cfg.vocab, int(rng.integers(4, 70))
+                               ).astype(np.int32), int(rng.integers(4, 24)))
+            for uid in range(7)]
+    return cfg, api, params, reqs
+
+
+def _bf16_engine(dev, cfg, api, params, **kw):
+    kw.setdefault("max_batch", 2)
+    return ServingEngine(api, params, cfg, max_len=128, chunk_tokens=32,
+                         device=dev, **kw)
+
+
+def _streams(eng, reqs) -> dict:
+    for uid, prompt, mnt in reqs:
+        eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=mnt))
+    return {r.uid: r.tokens.tolist() for r in eng.run_until_empty()}
+
+
+def test_fleet_streams_do_not_depend_on_the_member(dev):
+    """A two-member fleet on one set of bf16 weights (one member priced on
+    the h100, one on the RTX 4070): the fleet and each member alone give
+    the streams of one engine serving alone."""
+    from repro_torch.serving.scheduler import FleetScheduler, SLAClass
+
+    cfg, api, params, reqs = _bf16_smoke(dev)
+    want = _streams(_bf16_engine(dev, cfg, api, params), reqs)
+    for route_to in (None, "h100", "ada"):
+        sched = FleetScheduler(
+            {name: _bf16_engine(dev, cfg, api, params, chip=chip)
+             for name, chip in (("h100", "h100"), ("ada", "rtx4070"))},
+            sla={"i": SLAClass("i", 1e-3)}, default_sla="i",
+            route_to=route_to)
+        for uid, prompt, mnt in reqs:
+            sched.submit(Request(uid=uid, prompt=prompt, max_new_tokens=mnt))
+        got = {r.uid: r.tokens.tolist() for r in sched.run_until_empty()}
+        assert got == want, route_to
+        if route_to is None:
+            assert set(sched.routed_to.values()) == {"h100", "ada"}
+
+
+def test_migrated_row_continues_bit_for_bit(dev):
+    """Rows checkpointed off an engine of 2 slots mid-decode and adopted by
+    one of 4 that is already decoding other rows (the rest replayed there)
+    finish with the streams of an engine that never failed."""
+    cfg, api, params, reqs = _bf16_smoke(dev)
+    want = _streams(_bf16_engine(dev, cfg, api, params), reqs)
+    src = _bf16_engine(dev, cfg, api, params)
+    dst = _bf16_engine(dev, cfg, api, params, max_batch=4)
+    for uid, prompt, mnt in reqs[:4]:
+        src.submit(Request(uid=uid, prompt=prompt, max_new_tokens=mnt))
+    for uid, prompt, mnt in reqs[4:]:
+        dst.submit(Request(uid=uid, prompt=prompt, max_new_tokens=mnt))
+    done = []
+    for _ in range(3):
+        done += dst.serve_step()
+    while not (src._live and any(s is not None and len(s.tokens) > 2
+                                 for s in src._live.slots)):
+        done += src.serve_step()
+    records = src.checkpoint_inflight()
+    assert dst.state_compatible(src) and not src.has_work
+    moved = 0
+    for rec in records:
+        if rec["state"] is not None:
+            dst.adopt(rec)
+            moved += 1
+        else:
+            rec["req"].replay = rec["tokens"] or None
+            dst.submit(rec["req"])
+    assert moved >= 1
+    while dst.has_work:
+        done += dst.serve_step()
+    assert dst.report()["adopted_in"] == moved
+    assert {r.uid: r.tokens.tolist() for r in done} == want
+
+
+def test_replayed_request_equals_its_fault_free_stream(dev):
+    """A request replayed with 20 emitted tokens (written back in chunks of
+    32, where the first attempt wrote them one decode step at a time) gives
+    its fault-free stream, the forced prefix first."""
+    cfg, api, params, _ = _bf16_smoke(dev)
+    prompt = np.random.default_rng(9).integers(0, cfg.vocab, 45).astype(
+        np.int32)
+    eng = _bf16_engine(dev, cfg, api, params)
+    eng.submit(Request(uid=0, prompt=prompt, max_new_tokens=40))
+    (ref,) = eng.run_until_empty()
+    again = _bf16_engine(dev, cfg, api, params)
+    again.submit(Request(uid=0, prompt=prompt, max_new_tokens=40,
+                         replay=ref.tokens[:20].tolist()))
+    out = []
+    while again.has_work:
+        out += again.serve_step()
+    assert out[0].tokens.tolist() == ref.tokens.tolist()
