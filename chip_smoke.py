@@ -133,12 +133,32 @@ build of PyTorch. Phases, each fatal on failure:
    to (a)'s and the pages returned. Its shapes are timed as in phase 5; it
    prints its seconds and peak device memory.
 
+15. training, after every other phase and with their memory freed:
+   (a) full-width, full-depth starcoder2-3b (3.18 B params, bf16 params,
+   f32 master and moments: a 50.9 GB training state) trained through the
+   port's launcher (`repro_torch.launch.train`) for 4 steps of 8 x 512
+   seeded tokens with per-block rematerialisation, printing each step's
+   ms, loss, grad norm and tokens/s and the peak device memory; gates:
+   finite losses and grad norms, every f32 master leaf and every weight
+   matrix moved from the seeded init, and per step the launches from the
+   model's structure, 361 on wgmma (the forward and its recompute) and
+   362 on general (both gradients of every product, the head's pair in
+   f32), none on stream; (b) every distinct GEMM of that step, by layout,
+   against the plain version (phase 5's bound) and timed as in phase 5,
+   summed per path per step; (c) at full width cut to 2 layers, the loss
+   and every gradient leaf through the kernel against every product
+   through `matmul_ref` (relative L2 at most 5e-2); (d) at the same cut,
+   4 steps through the port's loop against 2 steps, a checkpoint written
+   to and restored from ``build/chip_smoke_train``, and 2 more: params,
+   optimizer state, rng and losses bit for bit.
+
 After phase 10, ``build/serving_shapes.json`` holds qwen2-7b's and
 qwen2.5-14b's serving launches by shape, for ``tools/gemm_sums.py``.
 
 It prints a JSON line of per-kernel numbers (launches and times summed
-over phases 4-5, 12, 13 and 14, the runs of the port's main paths) and,
-last, the device line.
+over phases 4-5, 12, 13, 14 and 15 (a), the runs of the port's main
+paths; the general path's launches are training's) and, last, the device
+line.
 Without a GPU, or without the repository beside it, it exits non-zero.
 """
 
@@ -183,12 +203,13 @@ LOOP_MIN_ROWS = 2076 + 519
 LOOP_MIN_R2 = 0.8
 PAPER_RUNTIME_R2, PAPER_RUNTIME_MEAN_PCT = 0.98, 15.57
 # phase 9: rows measured for power (fewer if the probed counter period would
-# take the sweep past its budget; about 0.55 s a row, so 800 rows keep the
-# whole script, phase 14 included, about 100 s under its 1,100 s cap), and
+# take the sweep past its budget; about 0.55 s a row, so 700 rows keep the
+# whole script, phases 14 and 15 included, about 100 s under its 1,100 s
+# cap), and
 # the held-out power R2 below which the pipeline is broken (swapped columns
 # or the simulator's power give about 0 or below). The paper's power figures
 # on its RTX 4070 are printed beside the card's.
-POWER_ROWS = 800
+POWER_ROWS = 700
 POWER_SWEEP_BUDGET_S = 540.0
 POWER_MIN_R2 = 0.5
 # the largest compute- and memory-bound rows are measured again over this
@@ -3013,6 +3034,396 @@ def phase_fleet(dev, api, params, cfg) -> dict:
     return {"entries": entries, "launches": launched}
 
 
+# phase 15: training. starcoder2-3b (3.18 B params, 50.9 GB of training
+# state) at full width and depth through the port's launcher, TRAIN_STEPS
+# steps of TRAIN_BATCH x TRAIN_SEQ tokens with remat; the gradient check and
+# the resume check at full width cut to TRAIN_CUT layers (a 7.9 GB state
+# whose checkpoint is written and read back)
+TRAIN_ARCH = "starcoder2-3b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 4
+TRAIN_CUT = 2
+TRAIN_DIR = ROOT / "build" / "chip_smoke_train"
+
+
+def _train_launches_per_step(cfg) -> dict:
+    """One train step's launches per path, from the model's structure:
+    the forward's GEMMs (`_gemms_per_forward`) on ``wgmma``, each block's
+    again where remat recomputes it (not the head), and two backward
+    GEMMs per forward GEMM on ``general`` (``da`` reads the weight as an
+    (N, K) B at M > 64, ``dW`` a transposed A; the head's pair is f32):
+    361 and 362 for starcoder2-3b."""
+    fwd = _gemms_per_forward(cfg)
+    return {"stream": 0, "wgmma": fwd + (fwd - 1 if cfg.remat else 0),
+            "general": 2 * fwd}
+
+
+def _train_recording(log: collections.Counter):
+    """A stand-in for `ops.tiled_matmul` that counts each launch under
+    (M, N, K, in dtype, out dtype, layout) in `log`; the layout is "nn"
+    (a forward product), "nt" (B read transposed: ``da``) or "tn" (A read
+    transposed: ``dW``)."""
+    from repro_torch.kernels.tiled_matmul import tiled_matmul
+
+    def recording(a, b, c=None, **kw):
+        ta, tb = bool(kw.get("transpose_a")), bool(kw.get("transpose_b"))
+        m = a.shape[1] if ta else a.shape[0]
+        n, k = b.shape if tb else b.shape[::-1]
+        log[(m, n, k, a.dtype, kw.get("out_dtype") or a.dtype,
+             ("t" if ta else "n") + ("t" if tb else "n"))] += 1
+        return tiled_matmul(a, b, c, **kw)
+
+    return recording
+
+
+def _layout_call(dev, g, m, n, k, in_dt, layout) -> tuple:
+    """(a, b, keyword arguments) of one training GEMM in its storage
+    layout: "nn" a (M, K) and b (K, N); "nt" b stored (N, K), read
+    transposed; "tn" a stored (K, M), read transposed. Operands of O(1)
+    outputs."""
+    a = torch.randn((k, m) if layout == "tn" else (m, k), generator=g,
+                    device=dev).to(in_dt)
+    b = (torch.randn((n, k) if layout == "nt" else (k, n), generator=g,
+                     device=dev) / k ** 0.5).to(in_dt)
+    return a, b, dict(transpose_a=layout == "tn", transpose_b=layout == "nt")
+
+
+def _train_shapes(dev, shapes: collections.Counter, runs: int) -> dict:
+    """(b): hold the kernel against its plain version at every distinct
+    training GEMM of one step (forward, recompute, both backward layouts,
+    the head's f32 pair) and time it beside the general path, the plain
+    version, torch.matmul on the same layout and the bound; sums per path
+    per step, and per-path JSON entries over the `runs` steps of (a)."""
+    from repro_torch.core.profiler import time_ms
+    from repro_torch.kernels.ref import matmul_ref
+    from repro_torch.kernels.tiled_matmul import (DEFAULT_CONFIG, GENERAL,
+                                                  tiled_matmul)
+
+    g = torch.Generator(dev).manual_seed(4)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    tot: dict = collections.defaultdict(collections.Counter)
+    worst: dict = collections.Counter()
+    failed = []
+    _say("[train (b)] M N K in out layout per-step path kernel_ms v3_ms "
+         "plain_ms library_ms bound_ms bound_by bound/kernel "
+         "library/kernel max_abs rel_l2")
+    for key, count in sorted(shapes.items(), key=lambda kv: (
+            kv[0][5], kv[0][:3])):
+        m, n, k, in_dt, out_dt, layout = key
+        per_step = count // runs
+        a, b, kw = _layout_call(dev, g, m, n, k, in_dt, layout)
+        kw["out_dtype"] = out_dt
+        want = matmul_ref(a, b, **kw)
+        path, got = _run_path(tiled_matmul, a, b, **kw)
+        err, _, ok = _close(got, want, torch.bfloat16 if torch.bfloat16 in (
+            in_dt, out_dt) else torch.float32)
+        rel = ((got.float() - want.float()).norm()
+               / want.float().norm()).item()
+        worst[path] = max(worst[path], err)
+        if not ok:
+            failed.append((m, n, k, layout, path))
+        del got, want
+        kernel_ms = time_ms(lambda: tiled_matmul(a, b, **kw), flush, 5)
+        v3_ms = kernel_ms if path == GENERAL else time_ms(
+            lambda: tiled_matmul(a, b, config=DEFAULT_CONFIG, **kw), flush, 5)
+        plain_ms = time_ms(lambda: matmul_ref(a, b, **kw), flush, 3)
+        ta, tb = kw["transpose_a"], kw["transpose_b"]
+        library_ms = time_ms(lambda: torch.matmul(a.T if ta else a,
+                                                  b.T if tb else b),
+                             flush, 5)
+        ops_s, bytes_s = _bound_s(m, n, k, in_dt, out_dt)
+        bound_ms = 1e3 * max(ops_s, bytes_s)
+        _say(f"[train (b)] {m} {n} {k} {str(in_dt).split('.')[-1]} "
+             f"{str(out_dt).split('.')[-1]} {layout} {per_step} {path} "
+             f"{kernel_ms:.4f} {v3_ms:.4f} {plain_ms:.4f} {library_ms:.4f} "
+             f"{bound_ms:.4f} {'operations' if ops_s > bytes_s else 'bytes'}"
+             f" {bound_ms / kernel_ms:.3f} {library_ms / kernel_ms:.3f} "
+             f"{err:.3g} {rel:.3g}")
+        del a, b
+        for t in (tot[path], tot["all"]):
+            t["ms"] += per_step * kernel_ms
+            t["v3_ms"] += per_step * v3_ms
+            t["plain_ms"] += per_step * plain_ms
+            t["library_ms"] += per_step * library_ms
+            t["bound_ms"] += per_step * bound_ms
+            t["ops_ms"] += per_step * 1e3 * ops_s
+            t["bytes_ms"] += per_step * 1e3 * bytes_s
+    if failed:
+        raise SystemExit(f"kernel disagrees at training shapes {failed}")
+    entries = {}
+    for path, t in sorted(tot.items()):
+        _say(f"[train (b)] one step's GEMMs ({path}): kernel {t['ms']:.2f} "
+             f"ms, general path {t['v3_ms']:.2f} ms, plain "
+             f"{t['plain_ms']:.2f} ms, torch.matmul {t['library_ms']:.2f} "
+             f"ms, bound {t['bound_ms']:.2f} ms (operations "
+             f"{t['ops_ms']:.2f} ms, bytes {t['bytes_ms']:.2f} ms)")
+        if path != "all":
+            entries[path] = {
+                **{key: runs * t[key] for key in (
+                    "ms", "v3_ms", "plain_ms", "bound_ms", "library_ms",
+                    "ops_ms", "bytes_ms")},
+                "bound_by": ("operations" if t["ops_ms"] > t["bytes_ms"]
+                             else "bytes"),
+                "max_abs_err": worst[path]}
+    return entries
+
+
+def _train_full(dev) -> tuple:
+    """(a): the launcher trains full-width, full-depth starcoder2-3b; the
+    counters are set to 0 just before and read just after. Returns (the
+    launches by shape and layout, by path, the loop's summary)."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.tiled_matmul import tiled_matmul
+    from repro_torch.launch import train as launch
+    from repro_torch.models.registry import get_model
+
+    cfg = get_config(TRAIN_ARCH)
+    want = _train_launches_per_step(cfg)
+    state_b, acts_b = launch.train_memory_bytes(cfg, TRAIN_BATCH, TRAIN_SEQ)
+    cap = torch.cuda.get_device_properties(dev).total_memory
+    _say(f"[train (a)] {cfg.name}: {cfg.n_layers} layers, d_model "
+         f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.kv_heads}, d_ff "
+         f"{cfg.d_ff} (GELU FFN), vocab {cfg.vocab}, remat {cfg.remat}; "
+         f"{cfg.n_params() / 1e9:.3f} B params, training state "
+         f"{state_b / 1e9:.2f} GB, activations about {acts_b / 1e9:.2f} GB "
+         f"(`train_memory_bytes`) on a card of {cap / 1e9:.2f} GB; "
+         f"launches per step from the structure: wgmma {want['wgmma']}, "
+         f"general {want['general']}")
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    shapes: collections.Counter = collections.Counter()
+    marks = []
+
+    def on_log(line: str) -> None:
+        _say(f"[train (a)] {line}")
+        if line.startswith("step "):
+            marks.append(dict(tiled_matmul.launches_by_path))
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    ops.tiled_matmul = _train_recording(shapes)
+    try:
+        tiled_matmul.launches = 0
+        tiled_matmul.launches_by_path.update(
+            dict.fromkeys(tiled_matmul.launches_by_path, 0))
+        marks.append(dict(tiled_matmul.launches_by_path))
+        state, summary = launch.main(
+            ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+             str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--log-every", "1",
+             "--ckpt-every", str(10 * TRAIN_STEPS), "--ckpt-dir",
+             str(TRAIN_DIR / "full")], log_fn=on_log)
+        torch.cuda.synchronize()
+        launches = tiled_matmul.launches
+        by_path = dict(tiled_matmul.launches_by_path)
+    finally:
+        ops.tiled_matmul = tiled_matmul
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    steps = [{p: b[p] - a[p] for p in a} for a, b in zip(marks, marks[1:])]
+    times = summary["step_times_s"]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    _say(f"[train (a)] {summary['final_step']} steps in {wall:.1f} s "
+         f"(init and data included); step ms "
+         + ", ".join(f"{1e3 * t:.1f}" for t in times)
+         + f"; after the first: mean {1e3 * float(np.mean(times[1:])):.1f} "
+         f"ms, {tokens / float(np.mean(times[1:])):.1f} training tokens/s; "
+         f"peak device memory {peak / 1e9:.2f} GB")
+    _say(f"[train (a)] launches per step by path: {steps} (expected "
+         f"{want} each); {launches} in all")
+    # the params moved: every master leaf (f32) and every weight matrix
+    # differs from the launcher's seeded init (a bf16 norm scale of 1.0 may
+    # not move by a bf16 step in 4 warmup steps)
+    init = get_model(cfg).init(cfg, torch.Generator(dev).manual_seed(0),
+                               device=dev)
+    moved = {"master": 0, "matrices": 0}
+    n_mat = 0
+    trained = dict(state["params"].named_parameters())
+    for name, p0 in init.named_parameters():
+        p = trained[name]
+        moved["master"] += not torch.equal(state["opt"]["master"][name],
+                                           p0.float())
+        if p.dim() == 2:
+            n_mat += 1
+            moved["matrices"] += not torch.equal(p, p0)
+    n_leaves = sum(1 for _ in init.parameters())
+    del init
+    _say(f"[train (a)] params moved from the init: master {moved['master']} "
+         f"of {n_leaves} leaves, weight matrices {moved['matrices']} of "
+         f"{n_mat}; optimizer step {int(state['opt']['step'])}")
+    finite = bool(np.isfinite(summary["loss_curve"]).all()
+                  and np.isfinite(summary["grad_norms"]).all())
+    if (summary["final_step"] != TRAIN_STEPS or not finite
+            or len(steps) != TRAIN_STEPS or any(s != want for s in steps)
+            or launches != TRAIN_STEPS * sum(want.values())
+            or moved["master"] != n_leaves or moved["matrices"] != n_mat):
+        raise SystemExit("full-width training failed its gates (steps, "
+                         "finite losses and grad norms, launches per step "
+                         "and path, params moved)")
+    del state
+    return shapes, by_path, summary, peak
+
+
+def _cut_state(dev, cfg, seed: int = 0) -> dict:
+    from repro_torch.models.registry import get_model
+    from repro_torch.train.step import init_train_state
+
+    return init_train_state(torch.Generator(dev).manual_seed(seed),
+                            get_model(cfg), cfg, device=dev)
+
+
+def _train_grads(dev, cfg) -> None:
+    """(c): loss and every gradient leaf at full width cut to TRAIN_CUT
+    layers, through the kernel against every product through
+    `matmul_ref`; relative L2 at most LOGITS_REL_L2_MAX."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import matmul_ref
+    from repro_torch.kernels.tiled_matmul import tiled_matmul
+    from repro_torch.models.registry import get_model
+
+    state = _cut_state(dev, cfg)
+    params = state["params"]
+    batch = SyntheticLMDataset(DataConfig(
+        seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, vocab=cfg.vocab)
+    ).batch_at(0)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    api = get_model(cfg)
+
+    def grads():
+        loss, _ = api.loss(params, batch, cfg)
+        gs = torch.autograd.grad(loss, list(params.parameters()))
+        return loss.detach(), dict(zip(
+            [n for n, _ in params.named_parameters()], gs))
+
+    def plain(a, b, c=None, *, config=None, **kw):
+        return matmul_ref(a, b, c, **kw)
+
+    got = grads()
+    ops.tiled_matmul = plain
+    try:
+        want = grads()
+    finally:
+        ops.tiled_matmul = tiled_matmul
+
+    def rel(x, y):
+        return ((x.float() - y.float()).norm()
+                / y.float().norm().clamp_min(1e-30)).item()
+
+    rels = {n: rel(got[1][n], want[1][n]) for n in want[1]}
+    worst = max(rels, key=rels.get)
+    loss_rel = abs(got[0].item() - want[0].item()) / abs(want[0].item())
+    _say(f"[train (c)] {cfg.n_layers} layers at full width, one "
+         f"{TRAIN_BATCH} x {TRAIN_SEQ} batch: loss {got[0].item():.6f} "
+         f"through the kernel, {want[0].item():.6f} through the plain "
+         f"version (relative {loss_rel:.3e}); gradients of {len(rels)} "
+         f"leaves, relative L2 max {rels[worst]:.3e} ({worst}), median "
+         f"{statistics.median(rels.values()):.3e} (max "
+         f"{LOGITS_REL_L2_MAX:g})")
+    if (loss_rel > LOGITS_REL_L2_MAX or rels[worst] > LOGITS_REL_L2_MAX
+            or not all(torch.isfinite(g).all() for g in got[1].values())):
+        raise SystemExit("gradients through the kernel disagree with the "
+                         "plain version")
+
+
+def _train_resume(dev, cfg) -> None:
+    """(d): at the TRAIN_CUT-layer cut, TRAIN_STEPS uninterrupted steps
+    against half of them, a checkpoint, a restore into a fresh state (other
+    seed) and the rest, through the port's loop: params, optimizer state,
+    rng and losses bit for bit."""
+    import shutil
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data.pipeline import (DataConfig, DataLoader,
+                                           SyntheticLMDataset)
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.loop import (LoopConfig, resume_or_init,
+                                        run_train_loop)
+    from repro_torch.train.step import make_train_step
+
+    ds = SyntheticLMDataset(DataConfig(seq_len=TRAIN_SEQ,
+                                       global_batch=TRAIN_BATCH,
+                                       vocab=cfg.vocab))
+    step = make_train_step(get_model(cfg), cfg, AdamWConfig(
+        warmup_steps=1, decay_steps=TRAIN_STEPS))
+    half = TRAIN_STEPS // 2
+
+    def run(d, steps, seed=0, every=10 * TRAIN_STEPS):
+        """(state, summary, start step, seconds to build or restore the
+        state, seconds of the loop: its steps and the wait for the
+        checkpoint's writer)."""
+        ckpt = CheckpointManager(str(TRAIN_DIR / d))
+        loader = DataLoader(ds)
+        t0 = time.perf_counter()
+        state, start = resume_or_init(
+            ckpt=ckpt, loader=loader,
+            init_fn=lambda: _cut_state(dev, cfg, seed))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, summary = run_train_loop(
+            train_step=step, state=state, loader=loader, ckpt=ckpt,
+            loop_cfg=LoopConfig(total_steps=start + steps, ckpt_every=every,
+                                log_every=10 * TRAIN_STEPS),
+            start_step=start, log_fn=_say, install_signal_handlers=False)
+        return state, summary, start, t1 - t0, time.perf_counter() - t1
+
+    whole, s_whole, *_ = run("whole", TRAIN_STEPS)
+    first, s1, _, _, t_save = run("resumed", half, every=half)
+    del first
+    resumed, s2, start, t_rest, _ = run("resumed", TRAIN_STEPS - half,
+                                        seed=1)
+    ckpt_bytes = sum(f.stat().st_size
+                     for f in (TRAIN_DIR / "resumed").rglob("*.npz"))
+    same = {"params": all(torch.equal(p, q) for p, q in zip(
+        whole["params"].parameters(), resumed["params"].parameters())),
+        "opt": torch.equal(whole["opt"]["step"], resumed["opt"]["step"])
+        and all(torch.equal(whole["opt"][k][n], resumed["opt"][k][n])
+                for k in ("master", "m", "v") for n in whole["opt"][k]),
+        "rng": torch.equal(whole["rng"], resumed["rng"]),
+        "losses": (list(s1["loss_curve"]) + list(s2["loss_curve"])
+                   == list(s_whole["loss_curve"]))}
+    _say(f"[train (d)] {TRAIN_STEPS} steps against {half} + checkpoint "
+         f"({ckpt_bytes / 1e9:.2f} GB at step {start}; the first {half} "
+         f"steps and the save {t_save:.1f} s, a fresh state and the restore "
+         f"into it {t_rest:.1f} s) + "
+         f"{TRAIN_STEPS - half}: losses "
+         + ", ".join(f"{x:.6f}" for x in s_whole["loss_curve"])
+         + f"; bit for bit: {same}")
+    del whole, resumed
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    if not all(same.values()):
+        raise SystemExit(f"a resumed run differs from an uninterrupted one: "
+                         f"{same}")
+
+
+def phase_train(dev) -> dict:
+    """Phase 15, training on the card: (a) full-width, full-depth
+    starcoder2-3b through the launcher; (b) its GEMMs against the plain
+    version, timed; (c) gradients through the kernel against the plain
+    version and (d) resume, at full width cut to TRAIN_CUT layers. Returns
+    {"launches": per path, "entries": per-path JSON entries over (a)'s
+    steps}."""
+    from repro_torch.configs import get_config
+
+    _free()
+    t0 = time.perf_counter()
+    shapes, by_path, summary, peak = _train_full(dev)
+    _free()
+    entries = _train_shapes(dev, shapes, TRAIN_STEPS)
+    _free()
+    cut = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_CUT)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _train_grads(dev, cut)
+    _free()
+    _train_resume(dev, cut)
+    _free()
+    _say(f"[train] phase 15 in {time.perf_counter() - t0:.1f} s; peak "
+         f"device memory of (a) {peak / 1e9:.2f} GB, of (c)-(d) "
+         f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    return {"launches": collections.Counter(by_path), "entries": entries}
+
+
 def _merge_entries(groups: list) -> dict:
     """Per-path JSON entries summed over `groups` (each phase 5's form):
     times and bounds added, the bound's kind from the summed operations and
@@ -3082,23 +3493,27 @@ def main() -> int:
     phase_moe(dev)
     ssm = phase_ssm(dev)
     admit = phase_admit(dev)
+    train = phase_train(dev)
     _say(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     _say(_nvidia_smi())
-    # one entry per path the serving runs take, over the main paths' runs:
-    # qwen2-7b (phases 4-5), the SSM and hybrid models (phase 12), the
-    # encoder-decoder and vision models (phase 13) and the fleets (phase
-    # 14); the general path serves no bf16 projection (every phase checks 0
-    # launches there), and its time at the same shapes is each entry's v3_ms
+    # one entry per path, over the main paths' runs: qwen2-7b (phases
+    # 4-5), the SSM and hybrid models (phase 12), the encoder-decoder and
+    # vision models (phase 13), the fleets (phase 14) and training (phase
+    # 15 (a)). No serving launch takes the general path (every serving
+    # phase checks 0 there): its launches are training's backward GEMMs;
+    # each entry's v3_ms is the general path at the same shapes
     launched = sum([*ssm["launches"].values(), *admit["launches"].values(),
-                    fleet["launches"]], collections.Counter(by_path))
+                    fleet["launches"], train["launches"]],
+                   collections.Counter(by_path))
     merged = _merge_entries([entries, *ssm["entries"].values(),
-                             *admit["entries"].values(), fleet["entries"]])
+                             *admit["entries"].values(), fleet["entries"],
+                             train["entries"]])
     _say(json.dumps({"kernels": [{
         "name": f"tiled_matmul[{path}]", "route": "cuda",
         "source": "src/repro_torch/csrc/tiled_matmul.cu",
         "replaces": "src/repro/kernels/tiled_matmul.py:57",
         "launches": launched[path], **merged[path]}
-        for path in ("stream", "wgmma")]}))
+        for path in ("stream", "wgmma", "general")]}))
     _say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -286,6 +286,50 @@ def serving_gemm_fleet(cfg, *, max_batch: int, max_len: int,
     return sorted(fleet)
 
 
+class _MatMul(torch.autograd.Function):
+    """``out = a @ op(b)`` through the hand-written GEMM, with a backward of
+    two more launches of it: ``da = dout @ op(b)^T`` and ``db = a^T @
+    dout`` (``dout^T @ a`` for a B stored (N, K)), the transposes passed as
+    strides. The JAX package's gradient is autodiff's transpose of its
+    ``dot_general``: the cotangent as it arrives times the other operand,
+    summed in f32 and rounded once to the operand's dtype. So a bf16-out
+    product's backward launches in bf16, and an f32-out product of bf16
+    operands (the LM head) takes its f32 cotangent against the operand cast
+    to f32, on the kernel's f32 path, and rounds the result to bf16.
+    `tiled_matmul` is read from this module at call time, so a caller that
+    swaps it (``chip_smoke.py``'s plain runs) swaps both directions."""
+
+    @staticmethod
+    def forward(ctx, a2, b, config, transpose_b, out_dtype):
+        ctx.save_for_backward(a2, b)
+        ctx.transpose_b = transpose_b
+        return tiled_matmul(a2, b, config=config, transpose_b=transpose_b,
+                            out_dtype=out_dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        a, b = ctx.saved_tensors
+        # autograd may hand over a broadcast (stride 0) or permuted
+        # cotangent: the kernel reads row-major rows
+        dout = dout.contiguous()
+        if dout.dtype != a.dtype:
+            a_in, b_in = a.to(dout.dtype), b.to(dout.dtype)
+        else:
+            a_in, b_in = a, b
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = tiled_matmul(dout, b_in, transpose_b=not ctx.transpose_b,
+                              out_dtype=a.dtype)
+        if ctx.needs_input_grad[1]:
+            if ctx.transpose_b:
+                db = tiled_matmul(dout, a_in, transpose_a=True,
+                                  out_dtype=b.dtype)
+            else:
+                db = tiled_matmul(a_in, dout, transpose_a=True,
+                                  out_dtype=b.dtype)
+        return da, db, None, None, None
+
+
 def matmul(
     a: torch.Tensor,
     b: torch.Tensor,
@@ -300,7 +344,10 @@ def matmul(
     `config`, a shape with an installed winner for `objective` (default:
     the one `launch_objective` set, else "runtime") takes it
     (`_tuned_config`; winners are tuned on the "nn" layout, so only for
-    ``transpose_b=False``), any other `plan`'s rule."""
+    ``transpose_b=False``), any other `plan`'s rule. Where autograd
+    records, the product is differentiable (`_MatMul`: each gradient is one
+    more launch of the kernel); serving, under ``no_grad``, calls the
+    kernel directly."""
     *lead, k = a.shape
     n, kb = b.shape if transpose_b else b.shape[::-1]
     if kb != k:
@@ -309,9 +356,12 @@ def matmul(
     if config is None and not transpose_b:
         config = _tuned_config(a2.shape[0], n, k, a.dtype,
                                objective or _OBJECTIVE)
-    out = tiled_matmul(a2, b, config=config,
-                       transpose_b=transpose_b,
-                       out_dtype=out_dtype or a.dtype)
+    out_dtype = out_dtype or a.dtype
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        out = _MatMul.apply(a2, b, config, transpose_b, out_dtype)
+    else:
+        out = tiled_matmul(a2, b, config=config, transpose_b=transpose_b,
+                           out_dtype=out_dtype)
     return out.reshape(*lead, n)
 
 

@@ -8,9 +8,15 @@ converts JAX arrays, so the port never sees JAX) and unstacks it per layer.
 A block's groups may nest (the MoE FFN's ``moe.router``, ``moe.experts``,
 ``moe.shared_mlp``): a `nn.ParameterDict` is a group of leaves, a
 `nn.ModuleDict` a group of groups.
+
+The train state carries over too (`train_state_from_numpy`,
+`train_state_to_numpy`): the optimizer's master, m and v trees, stacked in
+JAX, are dicts keyed by parameter name in the port.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -20,6 +26,12 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.hybrid import HybridLM
 from repro_torch.models.transformer import TransformerLM
+
+
+def _module(cfg: ModelConfig, device) -> nn.Module:
+    """An uninitialised module of `cfg`'s kind on `device`."""
+    return {"hybrid": HybridLM, "encdec": EncDecLM}.get(
+        cfg.kind, TransformerLM)(cfg, device)
 
 
 def _top_level(model: nn.Module) -> dict:
@@ -90,8 +102,7 @@ def params_from_numpy(tree: dict, cfg: ModelConfig,
     `HybridLM` for kind hybrid, an `EncDecLM` for encdec) on `device`, each
     leaf cast to its parameter's dtype (``cfg.param_dtype``; the SSM's
     A_log and D stay float32)."""
-    model = {"hybrid": HybridLM, "encdec": EncDecLM}.get(
-        cfg.kind, TransformerLM)(cfg, device)
+    model = _module(cfg, device)
     top, shared, stacks = (_top_level(model), _shared_blocks(model),
                            _stacks(model))
     _check_keys(tree, list(top) + list(shared) + list(stacks), "params")
@@ -145,3 +156,62 @@ def params_to_numpy(model: nn.Module) -> dict:
             lambda a: a.reshape(*model.group_shape, *a.shape[1:]),
             tree["blocks"])
     return tree
+
+
+def _f32(cfg: ModelConfig) -> ModelConfig:
+    return dataclasses.replace(cfg, param_dtype="float32")
+
+
+def named_from_numpy(tree: dict, cfg: ModelConfig,
+                     device: str | torch.device = "cuda"
+                     ) -> dict[str, torch.Tensor]:
+    """A tree of the JAX parameter tree's structure (an optimizer's master,
+    m or v, or a gradient tree) as f32 tensors keyed by the port's
+    parameter names."""
+    model = params_from_numpy(tree, _f32(cfg), device)
+    return {n: p.detach().clone() for n, p in model.named_parameters()}
+
+
+@torch.no_grad()
+def named_to_numpy(named: dict, cfg: ModelConfig) -> dict:
+    """The inverse of `named_from_numpy`: f32 numpy leaves in the JAX
+    tree's structure."""
+    model = _module(_f32(cfg), "cpu")
+    for n, p in model.named_parameters():
+        p.copy_(named[n].detach().float().cpu())
+    return params_to_numpy(model)
+
+
+def train_state_from_numpy(tree: dict, cfg: ModelConfig,
+                           device: str | torch.device = "cuda") -> dict:
+    """The JAX train state ``{"params", "opt": {"step", "master", "m",
+    "v"}, "rng"}`` (numpy leaves) as the port's (`train.step`): the params
+    module (trainable), the optimizer trees by parameter name in f32, the
+    step an int32 scalar and ``rng`` uint32 words, all on `device`."""
+    params = params_from_numpy(tree["params"], cfg, device)
+    for p in params.parameters():
+        p.requires_grad_(True)
+    dev = next(params.parameters()).device
+    opt = tree["opt"]
+    return {
+        "params": params,
+        "opt": {"step": torch.tensor(int(np.asarray(opt["step"])),
+                                     dtype=torch.int32, device=dev),
+                **{k: named_from_numpy(opt[k], cfg, dev)
+                   for k in ("master", "m", "v")}},
+        "rng": torch.from_numpy(np.asarray(tree["rng"], np.uint32)
+                                .copy()).to(dev),
+    }
+
+
+def train_state_to_numpy(state: dict, cfg: ModelConfig) -> dict:
+    """The inverse of `train_state_from_numpy`: the JAX train state's tree
+    with f32 numpy leaves (the step int32, ``rng`` uint32)."""
+    opt = state["opt"]
+    return {
+        "params": params_to_numpy(state["params"]),
+        "opt": {"step": np.asarray(int(opt["step"]), np.int32),
+                **{k: named_to_numpy(opt[k], cfg)
+                   for k in ("master", "m", "v")}},
+        "rng": state["rng"].cpu().numpy().astype(np.uint32),
+    }

@@ -309,3 +309,11 @@ def gemm_shape_counts(cfg: ModelConfig, n_tokens: int,
         add((t, n_in, d), L)                         # SSD in_proj
         add((t, d, di), L)                           # SSD out_proj
     return counts
+
+
+def gemm_shapes(cfg: ModelConfig, n_tokens: int) -> list[tuple[int, int, int]]:
+    """The distinct (m, n, k) GEMMs one forward pass issues over `n_tokens`
+    rows, sorted: the forward fleet of a train step, which
+    `train.step.warm_train_gemms` pre-tunes (`gemm_shape_counts` with the
+    multiplicities)."""
+    return sorted(gemm_shape_counts(cfg, n_tokens))

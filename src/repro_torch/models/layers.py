@@ -33,7 +33,8 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def frozen_params(device, dtype, **shapes) -> torch.nn.ParameterDict:
-    """Uninitialised, frozen parameters of the given shapes."""
+    """Uninitialised, frozen parameters of the given shapes (serving
+    differentiates nothing; `train.step.init_train_state` turns them on)."""
     return torch.nn.ParameterDict({
         name: torch.nn.Parameter(torch.empty(shape, dtype=dtype,
                                              device=device),
@@ -476,3 +477,26 @@ def state_structures_match(a, b) -> bool:
                 and all(state_structures_match(a[k], b[k]) for k in a))
     return (torch.is_tensor(a) and torch.is_tensor(b)
             and tuple(a.shape) == tuple(b.shape) and a.dtype == b.dtype)
+
+
+# ---------------- losses ----------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None,
+                  z_loss: float = 1e-4) -> tuple[torch.Tensor, dict]:
+    """Token-level cross entropy with a z-loss (``z_loss * lse**2``), the
+    softmax in f32; `mask` (B, S) weights each token (default: all 1).
+    Returns (loss, {"nll", "accuracy"}), the metrics detached."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    per_tok = nll + z_loss * lse ** 2
+    mask = torch.ones_like(per_tok) if mask is None else mask.float()
+    denom = mask.sum().clamp_min(1.0)
+    loss = (per_tok * mask).sum() / denom
+    with torch.no_grad():
+        hits = (lf.argmax(-1) == labels.long()).float()
+        metrics = {"nll": (nll * mask).sum() / denom,
+                   "accuracy": (hits * mask).sum() / denom}
+    return loss, metrics

@@ -6,6 +6,7 @@ mamba2, hybrid, encdec and vlm.
     logits, state = model.prefill(params, batch, cfg)
     logits, state = model.prefill_chunk(params, tokens, lengths, state, cfg)
     logits, state = model.decode_step(params, token, state, cfg)
+    loss, metrics = model.loss(params, batch, cfg)          # dense only
     pool = model.init_page_pool(cfg, num_pages, page_size)  # KV kinds only
     state = model.admit(params, model.pack_admit(cfg, extras, w, bucket),
                         state, cfg)                          # encdec, vlm
@@ -22,6 +23,12 @@ from repro_torch.device import resolve_device
 from repro_torch.models import encdec, hybrid, vlm
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
+
+
+def _loss_not_ported(params, batch, cfg: ModelConfig):
+    raise NotImplementedError(
+        f"the {cfg.kind} family's training loss and backward are not ported "
+        "yet (ROADMAP A9b); the port trains the dense family")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +66,9 @@ class ModelApi:
     admit_dims: Callable | None = None
     pack_admit: Callable | None = None
     admit: Callable | None = None
+    # the training forward: (params, batch, cfg) -> (loss, metrics), the
+    # loss differentiable through every GEMM; the dense family's only
+    loss: Callable = _loss_not_ported
 
 
 def _zero_index_state(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -68,11 +78,12 @@ def _zero_index_state(cfg: ModelConfig, batch: int, max_len: int, *,
             "index": torch.zeros((batch,), dtype=torch.long, device=dev)}
 
 
-def _lm_api(paged: bool) -> ModelApi:
+def _lm_api(paged: bool, loss: Callable = _loss_not_ported) -> ModelApi:
     """The API of the `TransformerLM` families (dense, moe, mla_moe, mamba1,
     mamba2): the forwards pick the block function by ``cfg.kind``,
-    `init_cache` the KV, MLA latent or SSM state layout, and `init_page_pool`
-    (only where `paged`) the KV or MLA latent pool."""
+    `init_cache` the KV, MLA latent or SSM state layout, `init_page_pool`
+    (only where `paged`) the KV or MLA latent pool, and `loss` the
+    training forward (only the dense family's is ported)."""
     return ModelApi(
         init=tfm.lm_init,
         prefill=tfm.lm_prefill,
@@ -83,6 +94,7 @@ def _lm_api(paged: bool) -> ModelApi:
         init_state=_zero_index_state,
         init_page_pool=(lambda cfg, n, t, *, device="cuda": (
             tfm.init_page_pool(cfg, n, t, device=device))) if paged else None,
+        loss=loss,
     )
 
 
@@ -140,7 +152,7 @@ def _vlm_api() -> ModelApi:
 
 
 _FAMILIES = {
-    "dense": lambda: _lm_api(paged=True),
+    "dense": lambda: _lm_api(paged=True, loss=tfm.lm_loss),
     "moe": lambda: _lm_api(paged=True),
     "mla_moe": lambda: _lm_api(paged=True),
     "mamba1": lambda: _lm_api(paged=False),

@@ -13,7 +13,7 @@ port runs a Python loop where JAX runs ``lax.scan``).
 
 The serving forwards write the cache of the state they are given in place
 (JAX donates and rebinds it) and return the state with its advanced
-``index``.
+``index``. `lm_loss` is the training forward.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
@@ -261,6 +262,52 @@ def _run_blocks(model: TransformerLM, x: torch.Tensor, cfg: ModelConfig, *,
         x = apply(blk, x, cfg, positions=positions, cache=layer_cache,
                   cache_index=cache_index, seq_lens=seq_lens)[0]
     return x
+
+
+def _train_block(apply, blk, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor) -> tuple:
+    """One block of the training forward (no cache): (x, aux loss)."""
+    x, _, aux = apply(blk, x, cfg, positions=positions)
+    return x, aux
+
+
+def lm_loss(model: TransformerLM, batch: dict, cfg: ModelConfig,
+            block=None) -> tuple[torch.Tensor, dict]:
+    """The training forward over ``batch["tokens"]`` (B, S): embed, every
+    block (through `block`, default the block function of ``cfg.kind``),
+    ``ln_f``, the LM head over every position, and `layers.cross_entropy`
+    against ``batch["labels"]`` (``batch["loss_mask"]`` weights tokens),
+    plus the blocks' aux losses. Returns (loss, metrics: nll, accuracy,
+    aux_loss, loss), the metrics detached.
+
+    Where ``cfg.remat`` each block runs under non-reentrant activation
+    checkpointing (the counterpart of the JAX package's ``jax.checkpoint``
+    around its scan body): only the block inputs stay live, and the
+    backward recomputes each block's forward, whose GEMM launches come
+    out bit for bit as the first time (the kernel is deterministic)."""
+    tokens = batch["tokens"].long()
+    B, S = tokens.shape
+    positions = batch.get("positions")
+    if positions is None:
+        positions = torch.arange(S, device=tokens.device).expand(B, S)
+    apply = block or block_apply(cfg)
+    x = _embed(model, tokens, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for blk in model.blocks:
+        if cfg.remat:
+            x, a = checkpoint(_train_block, apply, blk, x, cfg, positions,
+                              use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, a = _train_block(apply, blk, x, cfg, positions)
+        aux = aux + a
+    x = L.rmsnorm(model.ln_f, x, cfg.norm_eps)
+    logits = _unembed(model, x, cfg)
+    loss, metrics = L.cross_entropy(logits, batch["labels"],
+                                    batch.get("loss_mask"))
+    loss = loss + aux
+    metrics["aux_loss"] = aux.detach()
+    metrics["loss"] = loss.detach()
+    return loss, metrics
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -830,3 +830,139 @@ def test_replayed_request_equals_its_fault_free_stream(dev):
     while again.has_work:
         out += again.serve_step()
     assert out[0].tokens.tolist() == ref.tokens.tolist()
+
+
+# ---------------------------------------------------------------------------
+# training on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("layout", ["da (N, K) B", "dW transposed A",
+                                    "head f32 pair"])
+def test_backward_layouts_match_the_plain_version(dev, layout):
+    """`ops.matmul`'s backward at training shapes (M = 256 rows, M > 64):
+    ``da`` reads the (K, N) weight as an (N, K) B, ``dW`` the activations as
+    a transposed A, both on the general path; the LM head's f32 cotangent
+    takes the f32-cast operands. Each gradient is one launch, and equals
+    `matmul_ref` on the same operands."""
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(dev).manual_seed(3)
+    m, k, n = 256, 192, 320
+    head = layout == "head f32 pair"
+    x = torch.randn((m, k), generator=g, device=dev).bfloat16()
+    w = (torch.randn((k, n), generator=g, device=dev) / k ** 0.5).bfloat16()
+    x.requires_grad_(True)
+    w.requires_grad_(True)
+    out_dt = torch.float32 if head else torch.bfloat16
+    out = ops.matmul(x, w, out_dtype=out_dt)
+    dout = torch.randn((m, n), generator=g, device=dev).to(out_dt)
+    before = dict(tiled_matmul.launches_by_path)
+    dx, dw = torch.autograd.grad(out, [x, w], dout)
+    torch.cuda.synchronize()
+    moved = {p: tiled_matmul.launches_by_path[p] - before[p] for p in before}
+    assert moved == {"general": 2, "stream": 0, "wgmma": 0}
+    assert dx.dtype == dw.dtype == torch.bfloat16
+    cast = (lambda t: t.detach().float()) if head else (lambda t: t.detach())
+    want_dx = matmul_ref(dout, cast(w), transpose_b=True,
+                         out_dtype=torch.bfloat16)
+    want_dw = matmul_ref(cast(x), dout, transpose_a=True,
+                         out_dtype=torch.bfloat16)
+    # both sum in f32 and round to bf16 once, in other orders
+    _assert_close(dx, want_dx, TOL[torch.bfloat16])
+    _assert_close(dw, want_dw, TOL[torch.bfloat16])
+
+
+def _train_smoke(dev):
+    """starcoder2-3b's smoke config in bf16 (its forward takes the fast
+    paths, its backward the general one) and a seeded data set."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
+
+    cfg = dataclasses.replace(get_config("starcoder2-3b", smoke=True),
+                              param_dtype="bfloat16",
+                              activation_dtype="bfloat16", remat=True)
+    ds = SyntheticLMDataset(DataConfig(seq_len=64, global_batch=4,
+                                       vocab=cfg.vocab, seed=0))
+    return cfg, get_model(cfg), ds
+
+
+def _train_state(dev, cfg, api, seed=0):
+    from repro_torch.train.step import init_train_state
+
+    return init_train_state(torch.Generator(dev).manual_seed(seed), api, cfg,
+                            device=dev)
+
+
+def _same_state(a, b):
+    pa = dict(a["params"].named_parameters())
+    pb = dict(b["params"].named_parameters())
+    for n in pa:
+        assert torch.equal(pa[n], pb[n]), n
+        for k in ("master", "m", "v"):
+            assert torch.equal(a["opt"][k][n], b["opt"][k][n]), (k, n)
+    assert torch.equal(a["opt"]["step"], b["opt"]["step"])
+
+
+def test_two_identical_train_steps_give_the_same_bits(dev):
+    """Two states from one seed take two steps each on the same batches:
+    every gradient path (the kernel's forward, its recompute under remat,
+    both backward GEMMs, the embedding gather's backward) is
+    deterministic, so losses, params and optimizer state agree bit for
+    bit. Each step launches the 6 L + 1 forward GEMMs and the 6 L of the
+    recompute on ``wgmma``, and their 2 (6 L + 1) gradients on
+    ``general``."""
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import make_train_step
+
+    cfg, api, ds = _train_smoke(dev)
+    step = make_train_step(api, cfg, AdamWConfig(lr=1e-3, warmup_steps=1))
+    states = [_train_state(dev, cfg, api) for _ in range(2)]
+    losses = [[], []]
+    for s in range(2):
+        for i in range(2):
+            before = dict(tiled_matmul.launches_by_path)
+            states[i], m = step(states[i], ds.batch_at(s))
+            losses[i].append(float(m["loss"]))
+            moved = {p: tiled_matmul.launches_by_path[p] - before[p]
+                     for p in before}
+            fwd = 6 * cfg.n_layers + 1
+            assert moved["wgmma"] == fwd + 6 * cfg.n_layers
+            assert moved["general"] == 2 * fwd and moved["stream"] == 0
+    assert losses[0] == losses[1]
+    assert all(np.isfinite(losses[0]))
+    _same_state(states[0], states[1])
+
+
+def test_a_resumed_run_equals_an_uninterrupted_one_on_the_card(dev,
+                                                               tmp_path):
+    """4 steps against 2 steps, a checkpoint, a restore into a fresh state
+    and 2 more, through the port's loop: bit for bit."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data.pipeline import DataLoader
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.loop import (LoopConfig, resume_or_init,
+                                        run_train_loop)
+    from repro_torch.train.step import make_train_step
+
+    cfg, api, ds = _train_smoke(dev)
+    step = make_train_step(api, cfg, AdamWConfig(lr=1e-3, warmup_steps=1))
+
+    def run(d, steps, total, seed=0, every=100):
+        ckpt = CheckpointManager(str(tmp_path / d))
+        loader = DataLoader(ds)
+        state, start = resume_or_init(
+            ckpt=ckpt, loader=loader,
+            init_fn=lambda: _train_state(dev, cfg, api, seed))
+        return run_train_loop(
+            train_step=step, state=state, loader=loader, ckpt=ckpt,
+            loop_cfg=LoopConfig(total_steps=min(total, start + steps),
+                                ckpt_every=every, log_every=1000),
+            start_step=start, log_fn=lambda s: None,
+            install_signal_handlers=False)
+
+    whole, s_whole = run("a", 4, 4)
+    _, s1 = run("b", 2, 4, every=2)
+    resumed, s2 = run("b", 2, 4, seed=5)
+    _same_state(resumed, whole)
+    assert (list(s1["loss_curve"]) + list(s2["loss_curve"])
+            == list(s_whole["loss_curve"]))

@@ -759,3 +759,40 @@ class TestPlan:
 
     def test_plan_is_deterministic(self):
         assert _plan(64, 3584, 18944) == _plan(64, 3584, 18944)
+
+    # starcoder2-3b's training GEMMs at 8 x 512 = 4096 token rows: (N, K) of
+    # each forward product -> its wgmma tile width and K segments (one CTA
+    # walks them); the LM head's f32 logits last
+    STARCODER2_TRAIN_FWD = {
+        (3072, 3072): (128, 11), (256, 3072): (64, 24),
+        (12288, 3072): (128, 3), (3072, 12288): (128, 11),
+        (49152, 3072): (256, 1),
+    }
+
+    @pytest.mark.parametrize("n,k", sorted(STARCODER2_TRAIN_FWD))
+    def test_starcoder2_training_gemms_take_their_pinned_path(self, n, k):
+        """A train step's layouts at 8 x 512 rows: the forward product (and
+        its recompute under remat) on ``wgmma``; ``da = dout @ W^T`` reads
+        the (K, N) weight as an (N, K) B at M = 4096 and ``dW = x^T @
+        dout`` a transposed A, both on ``general``; the head's pair takes
+        its f32 cotangent against f32-cast operands, also ``general``.
+        Every launch fits the general path's grid (at most 65535 row
+        blocks)."""
+        from repro_torch.kernels.tiled_matmul import _MAX_GRID_Y
+
+        m = 8 * 512
+        head = n == 49152
+        dt = torch.float32 if head else torch.bfloat16
+        fwd = _plan(m, n, k, out_dtype=torch.float32 if head else dt)
+        width, segments = self.STARCODER2_TRAIN_FWD[(n, k)]
+        assert (fwd.path, fwd.tile.as_tuple(), fwd.splits, fwd.segments) \
+            == (WGMMA, (128, width, 64), 1, segments)
+        # da: (M, N) cotangent times the (K, N) weight read transposed
+        da = _plan(m, k, n, a_strides=(n, 1), b_strides=(1, n), dtype=dt,
+                   out_dtype=torch.bfloat16)
+        # dW: the (M, K) activations read transposed times the cotangent
+        dw = _plan(k, n, m, a_strides=(1, k), b_strides=(n, 1), dtype=dt,
+                   out_dtype=torch.bfloat16)
+        for p, rows in ((da, m), (dw, k)):
+            assert (p.path, p.tile, p.splits) == (GENERAL, DEFAULT_CONFIG, 1)
+            assert -(-rows // p.tile.block_m) <= _MAX_GRID_Y
