@@ -39,7 +39,9 @@ build of PyTorch. Phases, each fatal on failure:
 6. where a step's time goes: one decode step and one chunk call timed with
    CUDA events, then traced with torch.profiler (device idle share, in-step
    GEMM time, the largest non-GEMM kernels), and one traced engine run for
-   the idle share of serving as a whole;
+   the idle share of serving as a whole; a device event belongs to the run
+   whose range holds its launching call (by the profiler's correlation
+   id), and each traced forward must count `_gemms_per_forward` GEMMs;
 7. full-width logits of one chunk call, through the kernel and with every
    product through `matmul_ref`;
 8. the paper's loop on the card: profile the compiled tiles over the H100
@@ -65,9 +67,10 @@ build of PyTorch. Phases, each fatal on failure:
    runtime-tuned engine, each run metered by the energy counter: the
    engine's modelled J/token and model clock (the "h100" model) beside the
    measured J/token and mean power;
-10. the rest of dense serving at `plan`'s tiles: full-width, full-depth
-   qwen2.5-14b served five ways on the same 10 requests — (a) chunked on the
-   dense KV cache, (b) on the paged KV cache without prefix reuse (a chunk
+10. the rest of dense serving at `plan`'s tiles: full-width qwen2.5-14b,
+   cut to DENSE_LAYERS of its 48 layers (the script's time: phase 16 came
+   in after it), served five ways on the same 10 requests — (a) chunked on
+   the dense KV cache, (b) on the paged KV cache without prefix reuse (a chunk
    call and decode steps through a paged and a dense state bit-identical
    first), (c) a shared-prefix workload (one 256-token system prompt ahead
    of each request) dense and paged with prefix reuse at half the default
@@ -151,12 +154,26 @@ build of PyTorch. Phases, each fatal on failure:
    4 steps through the port's loop against 2 steps, a checkpoint written
    to and restored from ``build/chip_smoke_train``, and 2 more: params,
    optimizer state, rng and losses bit for bit.
+16. the other families' training at full width, 3 steps each (the first
+   cold), remat on: zamba2-2.7b (hybrid, 8 x 512 tokens), qwen2-vl-2b (vlm,
+   2 x 2048: 1,024 patches on a 32 x 32 grid and 1,024 text tokens a row,
+   the patches masked from the loss), seamless-m4t-medium (encdec, 8 x
+   512 over 128 source frames), olmoe-1b-7b and falcon-mamba-7b (8 x 512,
+   each cut to the deepest depth whose `train_memory_bytes` fits 0.9 of
+   the card); the LM kinds through the launcher, encdec and vlm through
+   `make_train_step`. Per family: (a) gates as phase 15 (a)'s, the
+   launches per step from the structure (`_family_launches_per_step`: the
+   tied head's forward on general), the peak memory beside the estimate;
+   (b) its GEMMs timed as phase 15 (b); (c) at 2 layers (zamba2-2.7b: one
+   group of 6 Mamba2 blocks and the shared block) every gradient leaf
+   through the kernel against the plain version (relative L2 at most
+   5e-2).
 
 After phase 10, ``build/serving_shapes.json`` holds qwen2-7b's and
 qwen2.5-14b's serving launches by shape, for ``tools/gemm_sums.py``.
 
 It prints a JSON line of per-kernel numbers (launches and times summed
-over phases 4-5, 12, 13, 14 and 15 (a), the runs of the port's main
+over phases 4-5, 12, 13, 14, 15 (a) and 16 (a), the runs of the port's main
 paths; the general path's launches are training's) and, last, the device
 line.
 Without a GPU, or without the repository beside it, it exits non-zero.
@@ -203,9 +220,10 @@ LOOP_MIN_ROWS = 2076 + 519
 LOOP_MIN_R2 = 0.8
 PAPER_RUNTIME_R2, PAPER_RUNTIME_MEAN_PCT = 0.98, 15.57
 # phase 9: rows measured for power (fewer if the probed counter period would
-# take the sweep past its budget; about 0.55 s a row, so 700 rows keep the
-# whole script, phases 14 and 15 included, about 100 s under its 1,100 s
-# cap), and
+# take the sweep past its budget; about 0.55 s a row, 1.15 s for one whose
+# 4 periods read above the card's limit and run on to `nvml.CAPPED_PERIODS`,
+# so 700 rows keep the whole script, phases 14-16 included, under its
+# 1,100 s cap), and
 # the held-out power R2 below which the pipeline is broken (swapped columns
 # or the simulator's power give about 0 or below). The paper's power figures
 # on its RTX 4070 are printed beside the card's.
@@ -1155,12 +1173,15 @@ def _busy_us(intervals: list) -> float:
 def _trace(runs: list) -> dict:
     """Run each (label, fn) of `runs` in order under torch.profiler (host
     and device activity), each inside a `record_function` range and
-    followed by a synchronisation. Returns {label: [one dict per run]}:
-    window (range start to the run's last device event), host (the range's
-    own length: the host's time to issue the run), busy (union of kernels,
-    copies and sets), idle share, GEMM kernel time and count, kernel count,
-    and device time per kernel name. An empty dict means the profiler saw
-    no device activity."""
+    followed by a synchronisation. A device event belongs to the run whose
+    range holds the runtime or driver call that launched it (the two share
+    the profiler's correlation id), so no clock skew between the host's
+    and the device's timestamps can move an event to another run. Returns
+    {label: [one dict per run]}: window (range start to the run's last
+    device event), host (the range's own length: the host's time to issue
+    the run), busy (union of kernels, copies and sets), idle share, GEMM
+    kernel time and count, kernel count, and device time per kernel name.
+    An empty dict means the profiler saw no device activity."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     tags = [f"{label}#{i}" for i, (label, _) in enumerate(runs)]
@@ -1178,21 +1199,25 @@ def _trace(runs: list) -> dict:
     ranges = sorted((float(e["ts"]), float(e["dur"]), e["name"])
                     for e in events if e.get("cat") == "user_annotation"
                     and e.get("name") in tags)
-    device = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]),
-                     e["name"], e["cat"]) for e in events
-                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    launched = {e["args"]["correlation"]: float(e["ts"]) for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    device = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"],
+               e["cat"], launched.get(e.get("args", {}).get("correlation")))
+              for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     if not device or len(ranges) != len(tags):
         return {}
     out: dict = collections.defaultdict(list)
-    for i, (ts, dur, tag) in enumerate(ranges):
-        nxt = ranges[i + 1][0] if i + 1 < len(ranges) else float("inf")
-        mine = [d for d in device if ts <= d[0] < nxt]
+    for ts, dur, tag in ranges:
+        mine = [d for d in device
+                if d[4] is not None and ts <= d[4] <= ts + dur]
         if not mine:
             return {}
         window = max(d[1] for d in mine) - ts
         busy = _busy_us([d[:2] for d in mine])
         per_name = collections.Counter()
-        for s, e, name, cat in mine:
+        for s, e, name, cat, _ in mine:
             per_name[name if cat == "kernel" else cat] += e - s
         gemm = [d for d in mine if d[3] == "kernel" and _is_gemm(d[2])]
         out[tag.rsplit("#", 1)[0]].append(dict(
@@ -1201,6 +1226,10 @@ def _trace(runs: list) -> dict:
             gemm_ms=sum(e - s for s, e, *_ in gemm) / 1e3, n_gemm=len(gemm),
             n_kernels=sum(d[3] == "kernel" for d in mine),
             per_name=per_name))
+    unmatched = sum(d[4] is None for d in device)
+    if unmatched:
+        _say(f"[trace] {unmatched} of {len(device)} device events have no "
+             "launching call in the trace (left out of every run)")
     return out
 
 
@@ -1721,7 +1750,10 @@ def _long_window(dev, card, period: float, m: int, n: int, k: int,
                  tile: tuple, dtype: str):
     """One power window of `LONG_WINDOW_PERIODS` counter periods of a
     row-major (m, n, k) GEMM in `dtype` ("bf16" or "f32") at `tile`:
-    whether a sweep row's short window reads the power the card holds."""
+    whether a sweep row's short window reads the power the card holds.
+    Returns the window and the energy counter's steps, (seconds, mJ) from
+    the first step after the GEMM starts, each timed by the read that sees
+    it (the counter is read after every pump)."""
     from repro_torch.core import nvml
     from repro_torch.core.profiler import graph_pump, time_ms
     from repro_torch.kernels.tiled_matmul import BlockConfig, tiled_matmul
@@ -1734,10 +1766,46 @@ def _long_window(dev, card, period: float, m: int, n: int, k: int,
 
     ms = time_ms(fn, torch.empty(2 ** 28, dtype=torch.uint8, device=dev), 3)
     pump, _ = graph_pump(fn, ms)
-    win = nvml.measure_window(card.energy_mj, pump, period_s=period,
+    steps = []
+
+    def read():
+        e = card.energy_mj()
+        if not steps or e != steps[-1][1]:
+            steps.append((time.perf_counter(), e))
+        return e
+
+    def pump_and_read():
+        # the window pumps without reading between its ends
+        units = pump()
+        read()
+        return units
+
+    win = nvml.measure_window(read, pump_and_read, period_s=period,
                               periods=LONG_WINDOW_PERIODS)
     torch.cuda.synchronize()
-    return win
+    # steps[0] is the first read, steps[1] the first step after it
+    return win, [(t - steps[1][0], e - steps[1][1]) for t, e in steps[1:]]
+
+
+def _cycle_line(bound: str, steps: list, limit: float) -> str:
+    """The watts of each counter period of a `_long_window`'s GEMM, and of
+    its first `WINDOW_PERIODS` and `CAPPED_PERIODS` periods: how the card's
+    power control cycles under a heavy GEMM (fault C3)."""
+    from repro_torch.core import nvml
+
+    def over(k):
+        t, e = steps[min(k, len(steps) - 1)]
+        return e / 1e3 / t
+
+    per = [(e1 - e0) / 1e3 / (t1 - t0)
+           for (t0, e0), (t1, e1) in zip(steps, steps[1:])]
+    return (f"[power] cycle of the largest {bound}-bound row, W per counter "
+            f"period from the GEMM's first step: "
+            + " ".join(f"{w:.0f}" for w in per)
+            + f"; its first {nvml.WINDOW_PERIODS} periods "
+            f"{over(nvml.WINDOW_PERIODS):.1f} W, first "
+            f"{nvml.CAPPED_PERIODS} {over(nvml.CAPPED_PERIODS):.1f} W "
+            f"(limit {limit:g} W)")
 
 
 def phase_energy(dev, api, params, cfg, shapes, table, tuner, runtime_won,
@@ -1802,7 +1870,8 @@ def phase_energy(dev, api, params, cfg, shapes, table, tuner, runtime_won,
          f"{ptable['busy_share'].min():.3f}-{ptable['busy_share'].max():.3f},"
          f" {int(lb.sum())} rows flagged launch_bound (below 0.9); "
          f"{int((pw > limit).sum())} rows above the enforced limit of "
-         f"{limit:g} W; power_source {sorted(set(ptable['power_source']))}")
+         f"{limit:g} W, {int((pw > 1.1 * limit).sum())} above 1.1 x it; "
+         f"power_source {sorted(set(ptable['power_source']))}")
     if set(ptable["power_source"]) != {"nvml"}:
         raise SystemExit("rows of the power table are not the card's")
     if len(pw) < 0.9 * n or not (np.isfinite(pw).all() and (pw > 0).all()):
@@ -1817,16 +1886,19 @@ def phase_energy(dev, api, params, cfg, shapes, table, tuner, runtime_won,
         i = idx[np.argmax(size[idx])]
         m, n, k = (int(ptable[d][i]) for d in "mnk")
         tile = tuple(int(ptable[f"block_{d}"][i]) for d in "mnk")
-        long = _long_window(dev, card, period, m, n, k, tile,
-                            str(ptable["dtype"][i]))
+        long, steps = _long_window(dev, card, period, m, n, k, tile,
+                                   str(ptable["dtype"][i]))
         _say(f"[power] largest {bound}-bound row (by {what}): {m}x{n}x{k} "
              f"{ptable['dtype'][i]} tile {tile} "
-             f"{ptable['runtime_ms'][i]:.4f} ms at {pw[i]:.1f} W over "
-             f"{nvml.WINDOW_PERIODS} counter periods, {long.watts:.1f} W over "
+             f"{ptable['runtime_ms'][i]:.4f} ms at {pw[i]:.1f} W in the "
+             f"sweep ({nvml.WINDOW_PERIODS} counter periods, "
+             f"{nvml.CAPPED_PERIODS} if they read above the limit), "
+             f"{long.watts:.1f} W over "
              f"{LONG_WINDOW_PERIODS} ({long.seconds:.2f} s) (the h100 spec's "
              f"estimates: idle {spec.idle_power_w:g} W, idle + mxu "
              f"{spec.idle_power_w + spec.mxu_power_w:g} W, idle + hbm "
              f"{spec.idle_power_w + spec.hbm_power_w:g} W)")
+        _say(_cycle_line(bound, steps, limit))
 
     # 3. the power target: the Random Forest on 80% of the measured rows
     tr, te = paper_split(ptable)
@@ -2290,6 +2362,15 @@ def _prefix_pair(tag: str, engine, cfg, run, log, probe) -> None:
         raise SystemExit("prefix reuse missed or saved no chunk step")
 
 
+# phase 10 serves qwen2.5-14b at full width but 16 of its 48 layers: every
+# serving mode and gate runs as at full depth, and the cut keeps the whole
+# script inside its 1,100 s with phase 16 and phase 9's capped power
+# windows on the slowest host seen (1108.5 s at 48 layers before the
+# windows, phase 10 about 1.5 s a layer there; the windows add 30-45 s, so
+# 32 layers would take about 1,120 s and 16 about 1,100 s)
+DENSE_LAYERS = 16
+
+
 def phase_dense(dev) -> dict:
     """The rest of dense serving at `plan`'s tiles (no tuned winner is
     installed): qwen2.5-14b served chunked, paged, with prefix reuse,
@@ -2317,8 +2398,9 @@ def phase_dense(dev) -> dict:
                              f"tiles: {by_path}, {dict(untuned)}")
         return res, rep
 
-    # qwen2.5-14b at full width and depth
-    cfg, api, params = _init_model(dev, "qwen2.5-14b", "dense")
+    # qwen2.5-14b at full width, cut in depth
+    cfg, api, params = _init_model(dev, "qwen2.5-14b", "dense",
+                                   layers=DENSE_LAYERS)
 
     def engine(**kw):
         return ServingEngine(api, params, cfg, max_batch=4, max_len=512,
@@ -3087,7 +3169,8 @@ def _layout_call(dev, g, m, n, k, in_dt, layout) -> tuple:
     return a, b, dict(transpose_a=layout == "tn", transpose_b=layout == "nt")
 
 
-def _train_shapes(dev, shapes: collections.Counter, runs: int) -> dict:
+def _train_shapes(dev, shapes: collections.Counter, runs: int,
+                  tag: str = "train (b)") -> dict:
     """(b): hold the kernel against its plain version at every distinct
     training GEMM of one step (forward, recompute, both backward layouts,
     the head's f32 pair) and time it beside the general path, the plain
@@ -3103,7 +3186,7 @@ def _train_shapes(dev, shapes: collections.Counter, runs: int) -> dict:
     tot: dict = collections.defaultdict(collections.Counter)
     worst: dict = collections.Counter()
     failed = []
-    _say("[train (b)] M N K in out layout per-step path kernel_ms v3_ms "
+    _say(f"[{tag}] M N K in out layout per-step path kernel_ms v3_ms "
          "plain_ms library_ms bound_ms bound_by bound/kernel "
          "library/kernel max_abs rel_l2")
     for key, count in sorted(shapes.items(), key=lambda kv: (
@@ -3132,7 +3215,7 @@ def _train_shapes(dev, shapes: collections.Counter, runs: int) -> dict:
                              flush, 5)
         ops_s, bytes_s = _bound_s(m, n, k, in_dt, out_dt)
         bound_ms = 1e3 * max(ops_s, bytes_s)
-        _say(f"[train (b)] {m} {n} {k} {str(in_dt).split('.')[-1]} "
+        _say(f"[{tag}] {m} {n} {k} {str(in_dt).split('.')[-1]} "
              f"{str(out_dt).split('.')[-1]} {layout} {per_step} {path} "
              f"{kernel_ms:.4f} {v3_ms:.4f} {plain_ms:.4f} {library_ms:.4f} "
              f"{bound_ms:.4f} {'operations' if ops_s > bytes_s else 'bytes'}"
@@ -3151,7 +3234,7 @@ def _train_shapes(dev, shapes: collections.Counter, runs: int) -> dict:
         raise SystemExit(f"kernel disagrees at training shapes {failed}")
     entries = {}
     for path, t in sorted(tot.items()):
-        _say(f"[train (b)] one step's GEMMs ({path}): kernel {t['ms']:.2f} "
+        _say(f"[{tag}] one step's GEMMs ({path}): kernel {t['ms']:.2f} "
              f"ms, general path {t['v3_ms']:.2f} ms, plain "
              f"{t['plain_ms']:.2f} ms, torch.matmul {t['library_ms']:.2f} "
              f"ms, bound {t['bound_ms']:.2f} ms (operations "
@@ -3272,10 +3355,12 @@ def _cut_state(dev, cfg, seed: int = 0) -> dict:
                             get_model(cfg), cfg, device=dev)
 
 
-def _train_grads(dev, cfg) -> None:
+def _train_grads(dev, cfg, batch: dict | None = None,
+                 tag: str = "train (c)") -> None:
     """(c): loss and every gradient leaf at full width cut to TRAIN_CUT
     layers, through the kernel against every product through
-    `matmul_ref`; relative L2 at most LOGITS_REL_L2_MAX."""
+    `matmul_ref`; relative L2 at most LOGITS_REL_L2_MAX. `batch` defaults
+    to one TRAIN_BATCH x TRAIN_SEQ batch of the synthetic pipeline."""
     from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import matmul_ref
@@ -3284,9 +3369,10 @@ def _train_grads(dev, cfg) -> None:
 
     state = _cut_state(dev, cfg)
     params = state["params"]
-    batch = SyntheticLMDataset(DataConfig(
-        seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, vocab=cfg.vocab)
-    ).batch_at(0)
+    if batch is None:
+        batch = SyntheticLMDataset(DataConfig(
+            seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, vocab=cfg.vocab)
+        ).batch_at(0)
     batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
     api = get_model(cfg)
 
@@ -3313,8 +3399,9 @@ def _train_grads(dev, cfg) -> None:
     rels = {n: rel(got[1][n], want[1][n]) for n in want[1]}
     worst = max(rels, key=rels.get)
     loss_rel = abs(got[0].item() - want[0].item()) / abs(want[0].item())
-    _say(f"[train (c)] {cfg.n_layers} layers at full width, one "
-         f"{TRAIN_BATCH} x {TRAIN_SEQ} batch: loss {got[0].item():.6f} "
+    rows = tuple(batch["labels"].shape)
+    _say(f"[{tag}] {cfg.n_layers} layers at full width, one "
+         f"{rows[0]} x {rows[1]} batch: loss {got[0].item():.6f} "
          f"through the kernel, {want[0].item():.6f} through the plain "
          f"version (relative {loss_rel:.3e}); gradients of {len(rels)} "
          f"leaves, relative L2 max {rels[worst]:.3e} ({worst}), median "
@@ -3424,6 +3511,272 @@ def phase_train(dev) -> dict:
     return {"launches": collections.Counter(by_path), "entries": entries}
 
 
+# Phase 16: the other families' training at full width, (arch, batch rows,
+# tokens a row: vlm's count its N_PATCHES patches and as many text tokens),
+# FAMILY_STEPS steps each (the first cold), remat on. A config whose
+# training does not fit FIT_SHARE of the card at full depth is cut to the
+# deepest depth that does (`_fit_depth`). The LM kinds train through the
+# launcher's `main`, encdec and vlm through `make_train_step` on batches
+# that carry their source frames or patches.
+FAMILY_TRAIN = (("zamba2-2.7b", 8, 512), ("qwen2-vl-2b", 2, 2048),
+                ("seamless-m4t-medium", 8, 512), ("olmoe-1b-7b", 8, 512),
+                ("falcon-mamba-7b", 8, 512))
+FAMILY_STEPS = 3
+FIT_SHARE = 0.9
+FAMILY_DIR = ROOT / "build" / "chip_smoke_family_train"
+
+
+def _fit_depth(cfg, batch: int, seq: int, capacity: int):
+    """`cfg` at full depth where `train_memory_bytes` puts its training at
+    most FIT_SHARE of `capacity`, else at the deepest depth that is (for
+    hybrid a multiple of attn_every)."""
+    from repro_torch.launch.train import train_memory_bytes
+
+    step = cfg.attn_every if cfg.kind == "hybrid" else 1
+    for n in range(cfg.n_layers, 0, -step):
+        cut = dataclasses.replace(cfg, n_layers=n)
+        if sum(train_memory_bytes(cut, batch, seq)) <= FIT_SHARE * capacity:
+            return cut
+    raise SystemExit(f"{cfg.name} does not train on the card at any depth")
+
+
+def _family_launches_per_step(cfg) -> dict:
+    """One train step's launches per path, from the model's structure: the
+    forward's GEMMs (`_gemms_per_forward`, and encdec's encoder and
+    cross-KV, `_gemms_per_admission`), on ``wgmma`` but for a tied head,
+    which reads the table as an (N, K) B at M > 64 and takes ``general``;
+    each unit's GEMMs again where remat recomputes it (every GEMM but the
+    head's: the blocks, hybrid's groups with their shared block,
+    encdec's encoder and decoder layers with their cross-KV); and two
+    backward GEMMs per forward GEMM on ``general``. 361 and 362 for
+    starcoder2-3b."""
+    fwd = _gemms_per_forward(cfg) + (_gemms_per_admission(cfg)
+                                     if cfg.kind == "encdec" else 0)
+    tied = 1 if cfg.tie_embeddings else 0
+    return {"stream": 0,
+            "wgmma": fwd - tied + (fwd - 1 if cfg.remat else 0),
+            "general": tied + 2 * fwd}
+
+
+def _family_batch(dev, cfg, rows: int, seq: int, step: int) -> dict:
+    """Step `step`'s seeded synthetic batch of `cfg`'s kind: tokens and
+    labels of the JAX package's pipeline; encdec adds `src_len(seq)`
+    source frames, vlm an N_PATCHES patch prefix on its GRID (seq counts
+    it) with M-RoPE positions and a loss mask of 0 on the patches. The
+    frames and patches are N(0, 1), drawn on the card."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
+
+    g = torch.Generator(dev).manual_seed(1000 + step)
+    if cfg.kind == "vlm":
+        from repro_torch.configs.qwen2_vl_2b import GRID, N_PATCHES
+        from repro_torch.models.vlm import build_mrope_positions
+
+        text = seq - N_PATCHES
+        b = SyntheticLMDataset(DataConfig(seq_len=text, global_batch=rows,
+                                          vocab=cfg.vocab)).batch_at(step)
+        labels = np.concatenate([np.zeros((rows, N_PATCHES), np.int32),
+                                 b["labels"]], axis=1)
+        mask = np.ones((rows, seq), np.float32)
+        mask[:, :N_PATCHES] = 0.0
+        pos = np.broadcast_to(build_mrope_positions(N_PATCHES, GRID, text),
+                              (rows, seq, 3))
+        out = {"tokens": b["tokens"], "labels": labels, "loss_mask": mask,
+               "positions_3d": pos.astype(np.int32)}
+        out = {k: torch.as_tensor(v, device=dev) for k, v in out.items()}
+        out["patch_embeds"] = torch.randn((rows, N_PATCHES, cfg.d_model),
+                                          generator=g, device=dev)
+        return out
+    b = SyntheticLMDataset(DataConfig(seq_len=seq, global_batch=rows,
+                                      vocab=cfg.vocab)).batch_at(step)
+    out = {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+    if cfg.kind == "encdec":
+        from repro_torch.configs.seamless_m4t_medium import src_len
+
+        out["src_embeds"] = torch.randn((rows, src_len(seq), cfg.d_model),
+                                        generator=g, device=dev)
+    return out
+
+
+def _family_steps(dev, cfg, rows: int, seq: int, log) -> tuple:
+    """encdec and vlm: FAMILY_STEPS steps of `make_train_step` (the
+    launcher's AdamW) on `_family_batch`es, each timed to its loss on the
+    host, as the launcher's loop times them. Returns (state, the loop's
+    summary keys)."""
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    api = get_model(cfg)
+    state = init_train_state(torch.Generator(dev).manual_seed(0), api, cfg,
+                             device=dev)
+    step = make_train_step(api, cfg, AdamWConfig(
+        lr=3e-4, warmup_steps=10, decay_steps=FAMILY_STEPS))
+    losses, norms, times = [], [], []
+    for i in range(FAMILY_STEPS):
+        batch = _family_batch(dev, cfg, rows, seq, i)
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+        norms.append(float(m["grad_norm"]))
+        log(f"step {i + 1} loss {losses[-1]:.4f} grad_norm {norms[-1]:.4f} "
+            f"({1e3 * times[-1]:.0f} ms/step)")
+    return state, {"final_step": FAMILY_STEPS, "loss_curve": losses,
+                   "grad_norms": norms, "step_times_s": times}
+
+
+def _train_family(dev, arch: str, rows: int, seq: int) -> dict:
+    """(a) for one family: train it FAMILY_STEPS steps at full width (cut in
+    depth by `_fit_depth`), the counters set to 0 just before and read just
+    after; gates: finite losses and grad norms, every master leaf and
+    weight matrix moved from the seeded init, launches per step and path
+    from the structure. Returns its launches by shape and layout and by
+    path, the cut config, the peak and the steps' times."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.tiled_matmul import tiled_matmul
+    from repro_torch.launch import train as launch
+    from repro_torch.models.registry import get_model
+
+    cap = torch.cuda.get_device_properties(dev).total_memory
+    full = get_config(arch)
+    cfg = _fit_depth(full, rows, seq, cap)
+    state_b, acts_b = launch.train_memory_bytes(cfg, rows, seq)
+    want = _family_launches_per_step(cfg)
+    tag = f"family (a) {arch}"
+    _say(f"[{tag}] {cfg.kind}: {cfg.n_layers} of {full.n_layers} layers"
+         + ("" if cfg.n_layers == full.n_layers else
+            f" (cut: {full.n_layers} would need "
+            f"{sum(launch.train_memory_bytes(full, rows, seq)) / 1e9:.1f} "
+            f"GB)")
+         + f", d_model {cfg.d_model}, vocab {cfg.vocab}, remat "
+         f"{cfg.remat}; {rows} x {seq} tokens a step; "
+         f"{cfg.n_params() / 1e9:.3f} B params, training state "
+         f"{state_b / 1e9:.2f} GB, activations about {acts_b / 1e9:.2f} GB "
+         f"(`train_memory_bytes`) on a card of {cap / 1e9:.2f} GB; launches "
+         f"per step from the structure: {want}")
+    shapes: collections.Counter = collections.Counter()
+    marks = []
+
+    def on_log(line: str) -> None:
+        _say(f"[{tag}] {line}")
+        if line.startswith("step "):
+            marks.append(dict(tiled_matmul.launches_by_path))
+
+    shutil.rmtree(FAMILY_DIR, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    ops.tiled_matmul = _train_recording(shapes)
+    real_config = launch.get_config
+    launch.get_config = lambda name, smoke=False: cfg
+    try:
+        tiled_matmul.launches = 0
+        tiled_matmul.launches_by_path.update(
+            dict.fromkeys(tiled_matmul.launches_by_path, 0))
+        marks.append(dict(tiled_matmul.launches_by_path))
+        if cfg.kind in ("encdec", "vlm"):
+            state, summary = _family_steps(dev, cfg, rows, seq, on_log)
+        else:
+            state, summary = launch.main(
+                ["--arch", arch, "--steps", str(FAMILY_STEPS), "--batch",
+                 str(rows), "--seq", str(seq), "--log-every", "1",
+                 "--ckpt-every", str(10 * FAMILY_STEPS), "--ckpt-dir",
+                 str(FAMILY_DIR)], log_fn=on_log)
+        torch.cuda.synchronize()
+        launches = tiled_matmul.launches
+        by_path = dict(tiled_matmul.launches_by_path)
+    finally:
+        ops.tiled_matmul = tiled_matmul
+        launch.get_config = real_config
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    shutil.rmtree(FAMILY_DIR, ignore_errors=True)
+    steps = [{p: b[p] - a[p] for p in a} for a, b in zip(marks, marks[1:])]
+    times = list(summary["step_times_s"])
+    warm = float(np.mean(times[1:]))
+    _say(f"[{tag}] {summary['final_step']} steps in {wall:.1f} s (init "
+         f"and data included); step ms "
+         + ", ".join(f"{1e3 * t:.1f}" for t in times)
+         + f"; after the first: mean {1e3 * warm:.1f} ms, "
+         f"{rows * seq / warm:.1f} training tokens/s; peak device memory "
+         f"{peak / 1e9:.2f} GB against {(state_b + acts_b) / 1e9:.2f} GB "
+         f"estimated")
+    _say(f"[{tag}] launches per step by path: {steps} (expected {want} "
+         f"each); {launches} in all")
+    init = get_model(cfg).init(cfg, torch.Generator(dev).manual_seed(0),
+                               device=dev)
+    moved = {"master": 0, "matrices": 0}
+    n_mat = 0
+    trained = dict(state["params"].named_parameters())
+    for name, p0 in init.named_parameters():
+        p = trained[name]
+        moved["master"] += not torch.equal(state["opt"]["master"][name],
+                                           p0.float())
+        if p.dim() >= 2:
+            n_mat += 1
+            moved["matrices"] += not torch.equal(p, p0)
+    n_leaves = sum(1 for _ in init.parameters())
+    del init
+    _say(f"[{tag}] params moved from the init: master {moved['master']} of "
+         f"{n_leaves} leaves, weight matrices {moved['matrices']} of "
+         f"{n_mat}; optimizer step {int(state['opt']['step'])}")
+    finite = bool(np.isfinite(summary["loss_curve"]).all()
+                  and np.isfinite(summary["grad_norms"]).all())
+    if (summary["final_step"] != FAMILY_STEPS or not finite
+            or len(steps) != FAMILY_STEPS or any(s != want for s in steps)
+            or launches != FAMILY_STEPS * sum(want.values())
+            or moved["master"] != n_leaves or moved["matrices"] != n_mat):
+        raise SystemExit(f"{arch}'s training failed its gates (steps, "
+                         "finite losses and grad norms, launches per step "
+                         "and path, params moved)")
+    del state
+    return {"cfg": cfg, "shapes": shapes, "by_path": by_path, "peak": peak,
+            "warm_s": warm, "wall": wall}
+
+
+def _family_cut(cfg):
+    """(c)'s cut: TRAIN_CUT layers (hybrid: one group of attn_every Mamba2
+    blocks and its shared block; encdec: TRAIN_CUT encoder and decoder
+    layers)."""
+    if cfg.kind == "hybrid":
+        return dataclasses.replace(cfg, n_layers=cfg.attn_every)
+    if cfg.kind == "encdec":
+        return dataclasses.replace(cfg, n_layers=TRAIN_CUT,
+                                   n_encoder_layers=TRAIN_CUT)
+    return dataclasses.replace(cfg, n_layers=TRAIN_CUT)
+
+
+def phase_families(dev) -> dict:
+    """Phase 16, the other families' training on the card: for each of
+    FAMILY_TRAIN, (a) its training at full width through the launcher (the
+    LM kinds) or the train step (encdec, vlm), (b) its GEMMs against the
+    plain version, timed, (c) gradients through the kernel against the
+    plain version at `_family_cut`. Returns {"launches": per path summed
+    over the families' (a), "entries": each family's per-path JSON entries
+    over its (a)}."""
+    t0 = time.perf_counter()
+    launched: collections.Counter = collections.Counter()
+    groups = []
+    for arch, rows, seq in FAMILY_TRAIN:
+        _free()
+        t1 = time.perf_counter()
+        run = _train_family(dev, arch, rows, seq)
+        _free()
+        launched.update(run["by_path"])
+        groups.append(_train_shapes(dev, run["shapes"], FAMILY_STEPS,
+                                    tag=f"family (b) {arch}"))
+        _free()
+        cut = _family_cut(run["cfg"])
+        _train_grads(dev, cut, _family_batch(dev, cut, rows, seq, 0),
+                     tag=f"family (c) {arch}")
+        _free()
+        _say(f"[family] {arch} in {time.perf_counter() - t1:.1f} s")
+    _say(f"[family] phase 16 in {time.perf_counter() - t0:.1f} s")
+    return {"launches": launched, "entries": groups}
+
+
 def _merge_entries(groups: list) -> dict:
     """Per-path JSON entries summed over `groups` (each phase 5's form):
     times and bounds added, the bound's kind from the summed operations and
@@ -3494,20 +3847,21 @@ def main() -> int:
     ssm = phase_ssm(dev)
     admit = phase_admit(dev)
     train = phase_train(dev)
+    families = phase_families(dev)
     _say(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     _say(_nvidia_smi())
     # one entry per path, over the main paths' runs: qwen2-7b (phases
     # 4-5), the SSM and hybrid models (phase 12), the encoder-decoder and
-    # vision models (phase 13), the fleets (phase 14) and training (phase
-    # 15 (a)). No serving launch takes the general path (every serving
-    # phase checks 0 there): its launches are training's backward GEMMs;
-    # each entry's v3_ms is the general path at the same shapes
+    # vision models (phase 13), the fleets (phase 14) and training (phases
+    # 15 (a) and 16 (a)). No serving launch takes the general path (every
+    # serving phase checks 0 there): its launches are training's backward
+    # GEMMs; each entry's v3_ms is the general path at the same shapes
     launched = sum([*ssm["launches"].values(), *admit["launches"].values(),
-                    fleet["launches"], train["launches"]],
-                   collections.Counter(by_path))
+                    fleet["launches"], train["launches"],
+                    families["launches"]], collections.Counter(by_path))
     merged = _merge_entries([entries, *ssm["entries"].values(),
                              *admit["entries"].values(), fleet["entries"],
-                             train["entries"]])
+                             train["entries"], *families["entries"]])
     _say(json.dumps({"kernels": [{
         "name": f"tiled_matmul[{path}]", "route": "cuda",
         "source": "src/repro_torch/csrc/tiled_matmul.cu",

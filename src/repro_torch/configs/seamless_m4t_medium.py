@@ -5,6 +5,13 @@ vocab=256206, speech frontend stubbed as precomputed frame embeddings
 from repro_torch.models.config import ModelConfig
 
 
+def src_len(seq_len: int) -> int:
+    """Source frames a training or prefill sequence of `seq_len` target
+    tokens comes with: a quarter of it, at least 8 (the reference's rule
+    for its input shapes)."""
+    return max(seq_len // 4, 8)
+
+
 def full_config() -> ModelConfig:
     """The published seamless-m4t-medium backbone (plain GELU FFN)."""
     return ModelConfig(

@@ -145,8 +145,14 @@ def open_card(device: str | torch.device = "cuda") -> Card:
 # ---------------------------------------------------------------------------
 
 # a window lasts the larger of WINDOW_PERIODS counter periods and
-# MIN_WINDOW_S, after a warm-up of about one period
+# MIN_WINDOW_S, after a warm-up of about one period. A window that reads
+# above the card's enforced power limit runs on to CAPPED_PERIODS periods:
+# the card's power control then holds the draw to the limit over a cycle of
+# about a second, high for most of it and low for the rest (on the H100,
+# `chip_smoke.py` phase 9's `[power] cycle` lines), so 4 periods read the
+# cycle's high part and 10 read one whole cycle
 WINDOW_PERIODS = 4
+CAPPED_PERIODS = 10
 MIN_WINDOW_S = 0.1
 # waiting this many periods (plus a second) for the counter to step means it
 # has stopped
@@ -197,6 +203,7 @@ class PowerWindow:
 
 def measure_window(read_mj: Callable[[], int], pump: Callable[[], int], *,
                    period_s: float, periods: int = WINDOW_PERIODS,
+                   limit_w: float | None = None,
                    clock: Callable[[], float] = time.perf_counter
                    ) -> PowerWindow:
     """Run `pump()` (keep the card busy; returns the units of work it saw
@@ -204,7 +211,19 @@ def measure_window(read_mj: Callable[[], int], pump: Callable[[], int], *,
     period, up to the next step of the counter), then from that step to the
     step nearest `window_seconds(period_s, periods)` later: `periods` whole
     periods. Watts are the counter's change over the wall time between the
-    two steps, each step timed by the first read that returns it."""
+    two steps. Given the enforced power limit `limit_w`, a window that
+    reads above it runs on from the same first step to `CAPPED_PERIODS`
+    periods, one cycle of the card's power control, and reads the draw the
+    card holds rather than the cycle's high part (fault C3).
+
+    A step is known only to lie between the last read that returned the
+    old value and the first that returns the new one, and a pump runs
+    between the two: its lag (a replay waiting for room in the queue, the
+    host descheduled) is inside the bracket. So each step is timed at the
+    bracket's midpoint, the end of the read before it and of the read that
+    sees it, and not at the read that sees it: timed there, a slow pump at
+    one end and a fast one at the other moved the window's seconds by the
+    pump's lag and its watts by as much."""
     stall = _STALL_PERIODS * period_s + 1.0
 
     def run_for(seconds: float, units: int) -> int:
@@ -214,17 +233,29 @@ def measure_window(read_mj: Callable[[], int], pump: Callable[[], int], *,
         return units
 
     def next_step(units: int) -> tuple[int, float, int]:
-        e0, t0 = read_mj(), clock()
-        while (e := read_mj()) == e0:
-            units += pump()
-            if clock() - t0 > stall:
+        e0 = read_mj()
+        t_start = t_old = clock()
+        while True:
+            e = read_mj()
+            t_new = clock()
+            if e != e0:
+                return e, 0.5 * (t_old + t_new), units
+            if t_new - t_start > stall:
                 raise NvmlError(f"the energy counter did not step in "
                                 f"{stall:.2f} s")
-        return e, clock(), units
+            t_old = t_new
+            units += pump()
 
     run_for(0.5 * period_s, 0)
     e0, t0, _ = next_step(0)
-    span = window_seconds(period_s, periods) - 0.5 * period_s
-    units = run_for(span - (clock() - t0), 0)
-    e1, t1, units = next_step(units)
-    return PowerWindow(joules=(e1 - e0) / 1e3, seconds=t1 - t0, units=units)
+    units = 0
+    while True:
+        span = window_seconds(period_s, periods) - 0.5 * period_s
+        units = run_for(span - (clock() - t0), units)
+        e1, t1, units = next_step(units)
+        win = PowerWindow(joules=(e1 - e0) / 1e3, seconds=t1 - t0,
+                          units=units)
+        if (limit_w is None or win.watts <= limit_w
+                or periods >= CAPPED_PERIODS):
+            return win
+        periods = CAPPED_PERIODS

@@ -491,10 +491,12 @@ def card_measure_fn(*, device: str | torch.device = "cuda", reps: int = 5,
     missing): after the timing, the same GEMM runs back to back (CUDA
     graph replays, `graph_pump`) through a warm-up of about one
     energy-counter period and a window of whole periods
-    (`nvml.measure_window`). `power_w` is the counter's change over
-    the window's wall time — the whole board, idle floor included, as the
-    paper's NVML reading was — and `energy_j` is `power_w` x `runtime_ms`,
-    the simulator's and the paper's definition. The row is a
+    (`nvml.measure_window`, at the card's enforced limit: a window that
+    reads above it runs on to one cycle of the card's power control).
+    `power_w` is the counter's change over the window's wall time — the
+    whole board, idle floor included, as the paper's NVML reading was — and
+    `energy_j` is `power_w` x `runtime_ms`, the simulator's and the paper's
+    definition. The row is a
     `CardTelemetry` with the window's busy share and `launch_bound` flag,
     and `temperature_c` from NVML. `period_s` is the counter's period
     (`probe_energy_period` measures it when None, and the runner's
@@ -508,9 +510,10 @@ def card_measure_fn(*, device: str | torch.device = "cuda", reps: int = 5,
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise ValueError(f"the card's measure_fn times on cuda, not {dev}")
-    card = None
+    card = limit_w = None
     if power:
         card = nvml.open_card(dev)
+        limit_w = card.power_limit_w()
         if period_s is None:
             period_s = probe_energy_period(card, dev)
     sim = TpuGemmSimulator(chip="h100", noise=0.0)
@@ -569,7 +572,8 @@ def card_measure_fn(*, device: str | torch.device = "cuda", reps: int = 5,
         if card is None:
             return tel
         pump, per_unit = graph_pump(fn, ms)
-        win = nvml.measure_window(card.energy_mj, pump, period_s=period_s)
+        win = nvml.measure_window(card.energy_mj, pump, period_s=period_s,
+                                  limit_w=limit_w)
         torch.cuda.synchronize()
         return power_row(tel, win, win.units * per_unit,
                          card.temperature_c())

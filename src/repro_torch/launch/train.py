@@ -9,8 +9,16 @@ fault tolerance, resume). A full config trains whole on the one card: the
 JAX package refuses full configs without its 16-device production mesh,
 and this launcher refuses one whose training state (params and gradients
 in the param dtype, f32 master, m and v: 16 bytes a bf16 parameter) and
-activations (`train_memory_bytes`) do not fit the card's memory, so
-starcoder2-3b trains and qwen2-7b is refused.
+activations (`train_memory_bytes`, by kind) do not fit the card's memory:
+at 8 x 512 starcoder2-3b, zamba2-2.7b and seamless-m4t-medium fit (and
+qwen2-vl-2b at 2 x 2048), while qwen2-7b, olmoe-1b-7b, falcon-mamba-7b and
+deepseek-v2-236b (at any depth) are refused.
+
+The launcher trains the LM kinds (dense, moe, mla_moe, mamba1, mamba2,
+hybrid) on the synthetic token pipeline, as the JAX package's does. Its
+pipeline makes no source frames or image patches, so encdec and vlm are
+refused here and train through `train.step.make_train_step` on batches
+that carry them.
 """
 
 from __future__ import annotations
@@ -35,28 +43,123 @@ from repro_torch.train.step import init_train_state, make_train_step
 ROOT = Path(__file__).resolve().parents[3]
 
 
+def _attention_bytes(cfg: ModelConfig, batch: int, seq: int,
+                     keys: int | None = None) -> int:
+    """One attention layer's f32 working set over batch x seq queries and
+    `keys` keys (default seq): the projections' outputs and the scores four
+    times over (scores, mask, softmax and its gradient)."""
+    t, d = batch * seq, cfg.d_model
+    return (t * (4 * d + 2 * cfg.kv_heads * cfg.hd) * 4
+            + 4 * batch * cfg.n_heads * seq * (keys or seq) * 4)
+
+
+def _dense_block_bytes(cfg: ModelConfig, batch: int, seq: int) -> int:
+    """A dense block's f32 working set: attention and the FFN's hidden."""
+    return (_attention_bytes(cfg, batch, seq)
+            + batch * seq * 3 * cfg.d_ff * 4)
+
+
+def _moe_bytes(cfg: ModelConfig, batch: int, seq: int) -> int:
+    """The MoE FFN's working set: the f32 dispatch buffer (E, B * capacity,
+    d) and its gradient, the experts' activations and their gradients, the
+    per-token copies and outputs (T * top_k, d) in f32, the router's f32
+    logits, probabilities and gradients, and the shared experts."""
+    E, K, d, f = (cfg.n_experts, cfg.top_k, cfg.d_model, cfg.d_ff_expert)
+    a = torch_dtype(cfg.activation_dtype).itemsize
+    t = batch * seq
+    rows = batch * max(1, int(cfg.capacity_factor * seq * K / E))
+    return (2 * E * rows * d * 4 + 2 * E * rows * (2 * d + 3 * f) * a
+            + 3 * t * K * d * 4 + 4 * t * E * 4
+            + t * 3 * f * cfg.n_shared_experts * 4)
+
+
+def _mla_bytes(cfg: ModelConfig, batch: int, seq: int) -> int:
+    """Multi-head latent attention's f32 working set: queries, the latent,
+    the decompressed keys and values of every head, and the scores."""
+    t, d, H, hd = batch * seq, cfg.d_model, cfg.n_heads, cfg.hd
+    return (t * (4 * d + H * (3 * hd + cfg.rope_head_dim)
+                 + cfg.kv_lora_rank) * 4
+            + 4 * batch * H * seq * seq * 4)
+
+
+def _mamba1_bytes(cfg: ModelConfig, batch: int, seq: int) -> int:
+    """A Mamba1 block's working set: the scan's (B, S, d_inner, d_state)
+    f32 tensors (decay and input, the in-block products and states as
+    steps and stacked, the states and their product with C) and their
+    gradients, ten in all, besides the (B, S, d_inner) activations."""
+    t, di = batch * seq, cfg.d_inner
+    return 10 * t * di * cfg.ssm_state * 4 + 8 * t * di * 4
+
+
+def _mamba2_bytes(cfg: ModelConfig, batch: int, seq: int) -> int:
+    """A Mamba2 block's working set: the in_proj and conv outputs in f32,
+    and the SSD scan's intra-block temporaries (the decay weights and
+    their products, (B, S, q, H) f32 each, three with the gradient)."""
+    from repro_torch.models.ssm import CHUNK
+
+    t, di = batch * seq, cfg.d_inner
+    H = di // cfg.ssm_headdim
+    conv_ch = di + 2 * cfg.ssm_ngroups * cfg.ssm_state
+    return (t * (2 * di + conv_ch + H) * 4 * 3 + 8 * t * di * 4
+            + 3 * t * min(CHUNK, seq) * H * 4)
+
+
+def _units(cfg: ModelConfig, batch: int, seq: int) -> list:
+    """The forward's units of recomputation, in order: (count, rows in, one
+    unit's working set in bytes). Remat keeps each unit's input and
+    recomputes one unit at a time; the JAX package checkpoints a block of
+    the LM kinds and vlm, a group of Mamba2 blocks and the shared block
+    for hybrid, and an encoder or decoder layer for encdec (whose source
+    is ``configs.seamless_m4t_medium.src_len(seq)`` frames)."""
+    kind = cfg.kind
+    if kind == "mamba1":
+        return [(cfg.n_layers, batch * seq, _mamba1_bytes(cfg, batch, seq))]
+    if kind == "mamba2":
+        return [(cfg.n_layers, batch * seq, _mamba2_bytes(cfg, batch, seq))]
+    if kind == "hybrid":
+        group = (cfg.attn_every * _mamba2_bytes(cfg, batch, seq)
+                 + _dense_block_bytes(cfg, batch, seq))
+        return [(cfg.n_layers // cfg.attn_every, batch * seq, group)]
+    if kind == "moe":
+        return [(cfg.n_layers, batch * seq, _attention_bytes(cfg, batch, seq)
+                 + _moe_bytes(cfg, batch, seq))]
+    if kind == "mla_moe":
+        return [(cfg.n_layers, batch * seq, _mla_bytes(cfg, batch, seq)
+                 + _moe_bytes(cfg, batch, seq))]
+    if kind == "encdec":
+        from repro_torch.configs.seamless_m4t_medium import src_len
+
+        T = src_len(seq)
+        dec = (_dense_block_bytes(cfg, batch, seq)
+               + _attention_bytes(cfg, batch, seq, keys=T)
+               + 2 * batch * T * cfg.d_model * 4)
+        return [(cfg.n_encoder_layers, batch * T,
+                 _dense_block_bytes(cfg, batch, T)),
+                (cfg.n_layers, batch * seq, dec)]
+    return [(cfg.n_layers, batch * seq, _dense_block_bytes(cfg, batch, seq))]
+
+
 def train_memory_bytes(cfg: ModelConfig, batch: int, seq: int
                        ) -> tuple[int, int]:
     """(state bytes, activation bytes) of one train step of `cfg` over a
-    batch x seq token batch on one card.
+    batch x seq token batch on one card (vlm: seq counts the patches too).
 
     State: params and gradients in ``cfg.param_dtype`` and the f32 master,
-    m and v. Activations, an estimate from the shapes: each block's input
-    where ``cfg.remat`` (the backward recomputes one block at a time) or
-    every block's working set where not; one block's working set in f32
-    (its projections' outputs, the FFN's hidden and the attention scores
-    four times over: scores, mask, softmax and its gradient); the LM head's
-    f32 logits four times over (logits, softmax, their gradient, a spare).
-    """
+    m and v. Activations, an estimate from the shapes (`_units`): each
+    unit's input where ``cfg.remat`` (the backward recomputes one unit at a
+    time) and one unit's working set, or every unit's working set where
+    not; plus the LM head's f32 logits four times over (logits, softmax,
+    their gradient, a spare)."""
     p = torch_dtype(cfg.param_dtype).itemsize
-    state = cfg.n_params() * (2 * p + 12)
-    t, d = batch * seq, cfg.d_model
     a = torch_dtype(cfg.activation_dtype).itemsize
-    block = (t * (4 * d + 2 * cfg.kv_heads * cfg.hd + 3 * cfg.d_ff) * 4
-             + 4 * batch * cfg.n_heads * seq * seq * 4)
-    head = 4 * t * cfg.vocab * 4
-    layers = cfg.n_layers * (t * d * a if cfg.remat else block)
-    return state, layers + (block if cfg.remat else 0) + head
+    state = cfg.n_params() * (2 * p + 12)
+    units = _units(cfg, batch, seq)
+    if cfg.remat:
+        acts = (sum(n * rows * cfg.d_model * a for n, rows, _ in units)
+                + max(ws for _, _, ws in units))
+    else:
+        acts = sum(n * ws for n, _, ws in units)
+    return state, acts + 4 * batch * seq * cfg.vocab * 4
 
 
 def check_fits(cfg: ModelConfig, batch: int, seq: int,
@@ -103,6 +206,13 @@ def main(argv: list[str] | None = None,
                              "with --device cpu")
         check_fits(cfg, args.batch, args.seq,
                    torch.cuda.get_device_properties(dev).total_memory)
+    if cfg.kind in ("encdec", "vlm"):
+        raise SystemExit(
+            f"{cfg.name} ({cfg.kind}) trains on batches with "
+            + ("src_embeds" if cfg.kind == "encdec" else
+               "patch_embeds, positions_3d and loss_mask")
+            + "; the launcher's synthetic pipeline makes token batches "
+            "only: use train.step.make_train_step")
     model = get_model(cfg)
     log_fn(f"arch={cfg.name} params~{cfg.n_params() / 1e9:.2f}B "
            f"device={dev}")

@@ -16,7 +16,9 @@ leaves (L, B, max_len, KV, hd) of `max_len` source-row capacity, read-only
 afterwards, with a per-row ``src_len`` masking the cross-attention keys.
 The decoder's self-attention then chunks through the `transformer`
 generics like any LM. Every projection, the cross-KV included, goes
-through `kernels.ops.matmul`.
+through `kernels.ops.matmul`. `encdec_loss`, the training forward, encodes
+the source and runs the decoder with no cache, each layer projecting its
+cross-attention KV from the encoder output.
 """
 
 from __future__ import annotations
@@ -122,14 +124,15 @@ def enc_block_apply(blk: EncBlock, x: torch.Tensor, cfg: ModelConfig, *,
 
 def encode(model: EncDecLM, src_embeds: torch.Tensor, cfg: ModelConfig,
            src_lens: torch.Tensor | None = None) -> torch.Tensor:
-    """The encoder over (B, T, d) source embeddings: every block, then
+    """The encoder over (B, T, d) source embeddings: every block (each
+    under `transformer.remat` where autograd records), then
     ``enc_ln_f``."""
     B, T, _ = src_embeds.shape
     positions = torch.arange(T, device=src_embeds.device).expand(B, T)
     x = src_embeds.to(L.torch_dtype(cfg.activation_dtype))
     for blk in model.encoder:
-        x = enc_block_apply(blk, x, cfg, positions=positions,
-                            src_lens=src_lens)
+        x = tfm.remat(cfg, enc_block_apply, blk, x, cfg,
+                      positions=positions, src_lens=src_lens)
     return L.rmsnorm(model.enc_ln_f, x, cfg.norm_eps)
 
 
@@ -163,6 +166,24 @@ def _cross_attend(p, x: torch.Tensor, ckv: dict, cfg: ModelConfig, *,
     return ops.matmul(out.reshape(B, S, H * hd), p["wo"])
 
 
+def dec_block_apply(blk: DecBlock, x: torch.Tensor, cfg: ModelConfig, *,
+                    positions, cross_kv: dict, cache: dict | None = None,
+                    cache_index=None, seq_lens=None,
+                    src_lens: torch.Tensor | None = None) -> tuple:
+    """Decoder block: causal self-attention (over a dense or paged `cache`,
+    written in place, or none), cross-attention over `cross_kv` ({"k",
+    "v"}, masked to `src_lens`), FFN. Returns (x, self-attention cache)."""
+    h = L.rmsnorm(blk.ln1, x, cfg.norm_eps)
+    attn, new_cache = L.attention_apply(
+        blk.self_attn, h, cfg, positions=positions, kv_cache=cache,
+        cache_index=cache_index, seq_lens=seq_lens)
+    x = x + attn
+    h = L.rmsnorm(blk.ln_x, x, cfg.norm_eps)
+    x = x + _cross_attend(blk.cross_attn, h, cross_kv, cfg, kv_len=src_lens)
+    h = L.rmsnorm(blk.ln2, x, cfg.norm_eps)
+    return x + L.swiglu_apply(blk.mlp, h, cfg), new_cache
+
+
 def dec_serve_block(blk: DecBlock, x: torch.Tensor, cfg: ModelConfig, *,
                     positions, cache: dict, cache_index=None, seq_lens=None,
                     src_len: torch.Tensor | None = None):
@@ -172,18 +193,47 @@ def dec_serve_block(blk: DecBlock, x: torch.Tensor, cfg: ModelConfig, *,
     ``xv``, read-only, masked to `src_len`). The block contract of the
     `transformer` generics: returns (x, cache, 0.0)."""
     sa = {k: v for k, v in cache.items() if k not in ("xk", "xv")}
-    h = L.rmsnorm(blk.ln1, x, cfg.norm_eps)
-    attn, new_sa = L.attention_apply(
-        blk.self_attn, h, cfg, positions=positions, kv_cache=sa,
-        cache_index=cache_index, seq_lens=seq_lens)
-    x = x + attn
-    h = L.rmsnorm(blk.ln_x, x, cfg.norm_eps)
-    x = x + _cross_attend(blk.cross_attn, h,
-                          {"k": cache["xk"], "v": cache["xv"]}, cfg,
-                          kv_len=src_len)
-    h = L.rmsnorm(blk.ln2, x, cfg.norm_eps)
-    x = x + L.swiglu_apply(blk.mlp, h, cfg)
+    x, new_sa = dec_block_apply(
+        blk, x, cfg, positions=positions,
+        cross_kv={"k": cache["xk"], "v": cache["xv"]}, cache=sa,
+        cache_index=cache_index, seq_lens=seq_lens, src_lens=src_len)
     return x, {**new_sa, "xk": cache["xk"], "xv": cache["xv"]}, 0.0
+
+
+def _dec_train_layer(blk: DecBlock, x: torch.Tensor, memory: torch.Tensor,
+                     cfg: ModelConfig, positions) -> torch.Tensor:
+    """One decoder layer of the training forward: its cross-attention KV
+    from the encoder output, then the block with no cache."""
+    return dec_block_apply(blk, x, cfg, positions=positions,
+                           cross_kv=_cross_kv(blk.cross_attn, memory,
+                                              cfg))[0]
+
+
+def _decode_stack(model: EncDecLM, x: torch.Tensor, memory: torch.Tensor,
+                  cfg: ModelConfig, *, positions) -> torch.Tensor:
+    """The decoder of the training forward: every layer, each under
+    `transformer.remat`, projecting its cross-attention KV from `memory`
+    on the fly (its gradient summed over the layers)."""
+    for blk in model.decoder:
+        x = tfm.remat(cfg, _dec_train_layer, blk, x, memory, cfg, positions)
+    return x
+
+
+def encdec_loss(model: EncDecLM, batch: dict, cfg: ModelConfig
+                ) -> tuple[torch.Tensor, dict]:
+    """The training forward: ``batch["src_embeds"]`` (B, T, d) through the
+    encoder, ``batch["tokens"]`` (B, S) through the decoder over it, then
+    `transformer.head_loss` against ``batch["labels"]``. Returns (loss,
+    metrics: nll, accuracy, loss), the metrics detached."""
+    memory = encode(model, batch["src_embeds"], cfg)
+    tokens = batch["tokens"].long()
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    x = _decode_stack(model, tfm._embed(model, tokens, cfg), memory, cfg,
+                      positions=positions)
+    loss, metrics = tfm.head_loss(model, x, batch, cfg)
+    metrics["loss"] = loss.detach()
+    return loss, metrics
 
 
 # ---------------- serving (prefill-once admission + chunked decode) -------

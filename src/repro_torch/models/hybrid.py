@@ -11,7 +11,8 @@ and drives them by a nested scan; here `HybridLM.blocks` is one list in the
 same order (block e of group g at g * attn_every + e) and `models.bridge`
 maps between the two. The decode state is ``{"cache": {"mamba": {"conv",
 "ssm"} leaves (G, E, B, ...) f32, "attn": {"k", "v"} (G, B, max_len, KV,
-hd) bf16}, "index"}``, written in place by the forwards.
+hd) bf16}, "index"}``, written in place by the serving forwards;
+`hybrid_loss`, the training forward, runs the backbone with no cache.
 """
 
 from __future__ import annotations
@@ -97,30 +98,60 @@ def init_hybrid_state(cfg: ModelConfig, batch: int, max_len: int, *,
             "index": torch.zeros((batch,), dtype=torch.long, device=dev)}
 
 
-def _backbone(model: HybridLM, x: torch.Tensor, cfg: ModelConfig, *,
-              positions, cache: dict, cache_index, seq_lens=None):
-    """Every group: its Mamba2 blocks over their cache views, then the
-    shared block over the group's KV cache (all written in place)."""
-    mamba_apply = tfm.block_apply(cfg)
+def _group(model: HybridLM, g: int, x: torch.Tensor, cfg: ModelConfig,
+           positions, cache: dict | None = None, cache_index=None,
+           seq_lens=None) -> torch.Tensor:
+    """Group `g`: its Mamba2 blocks, then the shared block, over the
+    group's views of `cache` (written in place), or with no cache."""
     E = cfg.attn_every
-    mamba, attn = cache["mamba"], cache["attn"]
+    for e in range(E):
+        x = ssm.mamba2_block_apply(
+            model.blocks[g * E + e], x, cfg, positions=positions,
+            cache=None if cache is None else {
+                k: v[g, e] for k, v in cache["mamba"].items()},
+            cache_index=cache_index, seq_lens=seq_lens)[0]
+    return tfm.dense_block_apply(
+        model.shared_attn, x, cfg, positions=positions,
+        cache=None if cache is None else {
+            k: v[g] for k, v in cache["attn"].items()},
+        cache_index=cache_index, seq_lens=seq_lens)[0]
+
+
+def _backbone(model: HybridLM, x: torch.Tensor, cfg: ModelConfig, *,
+              positions, cache: dict | None = None, cache_index=None,
+              seq_lens=None):
+    """Every group in order. With `cache` (serving) each writes its views
+    in place; without (training) each group runs under
+    `transformer.remat`, the unit the JAX package checkpoints."""
     for g in range(n_groups(cfg)):
-        for e in range(E):
-            x = mamba_apply(model.blocks[g * E + e], x, cfg,
-                            positions=positions,
-                            cache={k: v[g, e] for k, v in mamba.items()},
-                            cache_index=cache_index, seq_lens=seq_lens)[0]
-        x = tfm.dense_block_apply(model.shared_attn, x, cfg,
-                                  positions=positions,
-                                  cache={k: v[g] for k, v in attn.items()},
-                                  cache_index=cache_index,
-                                  seq_lens=seq_lens)[0]
+        if cache is None:
+            x = tfm.remat(cfg, _group, model, g, x, cfg, positions)
+        else:
+            x = _group(model, g, x, cfg, positions, cache, cache_index,
+                       seq_lens)
     return x
 
 
 def _head(model: HybridLM, x: torch.Tensor, cfg: ModelConfig):
     x = L.rmsnorm(model.ln_f, x, cfg.norm_eps)
     return tfm._unembed(model, x, cfg)
+
+
+def hybrid_loss(model: HybridLM, batch: dict, cfg: ModelConfig
+                ) -> tuple[torch.Tensor, dict]:
+    """The training forward over ``batch["tokens"]`` (B, S): embed, the
+    backbone with no cache (the shared block's gradient summed over its
+    applications), then `transformer.head_loss`. Returns (loss, metrics:
+    nll, accuracy, loss), the metrics detached; no aux loss, as in the JAX
+    package."""
+    tokens = batch["tokens"].long()
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    x = _backbone(model, tfm._embed(model, tokens, cfg), cfg,
+                  positions=positions)
+    loss, metrics = tfm.head_loss(model, x, batch, cfg)
+    metrics["loss"] = loss.detach()
+    return loss, metrics
 
 
 @torch.no_grad()

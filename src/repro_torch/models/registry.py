@@ -6,7 +6,7 @@ mamba2, hybrid, encdec and vlm.
     logits, state = model.prefill(params, batch, cfg)
     logits, state = model.prefill_chunk(params, tokens, lengths, state, cfg)
     logits, state = model.decode_step(params, token, state, cfg)
-    loss, metrics = model.loss(params, batch, cfg)          # dense only
+    loss, metrics = model.loss(params, batch, cfg)          # training
     pool = model.init_page_pool(cfg, num_pages, page_size)  # KV kinds only
     state = model.admit(params, model.pack_admit(cfg, extras, w, bucket),
                         state, cfg)                          # encdec, vlm
@@ -25,17 +25,15 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 
 
-def _loss_not_ported(params, batch, cfg: ModelConfig):
-    raise NotImplementedError(
-        f"the {cfg.kind} family's training loss and backward are not ported "
-        "yet (ROADMAP A9b); the port trains the dense family")
-
-
 @dataclasses.dataclass(frozen=True)
 class ModelApi:
     """The functions the engine and the tests call for one family."""
 
     init: Callable          # (cfg, generator, *, device) -> params module
+    # the training forward: (params, batch, cfg) -> (loss, metrics), the
+    # loss differentiable through every GEMM (batch: tokens and labels;
+    # encdec adds src_embeds, vlm patch_embeds, positions_3d and loss_mask)
+    loss: Callable
     prefill: Callable       # (params, batch, cfg, max_len=) -> (logits, state)
     decode_step: Callable   # (params, token, state, cfg) -> (logits, state)
     # (cfg, batch, max_len, *, device) -> cache; None for encdec, whose
@@ -66,9 +64,6 @@ class ModelApi:
     admit_dims: Callable | None = None
     pack_admit: Callable | None = None
     admit: Callable | None = None
-    # the training forward: (params, batch, cfg) -> (loss, metrics), the
-    # loss differentiable through every GEMM; the dense family's only
-    loss: Callable = _loss_not_ported
 
 
 def _zero_index_state(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -78,14 +73,14 @@ def _zero_index_state(cfg: ModelConfig, batch: int, max_len: int, *,
             "index": torch.zeros((batch,), dtype=torch.long, device=dev)}
 
 
-def _lm_api(paged: bool, loss: Callable = _loss_not_ported) -> ModelApi:
+def _lm_api(paged: bool) -> ModelApi:
     """The API of the `TransformerLM` families (dense, moe, mla_moe, mamba1,
-    mamba2): the forwards pick the block function by ``cfg.kind``,
-    `init_cache` the KV, MLA latent or SSM state layout, `init_page_pool`
-    (only where `paged`) the KV or MLA latent pool, and `loss` the
-    training forward (only the dense family's is ported)."""
+    mamba2): the forwards and `loss` pick the block function by
+    ``cfg.kind``, `init_cache` the KV, MLA latent or SSM state layout, and
+    `init_page_pool` (only where `paged`) the KV or MLA latent pool."""
     return ModelApi(
         init=tfm.lm_init,
+        loss=tfm.lm_loss,
         prefill=tfm.lm_prefill,
         decode_step=tfm.lm_decode_step,
         init_cache=lambda cfg, b, ml, *, device="cuda": tfm.init_cache(
@@ -94,7 +89,6 @@ def _lm_api(paged: bool, loss: Callable = _loss_not_ported) -> ModelApi:
         init_state=_zero_index_state,
         init_page_pool=(lambda cfg, n, t, *, device="cuda": (
             tfm.init_page_pool(cfg, n, t, device=device))) if paged else None,
-        loss=loss,
     )
 
 
@@ -103,6 +97,7 @@ def _hybrid_api() -> ModelApi:
     ``"cache"``, as in the reference."""
     return ModelApi(
         init=hybrid.hybrid_init,
+        loss=hybrid.hybrid_loss,
         prefill=hybrid.hybrid_prefill,
         decode_step=hybrid.hybrid_decode_step,
         init_cache=lambda cfg, b, ml, *, device="cuda": (
@@ -121,6 +116,7 @@ def _encdec_api() -> ModelApi:
     self-attention KV pages, the cross-KV stays a dense per-row leaf."""
     return ModelApi(
         init=encdec.encdec_init,
+        loss=encdec.encdec_loss,
         prefill=encdec.encdec_prefill,
         decode_step=encdec.encdec_decode_step,
         init_cache=None,
@@ -138,6 +134,7 @@ def _vlm_api() -> ModelApi:
     a patch-prefix admission; pages its KV like a dense LM."""
     return ModelApi(
         init=vlm.vlm_init,
+        loss=vlm.vlm_loss,
         prefill=vlm.vlm_prefill,
         decode_step=vlm.vlm_decode_step,
         init_cache=lambda cfg, b, ml, *, device="cuda": tfm.init_kv_cache(
@@ -152,7 +149,7 @@ def _vlm_api() -> ModelApi:
 
 
 _FAMILIES = {
-    "dense": lambda: _lm_api(paged=True, loss=tfm.lm_loss),
+    "dense": lambda: _lm_api(paged=True),
     "moe": lambda: _lm_api(paged=True),
     "mla_moe": lambda: _lm_api(paged=True),
     "mamba1": lambda: _lm_api(paged=False),

@@ -32,6 +32,10 @@ terms over d_state or the block's steps) is an elementwise product summed
 over a contiguous last axis, never a batched einsum or bmm, whose cuBLAS
 algorithm may change with the batch: a row's bits do not depend on its
 neighbours, so a request's stream does not depend on who shares its batch.
+Training (no cache) needs no such independence, and there the SSD scan's
+contractions are einsums, as in the reference, whose temporaries stay the
+size of their operands. Both scans build their in-block prefixes as lists
+of steps, so autograd can differentiate them.
 
 States: a mamba1 layer keeps ``conv`` (B, K-1, d_inner) and ``ssm``
 (B, d_inner, d_state); a mamba2 layer ``conv`` (B, K-1, conv_ch) and ``ssm``
@@ -193,15 +197,19 @@ def _seq_mask(seq_lens: torch.Tensor, S: int) -> torch.Tensor:
 def _block_prefix(a: torch.Tensor, b: torch.Tensor) -> tuple:
     """In-block h_t = a_t h_{t-1} + b_t from the identity, for every block
     at once. a, b: (B, nc, q, ...). Returns (A, Bc): A_t = a_1 ... a_t and
-    Bc_t the state at t from a zero state, so that h_t = Bc_t + A_t h0."""
-    A = torch.empty_like(a)
-    Bc = torch.empty_like(b)
-    A[:, :, 0] = a[:, :, 0]
-    Bc[:, :, 0] = b[:, :, 0]
-    for t in range(1, a.shape[2]):
-        A[:, :, t] = A[:, :, t - 1] * a[:, :, t]
-        Bc[:, :, t] = Bc[:, :, t - 1] * a[:, :, t] + b[:, :, t]
-    return A, Bc
+    Bc_t the state at t from a zero state, so that h_t = Bc_t + A_t h0.
+    Each step is a new tensor, stacked at the end: autograd keeps the
+    step it multiplies, so no step may be written over in place. The
+    steps of `a` and `b` are taken by one `unbind`, whose backward stacks
+    their gradients once (indexing step t would make each step's gradient
+    a zero-filled tensor the size of `a`, 2.1 GB for falcon-mamba-7b at
+    8 x 512, and add 128 of them)."""
+    a_t, b_t = a.unbind(2), b.unbind(2)
+    A, Bc = [a_t[0]], [b_t[0]]
+    for t in range(1, len(a_t)):
+        A.append(A[-1] * a_t[t])
+        Bc.append(Bc[-1] * a_t[t] + b_t[t])
+    return torch.stack(A, dim=2), torch.stack(Bc, dim=2)
 
 
 def _pad_time(t: torch.Tensor, pad: int, value: float) -> torch.Tensor:
@@ -229,10 +237,12 @@ def mamba1_scan(decay: torch.Tensor, inp: torch.Tensor, C: torch.Tensor,
     b = _pad_time(inp, pad, 0.0).reshape(B, nc, q, di, ds)
     Cm = _pad_time(C, pad, 0.0).reshape(B, nc, q, 1, ds)
     A, Bc = _block_prefix(a, b)
-    # the state entering each block, folded in order
+    # the state entering each block, folded in order (from the blocks'
+    # last steps, taken once: see `_block_prefix` on indexing)
+    A_last, Bc_last = A[:, :, -1], Bc[:, :, -1]
     starts, h = [h0], h0
     for c in range(nc - 1):
-        h = Bc[:, c, -1] + A[:, c, -1] * h
+        h = Bc_last[:, c] + A_last[:, c] * h
         starts.append(h)
     h_all = Bc + A * torch.stack(starts, dim=1)[:, :, None]
     y = (h_all * Cm).sum(-1).reshape(B, nc * q, di)
@@ -327,24 +337,34 @@ def init_mamba1_cache(cfg: ModelConfig, batch: int, *,
 
 def _cumsum_steps(a: torch.Tensor) -> torch.Tensor:
     """Prefix sums over axis 2, added in step order (a fixed order: a
-    torch scan may pick its tree by the tensor's size)."""
-    out = torch.empty_like(a)
-    out[:, :, 0] = a[:, :, 0]
-    for t in range(1, a.shape[2]):
-        out[:, :, t] = out[:, :, t - 1] + a[:, :, t]
-    return out
+    torch scan may pick its tree by the tensor's size), each step a new
+    tensor as in `_block_prefix`."""
+    a_t = a.unbind(2)
+    out = [a_t[0]]
+    for t in range(1, len(a_t)):
+        out.append(out[-1] + a_t[t])
+    return torch.stack(out, dim=2)
 
 
 def ssd_scan(x: torch.Tensor, a_log: torch.Tensor, Bm: torch.Tensor,
-             Cm: torch.Tensor, h0: torch.Tensor, chunk: int = CHUNK
-             ) -> tuple[torch.Tensor, torch.Tensor]:
+             Cm: torch.Tensor, h0: torch.Tensor, chunk: int = CHUNK,
+             rowwise: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """The SSD blocked recurrence.
 
     x: (B, S, H, P) inputs already scaled by dt; a_log: (B, S, H) per-step
     log decay (<= 0); Bm/Cm: (B, S, N) state in/out projections (ngroups 1,
     broadcast over heads); h0: (B, H, N, P). Returns y (B, S, H, P) and the
     final state. A non-divisible tail is identity-padded (zero input, B, C
-    and log decay)."""
+    and log decay).
+
+    `rowwise` (serving) writes the three contractions (the intra-block
+    outputs over the block's steps, each block's own state and the carried
+    state's outputs, both over N) as products summed over the last axis,
+    so a row's bits do not depend on its batch; their temporaries are the
+    size of the product, (B, nc, q, H, P, q) and (B, nc, q or H, ..., N),
+    about 11 and 5 GB a layer for zamba2-2.7b at 8 x 512. Without it
+    (training) they are einsums, as in the JAX package, and nothing larger
+    than the (B, nc, q, q, H) decay weights is made."""
     Bsz, S, H, P = x.shape
     N = Bm.shape[-1]
     q = min(chunk, S)
@@ -356,19 +376,28 @@ def ssd_scan(x: torch.Tensor, a_log: torch.Tensor, Bm: torch.Tensor,
     Cr = _pad_time(Cm, pad, 0.0).reshape(Bsz, nc, q, N)
     la = _cumsum_steps(ar)                                   # (B, nc, q, H)
     # intra-block: attention-like causal products with decay weights
-    scores = (Cr[:, :, :, None, :] * Br[:, :, None, :, :]).sum(-1)  # q, k
+    if rowwise:
+        scores = (Cr[:, :, :, None, :] * Br[:, :, None, :, :]).sum(-1)
+    else:
+        scores = torch.einsum("bcqn,bckn->bcqk", Cr, Br)
     decay_qk = torch.exp(la[:, :, :, None, :] - la[:, :, None, :, :])
     causal = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
     w = torch.where(causal[None, None, :, :, None],
                     scores[..., None] * decay_qk, 0.0)       # (B,nc,q,k,H)
     # y_intra[q, h, p] = sum_k w[q, k, h] x[k, h, p]
-    y = (w.permute(0, 1, 2, 4, 3)[:, :, :, :, None, :]
-         * xr.permute(0, 1, 3, 4, 2)[:, :, None]).sum(-1)    # (B,nc,q,H,P)
+    if rowwise:
+        y = (w.permute(0, 1, 2, 4, 3)[:, :, :, :, None, :]
+             * xr.permute(0, 1, 3, 4, 2)[:, :, None]).sum(-1)
+    else:
+        y = torch.einsum("bcqkh,bckhp->bcqhp", w, xr)        # (B,nc,q,H,P)
     # each block's own state: s_c[h, n, p] = sum_k B[k, n] x[k, h, p] rem
     rem = torch.exp(la[:, :, -1:, :] - la)                   # (B, nc, q, H)
-    xw = (xr * rem[..., None]).permute(0, 1, 3, 4, 2)        # (B,nc,H,P,k)
-    s_c = (Br.permute(0, 1, 3, 2)[:, :, None, :, None, :]
-           * xw[:, :, :, None]).sum(-1)                      # (B,nc,H,N,P)
+    if rowwise:
+        xw = (xr * rem[..., None]).permute(0, 1, 3, 4, 2)    # (B,nc,H,P,k)
+        s_c = (Br.permute(0, 1, 3, 2)[:, :, None, :, None, :]
+               * xw[:, :, :, None]).sum(-1)                  # (B,nc,H,N,P)
+    else:
+        s_c = torch.einsum("bckn,bckhp->bchnp", Br, xr * rem[..., None])
     dec = torch.exp(la[:, :, -1])[..., None, None]           # (B,nc,H,1,1)
     # the state entering each block, folded in order
     starts, h = [h0], h0
@@ -378,8 +407,11 @@ def ssd_scan(x: torch.Tensor, a_log: torch.Tensor, Bm: torch.Tensor,
             starts.append(h)
     H0 = torch.stack(starts, dim=1)                          # (B,nc,H,N,P)
     # inter-block: y_inter[q, h, p] = sum_n C[q, n] h0[h, n, p] e^la[q, h]
-    y_inter = (Cr[:, :, :, None, None, :]
-               * H0.permute(0, 1, 2, 4, 3)[:, :, None]).sum(-1)
+    if rowwise:
+        y_inter = (Cr[:, :, :, None, None, :]
+                   * H0.permute(0, 1, 2, 4, 3)[:, :, None]).sum(-1)
+    else:
+        y_inter = torch.einsum("bcqn,bchnp->bcqhp", Cr, H0)
     y = y + y_inter * torch.exp(la)[..., None]
     return y.reshape(Bsz, nc * q, H, P)[:, :S], h
 
@@ -438,7 +470,7 @@ def mamba2_block_apply(blk: Mamba2Block, x: torch.Tensor, cfg: ModelConfig,
     else:
         y, h_final = ssd_scan(x_dt, a_log, Bm_f, Cm.float(), h0,
                               chunk=serve_chunk(cfg) if cache is not None
-                              else CHUNK)
+                              else CHUNK, rowwise=cache is not None)
     if cache is not None:
         cache["conv"].copy_(hist)
         cache["ssm"].copy_(h_final)

@@ -264,6 +264,19 @@ def _run_blocks(model: TransformerLM, x: torch.Tensor, cfg: ModelConfig, *,
     return x
 
 
+def remat(cfg: ModelConfig, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, under non-reentrant activation
+    checkpointing where ``cfg.remat`` and autograd records (the counterpart
+    of the JAX package's ``jax.checkpoint`` around a scan body): only the
+    inputs stay live, and the backward recomputes the forward, whose GEMM
+    launches come out bit for bit as the first time (the kernel is
+    deterministic)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kwargs)
+    return fn(*args, **kwargs)
+
+
 def _train_block(apply, blk, x: torch.Tensor, cfg: ModelConfig,
                  positions: torch.Tensor) -> tuple:
     """One block of the training forward (no cache): (x, aux loss)."""
@@ -271,39 +284,43 @@ def _train_block(apply, blk, x: torch.Tensor, cfg: ModelConfig,
     return x, aux
 
 
+def train_stack(blocks, x: torch.Tensor, cfg: ModelConfig, *, positions,
+                block) -> tuple[torch.Tensor, torch.Tensor]:
+    """Every block of `blocks` in order through `block` with no cache,
+    each under `remat`: (x, the sum of the blocks' aux losses)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for blk in blocks:
+        x, a = remat(cfg, _train_block, block, blk, x, cfg, positions)
+        aux = aux + a
+    return x, aux
+
+
+def head_loss(model: nn.Module, x: torch.Tensor, batch: dict,
+              cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
+    """``ln_f``, the LM head over every position, and
+    `layers.cross_entropy` against ``batch["labels"]`` (weighted by
+    ``batch["loss_mask"]`` where given): (loss, {"nll", "accuracy"})."""
+    x = L.rmsnorm(model.ln_f, x, cfg.norm_eps)
+    return L.cross_entropy(_unembed(model, x, cfg), batch["labels"],
+                           batch.get("loss_mask"))
+
+
 def lm_loss(model: TransformerLM, batch: dict, cfg: ModelConfig,
             block=None) -> tuple[torch.Tensor, dict]:
     """The training forward over ``batch["tokens"]`` (B, S): embed, every
-    block (through `block`, default the block function of ``cfg.kind``),
-    ``ln_f``, the LM head over every position, and `layers.cross_entropy`
-    against ``batch["labels"]`` (``batch["loss_mask"]`` weights tokens),
-    plus the blocks' aux losses. Returns (loss, metrics: nll, accuracy,
-    aux_loss, loss), the metrics detached.
-
-    Where ``cfg.remat`` each block runs under non-reentrant activation
-    checkpointing (the counterpart of the JAX package's ``jax.checkpoint``
-    around its scan body): only the block inputs stay live, and the
-    backward recomputes each block's forward, whose GEMM launches come
-    out bit for bit as the first time (the kernel is deterministic)."""
+    block (through `block`, default the block function of ``cfg.kind``;
+    each under `remat`), then `head_loss`, plus the blocks' aux losses
+    (the MoE kinds' load-balancing loss; 0 for the others). Returns (loss,
+    metrics: nll, accuracy, aux_loss, loss), the metrics detached."""
     tokens = batch["tokens"].long()
     B, S = tokens.shape
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
-    apply = block or block_apply(cfg)
-    x = _embed(model, tokens, cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for blk in model.blocks:
-        if cfg.remat:
-            x, a = checkpoint(_train_block, apply, blk, x, cfg, positions,
-                              use_reentrant=False, preserve_rng_state=False)
-        else:
-            x, a = _train_block(apply, blk, x, cfg, positions)
-        aux = aux + a
-    x = L.rmsnorm(model.ln_f, x, cfg.norm_eps)
-    logits = _unembed(model, x, cfg)
-    loss, metrics = L.cross_entropy(logits, batch["labels"],
-                                    batch.get("loss_mask"))
+    x, aux = train_stack(model.blocks, _embed(model, tokens, cfg), cfg,
+                         positions=positions,
+                         block=block or block_apply(cfg))
+    loss, metrics = head_loss(model, x, batch, cfg)
     loss = loss + aux
     metrics["aux_loss"] = aux.detach()
     metrics["loss"] = loss.detach()

@@ -15,7 +15,8 @@ the decoder once at admission (`vlm_admit`), writing its KV into rows
 through `transformer.lm_prefill_chunk` with M-RoPE positions rebuilt per
 row from ``index + pos_off``, where ``pos_off = t0 - n_patches`` is carried
 in the decode state. A text-only request admits nothing and serves like a
-dense LM.
+dense LM. `vlm_loss`, the training forward, runs [patches | text] through
+the blocks with no cache.
 """
 
 from __future__ import annotations
@@ -54,6 +55,31 @@ def _mrope3(pos: torch.Tensor) -> torch.Tensor:
     return pos.long()[..., None].expand(*pos.shape, 3)
 
 
+def _vlm_embed(model: tfm.TransformerLM, batch: dict,
+               cfg: ModelConfig) -> torch.Tensor:
+    """[patch embeddings | token embeddings] (B, P + S_txt, d) in the
+    activation dtype."""
+    tok = model.embed["table"][batch["tokens"].long()]
+    x = torch.cat([batch["patch_embeds"].to(tok.dtype), tok], dim=1)
+    return x.to(L.torch_dtype(cfg.activation_dtype))
+
+
+def vlm_loss(model: tfm.TransformerLM, batch: dict, cfg: ModelConfig
+             ) -> tuple[torch.Tensor, dict]:
+    """The training forward over [patches | text]: batch holds ``tokens``
+    (B, S_txt), ``patch_embeds`` (B, P, d), ``positions_3d`` (B, P +
+    S_txt, 3), ``labels`` (B, P + S_txt) and ``loss_mask`` (0 on the
+    patches). The dense blocks with M-RoPE, each under
+    `transformer.remat`, then `transformer.head_loss`. Returns (loss,
+    metrics: nll, accuracy, loss), the metrics detached."""
+    x, _ = tfm.train_stack(model.blocks, _vlm_embed(model, batch, cfg), cfg,
+                           positions=batch["positions_3d"].long(),
+                           block=tfm.dense_block_apply)
+    loss, metrics = tfm.head_loss(model, x, batch, cfg)
+    metrics["loss"] = loss.detach()
+    return loss, metrics
+
+
 @torch.no_grad()
 def vlm_prefill(model: tfm.TransformerLM, batch: dict, cfg: ModelConfig,
                 max_len: int | None = None) -> tuple[torch.Tensor, dict]:
@@ -62,9 +88,7 @@ def vlm_prefill(model: tfm.TransformerLM, batch: dict, cfg: ModelConfig,
     S_txt, 3). Returns the last position's logits and the state with a
     scalar ``index = P + S_txt`` and per-row ``pos_off`` (next text id
     minus index: chunked and single-shot prefill share one layout)."""
-    tok = model.embed["table"][batch["tokens"]]
-    x = torch.cat([batch["patch_embeds"].to(tok.dtype), tok], dim=1).to(
-        L.torch_dtype(cfg.activation_dtype))
+    x = _vlm_embed(model, batch, cfg)
     B, S, _ = x.shape
     pos = batch["positions_3d"].long()
     cache = batch.get("cache")

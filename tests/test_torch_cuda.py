@@ -603,7 +603,9 @@ def test_matmul_launches_the_installed_winner(dev, h100_table):
 def test_power_window_of_a_large_gemm_reads_the_card(dev):
     """NVML on the card: one power window of a large bf16 GEMM reads
     between the idle power and 1.1 x the enforced limit, the energy counter
-    only grows, and the power runner tags its rows "nvml"."""
+    only grows, and the power runner tags its rows "nvml". The busy window
+    is the power runner's: given the card's limit, it runs on to one cycle
+    of the card's power control if its 4 periods read above the limit."""
     from repro_torch.core import nvml
     from repro_torch.core.hwsim import GemmConfig
     from repro_torch.core.profiler import (card_measure_fn, graph_pump,
@@ -627,7 +629,7 @@ def test_power_window_of_a_large_gemm_reads_the_card(dev):
     fn = lambda: tiled_matmul(a, b)
     ms = time_ms(fn, torch.empty(2 ** 28, dtype=torch.uint8, device=dev), 3)
     pump, per_unit = graph_pump(fn, ms)
-    busy = nvml.measure_window(read, pump, period_s=period)
+    busy = nvml.measure_window(read, pump, period_s=period, limit_w=limit)
     torch.cuda.synchronize()
     assert 0.0 < idle.watts < busy.watts < 1.1 * limit
     assert busy.seconds >= nvml.window_seconds(period) - period
@@ -966,3 +968,54 @@ def test_a_resumed_run_equals_an_uninterrupted_one_on_the_card(dev,
     _same_state(resumed, whole)
     assert (list(s1["loss_curve"]) + list(s2["loss_curve"])
             == list(s_whole["loss_curve"]))
+
+
+@pytest.mark.parametrize("arch,per_forward", [
+    ("zamba2-2.7b", 2 * 4 + 2 * 7 + 1),    # in/out_proj, 2 shared, head
+    ("olmoe-1b-7b", 5 * 2 + 1)])           # q, k, v, o, router; head
+def test_family_gradients_through_the_kernel_match_the_plain_version(
+        dev, arch, per_forward):
+    """A bf16 smoke model of another family than dense, remat on, over
+    4 x 64 tokens (every product at M > 64): the hybrid's Mamba2 blocks
+    and its shared block (reused, so its gradient sums over both groups),
+    or the MoE blocks' router (f32 logits, an f32 backward pair). Every
+    gradient leaf through the kernel is within phase 15's relative L2 of
+    5e-2 of the plain version's, and the step's launches are the forward
+    on ``wgmma``, its recompute (all but the head) too, and two gradients
+    per product on ``general``."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
+    from repro_torch.kernels import ops
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
+                              param_dtype="bfloat16",
+                              activation_dtype="bfloat16", remat=True)
+    api = get_model(cfg)
+    params = _train_state(dev, cfg, api)["params"]
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in
+             SyntheticLMDataset(DataConfig(seq_len=64, global_batch=4,
+                                           vocab=cfg.vocab)).batch_at(0)
+             .items()}
+
+    def grads():
+        loss, _ = api.loss(params, batch, cfg)
+        return loss.detach(), torch.autograd.grad(loss,
+                                                  list(params.parameters()))
+
+    before = dict(tiled_matmul.launches_by_path)
+    loss, got = grads()
+    torch.cuda.synchronize()
+    moved = {p: tiled_matmul.launches_by_path[p] - before[p] for p in before}
+    assert moved == {"stream": 0, "wgmma": 2 * per_forward - 1,
+                     "general": 2 * per_forward}
+    ops.tiled_matmul = lambda a, b, c=None, *, config=None, **kw: (
+        matmul_ref(a, b, c, **kw))
+    try:
+        want_loss, want = grads()
+    finally:
+        ops.tiled_matmul = tiled_matmul
+    assert abs(loss.item() - want_loss.item()) <= 5e-2 * abs(want_loss.item())
+    for (name, _), g, w in zip(params.named_parameters(), got, want):
+        assert torch.isfinite(g).all(), name
+        rel = ((g.float() - w.float()).norm()
+               / w.float().norm().clamp_min(1e-30)).item()
+        assert rel <= 5e-2, (name, rel)

@@ -72,6 +72,98 @@ def test_window_reads_watts_from_the_counter_change(period, read_s):
     assert win.units == pytest.approx(win.seconds / card.unit_s, abs=2)
 
 
+class SlowStartCard(FakeCard):
+    """A `FakeCard` whose pumps take `lag` seconds of the clock until
+    `slow_until`: the pump lags (a replay waiting, the host descheduled)
+    while the window's first step is awaited, and not at its last."""
+
+    def __init__(self, lag, slow_until, **kw):
+        super().__init__(**kw)
+        self.lag, self.slow_until = lag, slow_until
+
+    def pump(self):
+        if self.t < self.slow_until:
+            self.t += self.lag
+        return super().pump()
+
+
+@pytest.mark.parametrize("lag", [0.0, 0.02, 0.04])
+def test_a_slow_pump_at_one_end_does_not_bias_the_watts(lag):
+    """Each step is timed at the middle of its bracket (the read
+    before it to the read that sees it, a pump between them), so a pump
+    that lags by up to 40 ms at the window's start and not at its end
+    leaves the mean of windows started at every phase of the counter at
+    the card's watts (timed by the read that sees it, the start came late
+    by half the lag on average, and 40 ms over-read the 0.4 s window by 5%)
+    and puts each window within half a bracket per end."""
+    period, read_s, phases = 0.1, 0.003, 40
+    watts = []
+    for i in range(phases):
+        start = 12.0 + period * i / phases
+        card = SlowStartCard(lag, start + 1.5 * period, watts=350.0,
+                             period=period, read_s=read_s)
+        card.t = card.last = start
+        win = nvml.measure_window(card.read_mj, card.pump, period_s=period,
+                                  clock=card.clock)
+        bound = (0.5 * (lag + read_s + card.pump_s) + 0.5 * (
+            card.pump_s + read_s) + read_s) / win.seconds
+        assert abs(win.watts / 350.0 - 1.0) <= bound
+        watts.append(win.watts)
+    assert np.mean(watts) == pytest.approx(350.0, rel=2e-3)
+
+
+class CappedCard(FakeCard):
+    """A `FakeCard` under its power control: from the clock's start it
+    draws `high` watts for the first `high_s` of each second and `low` for
+    the rest, a mean of `mean` watts."""
+
+    def __init__(self, high, mean, high_s, **kw):
+        super().__init__(**kw)
+        self.high, self.high_s, self.start = high, high_s, self.t
+        self.low = (mean - high * high_s) / (1.0 - high_s)
+
+    def read_mj(self):
+        self.t += self.read_s
+        cycles, into = divmod(
+            np.floor(self.t / self.period) * self.period - self.start, 1.0)
+        joules = (cycles * (self.high * self.high_s
+                            + self.low * (1.0 - self.high_s))
+                  + self.high * min(into, self.high_s)
+                  + self.low * max(into - self.high_s, 0.0))
+        value = int(round(joules * 1e3))
+        self.reads.append(value)
+        return value
+
+
+@pytest.mark.parametrize("high_s", [0.5, 0.6, 0.7])
+def test_a_window_above_the_limit_reads_a_whole_power_control_cycle(high_s):
+    """Fault C3: a GEMM at the card's power limit draws 780 W for the first
+    half second or more of each cycle and less for the rest. Its 4 periods
+    read the high part, above 1.1 x the 700 W limit; given the limit, the
+    window runs on from its first step to `CAPPED_PERIODS` periods, one
+    cycle, and reads the 690 W the card holds. A window under the limit
+    keeps its 4 periods."""
+    limit, period = 700.0, 0.1
+    kw = dict(high=780.0, mean=690.0, high_s=high_s, period=period,
+              read_s=0.003)
+    card = CappedCard(**kw)
+    short = nvml.measure_window(card.read_mj, card.pump, period_s=period,
+                                clock=card.clock)
+    assert round(short.seconds / period) == nvml.WINDOW_PERIODS
+    assert short.watts > 1.1 * limit
+    card = CappedCard(**kw)
+    win = nvml.measure_window(card.read_mj, card.pump, period_s=period,
+                              limit_w=limit, clock=card.clock)
+    assert round(win.seconds / period) == nvml.CAPPED_PERIODS
+    assert win.watts == pytest.approx(690.0, rel=0.01)
+    assert win.units == pytest.approx(win.seconds / card.unit_s, abs=2)
+    card = FakeCard(watts=350.0, period=period, read_s=0.003)
+    win = nvml.measure_window(card.read_mj, card.pump, period_s=period,
+                              limit_w=limit, clock=card.clock)
+    assert round(win.seconds / period) == nvml.WINDOW_PERIODS
+    assert win.watts == pytest.approx(350.0, rel=0.03)
+
+
 def test_window_is_sized_to_the_probed_period():
     assert nvml.window_seconds(0.1) == pytest.approx(0.4)
     assert nvml.window_seconds(0.01) == pytest.approx(nvml.MIN_WINDOW_S)

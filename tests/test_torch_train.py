@@ -466,15 +466,6 @@ def test_init_train_state_is_trainable_with_its_own_master():
     assert int(state["opt"]["step"]) == 0
 
 
-@pytest.mark.parametrize("kind", ["moe", "mla_moe", "mamba1", "mamba2",
-                                  "hybrid", "encdec", "vlm"])
-def test_only_the_dense_family_has_a_loss(kind):
-    cfg = dataclasses.replace(get_config("qwen2-7b", smoke=True), kind=kind)
-    with pytest.raises(NotImplementedError, match="A9b"):
-        get_model(cfg).loss(None, {}, cfg)
-    assert get_model(get_config("qwen2-7b", smoke=True)).loss is not None
-
-
 @pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("smoke", [False, True])
 def test_gemm_shapes_match_jax(arch, smoke):
