@@ -14,8 +14,12 @@ build of PyTorch. Phases, each fatal on failure:
 3. the kernel against its plain version (`matmul_ref`) on the card: the
    shapes, layouts, alpha/beta, bf16-in/f32-out and K=4096 cases of the
    JAX package's kernel tests plus the fast paths' boundary cases (M around
-   8, 64 and 128, ragged N and K, split K), on every path that takes each
-   case, with each fast-path result bit-identical over two launches, and
+   8, 64 and 128, ragged N and K, split K), wgmma's transposed layouts (nt,
+   tn, tt: M, N and K around 64/65/128/129, split K, beta with C) and the
+   split pair (an f32 operand, split into three bf16 terms, times a bf16
+   one, on the four layouts; f32 out held to the f32 tolerance), on every
+   path that takes each case, with each fast-path result bit-identical over
+   two launches, the split kernel bit-equal to its plain version, and
    `stream` on a tied LM head's layout (B stored (N, K), ``transpose_b``;
    M = 1, 4, 8, 9 and 64, N = 65024 and a ragged N, K = 4096, bf16 and f32
    out); then fault C1's check: for every serving (N, K) of the eight
@@ -46,10 +50,12 @@ build of PyTorch. Phases, each fatal on failure:
    product through `matmul_ref`;
 8. the paper's loop on the card: profile the compiled tiles over the H100
    sweep with CUDA events (`profiler.card_measure_fn`), fit the Random
-   Forest predictor (the JAX package's tuner mode: residual on the roofline
-   anchor) on the paper's 2,076-row split and report its held-out runtime
-   R2 and errors, hold the float64 torch scorer on the card against numpy
-   `predict` bit for bit, tune the serving engine's GEMM fleet with the
+   Forest predictor as the port fits it for the card
+   (`autotuner.fit_card_predictor`: the paper's direct regression on log
+   targets) on the paper's 2,076-row split and report its
+   held-out runtime R2 and errors, hold the float64 torch scorer on the
+   card against numpy `predict` bit for bit, tune the serving engine's
+   GEMM fleet with the
    predictor (every candidate verified on the card), time every serving
    shape at its tuned tile, `plan`'s tile and the general path, and serve
    the same 10 requests with
@@ -144,11 +150,15 @@ build of PyTorch. Phases, each fatal on failure:
    ms, loss, grad norm and tokens/s and the peak device memory; gates:
    finite losses and grad norms, every f32 master leaf and every weight
    matrix moved from the seeded init, and per step the launches from the
-   model's structure, 361 on wgmma (the forward and its recompute) and
-   362 on general (both gradients of every product, the head's pair in
-   f32), none on stream; (b) every distinct GEMM of that step, by layout,
-   against the plain version (phase 5's bound) and timed as in phase 5,
-   summed per path per step; (c) at full width cut to 2 layers, the loss
+   model's structure, 721 on wgmma (the forward, its recompute and both
+   gradients of every bf16-out product: da on an (N, K) B, dW on a
+   transposed A), 2 on split (the f32-out head's pair) with 1 split3, none
+   on stream or general; (b) every distinct GEMM of that step, by layout,
+   against the plain version (phase 5's bound) and timed as in phase 5
+   (the general path once), summed per path per step, with the bf16
+   backward's and the split pair's sums beside torch.matmul's (f32 for the
+   pair), and the split kernel timed and held bit for bit against its
+   plain version; (c) at full width cut to 2 layers, the loss
    and every gradient leaf through the kernel against every product
    through `matmul_ref` (relative L2 at most 5e-2); (d) at the same cut,
    4 steps through the port's loop against 2 steps, a checkpoint written
@@ -163,7 +173,8 @@ build of PyTorch. Phases, each fatal on failure:
    the card); the LM kinds through the launcher, encdec and vlm through
    `make_train_step`. Per family: (a) gates as phase 15 (a)'s, the
    launches per step from the structure (`_family_launches_per_step`: the
-   tied head's forward on general), the peak memory beside the estimate;
+   tied head's forward on wgmma's (N, K) B, the MoE routers' pairs on
+   split; none on general), the peak memory beside the estimate;
    (b) its GEMMs timed as phase 15 (b); (c) at 2 layers (zamba2-2.7b: one
    group of 6 Mamba2 blocks and the shared block) every gradient leaf
    through the kernel against the plain version (relative L2 at most
@@ -174,8 +185,9 @@ qwen2.5-14b's serving launches by shape, for ``tools/gemm_sums.py``.
 
 It prints a JSON line of per-kernel numbers (launches and times summed
 over phases 4-5, 12, 13, 14, 15 (a) and 16 (a), the runs of the port's main
-paths; the general path's launches are training's) and, last, the device
-line.
+paths: the GEMM's stream, wgmma and split paths and the split kernel; no
+launch of those runs takes the general path, the yardstick in each entry's
+v3_ms) and, last, the device line.
 Without a GPU, or without the repository beside it, it exits non-zero.
 """
 
@@ -205,6 +217,14 @@ HBM_BYTES_PER_S = 3.35e12
 # the absolute one is scaled by the output's largest magnitude, since the two
 # sum in different orders and the error grows with the partial sums
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# the split pair one term at a time at a training shape (`_term_errs`): the
+# kernel and matmul_ref sum the same exact fp32 products in other orders,
+# each about sqrt(K) roundings to f32 (2^-24 relative) on each side; the
+# relative L2 distance may reach K_SUM_ULPS sqrt(K) 2^-24 (about 8x what
+# two correct sums give: the tensor cores' own fp32 accumulation is not
+# specified to the last bit), never less than the f32 tolerance. A
+# dropped or misread term gives about 1.
+K_SUM_ULPS = 8
 # full-width logits, kernel vs every product through matmul_ref: the two
 # differ only in summation order inside each GEMM, but each GEMM output is
 # rounded to bf16, so an order difference flips some outputs by one bf16
@@ -221,14 +241,16 @@ LOOP_MIN_R2 = 0.8
 PAPER_RUNTIME_R2, PAPER_RUNTIME_MEAN_PCT = 0.98, 15.57
 # phase 9: rows measured for power (fewer if the probed counter period would
 # take the sweep past its budget; about 0.55 s a row, 1.15 s for one whose
-# 4 periods read above the card's limit and run on to `nvml.CAPPED_PERIODS`,
-# so 700 rows keep the whole script, phases 14-16 included, under its
-# 1,100 s cap), and
+# 4 periods read above the card's limit and run on to `nvml.CAPPED_PERIODS`;
+# 500 rows since a run whose energy tuner took 282 s for 184 candidates,
+# against about 100 s in others, brought the whole script to 1,194 s: 200
+# rows fewer at that run's 0.556 s a row take 111 s off, 1,083 s, under the
+# 1,100 s cap; phase 9 prints where the tuner's time goes), and
 # the held-out power R2 below which the pipeline is broken (swapped columns
 # or the simulator's power give about 0 or below). The paper's power figures
 # on its RTX 4070 are printed beside the card's.
-POWER_ROWS = 700
-POWER_SWEEP_BUDGET_S = 540.0
+POWER_ROWS = 500
+POWER_SWEEP_BUDGET_S = 390.0
 POWER_MIN_R2 = 0.5
 # the largest compute- and memory-bound rows are measured again over this
 # many counter periods, beside their sweep window
@@ -240,9 +262,10 @@ PAPER_POWER_R2, PAPER_POWER_MEDIAN_PCT = 0.78, 5.42
 HOST_ISSUE_MAX_RATIO = 1.5
 # phase 10: the shared system prompt of the prefix workload, in tokens
 PREFIX_TOKENS = 256
-# the kernels of csrc/tiled_matmul.cu: stream, wgmma, general (bf16, f32)
+# the kernels of csrc/tiled_matmul*.cu: stream, wgmma, general (bf16, f32),
+# and the split pair's split of its f32 operand
 GEMM_KERNELS = ("gemm_stream_kernel", "gemm_wgmma_kernel", "gemm_bf16_kernel",
-                "gemm_f32_kernel")
+                "gemm_f32_kernel", "split3_kernel")
 
 
 def _say(*parts) -> None:
@@ -267,12 +290,20 @@ def _close(got: torch.Tensor, want: torch.Tensor, in_dtype) -> tuple:
     return (diff.max().item() if diff.numel() else 0.0), rel, ok
 
 
-def _bound_s(m: int, n: int, k: int, in_dtype, out_dtype) -> tuple:
-    """(operations time, bytes time) of one GEMM at the card's peaks."""
-    isz = torch.tensor([], dtype=in_dtype).element_size()
-    osz = torch.tensor([], dtype=out_dtype).element_size()
-    ops_s = 2.0 * m * n * k / PEAK_FLOPS[in_dtype]
-    bytes_s = ((m * k + k * n) * isz + m * n * osz) / HBM_BYTES_PER_S
+def _bound_s(m: int, n: int, k: int, in_dtype, out_dtype,
+             b_dtype=None) -> tuple:
+    """(operations time, bytes time) of one GEMM at the card's peaks.
+    `b_dtype` (default `in_dtype`) is B's: the split pair (one operand f32,
+    the other bf16) is priced at 2MNK on the bf16 tensor rate, the floor of
+    any f32-accurate product on the card, and at its f32 and bf16 operands'
+    bytes."""
+    b_dtype = b_dtype or in_dtype
+    size = lambda dt: torch.tensor([], dtype=dt).element_size()  # noqa: E731
+    rate = PEAK_FLOPS[torch.bfloat16 if torch.bfloat16 in (in_dtype, b_dtype)
+                      else in_dtype]
+    ops_s = 2.0 * m * n * k / rate
+    bytes_s = (m * k * size(in_dtype) + k * n * size(b_dtype)
+               + m * n * size(out_dtype)) / HBM_BYTES_PER_S
     return ops_s, bytes_s
 
 
@@ -438,19 +469,27 @@ def _ptxas_report(log: str) -> list:
     """(kernel, "registers ...; spills ...") per compiled kernel from the
     `-Xptxas -v` log, with each mangled name cut to the kernel and its
     template arguments (output type, the integers, the general path's
-    vector-tile flag or the stream path's (N, K) layout flag)."""
+    vector-tile flag, the stream path's (N, K) layout flag or wgmma's
+    layout, nn, nt, tn or tt); the split kernel by its name."""
     out, name = [], None
     for line in log.splitlines():
         entry = re.search(r"Compiling entry function '(\w+)'", line)
         if entry:
             mangled = entry.group(1)
-            base = re.search(r"gemm_\w+?_kernel", mangled)
+            base = re.search(r"gemm_\w+?_kernel|split3_kernel", mangled)
             ints = re.findall(r"Li(\d+)E", mangled)
-            flag = ",(N, K) B" if "stream" in mangled else ",vector tiles"
+            flags = re.findall(r"Lb([01])E", mangled)
+            if "wgmma" in mangled:
+                flag = "," + "".join("nt"[int(f)] for f in flags)
+            elif "Lb1E" in mangled:
+                flag = ",(N, K) B" if "stream" in mangled else ",vector tiles"
+            else:
+                flag = ""
             name = (f"{base.group(0) if base else mangled}<"
                     f"{'bf16' if 'bfloat16' in mangled else 'f32'} out"
-                    f"{''.join(',' + i for i in ints)}"
-                    f"{flag if 'Lb1E' in mangled else ''}>")
+                    f"{''.join(',' + i for i in ints)}{flag}>"
+                    if "gemm_" in mangled else
+                    (base.group(0) if base else mangled))
             spills = ""
         elif name and "spill" in line:
             spills = line.split(":", 1)[-1].strip()
@@ -479,11 +518,13 @@ def phase_kernel_cases(dev) -> None:
     """The JAX package's kernel-test cases and each path's boundary cases,
     kernel vs plain version, on every path and tile that takes the case:
     the path `plan` chooses, the general path forced, and every fast-path
-    tile of `candidate_tiles` forced where `plan` chose a fast path. Each
-    fast-path result must also be bit-identical over two launches."""
-    from repro_torch.kernels.ref import matmul_ref
+    tile of `candidate_tiles` that takes the case forced where `plan` chose
+    a fast path (wgmma's transposed layouts and the split pair included).
+    Each fast-path result must also be bit-identical over two launches,
+    and the split kernel bit-equal to its plain version."""
+    from repro_torch.kernels.ref import matmul_ref, split3_ref
     from repro_torch.kernels.tiled_matmul import (DEFAULT_CONFIG,
-                                                  candidate_tiles,
+                                                  candidate_tiles, split3,
                                                   tiled_matmul)
 
     g = torch.Generator(dev).manual_seed(0)
@@ -548,6 +589,55 @@ def phase_kernel_cases(dev) -> None:
         cases.append((f"split-K M={m} N=520 K=3584, beta=1 with bf16 C", bf16,
                       dict(beta=1.0), rand((m, 3584), bf16),
                       rand((3584, 520), bf16), rand((m, 520), bf16)))
+
+    def rows(r, c, dtype, scale=1.0):
+        """An (r, c) view of rows padded to a multiple of 8 elements."""
+        store = (torch.randn((r, -(-c // 8) * 8), generator=g, device=dev)
+                 * scale).to(dtype)
+        return store[:, :c]
+
+    # wgmma's transposed layouts in bf16 (nt: B stored (N, K); tn: A
+    # stored (K, M); tt: both): M, N and K around the 64-wide boxes and the
+    # 128-row tile, split K (few output tiles over deep K: spread
+    # segments), f32 out, and bf16 out with beta and a bf16 C; operands on
+    # rows padded to a multiple of 8 elements, ragged views of them
+    for ta, tb in ((False, True), (True, False), (True, True)):
+        lay = ("t" if ta else "n") + ("t" if tb else "n")
+        for i, (m, n, k) in enumerate(((64, 65, 129), (65, 128, 64),
+                                       (128, 129, 65), (129, 64, 128),
+                                       (8, 136, 3584), (130, 520, 3584))):
+            out, beta = ((torch.float32, 0.0), (bf16, 0.5))[i % 2]
+            cases.append((
+                f"layout {lay} M={m} N={n} K={k}, {str(out)[6:]} out"
+                + (", beta=0.5 with bf16 C" if beta else ""), bf16,
+                dict(transpose_a=ta, transpose_b=tb, out_dtype=out,
+                     beta=beta),
+                rows(k, m, bf16) if ta else rows(m, k, bf16),
+                rows(n, k, bf16, k ** -0.5) if tb
+                else rows(k, n, bf16, k ** -0.5),
+                rand((m, n), bf16) if beta else None))
+    # the split pair: an f32 operand (its three bf16 terms) times a bf16
+    # one, the f32 one A or B, on the four layouts; a ragged shape with f32
+    # out, held to the f32 tolerance, and a split-K one with bf16 out, beta
+    # and C
+    for side in ("a", "b"):
+        dta, dtb = ((torch.float32, bf16) if side == "a"
+                    else (bf16, torch.float32))
+        for ta in (False, True):
+            for tb in (False, True):
+                lay = ("t" if ta else "n") + ("t" if tb else "n")
+                for m, n, k, out in ((65, 200, 296, torch.float32),
+                                     (129, 520, 3584, bf16)):
+                    beta = 0.5 if out == bf16 else 0.0
+                    cases.append((
+                        f"split pair ({side} f32) {lay} M={m} N={n} K={k}, "
+                        f"{str(out)[6:]} out", out,
+                        dict(transpose_a=ta, transpose_b=tb, out_dtype=out,
+                             beta=beta),
+                        rows(k, m, dta) if ta else rows(m, k, dta),
+                        rows(n, k, dtb, k ** -0.5) if tb
+                        else rows(k, n, dtb, k ** -0.5),
+                        rand((m, n), bf16) if beta else None))
     failed, seen = [], collections.Counter()
     for label, dt, kw, a, b, c in cases:
         c_ref = c.to(kw.get("out_dtype") or a.dtype) if c is not None else c
@@ -555,7 +645,10 @@ def phase_kernel_cases(dev) -> None:
         chosen, _ = _run_path(tiled_matmul, a, b, c, **kw)
         configs = [None, DEFAULT_CONFIG]
         if chosen != "general":
-            configs += candidate_tiles(want.shape[0])
+            # stream reads neither a transposed A nor a split operand
+            stream = not kw.get("transpose_a") and a.dtype == b.dtype
+            configs += [t for t in candidate_tiles(want.shape[0])
+                        if stream or t.path == "wgmma"]
         for cfg in configs:
             path, got = _run_path(tiled_matmul, a, b, c, config=cfg, **kw)
             err, rel, ok = _close(got, want, dt)
@@ -632,10 +725,27 @@ def phase_kernel_cases(dev) -> None:
             if not (ok and same):
                 failed.append((path, label))
     del head
+    # the split pair's split kernel against its plain version, bit for bit:
+    # a ragged matrix, a strided view and starcoder2-3b's head cotangent
+    # (8 x 512 rows of its 49152-entry vocabulary)
+    for r, cols, view in ((37, 203, False), (64, 520, True),
+                          (4096, 49152, False)):
+        x = torch.randn((r, cols + 24 if view else cols), generator=g,
+                        device=dev) * 4.0
+        x = x[:, :cols] if view else x
+        got, want = split3(x).terms, split3_ref(x)
+        same = torch.equal(got, want)
+        recon = torch.equal(got.double().sum(0), x.double())
+        _say(f"[kernel split3] {r}x{cols}{' view' if view else ''}: "
+             f"bit-equal to the plain version {same}, hi + mid + lo == x "
+             f"{recon} {'ok' if same and recon else 'FAIL'}")
+        if not (same and recon):
+            failed.append(("split3", f"{r}x{cols}"))
+        del x, got, want
     _say(f"[kernel] cases run per path: {dict(seen)}")
     if failed:
         raise SystemExit(f"kernel disagrees with its plain version: {failed}")
-    if set(seen) != {"stream", "wgmma", "general"}:
+    if set(seen) != {"stream", "wgmma", "split", "general"}:
         raise SystemExit(f"a path ran no case: {dict(seen)}")
     _row_invariance(dev)
 
@@ -1543,11 +1653,10 @@ def phase_loop(dev, api, params, cfg, shapes, untraced) -> tuple:
     Returns (the profiled table, the tuner, its runtime winners, the
     serving fleet)."""
     from repro_torch.core.autotuner import (H100_VERIFY_TOP_K, GemmAutotuner,
-                                            set_tuner)
+                                            fit_card_predictor, set_tuner)
     from repro_torch.core.features import (features_matrix,
                                            graph_candidate_features)
     from repro_torch.core.hwsim import GemmConfig
-    from repro_torch.core.predictor import PerfPredictor
     from repro_torch.core.profiler import (card_measure_fn,
                                            h100_sweep_configs, paper_split,
                                            profile_configs, tile_stages,
@@ -1580,16 +1689,16 @@ def phase_loop(dev, api, params, cfg, shapes, untraced) -> tuple:
     if rows < LOOP_MIN_ROWS:
         raise SystemExit(f"{rows} valid rows, fewer than {LOOP_MIN_ROWS}")
 
-    # 2. fit the paper's Random Forest (100 trees, depth 6) on the paper's
-    # split, in the mode of the JAX package's tuner predictor: log targets
-    # as residuals on a roofline anchor
+    # 2. fit the card's predictor (the paper's Random Forest, 100 trees of
+    # depth 6, direct regression on log targets) on the paper's split
     tr, te = paper_split(table)
     t0 = time.perf_counter()
-    pred = PerfPredictor(model="rf", residual=True, chip="h100").fit(tr)
+    pred = fit_card_predictor(tr)
     fit_s = time.perf_counter() - t0
     rep = pred.evaluate(te)
     r2 = rep["runtime_ms"]["r2"]
-    _say(f"[loop] Random Forest (100 trees, depth 6, residual=True) fitted "
+    _say(f"[loop] Random Forest (100 trees, depth 6, residual="
+         f"{pred.residual}) fitted "
          f"on {len(tr['runtime_ms'])} rows in {fit_s:.1f} s; held out "
          f"{len(te['runtime_ms'])} rows, runtime_ms: R2 {r2:.4f} (min "
          f"{LOOP_MIN_R2:g}), mean error "
@@ -1931,6 +2040,17 @@ def phase_energy(dev, api, params, cfg, shapes, table, tuner, runtime_won,
                 (tel["runtime_ms"][i], tel["power_w"][i], tel["energy_j"][i])
                 for i, c in enumerate(flat)}
     differ = [s_ for s_ in fleet if won[s_] != runtime_won[s_]]
+    # where the tuner's time went: each candidate's power window (run on to
+    # CAPPED_PERIODS where it read above the limit) and the rest (timing,
+    # graph capture, ranking, warm-ups)
+    win_s = np.asarray(tel["window_s"], dtype=np.float64)
+    ran_on = win_s > 0.5 * (nvml.WINDOW_PERIODS + nvml.CAPPED_PERIODS) * period
+    _say(f"[energy] the tuner's {tune_s:.1f} s: power windows "
+         f"{win_s.sum():.1f} s over {len(win_s)} candidates, {ran_on.sum()} "
+         f"of them run on to {nvml.CAPPED_PERIODS} periods ("
+         f"{win_s[ran_on].sum():.1f} s); the rest {tune_s - win_s.sum():.1f}"
+         f" s ({(tune_s - win_s.sum()) / max(len(win_s), 1):.3f} s a "
+         f"candidate: timing, graph capture, warm-up, ranking)")
     _say(f"[energy] tuned {len(won)} fleet shapes for energy in "
          f"{tune_s:.1f} s ({len(flat)} candidates measured for power); "
          f"{len(differ)} shapes won by another tile than for runtime: "
@@ -3127,58 +3247,145 @@ TRAIN_CUT = 2
 TRAIN_DIR = ROOT / "build" / "chip_smoke_train"
 
 
+# the GEMM paths a launch counter keeps, and the split pair's split kernel
+GEMM_PATHS = ("stream", "wgmma", "split", "general")
+
+
+def _f32_outs(cfg) -> int:
+    """The products of one forward with f32 out from bf16 operands, whose
+    backward is the split pair: the LM head and, for the MoE kinds, each
+    layer's router."""
+    return 1 + (cfg.n_layers if cfg.n_experts else 0)
+
+
 def _train_launches_per_step(cfg) -> dict:
     """One train step's launches per path, from the model's structure:
     the forward's GEMMs (`_gemms_per_forward`) on ``wgmma``, each block's
-    again where remat recomputes it (not the head), and two backward
-    GEMMs per forward GEMM on ``general`` (``da`` reads the weight as an
-    (N, K) B at M > 64, ``dW`` a transposed A; the head's pair is f32):
-    361 and 362 for starcoder2-3b."""
-    fwd = _gemms_per_forward(cfg)
-    return {"stream": 0, "wgmma": fwd + (fwd - 1 if cfg.remat else 0),
-            "general": 2 * fwd}
+    again where remat recomputes it (not the head), two backward GEMMs per
+    bf16-out forward GEMM on ``wgmma`` too (``da`` reads the weight as an
+    (N, K) B, ``dW`` the activations as a transposed A), the f32-out
+    products' pairs on ``split`` and one ``split3`` a pair (its cotangent
+    split once), none on ``general`` or ``stream``: 721 ``wgmma``, 2
+    ``split`` and 1 ``split3`` for starcoder2-3b."""
+    fwd, f32 = _gemms_per_forward(cfg), _f32_outs(cfg)
+    return {"stream": 0,
+            "wgmma": fwd + (fwd - 1 if cfg.remat else 0) + 2 * (fwd - f32),
+            "split": 2 * f32, "general": 0, "split3": f32}
 
 
-def _train_recording(log: collections.Counter):
-    """A stand-in for `ops.tiled_matmul` that counts each launch under
-    (M, N, K, in dtype, out dtype, layout) in `log`; the layout is "nn"
-    (a forward product), "nt" (B read transposed: ``da``) or "tn" (A read
-    transposed: ``dW``)."""
-    from repro_torch.kernels.tiled_matmul import tiled_matmul
+def _launch_counts() -> dict:
+    """The launch counters: per GEMM path, and the split kernel's."""
+    from repro_torch.kernels.tiled_matmul import split3, tiled_matmul
+
+    return {**tiled_matmul.launches_by_path, "split3": split3.launches}
+
+
+def _zero_counts() -> None:
+    from repro_torch.kernels.tiled_matmul import split3, tiled_matmul
+
+    tiled_matmul.launches = split3.launches = 0
+    tiled_matmul.launches_by_path.update(
+        dict.fromkeys(tiled_matmul.launches_by_path, 0))
+
+
+def _train_recording(log: collections.Counter, splits: collections.Counter):
+    """Stand-ins for `ops.tiled_matmul` and `ops.split3`. The first counts
+    each product under (M, N, K, A's dtype, B's dtype, out dtype, layout)
+    in `log`, an operand given as its bf16 terms (`Split3`) under the f32
+    matrix it stands for; the layout is "nn" (a forward product), "nt" (B
+    read transposed: ``da``; a tied head's forward) or "tn" (A read
+    transposed: ``dW``; a tied head's table gradient). The second counts
+    each split under the f32 matrix's (rows, cols) in `splits`."""
+    from repro_torch.kernels.tiled_matmul import split3, tiled_matmul
 
     def recording(a, b, c=None, **kw):
         ta, tb = bool(kw.get("transpose_a")), bool(kw.get("transpose_b"))
         m = a.shape[1] if ta else a.shape[0]
         n, k = b.shape if tb else b.shape[::-1]
-        log[(m, n, k, a.dtype, kw.get("out_dtype") or a.dtype,
+        log[(m, n, k, a.dtype, b.dtype, kw.get("out_dtype") or a.dtype,
              ("t" if ta else "n") + ("t" if tb else "n"))] += 1
         return tiled_matmul(a, b, c, **kw)
 
-    return recording
+    def splitting(x):
+        splits[tuple(x.shape)] += 1
+        return split3(x)
+
+    return recording, splitting
 
 
-def _layout_call(dev, g, m, n, k, in_dt, layout) -> tuple:
+def _layout_call(dev, g, m, n, k, a_dt, b_dt, layout) -> tuple:
     """(a, b, keyword arguments) of one training GEMM in its storage
     layout: "nn" a (M, K) and b (K, N); "nt" b stored (N, K), read
     transposed; "tn" a stored (K, M), read transposed. Operands of O(1)
-    outputs."""
-    a = torch.randn((k, m) if layout == "tn" else (m, k), generator=g,
-                    device=dev).to(in_dt)
-    b = (torch.randn((n, k) if layout == "nt" else (k, n), generator=g,
-                     device=dev) / k ** 0.5).to(in_dt)
+    outputs, on rows padded to a multiple of 8 elements as the port stores
+    its weights (seamless-m4t-medium's head, N = 256206)."""
+    def rows(r, c, dt, scale=1.0):     # rows padded as the port stores
+        store = torch.randn((r, -(-c // 8) * 8), generator=g, device=dev)
+        return (store * scale).to(dt)[:, :c]      # them (`_weight`)
+
+    a = rows(k, m, a_dt) if layout == "tn" else rows(m, k, a_dt)
+    b = (rows(n, k, b_dt, k ** -0.5) if layout == "nt"
+         else rows(k, n, b_dt, k ** -0.5))
     return a, b, dict(transpose_a=layout == "tn", transpose_b=layout == "nt")
 
 
+def _term_rel_l2(k: int) -> float:
+    """The split pair's per-term limit at depth K (`K_SUM_ULPS`)."""
+    return max(TOL[torch.float32], K_SUM_ULPS * k ** 0.5 * 2.0 ** -24)
+
+
+def _term_errs(a, b, ka, kb, kw, k: int) -> list:
+    """The split pair at one shape, one term at a time: for t = 0, 1, 2 the
+    split operand's planes are zero but plane t, which holds term t scaled
+    by 2^(8 t) (exact: a power of two), so that each plane is about hi's
+    size; the kernel at f32 out is held to `matmul_ref` of that plane. Each
+    plane's products are exact in fp32, so the two differ only in the order
+    of K additions: a relative L2 distance of at most `_term_rel_l2(k)`,
+    while a term the kernel drops or reads from the wrong plane misses by
+    the whole result (distance about 1). Returns each term's (relative L2,
+    ok)."""
+    from repro_torch.kernels.ref import matmul_ref
+    from repro_torch.kernels.tiled_matmul import Split3, tiled_matmul
+
+    on_a = isinstance(ka, Split3)
+    s = ka if on_a else kb
+    r, c = s.shape
+    kw32 = {**kw, "out_dtype": torch.float32}
+    out = []
+    for t in range(3):
+        buf = torch.zeros((3, r, -(-c // 8) * 8), dtype=torch.bfloat16,
+                          device=s.terms.device)
+        buf[t, :, :c] = s.terms[t] * 2.0 ** (8 * t)
+        one = Split3(buf[t, :, :c].float(), buf[:, :, :c])
+        got = tiled_matmul(one, kb, **kw32) if on_a else tiled_matmul(
+            ka, one, **kw32)
+        want = (matmul_ref(one.x, b, **kw32) if on_a
+                else matmul_ref(a, one.x, **kw32))
+        rel = ((got - want).norm() / want.norm()).item()
+        out.append((rel, rel <= _term_rel_l2(k)))
+        del buf, one, got, want
+    return out
+
+
 def _train_shapes(dev, shapes: collections.Counter, runs: int,
-                  tag: str = "train (b)") -> dict:
+                  tag: str = "train (b)",
+                  splits: collections.Counter | None = None) -> dict:
     """(b): hold the kernel against its plain version at every distinct
     training GEMM of one step (forward, recompute, both backward layouts,
-    the head's f32 pair) and time it beside the general path, the plain
-    version, torch.matmul on the same layout and the bound; sums per path
-    per step, and per-path JSON entries over the `runs` steps of (a)."""
+    the f32-out products' split pairs) and time it beside the general path
+    (timed once: the first kernel, the yardstick), the plain version,
+    torch.matmul on the same layout (for the split pair its f32 product,
+    the bf16 operand cast beforehand) and the bound; a split pair's GEMM is
+    timed on its f32 operand split beforehand, as the backward splits it
+    once for both gradients, and the split kernel (`splits`, by the f32
+    matrix's shape) apart, against its plain version bit for bit. A split
+    pair is also run one term at a time at f32 out (`_term_errs`). Sums per
+    path per step, the bf16 backward's and the split pairs' ratios to
+    torch.matmul, and per-kernel JSON entries over the `runs` steps of
+    (a)."""
     from repro_torch.core.profiler import time_ms
-    from repro_torch.kernels.ref import matmul_ref
-    from repro_torch.kernels.tiled_matmul import (DEFAULT_CONFIG, GENERAL,
+    from repro_torch.kernels.ref import matmul_ref, split3_ref
+    from repro_torch.kernels.tiled_matmul import (DEFAULT_CONFIG, split3,
                                                   tiled_matmul)
 
     g = torch.Generator(dev).manual_seed(4)
@@ -3186,43 +3393,67 @@ def _train_shapes(dev, shapes: collections.Counter, runs: int,
     tot: dict = collections.defaultdict(collections.Counter)
     worst: dict = collections.Counter()
     failed = []
-    _say(f"[{tag}] M N K in out layout per-step path kernel_ms v3_ms "
+    bf16, f32 = torch.bfloat16, torch.float32
+    _say(f"[{tag}] M N K a b out layout per-step path kernel_ms v3_ms "
          "plain_ms library_ms bound_ms bound_by bound/kernel "
          "library/kernel max_abs rel_l2")
     for key, count in sorted(shapes.items(), key=lambda kv: (
-            kv[0][5], kv[0][:3])):
-        m, n, k, in_dt, out_dt, layout = key
+            kv[0][6], kv[0][:3])):
+        m, n, k, a_dt, b_dt, out_dt, layout = key
         per_step = count // runs
-        a, b, kw = _layout_call(dev, g, m, n, k, in_dt, layout)
+        a, b, kw = _layout_call(dev, g, m, n, k, a_dt, b_dt, layout)
         kw["out_dtype"] = out_dt
+        mixed = a_dt != b_dt
+        ka = split3(a) if mixed and a_dt == f32 else a
+        kb = split3(b) if mixed and b_dt == f32 else b
         want = matmul_ref(a, b, **kw)
-        path, got = _run_path(tiled_matmul, a, b, **kw)
-        err, _, ok = _close(got, want, torch.bfloat16 if torch.bfloat16 in (
-            in_dt, out_dt) else torch.float32)
+        path, got = _run_path(tiled_matmul, ka, kb, **kw)
+        err, _, ok = _close(got, want, bf16 if bf16 in (a_dt, b_dt, out_dt)
+                            else f32)
         rel = ((got.float() - want.float()).norm()
                / want.float().norm()).item()
         worst[path] = max(worst[path], err)
         if not ok:
             failed.append((m, n, k, layout, path))
         del got, want
-        kernel_ms = time_ms(lambda: tiled_matmul(a, b, **kw), flush, 5)
-        v3_ms = kernel_ms if path == GENERAL else time_ms(
-            lambda: tiled_matmul(a, b, config=DEFAULT_CONFIG, **kw), flush, 5)
+        terms = ""
+        if mixed:
+            errs = _term_errs(a, b, ka, kb, kw, k)
+            worst["split terms"] = max(worst["split terms"],
+                                       *(e for e, _ in errs))
+            failed += [(m, n, k, layout, f"split term {t}")
+                       for t, (_, ok_t) in enumerate(errs) if not ok_t]
+            terms = (" terms one at a time at f32 out, rel_l2 " + " ".join(
+                f"{e:.3g}" for e, _ in errs)
+                + f" (limit {_term_rel_l2(k):.3g})")
+        kernel_ms = time_ms(lambda: tiled_matmul(ka, kb, **kw), flush, 5)
+        del ka, kb
+        ga, gb = (a.float(), b.float()) if mixed else (a, b)
+        v3_ms = time_ms(lambda: tiled_matmul(ga, gb, config=DEFAULT_CONFIG,
+                                             **kw), flush, 1)
         plain_ms = time_ms(lambda: matmul_ref(a, b, **kw), flush, 3)
         ta, tb = kw["transpose_a"], kw["transpose_b"]
-        library_ms = time_ms(lambda: torch.matmul(a.T if ta else a,
-                                                  b.T if tb else b),
+        library_ms = time_ms(lambda: torch.matmul(ga.T if ta else ga,
+                                                  gb.T if tb else gb),
                              flush, 5)
-        ops_s, bytes_s = _bound_s(m, n, k, in_dt, out_dt)
+        ops_s, bytes_s = _bound_s(m, n, k, a_dt, out_dt, b_dt)
         bound_ms = 1e3 * max(ops_s, bytes_s)
-        _say(f"[{tag}] {m} {n} {k} {str(in_dt).split('.')[-1]} "
-             f"{str(out_dt).split('.')[-1]} {layout} {per_step} {path} "
+        _say(f"[{tag}] {m} {n} {k} {str(a_dt)[6:]} {str(b_dt)[6:]} "
+             f"{str(out_dt)[6:]} {layout} {per_step} {path} "
              f"{kernel_ms:.4f} {v3_ms:.4f} {plain_ms:.4f} {library_ms:.4f} "
              f"{bound_ms:.4f} {'operations' if ops_s > bytes_s else 'bytes'}"
              f" {bound_ms / kernel_ms:.3f} {library_ms / kernel_ms:.3f} "
-             f"{err:.3g} {rel:.3g}")
-        del a, b
-        for t in (tot[path], tot["all"]):
+             f"{err:.3g} {rel:.3g}{terms}")
+        del a, b, ga, gb
+        kind = ("split pair" if mixed else "bf16 forward" if layout == "nn"
+                else "bf16 backward")
+        # wgmma's launches on the transposed layouts, apart (a tied head's
+        # forward reads an (N, K) B too)
+        rows = [tot[path], tot["all"], tot[kind]]
+        if path == "wgmma" and layout != "nn":
+            rows.append(tot["wgmma transposed"])
+            tot["wgmma transposed"]["launches"] += count
+        for t in rows:
             t["ms"] += per_step * kernel_ms
             t["v3_ms"] += per_step * v3_ms
             t["plain_ms"] += per_step * plain_ms
@@ -3230,23 +3461,72 @@ def _train_shapes(dev, shapes: collections.Counter, runs: int,
             t["bound_ms"] += per_step * bound_ms
             t["ops_ms"] += per_step * 1e3 * ops_s
             t["bytes_ms"] += per_step * 1e3 * bytes_s
+    for (r, c), count in sorted((splits or {}).items()):
+        per_step = count // runs
+        x = torch.randn((r, c), generator=g, device=dev)
+        got, want = split3(x).terms, split3_ref(x)
+        exact = torch.equal(got, want)
+        err = (got.float() - want.float()).abs().max().item()
+        worst["split3"] = max(worst["split3"], err)
+        if not exact:
+            failed.append((r, c, "split3"))
+        del got, want
+        kernel_ms = time_ms(lambda: split3(x), flush, 5)
+        plain_ms = time_ms(lambda: split3_ref(x), flush, 3)
+        bytes_s = r * c * (4 + 3 * 2) / HBM_BYTES_PER_S   # read x, write 3
+        _say(f"[{tag}] split3 {r} {c} per-step {per_step}: kernel "
+             f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+             f"{1e3 * bytes_s:.4f} ms (bytes), bound/kernel "
+             f"{1e3 * bytes_s / kernel_ms:.3f}, bit-equal to the plain "
+             f"version {exact}")
+        del x
+        for t in (tot["split3"],):
+            t["ms"] += per_step * kernel_ms
+            t["plain_ms"] += per_step * plain_ms
+            t["bound_ms"] += per_step * 1e3 * bytes_s
+            t["bytes_ms"] += per_step * 1e3 * bytes_s
+    if "split terms" in worst:
+        _say(f"[{tag}] the split pairs one term at a time at f32 out: worst "
+             f"relative L2 {worst['split terms']:.3g} (limit "
+             f"max({TOL[torch.float32]:g}, {K_SUM_ULPS} sqrt(K) 2^-24))")
     if failed:
         raise SystemExit(f"kernel disagrees at training shapes {failed}")
+    for kind in ("bf16 backward", "split pair"):
+        t = tot.get(kind)
+        if t:
+            extra = (f" (+ split3 {tot['split3']['ms']:.2f} ms)"
+                     if kind == "split pair" and "split3" in tot else "")
+            _say(f"[{tag}] one step's {kind}: kernel {t['ms']:.2f} ms{extra}, "
+                 f"torch.matmul {t['library_ms']:.2f} ms "
+                 f"({'f32 x f32, ' if kind == 'split pair' else ''}"
+                 f"{t['ms'] / t['library_ms']:.2f}x), general path "
+                 f"{t['v3_ms']:.2f} ms, bound {t['bound_ms']:.2f} ms")
     entries = {}
     for path, t in sorted(tot.items()):
-        _say(f"[{tag}] one step's GEMMs ({path}): kernel {t['ms']:.2f} "
-             f"ms, general path {t['v3_ms']:.2f} ms, plain "
-             f"{t['plain_ms']:.2f} ms, torch.matmul {t['library_ms']:.2f} "
-             f"ms, bound {t['bound_ms']:.2f} ms (operations "
-             f"{t['ops_ms']:.2f} ms, bytes {t['bytes_ms']:.2f} ms)")
-        if path != "all":
-            entries[path] = {
-                **{key: runs * t[key] for key in (
-                    "ms", "v3_ms", "plain_ms", "bound_ms", "library_ms",
-                    "ops_ms", "bytes_ms")},
-                "bound_by": ("operations" if t["ops_ms"] > t["bytes_ms"]
-                             else "bytes"),
-                "max_abs_err": worst[path]}
+        if path in ("bf16 forward", "bf16 backward", "split pair"):
+            continue
+        if path not in ("split3", "wgmma transposed"):
+            _say(f"[{tag}] one step's GEMMs ({path}): kernel {t['ms']:.2f} "
+                 f"ms, general path {t['v3_ms']:.2f} ms, plain "
+                 f"{t['plain_ms']:.2f} ms, torch.matmul "
+                 f"{t['library_ms']:.2f} ms, bound {t['bound_ms']:.2f} ms "
+                 f"(operations {t['ops_ms']:.2f} ms, bytes "
+                 f"{t['bytes_ms']:.2f} ms)")
+        if path == "all":
+            continue
+        entries[path] = {
+            **{key: runs * t[key] for key in (
+                "ms", "plain_ms", "bound_ms", "ops_ms", "bytes_ms")},
+            # the split kernel has no general-path counterpart and no one
+            # PyTorch call that computes it
+            "v3_ms": None if path == "split3" else runs * t["v3_ms"],
+            "library_ms": (None if path == "split3"
+                           else runs * t["library_ms"]),
+            "bound_by": ("operations" if t["ops_ms"] > t["bytes_ms"]
+                         else "bytes"),
+            "max_abs_err": worst[path if path in worst else "wgmma"]}
+        if path == "wgmma transposed":
+            entries[path]["launches"] = t["launches"]
     return entries
 
 
@@ -3258,7 +3538,7 @@ def _train_full(dev) -> tuple:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.kernels.tiled_matmul import tiled_matmul
+    from repro_torch.kernels.tiled_matmul import split3, tiled_matmul
     from repro_torch.launch import train as launch
     from repro_torch.models.registry import get_model
 
@@ -3272,25 +3552,23 @@ def _train_full(dev) -> tuple:
          f"{cfg.n_params() / 1e9:.3f} B params, training state "
          f"{state_b / 1e9:.2f} GB, activations about {acts_b / 1e9:.2f} GB "
          f"(`train_memory_bytes`) on a card of {cap / 1e9:.2f} GB; "
-         f"launches per step from the structure: wgmma {want['wgmma']}, "
-         f"general {want['general']}")
+         f"launches per step from the structure: {want}")
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     shapes: collections.Counter = collections.Counter()
+    splits: collections.Counter = collections.Counter()
     marks = []
 
     def on_log(line: str) -> None:
         _say(f"[train (a)] {line}")
         if line.startswith("step "):
-            marks.append(dict(tiled_matmul.launches_by_path))
+            marks.append(_launch_counts())
 
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    ops.tiled_matmul = _train_recording(shapes)
+    ops.tiled_matmul, ops.split3 = _train_recording(shapes, splits)
     try:
-        tiled_matmul.launches = 0
-        tiled_matmul.launches_by_path.update(
-            dict.fromkeys(tiled_matmul.launches_by_path, 0))
-        marks.append(dict(tiled_matmul.launches_by_path))
+        _zero_counts()
+        marks.append(_launch_counts())
         state, summary = launch.main(
             ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
              str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--log-every", "1",
@@ -3298,9 +3576,9 @@ def _train_full(dev) -> tuple:
              str(TRAIN_DIR / "full")], log_fn=on_log)
         torch.cuda.synchronize()
         launches = tiled_matmul.launches
-        by_path = dict(tiled_matmul.launches_by_path)
+        by_path = _launch_counts()
     finally:
-        ops.tiled_matmul = tiled_matmul
+        ops.tiled_matmul, ops.split3 = tiled_matmul, split3
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev)
     steps = [{p: b[p] - a[p] for p in a} for a, b in zip(marks, marks[1:])]
@@ -3338,13 +3616,13 @@ def _train_full(dev) -> tuple:
                   and np.isfinite(summary["grad_norms"]).all())
     if (summary["final_step"] != TRAIN_STEPS or not finite
             or len(steps) != TRAIN_STEPS or any(s != want for s in steps)
-            or launches != TRAIN_STEPS * sum(want.values())
+            or launches != TRAIN_STEPS * sum(want[p] for p in GEMM_PATHS)
             or moved["master"] != n_leaves or moved["matrices"] != n_mat):
         raise SystemExit("full-width training failed its gates (steps, "
                          "finite losses and grad norms, launches per step "
                          "and path, params moved)")
     del state
-    return shapes, by_path, summary, peak
+    return shapes, splits, by_path, summary, peak
 
 
 def _cut_state(dev, cfg, seed: int = 0) -> dict:
@@ -3364,7 +3642,7 @@ def _train_grads(dev, cfg, batch: dict | None = None,
     from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import matmul_ref
-    from repro_torch.kernels.tiled_matmul import tiled_matmul
+    from repro_torch.kernels.tiled_matmul import split3, tiled_matmul
     from repro_torch.models.registry import get_model
 
     state = _cut_state(dev, cfg)
@@ -3386,11 +3664,13 @@ def _train_grads(dev, cfg, batch: dict | None = None,
         return matmul_ref(a, b, c, **kw)
 
     got = grads()
-    ops.tiled_matmul = plain
+    # the plain version of the split pair multiplies the f32 cotangent
+    # itself: nothing is split
+    ops.tiled_matmul, ops.split3 = plain, lambda x: x
     try:
         want = grads()
     finally:
-        ops.tiled_matmul = tiled_matmul
+        ops.tiled_matmul, ops.split3 = tiled_matmul, split3
 
     def rel(x, y):
         return ((x.float() - y.float()).norm()
@@ -3495,9 +3775,9 @@ def phase_train(dev) -> dict:
 
     _free()
     t0 = time.perf_counter()
-    shapes, by_path, summary, peak = _train_full(dev)
+    shapes, splits, by_path, summary, peak = _train_full(dev)
     _free()
-    entries = _train_shapes(dev, shapes, TRAIN_STEPS)
+    entries = _train_shapes(dev, shapes, TRAIN_STEPS, splits=splits)
     _free()
     cut = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_CUT)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -3543,19 +3823,20 @@ def _fit_depth(cfg, batch: int, seq: int, capacity: int):
 def _family_launches_per_step(cfg) -> dict:
     """One train step's launches per path, from the model's structure: the
     forward's GEMMs (`_gemms_per_forward`, and encdec's encoder and
-    cross-KV, `_gemms_per_admission`), on ``wgmma`` but for a tied head,
-    which reads the table as an (N, K) B at M > 64 and takes ``general``;
-    each unit's GEMMs again where remat recomputes it (every GEMM but the
-    head's: the blocks, hybrid's groups with their shared block,
-    encdec's encoder and decoder layers with their cross-KV); and two
-    backward GEMMs per forward GEMM on ``general``. 361 and 362 for
-    starcoder2-3b."""
+    cross-KV, `_gemms_per_admission`) on ``wgmma``, a tied head's too (it
+    reads the table as an (N, K) B); each unit's GEMMs again where remat
+    recomputes it (every GEMM but the head's: the blocks, hybrid's groups
+    with their shared block, encdec's encoder and decoder layers with
+    their cross-KV); two backward GEMMs per bf16-out forward GEMM on
+    ``wgmma``, and the f32-out products' (the head, the MoE routers) on
+    ``split``, each with one ``split3``; none on ``general``. 721, 2 and 1
+    for starcoder2-3b (`_train_launches_per_step`)."""
     fwd = _gemms_per_forward(cfg) + (_gemms_per_admission(cfg)
                                      if cfg.kind == "encdec" else 0)
-    tied = 1 if cfg.tie_embeddings else 0
+    f32 = _f32_outs(cfg)
     return {"stream": 0,
-            "wgmma": fwd - tied + (fwd - 1 if cfg.remat else 0),
-            "general": tied + 2 * fwd}
+            "wgmma": fwd + (fwd - 1 if cfg.remat else 0) + 2 * (fwd - f32),
+            "split": 2 * f32, "general": 0, "split3": f32}
 
 
 def _family_batch(dev, cfg, rows: int, seq: int, step: int) -> dict:
@@ -3636,7 +3917,7 @@ def _train_family(dev, arch: str, rows: int, seq: int) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.kernels.tiled_matmul import tiled_matmul
+    from repro_torch.kernels.tiled_matmul import split3, tiled_matmul
     from repro_torch.launch import train as launch
     from repro_torch.models.registry import get_model
 
@@ -3658,24 +3939,23 @@ def _train_family(dev, arch: str, rows: int, seq: int) -> dict:
          f"(`train_memory_bytes`) on a card of {cap / 1e9:.2f} GB; launches "
          f"per step from the structure: {want}")
     shapes: collections.Counter = collections.Counter()
+    splits: collections.Counter = collections.Counter()
     marks = []
 
     def on_log(line: str) -> None:
         _say(f"[{tag}] {line}")
         if line.startswith("step "):
-            marks.append(dict(tiled_matmul.launches_by_path))
+            marks.append(_launch_counts())
 
     shutil.rmtree(FAMILY_DIR, ignore_errors=True)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    ops.tiled_matmul = _train_recording(shapes)
+    ops.tiled_matmul, ops.split3 = _train_recording(shapes, splits)
     real_config = launch.get_config
     launch.get_config = lambda name, smoke=False: cfg
     try:
-        tiled_matmul.launches = 0
-        tiled_matmul.launches_by_path.update(
-            dict.fromkeys(tiled_matmul.launches_by_path, 0))
-        marks.append(dict(tiled_matmul.launches_by_path))
+        _zero_counts()
+        marks.append(_launch_counts())
         if cfg.kind in ("encdec", "vlm"):
             state, summary = _family_steps(dev, cfg, rows, seq, on_log)
         else:
@@ -3686,9 +3966,9 @@ def _train_family(dev, arch: str, rows: int, seq: int) -> dict:
                  str(FAMILY_DIR)], log_fn=on_log)
         torch.cuda.synchronize()
         launches = tiled_matmul.launches
-        by_path = dict(tiled_matmul.launches_by_path)
+        by_path = _launch_counts()
     finally:
-        ops.tiled_matmul = tiled_matmul
+        ops.tiled_matmul, ops.split3 = tiled_matmul, split3
         launch.get_config = real_config
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev)
@@ -3726,14 +4006,14 @@ def _train_family(dev, arch: str, rows: int, seq: int) -> dict:
                   and np.isfinite(summary["grad_norms"]).all())
     if (summary["final_step"] != FAMILY_STEPS or not finite
             or len(steps) != FAMILY_STEPS or any(s != want for s in steps)
-            or launches != FAMILY_STEPS * sum(want.values())
+            or launches != FAMILY_STEPS * sum(want[p] for p in GEMM_PATHS)
             or moved["master"] != n_leaves or moved["matrices"] != n_mat):
         raise SystemExit(f"{arch}'s training failed its gates (steps, "
                          "finite losses and grad norms, launches per step "
                          "and path, params moved)")
     del state
-    return {"cfg": cfg, "shapes": shapes, "by_path": by_path, "peak": peak,
-            "warm_s": warm, "wall": wall}
+    return {"cfg": cfg, "shapes": shapes, "splits": splits,
+            "by_path": by_path, "peak": peak, "warm_s": warm, "wall": wall}
 
 
 def _family_cut(cfg):
@@ -3766,7 +4046,8 @@ def phase_families(dev) -> dict:
         _free()
         launched.update(run["by_path"])
         groups.append(_train_shapes(dev, run["shapes"], FAMILY_STEPS,
-                                    tag=f"family (b) {arch}"))
+                                    tag=f"family (b) {arch}",
+                                    splits=run["splits"]))
         _free()
         cut = _family_cut(run["cfg"])
         _train_grads(dev, cut, _family_batch(dev, cut, rows, seq, 0),
@@ -3784,17 +4065,22 @@ def _merge_entries(groups: list) -> dict:
     out: dict = {}
     for group in groups:
         for path, e in group.items():
-            t = out.setdefault(path, collections.Counter())
+            t = out.setdefault(path, {})
             for key in ("ms", "v3_ms", "plain_ms", "bound_ms", "library_ms",
                         "ops_ms", "bytes_ms"):
-                t[key] += e[key]
-            t["max_abs_err"] = max(t["max_abs_err"], e["max_abs_err"])
+                # None (no yardstick for this kernel) stays None
+                t[key] = (None if e[key] is None or (
+                    key in t and t[key] is None) else t.get(key, 0.0) + e[key])
+            t["max_abs_err"] = max(t.get("max_abs_err", 0.0),
+                                   e["max_abs_err"])
+            t["launches"] = t.get("launches", 0) + e.get("launches", 0)
     return {path: {"ms": t["ms"], "v3_ms": t["v3_ms"],
                    "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                    "bound_by": ("operations" if t["ops_ms"] > t["bytes_ms"]
                                 else "bytes"),
                    "library_ms": t["library_ms"],
-                   "max_abs_err": t["max_abs_err"]}
+                   "max_abs_err": t["max_abs_err"],
+                   **({"launches": t["launches"]} if t["launches"] else {})}
             for path, t in out.items()}
 
 
@@ -3850,24 +4136,46 @@ def main() -> int:
     families = phase_families(dev)
     _say(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     _say(_nvidia_smi())
-    # one entry per path, over the main paths' runs: qwen2-7b (phases
-    # 4-5), the SSM and hybrid models (phase 12), the encoder-decoder and
-    # vision models (phase 13), the fleets (phase 14) and training (phases
-    # 15 (a) and 16 (a)). No serving launch takes the general path (every
-    # serving phase checks 0 there): its launches are training's backward
-    # GEMMs; each entry's v3_ms is the general path at the same shapes
+    # one entry per kernel of the main paths' runs: qwen2-7b (phases 4-5),
+    # the SSM and hybrid models (phase 12), the encoder-decoder and vision
+    # models (phase 13), the fleets (phase 14) and training (phases 15 (a)
+    # and 16 (a)): the GEMM's stream, wgmma and split-pair paths and the
+    # split pair's split kernel. No launch of those runs takes the general
+    # path (every phase checks 0 there): it is the first version of the
+    # kernel, and each GEMM entry's v3_ms times it at the same shapes
     launched = sum([*ssm["launches"].values(), *admit["launches"].values(),
                     fleet["launches"], train["launches"],
                     families["launches"]], collections.Counter(by_path))
     merged = _merge_entries([entries, *ssm["entries"].values(),
                              *admit["entries"].values(), fleet["entries"],
                              train["entries"], *families["entries"]])
+    if launched["general"]:
+        raise SystemExit(f"{launched['general']} main-path launches took "
+                         "the general path")
+    kernels = [("tiled_matmul[stream]", "stream", "tiled_matmul.cu"),
+               ("tiled_matmul[wgmma]", "wgmma", "tiled_matmul.cuh"),
+               ("tiled_matmul[split]", "split", "tiled_matmul.cuh"),
+               ("split3", "split3", "tiled_matmul.cu")]
+    tr = merged.get("wgmma transposed")
+    if tr:
+        # wgmma's launches on the transposed layouts (training's backward, a
+        # tied head's forward), inside the wgmma entry below
+        _say(f"[kernels] wgmma on the transposed layouts: {tr['launches']} "
+             f"of the {launched['wgmma']} launches, kernel {tr['ms']:.2f} "
+             f"ms, bound {tr['bound_ms']:.2f} ms, plain {tr['plain_ms']:.2f} "
+             f"ms, torch.matmul {tr['library_ms']:.2f} ms, general path "
+             f"{tr['v3_ms']:.2f} ms; on nn the rest, kernel "
+             f"{merged['wgmma']['ms'] - tr['ms']:.2f} ms, bound "
+             f"{merged['wgmma']['bound_ms'] - tr['bound_ms']:.2f} ms, plain "
+             f"{merged['wgmma']['plain_ms'] - tr['plain_ms']:.2f} ms, "
+             f"torch.matmul "
+             f"{merged['wgmma']['library_ms'] - tr['library_ms']:.2f} ms")
     _say(json.dumps({"kernels": [{
-        "name": f"tiled_matmul[{path}]", "route": "cuda",
-        "source": "src/repro_torch/csrc/tiled_matmul.cu",
+        "name": name, "route": "cuda",
+        "source": f"src/repro_torch/csrc/{source}",
         "replaces": "src/repro/kernels/tiled_matmul.py:57",
-        "launches": launched[path], **merged[path]}
-        for path in ("stream", "wgmma", "general")]}))
+        "launches": launched[key], **merged[key]}
+        for name, key, source in kernels]}))
     _say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

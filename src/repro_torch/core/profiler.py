@@ -388,11 +388,13 @@ LAUNCH_BOUND_BELOW = 0.9
 @dataclasses.dataclass
 class CardTelemetry(GemmTelemetry):
     """A row measured for power on the card: the device's busy share of the
-    power window (launches x kernel time / window) and whether it fell
-    below `LAUNCH_BOUND_BELOW`."""
+    power window (launches x kernel time / window), whether it fell below
+    `LAUNCH_BOUND_BELOW`, and the window's wall seconds (longer than
+    `nvml.window_seconds` where a reading above the limit ran it on)."""
 
     busy_share: float = float("nan")
     launch_bound: bool = False
+    window_s: float = float("nan")
 
 
 def power_row(tel: GemmTelemetry, win, launches: int,
@@ -408,7 +410,8 @@ def power_row(tel: GemmTelemetry, win, launches: int,
         **dataclasses.asdict(tel), "power_w": win.watts,
         "energy_j": win.watts * tel.runtime_ms / 1e3,
         "temperature_c": temperature_c},
-        busy_share=busy, launch_bound=busy < LAUNCH_BOUND_BELOW)
+        busy_share=busy, launch_bound=busy < LAUNCH_BOUND_BELOW,
+        window_s=win.seconds)
 
 
 def graph_pump(fn: Callable[[], object], kernel_ms: float
@@ -642,11 +645,13 @@ def measure_many(measure: Callable[[GemmConfig], GemmTelemetry]
     """A per-config runner as the tuner's batched verification hook
     (`GemmAutotuner.tune_many(measure_fn=...)`): one call with the flat
     top-k list, a dict of "runtime_ms", "power_w" and "energy_j" arrays
-    back, in order."""
+    back, in order, and "window_s", each row's power window in seconds
+    (NaN for a row not measured for power)."""
 
     def run(cfgs: list[GemmConfig]) -> dict[str, np.ndarray]:
         tels = [measure(c) for c in cfgs]
-        return {key: np.array([getattr(t, key) for t in tels])
-                for key in ("runtime_ms", "power_w", "energy_j")}
+        return {key: np.array([getattr(t, key, float("nan")) for t in tels])
+                for key in ("runtime_ms", "power_w", "energy_j",
+                            "window_s")}
 
     return run

@@ -11,7 +11,8 @@
 // micro-tiles for f32).
 //
 // Three paths, chosen on the host by `plan` (kernels/tiled_matmul.py) from
-// dtype, layout, alignment and M; each is one launch per GEMM.
+// dtype, layout, alignment and M; each is one launch per GEMM (the split
+// pair below: two).
 //
 // * stream (bf16, op(A) rows and B rows contiguous and 16-byte aligned,
 //   M <= 64): the decode GEMMs. They read the whole weight matrix once and
@@ -29,23 +30,37 @@
 //   the activations are loaded, and the plain ldmatrix reads the same
 //   operand Bt[n, k], so both layouts issue the same mma.sync sequence on
 //   the same values and give a row the same bits.
-// * wgmma (the same layouts, M > 64): the prefill chunks, bound by
-//   tensor-core FLOPs (989 TFLOP/s bf16) from M ~ 300 up, and below that by
-//   the weight bytes. A 128 x BN x 64 tile, BN = 256, 128 or 64 (`plan`
-//   takes the widest whose tiles fill the 132 SMs: the wide tiles move
-//   fewer operand bytes per FLOP, the narrow one needs fewer K-splits where
-//   N is small): one producer thread keeps TMA loads of both operands in flight
-//   into a 4-stage ring of 128-byte-swizzled shared memory guarded by
-//   mbarriers, and two consumer warpgroups each issue wgmma.m64nBNk16 from
-//   shared memory (A K-major, B MN-major) into fp32 registers. TMA
-//   zero-fills the boxes past M, N and K, so only the epilogue masks.
-// * general (every other case: f32, transposed A, a transposed B at
-//   M > 64, unaligned views):
-//   one 256-thread block per 64x64 output tile with the K loop inside,
-//   masked strided loads prefetched into registers a K step ahead, 16-byte
-//   vector tiles where rows allow, WMMA 16x16x16 for bf16 and fp32 FMA on
-//   the CUDA cores for f32 (no TF32). It is the first version of this
-//   kernel, kept for the cases the fast paths do not take.
+// * wgmma (bf16, M > 64, or any M for a transposed A): the prefill chunks
+//   and every training GEMM, bound by tensor-core FLOPs (989 TFLOP/s bf16)
+//   from M ~ 300 up, and below that by the operand bytes. A 128 x BN x 64
+//   tile, BN = 256, 128 or 64 (`plan` takes the widest whose tiles fill the
+//   132 SMs: the wide tiles move fewer operand bytes per FLOP, the narrow
+//   one needs fewer K-splits where N is small): one producer thread keeps
+//   TMA loads of both operands in flight into a 4-stage ring of
+//   128-byte-swizzled shared memory guarded by mbarriers, and two consumer
+//   warpgroups each issue wgmma.m64nBNk16 from shared memory into fp32
+//   registers. All four layouts of the TPU kernel run here (nn, nt, tn,
+//   tt): op(A) is read K-major ((M, K) rows) or, transposed, MN-major ((K, M)
+//   rows: the weight gradient's activations), op(B) MN-major ((K, N) rows)
+//   or K-major ((N, K) rows: the input gradient's weight, a tied head's
+//   table). wgmma transposes 16-bit operands as it reads them, so a layout
+//   is a tensor map, a descriptor and an immediate, never a copy; every
+//   layout moves the same bytes per stage. TMA zero-fills the boxes past
+//   M, N and K, so only the epilogue masks.
+// * split pair (one f32 operand, the other bf16, on wgmma): the backward of
+//   an f32-out product of bf16 operands (the LM head, the MoE router),
+//   whose cotangent is f32. `split3_kernel` writes the f32 operand's three
+//   bf16 terms (hi, mid, lo: its whole significand), and the wgmma kernel
+//   walks the three against each tile of the bf16 operand into one fp32
+//   accumulator: three passes at the bf16 rate, with the f32 product's
+//   accuracy (each term's product with a bf16 value is exact in fp32), not
+//   TF32's. Bound by the same 2MNK at the bf16 rate, or by its bytes.
+// * general (every other case: f32 x f32, unaligned or broadcast views,
+//   K = 0): one 256-thread block per 64x64 output tile with the K loop
+//   inside, masked strided loads prefetched into registers a K step ahead,
+//   16-byte vector tiles where rows allow, WMMA 16x16x16 for bf16 and fp32
+//   FMA on the CUDA cores for f32 (no TF32). It is the first version of
+//   this kernel, kept for the cases the fast paths do not take.
 //
 // K segments (both fast paths): a row's result must not depend on how many
 // rows share the call, nor on which path `plan` picks for that M. So K is cut
@@ -65,53 +80,29 @@
 // partials in segment order and runs the epilogue. There are no float
 // atomics, so the result is also bit-identical from run to run.
 //
-// Plain C entry point (loaded with ctypes); returns a cudaError_t after the
-// launch. Launches on the caller's stream, allocates nothing.
+// Plain C entry points (loaded with ctypes); each returns a cudaError_t
+// after its launch. They launch on the caller's stream and allocate nothing.
+//
+// Sources: this file (the entry points, the general and stream paths, the
+// split kernel and wgmma's nn instantiations); tiled_matmul.cuh (what the
+// paths share, and the wgmma kernel); tiled_matmul_{nt,tn,tt}.cu (wgmma's
+// transposed layouts) and tiled_matmul_split_{nn,nt,tn,tt}.cu (the split
+// pair's kernels on each layout), each compiled in parallel with this file.
+// The wgmma kernel's ring entries per K tile are a template parameter: one
+// for the plain layouts, whose loop is the nn kernel's own, three for the
+// split pair.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <mma.h>
 
-#include <cstdint>
 #include <type_traits>
+
+#include "tiled_matmul.cuh"
 
 namespace {
 
 using namespace nvcuda;
 
 constexpr int kThreads = 256;  // 8 warps per block, every tile shape
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even
-}
-
-struct GemmArgs {
-  const void* a;
-  const void* b;
-  const void* c_in;  // read only when beta != 0; already in the output type
-  void* out;         // (M, N) row-major
-  int64_t M, N, K;
-  int64_t sam, sak;  // op(A)[m, k] = a[m * sam + k * sak]
-  int64_t sbk, sbn;  // op(B)[k, n] = b[k * sbk + n * sbn]
-  int64_t scm, scn;  // C_in[m, n] = c_in[m * scm + n * scn]
-  float alpha, beta;
-  int b_nk;          // fast paths: B stored (N, K), K-contiguous (sbk == 1)
-};
 
 // One thread's share of a ROWS x COLS tile of a strided (R, C) matrix:
 // element j of `v` is the tile's flat element threadIdx.x + j * kThreads,
@@ -217,19 +208,6 @@ inline bool vector_tiles(const GemmArgs& g) {
   };
   return g.sak == 1 && g.sam % 8 == 0 && aligned(g.a) && g.sbn == 1 &&
          g.sbk % 8 == 0 && aligned(g.b);
-}
-
-// alpha * acc (+ beta * C_in) for one output element, stored in Tout.
-template <typename Tout>
-__device__ __forceinline__ void store_out(const GemmArgs& g, int64_t m,
-                                          int64_t n, float acc) {
-  if (m >= g.M || n >= g.N) return;
-  float v = g.alpha * acc;
-  if (g.beta != 0.0f) {
-    const Tout* cin = static_cast<const Tout*>(g.c_in);
-    v += g.beta * to_f32<Tout>(cin[m * g.scm + n * g.scn]);
-  }
-  static_cast<Tout*>(g.out)[m * g.N + n] = from_f32<Tout>(v);
 }
 
 // f32 inputs: fp32 FMA on CUDA cores. The 256 threads form a 16 x 16 grid;
@@ -406,84 +384,6 @@ cudaError_t launch_general(const GemmArgs& g, int bm, int bn, int bk,
   if (bm == 64 && bn == 64 && bk == 32)
     return launch<Tin, Tout, 64, 64, 32>(g, stream);
   return cudaErrorInvalidValue;
-}
-
-// ---------------------------------------------------------------------------
-// Pieces shared by the two fast paths (PTX for sm_90a).
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Split-K hand-off. Every thread has stored its share of this split's
-// partial tile; the tile's counter then counts the split in. Returns true to
-// every thread of the CTA that arrives last, which resets the counter to 0
-// for the next launch and may then read every split's partial.
-__device__ __forceinline__ bool arrive_last(int* counter, int splits,
-                                            int* flag) {
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const bool last = atomicAdd(counter, 1) == splits - 1;
-    if (last) atomicExch(counter, 0);
-    *flag = last;
-  }
-  __syncthreads();
-  const bool last = *flag != 0;
-  if (last) __threadfence();
-  return last;
-}
-
-// The last CTA of a split tile: for each (m, n) of the tile, the sum of the
-// splits' partials in split order, then the epilogue. `ws` is (splits, M, N)
-// fp32; __ldcg reads through L2, where the other CTAs' stores landed. Each
-// thread owns 4 adjacent columns and issues the loads of 8 splits before it
-// adds them (in order), so a whole tile's partials stream in at once; where
-// N % 4 != 0 the rows are not 16-byte aligned and it reads scalars.
-template <typename Tout, int ROWS, int COLS>
-__device__ __forceinline__ void reduce_splits(const GemmArgs& g,
-                                              const float* ws, int splits,
-                                              int64_t m0, int64_t n0) {
-  constexpr int V = 4, U = 8;
-  const int64_t plane = g.M * g.N;
-  const bool vec = g.N % V == 0;
-  for (int e = threadIdx.x; e < ROWS * COLS / V; e += blockDim.x) {
-    const int64_t m = m0 + e / (COLS / V), n = n0 + (e % (COLS / V)) * V;
-    if (m >= g.M || n >= g.N) continue;
-    const float* p = ws + m * g.N + n;
-    float s[V] = {0.0f, 0.0f, 0.0f, 0.0f};
-    if (vec) {  // n % 4 == 0 and N % 4 == 0: all 4 columns exist
-      int sp = 0;
-      for (; sp + U <= splits; sp += U) {
-        float4 v[U];
-#pragma unroll
-        for (int u = 0; u < U; ++u)
-          v[u] = __ldcg(reinterpret_cast<const float4*>(p + (sp + u) * plane));
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          s[0] += v[u].x;
-          s[1] += v[u].y;
-          s[2] += v[u].z;
-          s[3] += v[u].w;
-        }
-      }
-      for (; sp < splits; ++sp) {
-        const float4 v = __ldcg(reinterpret_cast<const float4*>(p + sp * plane));
-        s[0] += v.x;
-        s[1] += v.y;
-        s[2] += v.z;
-        s[3] += v.w;
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < V; ++j)
-        if (n + j < g.N)
-          for (int sp = 0; sp < splits; ++sp) s[j] += __ldcg(p + sp * plane + j);
-    }
-#pragma unroll
-    for (int j = 0; j < V; ++j)
-      if (n + j < g.N) store_out<Tout>(g, m, n + j, s[j]);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -686,387 +586,39 @@ __global__ void __launch_bounds__(kStreamThreads)
 }
 
 // ---------------------------------------------------------------------------
-// wgmma path: M > 64, tensor-core bound for large M.
+// The split of an f32 operand into three bf16 terms, for the split pair.
 
-constexpr int kWgBM = 128, kWgBK = 64, kWgStages = 4;
-constexpr int kWgThreads = 2 * 128 + 32;  // two consumer warpgroups, one producer warp
+constexpr int kSplitThreads = 256, kSplitPerThread = 8;
 
-// Dynamic shared memory of a wgmma CTA: 1024 bytes to align the ring to the
-// 128-byte swizzle's 1024-byte period, the ring of (128 x 64) A and
-// (64 x BN) B tiles, a full and an empty mbarrier per stage, the split flag.
-constexpr int wgmma_smem_bytes(int bn) {
-  return 1024 + kWgStages * (kWgBM * kWgBK + kWgBK * bn) * 2 + 16 * kWgStages +
-         16;
-}
-
-// Raise a barrier wait that cannot finish into a launch error after ~10 s
-// rather than hang the card.
-constexpr long long kHangCycles = 20000000000LL;
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(smem_u32(bar)), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-// Wait for the completion of the barrier's phase of parity `parity` (its
-// first completion has parity 0, the next 1, ...).
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const long long start = clock64();
-  while (!mbar_try_wait(bar, parity))
-    if (clock64() - start > kHangCycles) __trap();
-}
-
-// TMA: the box at element coordinates (c0 innermost, c1) of `map` into
-// shared memory, counted against `bar`'s transaction bytes.
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
-                                            int c0, int c1, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor for a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), layout 1 =
-// 128-byte swizzle. K-major A: rows of 64 k at 128 bytes, 8-row groups at
-// SBO = 1024. MN-major B: 64 n per 128-byte row, one row per k, 8-k groups
-// at SBO = 1024 and the next 64 n (the next TMA box) at LBO.
-__device__ __forceinline__ uint64_t make_desc(const void* p, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
-         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
-         static_cast<uint64_t>(1) << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keep the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma window.
-template <int R>
-__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+// out[t][r][c] (planes of `plane` elements, rows of `ld`) for t = 0, 1, 2:
+// hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid), each rounded to
+// nearest even, with x = src[r * sr + c * sc]. Both differences are exact in
+// f32, and for a normal x whose magnitude is at least 2^-102 the three terms
+// hold its whole 24-bit significand: hi + mid + lo == x. Elementwise, bound
+// by its bytes (4 read, 6 written per element); each thread takes 8 columns
+// of one row at a stride of 256, so a warp's loads and stores coalesce.
+__global__ void __launch_bounds__(kSplitThreads)
+    split3_kernel(const float* __restrict__ src, int64_t R, int64_t C,
+                  int64_t sr, int64_t sc, __nv_bfloat16* __restrict__ out,
+                  int64_t ld, int64_t plane) {
+  for (int64_t r = blockIdx.y; r < R; r += gridDim.y) {
+    const int64_t c0 = static_cast<int64_t>(blockIdx.x) * kSplitThreads *
+                           kSplitPerThread + threadIdx.x;
 #pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (64 x N fp32, the warpgroup's accumulator fragment) += A * B, A K-major
-// and B MN-major (the final 0, 1 immediates), both scales 1, accumulate.
-__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
-                                                uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31}, %32, %33, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
-                                                 uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
-      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
-      "%58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
-                                                 uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "
-      "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
-      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
-      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
-      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, "
-      "%126, %127"
-      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
-        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
-        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
-        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
-        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
-        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
-        "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-template <int BN>
-__device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t da,
-                                           uint64_t db) {
-  if constexpr (BN == 256)
-    wgmma_m64n256k16(d, da, db);
-  else if constexpr (BN == 128)
-    wgmma_m64n128k16(d, da, db);
-  else
-    wgmma_m64n64k16(d, da, db);
-}
-
-// One CTA: output tile [m0, m0 + 128) x [n0, n0 + BN) over the K tiles of
-// split blockIdx.z. Warps 0-7 are two consumer warpgroups (rows 0-63 and
-// 64-127 of the tile); lane 0 of warp 8 is the TMA producer. With
-// splits == 1 and segments > 1 the CTA walks all `segments` K segments,
-// summing each from zero and adding it into a running total (not compiled
-// for BN = 256); otherwise splits == segments and the CTA owns one.
-template <typename Tout, int BN>
-__global__ void __launch_bounds__(kWgThreads, 1)
-    gemm_wgmma_kernel(const __grid_constant__ CUtensorMap tma_a,
-                      const __grid_constant__ CUtensorMap tma_b,
-                      const GemmArgs g, float* __restrict__ ws,
-                      int* __restrict__ counters, int splits, int segments) {
-  constexpr int BM = kWgBM, BK = kWgBK, S = kWgStages;
-  constexpr int A_BYTES = BM * BK * 2, BOX_BYTES = BK * 64 * 2;
-  constexpr int STAGE = A_BYTES + BK * BN * 2;
-  static_assert(BN == 64 || BN == 128 || BN == 256, "wgmma tile width");
-  extern __shared__ __align__(128) unsigned char wgmma_smem[];
-  unsigned char* ring = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(wgmma_smem) + 1023) & ~uintptr_t{1023});
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + S * STAGE);
-  uint64_t* empty = full + S;
-  int* flag = reinterpret_cast<int*>(empty + S);
-  const int tid = threadIdx.x, wg = tid / 128;
-  const int64_t m0 = static_cast<int64_t>(blockIdx.y) * BM;
-  const int64_t n0 = static_cast<int64_t>(blockIdx.x) * BN;
-  const int split = blockIdx.z;
-  const int64_t kt = (g.K + BK - 1) / BK;
-  const int64_t t0 = kt * split / splits;
-  const int nt = static_cast<int>(kt * (split + 1) / splits - t0);
-
-  if (tid == 0) {
-    for (int s = 0; s < S; ++s) {
-      mbar_init(&full[s], 1);      // the producer's expect_tx arrival
-      mbar_init(&empty[s], 256);   // every consumer thread
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  float acc[BN / 2];
-#pragma unroll
-  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
-  if (wg == 2) {
-    if (tid == 256) {
-      for (int i = 0; i < nt; ++i) {
-        const int s = i % S;
-        if (i >= S) mbar_wait(&empty[s], (i / S - 1) & 1);
-        unsigned char* st = ring + s * STAGE;
-        const int k0 = static_cast<int>((t0 + i) * BK);
-        mbar_expect_tx(&full[s], STAGE);
-        tma_load_2d(st, &tma_a, k0, static_cast<int>(m0), &full[s]);
-#pragma unroll
-        for (int j = 0; j < BN / 64; ++j)
-          tma_load_2d(st + A_BYTES + j * BOX_BYTES, &tma_b,
-                      static_cast<int>(n0) + 64 * j, k0, &full[s]);
-      }
-    }
-  } else {
-    // walk: the running total of the segments before the current one, and
-    // the K tile where the next segment starts
-    constexpr bool kCanWalk = BN != 256;
-    float total[kCanWalk ? BN / 2 : 1];
-    int seg = 1;
-    int64_t next = kt * seg / segments;
-    if constexpr (kCanWalk) {
-#pragma unroll
-      for (int r = 0; r < BN / 2; ++r) total[r] = 0.0f;
-    }
-    for (int i = 0; i < nt; ++i) {
-      const int s = i % S;
-      if constexpr (kCanWalk) {
-        if (splits == 1 && i == next) {  // segment seg - 1 ends: bank it
-          wgmma_wait<0>();
-          fence_acc(acc);
-#pragma unroll
-          for (int r = 0; r < BN / 2; ++r) {
-            total[r] += acc[r];
-            acc[r] = 0.0f;
-          }
-          next = kt * ++seg / segments;
-        }
-      }
-      mbar_wait(&full[s], (i / S) & 1);
-      const unsigned char* st = ring + s * STAGE;
-      const uint64_t da = make_desc(st + wg * 64 * 128, 16, 1024);
-      const uint64_t db = make_desc(st + A_BYTES, BOX_BYTES, 1024);
-      fence_acc(acc);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)  // 16 k: 32 bytes along A's rows,
-        wgmma_tile<BN>(acc, da + 2 * kk,    // 16 rows (2048 bytes) of B
-                       db + 128 * kk);
-      wgmma_commit();
-      wgmma_wait<1>();  // the previous tile's products are done with its slot
-      fence_acc(acc);
-      if (i > 0) mbar_arrive(&empty[(i - 1) % S]);
-    }
-    wgmma_wait<0>();
-    fence_acc(acc);
-    if constexpr (kCanWalk) {
-      if (splits == 1 && segments > 1) {  // the last segment, then the total
-#pragma unroll
-        for (int r = 0; r < BN / 2; ++r) acc[r] = total[r] + acc[r];
-      }
+    for (int j = 0; j < kSplitPerThread; ++j) {
+      const int64_t c = c0 + j * kSplitThreads;
+      if (c >= C) break;
+      const float x = src[r * sr + c * sc];
+      const __nv_bfloat16 hi = __float2bfloat16(x);
+      const float r1 = x - __bfloat162float(hi);
+      const __nv_bfloat16 mid = __float2bfloat16(r1);
+      const __nv_bfloat16 lo = __float2bfloat16(r1 - __bfloat162float(mid));
+      __nv_bfloat16* o = out + r * ld + c;
+      o[0] = hi;
+      o[plane] = mid;
+      o[2 * plane] = lo;
     }
   }
-
-  // acc[4 i + e] of consumer thread t is the tile's (row, col) =
-  // (64 wg + 16 (t % 128 / 32) + (t % 32) / 4 + 8 (e / 2),
-  //  8 i + 2 (t % 4) + e % 2)
-  const int64_t mb = m0 + 64 * wg + 16 * ((tid % 128) / 32) + (tid % 32) / 4;
-  const int64_t nb = n0 + 2 * (tid % 4);
-  if (splits == 1) {
-    if (wg < 2) {
-#pragma unroll
-      for (int i = 0; i < BN / 8; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          store_out<Tout>(g, mb + 8 * (e >> 1), nb + 8 * i + (e & 1),
-                          acc[4 * i + e]);
-    }
-    return;
-  }
-  if (wg < 2) {
-    float* part = ws + split * g.M * g.N;
-#pragma unroll
-    for (int i = 0; i < BN / 8; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int64_t m = mb + 8 * (e >> 1), n = nb + 8 * i + (e & 1);
-        if (m < g.M && n < g.N) part[m * g.N + n] = acc[4 * i + e];
-      }
-  }
-  if (arrive_last(counters + blockIdx.y * gridDim.x + blockIdx.x, splits, flag))
-    reduce_splits<Tout, BM, BN>(g, ws, splits, m0, n0);
-}
-
-// ---------------------------------------------------------------------------
-// Host side of the fast paths.
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime, so the
-// library needs no -lcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found{};
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// Tensor map of a row-major bf16 (rows, cols) matrix with row stride `ld`
-// elements, boxes of (box_rows, box_cols = 64: one 128-byte swizzle row),
-// zero fill outside the matrix.
-bool bf16_map(CUtensorMap* map, const void* ptr, int64_t rows, int64_t cols,
-              int64_t ld, uint32_t box_rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(ld) * 2};
-  const cuuint32_t box[2] = {64, box_rows};
-  const cuuint32_t unit[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// Opt a kernel into `bytes` of dynamic shared memory, once per device.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes, unsigned& done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess || (done >> dev & 1u)) return err;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             bytes);
-  if (err == cudaSuccess) done |= 1u << dev;
-  return err;
 }
 
 template <typename Tout, int MT, bool BNK>
@@ -1083,28 +635,6 @@ cudaError_t launch_stream(const GemmArgs& g, int splits, float* ws,
   return cudaGetLastError();
 }
 
-template <typename Tout, int BN>
-cudaError_t launch_wgmma(const GemmArgs& g, int splits, int segments,
-                         float* ws, int* counters, cudaStream_t stream) {
-  if (splits != 1 && splits != segments) return cudaErrorInvalidValue;
-  if (BN == 256 && splits == 1 && segments > 1) return cudaErrorInvalidValue;
-  CUtensorMap ma, mb;
-  if (!bf16_map(&ma, g.a, g.M, g.K, g.sam, kWgBM) ||
-      !bf16_map(&mb, g.b, g.K, g.N, g.sbk, kWgBK))
-    return cudaErrorInvalidValue;
-  constexpr int smem = wgmma_smem_bytes(BN);
-  static unsigned done = 0;
-  const auto kernel = gemm_wgmma_kernel<Tout, BN>;
-  cudaError_t err = allow_smem(kernel, smem, done);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(static_cast<unsigned>((g.N + BN - 1) / BN),
-                  static_cast<unsigned>((g.M + kWgBM - 1) / kWgBM),
-                  static_cast<unsigned>(splits));
-  kernel<<<grid, kWgThreads, smem, stream>>>(ma, mb, g, ws, counters, splits,
-                                             segments);
-  return cudaGetLastError();
-}
-
 template <typename Tout, bool BNK>
 cudaError_t launch_stream_tile(const GemmArgs& g, int bm, int splits, float* ws,
                                int* counters, cudaStream_t stream) {
@@ -1115,32 +645,41 @@ cudaError_t launch_stream_tile(const GemmArgs& g, int bm, int splits, float* ws,
   return cudaErrorInvalidValue;
 }
 
-// The fast paths take bf16 with op(A) rows contiguous and B rows contiguous,
-// (K, N) N-contiguous or, on stream only, (N, K) K-contiguous (b_nk; checked
-// here again; `plan` checks alignment too). Tiles: stream (8 MT, 64, 64)
-// with M <= 8 MT, one CTA per segment (splits == segments); wgmma (128, 64 |
-// 128 | 256, 64), spread (splits == segments) or walking (splits == 1).
+// The fast paths take bf16 whose op(A) and op(B) are each contiguous along
+// one of their dimensions (checked here again; `plan` checks alignment
+// too): op(A) K-contiguous, or on wgmma only M-contiguous (a_mn); op(B)
+// N-contiguous, or K-contiguous (b_nk). Tiles: stream (8 MT, 64, 64) with
+// M <= 8 MT, one CTA per segment (splits == segments), K-contiguous op(A)
+// and no split operand; wgmma (128, 64 | 128 | 256, 64), spread (splits ==
+// segments) or walking (splits == 1), any of the four layouts, with or
+// without a split operand (split_of).
 template <typename Tout>
 cudaError_t launch_fast(const GemmArgs& g, int path, int bm, int bn, int bk,
                         int splits, int segments, float* ws, int* counters,
-                        cudaStream_t stream) {
+                        int split_of, int64_t s_plane, cudaStream_t stream) {
   const int64_t kt = (g.K + 63) / 64;
-  if (g.sak != 1 || (g.b_nk ? g.sbk : g.sbn) != 1 || g.K < 1 || splits < 1 ||
-      segments < 1 || segments > kt ||
+  if ((g.a_mn ? g.sam : g.sak) != 1 || (g.b_nk ? g.sbk : g.sbn) != 1 ||
+      g.K < 1 || splits < 1 || segments < 1 || segments > kt ||
+      split_of < 0 || split_of > 2 ||
       (splits > 1 && (ws == nullptr || counters == nullptr)))
     return cudaErrorInvalidValue;
-  if (path == 1 && splits != segments) return cudaErrorInvalidValue;
+  if (path == 1 && (splits != segments || g.a_mn || split_of))
+    return cudaErrorInvalidValue;
   if (path == 1 && bn == kStreamBN && bk == kStreamBK && g.M <= bm)
     return g.b_nk ? launch_stream_tile<Tout, true>(g, bm, splits, ws, counters, stream)
                   : launch_stream_tile<Tout, false>(g, bm, splits, ws, counters, stream);
-  if (g.b_nk) return cudaErrorInvalidValue;
   if (path == 2 && bm == kWgBM && bk == kWgBK) {
-    if (bn == 256)
-      return launch_wgmma<Tout, 256>(g, splits, segments, ws, counters, stream);
-    if (bn == 128)
-      return launch_wgmma<Tout, 128>(g, splits, segments, ws, counters, stream);
-    if (bn == 64)
-      return launch_wgmma<Tout, 64>(g, splits, segments, ws, counters, stream);
+    if (!g.a_mn && !g.b_nk && !split_of)
+      return launch_wgmma_tile<Tout, false, false, 1>(
+          g, bn, splits, segments, ws, counters, split_of, s_plane, stream);
+    const int out = std::is_same<Tout, float>::value ? 0 : 1;
+    const auto layout =
+        split_of ? (g.a_mn ? (g.b_nk ? repro_wgmma_split_tt : repro_wgmma_split_tn)
+                           : (g.b_nk ? repro_wgmma_split_nt : repro_wgmma_split_nn))
+                 : (g.a_mn ? (g.b_nk ? repro_wgmma_tt : repro_wgmma_tn)
+                           : repro_wgmma_nt);
+    return layout(g, out, bn, splits, segments, ws, counters, split_of,
+                  s_plane, stream);
   }
   return cudaErrorInvalidValue;
 }
@@ -1156,14 +695,18 @@ int smem_of(Kernel kernel, int dynamic_bytes) {
 
 // dtype codes: 0 = float32, 1 = bfloat16. path: 0 = general, 1 = stream,
 // 2 = wgmma. b_nk: op(B) is an (N, K) K-contiguous matrix read through its
-// strides (sbk = 1), taken by stream (and general, which reads any strides).
-// Tile (bm, bn, bk) must be one the path instantiates: general
+// strides (sbk = 1), taken by stream and wgmma (and general, which reads
+// any strides); a_mn: op(A) is a (K, M) M-contiguous matrix (sam = 1), taken
+// by wgmma. Tile (bm, bn, bk) must be one the path instantiates: general
 // (64, 64, 32); stream (8 | 16 | 32 | 64, 64, 64); wgmma (128, 64 | 128 |
 // 256, 64).
 // `segments` K segments (fast paths; see above), spread over `splits` CTAs
 // per output tile (splits == segments) or walked by one (splits == 1, wgmma
 // only). splits > 1 needs a (splits, M, N) fp32 workspace and one zeroed
 // int32 counter per output tile; the kernel leaves them zeroed.
+// split_of (wgmma): 1 or 2 when A or B is the three bf16 terms of an f32
+// matrix (`repro_split3`), stored as planes `s_plane` elements apart, each
+// plane with the operand's strides; 0 otherwise.
 extern "C" int repro_tiled_matmul(const void* a, const void* b,
                                   const void* c_in, void* out, int64_t M,
                                   int64_t N, int64_t K, int64_t sam,
@@ -1171,14 +714,17 @@ extern "C" int repro_tiled_matmul(const void* a, const void* b,
                                   int64_t scm, int64_t scn, float alpha,
                                   float beta, int in_dtype, int out_dtype,
                                   int path, int bm, int bn, int bk, int splits,
-                                  int segments, int b_nk, void* workspace,
-                                  void* counters, void* stream) {
-  const GemmArgs g{a,   b,   c_in, out,   M,    N,   K,   sam,
-                   sak, sbk, sbn,  scm, scn, alpha, beta, b_nk};
+                                  int segments, int b_nk, int a_mn,
+                                  int split_of, int64_t s_plane,
+                                  void* workspace, void* counters,
+                                  void* stream) {
+  const GemmArgs g{a,   b,   c_in, out,   M,    N,    K,   sam,
+                   sak, sbk, sbn,  scm, scn, alpha, beta, b_nk, a_mn};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* ws = static_cast<float*>(workspace);
   int* cnt = static_cast<int*>(counters);
   if (path == 0) {
+    if (split_of) return cudaErrorInvalidValue;
     if (in_dtype == 0 && out_dtype == 0)
       return launch_general<float, float>(g, bm, bn, bk, s);
     if (in_dtype == 0 && out_dtype == 1)
@@ -1192,11 +738,27 @@ extern "C" int repro_tiled_matmul(const void* a, const void* b,
   if (in_dtype != 1) return cudaErrorInvalidValue;
   if (out_dtype == 0)
     return launch_fast<float>(g, path, bm, bn, bk, splits, segments, ws, cnt,
-                              s);
+                              split_of, s_plane, s);
   if (out_dtype == 1)
     return launch_fast<__nv_bfloat16>(g, path, bm, bn, bk, splits, segments,
-                                      ws, cnt, s);
+                                      ws, cnt, split_of, s_plane, s);
   return cudaErrorInvalidValue;
+}
+
+// The split pair's first launch: the f32 (R, C) matrix src[r * sr + c * sc]
+// into its three bf16 terms, out[t * plane + r * ld + c] (`split3_kernel`).
+// ld >= C; the columns past C are not written.
+extern "C" int repro_split3(const void* src, int64_t R, int64_t C, int64_t sr,
+                            int64_t sc, void* out, int64_t ld, int64_t plane,
+                            void* stream) {
+  if (R < 1 || C < 1 || ld < C || plane < R * ld) return cudaErrorInvalidValue;
+  const int64_t per_block = kSplitThreads * kSplitPerThread;
+  const dim3 grid(static_cast<unsigned>((C + per_block - 1) / per_block),
+                  static_cast<unsigned>(R < 65535 ? R : 65535));
+  split3_kernel<<<grid, kSplitThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(src), R, C, sr, sc,
+      static_cast<__nv_bfloat16*>(out), ld, plane);
+  return cudaGetLastError();
 }
 
 // Shared memory one block of the tile uses, static plus dynamic, as the
@@ -1216,9 +778,9 @@ extern "C" int repro_tiled_matmul_smem(int path, int in_dtype, int bm, int bn,
     if (bm == 64) return smem_of(gemm_stream_kernel<float, 8, false>, stream_smem_bytes(64));
   }
   if (path == 2 && bm == kWgBM) {
-    if (bn == 256) return smem_of(gemm_wgmma_kernel<float, 256>, wgmma_smem_bytes(256));
-    if (bn == 128) return smem_of(gemm_wgmma_kernel<float, 128>, wgmma_smem_bytes(128));
-    if (bn == 64) return smem_of(gemm_wgmma_kernel<float, 64>, wgmma_smem_bytes(64));
+    if (bn == 256) return smem_of(gemm_wgmma_kernel<float, 256, false, false, 1>, wgmma_smem_bytes(256));
+    if (bn == 128) return smem_of(gemm_wgmma_kernel<float, 128, false, false, 1>, wgmma_smem_bytes(128));
+    if (bn == 64) return smem_of(gemm_wgmma_kernel<float, 64, false, false, 1>, wgmma_smem_bytes(64));
   }
   return -1;
 }

@@ -1,10 +1,12 @@
 """Build the port's CUDA sources with nvcc at first use and load them.
 
-Every ``csrc/*.cu`` is compiled into one shared library with a plain C
+Every ``csrc/*.cu`` is compiled to an object by its own nvcc, all started
+together, and the objects are linked into one shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds), cached under
 ``build/repro_torch/`` at the root of the checkout by a hash of the sources
-and flags, and loaded with ctypes. Nothing is built at import time: the
-first kernel launch calls `load_library`.
+(``*.cu`` and the ``*.cuh`` they include) and flags, and loaded with ctypes.
+Nothing is built at import time: the first kernel launch calls
+`load_library`.
 """
 
 from __future__ import annotations
@@ -22,18 +24,21 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _P, _I64, _I32, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
 # name -> (argtypes, restype); every pointer and the stream are c_void_p, or
 # ctypes would pass them as 32-bit ints
 _SIGNATURES = {
     # (a, b, c_in, out, M, N, K, sam, sak, sbk, sbn, scm, scn, alpha, beta,
-    #  in_dtype, out_dtype, path, bm, bn, bk, splits, segments, b_nk,
-    #  workspace, counters, stream) -> cudaError_t
-    "repro_tiled_matmul": ([_P] * 4 + [_I64] * 9 + [_F32] * 2 + [_I32] * 9
-                           + [_P] * 3, _I32),
+    #  in_dtype, out_dtype, path, bm, bn, bk, splits, segments, b_nk, a_mn,
+    #  split_of, s_plane, workspace, counters, stream) -> cudaError_t
+    "repro_tiled_matmul": ([_P] * 4 + [_I64] * 9 + [_F32] * 2 + [_I32] * 11
+                           + [_I64] + [_P] * 3, _I32),
+    # (src, R, C, sr, sc, out, ld, plane, stream) -> cudaError_t
+    "repro_split3": ([_P] + [_I64] * 4 + [_P] + [_I64] * 2 + [_P], _I32),
     # (path, in_dtype, bm, bn, bk) -> shared memory bytes of one block, or -1
     "repro_tiled_matmul_smem": ([_I32] * 5, _I32),
 }
@@ -68,14 +73,30 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """The cached library's path for the current sources and flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted([*_sources(), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"librepro_torch_{h.hexdigest()[:16]}.so"
 
 
+def _run(procs) -> str:
+    """Wait for every (command, process); the output of all, or raise with
+    the first that failed."""
+    log, failed = "", None
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        log += out + err
+        if proc.returncode != 0 and failed is None:
+            failed = (f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                      f"{out}{err}")
+    if failed:
+        raise RuntimeError(failed)
+    return log
+
+
 def build() -> BuildInfo:
-    """Compile ``csrc/*.cu`` into the cached library unless it exists.
+    """Compile ``csrc/*.cu`` into the cached library unless it exists: one
+    nvcc per source, in parallel, then one link.
 
     The library is written to a temporary name and renamed into place, so
     concurrent builders never load a half-written file."""
@@ -83,21 +104,24 @@ def build() -> BuildInfo:
     if path.exists():
         return BuildInfo(path, False, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs, procs = [], []
+        for src in _sources():
+            obj = str(Path(tmpdir) / f"{src.stem}.o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        log = _run(procs)
+        tmp = str(Path(tmpdir) / path.name)
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]
+        log += _run([(cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))])
         os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return BuildInfo(path, True, time.perf_counter() - t0,
-                     proc.stdout + proc.stderr)
+    return BuildInfo(path, True, time.perf_counter() - t0, log)
 
 
 @functools.lru_cache(maxsize=None)

@@ -22,7 +22,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels.tiled_matmul import BlockConfig, tiled_matmul
+from repro_torch.kernels.tiled_matmul import BlockConfig, split3, tiled_matmul
 
 _CHIP: str = "h100"
 # the active chip's installed winners: (m, n, k, torch dtype, objective) ->
@@ -290,14 +290,17 @@ class _MatMul(torch.autograd.Function):
     """``out = a @ op(b)`` through the hand-written GEMM, with a backward of
     two more launches of it: ``da = dout @ op(b)^T`` and ``db = a^T @
     dout`` (``dout^T @ a`` for a B stored (N, K)), the transposes passed as
-    strides. The JAX package's gradient is autodiff's transpose of its
-    ``dot_general``: the cotangent as it arrives times the other operand,
-    summed in f32 and rounded once to the operand's dtype. So a bf16-out
-    product's backward launches in bf16, and an f32-out product of bf16
-    operands (the LM head) takes its f32 cotangent against the operand cast
-    to f32, on the kernel's f32 path, and rounds the result to bf16.
-    `tiled_matmul` is read from this module at call time, so a caller that
-    swaps it (``chip_smoke.py``'s plain runs) swaps both directions."""
+    strides (``wgmma`` reads all four layouts). The JAX package's gradient
+    is autodiff's transpose of its ``dot_general``: the cotangent as it
+    arrives times the other operand, summed in f32 and rounded once to the
+    operand's dtype. So a bf16-out product's backward launches in bf16, and
+    an f32-out product of bf16 operands (the LM head, the MoE router) takes
+    its f32 cotangent against the bf16 operands as they are: the split pair,
+    the cotangent split once into its three bf16 terms (`split3`) for both
+    gradients, on the tensor cores at f32 accuracy. `tiled_matmul` and
+    `split3` are read from this module at call time, so a caller that swaps
+    them (``chip_smoke.py``'s plain runs and recorders) swaps both
+    directions."""
 
     @staticmethod
     def forward(ctx, a2, b, config, transpose_b, out_dtype):
@@ -312,20 +315,18 @@ class _MatMul(torch.autograd.Function):
         # autograd may hand over a broadcast (stride 0) or permuted
         # cotangent: the kernel reads row-major rows
         dout = dout.contiguous()
-        if dout.dtype != a.dtype:
-            a_in, b_in = a.to(dout.dtype), b.to(dout.dtype)
-        else:
-            a_in, b_in = a, b
+        if dout.dtype == torch.float32 and a.dtype != dout.dtype:
+            dout = split3(dout)
         da = db = None
         if ctx.needs_input_grad[0]:
-            da = tiled_matmul(dout, b_in, transpose_b=not ctx.transpose_b,
+            da = tiled_matmul(dout, b, transpose_b=not ctx.transpose_b,
                               out_dtype=a.dtype)
         if ctx.needs_input_grad[1]:
             if ctx.transpose_b:
-                db = tiled_matmul(dout, a_in, transpose_a=True,
+                db = tiled_matmul(dout, a, transpose_a=True,
                                   out_dtype=b.dtype)
             else:
-                db = tiled_matmul(a_in, dout, transpose_a=True,
+                db = tiled_matmul(a, dout, transpose_a=True,
                                   out_dtype=b.dtype)
         return da, db, None, None, None
 

@@ -40,3 +40,17 @@ def matmul_ref(
             raise ValueError("beta != 0 requires c")
         out = out + beta * c.float()
     return out.to(out_dtype)
+
+
+def split3_ref(x: torch.Tensor) -> torch.Tensor:
+    """The three bf16 terms of the f32 matrix `x`, stacked (3, *x.shape):
+    hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid), each
+    rounded to nearest even. Both differences are exact in f32; for a
+    normal x of magnitude at least 2^-102, hi + mid + lo == x. The plain
+    version of the split kernel (`tiled_matmul.split3`), which does the
+    same operations in the same order."""
+    hi = x.to(torch.bfloat16)
+    r1 = x - hi.float()
+    mid = r1.to(torch.bfloat16)
+    lo = (r1 - mid.float()).to(torch.bfloat16)
+    return torch.stack([hi, mid, lo])

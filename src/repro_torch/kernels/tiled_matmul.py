@@ -9,15 +9,21 @@ edge itself, and the transposed layouts are strides, not copies.
 The kernel has three paths, and `plan` picks one per call from dtype,
 layout, alignment and shape: ``stream`` (split-K weight streaming for
 M <= 64, the decode GEMMs, with B stored (K, N) or, for a tied LM head,
-(N, K)), ``wgmma`` (TMA and warpgroup MMA for M > 64, the prefill chunks)
-and ``general`` (everything else: f32, transposed A, a transposed B at
-M > 64, unaligned views). On both fast paths a row's bits do not depend on
-M: K is cut into segments by (N, K) alone (`k_segments`), which both paths
-sum in the same order.
+(N, K)), ``wgmma`` (TMA and warpgroup MMA for M > 64, the prefill chunks
+and training, on all four layouts: A stored (M, K) or transposed, (K, M);
+B stored (K, N) or (N, K)) and ``general`` (f32 x f32, unaligned or
+broadcast views, K = 0). A fourth entry, ``split``, is the wgmma kernel on
+the split pair: one f32 operand, split into three bf16 terms (`split3`),
+times a bf16 one, at the f32 product's accuracy (the backward of an f32-out
+product: the LM head, the MoE router). On both fast paths a row's bits do
+not depend on M: K is cut into segments by (N, K) alone (`k_segments`),
+which both paths sum in the same order.
 
-A CPU tensor is computed by the plain version (`ref.matmul_ref`); a CUDA
-tensor launches the kernel or raises. ``tiled_matmul.launches`` counts the
-kernel launches, ``tiled_matmul.launches_by_path`` the launches per path.
+A CPU tensor is computed by the plain version (`ref.matmul_ref`,
+`ref.split3_ref`); a CUDA tensor launches the kernel or raises.
+``tiled_matmul.launches`` counts the GEMM launches,
+``tiled_matmul.launches_by_path`` the launches per path, and
+``split3.launches`` the split kernel's launches.
 """
 
 from __future__ import annotations
@@ -26,10 +32,11 @@ import dataclasses
 
 import torch
 
-from repro_torch.kernels.ref import matmul_ref
+from repro_torch.kernels.ref import matmul_ref, split3_ref
 
-GENERAL, STREAM, WGMMA = "general", "stream", "wgmma"
-_PATH_CODE = {GENERAL: 0, STREAM: 1, WGMMA: 2}
+GENERAL, STREAM, WGMMA, SPLIT = "general", "stream", "wgmma", "split"
+# the split pair launches the wgmma kernel on its operands' terms
+_PATH_CODE = {GENERAL: 0, STREAM: 1, WGMMA: 2, SPLIT: 2}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # every compiled tile, (block_m, block_n, block_k), and the path it belongs
@@ -123,7 +130,9 @@ class Plan:
     tile: BlockConfig
     splits: int
     segments: int = 1
-    b_nk: bool = False     # stream reads B stored (N, K), K-contiguous
+    b_nk: bool = False     # op(B) is read from B stored (N, K), K-contiguous
+    a_mn: bool = False     # op(A) is read from A stored (K, M), M-contiguous
+    split: str = ""        # the split pair: "a" or "b", the operand of terms
 
     def tiles(self, m: int, n: int) -> int:
         """Output tiles of an (m, n) product: the grid without splits."""
@@ -136,28 +145,34 @@ def _require_compiled(config: BlockConfig | None) -> None:
                          f"choose one of {TILE_SHAPES}")
 
 
-def _fast_a(k, a_strides, a_ptr_mod16, in_dtype) -> bool:
-    return (in_dtype == torch.bfloat16 and k >= 1 and a_strides[1] == 1
-            and a_strides[0] % 8 == 0 and a_strides[0] >= k
-            and a_ptr_mod16 == 0)
+def _rows(ld: int, width: int, mod16: int) -> bool:
+    """Rows that TMA and 16-byte copies read: a row stride that is a
+    multiple of 8 elements and no shorter than the row, a 16-byte base."""
+    return ld % 8 == 0 and ld >= width and mod16 == 0
 
 
-def _fast_layout(n, k, a_strides, b_strides, a_ptr_mod16, b_ptr_mod16,
-                 in_dtype) -> bool:
-    """Both fast paths' layout: B rows N-contiguous, op(B) strides
-    (ldb, 1)."""
-    return (_fast_a(k, a_strides, a_ptr_mod16, in_dtype)
-            and b_strides[1] == 1 and b_strides[0] % 8 == 0
-            and b_strides[0] >= n and b_ptr_mod16 == 0)
+def _a_layout(m, k, a_strides, a_ptr_mod16) -> str | None:
+    """op(A)'s fast layout: "k" (A stored (M, K), K-contiguous rows,
+    op(A) strides (lda, 1)), "m" (stored (K, M), M-contiguous rows, op(A)
+    strides (1, lda): a transposed A) or None."""
+    if k < 1:
+        return None
+    if a_strides[1] == 1 and _rows(a_strides[0], k, a_ptr_mod16):
+        return "k"
+    if a_strides[0] == 1 and _rows(a_strides[1], m, a_ptr_mod16):
+        return "m"
+    return None
 
 
-def _nk_layout(n, k, a_strides, b_strides, a_ptr_mod16, b_ptr_mod16,
-               in_dtype) -> bool:
-    """``stream``'s second layout: B stored (N, K) with K-contiguous rows,
-    op(B) strides (1, ldb) (a tied LM head's embedding table)."""
-    return (_fast_a(k, a_strides, a_ptr_mod16, in_dtype)
-            and b_strides[0] == 1 and b_strides[1] % 8 == 0
-            and b_strides[1] >= k and b_ptr_mod16 == 0)
+def _b_layout(n, k, b_strides, b_ptr_mod16) -> str | None:
+    """op(B)'s fast layout: "n" (B stored (K, N), N-contiguous rows, op(B)
+    strides (ldb, 1)), "k" (stored (N, K), K-contiguous rows, op(B) strides
+    (1, ldb): a weight read transposed, a tied head's table) or None."""
+    if b_strides[1] == 1 and _rows(b_strides[0], n, b_ptr_mod16):
+        return "n"
+    if b_strides[0] == 1 and _rows(b_strides[1], k, b_ptr_mod16):
+        return "k"
+    return None
 
 
 def k_segments(n: int, k: int) -> int:
@@ -204,38 +219,46 @@ def _wgmma_tile(m: int, n: int, k: int, out_dtype,
 
 def plan(m: int, n: int, k: int, a_strides, b_strides, a_ptr_mod16: int,
          b_ptr_mod16: int, in_dtype: torch.dtype, out_dtype: torch.dtype,
-         config: BlockConfig | None = None) -> Plan:
+         config: BlockConfig | None = None, *, split: str = "") -> Plan:
     """Choose the kernel path, tile, K segments and CTA splits of
     C = op(A) @ op(B).
 
     `a_strides` are op(A)'s (m, k) strides and `b_strides` op(B)'s (k, n)
     strides, in elements; the `*_ptr_mod16` are the base addresses modulo
-    16. The rule:
+    16. `split` is "a" or "b" for the split pair: that operand is the
+    three bf16 terms of an f32 matrix (`split3`; the strides are a term's),
+    and `in_dtype` is the other's. The rule:
 
-    - The fast paths take bf16 inputs (f32 or bf16 out) whose op(A) rows
-      are K-contiguous and whose B rows are N-contiguous (every projection
-      of the serving path), with row strides that are multiples of 8
-      elements and no shorter than the row, 16-byte aligned bases and
-      K >= 1. ``stream`` also takes B stored (N, K) with K-contiguous rows
-      under the same tests (op(B) strides (1, ldb): a tied LM head's
-      embedding table, `ops.matmul(..., transpose_b=True)`) where M <= 64;
-      that layout at M > 64 (training) takes ``general``, as does
-      everything else, with `DEFAULT_CONFIG`.
-    - Among the fast paths, M <= 64 takes ``stream`` with the narrowest
-      activation tile that holds M (8, 16, 32 or 64 rows); M > 64 takes
-      ``wgmma`` with the widest tile (128 x 256, 128 or 64) whose output
-      tiles alone cover a wave of 132 CTAs, else the widest whose tiles
-      cover half a wave, else the narrowest. A GEMM bound by operations
-      (2MNK at 989 TFLOP/s longer than its bytes at 3.35 TB/s) skips the
-      64-wide tile, which moves 1.5x the operand bytes per FLOP of the
-      128-wide one; a shape of more than one K segment takes 128 x 128
-      where the rule picks 128 x 256, whose CTA has no registers to walk
-      segments.
-    - K segments: `k_segments(N, K)`, whatever M and the path. ``stream``
-      gives each segment a CTA (splits = segments). ``wgmma`` does the same
-      where its tiles cover less than half a wave and tiles x segments stay
-      within 4 waves (528 CTAs), and otherwise walks a tile's segments in
-      one CTA (splits = 1).
+    - The fast paths take bf16 inputs (f32 or bf16 out) whose op(A) is
+      K-contiguous (A stored (M, K)) or M-contiguous (stored (K, M): the
+      weight gradient's activations) and whose op(B) is N-contiguous (B
+      stored (K, N)) or K-contiguous (stored (N, K): the input gradient's
+      weight, a tied LM head's table), with row strides that are multiples
+      of 8 elements and no shorter than the row, 16-byte aligned bases and
+      K >= 1. Everything else (f32 x f32, unaligned or broadcast views,
+      K = 0) takes ``general`` with `DEFAULT_CONFIG`.
+    - M <= 64 with a K-contiguous op(A) takes ``stream`` (either B layout)
+      with the narrowest activation tile that holds M (8, 16, 32 or 64
+      rows). M > 64, and a transposed A at any M (``stream`` reads only
+      K-contiguous activations), take ``wgmma``: any of the four layouts,
+      with the widest tile (128 x 256, 128 or 64) whose output tiles alone
+      cover a wave of 132 CTAs, else the widest whose tiles cover half a
+      wave, else the narrowest. A GEMM bound by operations (2MNK at 989
+      TFLOP/s longer than its bytes at 3.35 TB/s) skips the 64-wide tile,
+      which moves 1.5x the operand bytes per FLOP of the 128-wide one; a
+      shape of more than one K segment takes 128 x 128 where the rule picks
+      128 x 256, whose CTA has no registers to walk segments.
+    - The split pair takes ``split``: the wgmma kernel and its tile rule,
+      at any M, three passes over K (one per term). Bound, like any
+      wgmma GEMM, by 2MNK at the bf16 rate (each pass is a third of it) or
+      by its bytes. Its terms are always laid out for the fast paths, so
+      only the bf16 operand's layout can send it to ``general`` (which then
+      multiplies the f32 matrix by the bf16 operand cast to f32).
+    - K segments: `k_segments(N, K)`, whatever M, the layout and the path.
+      ``stream`` gives each segment a CTA (splits = segments). ``wgmma``
+      and ``split`` do the same where the tiles cover less than half a
+      wave and tiles x segments stay within 4 waves (528 CTAs), and
+      otherwise walk a tile's segments in one CTA (splits = 1).
 
     So a row's result is the same at every M and on both fast paths: the
     segments are summed from zero in order on both, and the H100's
@@ -245,8 +268,8 @@ def plan(m: int, n: int, k: int, a_strides, b_strides, a_ptr_mod16: int,
     the same mma.sync sequence on the same values as the (K, N) one, so a
     tied head's row has the same bits at every M <= 64 (serving never
     unembeds more than 2 x max_batch rows in one call). ``general`` is
-    exempt: it serves no serving launch (``chip_smoke.py`` checks 0 on it
-    in every serving run), only f32, transposed and unaligned operands.
+    exempt: no serving or training launch takes it (``chip_smoke.py``
+    checks 0 on it in every serving run and training step).
 
     A `config` forces its tile (and so its path); it raises ValueError if
     the tile is not compiled or its path cannot take this GEMM. A forced
@@ -254,34 +277,40 @@ def plan(m: int, n: int, k: int, a_strides, b_strides, a_ptr_mod16: int,
     _require_compiled(config)
     if out_dtype not in _DTYPE_CODE:
         raise ValueError(f"unsupported out_dtype {out_dtype}")
-    fast = _fast_layout(n, k, a_strides, b_strides, a_ptr_mod16, b_ptr_mod16,
-                        in_dtype)
-    nk = not fast and _nk_layout(n, k, a_strides, b_strides, a_ptr_mod16,
-                                 b_ptr_mod16, in_dtype)
+    if split not in ("", "a", "b"):
+        raise ValueError(f"split must be 'a', 'b' or '', not {split!r}")
+    bf16 = in_dtype == torch.bfloat16
+    la = _a_layout(m, k, a_strides, a_ptr_mod16) if bf16 else None
+    lb = _b_layout(n, k, b_strides, b_ptr_mod16) if bf16 else None
+    fast = la is not None and lb is not None
+    streams = fast and la == "k" and not split
     if config is not None and config.path == GENERAL:
         return Plan(GENERAL, config, 1)
-    if config is None and not (fast or (nk and m <= STREAM_MAX_M)):
+    if config is None and not fast:
         return Plan(GENERAL, DEFAULT_CONFIG, 1)
-    if not (fast or (nk and (config is None or config.path == STREAM))):
+    if config is not None and not (streams if config.path == STREAM
+                                   else fast):
         raise ValueError(
             f"the {config.path} tile {config.as_tuple()} takes bf16 inputs "
-            "with K-contiguous op(A) rows and N-contiguous B rows (stream "
-            "also K-contiguous (N, K) B), 16-byte aligned; this GEMM takes "
-            "the general path")
+            "with K- or M-contiguous op(A) rows (stream: K only) and N- or "
+            "K-contiguous op(B) rows, 16-byte aligned (stream: no split "
+            "operand); this GEMM takes the general path")
     segments = k_segments(n, k)
     if config is None:
-        if m <= STREAM_MAX_M:
+        if streams and m <= STREAM_MAX_M:
             config = next(t for t in _STREAM_TILES if t.block_m >= m)
         else:
             config = _wgmma_tile(m, n, k, out_dtype, segments)
     if config.path == STREAM and m > config.block_m:
         raise ValueError(f"the stream tile {config.as_tuple()} holds at most "
                          f"{config.block_m} rows, not {m}")
+    layout = dict(b_nk=lb == "k", a_mn=la == "m")
     if config.path == STREAM:
-        return Plan(STREAM, config, segments, segments, b_nk=nk)
+        return Plan(STREAM, config, segments, segments, **layout)
     tiles = Plan(WGMMA, config, 1).tiles(m, n)
-    return Plan(WGMMA, config, _wgmma_splits(config, tiles, segments),
-                segments)
+    return Plan(SPLIT if split else WGMMA, config,
+                _wgmma_splits(config, tiles, segments), segments,
+                split=split, **layout)
 
 
 # one int32 counter per output tile for the split-K hand-off, per device;
@@ -297,7 +326,8 @@ def _tile_counters(device: torch.device, n: int) -> torch.Tensor:
     return buf
 
 
-def _launch(a, b, c_in, out, m, n, k, sa, sb, sc, alpha, beta, p: Plan):
+def _launch(a, b, c_in, out, m, n, k, sa, sb, sc, alpha, beta, p: Plan,
+            s_plane: int = 0):
     from repro_torch.kernels._build import load_library
 
     ws = counters = None
@@ -312,7 +342,8 @@ def _launch(a, b, c_in, out, m, n, k, sa, sb, sc, alpha, beta, p: Plan):
         m, n, k, sa[0], sa[1], sb[0], sb[1], sc[0], sc[1],
         float(alpha), float(beta),
         _DTYPE_CODE[a.dtype], _DTYPE_CODE[out.dtype], _PATH_CODE[p.path],
-        *p.tile.as_tuple(), p.splits, p.segments, int(p.b_nk),
+        *p.tile.as_tuple(), p.splits, p.segments, int(p.b_nk), int(p.a_mn),
+        {"": 0, "a": 1, "b": 2}[p.split], s_plane,
         ws.data_ptr() if ws is not None else None,
         counters.data_ptr() if counters is not None else None,
         torch.cuda.current_stream(a.device).cuda_stream)
@@ -321,9 +352,86 @@ def _launch(a, b, c_in, out, m, n, k, sa, sb, sc, alpha, beta, p: Plan):
                            f"{err}")
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class Split3:
+    """An f32 matrix `x` and its three bf16 terms, `terms` = (hi, mid, lo)
+    stacked as (3, *x.shape): hi = bf16(x), mid = bf16(x - hi), lo =
+    bf16(x - hi - mid), each rounded to nearest even. For a normal x of
+    magnitude at least 2^-102 they hold its whole 24-bit significand
+    (hi + mid + lo == x), so their products with a bf16 operand, each exact
+    in fp32, sum to the f32 product. As an operand of `tiled_matmul` it
+    multiplies as `x`; made once by `split3`, it feeds several products
+    (an f32 cotangent's two gradients). On the card each plane's rows are
+    padded to a multiple of 8 elements (16 bytes), as TMA reads them."""
+
+    x: torch.Tensor
+    terms: torch.Tensor
+
+    @property
+    def shape(self) -> torch.Size:
+        return self.x.shape
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.x.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.x.device
+
+    def dim(self) -> int:
+        return self.x.dim()
+
+
+def split3(x: torch.Tensor) -> Split3:
+    """The three bf16 terms of the f32 matrix `x` (see `Split3`). A CPU
+    tensor is split by the plain version (`ref.split3_ref`); a CUDA tensor
+    launches the kernel (``split3_kernel``, counted in
+    ``split3.launches``) into a bf16 scratch of 6 bytes an element of `x`,
+    which the result holds."""
+    if isinstance(x, Split3):
+        return x
+    if x.dim() != 2 or x.dtype != torch.float32:
+        raise TypeError(f"split3 takes an f32 matrix, not a {x.dtype} "
+                        f"tensor of rank {x.dim()}")
+    if x.device.type == "cpu":
+        return Split3(x, split3_ref(x))
+    if x.device.type != "cuda":
+        raise ValueError(f"split3 runs on cuda or cpu, not {x.device}")
+    from repro_torch.kernels._build import load_library
+
+    r, c = x.shape
+    ld = -(-c // 8) * 8
+    buf = torch.empty((3, r, ld), dtype=torch.bfloat16, device=x.device)
+    if r and c:
+        err = load_library().repro_split3(
+            x.data_ptr(), r, c, x.stride(0), x.stride(1), buf.data_ptr(), ld,
+            r * ld, torch.cuda.current_stream(x.device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"split3 launch failed: cudaError {err}")
+        split3.launches += 1
+    return Split3(x, buf[:, :, :c])
+
+
+split3.launches = 0
+
+
+def _matrix(x) -> torch.Tensor:
+    return x.x if isinstance(x, Split3) else x
+
+
+def _planes(x) -> tuple[tuple[int, int], int]:
+    """(row and column strides, base address mod 16) of the bf16 planes
+    the kernel reads for the f32 operand `x`: a `Split3`'s terms, or those
+    `split3` would write (rows padded to a multiple of 8)."""
+    if isinstance(x, Split3):
+        return tuple(x.terms.stride()[1:]), x.terms.data_ptr() % 16
+    return (-(-x.shape[1] // 8) * 8, 1), 0
+
+
 def tiled_matmul(
-    a: torch.Tensor,
-    b: torch.Tensor,
+    a: torch.Tensor | Split3,
+    b: torch.Tensor | Split3,
     c: torch.Tensor | None = None,
     *,
     config: BlockConfig | None = None,
@@ -336,10 +444,13 @@ def tiled_matmul(
     """C = alpha * op(A) @ op(B) + beta * C  (the paper's GEMM surface).
 
     a: (M, K), or (K, M) if transpose_a; b: (K, N), or (N, K) if
-    transpose_b. Inputs float32 or bfloat16 (both the same), output float32
-    or bfloat16 (default ``a.dtype``). `c` (M, N) is rounded to `out_dtype`
-    before the beta term, as the TPU kernel does. `config` forces a
-    compiled tile (see `plan`); by default `plan` chooses."""
+    transpose_b. Inputs float32 or bfloat16, both the same or one of each
+    (the split pair: the f32 operand is split into its three bf16 terms,
+    or given already split as a `Split3`, and the product keeps f32
+    accuracy); output float32 or bfloat16 (default ``a.dtype``). `c` (M, N)
+    is rounded to `out_dtype` before the beta term, as the TPU kernel does.
+    `config` forces a compiled tile (see `plan`); by default `plan`
+    chooses."""
     if a.dim() != 2 or b.dim() != 2:
         raise ValueError("tiled_matmul expects rank-2 operands")
     m, ka = (a.shape[1], a.shape[0]) if transpose_a else a.shape
@@ -351,8 +462,8 @@ def tiled_matmul(
     if c is not None and tuple(c.shape) != (m, n):
         raise ValueError(f"c has shape {tuple(c.shape)}, expected {(m, n)}")
     out_dtype = out_dtype or a.dtype
-    if a.dtype != b.dtype or a.dtype not in _DTYPE_CODE:
-        raise TypeError(f"inputs must both be float32 or bfloat16, got "
+    if a.dtype not in _DTYPE_CODE or b.dtype not in _DTYPE_CODE:
+        raise TypeError(f"inputs must be float32 or bfloat16, got "
                         f"{a.dtype} and {b.dtype}")
     if out_dtype not in _DTYPE_CODE:
         raise TypeError(f"unsupported out_dtype {out_dtype}")
@@ -362,26 +473,42 @@ def tiled_matmul(
     if len(devices) != 1:
         raise ValueError(f"operands on different devices: {devices}")
     if a.device.type == "cpu":
-        return matmul_ref(a, b, c_in, transpose_a=transpose_a,
-                          transpose_b=transpose_b, alpha=alpha, beta=beta,
-                          out_dtype=out_dtype)
+        return matmul_ref(_matrix(a), _matrix(b), c_in,
+                          transpose_a=transpose_a, transpose_b=transpose_b,
+                          alpha=alpha, beta=beta, out_dtype=out_dtype)
     if a.device.type != "cuda":
         raise ValueError(f"tiled_matmul runs on cuda or cpu, not {a.device}")
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if m == 0 or n == 0:
         return out
-    sa = a.stride()[::-1] if transpose_a else a.stride()      # (m, k)
-    sb = b.stride()[::-1] if transpose_b else b.stride()      # (k, n)
-    sc = c_in.stride() if c_in is not None else (0, 0)
-    p = plan(m, n, ka, sa, sb, a.data_ptr() % 16, b.data_ptr() % 16,
-             a.dtype, out_dtype, config=config)
+    # the split pair: one f32 operand, read as its bf16 terms
+    side = "" if a.dtype == b.dtype else (
+        "a" if a.dtype == torch.float32 else "b")
+    ta, tb = _matrix(a), _matrix(b)
+    sa = (_planes(a) if side == "a" else (ta.stride(), ta.data_ptr() % 16))
+    sb = (_planes(b) if side == "b" else (tb.stride(), tb.data_ptr() % 16))
+    sa = (sa[0][::-1] if transpose_a else sa[0], sa[1])      # (m, k)
+    sb = (sb[0][::-1] if transpose_b else sb[0], sb[1])      # (k, n)
+    p = plan(m, n, ka, sa[0], sb[0], sa[1], sb[1],
+             torch.bfloat16 if side else a.dtype, out_dtype, config=config,
+             split=side)
     if p.path != STREAM and -(-m // p.tile.block_m) > _MAX_GRID_Y:
         raise ValueError(f"M={m} exceeds the grid's row-block limit")
-    _launch(a, b, c_in, out, m, n, ka, sa, sb, sc, alpha, beta, p)
+    s_plane = 0
+    if p.path == SPLIT:
+        terms = split3(a if side == "a" else b).terms
+        s_plane = terms.stride(0)
+        ta, tb = (terms, tb) if side == "a" else (ta, terms)
+    elif side:      # general: the f32 matrix times the bf16 operand in f32
+        ta, tb = ta.float(), tb.float()
+    sa = ta.stride()[-2:][::-1] if transpose_a else ta.stride()[-2:]
+    sb = tb.stride()[-2:][::-1] if transpose_b else tb.stride()[-2:]
+    sc = c_in.stride() if c_in is not None else (0, 0)
+    _launch(ta, tb, c_in, out, m, n, ka, sa, sb, sc, alpha, beta, p, s_plane)
     tiled_matmul.launches += 1
     tiled_matmul.launches_by_path[p.path] += 1
     return out
 
 
 tiled_matmul.launches = 0
-tiled_matmul.launches_by_path = {STREAM: 0, WGMMA: 0, GENERAL: 0}
+tiled_matmul.launches_by_path = {STREAM: 0, WGMMA: 0, SPLIT: 0, GENERAL: 0}

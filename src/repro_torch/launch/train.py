@@ -41,6 +41,8 @@ from repro_torch.train.loop import LoopConfig, resume_or_init, run_train_loop
 from repro_torch.train.step import init_train_state, make_train_step
 
 ROOT = Path(__file__).resolve().parents[3]
+# bytes a logit of the head's split cotangent takes: three bf16 terms
+SPLIT_BYTES = 3 * 2
 
 
 def _attention_bytes(cfg: ModelConfig, batch: int, seq: int,
@@ -149,7 +151,9 @@ def train_memory_bytes(cfg: ModelConfig, batch: int, seq: int
     unit's input where ``cfg.remat`` (the backward recomputes one unit at a
     time) and one unit's working set, or every unit's working set where
     not; plus the LM head's f32 logits four times over (logits, softmax,
-    their gradient, a spare)."""
+    their gradient, a spare) and the three bf16 terms of their gradient
+    (`kernels.tiled_matmul.split3`, 6 bytes a logit), which the head's
+    backward pair reads on the card."""
     p = torch_dtype(cfg.param_dtype).itemsize
     a = torch_dtype(cfg.activation_dtype).itemsize
     state = cfg.n_params() * (2 * p + 12)
@@ -159,7 +163,7 @@ def train_memory_bytes(cfg: ModelConfig, batch: int, seq: int
                 + max(ws for _, _, ws in units))
     else:
         acts = sum(n * ws for n, _, ws in units)
-    return state, acts + 4 * batch * seq * cfg.vocab * 4
+    return state, acts + (4 * 4 + SPLIT_BYTES) * batch * seq * cfg.vocab
 
 
 def check_fits(cfg: ModelConfig, batch: int, seq: int,

@@ -50,12 +50,15 @@ def _assert_close(got, want, tol):
 
 
 FORCE = {"general": DEFAULT_CONFIG, "wgmma": BlockConfig(128, 128, 64),
-         "stream": None}
-# (path, m): shapes that land on each path; the fast paths take bf16 with
-# untransposed operands, the general path every dtype and layout
+         "split": BlockConfig(128, 128, 64), "stream": None}
+# (path, m): shapes that land on each path; stream takes bf16 with
+# untransposed operands, wgmma bf16 in the four layouts, the split pair one
+# f32 and one bf16 operand in the four layouts, the general path every
+# dtype and layout
 PATH_CASES = ([("general", 70)]
               + [("stream", m) for m in (1, 5, 64)]
-              + [("wgmma", m) for m in (65, 70, 200)])
+              + [("wgmma", m) for m in (65, 70, 200)]
+              + [("split", m) for m in (8, 70, 200)])
 
 
 def _path_of(fn):
@@ -70,24 +73,37 @@ def _path_of(fn):
 
 def _cases():
     for path, m in PATH_CASES:
-        layouts = ([(False, False), (False, True), (True, False), (True, True)]
-                   if path == "general" else [(False, False)])
-        dtypes = ([torch.float32, torch.bfloat16] if path == "general"
-                  else [torch.bfloat16])
+        layouts = ([(False, False)] if path == "stream" else
+                   [(False, False), (False, True), (True, False), (True, True)])
+        dtypes = {"general": [torch.float32, torch.bfloat16],
+                  # the split pair: the operand that is f32
+                  "split": ["a f32", "b f32"]}.get(path, [torch.bfloat16])
         for dtype in dtypes:
             for out_dtype in (torch.float32, torch.bfloat16):
                 for ta, tb in layouts:
                     yield path, m, dtype, out_dtype, ta, tb
 
 
+def _rows(shape, g, dev, dtype=torch.float32):
+    """A random `dtype` view of rows padded to a multiple of 8 elements
+    (16 bytes in bf16): the alignment the fast paths' transposed layouts
+    need (a conversion after the slice would give unpadded rows)."""
+    r, c = shape
+    return torch.randn((r, -(-c // 8) * 8), generator=g,
+                       device=dev).to(dtype)[:, :c]
+
+
 @pytest.mark.parametrize("path,m,dtype,out_dtype,ta,tb", list(_cases()))
 def test_kernel_matches_plain_version(dev, path, m, dtype, out_dtype, ta, tb):
     n, k = 200, 296                 # ragged against every tile; K = 4.6 K
     g = torch.Generator(dev).manual_seed(0)   # tiles, split where few tiles
-    a = torch.randn((k, m) if ta else (m, k), generator=g, device=dev)
-    b = torch.randn((n, k) if tb else (k, n), generator=g, device=dev)
+    dta = dtb = dtype
+    if path == "split":
+        dta, dtb = ((torch.float32, torch.bfloat16) if dtype == "a f32"
+                    else (torch.bfloat16, torch.float32))
+    a = _rows((k, m) if ta else (m, k), g, dev, dta)
+    b = _rows((n, k) if tb else (k, n), g, dev, dtb)
     c = torch.randn((m, n), generator=g, device=dev)
-    a, b = a.to(dtype), b.to(dtype)
     before = tiled_matmul.launches
     took, got = _path_of(lambda: tiled_matmul(
         a, b, c, config=FORCE[path], transpose_a=ta, transpose_b=tb,
@@ -97,8 +113,11 @@ def test_kernel_matches_plain_version(dev, path, m, dtype, out_dtype, ta, tb):
     assert got.dtype == out_dtype and got.shape == (m, n)
     want = matmul_ref(a, b, c.to(out_dtype), transpose_a=ta, transpose_b=tb,
                       alpha=0.5, beta=0.5, out_dtype=out_dtype)
-    _assert_close(got, want, TOL[torch.bfloat16 if torch.bfloat16 in
-                                 (dtype, out_dtype) else torch.float32])
+    # f32 inputs with f32 out meet the f32 tolerance; so does the split
+    # pair, which keeps the f32 product's accuracy
+    f32_in = dtype in (torch.float32, "a f32", "b f32")
+    _assert_close(got, want, TOL[torch.float32 if f32_in and out_dtype ==
+                                 torch.float32 else torch.bfloat16])
 
 
 @pytest.mark.parametrize("path", ["general", "stream", "wgmma"])
@@ -144,6 +163,47 @@ def test_fast_paths_are_bit_identical_run_to_run(dev, m, n, k):
     second = tiled_matmul(a, b)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("layout", ["nt", "tn", "tt", "split a", "split b"])
+@pytest.mark.parametrize("m,n,k", [(129, 520, 3584), (512, 3072, 4096)])
+def test_transposed_layouts_and_split_pair_are_bit_identical_run_to_run(
+        dev, layout, m, n, k):
+    """wgmma's transposed layouts and the split pair at split-K and
+    training-like shapes: two launches on the same inputs give the same
+    bits."""
+    from repro_torch.kernels.tiled_matmul import split3
+
+    g = torch.Generator(dev).manual_seed(8)
+    ta, tb = layout in ("tn", "tt", "split b"), layout in ("nt", "tt")
+    dta = torch.float32 if layout == "split a" else torch.bfloat16
+    dtb = torch.float32 if layout == "split b" else torch.bfloat16
+    a = _rows((k, m) if ta else (m, k), g, dev, dta)
+    b = _rows((n, k) if tb else (k, n), g, dev, dtb)
+    a = split3(a) if layout == "split a" else a
+    b = split3(b) if layout == "split b" else b
+    run = lambda: tiled_matmul(a, b, transpose_a=ta,  # noqa: E731
+                               transpose_b=tb, out_dtype=torch.bfloat16)
+    took, first = _path_of(run)
+    assert took == ("split" if layout.startswith("split") else "wgmma")
+    assert torch.equal(first, run())
+
+
+@pytest.mark.parametrize("r,c", [(37, 203), (4096, 49152)])
+def test_split3_kernel_is_bit_equal_to_its_plain_version(dev, r, c):
+    """The split kernel and `split3_ref` do the same roundings: the same
+    bits, and the three terms add up to the f32 matrix exactly."""
+    from repro_torch.kernels.ref import split3_ref
+    from repro_torch.kernels.tiled_matmul import split3
+
+    g = torch.Generator(dev).manual_seed(9)
+    x = torch.randn((r, c + 24), generator=g, device=dev)[:, :c] * 4.0
+    before = split3.launches
+    s = split3(x)
+    assert split3.launches == before + 1
+    assert s.terms.stride(1) % 8 == 0 and s.terms.data_ptr() % 16 == 0
+    assert torch.equal(s.terms, split3_ref(x))
+    assert torch.equal(s.terms.double().sum(0), x.double())
 
 
 # (N, K) of serving projections: qwen2-7b's five (the LM head with f32
@@ -557,7 +617,7 @@ def test_card_measure_fn_times_each_compiled_tile(dev):
     for bad in (GemmConfig(m=65, n=512, k=1024, block_m=64, block_n=64,
                            block_k=64),                     # stream, M > 64
                 GemmConfig(m=128, n=512, k=1024, block_m=128, block_n=128,
-                           block_k=64, layout="nt")):       # wgmma, B^T
+                           block_k=64, dtype="f32")):       # wgmma, f32
         tel = measure(bad)
         assert not tel.valid and np.isnan(tel.runtime_ms)
     assert tiled_matmul.launches == before
@@ -844,10 +904,12 @@ def test_replayed_request_equals_its_fault_free_stream(dev):
 def test_backward_layouts_match_the_plain_version(dev, layout):
     """`ops.matmul`'s backward at training shapes (M = 256 rows, M > 64):
     ``da`` reads the (K, N) weight as an (N, K) B, ``dW`` the activations as
-    a transposed A, both on the general path; the LM head's f32 cotangent
-    takes the f32-cast operands. Each gradient is one launch, and equals
-    `matmul_ref` on the same operands."""
+    a transposed A, both on wgmma; the LM head's f32 cotangent is split
+    once into three bf16 terms that feed both gradients on the split path.
+    Each gradient is one launch, and equals `matmul_ref` on the same
+    operands."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.tiled_matmul import split3
 
     g = torch.Generator(dev).manual_seed(3)
     m, k, n = 256, 192, 320
@@ -860,10 +922,13 @@ def test_backward_layouts_match_the_plain_version(dev, layout):
     out = ops.matmul(x, w, out_dtype=out_dt)
     dout = torch.randn((m, n), generator=g, device=dev).to(out_dt)
     before = dict(tiled_matmul.launches_by_path)
+    splits = split3.launches
     dx, dw = torch.autograd.grad(out, [x, w], dout)
     torch.cuda.synchronize()
     moved = {p: tiled_matmul.launches_by_path[p] - before[p] for p in before}
-    assert moved == {"general": 2, "stream": 0, "wgmma": 0}
+    assert moved == {"general": 0, "stream": 0, "wgmma": 0 if head else 2,
+                     "split": 2 if head else 0}
+    assert split3.launches - splits == (1 if head else 0)
     assert dx.dtype == dw.dtype == torch.bfloat16
     cast = (lambda t: t.detach().float()) if head else (lambda t: t.detach())
     want_dx = matmul_ref(dout, cast(w), transpose_b=True,
@@ -910,9 +975,9 @@ def test_two_identical_train_steps_give_the_same_bits(dev):
     every gradient path (the kernel's forward, its recompute under remat,
     both backward GEMMs, the embedding gather's backward) is
     deterministic, so losses, params and optimizer state agree bit for
-    bit. Each step launches the 6 L + 1 forward GEMMs and the 6 L of the
-    recompute on ``wgmma``, and their 2 (6 L + 1) gradients on
-    ``general``."""
+    bit. Each step launches the 6 L + 1 forward GEMMs, the 6 L of the
+    recompute and the blocks' 2 x 6 L gradients on ``wgmma``, and the
+    head's f32 pair on ``split``; none on ``general``."""
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.step import make_train_step
 
@@ -928,8 +993,9 @@ def test_two_identical_train_steps_give_the_same_bits(dev):
             moved = {p: tiled_matmul.launches_by_path[p] - before[p]
                      for p in before}
             fwd = 6 * cfg.n_layers + 1
-            assert moved["wgmma"] == fwd + 6 * cfg.n_layers
-            assert moved["general"] == 2 * fwd and moved["stream"] == 0
+            assert moved["wgmma"] == fwd + 6 * cfg.n_layers + 2 * (fwd - 1)
+            assert moved["split"] == 2
+            assert moved["general"] == 0 and moved["stream"] == 0
     assert losses[0] == losses[1]
     assert all(np.isfinite(losses[0]))
     _same_state(states[0], states[1])
@@ -970,19 +1036,20 @@ def test_a_resumed_run_equals_an_uninterrupted_one_on_the_card(dev,
             == list(s_whole["loss_curve"]))
 
 
-@pytest.mark.parametrize("arch,per_forward", [
-    ("zamba2-2.7b", 2 * 4 + 2 * 7 + 1),    # in/out_proj, 2 shared, head
-    ("olmoe-1b-7b", 5 * 2 + 1)])           # q, k, v, o, router; head
+@pytest.mark.parametrize("arch,per_forward,f32_outs", [
+    ("zamba2-2.7b", 2 * 4 + 2 * 7 + 1, 1),    # in/out_proj, 2 shared, head
+    ("olmoe-1b-7b", 5 * 2 + 1, 2 + 1)])       # q, k, v, o, router; head
 def test_family_gradients_through_the_kernel_match_the_plain_version(
-        dev, arch, per_forward):
+        dev, arch, per_forward, f32_outs):
     """A bf16 smoke model of another family than dense, remat on, over
     4 x 64 tokens (every product at M > 64): the hybrid's Mamba2 blocks
     and its shared block (reused, so its gradient sums over both groups),
     or the MoE blocks' router (f32 logits, an f32 backward pair). Every
     gradient leaf through the kernel is within phase 15's relative L2 of
     5e-2 of the plain version's, and the step's launches are the forward
-    on ``wgmma``, its recompute (all but the head) too, and two gradients
-    per product on ``general``."""
+    on ``wgmma``, its recompute (all but the head) too, two gradients per
+    bf16-out product on ``wgmma`` and the f32-out products' (the head, the
+    routers) on ``split``; none on ``general``."""
     from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
     from repro_torch.kernels import ops
 
@@ -1005,14 +1072,20 @@ def test_family_gradients_through_the_kernel_match_the_plain_version(
     loss, got = grads()
     torch.cuda.synchronize()
     moved = {p: tiled_matmul.launches_by_path[p] - before[p] for p in before}
-    assert moved == {"stream": 0, "wgmma": 2 * per_forward - 1,
-                     "general": 2 * per_forward}
+    assert moved == {"stream": 0,
+                     "wgmma": 2 * per_forward - 1 + 2 * (per_forward
+                                                         - f32_outs),
+                     "split": 2 * f32_outs, "general": 0}
+    # the plain version: every product through matmul_ref, an f32
+    # cotangent as it is (nothing split)
+    split3 = ops.split3
     ops.tiled_matmul = lambda a, b, c=None, *, config=None, **kw: (
         matmul_ref(a, b, c, **kw))
+    ops.split3 = lambda x: x
     try:
         want_loss, want = grads()
     finally:
-        ops.tiled_matmul = tiled_matmul
+        ops.tiled_matmul, ops.split3 = tiled_matmul, split3
     assert abs(loss.item() - want_loss.item()) <= 5e-2 * abs(want_loss.item())
     for (name, _), g, w in zip(params.named_parameters(), got, want):
         assert torch.isfinite(g).all(), name

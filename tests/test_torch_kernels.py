@@ -168,9 +168,11 @@ class TestWrapperChecks:
             tiled_matmul(torch.zeros(4, 8), torch.zeros(8, 4), beta=1.0)
 
     def test_mixed_or_unsupported_dtypes_raise(self):
+        """float16 is refused, alone or beside another dtype; one f32 and
+        one bf16 operand are the split pair (`test_torch_split.py`)."""
         with pytest.raises(TypeError):
             tiled_matmul(torch.zeros(4, 8), torch.zeros(8, 4,
-                                                        dtype=torch.bfloat16))
+                                                        dtype=torch.float16))
         with pytest.raises(TypeError):
             tiled_matmul(torch.zeros(4, 8, dtype=torch.float16),
                          torch.zeros(8, 4, dtype=torch.float16))
@@ -291,9 +293,10 @@ QWEN2_7B_SERVING_NK = [(512, 3584), (3584, 3584), (18944, 3584),
 
 
 def _plan(m, n, k, *, a_strides=None, b_strides=None, a_mod=0, b_mod=0,
-          dtype=torch.bfloat16, out_dtype=torch.bfloat16, config=None):
+          dtype=torch.bfloat16, out_dtype=torch.bfloat16, config=None,
+          split=""):
     return plan(m, n, k, a_strides or (k, 1), b_strides or (n, 1), a_mod,
-                b_mod, dtype, out_dtype, config=config)
+                b_mod, dtype, out_dtype, config=config, split=split)
 
 
 class TestPlan:
@@ -602,19 +605,28 @@ class TestPlan:
     ])
     def test_nk_layout_needs_aligned_rows_and_at_most_64_rows(self, case,
                                                               kw):
+        """The (N, K) layout needs aligned K-contiguous rows; it takes
+        ``stream`` at M <= 64 and, since the tied head's and the input
+        gradient's training launches, ``wgmma`` above (with ``b_nk``)."""
         kw = dict(kw)
         m = kw.pop("m", 8)
-        assert _plan(m, 65024, 4096, **kw).path == GENERAL, case
+        p = _plan(m, 65024, 4096, **kw)
+        if case == "M > 64":
+            assert (p.path, p.b_nk, p.a_mn) == (WGMMA, True, False)
+            assert p.tile == _plan(m, 65024, 4096).tile
+        else:
+            assert p.path == GENERAL, case
 
     def test_nk_layout_forced_tiles(self):
-        """A forced stream tile takes the (N, K) layout; a forced wgmma
-        tile raises (wgmma reads (K, N) weights only)."""
+        """A forced stream tile and a forced wgmma tile both take the
+        (N, K) layout."""
         p = _plan(8, 512, 3584, b_strides=(1, 3584),
                   config=BlockConfig(16, 64, 64))
         assert (p.path, p.tile.block_m, p.b_nk) == (STREAM, 16, True)
-        with pytest.raises(ValueError, match="general path"):
-            _plan(8, 512, 3584, b_strides=(1, 3584),
+        p = _plan(8, 512, 3584, b_strides=(1, 3584),
                   config=BlockConfig(128, 128, 64))
+        assert (p.path, p.tile, p.b_nk, p.segments) == (
+            WGMMA, BlockConfig(128, 128, 64), True, k_segments(512, 3584))
 
     def test_strided_dt_proj_view_takes_a_fast_path(self):
         """mamba1's dt_proj reads the first 256 columns of x_proj's (t, 288)
@@ -641,41 +653,63 @@ class TestPlan:
 
     @pytest.mark.parametrize("case", [
         "f32", "transpose_a", "transpose_b", "unaligned_a", "unaligned_b",
-        "row_stride_a", "row_stride_b", "broadcast_rows", "k0"])
+        "row_stride_a", "row_stride_b", "broadcast_rows", "k0",
+        "transpose_a_short_rows", "transpose_a_off_16_bytes",
+        "transpose_b_short_rows", "transpose_b_off_16_bytes",
+        "transpose_a_f32", "split_pair_unaligned_b"])
     def test_everything_else_takes_general(self, case):
-        # a transposed B takes stream up to 64 rows (the tied LM head), and
-        # general above
-        m, n, k = 65 if case == "transpose_b" else 8, 512, 3584
+        # an aligned transposed A or B takes a fast path (TestTransposed);
+        # these transposed views do not: rows not a multiple of 8 elements,
+        # shorter than the row, or a base off 16 bytes
+        m = 65 if case.startswith("transpose_b") else (
+            16 if case.startswith("transpose_a") else 8)
+        n, k = 512, 3584
         kw = {
             "f32": dict(dtype=torch.float32, out_dtype=torch.float32),
-            # op(A) of a (K, M) tensor: M-contiguous
-            "transpose_a": dict(a_strides=(1, m)),
-            # op(B) of an (N, K) tensor: K-contiguous
-            "transpose_b": dict(b_strides=(1, k)),
+            # op(A) of a (K, M) tensor, M-contiguous, rows of 13
+            "transpose_a": dict(a_strides=(1, 13)),
+            # op(B) of an (N, K) tensor, K-contiguous, rows of 3590
+            "transpose_b": dict(b_strides=(1, 3590)),
             "unaligned_a": dict(a_mod=2),
             "unaligned_b": dict(b_mod=8),
             # a view of rows 3587 wide: not a multiple of 8 elements
             "row_stride_a": dict(a_strides=(3587, 1)),
             "row_stride_b": dict(b_strides=(515, 1)),
             "broadcast_rows": dict(a_strides=(0, 1)),
+            "transpose_a_short_rows": dict(a_strides=(1, 8)),
+            "transpose_a_off_16_bytes": dict(a_strides=(1, 16), a_mod=4),
+            "transpose_b_short_rows": dict(b_strides=(1, 3576)),
+            "transpose_b_off_16_bytes": dict(b_strides=(1, 3584), b_mod=2),
+            "transpose_a_f32": dict(a_strides=(1, 16), dtype=torch.float32,
+                                    out_dtype=torch.float32),
+            # the split pair's bf16 operand on rows of 515: its f32 matrix
+            # times that operand cast to f32
+            "split_pair_unaligned_b": dict(b_strides=(515, 1), split="a"),
         }.get(case, {})
         p = _plan(m, n, 0 if case == "k0" else k, **kw)
         assert (p.path, p.tile, p.splits) == (GENERAL, DEFAULT_CONFIG, 1)
 
     def test_wrapper_strides_route_transposes_to_general(self):
         """The wrapper hands `plan` op(A)'s and op(B)'s strides; a
-        transposed A of a contiguous tensor is not K-contiguous there, and a
-        transposed B (K-contiguous rows of an (N, K) tensor) takes general
-        above 64 rows (stream at most 64: the tied LM head)."""
+        transposed A of a contiguous tensor is M-contiguous there and takes
+        ``wgmma`` at any M (``stream`` reads K-contiguous activations only),
+        and a transposed B (K-contiguous rows of an (N, K) tensor) takes
+        ``wgmma`` above 64 rows and ``stream`` at most 64 (the tied LM head).
+        Only views whose rows or base break the alignment take general."""
         a = torch.zeros(3584, 8, dtype=torch.bfloat16)        # (K, M)
         b = torch.zeros(512, 3584, dtype=torch.bfloat16)      # (N, K)
-        assert plan(8, 512, 3584, a.stride()[::-1], (512, 1), 0, 0,
-                    a.dtype, a.dtype).path == GENERAL
-        assert plan(65, 512, 3584, (3584, 1), b.stride()[::-1], 0, 0,
-                    a.dtype, a.dtype).path == GENERAL
+        p = plan(8, 512, 3584, a.stride()[::-1], (512, 1), 0, 0, a.dtype,
+                 a.dtype)
+        assert (p.path, p.a_mn, p.b_nk) == (WGMMA, True, False)
+        p = plan(65, 512, 3584, (3584, 1), b.stride()[::-1], 0, 0, a.dtype,
+                 a.dtype)
+        assert (p.path, p.a_mn, p.b_nk) == (WGMMA, False, True)
         p = plan(8, 512, 3584, (3584, 1), b.stride()[::-1], 0, 0, a.dtype,
                  a.dtype)
         assert (p.path, p.b_nk) == (STREAM, True)
+        odd = torch.zeros(3584, 13, dtype=torch.bfloat16)     # rows of 13
+        assert plan(13, 512, 3584, odd.stride()[::-1], (512, 1), 0, 0,
+                    a.dtype, a.dtype).path == GENERAL
         view = torch.zeros(70, 296, dtype=torch.bfloat16)[:, 1:294]
         assert view.stride() == (296, 1)      # aligned stride, odd base:
         assert plan(70, 64, 293, view.stride(), (64, 1),        # general
@@ -769,30 +803,154 @@ class TestPlan:
         (49152, 3072): (256, 1),
     }
 
+    # the backward products of each: (tile width, K segments) of ``da``
+    # (an (N, K) B) and of ``dW`` (a transposed A), each walked by one CTA
+    STARCODER2_TRAIN_BWD = {
+        (3072, 3072): ((128, 11), (128, 11)),
+        (256, 3072): ((128, 2), (64, 32)),
+        (12288, 3072): ((128, 11), (128, 3)),
+        (3072, 12288): ((128, 3), (128, 11)),
+        (49152, 3072): ((128, 11), (256, 1)),
+    }
+
     @pytest.mark.parametrize("n,k", sorted(STARCODER2_TRAIN_FWD))
     def test_starcoder2_training_gemms_take_their_pinned_path(self, n, k):
         """A train step's layouts at 8 x 512 rows: the forward product (and
         its recompute under remat) on ``wgmma``; ``da = dout @ W^T`` reads
         the (K, N) weight as an (N, K) B at M = 4096 and ``dW = x^T @
-        dout`` a transposed A, both on ``general``; the head's pair takes
-        its f32 cotangent against f32-cast operands, also ``general``.
-        Every launch fits the general path's grid (at most 65535 row
+        dout`` a transposed A, both on ``wgmma`` too, K segments by
+        (N, K) as every fast-path launch; the head's pair takes its f32
+        cotangent's three bf16 terms (rows padded to a multiple of 8)
+        against the bf16 operands on ``split``. Nothing takes
+        ``general``, and every launch fits the grid (at most 65535 row
         blocks)."""
-        from repro_torch.kernels.tiled_matmul import _MAX_GRID_Y
+        from repro_torch.kernels.tiled_matmul import _MAX_GRID_Y, SPLIT
 
         m = 8 * 512
         head = n == 49152
-        dt = torch.float32 if head else torch.bfloat16
-        fwd = _plan(m, n, k, out_dtype=torch.float32 if head else dt)
+        fwd = _plan(m, n, k,
+                    out_dtype=torch.float32 if head else torch.bfloat16)
         width, segments = self.STARCODER2_TRAIN_FWD[(n, k)]
         assert (fwd.path, fwd.tile.as_tuple(), fwd.splits, fwd.segments) \
             == (WGMMA, (128, width, 64), 1, segments)
+        ld = -(-n // 8) * 8
         # da: (M, N) cotangent times the (K, N) weight read transposed
-        da = _plan(m, k, n, a_strides=(n, 1), b_strides=(1, n), dtype=dt,
-                   out_dtype=torch.bfloat16)
+        da = _plan(m, k, n, a_strides=(ld, 1), b_strides=(1, n),
+                   split="a" if head else "")
         # dW: the (M, K) activations read transposed times the cotangent
-        dw = _plan(k, n, m, a_strides=(1, k), b_strides=(n, 1), dtype=dt,
-                   out_dtype=torch.bfloat16)
-        for p, rows in ((da, m), (dw, k)):
-            assert (p.path, p.tile, p.splits) == (GENERAL, DEFAULT_CONFIG, 1)
+        dw = _plan(k, n, m, a_strides=(1, k), b_strides=(ld, 1),
+                   split="b" if head else "")
+        path = SPLIT if head else WGMMA
+        for p, (rows, cols, depth), (width, segments), layout in zip(
+                (da, dw), ((m, k, n), (k, n, m)),
+                self.STARCODER2_TRAIN_BWD[(n, k)],
+                ((True, False), (False, True))):
+            assert (p.path, p.tile.as_tuple(), p.splits, p.segments) == (
+                path, (128, width, 64), 1, segments)
+            assert (p.b_nk, p.a_mn) == layout
+            assert p.segments == k_segments(cols, depth)
             assert -(-rows // p.tile.block_m) <= _MAX_GRID_Y
+
+
+class TestTransposed:
+    """``wgmma`` on the four layouts of the TPU kernel, and the split pair:
+    the tile rule, the K segments and the walk/spread rule are the (K, N)
+    product's; only the layout flags differ."""
+
+    LAYOUTS = {
+        "nn": dict(),
+        "nt": dict(b_strides=(1, None)),      # B stored (N, K)
+        "tn": dict(a_strides=(1, None)),      # A stored (K, M)
+        "tt": dict(a_strides=(1, None), b_strides=(1, None)),
+    }
+
+    def _layout(self, name, m, n, k, **kw):
+        lay = {}
+        for key, val in self.LAYOUTS[name].items():
+            width = m if key == "a_strides" else k
+            lay[key] = (1, -(-width // 8) * 8)
+        return _plan(m, n, k, **lay, **kw)
+
+    @pytest.mark.parametrize("layout", ["nt", "tn", "tt"])
+    @pytest.mark.parametrize("m,n,k", [
+        (65, 200, 296), (128, 136, 40), (129, 520, 3584), (512, 3584, 3584),
+        (4096, 3072, 12288), (3072, 256, 4096), (4096, 65024, 4096)])
+    def test_transposed_layouts_take_the_nn_tile(self, layout, m, n, k):
+        p = self._layout(layout, m, n, k)
+        q = _plan(m, n, k)
+        assert (p.path, p.tile, p.splits, p.segments) == (
+            WGMMA, q.tile, q.splits, q.segments)
+        assert (p.a_mn, p.b_nk) == (layout[0] == "t", layout[1] == "t")
+        assert p.segments == k_segments(n, k)
+
+    @pytest.mark.parametrize("m", [1, 8, 33, 64])
+    @pytest.mark.parametrize("layout", ["tn", "tt"])
+    def test_transposed_a_takes_wgmma_at_every_m(self, m, layout):
+        """``stream`` reads only K-contiguous activations, so a transposed
+        A takes ``wgmma`` at M <= 64 too, at the tile rule's tile."""
+        from repro_torch.kernels.tiled_matmul import _wgmma_tile
+
+        n, k = 3584, 3584
+        p = self._layout(layout, m, n, k)
+        assert (p.path, p.a_mn) == (WGMMA, True)
+        assert p.tile == _wgmma_tile(m, n, k, torch.bfloat16, p.segments)
+        assert p.segments == k_segments(n, k)
+
+    @pytest.mark.parametrize("layout", ["nt", "tn", "tt"])
+    def test_forced_tiles_take_every_layout(self, layout):
+        """Every wgmma tile takes the transposed layouts; a stream tile
+        takes nt only (a transposed A raises)."""
+        for tile in ((128, 64, 64), (128, 128, 64), (128, 256, 64)):
+            p = self._layout(layout, 200, 512, 3584,
+                             config=BlockConfig(*tile))
+            assert (p.path, p.tile.as_tuple()) == (WGMMA, tile)
+        if layout == "nt":
+            p = self._layout(layout, 8, 512, 3584,
+                             config=BlockConfig(8, 64, 64))
+            assert (p.path, p.b_nk) == (STREAM, True)
+        else:
+            with pytest.raises(ValueError, match="general path"):
+                self._layout(layout, 8, 512, 3584,
+                             config=BlockConfig(8, 64, 64))
+
+    @pytest.mark.parametrize("side", ["a", "b"])
+    @pytest.mark.parametrize("layout", ["nn", "nt", "tn", "tt"])
+    @pytest.mark.parametrize("m", [8, 65, 4096])
+    def test_split_pair_takes_its_own_path_at_the_wgmma_tile(self, side,
+                                                             layout, m):
+        from repro_torch.kernels.tiled_matmul import SPLIT, _wgmma_tile
+
+        n, k = 3072, 4096
+        p = self._layout(layout, m, n, k, split=side)
+        assert (p.path, p.split) == (SPLIT, side)
+        assert (p.a_mn, p.b_nk) == (layout[0] == "t", layout[1] == "t")
+        assert p.tile == _wgmma_tile(m, n, k, torch.bfloat16, p.segments)
+        assert p.segments == k_segments(n, k)
+        forced = self._layout(layout, m, n, k, split=side,
+                              config=BlockConfig(128, 64, 64))
+        assert (forced.path, forced.tile) == (SPLIT, BlockConfig(128, 64, 64))
+        assert self._layout(layout, m, n, k, split=side,
+                            config=DEFAULT_CONFIG).path == GENERAL
+        with pytest.raises(ValueError, match="general path"):
+            self._layout(layout, 8, n, k, split=side,
+                         config=BlockConfig(8, 64, 64))
+
+    def test_split_must_name_an_operand(self):
+        with pytest.raises(ValueError, match="split"):
+            _plan(8, 64, 64, split="c")
+
+    def test_plan_records_both_layouts(self):
+        p = self._layout("tt", 300, 512, 1024)
+        assert (p.a_mn, p.b_nk, p.split) == (True, True, "")
+        q = _plan(300, 512, 1024)
+        assert (q.a_mn, q.b_nk, q.split) == (False, False, "")
+
+    def test_transposed_training_layouts_fit_the_card_grid(self):
+        """A weight gradient's M is the layer's input width (at most
+        256208 rows for the largest vocabulary's tied head): the wgmma
+        grid's row blocks stay under 65535."""
+        from repro_torch.kernels.tiled_matmul import _MAX_GRID_Y
+
+        p = self._layout("tn", 256208, 1024, 4096)
+        assert p.path == WGMMA
+        assert -(-256208 // p.tile.block_m) <= _MAX_GRID_Y

@@ -217,6 +217,7 @@ def test_power_row_flags_a_launch_bound_window(launches, bound):
     assert row.energy_j == pytest.approx(450.0 * 0.05e-3)
     assert row.busy_share == pytest.approx(launches * 0.05e-3 / 0.4)
     assert row.launch_bound is bound
+    assert row.window_s == 0.4
     assert row.temperature_c == 55.0 and row.valid
 
 

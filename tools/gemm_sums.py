@@ -3,10 +3,15 @@
 several checkouts, in turns, on one card.
 
     python3 tools/gemm_sums.py SHAPES_JSON ROOT [ROOT ...]
+    python3 tools/gemm_sums.py --from-log LOG PATH OUT_JSON
 
 SHAPES_JSON is what `chip_smoke.py` writes to ``build/serving_shapes.json``:
 per model, every (M, N, K, in dtype, out dtype) its serving run launched
-and how often. Each ROOT is a checkout (this one is ``.``); list a pair as
+and how often. ``--from-log`` writes such a file from the per-shape lines
+of a `chip_smoke.py` log (``[shapes]``, ``[dense shapes <model>]`` and the
+like: M N K out dtype count path ...), keeping the shapes that took PATH
+(``stream`` or ``wgmma``), one entry per line tag: every serving phase's
+launches on that path. Each ROOT is a checkout (this one is ``.``); list a pair as
 ``A B B A`` to time them in turns. For each ROOT in order a fresh process
 imports that checkout's `repro_torch` (so its `plan` picks the path, tile
 and K split), builds its kernel, and times every shape with CUDA events
@@ -20,6 +25,7 @@ from __future__ import annotations
 
 import collections
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -64,10 +70,30 @@ def _worker(shapes_json: str, root: str) -> dict:
     return out
 
 
+def shapes_from_log(log: str, path: str) -> dict:
+    """{tag: [[M, N, K, "bfloat16", out dtype, count], ...]} of the shapes
+    that took `path` in a `chip_smoke.py` log's per-shape lines (the
+    serving phases run bf16 operands)."""
+    out = collections.defaultdict(list)
+    for line in log.splitlines():
+        hit = re.match(r"\[((?:[\w.-]+ )?shapes(?: [\w.-]+)?)\] (\d+) (\d+) "
+                       r"(\d+) (\w+) (\d+) (\w+) ", line)
+        if hit and hit[7] == path:
+            m, n, k, count = (int(hit[i]) for i in (2, 3, 4, 6))
+            out[hit[1]].append([m, n, k, "bfloat16", hit[5], count])
+    return dict(out)
+
+
 def main(argv: list[str]) -> int:
     """Run one worker per root in order; print the sums."""
     if len(argv) >= 3 and argv[0] == "--worker":
         print(json.dumps(_worker(argv[1], argv[2])))
+        return 0
+    if len(argv) == 4 and argv[0] == "--from-log":
+        shapes = shapes_from_log(Path(argv[1]).read_text(), argv[2])
+        Path(argv[3]).write_text(json.dumps(shapes))
+        print(f"{sum(map(len, shapes.values()))} shapes on {argv[2]} in "
+              f"{len(shapes)} runs to {argv[3]}")
         return 0
     if len(argv) < 2:
         print(__doc__, file=sys.stderr)
