@@ -46,6 +46,14 @@ build of PyTorch. Phases, each fatal on failure:
    the idle share of serving as a whole; a device event belongs to the run
    whose range holds its launching call (by the profiler's correlation
    id), and each traced forward must count `_gemms_per_forward` GEMMs;
+   then the dry-run of both steps (`core.opanalyze.analyze_step` on meta
+   copies of the engine's params and states, the launches of the untimed
+   warm-up call recorded per path): the kernel's launches and FLOPs per
+   path equal the card's exactly, and the step's roofline bound on the
+   h100 spec (`roofline_from_cost`) is at most 1.05 x its traced device
+   busy time; the model-FLOPs utilisation, the ratio, the dominant term
+   and the dry-run's peak-live bytes beside the card's peak are printed
+   (the same check follows each training run of phases 15 and 16);
 7. full-width logits of one chunk call, through the kernel and with every
    product through `matmul_ref`;
 8. the paper's loop on the card: profile the compiled tiles over the H100
@@ -163,7 +171,9 @@ build of PyTorch. Phases, each fatal on failure:
    through `matmul_ref` (relative L2 at most 5e-2); (d) at the same cut,
    4 steps through the port's loop against 2 steps, a checkpoint written
    to and restored from ``build/chip_smoke_train``, and 2 more: params,
-   optimizer state, rng and losses bit for bit.
+   optimizer state, rng and losses bit for bit; (e) the dry-run of (a)'s
+   step (phase 6's check, the measured time the step's after the first,
+   the peak beside `train_memory_bytes` too).
 16. the other families' training at full width, 3 steps each (the first
    cold), remat on: zamba2-2.7b (hybrid, 8 x 512 tokens), qwen2-vl-2b (vlm,
    2 x 2048: 1,024 patches on a 32 x 32 grid and 1,024 text tokens a row,
@@ -178,7 +188,8 @@ build of PyTorch. Phases, each fatal on failure:
    (b) its GEMMs timed as phase 15 (b); (c) at 2 layers (zamba2-2.7b: one
    group of 6 Mamba2 blocks and the shared block) every gradient leaf
    through the kernel against the plain version (relative L2 at most
-   5e-2).
+   5e-2); (d) the dry-run of (a)'s step at its depth and batch (phase 15
+   (e)'s check).
 
 After phase 10, ``build/serving_shapes.json`` holds qwen2-7b's and
 qwen2.5-14b's serving launches by shape, for ``tools/gemm_sums.py``.
@@ -208,11 +219,6 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet, dense): the bound of a GEMM is the
-# larger of its FLOPs over the tensor-core (bf16) or CUDA-core (f32) rate and
-# its bytes (inputs read once, output written once) over the HBM rate
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-HBM_BYTES_PER_S = 3.35e12
 # kernel vs plain version: the tolerances of the JAX package's kernel tests;
 # the absolute one is scaled by the output's largest magnitude, since the two
 # sum in different orders and the error grows with the partial sums
@@ -288,23 +294,6 @@ def _close(got: torch.Tensor, want: torch.Tensor, in_dtype) -> tuple:
     ok = bool((diff <= tol * scale + tol * want.abs()).all())
     rel = (diff / want.abs().clamp_min(1e-6)).max().item() if diff.numel() else 0.0
     return (diff.max().item() if diff.numel() else 0.0), rel, ok
-
-
-def _bound_s(m: int, n: int, k: int, in_dtype, out_dtype,
-             b_dtype=None) -> tuple:
-    """(operations time, bytes time) of one GEMM at the card's peaks.
-    `b_dtype` (default `in_dtype`) is B's: the split pair (one operand f32,
-    the other bf16) is priced at 2MNK on the bf16 tensor rate, the floor of
-    any f32-accurate product on the card, and at its f32 and bf16 operands'
-    bytes."""
-    b_dtype = b_dtype or in_dtype
-    size = lambda dt: torch.tensor([], dtype=dt).element_size()  # noqa: E731
-    rate = PEAK_FLOPS[torch.bfloat16 if torch.bfloat16 in (in_dtype, b_dtype)
-                      else in_dtype]
-    ops_s = 2.0 * m * n * k / rate
-    bytes_s = (m * k * size(in_dtype) + k * n * size(b_dtype)
-               + m * n * size(out_dtype)) / HBM_BYTES_PER_S
-    return ops_s, bytes_s
 
 
 def _gemms_per_forward(cfg) -> int:
@@ -1164,6 +1153,7 @@ def phase_serving_shapes(dev, shapes, tag: str = "shapes",
     read the embedding table, so their B is stored (N, K) and every
     version is called with ``transpose_b`` (stream tiles only in the
     sweep)."""
+    from repro_torch.core.opanalyze import gemm_bound_s
     from repro_torch.core.profiler import time_ms
     from repro_torch.kernels.ref import matmul_ref
     from repro_torch.kernels.tiled_matmul import (DEFAULT_CONFIG,
@@ -1204,7 +1194,8 @@ def phase_serving_shapes(dev, shapes, tag: str = "shapes",
         plain_ms = time_ms(lambda: matmul_ref(a, b, **kw), flush, 5)
         library_ms = time_ms(lambda: torch.matmul(a, b.T if nt else b),
                              flush, 10)
-        ops_s, bytes_s = _bound_s(m, n, k, in_dt, out_dt)
+        ops_s, bytes_s = gemm_bound_s(m, n, k, a_dtype=in_dt,
+                                      b_dtype=in_dt, out_dtype=out_dt)
         bound_ms = 1e3 * max(ops_s, bytes_s)
         _say(f"[{tag}] {m} {n} {k}{' (N, K) B' if nt else ''} "
              f"{str(out_dt).split('.')[-1]} {count} "
@@ -1403,9 +1394,30 @@ def phase_forwards(dev, eng, params, cfg) -> dict:
     share is also given against the untraced span."""
     from repro_torch.serving.engine import Request
 
+    from repro_torch.kernels import ops
+
     B, W, C = eng.max_batch, 8, 64
     rng = np.random.default_rng(3)
     decode, chunk = _forward_fns(dev, eng, params, cfg, W, C, rng)
+    tallies: dict = {}
+
+    def tallied(key, fn):
+        """`fn`, whose first call (the untimed warm-up) records its
+        launches per path (`_path_tally`) for the dry-run check."""
+        def run():
+            if key in tallies:
+                return fn()
+            tallies[key] = {}
+            torch.cuda.reset_peak_memory_stats(dev)
+            real = ops.tiled_matmul
+            ops.tiled_matmul = _path_tally(real, tallies[key])
+            try:
+                fn()
+                torch.cuda.synchronize()
+            finally:
+                ops.tiled_matmul = real
+            tallies[key]["peak"] = torch.cuda.max_memory_allocated(dev)
+        return run
 
     def serve(first_uid):
         for uid in range(first_uid, first_uid + 4):
@@ -1418,7 +1430,7 @@ def phase_forwards(dev, eng, params, cfg) -> dict:
               "serve": "engine run, 4 requests x (64 prompt + 8 new) tokens"}
     untraced = {}
     for key, fn in (("decode", decode), ("chunk", chunk)):
-        untraced[key] = _untraced_ms(fn)
+        untraced[key] = _untraced_ms(tallied(key, fn))
         _say(f"[forward] {labels[key]}, no profiler: device span "
              f"{untraced[key][0]:.2f} ms, host issue {untraced[key][1]:.2f} "
              f"ms (medians of 5)")
@@ -1433,7 +1445,11 @@ def phase_forwards(dev, eng, params, cfg) -> dict:
     if not traced:
         _say("[trace] the profiler recorded no device activity: idle share "
              "and in-step GEMM time not measured")
+        _serve_dry_checks(eng, cfg, W, C, tallies,
+                          {k: untraced[k][0] for k in ("decode", "chunk")},
+                          "untraced device span")
         return untraced
+    busy_ms = {}
     for key, runs in traced.items():
         for r in runs:
             _say(f"[trace] {labels[key]}: window {r['window_ms']:.2f} ms, "
@@ -1449,7 +1465,7 @@ def phase_forwards(dev, eng, params, cfg) -> dict:
                          for n, t in top[:6]))
         # the profiler slows the host, not the card: the traced busy time
         # over the untraced span is the idle share without the profiler
-        busy = statistics.median(r["busy_ms"] for r in runs)
+        busy = busy_ms[key] = statistics.median(r["busy_ms"] for r in runs)
         _say(f"[trace] {labels[key]}: idle share without the profiler, 1 - "
              f"busy {busy:.2f} ms / untraced {untraced[key][0]:.2f} ms = "
              f"{1 - busy / untraced[key][0]:.4f}")
@@ -1458,7 +1474,33 @@ def phase_forwards(dev, eng, params, cfg) -> dict:
         if any(r["n_gemm"] != per_forward for r in traced[key]):
             raise SystemExit(f"the traced {key} forward did not launch the "
                              f"kernel {per_forward} times")
+    _serve_dry_checks(eng, cfg, W, C, tallies, busy_ms,
+                      "traced device busy time")
     return untraced
+
+
+def _serve_dry_checks(eng, cfg, W: int, C: int, tallies: dict,
+                      measured_ms: dict, what: str) -> None:
+    """The dry-run of phase 6's decode step and chunk call: the same
+    calls on meta copies of the engine's params and states
+    (`_dry_check`)."""
+    api, B = eng.model, eng.max_batch
+    params = api.init(cfg, None, device="meta")
+    meta = lambda *shape: torch.empty(shape, dtype=torch.long,  # noqa: E731
+                                      device="meta")
+    dstate = api.init_state(cfg, B, eng.max_len, device="meta")
+    cstate = api.init_state(cfg, W, eng.max_len, device="meta")
+    active = cfg.n_active_params()
+    for key, fn, args, tokens in (
+            ("decode", api.decode_step, (params, meta(B), dstate, cfg), B),
+            ("chunk", api.prefill_chunk,
+             (params, meta(W, C), meta(W), cstate, cfg), W * C)):
+        tally = dict(tallies[key])
+        peak = tally.pop("peak")
+        _dry_check(f"serve {key} {cfg.name}", fn, args,
+                   {p: tuple(v) for p, v in tally.items()},
+                   measured_ms[key] / 1e3, 2.0 * active * tokens,
+                   what=what, peak=peak)
 
 
 def _rel_top1(got: torch.Tensor, want: torch.Tensor) -> tuple:
@@ -3288,6 +3330,83 @@ def _zero_counts() -> None:
         dict.fromkeys(tiled_matmul.launches_by_path, 0))
 
 
+# the dry-run's check of a step the card ran (phases 6, 15 and 16): its
+# bound may exceed the measured time by this factor at most
+DRY_BOUND_SLACK = 1.05
+
+
+def _path_tally(fn, tally: dict):
+    """A stand-in for `ops.tiled_matmul` that calls `fn` (the wrapper, or
+    a recorder around it) and adds each launch to ``tally[path] =
+    [launches, FLOPs]`` (2MNK), the path read off the launch counters."""
+    from repro_torch.kernels.tiled_matmul import tiled_matmul
+
+    def tallied(a, b, c=None, **kw):
+        before = dict(tiled_matmul.launches_by_path)
+        out = fn(a, b, c, **kw)
+        moved = [p for p, n in tiled_matmul.launches_by_path.items()
+                 if n != before[p]]
+        if moved:
+            k = a.shape[0] if kw.get("transpose_a") else a.shape[1]
+            t = tally.setdefault(moved[0], [0, 0.0])
+            t[0] += 1
+            t[1] += 2.0 * out.shape[0] * out.shape[1] * k
+        return out
+
+    return tallied
+
+
+def _dry_check(tag: str, fn, args: tuple, card: dict, measured_s: float,
+               model_flops: float, *, what: str, peak: int,
+               estimate: int | None = None) -> None:
+    """Count ``fn(*args)`` (a step the card just ran, rebuilt on meta
+    tensors) with the dry-run's `analyze_step` and gate it against the
+    card: (a) the hand-written kernels' launches and FLOPs per path equal
+    `card` ({path: (launches, FLOPs)} of one step, as the card recorded
+    them) exactly; (b) `roofline_from_cost`'s bound on the h100 spec is at
+    most DRY_BOUND_SLACK x the measured time (a larger bound would mean
+    the count holds work the card did not do). Prints the model-FLOPs
+    utilisation at the bf16 peak, the ratio, the dominant term and the
+    dry-run's peak-live bytes beside the card's peak (and the training
+    estimate, `train_memory_bytes`). Launches nothing on the card."""
+    from repro_torch.core.opanalyze import analyze_step
+    from repro_torch.core.roofline import roofline_from_cost
+    from repro_torch.kernels.tiled_matmul import PEAK_BF16_FLOPS
+
+    t0 = time.perf_counter()
+    cost = analyze_step(fn, *args)
+    secs = time.perf_counter() - t0
+    dry = {p: (g.launches, g.flops) for p, g in cost.gemms.items()}
+    rep = roofline_from_cost(tag, cost, model_flops=model_flops)
+    ratio = rep.bound_s / measured_s
+    mfu = model_flops / (measured_s * PEAK_BF16_FLOPS)
+    gemm_bound = sum(g.bound_s for g in cost.gemms.values())
+    _say(f"[dry-run {tag}] launches and FLOPs per path: dry-run "
+         f"{sorted(dry.items())}, card {sorted(card.items())}; equal? "
+         f"{dry == card} (analysed on meta in {secs:.1f} s)")
+    _say(f"[dry-run {tag}] {cost.flops:.4e} dot FLOPs ({cost.gemm_flops:.4e} "
+         f"on the kernel), {cost.hbm_bytes:.4e} bytes over {cost.n_ops} aten "
+         f"ops: compute {1e3 * rep.compute_s:.3f} ms, memory "
+         f"{1e3 * rep.memory_s:.3f} ms, bound {1e3 * rep.bound_s:.3f} ms "
+         f"({rep.dominant}; the GEMMs' own bounds sum to "
+         f"{1e3 * gemm_bound:.3f} ms) against {1e3 * measured_s:.3f} ms "
+         f"measured ({what}): bound/measured {ratio:.4f} (gate <= "
+         f"{DRY_BOUND_SLACK}); MFU {mfu:.4f} ({model_flops:.4e} model FLOPs "
+         f"at 989 TFLOP/s)")
+    _say(f"[dry-run {tag}] peak live {cost.peak_live_bytes / 1e9:.2f} GB "
+         f"(arguments {cost.argument_bytes / 1e9:.2f} GB) beside the card's "
+         f"peak {peak / 1e9:.2f} GB"
+         + ("" if estimate is None else
+            f" and `train_memory_bytes`' {estimate / 1e9:.2f} GB")
+         + f"; {_nvidia_smi()}")
+    if dry != card:
+        raise SystemExit(f"the dry-run of {tag} counted other launches or "
+                         "FLOPs than the card recorded")
+    if ratio > DRY_BOUND_SLACK:
+        raise SystemExit(f"the dry-run's bound of {tag} is "
+                         f"{ratio:.3f} x the measured time")
+
+
 def _train_recording(log: collections.Counter, splits: collections.Counter):
     """Stand-ins for `ops.tiled_matmul` and `ops.split3`. The first counts
     each product under (M, N, K, A's dtype, B's dtype, out dtype, layout)
@@ -3383,9 +3502,11 @@ def _train_shapes(dev, shapes: collections.Counter, runs: int,
     path per step, the bf16 backward's and the split pairs' ratios to
     torch.matmul, and per-kernel JSON entries over the `runs` steps of
     (a)."""
+    from repro_torch.core.opanalyze import gemm_bound_s
     from repro_torch.core.profiler import time_ms
     from repro_torch.kernels.ref import matmul_ref, split3_ref
-    from repro_torch.kernels.tiled_matmul import (DEFAULT_CONFIG, split3,
+    from repro_torch.kernels.tiled_matmul import (DEFAULT_CONFIG,
+                                                  HBM_BYTES_PER_S, split3,
                                                   tiled_matmul)
 
     g = torch.Generator(dev).manual_seed(4)
@@ -3436,7 +3557,8 @@ def _train_shapes(dev, shapes: collections.Counter, runs: int,
         library_ms = time_ms(lambda: torch.matmul(ga.T if ta else ga,
                                                   gb.T if tb else gb),
                              flush, 5)
-        ops_s, bytes_s = _bound_s(m, n, k, a_dt, out_dt, b_dt)
+        ops_s, bytes_s = gemm_bound_s(m, n, k, a_dtype=a_dt, b_dtype=b_dt,
+                                      out_dtype=out_dt)
         bound_ms = 1e3 * max(ops_s, bytes_s)
         _say(f"[{tag}] {m} {n} {k} {str(a_dt)[6:]} {str(b_dt)[6:]} "
              f"{str(out_dt)[6:]} {layout} {per_step} {path} "
@@ -3565,7 +3687,9 @@ def _train_full(dev) -> tuple:
 
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    ops.tiled_matmul, ops.split3 = _train_recording(shapes, splits)
+    tally: dict = {}
+    recording, splitting = _train_recording(shapes, splits)
+    ops.tiled_matmul, ops.split3 = _path_tally(recording, tally), splitting
     try:
         _zero_counts()
         marks.append(_launch_counts())
@@ -3622,7 +3746,37 @@ def _train_full(dev) -> tuple:
                          "finite losses and grad norms, launches per step "
                          "and path, params moved)")
     del state
-    return shapes, splits, by_path, summary, peak
+    return shapes, splits, by_path, summary, peak, _per_step(tally, steps)
+
+
+def _per_step(tally: dict, steps: list) -> dict:
+    """One step's {path: (launches, FLOPs)} from a run's `_path_tally` over
+    its steps, and the split kernel's launches (every step launches the
+    same: the runs gate it)."""
+    n = len(steps)
+    out = {p: (c // n, f / n) for p, (c, f) in tally.items()}
+    if steps[0]["split3"]:
+        out["split3"] = (steps[0]["split3"], 0.0)
+    return out
+
+
+def _train_dry_check(tag: str, cfg, batch: dict, card: dict,
+                     measured_s: float, peak: int, rows: int,
+                     seq: int) -> None:
+    """The dry-run of a train step the card ran: `make_train_step` with
+    AdamW on `cfg` (its depth as the card ran it) over meta tensors of
+    the batch's shapes and dtypes (`batch`: {name: (shape, dtype)})."""
+    from repro_torch.configs.common import Spec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.train import train_memory_bytes
+
+    fn, args, _ = dryrun.build_cell(
+        cfg.name, "train_4k", cfg=cfg,
+        specs={k: Spec(*v) for k, v in batch.items()})
+    _dry_check(tag, fn, args, card, measured_s,
+               6.0 * cfg.n_active_params() * rows * seq,
+               what="the step's time after the first", peak=peak,
+               estimate=sum(train_memory_bytes(cfg, rows, seq)))
 
 
 def _cut_state(dev, cfg, seed: int = 0) -> dict:
@@ -3775,8 +3929,14 @@ def phase_train(dev) -> dict:
 
     _free()
     t0 = time.perf_counter()
-    shapes, splits, by_path, summary, peak = _train_full(dev)
+    shapes, splits, by_path, summary, peak, card = _train_full(dev)
     _free()
+    tokens = (TRAIN_BATCH, TRAIN_SEQ)
+    _train_dry_check(f"train (e) {TRAIN_ARCH}", get_config(TRAIN_ARCH),
+                     {"tokens": (tokens, torch.int32),
+                      "labels": (tokens, torch.int32)}, card,
+                     float(np.mean(summary["step_times_s"][1:])), peak,
+                     *tokens)
     entries = _train_shapes(dev, shapes, TRAIN_STEPS, splits=splits)
     _free()
     cut = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=TRAIN_CUT)
@@ -3950,7 +4110,9 @@ def _train_family(dev, arch: str, rows: int, seq: int) -> dict:
     shutil.rmtree(FAMILY_DIR, ignore_errors=True)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    ops.tiled_matmul, ops.split3 = _train_recording(shapes, splits)
+    tally: dict = {}
+    recording, splitting = _train_recording(shapes, splits)
+    ops.tiled_matmul, ops.split3 = _path_tally(recording, tally), splitting
     real_config = launch.get_config
     launch.get_config = lambda name, smoke=False: cfg
     try:
@@ -4013,7 +4175,28 @@ def _train_family(dev, arch: str, rows: int, seq: int) -> dict:
                          "and path, params moved)")
     del state
     return {"cfg": cfg, "shapes": shapes, "splits": splits,
-            "by_path": by_path, "peak": peak, "warm_s": warm, "wall": wall}
+            "by_path": by_path, "peak": peak, "warm_s": warm, "wall": wall,
+            "card": _per_step(tally, steps)}
+
+
+def _family_specs(cfg, rows: int, seq: int) -> dict:
+    """{name: (shape, dtype)} of `_family_batch`'s leaves: int32 token
+    ids from the numpy pipeline, f32 frames, patches and loss mask."""
+    i32, f32 = torch.int32, torch.float32
+    if cfg.kind == "vlm":
+        from repro_torch.configs.qwen2_vl_2b import N_PATCHES
+
+        return {"tokens": ((rows, seq - N_PATCHES), i32),
+                "labels": ((rows, seq), i32),
+                "loss_mask": ((rows, seq), f32),
+                "positions_3d": ((rows, seq, 3), i32),
+                "patch_embeds": ((rows, N_PATCHES, cfg.d_model), f32)}
+    out = {"tokens": ((rows, seq), i32), "labels": ((rows, seq), i32)}
+    if cfg.kind == "encdec":
+        from repro_torch.configs.seamless_m4t_medium import src_len
+
+        out["src_embeds"] = ((rows, src_len(seq), cfg.d_model), f32)
+    return out
 
 
 def _family_cut(cfg):
@@ -4044,6 +4227,9 @@ def phase_families(dev) -> dict:
         t1 = time.perf_counter()
         run = _train_family(dev, arch, rows, seq)
         _free()
+        _train_dry_check(f"family (d) {arch}", run["cfg"],
+                         _family_specs(run["cfg"], rows, seq), run["card"],
+                         run["warm_s"], run["peak"], rows, seq)
         launched.update(run["by_path"])
         groups.append(_train_shapes(dev, run["shapes"], FAMILY_STEPS,
                                     tag=f"family (b) {arch}",

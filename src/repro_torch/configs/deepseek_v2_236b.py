@@ -2,6 +2,7 @@
 64), MoE 2 shared + 160 routed top-6, d_ff_expert=1536, vocab 102400
 [arXiv:2405.04434]."""
 
+from repro_torch.configs import common
 from repro_torch.models.config import ModelConfig
 
 
@@ -53,3 +54,13 @@ def smoke_config() -> ModelConfig:
         remat=False,
     )
 
+
+def input_specs(shape: str, smoke: bool = False) -> dict:
+    """The inputs of `shape`'s step (`configs.common`'s specs)."""
+    cfg = smoke_config() if smoke else full_config()
+    step = common.SHAPE_DEFS[shape]["step"]
+    if step == "train":
+        return common.lm_train_specs(cfg, shape, smoke)
+    if step == "prefill":
+        return common.lm_prefill_specs(cfg, shape, smoke)
+    return common.lm_decode_specs(cfg, shape, family="mla", smoke=smoke)

@@ -1,6 +1,7 @@
 """falcon-mamba-7b — 64L d_model=4096 attention-free Mamba1, vocab 65024,
 ssm_state=16 [arXiv:2410.05355]."""
 
+from repro_torch.configs import common
 from repro_torch.models.config import ModelConfig
 
 
@@ -40,3 +41,14 @@ def smoke_config() -> ModelConfig:
         activation_dtype="float32",
         remat=False,
     )
+
+
+def input_specs(shape: str, smoke: bool = False) -> dict:
+    """The inputs of `shape`'s step (`configs.common`'s specs)."""
+    cfg = smoke_config() if smoke else full_config()
+    step = common.SHAPE_DEFS[shape]["step"]
+    if step == "train":
+        return common.lm_train_specs(cfg, shape, smoke)
+    if step == "prefill":
+        return common.lm_prefill_specs(cfg, shape, smoke)
+    return common.lm_decode_specs(cfg, shape, family="mamba1", smoke=smoke)

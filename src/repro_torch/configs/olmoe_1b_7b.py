@@ -1,6 +1,7 @@
 """olmoe-1b-7b — 16L d_model=2048 16H (kv=16) MoE 64 experts top-8,
 d_ff_expert=1024, vocab 50304 [arXiv:2409.02060]."""
 
+from repro_torch.configs import common
 from repro_torch.models.config import ModelConfig
 
 
@@ -42,3 +43,13 @@ def smoke_config() -> ModelConfig:
         remat=False,
     )
 
+
+def input_specs(shape: str, smoke: bool = False) -> dict:
+    """The inputs of `shape`'s step (`configs.common`'s specs)."""
+    cfg = smoke_config() if smoke else full_config()
+    step = common.SHAPE_DEFS[shape]["step"]
+    if step == "train":
+        return common.lm_train_specs(cfg, shape, smoke)
+    if step == "prefill":
+        return common.lm_prefill_specs(cfg, shape, smoke)
+    return common.lm_decode_specs(cfg, shape, family="kv", smoke=smoke)

@@ -1,6 +1,7 @@
 """qwen2.5-14b — 48L d_model=5120 40H (GQA kv=8) d_ff=13824 vocab=152064,
 QKV bias [hf:Qwen/Qwen2.5-14B]."""
 
+from repro_torch.configs import common
 from repro_torch.models.config import ModelConfig
 
 
@@ -37,3 +38,14 @@ def smoke_config() -> ModelConfig:
         activation_dtype="float32",
         remat=False,
     )
+
+
+def input_specs(shape: str, smoke: bool = False) -> dict:
+    """The inputs of `shape`'s step (`configs.common`'s specs)."""
+    cfg = smoke_config() if smoke else full_config()
+    step = common.SHAPE_DEFS[shape]["step"]
+    if step == "train":
+        return common.lm_train_specs(cfg, shape, smoke)
+    if step == "prefill":
+        return common.lm_prefill_specs(cfg, shape, smoke)
+    return common.lm_decode_specs(cfg, shape, family="kv", smoke=smoke)

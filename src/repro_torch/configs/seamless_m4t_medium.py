@@ -2,6 +2,9 @@
 vocab=256206, speech frontend stubbed as precomputed frame embeddings
 [arXiv:2308.11596]."""
 
+import torch
+
+from repro_torch.configs import common
 from repro_torch.models.config import ModelConfig
 
 
@@ -44,3 +47,25 @@ def smoke_config() -> ModelConfig:
         activation_dtype="float32",
         remat=False,
     )
+
+
+def input_specs(shape: str, smoke: bool = False) -> dict:
+    """The inputs of `shape`'s step: the source frames ((B, src_len(S),
+    d) bf16) beside the target tokens; the decode state in the port's
+    layout, its cross-KV sized to the row's budget S (`configs.common`)."""
+    cfg = smoke_config() if smoke else full_config()
+    d = common.SHAPE_DEFS[shape]
+    B, S = common._bs(shape, smoke)
+    T = src_len(S)
+    Spec = common.Spec
+    if d["step"] in ("train", "prefill"):
+        specs = {"src_embeds": Spec((B, T, cfg.d_model), torch.bfloat16),
+                 "tokens": Spec((B, S), torch.int32)}
+        if d["step"] == "train":
+            specs["labels"] = Spec((B, S), torch.int32)
+        return specs
+    kv = common.kv_specs(cfg, B, S)
+    kv.update(xk=kv["k"], xv=kv["v"])
+    return {"token": Spec((B,), torch.int32),
+            "state": {"kv": kv, "src_len": Spec((B,), common.INDEX_DTYPE),
+                      "index": Spec((B,), common.INDEX_DTYPE)}}

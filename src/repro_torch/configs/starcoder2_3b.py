@@ -1,6 +1,7 @@
 """starcoder2-3b — 30L d_model=3072 24H (GQA kv=2) d_ff=12288 vocab=49152,
 RoPE [arXiv:2402.19173]."""
 
+from repro_torch.configs import common
 from repro_torch.models.config import ModelConfig
 
 
@@ -36,3 +37,14 @@ def smoke_config() -> ModelConfig:
         activation_dtype="float32",
         remat=False,
     )
+
+
+def input_specs(shape: str, smoke: bool = False) -> dict:
+    """The inputs of `shape`'s step (`configs.common`'s specs)."""
+    cfg = smoke_config() if smoke else full_config()
+    step = common.SHAPE_DEFS[shape]["step"]
+    if step == "train":
+        return common.lm_train_specs(cfg, shape, smoke)
+    if step == "prefill":
+        return common.lm_prefill_specs(cfg, shape, smoke)
+    return common.lm_decode_specs(cfg, shape, family="kv", smoke=smoke)

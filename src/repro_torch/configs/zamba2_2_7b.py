@@ -2,6 +2,7 @@
 attention blocks (32H, d_ff=10240) every 6 layers, vocab 32000
 [arXiv:2411.15242]."""
 
+from repro_torch.configs import common
 from repro_torch.models.config import ModelConfig
 
 
@@ -47,3 +48,14 @@ def smoke_config() -> ModelConfig:
         activation_dtype="float32",
         remat=False,
     )
+
+
+def input_specs(shape: str, smoke: bool = False) -> dict:
+    """The inputs of `shape`'s step (`configs.common`'s specs)."""
+    cfg = smoke_config() if smoke else full_config()
+    step = common.SHAPE_DEFS[shape]["step"]
+    if step == "train":
+        return common.lm_train_specs(cfg, shape, smoke)
+    if step == "prefill":
+        return common.lm_prefill_specs(cfg, shape, smoke)
+    return common.lm_decode_specs(cfg, shape, family="hybrid", smoke=smoke)

@@ -12,8 +12,12 @@ report names its chip (`chip`, default "tpu_v5e", so reports built as the
 reference builds them agree with it there) and `roofline_fraction` uses
 that chip's peak.
 
-The reference's HLO-text collective parser and `roofline_from_artifacts`,
-which read XLA's cost analysis, are not ported here.
+`roofline_from_cost` stands in for the reference's
+`roofline_from_artifacts`: it prices a `core.opanalyze.StepCost` (the
+dry-run's count of a step's ops) where the reference prices XLA's cost
+analysis and HLO text. The reference's `parse_collectives` reads HLO text
+and is not ported; `CollectiveStats` is, and holds zeros until a
+tensor-parallel step's c10d collectives are counted (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -21,6 +25,26 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch.core.chips import ChipSpec, get_chip
+
+
+@dataclasses.dataclass
+class CollectiveStats:
+    """Collective ops of a step by kind: counts, raw operand bytes and
+    ring-model wire bytes per chip (the reference's record)."""
+
+    counts: dict[str, int]
+    operand_bytes: dict[str, float]   # raw operand bytes by op kind
+    wire_bytes: dict[str, float]      # ring-model bytes per chip by op kind
+
+    @property
+    def total_wire_bytes(self) -> float:
+        """Wire bytes per chip over every kind."""
+        return sum(self.wire_bytes.values())
+
+    @property
+    def total_operand_bytes(self) -> float:
+        """Operand bytes over every kind."""
+        return sum(self.operand_bytes.values())
 
 
 @dataclasses.dataclass
@@ -94,6 +118,34 @@ class RooflineReport:
             "roofline_frac": self.roofline_fraction,
             "bytes_per_device": self.bytes_per_device,
         }
+
+
+def roofline_from_cost(name: str, cost, *, n_chips: int = 1,
+                       model_flops: float = 0.0, dtype: str = "bf16",
+                       chip: ChipSpec | str = "h100") -> RooflineReport:
+    """The report of one step from its `core.opanalyze.StepCost` (counted
+    per chip): FLOPs at `chip`'s `dtype` peak, bytes at its HBM rate,
+    collective wire bytes (0 at one chip) at its link rate, and the
+    peak-live estimate as ``bytes_per_device``. Every dot FLOP is priced at
+    the `dtype` peak, so a step whose products run slower (the port's f32
+    attention einsums) gets a lower bound, never a higher one."""
+    spec = get_chip(chip)
+    link = spec.ici_link_bw
+    return RooflineReport(
+        name=name,
+        n_chips=n_chips,
+        dtype=dtype,
+        hlo_flops=cost.flops * n_chips,
+        hlo_bytes=cost.hbm_bytes * n_chips,
+        collective_wire_bytes=cost.collective_bytes * n_chips,
+        compute_s=cost.flops / spec.peak(dtype),
+        memory_s=cost.hbm_bytes / spec.hbm_bw,
+        collective_s=cost.collective_bytes / link if link else 0.0,
+        model_flops=model_flops,
+        collectives=CollectiveStats({}, {}, dict(cost.collective_by_op)),
+        bytes_per_device=float(cost.peak_live_bytes),
+        chip=spec.name,
+    )
 
 
 def format_report_table(reports: list[RooflineReport]) -> str:

@@ -1,7 +1,8 @@
 """Deterministic, resumable, shardable synthetic data pipeline: a copy of
 the JAX package's `repro.data.pipeline` (numpy only), whose batches are the
-reference's bit for bit. Its `smoke_batch` builds on the configs' input
-specs and comes with them (ROADMAP A10).
+reference's bit for bit, and `smoke_batch`, the materialized batch of a
+reduced config, built on the configs' input specs with the reference's
+draws.
 
 Production shape: an index-based sampler (step -> global batch) so any host
 can materialize exactly its shard of any step without coordination — the
@@ -18,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass
@@ -112,3 +114,46 @@ class DataLoader:
         self.state = PipelineState.from_dict(d)
         self._queue.clear()
 
+
+_NP_INT = {torch.int32: np.int32, torch.int64: np.int64}
+
+
+def smoke_batch(arch: str, shape: str = "train_4k", seed: int = 0
+                ) -> tuple:
+    """(reduced config, materialized batch of numpy arrays) for any
+    assigned arch: the reference's `smoke_batch`, the same generator and
+    the same draws in the same order, so its arrays are the reference's.
+    Token ids uniform over the vocab, M-RoPE positions of the patch grid,
+    a loss mask of 0 on the patches, float inputs N(0, 1) in f32 (the
+    model casts them to its activation dtype)."""
+    from repro_torch.configs import get_config, input_specs
+
+    cfg = get_config(arch, smoke=True)
+    specs = input_specs(arch, shape, smoke=True)
+    rng = np.random.default_rng(seed)
+    batch = {}
+    for name, spec in specs.items():
+        if name == "state":
+            continue
+        shape_ = spec.shape
+        if name in ("tokens", "labels", "token"):
+            batch[name] = rng.integers(0, cfg.vocab, shape_).astype(
+                _NP_INT[spec.dtype])
+        elif name == "positions_3d":
+            from repro_torch.models.vlm import build_mrope_positions
+
+            B, S, _ = shape_
+            n_patch = S - specs["tokens"].shape[1]
+            grid = (4, 4) if n_patch == 16 else (32, 32)
+            pos = build_mrope_positions(n_patch, grid, S - n_patch)
+            batch[name] = np.broadcast_to(pos, (B, S, 3)).astype(
+                _NP_INT[spec.dtype])
+        elif name == "loss_mask":
+            B, S = shape_
+            n_patch = S - specs["tokens"].shape[1]
+            m = np.ones((B, S), np.float32)
+            m[:, :n_patch] = 0.0
+            batch[name] = m
+        else:  # float embeddings (the model casts to its activation dtype)
+            batch[name] = rng.normal(size=shape_).astype(np.float32)
+    return cfg, batch

@@ -24,10 +24,18 @@ A CPU tensor is computed by the plain version (`ref.matmul_ref`,
 ``tiled_matmul.launches`` counts the GEMM launches,
 ``tiled_matmul.launches_by_path`` the launches per path, and
 ``split3.launches`` the split kernel's launches.
+
+A ``meta`` tensor (the dry-run, `core.opanalyze`) takes the shape-only
+path: both wrappers choose what the card would launch for those shapes and
+strides (`plan`'s path, tile, layouts and K segments; the split pair's
+`split3`), return an empty meta result of the right shape and dtype, and
+hand a `MetaLaunch` record of it to every `record_meta` block open. Nothing
+is computed and no counter moves: a meta call is not a launch.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -110,6 +118,57 @@ class BlockConfig:
 DEFAULT_CONFIG = BlockConfig(64, 64, 32)   # the general path's tile
 _STREAM_TILES = [BlockConfig(*t) for t, p in TILE_PATHS.items() if p == STREAM]
 _WGMMA_TILES = [BlockConfig(*t) for t, p in TILE_PATHS.items() if p == WGMMA]
+
+
+@dataclasses.dataclass(frozen=True)
+class MetaLaunch:
+    """What the card would launch for one meta call, unpriced (the dry-run
+    prices it, `core.opanalyze.launch_cost`): the GEMM's path ("stream",
+    "wgmma", "split", "general"), or "split3" for the split kernel; its
+    `Plan` (None for split3); the product's (m, n, k) (split3: the f32
+    matrix's rows and columns, k 0); the dtypes of the operands the kernel
+    reads (the split pair: its f32 operand's, which it reads as the three
+    bf16 planes; general casts a mixed pair to f32 first) and of its
+    output; whether it reads C."""
+
+    path: str
+    plan: Plan | None
+    m: int
+    n: int
+    k: int
+    a_dtype: torch.dtype
+    b_dtype: torch.dtype
+    out_dtype: torch.dtype
+    c: bool = False
+
+
+_META_SINKS: list[list] = []
+
+
+@contextlib.contextmanager
+def record_meta():
+    """Within the block, every meta call of `tiled_matmul` and `split3`
+    appends its `MetaLaunch` to the list this yields (blocks nest: each
+    open one gets every record)."""
+    log: list[MetaLaunch] = []
+    _META_SINKS.append(log)
+    try:
+        yield log
+    finally:
+        _META_SINKS.remove(log)
+
+
+def _record(rec: MetaLaunch) -> None:
+    for log in _META_SINKS:
+        log.append(rec)
+
+
+def _mod16(t: torch.Tensor) -> int:
+    """`t`'s base address modulo 16; for a meta tensor, its offset into
+    its storage, whose base the caching allocator aligns on the card."""
+    if t.device.type == "meta":
+        return t.storage_offset() * t.element_size() % 16
+    return t.data_ptr() % 16
 
 
 def candidate_tiles(m: int) -> list[BlockConfig]:
@@ -388,7 +447,8 @@ def split3(x: torch.Tensor) -> Split3:
     tensor is split by the plain version (`ref.split3_ref`); a CUDA tensor
     launches the kernel (``split3_kernel``, counted in
     ``split3.launches``) into a bf16 scratch of 6 bytes an element of `x`,
-    which the result holds."""
+    which the result holds. A meta tensor gets that scratch's shape, and
+    the launch is recorded (`record_meta`), not made."""
     if isinstance(x, Split3):
         return x
     if x.dim() != 2 or x.dtype != torch.float32:
@@ -396,13 +456,18 @@ def split3(x: torch.Tensor) -> Split3:
                         f"tensor of rank {x.dim()}")
     if x.device.type == "cpu":
         return Split3(x, split3_ref(x))
-    if x.device.type != "cuda":
-        raise ValueError(f"split3 runs on cuda or cpu, not {x.device}")
-    from repro_torch.kernels._build import load_library
-
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"split3 runs on cuda, cpu or meta, not {x.device}")
     r, c = x.shape
     ld = -(-c // 8) * 8
     buf = torch.empty((3, r, ld), dtype=torch.bfloat16, device=x.device)
+    if x.device.type == "meta":
+        if r and c:
+            _record(MetaLaunch("split3", None, r, c, 0, x.dtype,
+                               torch.bfloat16, torch.bfloat16))
+        return Split3(x, buf[:, :, :c])
+    from repro_torch.kernels._build import load_library
+
     if r and c:
         err = load_library().repro_split3(
             x.data_ptr(), r, c, x.stride(0), x.stride(1), buf.data_ptr(), ld,
@@ -425,7 +490,7 @@ def _planes(x) -> tuple[tuple[int, int], int]:
     the kernel reads for the f32 operand `x`: a `Split3`'s terms, or those
     `split3` would write (rows padded to a multiple of 8)."""
     if isinstance(x, Split3):
-        return tuple(x.terms.stride()[1:]), x.terms.data_ptr() % 16
+        return tuple(x.terms.stride()[1:]), _mod16(x.terms)
     return (-(-x.shape[1] // 8) * 8, 1), 0
 
 
@@ -450,7 +515,8 @@ def tiled_matmul(
     accuracy); output float32 or bfloat16 (default ``a.dtype``). `c` (M, N)
     is rounded to `out_dtype` before the beta term, as the TPU kernel does.
     `config` forces a compiled tile (see `plan`); by default `plan`
-    chooses."""
+    chooses. Meta operands take the shape-only path (the module
+    docstring)."""
     if a.dim() != 2 or b.dim() != 2:
         raise ValueError("tiled_matmul expects rank-2 operands")
     m, ka = (a.shape[1], a.shape[0]) if transpose_a else a.shape
@@ -476,8 +542,9 @@ def tiled_matmul(
         return matmul_ref(_matrix(a), _matrix(b), c_in,
                           transpose_a=transpose_a, transpose_b=transpose_b,
                           alpha=alpha, beta=beta, out_dtype=out_dtype)
-    if a.device.type != "cuda":
-        raise ValueError(f"tiled_matmul runs on cuda or cpu, not {a.device}")
+    if a.device.type not in ("cuda", "meta"):
+        raise ValueError(f"tiled_matmul runs on cuda, cpu or meta, not "
+                         f"{a.device}")
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if m == 0 or n == 0:
         return out
@@ -485,8 +552,8 @@ def tiled_matmul(
     side = "" if a.dtype == b.dtype else (
         "a" if a.dtype == torch.float32 else "b")
     ta, tb = _matrix(a), _matrix(b)
-    sa = (_planes(a) if side == "a" else (ta.stride(), ta.data_ptr() % 16))
-    sb = (_planes(b) if side == "b" else (tb.stride(), tb.data_ptr() % 16))
+    sa = (_planes(a) if side == "a" else (ta.stride(), _mod16(ta)))
+    sb = (_planes(b) if side == "b" else (tb.stride(), _mod16(tb)))
     sa = (sa[0][::-1] if transpose_a else sa[0], sa[1])      # (m, k)
     sb = (sb[0][::-1] if transpose_b else sb[0], sb[1])      # (k, n)
     p = plan(m, n, ka, sa[0], sb[0], sa[1], sb[1],
@@ -503,6 +570,11 @@ def tiled_matmul(
         ta, tb = ta.float(), tb.float()
     sa = ta.stride()[-2:][::-1] if transpose_a else ta.stride()[-2:]
     sb = tb.stride()[-2:][::-1] if transpose_b else tb.stride()[-2:]
+    if a.device.type == "meta":
+        read = (a, b) if p.path == SPLIT else (ta, tb)
+        _record(MetaLaunch(p.path, p, m, n, ka, read[0].dtype, read[1].dtype,
+                           out_dtype, c_in is not None))
+        return out
     sc = c_in.stride() if c_in is not None else (0, 0)
     _launch(ta, tb, c_in, out, m, n, ka, sa, sb, sc, alpha, beta, p, s_plane)
     tiled_matmul.launches += 1

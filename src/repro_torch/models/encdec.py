@@ -99,10 +99,10 @@ class EncDecLM(nn.Module):
         return self.embed["table"].device
 
 
-def encdec_init(cfg: ModelConfig, generator: torch.Generator, *,
+def encdec_init(cfg: ModelConfig, generator: torch.Generator | None, *,
                 device: str | torch.device = "cuda") -> EncDecLM:
     """An `EncDecLM` on `device` with random weights drawn from `generator`
-    (`transformer.init_weights`' scales)."""
+    (`transformer.init_weights`' scales; on ``meta``, shapes only)."""
     return tfm.init_weights(EncDecLM(cfg, device), cfg, generator)
 
 

@@ -66,10 +66,10 @@ class HybridLM(nn.Module):
         return self.embed["table"].device
 
 
-def hybrid_init(cfg: ModelConfig, generator: torch.Generator, *,
+def hybrid_init(cfg: ModelConfig, generator: torch.Generator | None, *,
                 device: str | torch.device = "cuda") -> HybridLM:
     """A `HybridLM` on `device` with random weights drawn from `generator`
-    (`transformer.init_weights`' scales)."""
+    (`transformer.init_weights`' scales; on ``meta``, shapes only)."""
     return tfm.init_weights(HybridLM(cfg, device), cfg, generator)
 
 

@@ -129,7 +129,11 @@ def moe_ffn_apply(p: Params, x: torch.Tensor, cfg: ModelConfig
         out = out + L.swiglu_apply(p["shared_mlp"], xt, cfg)
 
     # Switch-transformer load-balancing loss: integer counts, exact in f32
-    density = torch.bincount(idx, minlength=E).float() / (T * K)
+    # (a static-shape count, which a meta tensor can take: bincount's
+    # output size depends on the data)
+    counts = torch.zeros(E, dtype=torch.long, device=x.device).index_add_(
+        0, idx, torch.ones_like(idx))
+    density = counts.float() / (T * K)
     aux = cfg.router_aux_coef * E * torch.sum(density * r["probs"].mean(0))
     return out.reshape(B, S, d), aux
 

@@ -29,7 +29,9 @@ from repro_torch.models.config import ModelConfig
 class ModelApi:
     """The functions the engine and the tests call for one family."""
 
-    init: Callable          # (cfg, generator, *, device) -> params module
+    # (cfg, generator, *, device) -> params module; on device="meta" the
+    # generator may be None: shapes and dtypes, no storage (the dry-run)
+    init: Callable
     # the training forward: (params, batch, cfg) -> (loss, metrics), the
     # loss differentiable through every GEMM (batch: tokens and labels;
     # encdec adds src_embeds, vlm patch_embeds, positions_3d and loss_mask)

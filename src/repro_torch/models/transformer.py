@@ -169,7 +169,7 @@ class TransformerLM(nn.Module):
 
 @torch.no_grad()
 def init_weights(model: nn.Module, cfg: ModelConfig,
-                 generator: torch.Generator) -> nn.Module:
+                 generator: torch.Generator | None) -> nn.Module:
     """Fill `model`'s parameters from `generator` (which must live on the
     model's device) with the JAX package's scales: every projection
     N(0, 1/d_in), d_in its second-to-last axis (``wo`` over H*hd,
@@ -178,10 +178,18 @@ def init_weights(model: nn.Module, cfg: ModelConfig,
     and the SSM leaves as `ssm.init_ssm_leaf` sets them. Each tensor is
     drawn in f32 on the device and cast on its own, so no f32 copy of the
     whole model ever exists (the largest transient is one tensor: a
-    deepseek-v2-236b layer's (160, 5120, 1536) experts, 5.0 GB)."""
-    if generator.device.type != model.device.type:
-        raise ValueError(f"generator on {generator.device}, model on "
-                         f"{model.device}")
+    deepseek-v2-236b layer's (160, 5120, 1536) experts, 5.0 GB).
+
+    A model on the ``meta`` device is returned as it is: its parameters
+    have shapes and dtypes and no storage, so there is nothing to draw and
+    `generator` may be None (the dry-run's counterpart of the reference's
+    ``jax.eval_shape(model.init)``)."""
+    if model.device.type == "meta":
+        return model
+    if generator is None or generator.device.type != model.device.type:
+        raise ValueError(f"generator on "
+                         f"{None if generator is None else generator.device}"
+                         f", model on {model.device}")
     for name, w in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf == "scale":
@@ -197,10 +205,10 @@ def init_weights(model: nn.Module, cfg: ModelConfig,
     return model
 
 
-def lm_init(cfg: ModelConfig, generator: torch.Generator, *,
+def lm_init(cfg: ModelConfig, generator: torch.Generator | None, *,
             device: str | torch.device = "cuda") -> TransformerLM:
     """A `TransformerLM` on `device` with random weights drawn from
-    `generator` (see `init_weights`)."""
+    `generator` (see `init_weights`; on ``meta``, shapes only)."""
     return init_weights(TransformerLM(cfg, device), cfg, generator)
 
 

@@ -120,6 +120,50 @@ def test_kernel_matches_plain_version(dev, path, m, dtype, out_dtype, ta, tb):
                                  torch.float32 else torch.bfloat16])
 
 
+def _meta_like(t):
+    """A meta tensor with `t`'s shape, strides, offset and dtype."""
+    base = torch.empty((t.untyped_storage().nbytes() // t.element_size(),),
+                       dtype=t.dtype, device="meta")
+    return base.as_strided(t.shape, t.stride(), t.storage_offset())
+
+
+@pytest.mark.parametrize("forced", [False, True], ids=["plan", "forced"])
+@pytest.mark.parametrize("path,m,dtype,out_dtype,ta,tb", list(_cases()))
+def test_meta_record_is_the_launched_plan(dev, monkeypatch, forced, path, m,
+                                          dtype, out_dtype, ta, tb):
+    """The dry-run's record of a meta call (`record_meta`) carries the
+    Plan the card launches for the same shapes, strides and tile: path,
+    tile, CTA splits, K segments and layouts; the meta call launches
+    nothing."""
+    from repro_torch.kernels import tiled_matmul as tm
+
+    n, k = 200, 296
+    g = torch.Generator(dev).manual_seed(0)
+    dta = dtb = dtype
+    if path == "split":
+        dta, dtb = ((torch.float32, torch.bfloat16) if dtype == "a f32"
+                    else (torch.bfloat16, torch.float32))
+    a = _rows((k, m) if ta else (m, k), g, dev, dta)
+    b = _rows((n, k) if tb else (k, n), g, dev, dtb)
+    kw = dict(config=FORCE[path] if forced else None, transpose_a=ta,
+              transpose_b=tb, out_dtype=out_dtype)
+    launched = []
+    real = tm._launch
+    monkeypatch.setattr(tm, "_launch", lambda *args: (
+        launched.append(args[12]), real(*args))[1])
+    tiled_matmul(a, b, **kw)
+    torch.cuda.synchronize()
+    before = (tiled_matmul.launches, dict(tiled_matmul.launches_by_path))
+    with tm.record_meta() as log:
+        out = tiled_matmul(_meta_like(a), _meta_like(b), **kw)
+    assert (tiled_matmul.launches, tiled_matmul.launches_by_path) == before
+    assert out.device.type == "meta" and tuple(out.shape) == (m, n)
+    recs = [r for r in log if r.path != "split3"]
+    assert len(launched) == 1 and len(recs) == 1
+    assert recs[0].plan == launched[0]
+    assert recs[0].path == launched[0].path
+
+
 @pytest.mark.parametrize("path", ["general", "stream", "wgmma"])
 @pytest.mark.parametrize("m,n,k,view", [
     (64, 256, 512, False),      # contiguous, aligned: 16-byte vector tiles

@@ -106,3 +106,24 @@ def test_ssm_and_hybrid_entry_points_default_to_the_card():
                  lambda: get_model(zamba).init_state(zamba, 1, 8)):
         with pytest.raises(RuntimeError, match="GPU"):
             make()
+
+
+def test_dry_run_needs_neither_jax_nor_a_gpu(tmp_path):
+    """`python -m repro_torch.launch.dryrun` runs a full-width cell on
+    meta tensors in a process that loads no JAX, no JAX package and no
+    CUDA context."""
+    code = (
+        "import json, sys, torch\n"
+        "from repro_torch.launch import dryrun\n"
+        f"rc = dryrun.main(['--arch', 'starcoder2-3b', '--shape', "
+        f"'decode_32k', '--out', {str(tmp_path)!r}])\n"
+        "print(json.dumps([rc, torch.cuda.is_initialized(), sorted(\n"
+        "    m for m in sys.modules\n"
+        "    if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
+        "    or m == 'repro' or m.startswith('repro.'))]))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, timeout=300, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == [0, False, []]
+    assert (tmp_path / "h100x1" / "starcoder2-3b_decode_32k.json").exists()
