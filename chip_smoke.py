@@ -29,7 +29,12 @@ build of PyTorch. Phases, each fatal on failure:
    its padded rows, ldb 256208), and fault C2's: attention's row 0 the
    same bits in decode steps, short chunks and a long prefill; and the
    encoder's non-causal attention gives row 0 the same bits over 8-512
-   keys (its admission bucket) and batch 1-8;
+   keys (its admission bucket) and batch 1-8; and tensor parallelism's:
+   for every serving (N, K) of qwen2-7b at tp = 2 and 4, each rank's
+   column shard, whole and cut into 4 chunks, launched with
+   ``segments_n`` = N, bit-equal to the same columns of the whole product
+   at M = 1, 4, 8, 64, 65 and 128, and attention giving each head the same
+   bits at 28, 14 and 7 query heads (4, 2 and 1 KV heads);
 4. serve: full-width, full-depth qwen2-7b with seeded random weights; the
    continuous-batching engine answers 10 requests (prompts of 16-300
    tokens, 8-32 new tokens); the kernel's launch counter must equal the
@@ -191,14 +196,29 @@ build of PyTorch. Phases, each fatal on failure:
    5e-2); (d) the dry-run of (a)'s step at its depth and batch (phase 15
    (e)'s check).
 
+17. tensor-parallel serving, run after phase 14 with phase 4's weights
+   freed: full-width, full-depth qwen2-7b at tp = 2 in two rank processes
+   on the one card, a gloo group between them (`launch.mesh.RankPool`;
+   NCCL refuses two ranks on one device): each rank makes phase 4's seeded
+   weights, cuts its shard (heads, FFN columns, vocabulary) and frees the
+   rest, then serves 4 of phase 4's requests at phase 4's engine settings
+   with 4 row-parallel chunks. Gates: every stream on both ranks equal to
+   phase 4's, token for token; each rank's launches = 365 per forward
+   (q, k, v, gate, up, 4 chunks each of o and down, per layer, and the
+   head's shard) x its forwards, none on general; its collectives = 282
+   per forward. It prints per rank the tokens, forwards and seconds, the
+   collectives and their host time, the weights it holds and its peak
+   device memory while serving, and the phase's seconds.
+
 After phase 10, ``build/serving_shapes.json`` holds qwen2-7b's and
 qwen2.5-14b's serving launches by shape, for ``tools/gemm_sums.py``.
 
-It prints a JSON line of per-kernel numbers (launches and times summed
-over phases 4-5, 12, 13, 14, 15 (a) and 16 (a), the runs of the port's main
-paths: the GEMM's stream, wgmma and split paths and the split kernel; no
-launch of those runs takes the general path, the yardstick in each entry's
-v3_ms) and, last, the device line.
+It prints a JSON line of per-kernel numbers (launches summed over phases
+4, 12, 13, 14, 17 (both ranks), 15 (a) and 16 (a), times over phases 5,
+12, 13, 14, 15 (a) and 16 (a): the runs of the port's main paths; the
+GEMM's stream, wgmma and split paths and the split kernel; no launch of
+those runs takes the general path, the yardstick in each entry's v3_ms)
+and, last, the device line.
 Without a GPU, or without the repository beside it, it exits non-zero.
 """
 
@@ -251,11 +271,12 @@ PAPER_RUNTIME_R2, PAPER_RUNTIME_MEAN_PCT = 0.98, 15.57
 # 500 rows since a run whose energy tuner took 282 s for 184 candidates,
 # against about 100 s in others, brought the whole script to 1,194 s: 200
 # rows fewer at that run's 0.556 s a row take 111 s off, 1,083 s, under the
-# 1,100 s cap; phase 9 prints where the tuner's time goes), and
+# 1,100 s cap; phase 9 prints where the tuner's time goes; 450 since phase
+# 17, tensor-parallel serving, added about 27 s: 50 rows take it back), and
 # the held-out power R2 below which the pipeline is broken (swapped columns
 # or the simulator's power give about 0 or below). The paper's power figures
 # on its RTX 4070 are printed beside the card's.
-POWER_ROWS = 500
+POWER_ROWS = 450
 POWER_SWEEP_BUDGET_S = 390.0
 POWER_MIN_R2 = 0.5
 # the largest compute- and memory-bound rows are measured again over this
@@ -876,6 +897,115 @@ def _encoder_attention_rows(dev, g) -> None:
                          f"{bad[:10]}")
 
 
+# tensor-parallel degrees and the row-parallel chunk count phase 3 holds a
+# shard's columns and a rank's attention heads to the whole product's bits
+TP_DEGREES = (2, 4)
+TP_CHUNKS = 4
+SHARD_M = (1, 4, 8, 64, 65, 128)
+
+
+def _shard_columns(dev, g) -> None:
+    """Tensor parallelism's bits: for every serving (N, K) of qwen2-7b
+    (its fleet, `_serving_nk`'s rule) at tp = 2 and 4, each rank's
+    contiguous column shard (`sharding.local_copy`), whole and cut into
+    `TP_CHUNKS` column chunks as `tp.row_parallel_gather` cuts it (views of
+    the shard), launched with ``segments_n`` = the whole N, must give
+    bit for bit the same columns of the unsharded product, at M in
+    `SHARD_M`: a tp=2 engine's streams rest on it."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import local_copy
+    from repro_torch.distributed.tp import _n_chunks
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.tiled_matmul import tiled_matmul
+
+    cfg = get_config("qwen2-7b")
+    fleet = set(ops.serving_gemm_fleet(cfg, max_batch=4, max_len=512,
+                                       chunk_tokens=64, lane_width=8))
+    nks = sorted({(n, k) for _, n, k in fleet})
+    t0 = time.perf_counter()
+    bad, cases = [], 0
+    for n, k in nks:
+        out = torch.float32 if n == cfg.vocab else torch.bfloat16
+        a = torch.randn((max(SHARD_M), k), generator=g, device=dev).to(
+            torch.bfloat16)
+        b = _weight(dev, g, k, n, torch.bfloat16)
+        want = {m: tiled_matmul(a[:m], b, out_dtype=out) for m in SHARD_M}
+        for tp in TP_DEGREES:
+            for rank in range(tp):
+                w = local_copy(b, 1, rank, tp)
+                n_loc = w.shape[1]
+                for chunks in (1, TP_CHUNKS):
+                    c = _n_chunks(n_loc, chunks)
+                    width = n_loc // c
+                    for i in range(c):
+                        lo = rank * n_loc + i * width
+                        for m in SHARD_M:
+                            got = tiled_matmul(
+                                a[:m], w[:, i * width:(i + 1) * width],
+                                out_dtype=out, segments_n=n)
+                            cases += 1
+                            if not torch.equal(got,
+                                               want[m][:, lo:lo + width]):
+                                bad.append((m, n, k, tp, rank, c, i))
+                del w
+        del a, b, want
+    torch.cuda.synchronize()
+    _say(f"[kernel rows] tensor-parallel columns: {len(nks)} serving (N, K) "
+         f"of qwen2-7b at tp {TP_DEGREES}, each rank's shard whole and in "
+         f"{TP_CHUNKS} chunks (segments_n = N), M in {SHARD_M}: {cases} "
+         f"calls bit-equal to the unsharded product's columns {not bad} "
+         f"({len(bad)} mismatches) in {time.perf_counter() - t0:.1f} s")
+    if bad:
+        raise SystemExit(f"a shard's columns differ from the whole "
+                         f"product's: {bad[:10]}")
+
+
+def _shard_heads(dev, g) -> None:
+    """Attention (`layers._sdpa`) gives each head the same bits whether the
+    call holds all of qwen2-7b's 28 query heads (4 KV heads) or one rank's
+    14 (2) or 7 (1) at tp = 2 and 4: a decode step (1 query, at per-row
+    positions), a 64-query chunk and a 300-query prefill, at batch 1, 4
+    and 8, dense and with a page-validity mask."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.layers import _sdpa
+
+    cfg = get_config("qwen2-7b")
+    H, KV, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
+    q = torch.randn((8, 300, H, hd), generator=g, device=dev).to(
+        torch.bfloat16)
+    k, v = (torch.randn((8, 512, KV, hd), generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    valid = torch.rand((8, 512), generator=g, device=dev) > 0.1
+    bad, cases = [], 0
+    for nb in (1, 4, 8):
+        pos = torch.randint(300, 448, (nb,), generator=g, device=dev)
+        for sq, kw in ((1, dict(q_offset=pos, kv_len=pos + 1)),
+                       (64, dict(q_offset=pos, kv_len=pos + 64)),
+                       (300, dict(q_offset=0, kv_len=300))):
+            for mask in (None, valid[:nb]):
+                want = _sdpa(q[:nb, :sq], k[:nb], v[:nb], causal=True,
+                             kv_valid=mask, **kw)
+                for tp in TP_DEGREES:
+                    h, kvh = H // tp, KV // tp
+                    for r in range(tp):
+                        got = _sdpa(q[:nb, :sq, r * h:(r + 1) * h],
+                                    k[:nb, :, r * kvh:(r + 1) * kvh],
+                                    v[:nb, :, r * kvh:(r + 1) * kvh],
+                                    causal=True, kv_valid=mask, **kw)
+                        cases += 1
+                        if not torch.equal(got,
+                                           want[:, :, r * h:(r + 1) * h]):
+                            bad.append((nb, sq, mask is not None, tp, r))
+    del q, k, v
+    _say(f"[kernel rows] attention heads {H}/{KV} of {hd} against one "
+         f"rank's {H // 2}/{KV // 2} and {H // 4}/{KV // 4} (tp 2 and 4): "
+         f"{cases} calls (decode, 64- and 300-query chunks, batch 1/4/8, "
+         f"dense and paged masks) bit-equal {not bad}")
+    if bad:
+        raise SystemExit(f"attention's head bits depend on the heads in the "
+                         f"call: {len(bad)} of {cases} calls, {bad[:20]}")
+
+
 def _row_invariance(dev) -> None:
     """Fault C1: for every serving (N, K) of the eight configs (`_serving_nk`)
     and both output dtypes, the rows of an M = 4 call are bit-equal to the
@@ -924,6 +1054,8 @@ def _row_invariance(dev) -> None:
     _norm_rows(dev, g)
     _attention_rows(dev, g)
     _encoder_attention_rows(dev, g)
+    _shard_columns(dev, g)
+    _shard_heads(dev, g)
     _say(f"[kernel rows] {len(shapes)} serving (N, K) x 2 output dtypes x M "
          f"in {ROW_INVARIANCE_M}, and {len(tied)} tied head(s) on the (N, K) "
          f"layout at M in (1, 8, 64): rows 0-3 bit-equal to the M = 4 "
@@ -966,14 +1098,15 @@ def _init_model(dev, arch: str, tag: str, layers: int | None = None
 def phase_serve(dev):
     """Serve 10 requests on full qwen2-7b; returns (engine, model API,
     params, cfg, the GEMM launches the run issued by (M, N, K, in dtype,
-    out dtype, None), the launches per kernel path)."""
+    out dtype, None), the launches per kernel path, the streams by
+    uid)."""
     from repro_torch.serving.engine import ServingEngine
 
     cfg, api, params = _init_model(dev, "qwen2-7b", "serve")
     eng = ServingEngine(api, params, cfg, max_batch=4, max_len=512,
                         chunk_tokens=64, device=dev)
     shapes: collections.Counter = collections.Counter()
-    by_path, _, _ = _serve_requests("serve", eng, cfg, shapes)
+    by_path, results, _ = _serve_requests("serve", eng, cfg, shapes)
     _say(f"[serve] launches per path: stream {by_path['stream']}, wgmma "
          f"{by_path['wgmma']}, general {by_path['general']} (every bf16 "
          f"serving GEMM must take a fast path)")
@@ -981,7 +1114,8 @@ def phase_serve(dev):
             or by_path["wgmma"] == 0):
         raise SystemExit(f"serving launches by path {by_path}: expected all "
                          "on stream and wgmma, none on general")
-    return eng, api, params, cfg, shapes, by_path
+    streams = {r.uid: r.tokens.tolist() for r in results}
+    return eng, api, params, cfg, shapes, by_path, streams
 
 
 # phase 13's modality inputs, one per request of `_requests`: source
@@ -3293,6 +3427,162 @@ TRAIN_DIR = ROOT / "build" / "chip_smoke_train"
 GEMM_PATHS = ("stream", "wgmma", "split", "general")
 
 
+# phase 17: tensor-parallel serving of full qwen2-7b in TP_RANKS rank
+# processes on the one card (gloo: NCCL refuses two ranks on one device),
+# the requests of phase 4's ten it serves (prompts of 16, 45, 64 and 77
+# tokens: chunk calls on both paths), and each rank's time limit
+TP_RANKS = 2
+TP_UIDS = (0, 2, 4, 7)
+TP_TIMEOUT_S = 600
+
+
+def _tp_gemms_per_forward(cfg, tp: int, chunks: int) -> int:
+    """One rank's GEMM launches in one forward of a dense model at `tp`:
+    q, k, v, gate and up once each (this rank's columns), wo and down once
+    per column chunk (`tp._n_chunks` of the rank's d_model / tp columns),
+    and the head (its vocab shard)."""
+    from repro_torch.distributed.tp import _n_chunks
+
+    c = _n_chunks(cfg.d_model // tp, chunks) if cfg.d_model % tp == 0 else 1
+    return cfg.n_layers * (3 + (2 if cfg.gated_mlp else 1) + 2 * c) + 1
+
+
+def _tp_collectives_per_forward(cfg, tp: int, chunks: int) -> int:
+    """One rank's collectives in one forward of a dense model at `tp`: the
+    vocab-sharded embedding's gather, per layer each row-parallel
+    projection's input gather and one gather per column chunk (wo and
+    down), and the head's logits gather."""
+    from repro_torch.distributed.tp import _n_chunks
+
+    c = _n_chunks(cfg.d_model // tp, chunks)
+    return 1 + cfg.n_layers * 2 * (1 + c) + 1
+
+
+def _tp_rank(mesh, uids: tuple, chunks: int) -> dict:
+    """One rank of phase 17, in its own process: phase 4's seeded weights
+    on the card, this rank's shard cut (the rest freed), then the requests
+    `uids` of `_requests` through a tp engine at phase 4's settings, the
+    launch and collective counters set to 0 just before the run and read
+    just after. Returns the streams and the counts, memory and times."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import tp as TP
+    from repro_torch.kernels._build import load_library
+    from repro_torch.kernels.tiled_matmul import tiled_matmul
+    from repro_torch.models.registry import get_model
+    from repro_torch.serving.engine import ServingEngine
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    load_library()
+    cfg = get_config("qwen2-7b")
+    api = get_model(cfg)
+    params = api.init(cfg, torch.Generator(dev).manual_seed(0), device=dev)
+    whole = sum(p.numel() * p.element_size() for p in params.parameters())
+    eng = ServingEngine(api, params, cfg, max_batch=4, max_len=512,
+                        chunk_tokens=64, device=dev, tp=mesh.tp, mesh=mesh,
+                        tp_overlap_chunks=chunks)
+    _free()
+    held = sum(p.numel() * p.element_size() for p in params.parameters())
+    t_ready = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reqs = [_requests(cfg)[u] for u in uids]
+    for r in reqs:
+        eng.submit(r)
+    tiled_matmul.launches = 0
+    tiled_matmul.launches_by_path.update(
+        dict.fromkeys(tiled_matmul.launches_by_path, 0))
+    TP.collectives.calls, TP.collectives.host_s = 0, 0.0
+    t1 = time.perf_counter()
+    results = eng.run_until_empty()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t1
+    rep = eng.report()
+    return {"streams": {r.uid: r.tokens.tolist() for r in results},
+            "budgets": {r.uid: eng._budget(r) for r in reqs},
+            "launches": tiled_matmul.launches,
+            "by_path": dict(tiled_matmul.launches_by_path),
+            "collectives": TP.collectives.calls,
+            "collective_host_s": TP.collectives.host_s,
+            "forwards": rep["chunk_steps"] + rep["decode_steps"],
+            "tokens": rep["generated_tokens"],
+            "whole_bytes": whole, "held_bytes": held,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "ready_s": t_ready, "serve_s": serve_s,
+            "collective_wire_s": rep["collective_wire_s"],
+            "model_s": rep["model_s"]}
+
+
+def phase_tp(want: dict) -> dict:
+    """Phase 17: full-width, full-depth qwen2-7b served tensor-parallel at
+    tp = `TP_RANKS` in as many processes on the one card, a gloo group
+    between them (`launch.mesh.RankPool`). Each rank makes phase 4's
+    seeded weights, cuts its shard and serves `TP_UIDS` at phase 4's engine
+    settings with `TP_CHUNKS` row-parallel chunks. Gates: every stream on
+    every rank equals phase 4's stream `want[uid]`, token for token; each
+    rank's launches equal `_tp_gemms_per_forward` x its forwards, none on
+    general, and its collectives `_tp_collectives_per_forward` x its
+    forwards. A rank that fails, outlives `TP_TIMEOUT_S` or exits with
+    another code than 0 fails the phase. Returns the launches per path
+    summed over the ranks."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import RankPool
+
+    t0 = time.perf_counter()
+    cfg = get_config("qwen2-7b")
+    pool = RankPool(TP_RANKS, backend="gloo", timeout_s=TP_TIMEOUT_S)
+    try:
+        ranks = pool.run(_tp_rank, TP_UIDS, TP_CHUNKS)
+    finally:
+        codes = pool.close()
+    per_fwd = _tp_gemms_per_forward(cfg, TP_RANKS, TP_CHUNKS)
+    coll_fwd = _tp_collectives_per_forward(cfg, TP_RANKS, TP_CHUNKS)
+    launched = collections.Counter()
+    failed = []
+    for r, out in enumerate(ranks):
+        launched.update(out["by_path"])
+        same = all(out["streams"].get(u) == list(want[u]) for u in TP_UIDS)
+        full = all(len(out["streams"].get(u, ())) == out["budgets"][u]
+                   for u in TP_UIDS)
+        fw, coll = out["forwards"], out["collectives"]
+        _say(f"[tp rank {r}] {len(out['streams'])} requests, "
+             f"{out['tokens']} tokens in {fw} forwards, serve "
+             f"{out['serve_s']:.3f} s ({out['tokens'] / out['serve_s']:.2f} "
+             f"tokens/s), ready in {out['ready_s']:.1f} s; streams equal "
+             f"phase 4's {same}; launches {out['launches']} = {per_fwd} x "
+             f"{fw}? {out['launches'] == per_fwd * fw} (by path "
+             f"{out['by_path']}); collectives {out['collectives']} = "
+             f"{coll_fwd} x {fw}? {out['collectives'] == coll_fwd * fw}, "
+             f"host time {out['collective_host_s']:.3f} s "
+             f"({1e3 * out['collective_host_s'] / max(fw, 1):.2f} ms a "
+             f"forward, {1e3 * out['collective_host_s'] / max(coll, 1):.3f}"
+             f" ms a collective); weights held {out['held_bytes'] / 1e9:.2f} "
+             f"GB of {out['whole_bytes'] / 1e9:.2f} GB, peak device memory "
+             f"serving {out['peak_bytes'] / 1e9:.2f} GB; model clock "
+             f"{out['model_s']:.3f} s, wire {out['collective_wire_s']:.6f} s")
+        if not (same and full):
+            failed.append(f"rank {r} streams differ from phase 4's: "
+                          f"{out['streams']}")
+        if (out["launches"] != per_fwd * fw or out["by_path"]["general"]
+                or out["collectives"] != coll_fwd * fw):
+            failed.append(f"rank {r} launched {out['by_path']} and "
+                          f"{out['collectives']} collectives in {fw} "
+                          "forwards")
+    streams = [out["streams"] for out in ranks]
+    if any(s != streams[0] for s in streams):
+        failed.append("the ranks' streams differ")
+    if any(codes):
+        failed.append(f"rank processes exited with {codes}")
+    _say(f"[tp] qwen2-7b at tp={TP_RANKS} ({TP_CHUNKS} chunks) in "
+         f"{TP_RANKS} processes on one card (gloo): requests {TP_UIDS} "
+         f"identical to phase 4's on every rank {not failed}; phase took "
+         f"{time.perf_counter() - t0:.1f} s")
+    if failed:
+        raise SystemExit("; ".join(failed))
+    return {"launches": launched}
+
+
 def _f32_outs(cfg) -> int:
     """The products of one forward with f32 out from bf16 operands, whose
     backward is the split pair: the LM head and, for the MoE kinds, each
@@ -4304,7 +4594,7 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_build()
     phase_kernel_cases(dev)
-    eng, api, params, cfg, shapes, by_path = phase_serve(dev)
+    eng, api, params, cfg, shapes, by_path, streams = phase_serve(dev)
     entries = phase_serving_shapes(dev, shapes)
     untraced = phase_forwards(dev, eng, params, cfg)
     phase_logits(dev, eng, params, cfg)
@@ -4313,6 +4603,7 @@ def main() -> int:
     fleet = phase_fleet(dev, api, params, cfg)
     del eng, params, loop
     _free()
+    tp = phase_tp(streams)
     dense = phase_dense(dev)
     _write_shapes({"qwen2-7b": shapes, **dense["shapes"]})
     phase_moe(dev)
@@ -4330,7 +4621,7 @@ def main() -> int:
     # path (every phase checks 0 there): it is the first version of the
     # kernel, and each GEMM entry's v3_ms times it at the same shapes
     launched = sum([*ssm["launches"].values(), *admit["launches"].values(),
-                    fleet["launches"], train["launches"],
+                    fleet["launches"], tp["launches"], train["launches"],
                     families["launches"]], collections.Counter(by_path))
     merged = _merge_entries([entries, *ssm["entries"].values(),
                              *admit["entries"].values(), fleet["entries"],

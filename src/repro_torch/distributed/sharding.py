@@ -1,0 +1,271 @@
+"""Which axis of each parameter and decode-state leaf a tensor-parallel
+rank holds a shard of, and the cutting of a rank's local copy.
+
+The counterpart of the JAX package's `repro.distributed.sharding` for the
+port's SPMD idiom: one process per rank, each holding only its own shard,
+with explicit collectives (`distributed.tp`). The rules are the
+reference's, copied whole: `PARAM_RULES` maps a leaf's path to logical
+names for its trailing axes, `GATHER_PARAM_RULES` flips the row-parallel
+weights to column sharding in gather mode (the serving engine's), and
+`SERVING_STATE_AXES` names the head axis of each decode-state leaf. On a
+serving mesh, (1, tp) over ("data", "model"), only "model" (and "expert",
+which rides it) shards anything; an axis that tp does not divide stays
+whole (`sanitize_spec`), as the reference's jit shardings demand.
+
+Where the reference returns `PartitionSpec`s for GSPMD to place, the port
+needs the one sharded axis per leaf (`param_axes`, `state_axis`) and cuts
+each rank's contiguous local copy (`shard_params`): a shard never reaches
+the GEMM as a strided view of the whole.
+
+`set_mesh`/`current_mesh` hold the mesh on the thread, as the reference's
+`set_mesh_rules`/`current_mesh` do: the serving engine installs its own
+before every call (`ServingEngine._activate`), and the model code reads
+it where a cache is allocated (`local_state_shape`) or a projection is
+sharded (`distributed.tp`).
+"""
+
+from __future__ import annotations
+
+import fnmatch
+import threading
+
+import torch
+
+_STATE = threading.local()
+
+
+def set_mesh(mesh) -> None:
+    """Install `mesh` (a `launch.mesh.Mesh`, or None for one chip) as the
+    thread's current mesh."""
+    _STATE.mesh = mesh
+
+
+def current_mesh():
+    """The thread's current mesh, or None."""
+    return getattr(_STATE, "mesh", None)
+
+
+def model_size(mesh=None) -> int:
+    """The size of the "model" axis of `mesh` (default: the current mesh);
+    1 without one."""
+    mesh = mesh if mesh is not None else current_mesh()
+    return 1 if mesh is None else int(mesh.shape["model"])
+
+
+# ---------------------------------------------------------------------------
+# Parameter partitioning: path-pattern -> logical axes for the *trailing*
+# dims. First match wins. (The reference's tables, whole.)
+# ---------------------------------------------------------------------------
+
+PARAM_RULES: list[tuple[str, tuple[str | None, ...]]] = [
+    # embeddings / heads
+    ("*embed/table", ("model", "fsdp")),          # (vocab, d)
+    ("*head/w", ("fsdp", "model")),               # (d, vocab)
+    # attention (incl. stacked (L, ...) leaves — trailing dims matched)
+    ("*attn/wq", ("fsdp", "model")),
+    ("*attn/wk", ("fsdp", "model")),
+    ("*attn/wv", ("fsdp", "model")),
+    ("*attn/wo", ("model", "fsdp")),
+    ("*attn/b?", ("model",)),
+    # MLA projections
+    ("*attn/w_dkv", ("fsdp", None)),              # (d, kv_lora)
+    ("*attn/w_kpe", ("fsdp", None)),
+    ("*attn/w_uk", (None, "model")),              # (kv_lora, H*hd)
+    ("*attn/w_uv", (None, "model")),
+    ("*attn/w_dq", ("fsdp", None)),
+    ("*attn/w_uq", (None, "model")),
+    # dense MLP
+    ("*mlp/w_gate", ("fsdp", "model")),
+    ("*mlp/w_up", ("fsdp", "model")),
+    ("*mlp/w_down", ("model", "fsdp")),
+    # MoE experts: expert axis -> EP mesh axis; remaining dims -> TP/fsdp
+    ("*experts/w_gate", ("expert", "fsdp_or_tp", "tp_if_ep_data")),
+    ("*experts/w_up", ("expert", "fsdp_or_tp", "tp_if_ep_data")),
+    ("*experts/w_down", ("expert", "tp_if_ep_data", "fsdp_or_tp")),
+    ("*router/w", ("fsdp", None)),                 # (d, E)
+    ("*shared_mlp/w_gate", ("fsdp", "model")),
+    ("*shared_mlp/w_up", ("fsdp", "model")),
+    ("*shared_mlp/w_down", ("model", "fsdp")),
+    # SSM (mamba1/mamba2)
+    ("*ssm/in_proj", ("fsdp", "model")),           # (d, 2*di) / (d, proj)
+    ("*ssm/conv_w", ("model", None)),              # (channels, d_conv)
+    ("*ssm/conv_b", ("model",)),
+    ("*ssm/x_proj", ("model", None)),              # (di, dt_rank + 2*ds)
+    ("*ssm/dt_proj", (None, "model")),             # (dt_rank, di)
+    ("*ssm/dt_bias", ("model",)),
+    ("*ssm/A_log", ("model", None)),               # (di, ds) or (H,)
+    ("*ssm/D", ("model",)),
+    ("*ssm/out_proj", ("model", "fsdp")),          # (di, d)
+    ("*ssm/norm_scale", ("model",)),
+    # norms and everything else: replicated
+    ("*scale", (None,)),
+    ("*", ()),
+]
+
+# Gather-mode TP (the serving engine's bit-stable mode, cfg.tp_reduce ==
+# "gather"): row-parallel weights flip to COLUMN sharding (the full
+# contraction stays on one rank — see distributed.tp.row_parallel_gather)
+# and no weight leaves a contracting dim sharded. Checked before
+# PARAM_RULES; first match wins.
+GATHER_PARAM_RULES: list[tuple[str, tuple[str | None, ...]]] = [
+    ("*attn/wo", (None, "model")),
+    ("*mlp/w_down", (None, "model")),
+    ("*shared_mlp/w_down", (None, "model")),
+    ("*ssm/out_proj", (None, "model")),
+    ("*ssm/x_proj", (None, None)),   # tiny; contracts the sharded di
+]
+
+
+def _match(path: str, tp_reduce: str = "psum") -> tuple[str | None, ...]:
+    """The logical names of the trailing axes of the leaf at `path`
+    ("/"-separated)."""
+    if tp_reduce == "gather":
+        for pat, spec in GATHER_PARAM_RULES:
+            if fnmatch.fnmatch(path, pat):
+                return spec
+    for pat, spec in PARAM_RULES:
+        if fnmatch.fnmatch(path, pat):
+            return spec
+    return ()
+
+
+# the logical names a (1, tp) serving mesh puts on "model": the reference's
+# `_logical_to_mesh` as `param_pspecs` calls it (no fsdp, experts on the
+# "model" axis); every other name is replicated
+MODEL_AXIS_NAMES = ("model", "expert")
+
+
+def sanitize_spec(spec: tuple, shape: tuple[int, ...], tp: int) -> tuple:
+    """Drop the "model" axis where tp does not divide its dim (the
+    reference's rule: jit in_shardings demand exact divisibility)."""
+    axes = list(spec) + [None] * (len(shape) - len(spec))
+    return tuple(ax if (ax is not None and dim % tp == 0) else None
+                 for ax, dim in zip(axes, shape))
+
+
+def leaf_axis(path: str, shape: tuple[int, ...], tp: int,
+              tp_reduce: str = "psum") -> int | None:
+    """The axis of a leaf of `shape` at `path` ("/"-separated, leading
+    stacked-layer axes allowed) that a (1, tp) serving mesh shards over
+    "model", or None (replicated)."""
+    if tp <= 1:
+        return None
+    logical = _match(path, tp_reduce)[:len(shape)]
+    names = (None,) * (len(shape) - len(logical)) + tuple(logical)
+    spec = sanitize_spec(tuple("model" if n in MODEL_AXIS_NAMES else None
+                               for n in names), shape, tp)
+    axes = [i for i, ax in enumerate(spec) if ax is not None]
+    return axes[0] if axes else None
+
+
+def param_path(name: str) -> str:
+    """A port parameter name ("blocks.3.attn.wq") as the "/"-separated
+    path the rules match ("blocks/3/attn/wq")."""
+    return name.replace(".", "/")
+
+
+def param_axes(model: torch.nn.Module, tp: int,
+               tp_reduce: str = "gather") -> dict[str, int | None]:
+    """{parameter name: its axis sharded over "model", or None} of an
+    unsharded `model` (any device, ``meta`` included) on a (1, tp) mesh:
+    the port's `param_pspecs`."""
+    return {name: leaf_axis(param_path(name), tuple(p.shape), tp, tp_reduce)
+            for name, p in model.named_parameters()}
+
+
+def local_copy(full: torch.Tensor, axis: int | None, rank: int,
+               tp: int) -> torch.Tensor:
+    """Rank `rank`'s contiguous block of `full` along `axis` (the whole
+    tensor for None), as a fresh tensor. A matrix whose local rows are not
+    a multiple of 8 elements is stored on rows padded to one (the view is
+    the parameter), so the GEMM's fast paths still read it
+    (`transformer.head_params`)."""
+    if axis is None:
+        return full
+    n = full.shape[axis] // tp
+    part = full.narrow(axis, rank * n, n)
+    if part.dim() == 2 and part.shape[1] % 8:
+        store = torch.empty((part.shape[0], -(-part.shape[1] // 8) * 8),
+                            dtype=part.dtype, device=part.device)
+        store[:, :part.shape[1]] = part
+        return store[:, :part.shape[1]]
+    return part.contiguous()
+
+
+@torch.no_grad()
+def shard_params(model: torch.nn.Module, mesh, tp_reduce: str = "gather",
+                 whole: torch.nn.Module | None = None) -> torch.nn.Module:
+    """Cut `mesh`'s rank's shard of every parameter of `model`, in place:
+    each sharded parameter's data becomes its local copy (`local_copy`) and
+    the whole is released. `whole` is the unsharded model (on ``meta``
+    will do) when `model` may already hold this rank's shard (an earlier
+    engine cut it): a parameter of its shard's shape is kept, one of any
+    other shape raises ValueError. Returns `model`."""
+    tp = model_size(mesh)
+    ref = model if whole is None else whole
+    axes = param_axes(ref, tp, tp_reduce)
+    shapes = {n: tuple(p.shape) for n, p in ref.named_parameters()}
+    cut = {}
+    for name, p in model.named_parameters():
+        ax, full = axes[name], shapes[name]
+        local = tuple(n // tp if i == ax else n for i, n in enumerate(full))
+        if tuple(p.shape) not in (full, local):
+            raise ValueError(f"{name}: shape {tuple(p.shape)} is neither "
+                             f"{full} nor its shard {local}")
+        if ax is not None and tuple(p.shape) == full:
+            cut[name] = ax
+    for name, ax in cut.items():
+        p = model.get_parameter(name)
+        p.data = local_copy(p.data, ax, mesh.rank, tp)
+    return model
+
+
+# ---------------------------------------------------------------------------
+# Serving-state sharding: decode caches sharded along their head axis.
+# ---------------------------------------------------------------------------
+
+# leaf basename -> axis carrying heads (or head-grouped channels). KV cache
+# leaves are (L, B, T, KV, hd) (dense) or (L, pages, page, KV, hd) (paged
+# pool): heads sit second-to-last. SSM conv history (L, B, K-1, channels)
+# shards its channel axis; SSM scan state is (L, B, di, ds) (mamba1) or
+# (L, B, H, ...) (mamba2) — axis 2 either way. MLA latent leaves are
+# rank-compressed, shared across heads: replicated. Enc-dec cross-KV
+# (xk/xv) is (L, B, T, KV, hd) like self-attn KV. Per-row scalars (src_len,
+# pos_off, index) have no rule and stay replicated. (The reference's table.)
+SERVING_STATE_AXES: dict[str, int] = {"k": -2, "v": -2,
+                                      "xk": -2, "xv": -2,
+                                      "k_pages": -2, "v_pages": -2,
+                                      "conv": -1, "ssm": 2}
+
+
+def state_axis(name: str, shape: tuple[int, ...], tp: int) -> int | None:
+    """The axis a (1, tp) mesh shards of the decode-state leaf `name` of
+    `shape` (the reference's `serving_state_pspecs`), or None."""
+    ax = SERVING_STATE_AXES.get(name)
+    if ax is None or not shape or tp <= 1:
+        return None
+    ax = ax % len(shape)
+    return ax if shape[ax] % tp == 0 else None
+
+
+def state_axes(tree, tp: int):
+    """`state_axis` of every leaf of a decode-state tree (nested dicts of
+    tensors), keyed like the tree."""
+    def walk(t, name):
+        if isinstance(t, dict):
+            return {k: walk(v, k) for k, v in t.items()}
+        return state_axis(name, tuple(t.shape), tp)
+
+    return walk(tree, "")
+
+
+def local_state_shape(name: str, shape: tuple[int, ...]) -> tuple[int, ...]:
+    """The local shape, under the current mesh, of the decode-state leaf
+    `name` whose whole shape is `shape`: its head axis divided by tp where
+    `state_axis` shards it. Every cache allocator of the port takes its
+    shape from here, so a rank holds only its heads' cache."""
+    tp = model_size()
+    ax = state_axis(name, tuple(shape), tp)
+    if ax is None:
+        return tuple(shape)
+    return tuple(n // tp if i == ax else n for i, n in enumerate(shape))

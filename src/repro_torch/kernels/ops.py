@@ -206,6 +206,7 @@ def serving_gemm_fleet(cfg, *, max_batch: int, max_len: int,
                        chunk_tokens: int | None = None,
                        lane_width: int | None = None,
                        kv_cap: int | None = None,
+                       tp: int = 1,
                        grain: int = SSM_SERVE_GRAIN
                        ) -> list[tuple[int, int, int]]:
     """Every GEMM shape a serving engine will trace: the batched prefill
@@ -233,8 +234,9 @@ def serving_gemm_fleet(cfg, *, max_batch: int, max_len: int,
     admission is not capped at `chunk_tokens`) at pow2 widths through the
     lane cap and the full batch (the wave admits a whole batch at once).
 
-    The reference's fleet at tp=1 (its tensor-parallel shards come with
-    ROADMAP A7). Like the reference's, it comes from `gemm_shape_counts`, so
+    With `tp > 1` the fleet is the per-shard extents (`gemm_shape_counts`
+    at `tp`), as in the reference. Like the reference's, it comes from
+    `gemm_shape_counts`, so
     for the MoE families it holds the routed-expert shapes that `matmul`
     never launches (the experts are einsums) and lacks the router that it
     does, and for mamba1 it lacks x_proj and dt_proj (ROADMAP queue C).
@@ -244,9 +246,9 @@ def serving_gemm_fleet(cfg, *, max_batch: int, max_len: int,
     cap_len = kv_cap if kv_cap is not None else max_len
     fleet = set(gemm_shape_counts(cfg, max_batch * max_len,
                                   head_tokens=max_batch,
-                                  kv_rows=max_batch * cap_len))
+                                  kv_rows=max_batch * cap_len, tp=tp))
     fleet |= set(gemm_shape_counts(cfg, max_batch,
-                                   kv_rows=max_batch * cap_len))
+                                   kv_rows=max_batch * cap_len, tp=tp))
     if include_slot_prefill:
         if chunk_tokens is None:
             # serial admission: single-shot slot prefills only ever run at
@@ -267,7 +269,7 @@ def serving_gemm_fleet(cfg, *, max_batch: int, max_len: int,
             # buckets past the chunk cap only ever run at width 1
             for w in (sorted(widths) if b in chunks else [1]):
                 fleet |= set(gemm_shape_counts(cfg, w * b, head_tokens=w,
-                                               kv_rows=w * cap_len))
+                                               kv_rows=w * cap_len, tp=tp))
     if cfg.kind in ("encdec", "vlm"):
         cap = lane_width if lane_width is not None else max_batch
         widths = {1, max_batch}
@@ -279,11 +281,18 @@ def serving_gemm_fleet(cfg, *, max_batch: int, max_len: int,
             for w in sorted(widths):
                 if cfg.kind == "encdec":
                     fleet |= set(gemm_shape_counts(
-                        cfg, 0, head_tokens=0, src_tokens=w * b))
+                        cfg, 0, head_tokens=0, src_tokens=w * b, tp=tp))
                 else:
                     fleet |= set(gemm_shape_counts(cfg, w * b,
-                                                   head_tokens=0))
+                                                   head_tokens=0, tp=tp))
     return sorted(fleet)
+
+
+def _segments(segments_n: int | None) -> dict:
+    """`tiled_matmul`'s ``segments_n`` keyword where one is set (a
+    stand-in for the wrapper that takes no such keyword still serves
+    every unsharded product)."""
+    return {"segments_n": segments_n} if segments_n else {}
 
 
 class _MatMul(torch.autograd.Function):
@@ -303,11 +312,11 @@ class _MatMul(torch.autograd.Function):
     directions."""
 
     @staticmethod
-    def forward(ctx, a2, b, config, transpose_b, out_dtype):
+    def forward(ctx, a2, b, config, transpose_b, out_dtype, segments_n):
         ctx.save_for_backward(a2, b)
         ctx.transpose_b = transpose_b
         return tiled_matmul(a2, b, config=config, transpose_b=transpose_b,
-                            out_dtype=out_dtype)
+                            out_dtype=out_dtype, **_segments(segments_n))
 
     @staticmethod
     def backward(ctx, dout):
@@ -328,7 +337,7 @@ class _MatMul(torch.autograd.Function):
             else:
                 db = tiled_matmul(a, dout, transpose_a=True,
                                   out_dtype=b.dtype)
-        return da, db, None, None, None
+        return da, db, None, None, None, None
 
 
 def matmul(
@@ -339,6 +348,7 @@ def matmul(
     objective: str | None = None,
     transpose_b: bool = False,
     out_dtype: torch.dtype | None = None,
+    segments_n: int | None = None,
 ) -> torch.Tensor:
     """out = a @ op(b) over the last axis of `a`; leading dims are batch.
     fp32 accumulation; the output dtype defaults to ``a.dtype``. Without
@@ -348,7 +358,9 @@ def matmul(
     ``transpose_b=False``), any other `plan`'s rule. Where autograd
     records, the product is differentiable (`_MatMul`: each gradient is one
     more launch of the kernel); serving, under ``no_grad``, calls the
-    kernel directly."""
+    kernel directly. `segments_n` is the width of the whole product whose
+    columns this call computes (`tiled_matmul`): a tensor-parallel shard
+    passes its projection's unsharded N."""
     *lead, k = a.shape
     n, kb = b.shape if transpose_b else b.shape[::-1]
     if kb != k:
@@ -359,10 +371,11 @@ def matmul(
                                objective or _OBJECTIVE)
     out_dtype = out_dtype or a.dtype
     if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
-        out = _MatMul.apply(a2, b, config, transpose_b, out_dtype)
+        out = _MatMul.apply(a2, b, config, transpose_b, out_dtype,
+                            segments_n)
     else:
         out = tiled_matmul(a2, b, config=config, transpose_b=transpose_b,
-                           out_dtype=out_dtype)
+                           out_dtype=out_dtype, **_segments(segments_n))
     return out.reshape(*lead, n)
 
 

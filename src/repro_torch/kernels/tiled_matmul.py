@@ -278,7 +278,8 @@ def _wgmma_tile(m: int, n: int, k: int, out_dtype,
 
 def plan(m: int, n: int, k: int, a_strides, b_strides, a_ptr_mod16: int,
          b_ptr_mod16: int, in_dtype: torch.dtype, out_dtype: torch.dtype,
-         config: BlockConfig | None = None, *, split: str = "") -> Plan:
+         config: BlockConfig | None = None, *, split: str = "",
+         segments_n: int | None = None) -> Plan:
     """Choose the kernel path, tile, K segments and CTA splits of
     C = op(A) @ op(B).
 
@@ -313,11 +314,15 @@ def plan(m: int, n: int, k: int, a_strides, b_strides, a_ptr_mod16: int,
       by its bytes. Its terms are always laid out for the fast paths, so
       only the bf16 operand's layout can send it to ``general`` (which then
       multiplies the f32 matrix by the bf16 operand cast to f32).
-    - K segments: `k_segments(N, K)`, whatever M, the layout and the path.
-      ``stream`` gives each segment a CTA (splits = segments). ``wgmma``
-      and ``split`` do the same where the tiles cover less than half a
-      wave and tiles x segments stay within 4 waves (528 CTAs), and
-      otherwise walk a tile's segments in one CTA (splits = 1).
+    - K segments: `k_segments(N, K)`, whatever M, the layout and the path,
+      where N is `segments_n` when given: the width of the whole product
+      of which this call computes some columns (a tensor-parallel shard,
+      or a chunk of one, `distributed.tp`), so its columns sum K in the
+      order of the whole product's. ``stream`` gives each segment a CTA
+      (splits = segments). ``wgmma`` and ``split`` do the same where the
+      tiles cover less than half a wave and tiles x segments stay within
+      4 waves (528 CTAs), and otherwise walk a tile's segments in one CTA
+      (splits = 1).
 
     So a row's result is the same at every M and on both fast paths: the
     segments are summed from zero in order on both, and the H100's
@@ -354,7 +359,7 @@ def plan(m: int, n: int, k: int, a_strides, b_strides, a_ptr_mod16: int,
             "with K- or M-contiguous op(A) rows (stream: K only) and N- or "
             "K-contiguous op(B) rows, 16-byte aligned (stream: no split "
             "operand); this GEMM takes the general path")
-    segments = k_segments(n, k)
+    segments = k_segments(segments_n or n, k)
     if config is None:
         if streams and m <= STREAM_MAX_M:
             config = next(t for t in _STREAM_TILES if t.block_m >= m)
@@ -505,6 +510,7 @@ def tiled_matmul(
     alpha: float = 1.0,
     beta: float = 0.0,
     out_dtype: torch.dtype | None = None,
+    segments_n: int | None = None,
 ) -> torch.Tensor:
     """C = alpha * op(A) @ op(B) + beta * C  (the paper's GEMM surface).
 
@@ -515,8 +521,10 @@ def tiled_matmul(
     accuracy); output float32 or bfloat16 (default ``a.dtype``). `c` (M, N)
     is rounded to `out_dtype` before the beta term, as the TPU kernel does.
     `config` forces a compiled tile (see `plan`); by default `plan`
-    chooses. Meta operands take the shape-only path (the module
-    docstring)."""
+    chooses. `segments_n` is the N that `plan` reckons the K segments from
+    (default N): a column shard of a wider product passes the whole
+    product's, so each column has that product's bits. Meta operands take
+    the shape-only path (the module docstring)."""
     if a.dim() != 2 or b.dim() != 2:
         raise ValueError("tiled_matmul expects rank-2 operands")
     m, ka = (a.shape[1], a.shape[0]) if transpose_a else a.shape
@@ -558,7 +566,7 @@ def tiled_matmul(
     sb = (sb[0][::-1] if transpose_b else sb[0], sb[1])      # (k, n)
     p = plan(m, n, ka, sa[0], sb[0], sa[1], sb[1],
              torch.bfloat16 if side else a.dtype, out_dtype, config=config,
-             split=side)
+             split=side, segments_n=segments_n)
     if p.path != STREAM and -(-m // p.tile.block_m) > _MAX_GRID_Y:
         raise ValueError(f"M={m} exceeds the grid's row-block limit")
     s_plane = 0

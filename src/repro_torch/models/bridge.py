@@ -9,6 +9,10 @@ A block's groups may nest (the MoE FFN's ``moe.router``, ``moe.experts``,
 ``moe.shared_mlp``): a `nn.ParameterDict` is a group of leaves, a
 `nn.ModuleDict` a group of groups.
 
+The bridged module is whole; under tensor parallelism each rank cuts its
+shard of it (`distributed.sharding.shard_params`, which the tp serving
+engine calls), so a test's path is bridge, then shard.
+
 The train state carries over too (`train_state_from_numpy`,
 `train_state_to_numpy`): the optimizer's master, m and v trees, stacked in
 JAX, are dicts keyed by parameter name in the port.

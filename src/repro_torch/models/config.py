@@ -194,6 +194,7 @@ def kv_cache_bytes(cfg: ModelConfig, tokens: int,
 def gemm_shape_counts(cfg: ModelConfig, n_tokens: int,
                       head_tokens: int | None = None,
                       kv_rows: int | None = None,
+                      tp: int = 1,
                       src_tokens: int | None = None
                       ) -> dict[tuple[int, int, int], float]:
     """Dominant (m, n, k) GEMMs of one forward pass over `n_tokens` rows,
@@ -225,10 +226,22 @@ def gemm_shape_counts(cfg: ModelConfig, n_tokens: int,
     have no Q/K/V/O; hybrid counts its `n_layers // attn_every` shared
     attention applications and their FFN; vlm counts as dense.
 
-    The reference's counts at tp = 1: its tensor-parallel shards come with
-    the slice that ports them (ROADMAP A7).
+    `tp > 1` returns the *per-shard* fleet of a tensor-parallel engine, as
+    the reference's does: column-parallel projections shrink their
+    out-features to N/tp, gather-mode row-parallel projections keep the
+    full contraction K but emit N/tp columns, and EP-sharded routed-expert
+    fleets divide their issue counts. Extents that `tp` does not divide
+    stay whole. (The per-shard extents are what a rank launches at a chunk
+    count of 1; `distributed.tp` cuts each row-parallel product into
+    `tp_overlap_chunks` column chunks, which the reference's count leaves
+    whole too.)
     """
     t = int(n_tokens)
+    tp = max(int(tp), 1)
+
+    def shard(n: int) -> int:
+        return n // tp if n % tp == 0 else n
+
     d, hd, kv, L = cfg.d_model, cfg.hd, cfg.kv_heads, cfg.n_layers
     # mamba1/mamba2 are attention-free; hybrid (Zamba2) runs one shared
     # attention block every attn_every layers
@@ -249,21 +262,21 @@ def gemm_shape_counts(cfg: ModelConfig, n_tokens: int,
     if cfg.kind == "encdec":
         # decoder: self-attention Q/K/V/O over the call's rows plus the
         # cross-attention Q/O that read the admission-time cross-KV
-        add((t, cfg.n_heads * hd, d), 2 * L)         # self + cross Q
-        add((t, kv * hd, d), 2 * L)                  # self K and V
-        add((t, d, cfg.n_heads * hd), 2 * L)         # self + cross O
+        add((t, shard(cfg.n_heads * hd), d), 2 * L)  # self + cross Q
+        add((t, shard(kv * hd), d), 2 * L)           # self K and V
+        add((t, shard(d), cfg.n_heads * hd), 2 * L)  # self + cross O
         if src:
             # prefill-once admission: the encoder stack and each decoder
             # layer's cross-KV projection over the source rows
             eL = cfg.n_encoder_layers
             gm = 2 if cfg.gated_mlp else 1
-            add((src, cfg.n_heads * hd, d), eL)
-            add((src, kv * hd, d), 2 * eL)
-            add((src, d, cfg.n_heads * hd), eL)
+            add((src, shard(cfg.n_heads * hd), d), eL)
+            add((src, shard(kv * hd), d), 2 * eL)
+            add((src, shard(d), cfg.n_heads * hd), eL)
             if cfg.d_ff:
-                add((src, cfg.d_ff, d), gm * eL)
-                add((src, d, cfg.d_ff), eL)
-            add((src, kv * hd, d), 2 * L)            # cross-KV projection
+                add((src, shard(cfg.d_ff), d), gm * eL)
+                add((src, shard(d), cfg.d_ff), eL)
+            add((src, shard(kv * hd), d), 2 * L)     # cross-KV projection
     elif cfg.kind == "mla_moe" and cfg.kv_lora_rank:
         # multi-head latent attention traces its own projection fleet
         # (moe.mla_apply), not the generic Q/K/V/O skeleton
@@ -271,44 +284,123 @@ def gemm_shape_counts(cfg: ModelConfig, n_tokens: int,
         kvr = int(kv_rows) if kv_rows is not None else t
         if rq:
             add((t, rq, d), L)                       # w_dq (Q compress)
-            add((t, cfg.n_heads * (hd + pe), rq), L)  # w_uq
+            add((t, shard(cfg.n_heads * (hd + pe)), rq), L)  # w_uq
         else:
-            add((t, cfg.n_heads * (hd + pe), d), L)  # w_uq
+            add((t, shard(cfg.n_heads * (hd + pe)), d), L)  # w_uq
         add((t, r, d), L)                            # w_dkv (KV compress)
         add((t, pe, d), L)                           # w_kpe (RoPE key)
-        add((kvr, cfg.n_heads * hd, r), 2 * L)       # w_uk / w_uv
-        add((t, d, cfg.n_heads * hd), L)             # output projection
+        add((kvr, shard(cfg.n_heads * hd), r), 2 * L)  # w_uk / w_uv
+        add((t, shard(d), cfg.n_heads * hd), L)      # output projection
     elif attn_layers:
-        add((t, cfg.n_heads * hd, d), attn_layers)   # Q projection
-        add((t, kv * hd, d), 2 * attn_layers)        # K and V projections
-        add((t, d, cfg.n_heads * hd), attn_layers)   # output projection
+        add((t, shard(cfg.n_heads * hd), d), attn_layers)  # Q projection
+        add((t, shard(kv * hd), d), 2 * attn_layers)  # K and V projections
+        add((t, shard(d), cfg.n_heads * hd), attn_layers)  # output proj
     add((int(head_tokens) if head_tokens is not None else t,
-         cfg.vocab, d), 1)                           # LM head
+         shard(cfg.vocab), d), 1)                    # LM head
     ff = cfg.d_ff_expert if cfg.n_experts else cfg.d_ff
     if ff:
         ffn_layers = attn_layers if cfg.kind == "hybrid" else L
         gate_mult = 2 if cfg.gated_mlp else 1
         if cfg.n_experts:
-            add((t, ff, d), gate_mult * cfg.top_k * ffn_layers)  # routed
-            add((t, d, ff), cfg.top_k * ffn_layers)
+            # routed experts are EP-sharded: each rank runs E/tp experts'
+            # GEMMs, so the per-rank issue count divides (extents whole)
+            ep = tp if cfg.n_experts % tp == 0 else 1
+            add((t, ff, d), gate_mult * cfg.top_k * ffn_layers / ep)
+            add((t, d, ff), cfg.top_k * ffn_layers / ep)
             if cfg.n_shared_experts:
-                add((t, ff, d), gate_mult * cfg.n_shared_experts * ffn_layers)
-                add((t, d, ff), cfg.n_shared_experts * ffn_layers)
+                add((t, shard(ff), d),
+                    gate_mult * cfg.n_shared_experts * ffn_layers)
+                add((t, shard(d), ff), cfg.n_shared_experts * ffn_layers)
         else:
-            add((t, ff, d), gate_mult * ffn_layers)  # up (and gate)
-            add((t, d, ff), ffn_layers)              # down projection
+            add((t, shard(ff), d), gate_mult * ffn_layers)  # up (and gate)
+            add((t, shard(d), ff), ffn_layers)       # down projection
     if cfg.kind == "mamba1":
-        add((t, 2 * cfg.d_inner, d), L)              # SSM in_proj
-        add((t, d, cfg.d_inner), L)                  # SSM out_proj
+        add((t, shard(2 * cfg.d_inner), d), L)       # SSM in_proj
+        add((t, shard(d), cfg.d_inner), L)           # SSM out_proj
     elif cfg.kind in ("mamba2", "hybrid"):
         # the SSD in_proj also carries the B/C state projections and the
         # per-head dt channel (see ssm.Mamba2Block)
         di = cfg.d_inner
         n_in = (2 * di + 2 * cfg.ssm_ngroups * cfg.ssm_state
                 + di // max(cfg.ssm_headdim, 1))
-        add((t, n_in, d), L)                         # SSD in_proj
-        add((t, d, di), L)                           # SSD out_proj
+        add((t, shard(n_in), d), L)                  # SSD in_proj
+        add((t, shard(d), di), L)                    # SSD out_proj
     return counts
+
+
+def collective_wire_bytes(cfg: ModelConfig, n_tokens: int, tp: int,
+                          head_tokens: int | None = None,
+                          src_tokens: int | None = None
+                          ) -> tuple[float, float]:
+    """Per-rank ring traffic of one tensor-parallel forward pass, the
+    reference's count: ``(wire_bytes, n_collectives)``, the bytes one rank
+    pushes onto its links per step and the logical collective phases
+    issued, which `hwsim.collective_cost` prices against
+    `ChipSpec.link_bw_gbs`. Counts the gather-mode serving collectives:
+    every row-parallel projection all-gathers its sharded input and its
+    chunked output (2 phases), EP-sharded routed experts all-gather their
+    combine, and the column-sharded LM head gathers logits. A ring
+    all-gather moves ``(tp-1)/tp`` of the full array through each rank.
+    (The port issues one more, the vocab-sharded embedding's gather, and
+    one per chunk of each row-parallel output; the model's count is the
+    reference's.)"""
+    tp = max(int(tp), 1)
+    if tp <= 1:
+        return 0.0, 0.0
+    from repro_torch.core.chips import DTYPE_BYTES, canon_dtype
+
+    t = int(n_tokens)
+    ht = int(head_tokens) if head_tokens is not None else t
+    d, hd = cfg.d_model, cfg.hd
+    L = cfg.n_layers
+    if cfg.kind in ("mamba1", "mamba2"):
+        attn_layers = 0
+    elif cfg.kind == "hybrid":
+        attn_layers = max(L // max(cfg.attn_every, 1), 1)
+    else:
+        attn_layers = L
+    bpe = float(DTYPE_BYTES.get(canon_dtype(cfg.activation_dtype), 2))
+    ring = (tp - 1) / tp
+    elems = 0.0
+    phases = 0.0
+    src = int(src_tokens) if src_tokens is not None else 0
+    if attn_layers:
+        # attention output projection: gather (t, H*hd) in, (t, d) out
+        elems += attn_layers * t * (cfg.n_heads * hd + d)
+        phases += 2 * attn_layers
+    if cfg.kind == "encdec":
+        # one more gather pair per decoder layer for the cross-attention
+        # output projection, plus the admission-time encoder stack
+        elems += L * t * (cfg.n_heads * hd + d)
+        phases += 2 * L
+        if src:
+            eL = cfg.n_encoder_layers
+            elems += eL * src * (cfg.n_heads * hd + d)
+            phases += 2 * eL
+            if cfg.d_ff:
+                elems += eL * src * (cfg.d_ff + d)
+                phases += 2 * eL
+    ff = cfg.d_ff_expert if cfg.n_experts else cfg.d_ff
+    if ff:
+        ffn_layers = attn_layers if cfg.kind == "hybrid" else L
+        dense_calls = cfg.n_shared_experts if cfg.n_experts else 1
+        if dense_calls:
+            elems += ffn_layers * dense_calls * t * (ff + d)
+            phases += 2 * ffn_layers * dense_calls
+        if cfg.n_experts and cfg.n_experts % tp == 0:
+            # EP combine: gather each token's routed-expert outputs
+            elems += ffn_layers * t * cfg.top_k * d
+            phases += ffn_layers
+    if cfg.kind == "mamba1":
+        # out_proj gather in/out + the x_proj input re-replication
+        elems += L * t * (2 * cfg.d_inner + d)
+        phases += 3 * L
+    elif cfg.kind in ("mamba2", "hybrid"):
+        elems += L * t * (cfg.d_inner + d)
+        phases += 2 * L
+    elems += ht * cfg.vocab                      # sharded logits gather
+    phases += 1
+    return elems * bpe * ring, phases
 
 
 def gemm_shapes(cfg: ModelConfig, n_tokens: int) -> list[tuple[int, int, int]]:

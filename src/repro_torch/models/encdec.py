@@ -16,9 +16,11 @@ leaves (L, B, max_len, KV, hd) of `max_len` source-row capacity, read-only
 afterwards, with a per-row ``src_len`` masking the cross-attention keys.
 The decoder's self-attention then chunks through the `transformer`
 generics like any LM. Every projection, the cross-KV included, goes
-through `kernels.ops.matmul`. `encdec_loss`, the training forward, encodes
-the source and runs the decoder with no cache, each layer projecting its
-cross-attention KV from the encoder output.
+through `kernels.ops.matmul`, by way of the tensor-parallel wrappers
+(`distributed.tp`), so under tp the cross-KV holds this rank's heads.
+`encdec_loss`, the training forward, encodes the source and runs the
+decoder with no cache, each layer projecting its cross-attention KV from
+the encoder output.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels import ops
+from repro_torch.distributed import tp as TP
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
@@ -138,15 +140,16 @@ def encode(model: EncDecLM, src_embeds: torch.Tensor, cfg: ModelConfig,
 
 def _cross_kv(p, memory: torch.Tensor, cfg: ModelConfig) -> dict:
     """One decoder layer's cross-attention keys and values over the
-    encoder output: (B, T, KV, hd) each."""
+    encoder output: (B, T, KV, hd) each (this rank's KV/tp heads under
+    tensor parallelism: column-parallel projections, `tp.tp_column`)."""
     B, T, _ = memory.shape
-    k = ops.matmul(memory, p["wk"])
-    v = ops.matmul(memory, p["wv"])
+    hd = cfg.hd
+    k = TP.tp_column(memory, p["wk"], cfg, cfg.kv_heads * hd)
+    v = TP.tp_column(memory, p["wv"], cfg, cfg.kv_heads * hd)
     if cfg.qkv_bias:
         k = k + p["bk"].to(k.dtype)
         v = v + p["bv"].to(v.dtype)
-    return {"k": k.reshape(B, T, cfg.kv_heads, cfg.hd),
-            "v": v.reshape(B, T, cfg.kv_heads, cfg.hd)}
+    return {"k": k.reshape(B, T, -1, hd), "v": v.reshape(B, T, -1, hd)}
 
 
 def _cross_attend(p, x: torch.Tensor, ckv: dict, cfg: ModelConfig, *,
@@ -155,15 +158,15 @@ def _cross_attend(p, x: torch.Tensor, ckv: dict, cfg: ModelConfig, *,
     `kv_len` masks each row's keys to its true source length. The keys are
     the state's ``max_len`` rows in every call, so their count never
     depends on the call."""
-    B, S, _ = x.shape
-    H, hd = cfg.n_heads, cfg.hd
-    q = ops.matmul(x, p["wq"])
+    B, S, d = x.shape
+    hd = cfg.hd
+    q = TP.tp_column(x, p["wq"], cfg, cfg.n_heads * hd)
     if cfg.qkv_bias:
         q = q + p["bq"].to(q.dtype)
-    q = q.reshape(B, S, H, hd)
+    q = q.reshape(B, S, -1, hd)
     out = L._sdpa(q, ckv["k"].to(q.dtype), ckv["v"].to(q.dtype),
                   causal=False, kv_len=kv_len)
-    return ops.matmul(out.reshape(B, S, H * hd), p["wo"])
+    return TP.tp_row(out.reshape(B, S, -1), p["wo"], cfg, d)
 
 
 def dec_block_apply(blk: DecBlock, x: torch.Tensor, cfg: ModelConfig, *,

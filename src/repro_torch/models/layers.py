@@ -21,7 +21,7 @@ from typing import Any, Callable, Mapping
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ops
+from repro_torch.distributed import tp as TP
 from repro_torch.models.config import ModelConfig
 
 Params = Mapping[str, torch.Tensor]
@@ -102,6 +102,13 @@ Q_CHUNK = 1024  # query-block size for memory-bounded exact attention
 # H100: `chip_smoke.py` phase 12). There the queries are padded to
 # Q_MIN_CUDA rows and the pad cut off after: every call sums a row alike.
 Q_MIN_CUDA = 32
+# Likewise a product of one matrix takes other kernels than a batch of
+# several: one rank's single KV head at batch 1 (qwen2-7b at tp = 4) summed
+# its scores otherwise than the same head beside the others (measured on
+# the H100: `chip_smoke.py` phase 3's tensor-parallel head check). There a
+# call whose batch x KV heads is 1 runs on a batch of two copies, the copy
+# dropped after.
+BATCH_MIN_CUDA = 2
 
 
 def _per_row(v: torch.Tensor | int, device) -> torch.Tensor:
@@ -159,17 +166,29 @@ def _sdpa_block(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(B, Sq, H, hd).to(q.dtype)
 
 
+def _twice(t):
+    """`t` stacked twice on its batch axis (a scalar or None as it is)."""
+    if torch.is_tensor(t) and t.dim():
+        return torch.cat([t, t])
+    return t
+
+
 def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
           causal: bool, q_offset: torch.Tensor | int = 0,
           kv_len: torch.Tensor | int | None = None,
           kv_valid: torch.Tensor | None = None) -> torch.Tensor:
     """Exact attention, query-chunked so peak score memory is
     O(Q_CHUNK x Sk) instead of O(Sq x Sk); on the card, fewer than
-    `Q_MIN_CUDA` queries are zero-padded to that many (see there). The
+    `Q_MIN_CUDA` queries are zero-padded to that many, and a call of one
+    row and one KV head runs twice over (`BATCH_MIN_CUDA`; see there). The
     key count needs no such padding: a row's bits do not depend on it on
     the card (the encoder's keys are its admission bucket, 8-512 at
     max_len 512; `chip_smoke.py` phase 3's encoder attention line)."""
     Sq = q.shape[1]
+    if q.is_cuda and q.shape[0] * k.shape[2] < BATCH_MIN_CUDA:
+        return _sdpa(*map(_twice, (q, k, v)), causal=causal,
+                     q_offset=_twice(q_offset), kv_len=_twice(kv_len),
+                     kv_valid=_twice(kv_valid))[:1]
     if q.is_cuda and Sq < Q_MIN_CUDA:
         pad = q.new_zeros((q.shape[0], Q_MIN_CUDA - Sq, *q.shape[2:]))
         return _sdpa(torch.cat([q, pad], dim=1), k, v, causal=causal,
@@ -357,12 +376,19 @@ def attention_apply(
     rows. Causal attention hides right-pad keys by itself (they sit after
     every valid query); non-causal attention over a right-padded batch (the
     encoder) must pass `kv_lens`, or the pad keys take softmax weight.
-    Returns (y, cache)."""
-    B, S, _ = x.shape
-    H, KV, hd = config.n_heads, config.kv_heads, config.hd
-    q = ops.matmul(x, p["wq"])
-    k = ops.matmul(x, p["wk"])
-    v = ops.matmul(x, p["wv"])
+    Returns (y, cache).
+
+    Under tensor parallelism (`distributed.tp`) q, k and v are this rank's
+    heads' columns (the weights, biases and cache hold H/tp and KV/tp
+    heads, whole heads, contiguous), attention runs over the local heads,
+    and the output projection gathers the heads back and the whole output
+    to every rank (`tp_row`)."""
+    B, S, d = x.shape
+    hd = config.hd
+    q = TP.tp_column(x, p["wq"], config, config.n_heads * hd)
+    k = TP.tp_column(x, p["wk"], config, config.kv_heads * hd)
+    v = TP.tp_column(x, p["wv"], config, config.kv_heads * hd)
+    H, KV = q.shape[-1] // hd, k.shape[-1] // hd     # this rank's heads
     if config.qkv_bias:
         q = q + p["bq"].to(q.dtype)
         k = k + p["bk"].to(k.dtype)
@@ -399,7 +425,7 @@ def attention_apply(
                     q_offset=cache_index, kv_len=cache_index + S)
     else:
         out = _sdpa(q, k, v, causal=causal, kv_len=kv_lens)
-    y = ops.matmul(out.reshape(B, S, H * hd), p["wo"])
+    y = TP.tp_row(out.reshape(B, S, H * hd), p["wo"], config, d)
     return y, new_cache
 
 
@@ -407,14 +433,18 @@ def attention_apply(
 
 def swiglu_apply(p: Params, x: torch.Tensor,
                  config: ModelConfig | None = None) -> torch.Tensor:
-    """SwiGLU FFN (plain GELU FFN when there is no `w_gate`)."""
-    u = ops.matmul(x, p["w_up"])
+    """SwiGLU FFN (plain GELU FFN when there is no `w_gate`). Under tensor
+    parallelism the up and gate projections are column-parallel and the
+    down projection row-parallel (`distributed.tp`); the hidden width is
+    ``w_down``'s rows, which gather mode keeps whole."""
+    d_ff = p["w_down"].shape[0]
+    u = TP.tp_column(x, p["w_up"], config, d_ff)
     if "w_gate" in p:
-        g = ops.matmul(x, p["w_gate"])
+        g = TP.tp_column(x, p["w_gate"], config, d_ff)
         h = F.silu(g.float()).to(x.dtype) * u
     else:
         h = F.gelu(u.float(), approximate="tanh").to(x.dtype)
-    return ops.matmul(h, p["w_down"])
+    return TP.tp_row(h, p["w_down"], config, x.shape[-1])
 
 
 # ---------------- decode-state slot surgery ----------------

@@ -16,9 +16,13 @@ independence per-row capacity exists for): the gate-weighted sum over a
 token's top-k experts, and the top-k itself (a stable descending sort, so
 ties go to the lower expert index as ``jax.lax.top_k`` sends them).
 
-Not ported here: the JAX package's explicit expert-parallel path
-(`moe_ffn_shard_map`, ROADMAP A7); `moe_ffn` takes the dense-dispatch
-branch, the one the JAX package takes at tp=1.
+Under tensor-parallel serving the experts are E-sharded and the router
+replicated: every rank routes every token, runs its own experts' slots
+and all-gathers their outputs (`_experts`), the path the JAX package's
+gather mode takes. Not ported here: the JAX package's explicit
+expert-parallel path (`moe_ffn_shard_map`, ROADMAP A7); `moe_ffn` takes
+the dense-dispatch branch, the one the JAX package takes at tp=1 and in
+gather mode.
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ from typing import Mapping
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import tp as TP
+from repro_torch.distributed.sharding import current_mesh
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
@@ -90,6 +96,24 @@ def route(logits: torch.Tensor, cfg: ModelConfig, n_rows: int) -> dict:
 
 # ---------------- the MoE FFN ----------------
 
+def _experts(w: Params, xe: torch.Tensor) -> torch.Tensor:
+    """The experts' SwiGLU over the dispatch buffer xe (E, C, d) -> (E, C,
+    d). Under tensor parallelism the experts are E-sharded (the rank holds
+    E/tp of them, `sharding.PARAM_RULES`' "expert" axis): each rank runs
+    its own experts' slots and the outputs are all-gathered on E before the
+    unchanged combine, never summed across ranks (the JAX package's
+    reason, `moe.py` `moe_ffn`: a psum would re-associate the fp32 sum)."""
+    e_loc = w["w_gate"].shape[0]
+    sharded = e_loc != xe.shape[0]
+    if sharded:
+        xe = xe.narrow(0, current_mesh().rank * e_loc, e_loc)
+    g = torch.einsum("ecd,edf->ecf", xe, w["w_gate"])
+    u = torch.einsum("ecd,edf->ecf", xe, w["w_up"])
+    h = F.silu(g.float()).to(xe.dtype) * u
+    ye = torch.einsum("ecf,efd->ecd", h, w["w_down"])
+    return TP.all_gather(ye, 0) if sharded else ye
+
+
 def moe_ffn_apply(p: Params, x: torch.Tensor, cfg: ModelConfig
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (out (B, S, d), aux loss). `p` holds ``router.w`` (d, E),
@@ -114,11 +138,7 @@ def moe_ffn_apply(p: Params, x: torch.Tensor, cfg: ModelConfig
     xe.index_put_((idx, slot), contrib, accumulate=True)
     xe = xe.to(x.dtype)
 
-    w = p["experts"]
-    g = torch.einsum("ecd,edf->ecf", xe, w["w_gate"])
-    u = torch.einsum("ecd,edf->ecf", xe, w["w_up"])
-    h = F.silu(g.float()).to(x.dtype) * u
-    ye = torch.einsum("ecf,efd->ecd", h, w["w_down"])             # (E, C, d)
+    ye = _experts(p["experts"], xe)                               # (E, C, d)
 
     y_tok = (ye[idx, slot].float() * r["gate"][:, None]).reshape(T, K, d)
     out = y_tok[:, 0]

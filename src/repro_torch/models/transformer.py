@@ -25,7 +25,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels import ops
+from repro_torch.distributed import tp as TP
+from repro_torch.distributed.sharding import local_state_shape
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
 from repro_torch.models.config import ModelConfig
@@ -242,15 +243,20 @@ def block_apply(cfg: ModelConfig):
 
 def _embed(model: TransformerLM, tokens: torch.Tensor,
            cfg: ModelConfig) -> torch.Tensor:
-    return model.embed["table"][tokens].to(_dtype(cfg.activation_dtype))
+    """The token embeddings in the activation dtype (a vocab-sharded table
+    looks up through `tp.embed_lookup`)."""
+    return TP.embed_lookup(model.embed["table"], tokens, cfg.vocab).to(
+        _dtype(cfg.activation_dtype))
 
 
 def _unembed(model: TransformerLM, x: torch.Tensor,
              cfg: ModelConfig) -> torch.Tensor:
+    """f32 logits over the whole vocabulary (a vocab-sharded head gathers
+    its columns, `tp.unembed`)."""
     if cfg.tie_embeddings:
-        return ops.matmul(x, model.embed["table"], transpose_b=True,
-                          out_dtype=torch.float32)
-    return ops.matmul(x, model.head["w"], out_dtype=torch.float32)
+        return TP.unembed(x, model.embed["table"], cfg.vocab,
+                          transpose_b=True)
+    return TP.unembed(x, model.head["w"], cfg.vocab)
 
 
 def _run_blocks(model: TransformerLM, x: torch.Tensor, cfg: ModelConfig, *,
@@ -338,10 +344,12 @@ def lm_loss(model: TransformerLM, batch: dict, cfg: ModelConfig,
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int,
                   dtype: torch.dtype = torch.bfloat16, *,
                   device: str | torch.device = "cuda") -> dict:
-    """Zeroed KV cache, (L, B, max_len, KV, hd) per leaf. bf16 by default
-    whatever the activation dtype, as in the JAX package: keys and values
-    are rounded to bf16 on write and converted back on read."""
-    shape = (cfg.n_layers, batch, max_len, cfg.kv_heads, cfg.hd)
+    """Zeroed KV cache, (L, B, max_len, KV, hd) per leaf (KV/tp heads
+    under tensor parallelism: `sharding.local_state_shape`). bf16 by
+    default whatever the activation dtype, as in the JAX package: keys and
+    values are rounded to bf16 on write and converted back on read."""
+    shape = local_state_shape(
+        "k", (cfg.n_layers, batch, max_len, cfg.kv_heads, cfg.hd))
     dev = resolve_device(device)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
@@ -378,10 +386,12 @@ def init_kv_page_pool(cfg: ModelConfig, num_pages: int, page_size: int,
                       dtype: torch.dtype = torch.bfloat16, *,
                       device: str | torch.device = "cuda") -> dict:
     """Zeroed paged KV pool: `num_pages` shared pages of `page_size` tokens
-    per layer, (L, P, T, KV, hd) per leaf (page 0 reserved as the null page,
-    see `serving.paging`). The engine pairs it with a per-row page table to
-    form the paged decode cache {"k_pages", "v_pages", "table"}."""
-    shape = (cfg.n_layers, num_pages, page_size, cfg.kv_heads, cfg.hd)
+    per layer, (L, P, T, KV, hd) per leaf (KV/tp heads under tensor
+    parallelism; page 0 reserved as the null page, see `serving.paging`).
+    The engine pairs it with a per-row page table to form the paged decode
+    cache {"k_pages", "v_pages", "table"}."""
+    shape = local_state_shape("k_pages", (cfg.n_layers, num_pages,
+                                          page_size, cfg.kv_heads, cfg.hd))
     dev = resolve_device(device)
     return {"k_pages": torch.zeros(shape, dtype=dtype, device=dev),
             "v_pages": torch.zeros(shape, dtype=dtype, device=dev)}

@@ -59,9 +59,8 @@ def _vlm_embed(model: tfm.TransformerLM, batch: dict,
                cfg: ModelConfig) -> torch.Tensor:
     """[patch embeddings | token embeddings] (B, P + S_txt, d) in the
     activation dtype."""
-    tok = model.embed["table"][batch["tokens"].long()]
-    x = torch.cat([batch["patch_embeds"].to(tok.dtype), tok], dim=1)
-    return x.to(L.torch_dtype(cfg.activation_dtype))
+    tok = tfm._embed(model, batch["tokens"].long(), cfg)
+    return torch.cat([batch["patch_embeds"].to(tok.dtype), tok], dim=1)
 
 
 def vlm_loss(model: tfm.TransformerLM, batch: dict, cfg: ModelConfig

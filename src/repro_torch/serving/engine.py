@@ -1,7 +1,8 @@
 """Continuous-batching serving engine with chunked admission prefill.
 
 The counterpart of the JAX package's `repro.serving.engine.ServingEngine`
-for every family at tp=1 (`SERVED_KINDS`), with its serving loops:
+for every family (`SERVED_KINDS`; at tp > 1 the ones of `_TP_LATER`
+excepted), with its serving loops:
 
 - continuous mode, ``admission="chunked"`` (the default): the engine keeps
   one batched decode state of ``max_batch`` fixed slots. Every engine step
@@ -89,8 +90,18 @@ row moved between engines that share one params object,
 a clone: the port's decode state is updated in place, so a view of a
 failed member's cache would change under it. A degraded `retune` prices at
 `autotuner.baseline_configs` and installs no winner, so it launches what
-it launched before. The engine is one card: `tp` is 1 (tensor
-parallelism is ROADMAP A7).
+it launched before.
+
+``tp > 1`` serves tensor-parallel in gather mode, as the JAX engine does:
+one engine per rank process of a `launch.mesh.Mesh` (a `torch.distributed`
+group of `tp` ranks), each rank cutting its shard of the whole params
+(`distributed.sharding.shard_params`: heads, FFN columns, vocab and experts)
+and holding its heads' KV cache; the row-parallel projections gather their
+columns (`distributed.tp`), so every rank sees the whole logits and the
+host loop runs identically on every rank, its inputs being identical.
+Greedy streams equal tp=1's token for token. The SSM, hybrid and MLA
+families are not served at tp > 1 yet (ROADMAP A7): the engine refuses
+them.
 
 Where the JAX engine donates the decode state to its jitted calls, this
 engine updates the KV tensors and the page pool in place.
@@ -244,6 +255,7 @@ class ServingEngine:
                  pretune: bool = False, tune_objective: str = "runtime",
                  tune_rank_mode: str = "auto",
                  chip: str | None = None,
+                 tp: int = 1, mesh=None, tp_overlap_chunks: int = 4,
                  ssm_serve_grain: int | None = None,
                  device: str | torch.device = "cuda"):
         """`mode` picks the serving loop: "continuous" (slot table with
@@ -275,6 +287,20 @@ class ServingEngine:
 
         `device` holds the decode state and must be where `params` live.
 
+        `tp > 1` serves tensor-parallel over `mesh` (default:
+        `launch.mesh.make_serving_mesh(tp)` over the initialised default
+        process group), one engine per rank: the config is flipped to
+        explicit gather-mode collectives (``tp_reduce="gather"``, streams
+        bit-identical to tp=1), `params` (the whole model, or this rank's
+        shard of it from an earlier engine) are cut to this rank's shard in
+        place, the decode caches hold this rank's heads, the row-parallel
+        outputs are gathered in `tp_overlap_chunks` column chunks
+        overlapping the next chunk's GEMM, and the energy model prices the
+        per-rank fleet plus the ring traffic on `tp` chips. Whole heads
+        only: ``n_heads`` and ``kv_heads`` must be multiples of `tp`.
+        Kinds mamba1, mamba2, hybrid and mla_moe raise NotImplementedError
+        at tp > 1 (ROADMAP A7).
+
         `pretune=True` batch-tunes the engine's GEMM fleet up front, as the
         JAX engine does: every shape the batched prefill, the decode step
         and each (admission-width x chunk-bucket) chunk call issues
@@ -304,6 +330,11 @@ class ServingEngine:
         self.ssm_grain = grain or ops.SSM_SERVE_GRAIN
         if grain:
             cfg = dataclasses.replace(cfg, ssm_serve_grain=grain)
+        self._tp = max(int(tp), 1)
+        self.mesh = None
+        if self._tp > 1:
+            cfg = self._shard(model, params, cfg, mesh,
+                              max(int(tp_overlap_chunks), 1))
         self.model = model
         self.params = params
         self.cfg = cfg
@@ -380,7 +411,7 @@ class ServingEngine:
                 include_slot_prefill=self._continuous_supported(),
                 chunk_tokens=chunk_tokens if chunked else None,
                 lane_width=self.lane_width if chunked else None,
-                grain=self.ssm_grain)
+                tp=self._tp, grain=self.ssm_grain)
             self.pretuned = ops.warm_gemm_cache(
                 fleet, dtype=cfg.activation_dtype,
                 objective=tune_objective, chip=chip,
@@ -419,8 +450,10 @@ class ServingEngine:
             # prefill-once admission calls (admit families)
             "admit_calls": 0,
             # predicted seconds of dispatched engine calls (the energy
-            # model's step_s), advanced per chunk call and decode step
-            "model_s": 0.0,
+            # model's step_s), advanced per chunk call and decode step, and
+            # the collective wire time on the links with the share of it
+            # hidden behind GEMMs (zero at tp=1)
+            "model_s": 0.0, "wire_s": 0.0, "hidden_wire_s": 0.0,
             # fault recovery: the spend of failed attempts that had to be
             # replayed (charged here, to the failed member, never to a
             # request) and rows adopted from a failed member
@@ -428,13 +461,56 @@ class ServingEngine:
         }
 
     # ------------------------------------------------------------------
-    # model clock
+    # mesh and model clock
     # ------------------------------------------------------------------
-    def _tick(self, step_s: float) -> None:
-        """Advance the model clock by one dispatched call's predicted
-        time."""
+    _TP_LATER = ("mamba1", "mamba2", "hybrid", "mla_moe")
+
+    def _shard(self, model, params, cfg: ModelConfig, mesh,
+               chunks: int) -> ModelConfig:
+        """Set up tensor parallelism at ``self._tp``: check the family and
+        the head counts, install the mesh, cut this rank's shard of
+        `params` in place and return the config flipped to gather-mode
+        explicit collectives (the JAX engine's flip)."""
+        from repro_torch.distributed import sharding
+        from repro_torch.launch.mesh import make_serving_mesh
+
+        tp = self._tp
+        if cfg.kind in self._TP_LATER:
+            raise NotImplementedError(
+                f"tensor-parallel serving of kind={cfg.kind!r} is ROADMAP "
+                f"A7: the port serves {self._TP_LATER} at tp=1 only")
+        if cfg.n_heads % tp or cfg.kv_heads % tp:
+            raise ValueError(
+                f"tp={tp} must divide n_heads={cfg.n_heads} and kv_heads="
+                f"{cfg.kv_heads}: a rank holds whole heads")
+        self.mesh = mesh if mesh is not None else make_serving_mesh(tp)
+        if self.mesh.shape["model"] != tp:
+            raise ValueError(f"mesh {self.mesh.shape} must carry a 'model' "
+                             f"axis of size tp={tp}")
+        sharding.shard_params(params, self.mesh,
+                              whole=model.init(cfg, None, device="meta"))
+        return dataclasses.replace(cfg, tp_collectives="explicit",
+                                   tp_reduce="gather",
+                                   tp_overlap_chunks=chunks)
+
+    def _activate(self) -> None:
+        """Install this engine's mesh on the thread (clearing it for a
+        tp=1 engine) before it dispatches: the model code reads the current
+        mesh, and engines of different tp may take turns in one
+        process."""
+        from repro_torch.distributed.sharding import set_mesh
+
+        set_mesh(self.mesh)
+
+    def _tick(self, step_s: float, est=None) -> None:
+        """Advance the model clock by one dispatched call's predicted time
+        and fold its collective wire telemetry into the counters."""
         self._clock += step_s
         self._stats["model_s"] += step_s
+        if est is not None and est.collective_s > 0.0:
+            self._stats["wire_s"] += est.collective_s
+            self._stats["hidden_wire_s"] += (est.overlap_factor
+                                             * est.collective_s)
 
     @property
     def model_clock_s(self) -> float:
@@ -446,8 +522,9 @@ class ServingEngine:
 
     @property
     def tp(self) -> int:
-        """Chips per engine: one (tensor parallelism is ROADMAP A7)."""
-        return 1
+        """Chips (rank processes) per engine: the tensor-parallel
+        degree."""
+        return self._tp
 
     @property
     def chip_spec(self):
@@ -459,9 +536,9 @@ class ServingEngine:
 
     @property
     def idle_power_w(self) -> float:
-        """The priced chip's idle-floor power (`ChipSpec.idle_power_w`;
-        one chip, tp = 1)."""
-        return self.chip_spec.idle_power_w
+        """Idle-floor power of the engine's chips (the priced chip's
+        `ChipSpec.idle_power_w` x tp)."""
+        return self.chip_spec.idle_power_w * self._tp
 
     # ------------------------------------------------------------------
     # queue
@@ -595,13 +672,16 @@ class ServingEngine:
         paged layout first materialises the gathered per-row view through
         the page table and then reads it — 2x the cache bytes. An encdec
         call also reads each row's dense cross-KV (`max_len` source
-        rows)."""
+        rows). A tensor-parallel rank reads its heads' 1/tp of the cache
+        (MLA's latent cache would be replicated, whole)."""
         from repro_torch.models.config import kv_cache_bytes
 
         scale = 2.0 if self.kv_layout == "paged" else 1.0
         if self.cfg.kind == "encdec":
             scale += 1.0
-        return scale * kv_cache_bytes(self.cfg, batch_rows * self.max_len)
+        shard = 1 if self.cfg.kind == "mla_moe" else self._tp
+        return (scale * kv_cache_bytes(self.cfg, batch_rows * self.max_len)
+                / shard)
 
     def _step_energy(self, key, n_rows: int, head_rows: int | None = None,
                      batch_rows: int | None = None,
@@ -617,16 +697,23 @@ class ServingEngine:
         if hit is not None:
             return hit
         from repro_torch.core.energy import gemm_fleet_energy
-        from repro_torch.models.config import gemm_shape_counts
+        from repro_torch.models.config import (collective_wire_bytes,
+                                               gemm_shape_counts)
 
         kv_rows = (batch_rows * self.max_len
                    if batch_rows is not None else None)
+        wire_b, n_coll = collective_wire_bytes(
+            self.cfg, n_rows, self._tp, head_tokens=head_rows,
+            src_tokens=src_rows)
         est = gemm_fleet_energy(
             gemm_shape_counts(self.cfg, n_rows, head_tokens=head_rows,
-                              kv_rows=kv_rows, src_tokens=src_rows),
+                              kv_rows=kv_rows, tp=self._tp,
+                              src_tokens=src_rows),
             chip=self.chip_spec, dtype=self.cfg.activation_dtype,
             configs=self.pretuned or None,
             extra_hbm_bytes=self._kv_gather_bytes(batch_rows or 0),
+            tp=self._tp, collective_bytes=wire_b, n_collectives=n_coll,
+            overlap_chunks=self.cfg.tp_overlap_chunks,
             name=f"{self.cfg.name}:{key}")
         self._step_energy_cache[key] = est
         return est
@@ -689,18 +776,26 @@ class ServingEngine:
         if hit is not None:
             return hit
         from repro_torch.core.energy import fused_step_energy
-        from repro_torch.models.config import gemm_shape_counts
+        from repro_torch.models.config import (collective_wire_bytes,
+                                               gemm_shape_counts)
 
+        tp = self._tp
         decode = gemm_shape_counts(self.cfg, self.max_batch,
-                                   kv_rows=self.max_batch * self.max_len)
+                                   kv_rows=self.max_batch * self.max_len,
+                                   tp=tp)
         ch = gemm_shape_counts(self.cfg, width * chunk, head_tokens=width,
-                               kv_rows=width * self.max_len)
+                               kv_rows=width * self.max_len, tp=tp)
+        wb_d, nc_d = collective_wire_bytes(self.cfg, self.max_batch, tp)
+        wb_c, nc_c = collective_wire_bytes(self.cfg, width * chunk, tp,
+                                           head_tokens=width)
         est = fused_step_energy(
             decode, ch, chip=self.chip_spec,
             dtype=self.cfg.activation_dtype,
             configs=self.pretuned or None,
             extra_hbm_bytes=(self._kv_gather_bytes(self.max_batch)
                              + self._kv_gather_bytes(width)),
+            tp=tp, collective_bytes=wb_d + wb_c, n_collectives=nc_d + nc_c,
+            overlap_chunks=self.cfg.tp_overlap_chunks,
             name=f"{self.cfg.name}:fused:{width}x{chunk}")
         self._step_energy_cache[key] = est
         return est
@@ -754,8 +849,8 @@ class ServingEngine:
         with ops.launch_objective(self.tune_objective):
             state = self.model.admit(self.params, packed,
                                      self._init_state(width), self.cfg)
-        adm_j, adm_s, _ = self._admit_cost(width, bucket)
-        self._tick(adm_s)
+        adm_j, adm_s, adm_est = self._admit_cost(width, bucket)
+        self._tick(adm_s, adm_est)
         self._stats["admit_calls"] += 1
         return state, adm_j
 
@@ -779,8 +874,8 @@ class ServingEngine:
                     self.params, torch.as_tensor(toks, device=self.device),
                     torch.as_tensor([n], device=self.device), state,
                     self.cfg)
-            pre_j, pre_s, _ = self._chunk_cost(1, bucket)
-            self._tick(pre_s)
+            pre_j, pre_s, pre_est = self._chunk_cost(1, bucket)
+            self._tick(pre_s, pre_est)
             tok = int(self._sample(self._logits(logits), [rng])[0])
             return tok, state, adm_j + pre_j
         with ops.launch_objective(self.tune_objective):
@@ -790,8 +885,8 @@ class ServingEngine:
                  "lengths": torch.as_tensor([n], device=self.device)},
                 self.cfg, max_len=self.max_len)
         tok = int(self._sample(self._logits(logits), [rng])[0])
-        pre_j, pre_s, _ = self._prefill_cost(bucket, head_rows=1)
-        self._tick(pre_s)
+        pre_j, pre_s, pre_est = self._prefill_cost(bucket, head_rows=1)
+        self._tick(pre_s, pre_est)
         return tok, state, pre_j
 
     def _finish(self, slot: _Slot, now: float, decode_energy_j: float,
@@ -819,12 +914,12 @@ class ServingEngine:
                      results):
         """One lockstep decode step over the slot table; retires finished
         slots in place. Returns the new batch state."""
-        decode_energy_j, decode_step_s, _ = decode_cost
+        decode_energy_j, decode_step_s, decode_est = decode_cost
         B = self.max_batch
         active = np.array([s is not None for s in slots])
         if not active.any():
             return batch_state
-        self._tick(decode_step_s)
+        self._tick(decode_step_s, decode_est)
         with ops.launch_objective(self.tune_objective):
             logits, batch_state = self.model.decode_step(
                 self.params, torch.as_tensor(token_buf, device=self.device),
@@ -863,6 +958,7 @@ class ServingEngine:
         """Serve every queued request to completion in the engine's mode
         (``mode="auto"`` picks continuous batching when the family
         supports it, else the wave loop)."""
+        self._activate()
         mode = self.mode
         if mode == "auto":
             mode = ("continuous" if self._continuous_supported()
@@ -883,6 +979,7 @@ class ServingEngine:
                 f"continuous batching unsupported for kind="
                 f"{self.cfg.kind!r} (needs the per-row decode-state "
                 f"contract); use wave mode")
+        self._activate()
         if self.kv_layout == "paged":
             return self._run_paged()
         if self.admission == "serial":
@@ -901,6 +998,7 @@ class ServingEngine:
         and wave loops are not steppable. Returns ``[]`` on the final call
         that observes the drained loop; poll `has_work` to drive to
         exhaustion."""
+        self._activate()
         if self._stepper is None:
             if not self.queue and not self._adopted:
                 return []
@@ -1076,8 +1174,8 @@ class ServingEngine:
                     self.cfg)
             logits = self._logits(logits)
             now = time.perf_counter()
-            est_j, est_s, _ = self._chunk_cost(W, C)
-            self._tick(est_s)
+            est_j, est_s, est = self._chunk_cost(W, C)
+            self._tick(est_s, est)
             self._stats["chunk_steps"] += 1
             # lane pad and parked rows are executed spend with no owner
             self._stats["idle_energy_j"] += (W - len(pending)) * est_j / W
@@ -1231,6 +1329,7 @@ class ServingEngine:
         if any(r.replay for r in self.queue):
             raise ValueError(
                 "replay requests require chunked admission (serve_step)")
+        self._activate()
         t_run0 = time.perf_counter()
         batch_reqs = [self.queue.popleft()
                       for _ in range(min(self.max_batch, len(self.queue)))]
@@ -1256,7 +1355,7 @@ class ServingEngine:
                     self.cfg)
             logits = self._logits(logits)
             t_first = time.perf_counter()
-            prefill_j, prefill_s, _ = self._chunk_cost(B, Sb)
+            prefill_j, prefill_s, pre_est = self._chunk_cost(B, Sb)
             prefill_j += adm_j
         else:
             with ops.launch_objective(self.tune_objective):
@@ -1267,10 +1366,11 @@ class ServingEngine:
                     self.cfg, max_len=self.max_len)
             logits = self._logits(logits)
             t_first = time.perf_counter()
-            prefill_j, prefill_s, _ = self._prefill_cost(B * S, head_rows=B)
-        self._tick(prefill_s)
+            prefill_j, prefill_s, pre_est = self._prefill_cost(
+                B * S, head_rows=B)
+        self._tick(prefill_s, pre_est)
         t_first_model = self.model_clock_s
-        decode_energy_j, decode_step_s, _ = self._cost(
+        decode_energy_j, decode_step_s, decode_est = self._cost(
             self._step_energy(("decode", B), B, batch_rows=B))
 
         # per-row budgets: each row clamps by its own prompt, never by the
@@ -1290,7 +1390,7 @@ class ServingEngine:
                     budgets[i] <= 1):
                 done[i] = True
         while not done.all():
-            self._tick(decode_step_s)
+            self._tick(decode_step_s, decode_est)
             with ops.launch_objective(self.tune_objective):
                 logits, state = self.model.decode_step(
                     self.params, torch.as_tensor(cur, device=self.device),
@@ -1670,8 +1770,8 @@ class ServingEngine:
                                               self.cfg)
                     rec.extra_top = {k: st[k] for k in extra_top_keys}
                     rec.extra_kv = {k: st["kv"][k] for k in extra_kv_keys}
-                    adm_j, adm_s, _ = self._admit_cost(1, bucket)
-                    self._tick(adm_s)
+                    adm_j, adm_s, adm_est = self._admit_cost(1, bucket)
+                    self._tick(adm_s, adm_est)
                     self._stats["admit_calls"] += 1
                     rec.chunk_energy_j += adm_j
                     rec.t_start = time.perf_counter()
@@ -1736,8 +1836,8 @@ class ServingEngine:
                     self.cfg)
             logits = self._logits(logits)
             now = time.perf_counter()
-            est_j, est_s, _ = self._chunk_cost(W, C)
-            self._tick(est_s)
+            est_j, est_s, est = self._chunk_cost(W, C)
+            self._tick(est_s, est)
             self._stats["chunk_steps"] += 1
             self._stats["idle_energy_j"] += (W - len(pending)) * est_j / W
             keep: list[_Admission] = []
@@ -1785,7 +1885,7 @@ class ServingEngine:
             only with its last reader)."""
             if not any(s is not None for s in slots):
                 return
-            self._tick(decode_cost[1])
+            self._tick(decode_cost[1], decode_cost[2])
             extra_top, extra_kv = gather_extras(slots, B)
             state = {"kv": {**pool, "table": dev_table(
                          [s.pages if s else None for s in slots], B),
@@ -1864,9 +1964,15 @@ class ServingEngine:
                   if self._allocator is not None else {})
         return {
             **paging,
+            "tp": self._tp,
             "model_s": s["model_s"],
             "model_tokens_per_s": (toks / s["model_s"]
                                    if s["model_s"] > 0 else 0.0),
+            # the energy model's collective wire time and the share of it
+            # hidden behind the GEMMs (zero at tp=1)
+            "collective_wire_s": s["wire_s"],
+            "overlap_factor": (s["hidden_wire_s"] / s["wire_s"]
+                               if s["wire_s"] > 0 else 0.0),
             "requests": s["requests"],
             "generated_tokens": toks,
             "decode_steps": s["decode_steps"],

@@ -281,6 +281,45 @@ def test_a_rows_bits_do_not_depend_on_m(dev, n, k, out_dtype):
     torch.cuda.synchronize()
 
 
+# qwen2-7b's serving (N, K): q, k and v, o, gate and up, down, the head
+TP_NK = [(3584, 3584, torch.bfloat16), (512, 3584, torch.bfloat16),
+         (18944, 3584, torch.bfloat16), (3584, 18944, torch.bfloat16),
+         (152064, 3584, torch.float32)]
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("n,k,out_dtype", TP_NK)
+def test_a_shards_columns_are_the_whole_products(dev, n, k, out_dtype, tp):
+    """Tensor parallelism's bits: each rank's contiguous column shard of
+    the weight (`sharding.local_copy`), whole and cut into the 4 column
+    chunks `tp.row_parallel_gather` launches (views of the shard),
+    launched with ``segments_n`` = N, gives bit for bit the same columns
+    as the unsharded product, at M = 1, 4, 8, 64, 65 and 128."""
+    from repro_torch.distributed.sharding import local_copy
+    from repro_torch.distributed.tp import _n_chunks
+
+    g = torch.Generator(dev).manual_seed(8)
+    a = torch.randn((128, k), generator=g, device=dev).to(torch.bfloat16)
+    b = (torch.randn((k, n), generator=g, device=dev) / k ** 0.5).to(
+        torch.bfloat16)
+    want = {m: tiled_matmul(a[:m], b, out_dtype=out_dtype)
+            for m in (1, 4, 8, 64, 65, 128)}
+    for rank in range(tp):
+        w = local_copy(b, 1, rank, tp)
+        n_loc = w.shape[1]
+        for chunks in (1, 4):
+            c = _n_chunks(n_loc, chunks)
+            width = n_loc // c
+            for i in range(c):
+                lo = rank * n_loc + i * width
+                for m, full in want.items():
+                    got = tiled_matmul(a[:m], w[:, i * width:(i + 1) * width],
+                                       out_dtype=out_dtype, segments_n=n)
+                    assert torch.equal(got, full[:, lo:lo + width]), \
+                        (rank, chunks, i, m)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("m", [1, 4, 8, 9, 64])
 @pytest.mark.parametrize("n,k", [(65024, 4096), (200, 296)])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])

@@ -791,6 +791,32 @@ class TestPlan:
                     for m in range(1, 65)}
             assert seen == {k_segments(n, k)}
 
+    @pytest.mark.parametrize("tp", [2, 4])
+    def test_a_shard_takes_the_whole_products_segments(self, tp):
+        """Tensor parallelism (`distributed.tp`): a column shard of every
+        serving (N, K) of qwen2-7b at tp, whole (N/tp) and cut into the
+        row-parallel chunks (N/tp/4, views with the shard's row stride),
+        planned with ``segments_n`` = N gets the unsharded product's K
+        segments at every M, on whichever fast path it takes: so each of
+        its columns sums K as the whole product's does. Without it the
+        narrower N would change the count (`k_segments` depends on N)."""
+        from repro_torch.configs import get_config
+
+        cfg = get_config("qwen2-7b")
+        fleet = set(ops.serving_gemm_fleet(
+            cfg, max_batch=4, max_len=512, chunk_tokens=64, lane_width=8))
+        differ = 0
+        for n, k in sorted({(n, k) for _, n, k in fleet}):
+            n_loc = n // tp
+            for width in (n_loc, n_loc // 4):
+                differ += k_segments(width, k) != k_segments(n, k)
+                for m in (1, 4, 8, 64, 65, 128, 512):
+                    p = plan(m, width, k, (k, 1), (n_loc, 1), 0, 0,
+                             torch.bfloat16, torch.bfloat16, segments_n=n)
+                    assert p.path in (STREAM, WGMMA), (m, width, k)
+                    assert p.segments == k_segments(n, k), (m, width, k)
+        assert differ      # the shards' own N would sum some K otherwise
+
     def test_plan_is_deterministic(self):
         assert _plan(64, 3584, 18944) == _plan(64, 3584, 18944)
 
