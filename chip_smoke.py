@@ -34,7 +34,14 @@ build of PyTorch. Phases, each fatal on failure:
    column shard, whole and cut into 4 chunks, launched with
    ``segments_n`` = N, bit-equal to the same columns of the whole product
    at M = 1, 4, 8, 64, 65 and 128, and attention giving each head the same
-   bits at 28, 14 and 7 query heads (4, 2 and 1 KV heads);
+   bits at 28, 14 and 7 query heads (4, 2 and 1 KV heads); the same for
+   every column-sharded weight of falcon-mamba-7b, zamba2-2.7b and
+   deepseek-v2-236b, each rank's shard cut by its parts (Mamba1's in_proj
+   [x | z], Mamba2's [z | x | B C | dt]; MLA's w_uk and w_uv at the
+   cache's 512 and 2048 rows too); and a rank's Mamba1 channels (conv and
+   selective scan), SSD heads and MLA heads (attention over 512 cached
+   positions, dense and paged) bit-equal to the whole call's, a 64-token
+   prefill chunk and a decode step at batch 1 and 4;
 4. serve: full-width, full-depth qwen2-7b with seeded random weights; the
    continuous-batching engine answers 10 requests (prompts of 16-300
    tokens, 8-32 new tokens); the kernel's launch counter must equal the
@@ -107,9 +114,12 @@ build of PyTorch. Phases, each fatal on failure:
    olmoe-1b-7b (64 experts top-8) served chunked, then in the wave loop a
    64-token request alone and beside 3 others (per-row expert capacity
    binds at S = 64; the streams must be identical), then the shared-prefix
-   workload dense and paged; and deepseek-v2-236b at full width cut to 8
-   of its 60 layers (the whole model is six times the card), served
-   chunked on the dense latent cache and on the paged latent pool; each
+   workload dense and paged; and deepseek-v2-236b at full width cut to 4
+   of its 60 layers (the whole model is six times the card; phase 17's
+   two ranks build that depth in turn), served
+   chunked on the dense latent cache and on the paged latent pool, and
+   phase 17's four requests alone (a row's expert capacity follows its
+   chunk call's bucket, which the other requests move); each
    with the logits check, launches per forward from the model's structure
    (81; 11 L + 1) and its serving shapes timed;
 12. SSM and hybrid serving at `plan`'s tiles: full-width, full-depth
@@ -208,17 +218,30 @@ build of PyTorch. Phases, each fatal on failure:
    head's shard) x its forwards, none on general; its collectives = 282
    per forward. It prints per rank the tokens, forwards and seconds, the
    collectives and their host time, the weights it holds and its peak
-   device memory while serving, and the phase's seconds.
+   device memory while serving, and the phase's seconds. After phase 12,
+   the same for falcon-mamba-7b and zamba2-2.7b at full width and depth
+   (both ranks building at once) and deepseek-v2-236b at full width and
+   phase 11's depth (the ranks building in turn), on one pool of two
+   ranks, against phases 12's chunked streams and phase 11's streams of
+   the same four requests: launches 449, 388
+   and 69 per forward (Mamba1's in_proj, x_proj whole, dt_proj and 4
+   out_proj chunks a layer; Mamba2's in_proj and 4 out_proj chunks, the
+   hybrid's shared block as a dense layer; MLA's projections, 4 wo chunks,
+   the router and the shared experts' gate, up and 4 down chunks), and
+   collectives 386, 362 and 46 (Mamba1's x_conv gather beside out_proj's,
+   Mamba2's gated-norm input gather, the experts' output gather). While
+   those ranks serve, the main process makes phases 15 (e)'s and 16 (d)'s
+   meta analyses ahead (`_analyse_ahead`).
 
 After phase 10, ``build/serving_shapes.json`` holds qwen2-7b's and
 qwen2.5-14b's serving launches by shape, for ``tools/gemm_sums.py``.
 
 It prints a JSON line of per-kernel numbers (launches summed over phases
-4, 12, 13, 14, 17 (both ranks), 15 (a) and 16 (a), times over phases 5,
-12, 13, 14, 15 (a) and 16 (a): the runs of the port's main paths; the
-GEMM's stream, wgmma and split paths and the split kernel; no launch of
-those runs takes the general path, the yardstick in each entry's v3_ms)
-and, last, the device line.
+4, 12, 13, 14, 17 (both ranks, every model), 15 (a) and 16 (a), times
+over phases 5, 12, 13, 14, 15 (a) and 16 (a): the runs of the port's main
+paths; the GEMM's stream, wgmma and split paths and the split kernel; no
+launch of those runs takes the general path, the yardstick in each
+entry's v3_ms) and, last, the device line.
 Without a GPU, or without the repository beside it, it exits non-zero.
 """
 
@@ -1006,6 +1029,222 @@ def _shard_heads(dev, g) -> None:
                          f"call: {len(bad)} of {cases} calls, {bad[:20]}")
 
 
+# the families phase 17 serves beside qwen2-7b, and the archs whose
+# sharded projections and scans phase 3 holds to the whole's bits
+TP_FAMILY_ARCHS = ("falcon-mamba-7b", "zamba2-2.7b", "deepseek-v2-236b")
+# the row-parallel (gather-mode) projections: column-sharded, chunked
+TP_ROW_LEAVES = ("wo", "w_down", "out_proj")
+# the MLA decompressions run over the cache's rows: B x max_len
+DECOMPRESS_M = (512, 2048)
+
+
+def _shard_parts(dev, g) -> None:
+    """Tensor parallelism's bits on the SSM, hybrid and MLA projections:
+    for every column-sharded GEMM weight of one layer (and the untied LM
+    head) of falcon-mamba-7b, zamba2-2.7b and deepseek-v2-236b at full
+    width, each rank's shard at tp = 2 and 4, cut by its parts
+    (`sharding.axis_parts`: Mamba1's in_proj [x | z], Mamba2's [z | x | B
+    C | dt] with B and C whole), whole and, for a row-parallel projection,
+    in `TP_CHUNKS` column chunks, launched with ``segments_n`` = the whole
+    N, must give bit for bit the same columns of the unsharded product (the
+    rank's parts of its columns), at M in `SHARD_M` (and `DECOMPRESS_M`
+    for MLA's w_uk and w_uv). Mamba1's dt_proj reads its input as the
+    strided view of x_proj's output that the block gives it."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.tp import _n_chunks
+    from repro_torch.kernels.tiled_matmul import tiled_matmul
+    from repro_torch.models.registry import get_model
+
+    t0 = time.perf_counter()
+    bad, cases, weights = [], 0, 0
+    for arch in TP_FAMILY_ARCHS:
+        cfg = get_config(arch)
+        cfg = dataclasses.replace(cfg, n_layers=(
+            cfg.attn_every if cfg.kind == "hybrid" else 1))
+        meta = get_model(cfg).init(cfg, None, device="meta")
+        for tp in TP_DEGREES:
+            axes = sharding.param_axes(meta, tp, cfg=cfg)
+            for name, p in meta.named_parameters():
+                leaf = name.rsplit(".", 1)[-1]
+                if (p.dim() != 2 or axes[name] != 1
+                        or name.startswith(("embed", "blocks.")) and not
+                        name.startswith("blocks.0.")):
+                    continue
+                k, n = p.shape
+                out = torch.float32 if n == cfg.vocab else torch.bfloat16
+                ms = SHARD_M + (DECOMPRESS_M if leaf in ("w_uk", "w_uv")
+                                else ())
+                a = torch.randn((max(ms), k + 32), generator=g,
+                                device=dev).to(torch.bfloat16)
+                # dt_proj's input: the first r columns of x_proj's output
+                a = a[:, :k] if leaf == "dt_proj" else a[:, :k].contiguous()
+                b = _weight(dev, g, k, n, torch.bfloat16)
+                parts = sharding.axis_parts(leaf, n, cfg)
+                want = {m: tiled_matmul(a[:m], b, out_dtype=out) for m in ms}
+                weights += tp == TP_DEGREES[0]
+                for rank in range(tp):
+                    w = sharding.local_copy(b, 1, rank, tp, parts)
+                    n_loc = w.shape[1]
+                    for chunks in ((1, TP_CHUNKS) if leaf in TP_ROW_LEAVES
+                                   else (1,)):
+                        c = _n_chunks(n_loc, chunks)
+                        width = n_loc // c
+                        for m in ms:
+                            cols = sharding.local_copy(want[m], 1, rank, tp,
+                                                       parts)
+                            for i in range(c):
+                                got = tiled_matmul(
+                                    a[:m], w[:, i * width:(i + 1) * width],
+                                    out_dtype=out, segments_n=n)
+                                cases += 1
+                                if not torch.equal(got, cols[
+                                        :, i * width:(i + 1) * width]):
+                                    bad.append((arch, name, m, tp, rank, c,
+                                                i))
+                    del w
+                del a, b, want
+    torch.cuda.synchronize()
+    _say(f"[kernel rows] tensor-parallel parts: {weights} column-sharded "
+         f"weights of {', '.join(TP_FAMILY_ARCHS)} (one layer and the head) "
+         f"at tp {TP_DEGREES}, each rank's parts whole and row-parallel ones "
+         f"in {TP_CHUNKS} chunks (segments_n = N), M in {SHARD_M} (and "
+         f"{DECOMPRESS_M} for w_uk, w_uv): {cases} calls bit-equal to the "
+         f"unsharded product's columns {not bad} ({len(bad)} mismatches) in "
+         f"{time.perf_counter() - t0:.1f} s")
+    if bad:
+        raise SystemExit(f"a shard's columns differ from the whole "
+                         f"product's: {bad[:10]}")
+
+
+def _shard_scans(dev, g) -> None:
+    """The SSM scans and MLA attention give a rank's channels or heads the
+    whole call's bits, at tp = 2 and 4, batch 1 and 4, a 64-token prefill
+    chunk (right-padded rows under `seq_lens`, carried state, the serve
+    grain 8) and a single decode step: falcon-mamba-7b's Mamba1 channels
+    (8192 of d_state 16) through the causal conv, silu and
+    `ssm.selective_scan`; zamba2-2.7b's 80 SSD heads (headdim 64, d_state
+    64) through `ssm.ssd_heads`; deepseek-v2-236b's 128 MLA heads (128 +
+    64 RoPE) through `moe.mla_attention` over 512 cached positions, dense
+    and under a page-validity mask."""
+    import math
+
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe, ssm
+
+    t0 = time.perf_counter()
+    bf16 = torch.bfloat16
+    bad: list = []
+    cases = collections.Counter()
+
+    def rnd(*shape, dtype=torch.float32, scale=1.0):
+        return (scale * torch.randn(shape, generator=g, device=dev)).to(dtype)
+
+    def check(tag, want, got):
+        cases[tag] += 1
+        if not all(torch.equal(w, x) for w, x in zip(want, got)):
+            bad.append(tag)
+
+    # Mamba1 channels
+    cfg = get_config("falcon-mamba-7b")
+    di, ds, K = cfg.d_inner, cfg.ssm_state, cfg.d_conv
+    for nb in (1, 4):
+        for S in (64, 1):
+            x_ = rnd(nb, S, di, dtype=bf16)
+            w, b = rnd(di, K, dtype=bf16, scale=0.5), rnd(di, dtype=bf16)
+            hist = rnd(nb, K - 1, di)
+            dt = rnd(nb, S, di)
+            s = {"dt_bias": rnd(di, dtype=bf16), "D": rnd(di),
+                 "A_log": torch.log(torch.arange(
+                     1, ds + 1, dtype=torch.float32, device=dev)).expand(
+                     di, ds).contiguous()}
+            Bm, Cm = rnd(nb, S, ds, dtype=bf16), rnd(nb, S, ds, dtype=bf16)
+            h0 = rnd(nb, di, ds)
+            lens = torch.randint(1, S + 1, (nb,), generator=g, device=dev)
+            kw = dict(single_step=S == 1, chunk=ssm.SERVE_CHUNK,
+                      seq_mask=None if S == 1 else ssm._seq_mask(lens, S))
+
+            def run(sl):
+                xc = F.silu(ssm.causal_conv(x_[..., sl], w[sl], b[sl],
+                                            hist[..., sl]).float()).to(bf16)
+                return ssm.selective_scan(
+                    xc, dt[..., sl], {k: v[sl] for k, v in s.items()},
+                    Bm, Cm, h0[:, sl], **kw)
+
+            want = run(slice(None))
+            for tp in TP_DEGREES:
+                n = di // tp
+                for r in range(tp):
+                    sl = slice(r * n, (r + 1) * n)
+                    check(f"mamba1 B={nb} S={S}",
+                          (want[0][..., sl], want[1][:, sl]), run(sl))
+    # Mamba2 heads
+    cfg = get_config("zamba2-2.7b")
+    P, N = cfg.ssm_headdim, cfg.ssm_state
+    H = cfg.d_inner // P
+    for nb in (1, 4):
+        for S in (64, 1):
+            xs = rnd(nb, S, H, P, dtype=bf16)
+            dt_raw = rnd(nb, S, H, dtype=bf16)
+            s = {"dt_bias": rnd(H, dtype=bf16), "A_log": rnd(H, scale=0.5),
+                 "D": rnd(H)}
+            Bm, Cm = rnd(nb, S, N, dtype=bf16), rnd(nb, S, N, dtype=bf16)
+            h0 = rnd(nb, H, N, P)
+            lens = torch.randint(1, S + 1, (nb,), generator=g, device=dev)
+            kw = dict(single_step=S == 1, chunk=ssm.SERVE_CHUNK,
+                      seq_lens=None if S == 1 else lens)
+
+            def run(sl):
+                return ssm.ssd_heads(xs[:, :, sl], dt_raw[..., sl],
+                                     {k: v[sl] for k, v in s.items()},
+                                     Bm, Cm, h0[:, sl], **kw)
+
+            want = run(slice(None))
+            for tp in TP_DEGREES:
+                n = H // tp
+                for r in range(tp):
+                    sl = slice(r * n, (r + 1) * n)
+                    check(f"ssd B={nb} S={S}",
+                          (want[0][:, :, sl], want[1][:, sl]), run(sl))
+    # MLA heads
+    cfg = get_config("deepseek-v2-236b")
+    H, hd, pe, Sk = cfg.n_heads, cfg.hd, cfg.rope_head_dim, 512
+    valid = torch.rand((4, Sk), generator=g, device=dev) > 0.1
+    for nb in (1, 4):
+        k_c, v = rnd(nb, Sk, H, hd, dtype=bf16), rnd(nb, Sk, H, hd, dtype=bf16)
+        k_pe = rnd(nb, Sk, 1, pe, dtype=bf16)
+        pos = torch.randint(200, 440, (nb,), generator=g, device=dev)
+        for S in (1, 64):
+            q_c, q_pe = rnd(nb, S, H, hd, dtype=bf16), rnd(nb, S, H, pe,
+                                                          dtype=bf16)
+            for mask in (None, valid[:nb]):
+                kw = dict(q_offset=pos, kv_len=pos + S, kv_valid=mask,
+                          scale=1.0 / math.sqrt(hd + pe))
+                want = moe.mla_attention(q_c, q_pe, k_c, v, k_pe, **kw)
+                for tp in TP_DEGREES:
+                    n = H // tp
+                    for r in range(tp):
+                        sl = slice(r * n, (r + 1) * n)
+                        got = moe.mla_attention(
+                            q_c[:, :, sl], q_pe[:, :, sl], k_c[:, :, sl],
+                            v[:, :, sl], k_pe, **kw)
+                        check(f"mla B={nb} S={S}"
+                              + (" paged" if mask is not None else ""),
+                              (want[:, :, sl],), (got,))
+    torch.cuda.synchronize()
+    _say(f"[kernel rows] tensor-parallel scans and heads: a rank's Mamba1 "
+         f"channels (conv, silu, selective scan), SSD heads and MLA heads "
+         f"at tp {TP_DEGREES} against the whole call's: "
+         f"{sum(cases.values())} calls ({dict(cases)}) bit-equal "
+         f"{not bad} ({len(bad)} mismatches: {sorted(set(bad))}) in "
+         f"{time.perf_counter() - t0:.1f} s")
+    if bad:
+        raise SystemExit(f"a rank's channels or heads differ from the whole "
+                         f"call's: {sorted(set(bad))}")
+
+
 def _row_invariance(dev) -> None:
     """Fault C1: for every serving (N, K) of the eight configs (`_serving_nk`)
     and both output dtypes, the rows of an M = 4 call are bit-equal to the
@@ -1056,6 +1295,8 @@ def _row_invariance(dev) -> None:
     _encoder_attention_rows(dev, g)
     _shard_columns(dev, g)
     _shard_heads(dev, g)
+    _shard_parts(dev, g)
+    _shard_scans(dev, g)
     _say(f"[kernel rows] {len(shapes)} serving (N, K) x 2 output dtypes x M "
          f"in {ROW_INVARIANCE_M}, and {len(tied)} tied head(s) on the (N, K) "
          f"layout at M in (1, 8, 64): rows 0-3 bit-equal to the M = 4 "
@@ -2769,13 +3010,14 @@ def phase_dense(dev) -> dict:
             "shapes": {name: shapes}}
 
 
-# phase 11: deepseek-v2-236b's depth on one card. The whole model is 239.4 B
-# parameters (478.7 GB in bf16); a layer is 3.97 B (7.94 GB), the
-# embedding and head 2.1 GB, and the init's largest f32 draw (one layer's
-# 160 x 5120 x 1536 experts) 5.0 GB. 8 layers are 65.7 GB and leave the
-# 80 GB card room for that draw, the caches, the plain version's f32
-# copies in the logits check and the allocator's slack.
-DEEPSEEK_LAYERS = 8
+# phases 11 and 17: deepseek-v2-236b's depth on one card. The whole model
+# is 239.4 B parameters (478.7 GB in bf16); a layer is 3.97 B (7.94 GB),
+# the embedding and head 2.1 GB, and the init's largest f32 draw (one
+# layer's 160 x 5120 x 1536 experts) 5.0 GB. 8 layers (65.7 GB) fit phase
+# 11 but cannot be built twice; at 4 (33.9 GB) phase 17's second rank
+# builds its whole copy beside the first rank's cut half (17.0 GB), and
+# phase 11 serves the same depth for phase 17's tp=1 streams.
+DEEPSEEK_LAYERS = 4
 # phase 11 (b): the prompt length of the capacity check (olmoe's capacity
 # factor 1.25 gives 10 slots per row and expert at S = 64 and top-8 of 64)
 CAPACITY_PROMPT = 64
@@ -2789,14 +3031,16 @@ def phase_moe(dev) -> dict:
     expert capacity binds; the streams must be identical; beside it one
     row's ops at batch 1 and 4, compared bit for bit), and (c) the
     shared-prefix workload dense and paged with prefix reuse;
-    then deepseek-v2-236b at full width cut to `DEEPSEEK_LAYERS` layers,
+    then deepseek-v2-236b at full width cut to `DEEPSEEK_LAYERS` layers
+    (the depth both of phase 17's ranks can build in turn on the card),
     served chunked on the dense latent cache and on the paged latent pool
-    (identical streams).
+    (identical streams), and (c) phase 17's requests `TP_UIDS` alone.
     Each model: the logits check, launches per forward from the model's
     structure (81 for olmoe, 11 L + 1 for deepseek), none on general, the
     routers counted apart, and its serving shapes timed as in phase 5.
     Returns {"entries": {model: per-path timing}, "launches": {model:
-    launches per path}}."""
+    launches per path}, "streams": {"deepseek-v2-236b": (c)'s streams by
+    uid}}, the last for phase 17."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models import moe
@@ -2887,7 +3131,13 @@ def phase_moe(dev) -> dict:
     _stream_gate(f"mla {name} (b) paged against (a)", res_p, res_a,
                  lambda: _row_probe(dev, api, params, cfg,
                                     f"mla {name} probe"))
+    # phase 17's requests alone: a row's expert capacity follows its chunk
+    # call's bucket, which the other requests of a batch move, so (a)'s
+    # streams are not these four's
+    res_t, _ = run(f"mla {name} (c) phase 17's requests {TP_UIDS} alone",
+                   engine(), cfg, other, [_requests(cfg)[u] for u in TP_UIDS])
     entries[name] = phase_serving_shapes(dev, shapes, tag=f"mla shapes {name}")
+    streams = {full.name: {r.uid: r.tokens.tolist() for r in res_t}}
     del eng_a, params, engine
     _free()
 
@@ -2896,7 +3146,8 @@ def phase_moe(dev) -> dict:
              f"wgmma {by_path['wgmma']}, general {by_path['general']}")
     _say(f"[moe] phase 11 took {time.perf_counter() - t_phase:.1f} s on "
          f"{_nvidia_smi()}")
-    return {"entries": entries, "launches": dict(launches)}
+    return {"entries": entries, "launches": dict(launches),
+            "streams": streams}
 
 
 # phase 12: the prompt past max_len = 512 that falcon-mamba-7b (no KV
@@ -2915,7 +3166,8 @@ def phase_ssm(dev) -> dict:
     shapes timed as in phase 5, and its peak device memory; falcon-mamba-7b
     also serves a `LONG_PROMPT`-token prompt past max_len = 512, chunked and
     in the wave loop (identical streams). Returns {"entries": {model:
-    per-path timing}, "launches": {model: launches per path}}."""
+    per-path timing}, "launches": {model: launches per path}, "streams":
+    {model: (a)'s streams by uid}}, the last for phase 17."""
     from repro_torch.kernels import ops
     from repro_torch.serving.engine import Request, ServingEngine
 
@@ -2923,6 +3175,7 @@ def phase_ssm(dev) -> dict:
     ops._TUNED.clear()
     launches: dict = collections.defaultdict(collections.Counter)
     entries: dict = {}
+    streams: dict = {}
 
     def run(tag, eng, cfg, log, reqs=None) -> tuple:
         """One checked serving run at plan's tiles, none on general."""
@@ -2967,6 +3220,7 @@ def phase_ssm(dev) -> dict:
         eng_a = engine()
         phase_logits(dev, eng_a, params, cfg, tag=f"ssm logits {name}")
         res_a, rep_a = run(f"ssm {name} (a) chunked", eng_a, cfg, shapes)
+        streams[name] = {r.uid: r.tokens.tolist() for r in res_a}
         res_s, _ = run(f"ssm {name} (b) serial", engine(admission="serial"),
                        cfg, other)
         _stream_gate(f"ssm {name} (b) serial against (a) chunked", res_s,
@@ -3002,7 +3256,8 @@ def phase_ssm(dev) -> dict:
 
     _say(f"[ssm] phase 12 took {time.perf_counter() - t_phase:.1f} s on "
          f"{_nvidia_smi()}")
-    return {"entries": entries, "launches": dict(launches)}
+    return {"entries": entries, "launches": dict(launches),
+            "streams": streams}
 
 
 def _admit_ms(dev, eng, cfg, reqs: list) -> str:
@@ -3427,9 +3682,10 @@ TRAIN_DIR = ROOT / "build" / "chip_smoke_train"
 GEMM_PATHS = ("stream", "wgmma", "split", "general")
 
 
-# phase 17: tensor-parallel serving of full qwen2-7b in TP_RANKS rank
-# processes on the one card (gloo: NCCL refuses two ranks on one device),
-# the requests of phase 4's ten it serves (prompts of 16, 45, 64 and 77
+# phase 17: tensor-parallel serving in TP_RANKS rank processes on the one
+# card (gloo: NCCL refuses two ranks on one device): full qwen2-7b after
+# phase 14, the SSM, hybrid and MLA families after phase 12; the requests
+# of the ten of `_requests` it serves (prompts of 16, 45, 64 and 77
 # tokens: chunk calls on both paths), and each rank's time limit
 TP_RANKS = 2
 TP_UIDS = (0, 2, 4, 7)
@@ -3437,33 +3693,72 @@ TP_TIMEOUT_S = 600
 
 
 def _tp_gemms_per_forward(cfg, tp: int, chunks: int) -> int:
-    """One rank's GEMM launches in one forward of a dense model at `tp`:
-    q, k, v, gate and up once each (this rank's columns), wo and down once
-    per column chunk (`tp._n_chunks` of the rank's d_model / tp columns),
-    and the head (its vocab shard)."""
+    """One rank's GEMM launches in one forward at `tp`, from the model's
+    structure: every column-parallel projection once (this rank's
+    columns), every row-parallel one (attention's wo, the FFN's down,
+    out_proj) once per column chunk (`tp._n_chunks` of the rank's d_model
+    / tp columns), and the head (its vocab shard). Per layer: dense q, k,
+    v, gate (gated FFN only) and up, wo and down; mamba1 in_proj, x_proj
+    (whole), dt_proj and out_proj; mamba2 in_proj and out_proj, and the
+    hybrid's shared block a dense layer per application; mla_moe w_dq (with
+    a q LoRA), w_uq, w_dkv, w_kpe, w_uk, w_uv, wo, the router and the
+    shared experts' gate, up and down."""
     from repro_torch.distributed.tp import _n_chunks
 
     c = _n_chunks(cfg.d_model // tp, chunks) if cfg.d_model % tp == 0 else 1
-    return cfg.n_layers * (3 + (2 if cfg.gated_mlp else 1) + 2 * c) + 1
+    dense = 3 + (2 if cfg.gated_mlp else 1) + 2 * c
+    if cfg.kind == "mamba1":
+        per_layer = 3 + c
+    elif cfg.kind in ("mamba2", "hybrid"):
+        per_layer = 1 + c
+    elif cfg.kind == "mla_moe":
+        per_layer = ((2 if cfg.q_lora_rank else 1) + 4 + c + 1
+                     + (2 + c if cfg.n_shared_experts else 0))
+    else:
+        per_layer = dense
+    shared = (cfg.n_layers // cfg.attn_every * dense
+              if cfg.kind == "hybrid" else 0)
+    return cfg.n_layers * per_layer + shared + 1
 
 
 def _tp_collectives_per_forward(cfg, tp: int, chunks: int) -> int:
-    """One rank's collectives in one forward of a dense model at `tp`: the
-    vocab-sharded embedding's gather, per layer each row-parallel
-    projection's input gather and one gather per column chunk (wo and
-    down), and the head's logits gather."""
+    """One rank's collectives in one forward at `tp`: the vocab-sharded
+    embedding's gather and the head's logits gather; each row-parallel
+    projection's input gather and one gather per column chunk; Mamba1's
+    x_conv gather before x_proj (its out_proj gathers its input as well);
+    Mamba2's gated-norm input gather (its out_proj then needs none); the
+    MoE experts' output gather (experts sharded on E)."""
     from repro_torch.distributed.tp import _n_chunks
 
     c = _n_chunks(cfg.d_model // tp, chunks)
-    return 1 + cfg.n_layers * 2 * (1 + c) + 1
+    dense = 2 * (1 + c)
+    if cfg.kind == "mamba1":
+        per_layer = 2 + c
+    elif cfg.kind in ("mamba2", "hybrid"):
+        per_layer = 1 + c
+    elif cfg.kind == "mla_moe":
+        per_layer = ((1 + c) + (cfg.n_experts % tp == 0)
+                     + (1 + c if cfg.n_shared_experts else 0))
+    else:
+        per_layer = dense
+    shared = (cfg.n_layers // cfg.attn_every * dense
+              if cfg.kind == "hybrid" else 0)
+    return 1 + cfg.n_layers * per_layer + shared + 1
 
 
-def _tp_rank(mesh, uids: tuple, chunks: int) -> dict:
-    """One rank of phase 17, in its own process: phase 4's seeded weights
-    on the card, this rank's shard cut (the rest freed), then the requests
-    `uids` of `_requests` through a tp engine at phase 4's settings, the
-    launch and collective counters set to 0 just before the run and read
-    just after. Returns the streams and the counts, memory and times."""
+def _tp_rank(mesh, arch: str, layers: int | None, uids: tuple, chunks: int,
+             in_turn: bool = False) -> dict:
+    """One rank of phase 17, in its own process: the seeded weights of
+    `arch` (cut to `layers` layers) on the card that phase 4, 11 or 12
+    serves, this rank's shard cut (the rest freed), then the requests
+    `uids` of `_requests` through a tp engine at those phases' settings,
+    the launch and collective counters set to 0 just before the run and
+    read just after. With `in_turn` the ranks build and cut one after the
+    other (a barrier between), so that one whole model and the other
+    rank's shard share the card. Returns the streams and the counts,
+    memory and times."""
+    import torch.distributed as dist
+
     from repro_torch.configs import get_config
     from repro_torch.distributed import tp as TP
     from repro_torch.kernels._build import load_library
@@ -3476,14 +3771,22 @@ def _tp_rank(mesh, uids: tuple, chunks: int) -> dict:
     torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
     load_library()
-    cfg = get_config("qwen2-7b")
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     api = get_model(cfg)
-    params = api.init(cfg, torch.Generator(dev).manual_seed(0), device=dev)
-    whole = sum(p.numel() * p.element_size() for p in params.parameters())
-    eng = ServingEngine(api, params, cfg, max_batch=4, max_len=512,
-                        chunk_tokens=64, device=dev, tp=mesh.tp, mesh=mesh,
-                        tp_overlap_chunks=chunks)
-    _free()
+    for turn in range(mesh.tp if in_turn else 1):
+        if not in_turn or turn == mesh.rank:
+            params = api.init(cfg, torch.Generator(dev).manual_seed(0),
+                              device=dev)
+            whole = sum(p.numel() * p.element_size()
+                        for p in params.parameters())
+            eng = ServingEngine(api, params, cfg, max_batch=4, max_len=512,
+                                chunk_tokens=64, device=dev, tp=mesh.tp,
+                                mesh=mesh, tp_overlap_chunks=chunks)
+            _free()
+        if in_turn:
+            dist.barrier(group=mesh.group)
     held = sum(p.numel() * p.element_size() for p in params.parameters())
     t_ready = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
@@ -3499,43 +3802,40 @@ def _tp_rank(mesh, uids: tuple, chunks: int) -> dict:
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t1
     rep = eng.report()
-    return {"streams": {r.uid: r.tokens.tolist() for r in results},
-            "budgets": {r.uid: eng._budget(r) for r in reqs},
-            "launches": tiled_matmul.launches,
-            "by_path": dict(tiled_matmul.launches_by_path),
-            "collectives": TP.collectives.calls,
-            "collective_host_s": TP.collectives.host_s,
-            "forwards": rep["chunk_steps"] + rep["decode_steps"],
-            "tokens": rep["generated_tokens"],
-            "whole_bytes": whole, "held_bytes": held,
-            "peak_bytes": torch.cuda.max_memory_allocated(),
-            "ready_s": t_ready, "serve_s": serve_s,
-            "collective_wire_s": rep["collective_wire_s"],
-            "model_s": rep["model_s"]}
+    out = {"streams": {r.uid: r.tokens.tolist() for r in results},
+           "budgets": {r.uid: eng._budget(r) for r in reqs},
+           "launches": tiled_matmul.launches,
+           "by_path": dict(tiled_matmul.launches_by_path),
+           "collectives": TP.collectives.calls,
+           "collective_host_s": TP.collectives.host_s,
+           "forwards": rep["chunk_steps"] + rep["decode_steps"],
+           "tokens": rep["generated_tokens"],
+           "whole_bytes": whole, "held_bytes": held,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "ready_s": t_ready, "serve_s": serve_s,
+           "collective_wire_s": rep["collective_wire_s"],
+           "model_s": rep["model_s"]}
+    del eng, params, results
+    _free()
+    return out
 
 
-def phase_tp(want: dict) -> dict:
-    """Phase 17: full-width, full-depth qwen2-7b served tensor-parallel at
-    tp = `TP_RANKS` in as many processes on the one card, a gloo group
-    between them (`launch.mesh.RankPool`). Each rank makes phase 4's
-    seeded weights, cuts its shard and serves `TP_UIDS` at phase 4's engine
-    settings with `TP_CHUNKS` row-parallel chunks. Gates: every stream on
-    every rank equals phase 4's stream `want[uid]`, token for token; each
-    rank's launches equal `_tp_gemms_per_forward` x its forwards, none on
+def _tp_model(pool, arch: str, want: dict, layers: int | None = None,
+              in_turn: bool = False) -> collections.Counter:
+    """Serve `TP_UIDS` of `arch` (cut to `layers`) at tp = `TP_RANKS` on
+    `pool`'s ranks with `TP_CHUNKS` row-parallel chunks and check it.
+    Gates: every stream on every rank equals the card's tp=1 stream
+    `want[uid]`, token for token, and runs to its budget; each rank's
+    launches equal `_tp_gemms_per_forward` x its forwards, none on
     general, and its collectives `_tp_collectives_per_forward` x its
-    forwards. A rank that fails, outlives `TP_TIMEOUT_S` or exits with
-    another code than 0 fails the phase. Returns the launches per path
-    summed over the ranks."""
+    forwards. Returns the launches per path summed over the ranks."""
     from repro_torch.configs import get_config
-    from repro_torch.launch.mesh import RankPool
 
     t0 = time.perf_counter()
-    cfg = get_config("qwen2-7b")
-    pool = RankPool(TP_RANKS, backend="gloo", timeout_s=TP_TIMEOUT_S)
-    try:
-        ranks = pool.run(_tp_rank, TP_UIDS, TP_CHUNKS)
-    finally:
-        codes = pool.close()
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    ranks = pool.run(_tp_rank, arch, layers, TP_UIDS, TP_CHUNKS, in_turn)
     per_fwd = _tp_gemms_per_forward(cfg, TP_RANKS, TP_CHUNKS)
     coll_fwd = _tp_collectives_per_forward(cfg, TP_RANKS, TP_CHUNKS)
     launched = collections.Counter()
@@ -3546,11 +3846,12 @@ def phase_tp(want: dict) -> dict:
         full = all(len(out["streams"].get(u, ())) == out["budgets"][u]
                    for u in TP_UIDS)
         fw, coll = out["forwards"], out["collectives"]
-        _say(f"[tp rank {r}] {len(out['streams'])} requests, "
+        _say(f"[tp rank {r}] {cfg.name} ({cfg.n_layers} layers): "
+             f"{len(out['streams'])} requests, "
              f"{out['tokens']} tokens in {fw} forwards, serve "
              f"{out['serve_s']:.3f} s ({out['tokens'] / out['serve_s']:.2f} "
              f"tokens/s), ready in {out['ready_s']:.1f} s; streams equal "
-             f"phase 4's {same}; launches {out['launches']} = {per_fwd} x "
+             f"tp=1's {same}; launches {out['launches']} = {per_fwd} x "
              f"{fw}? {out['launches'] == per_fwd * fw} (by path "
              f"{out['by_path']}); collectives {out['collectives']} = "
              f"{coll_fwd} x {fw}? {out['collectives'] == coll_fwd * fw}, "
@@ -3562,8 +3863,9 @@ def phase_tp(want: dict) -> dict:
              f"serving {out['peak_bytes'] / 1e9:.2f} GB; model clock "
              f"{out['model_s']:.3f} s, wire {out['collective_wire_s']:.6f} s")
         if not (same and full):
-            failed.append(f"rank {r} streams differ from phase 4's: "
-                          f"{out['streams']}")
+            failed.append(f"rank {r} streams differ from tp=1's: "
+                          f"{out['streams']} against "
+                          f"{ {u: want[u] for u in TP_UIDS} }")
         if (out["launches"] != per_fwd * fw or out["by_path"]["general"]
                 or out["collectives"] != coll_fwd * fw):
             failed.append(f"rank {r} launched {out['by_path']} and "
@@ -3572,14 +3874,64 @@ def phase_tp(want: dict) -> dict:
     streams = [out["streams"] for out in ranks]
     if any(s != streams[0] for s in streams):
         failed.append("the ranks' streams differ")
-    if any(codes):
-        failed.append(f"rank processes exited with {codes}")
-    _say(f"[tp] qwen2-7b at tp={TP_RANKS} ({TP_CHUNKS} chunks) in "
+    _say(f"[tp] {cfg.name} at tp={TP_RANKS} ({TP_CHUNKS} chunks) in "
          f"{TP_RANKS} processes on one card (gloo): requests {TP_UIDS} "
-         f"identical to phase 4's on every rank {not failed}; phase took "
+         f"identical to tp=1's on every rank {not failed}; "
          f"{time.perf_counter() - t0:.1f} s")
     if failed:
-        raise SystemExit("; ".join(failed))
+        raise SystemExit(f"[tp] {cfg.name}: " + "; ".join(failed))
+    return launched
+
+
+def _tp_pool(fn):
+    """Run `fn(pool)` on a `RankPool` of `TP_RANKS` gloo ranks, closed
+    after; a rank process that exits with another code than 0 fails the
+    phase."""
+    from repro_torch.launch.mesh import RankPool
+
+    pool = RankPool(TP_RANKS, backend="gloo", timeout_s=TP_TIMEOUT_S)
+    try:
+        out = fn(pool)
+    finally:
+        codes = pool.close()
+    if any(codes):
+        raise SystemExit(f"[tp] rank processes exited with {codes}")
+    return out
+
+
+def phase_tp(want: dict) -> dict:
+    """Phase 17, first part: full-width, full-depth qwen2-7b served
+    tensor-parallel at tp = `TP_RANKS` in as many processes on the one
+    card, a gloo group between them (`launch.mesh.RankPool`). Each rank
+    makes phase 4's seeded weights, cuts its shard and serves `TP_UIDS` at
+    phase 4's engine settings (`_tp_model`'s gates against phase 4's
+    streams `want`). A rank that fails, outlives `TP_TIMEOUT_S` or exits
+    with another code than 0 fails the phase. Returns the launches per
+    path summed over the ranks."""
+    t0 = time.perf_counter()
+    launched = _tp_pool(lambda pool: _tp_model(pool, "qwen2-7b", want))
+    _say(f"[tp] phase 17 (qwen2-7b) took {time.perf_counter() - t0:.1f} s")
+    return {"launches": launched}
+
+
+def phase_tp_families(wants: dict) -> dict:
+    """Phase 17, second part, after phases 11 and 12: the SSM, hybrid and
+    MLA families at tp = `TP_RANKS` on one pool of rank processes,
+    falcon-mamba-7b and zamba2-2.7b at full width and depth (both ranks
+    building at once), deepseek-v2-236b at full width cut to
+    `DEEPSEEK_LAYERS` layers (the ranks building in turn), each against
+    the card's tp=1 streams of phases 12 and 11, `wants[name]`, with
+    `_tp_model`'s gates. Returns the launches per path summed over the
+    models and ranks."""
+    t0 = time.perf_counter()
+    runs = (("falcon-mamba-7b", None, False), ("zamba2-2.7b", None, False),
+            ("deepseek-v2-236b", DEEPSEEK_LAYERS, True))
+    launched = _tp_pool(lambda pool: sum(
+        (_tp_model(pool, arch, wants[arch], layers, in_turn)
+         for arch, layers, in_turn in runs), collections.Counter()))
+    _say(f"[tp] phase 17 (falcon-mamba-7b, zamba2-2.7b, deepseek-v2-236b at "
+         f"{DEEPSEEK_LAYERS} layers) took {time.perf_counter() - t0:.1f} s "
+         f"on {_nvidia_smi()}")
     return {"launches": launched}
 
 
@@ -3648,7 +4000,7 @@ def _path_tally(fn, tally: dict):
 
 def _dry_check(tag: str, fn, args: tuple, card: dict, measured_s: float,
                model_flops: float, *, what: str, peak: int,
-               estimate: int | None = None) -> None:
+               estimate: int | None = None, ahead=None) -> None:
     """Count ``fn(*args)`` (a step the card just ran, rebuilt on meta
     tensors) with the dry-run's `analyze_step` and gate it against the
     card: (a) the hand-written kernels' launches and FLOPs per path equal
@@ -3658,14 +4010,18 @@ def _dry_check(tag: str, fn, args: tuple, card: dict, measured_s: float,
     the count holds work the card did not do). Prints the model-FLOPs
     utilisation at the bf16 peak, the ratio, the dominant term and the
     dry-run's peak-live bytes beside the card's peak (and the training
-    estimate, `train_memory_bytes`). Launches nothing on the card."""
+    estimate, `train_memory_bytes`). Launches nothing on the card. `ahead`
+    is (the cost, its seconds) where `_analyse_ahead` made the analysis
+    already."""
     from repro_torch.core.opanalyze import analyze_step
     from repro_torch.core.roofline import roofline_from_cost
     from repro_torch.kernels.tiled_matmul import PEAK_BF16_FLOPS
 
     t0 = time.perf_counter()
-    cost = analyze_step(fn, *args)
-    secs = time.perf_counter() - t0
+    cost, secs = ahead or (analyze_step(fn, *args), None)
+    when = (f"analysed on meta in {time.perf_counter() - t0:.1f} s"
+            if secs is None else
+            f"analysed on meta ahead, during phase 17, in {secs:.1f} s")
     dry = {p: (g.launches, g.flops) for p, g in cost.gemms.items()}
     rep = roofline_from_cost(tag, cost, model_flops=model_flops)
     ratio = rep.bound_s / measured_s
@@ -3673,7 +4029,7 @@ def _dry_check(tag: str, fn, args: tuple, card: dict, measured_s: float,
     gemm_bound = sum(g.bound_s for g in cost.gemms.values())
     _say(f"[dry-run {tag}] launches and FLOPs per path: dry-run "
          f"{sorted(dry.items())}, card {sorted(card.items())}; equal? "
-         f"{dry == card} (analysed on meta in {secs:.1f} s)")
+         f"{dry == card} ({when})")
     _say(f"[dry-run {tag}] {cost.flops:.4e} dot FLOPs ({cost.gemm_flops:.4e} "
          f"on the kernel), {cost.hbm_bytes:.4e} bytes over {cost.n_ops} aten "
          f"ops: compute {1e3 * rep.compute_s:.3f} ms, memory "
@@ -4050,23 +4406,83 @@ def _per_step(tally: dict, steps: list) -> dict:
     return out
 
 
-def _train_dry_check(tag: str, cfg, batch: dict, card: dict,
-                     measured_s: float, peak: int, rows: int,
-                     seq: int) -> None:
-    """The dry-run of a train step the card ran: `make_train_step` with
-    AdamW on `cfg` (its depth as the card ran it) over meta tensors of
-    the batch's shapes and dtypes (`batch`: {name: (shape, dtype)})."""
+def _train_cell(cfg, batch: dict) -> tuple:
+    """(fn, args) of `make_train_step` with AdamW on `cfg` over meta
+    tensors of the batch's shapes and dtypes (`batch`: {name: (shape,
+    dtype)})."""
     from repro_torch.configs.common import Spec
     from repro_torch.launch import dryrun
-    from repro_torch.launch.train import train_memory_bytes
 
     fn, args, _ = dryrun.build_cell(
         cfg.name, "train_4k", cfg=cfg,
         specs={k: Spec(*v) for k, v in batch.items()})
+    return fn, args
+
+
+def _train_dry_check(tag: str, cfg, batch: dict, card: dict,
+                     measured_s: float, peak: int, rows: int,
+                     seq: int) -> None:
+    """The dry-run of a train step the card ran (`_train_cell` on `cfg`,
+    its depth as the card ran it, and `batch`), analysed here or taken
+    from `_analyse_ahead`'s work for `tag`."""
+    from repro_torch.launch.train import train_memory_bytes
+
+    fn, args = _train_cell(cfg, batch)
     _dry_check(tag, fn, args, card, measured_s,
                6.0 * cfg.n_active_params() * rows * seq,
                what="the step's time after the first", peak=peak,
-               estimate=sum(train_memory_bytes(cfg, rows, seq)))
+               estimate=sum(train_memory_bytes(cfg, rows, seq)),
+               ahead=_DRY_AHEAD.pop(tag, None))
+
+
+# phases 15 (e)'s and 16 (d)'s meta analyses by tag, made ahead while
+# phase 17's rank processes serve (the main process only waits on them
+# then): (the `StepCost`, the seconds it took)
+_DRY_AHEAD: dict = {}
+
+
+def _train_checks(dev) -> list:
+    """(tag, cfg, batch) of phases 15 (e)'s and 16 (d)'s dry-run checks:
+    the configs at the depth those phases train (`_fit_depth` on the
+    card's memory) and their batches' shapes."""
+    from repro_torch.configs import get_config
+
+    cap = torch.cuda.get_device_properties(dev).total_memory
+    tokens = (TRAIN_BATCH, TRAIN_SEQ)
+    out = [(f"train (e) {TRAIN_ARCH}", get_config(TRAIN_ARCH),
+            {"tokens": (tokens, torch.int32),
+             "labels": (tokens, torch.int32)})]
+    for arch, rows, seq in FAMILY_TRAIN:
+        cfg = _fit_depth(get_config(arch), rows, seq, cap)
+        out.append((f"family (d) {arch}", cfg,
+                    _family_specs(cfg, rows, seq)))
+    return out
+
+
+def _analyse_ahead(dev):
+    """Start a thread that makes `_train_checks`' meta analyses into
+    `_DRY_AHEAD` (host work, nothing on the card); the caller joins it.
+    A check whose analysis failed here analyses again in its phase."""
+    import threading
+
+    from repro_torch.core.opanalyze import analyze_step
+
+    checks = _train_checks(dev)
+
+    def work():
+        for tag, cfg, batch in checks:
+            t0 = time.perf_counter()
+            try:
+                fn, args = _train_cell(cfg, batch)
+                cost = analyze_step(fn, *args)
+            except Exception as e:                    # made again later
+                _DRY_AHEAD[tag + " failed"] = repr(e)
+                continue
+            _DRY_AHEAD[tag] = (cost, time.perf_counter() - t0)
+
+    th = threading.Thread(target=work, name="dry-run ahead", daemon=True)
+    th.start()
+    return th
 
 
 def _cut_state(dev, cfg, seed: int = 0) -> dict:
@@ -4606,8 +5022,16 @@ def main() -> int:
     tp = phase_tp(streams)
     dense = phase_dense(dev)
     _write_shapes({"qwen2-7b": shapes, **dense["shapes"]})
-    phase_moe(dev)
+    moe = phase_moe(dev)
     ssm = phase_ssm(dev)
+    ahead = _analyse_ahead(dev)
+    tp_families = phase_tp_families({**moe["streams"], **ssm["streams"]})
+    t_join = time.perf_counter()
+    ahead.join()
+    _say(f"[dry-run] phases 15 (e) and 16 (d)'s analyses made during phase "
+         f"17: {sorted(k for k in _DRY_AHEAD if ' failed' not in k)}, "
+         f"waited {time.perf_counter() - t_join:.1f} s after it; failed "
+         f"{ {k: v for k, v in _DRY_AHEAD.items() if ' failed' in k} }")
     admit = phase_admit(dev)
     train = phase_train(dev)
     families = phase_families(dev)
@@ -4615,13 +5039,15 @@ def main() -> int:
     _say(_nvidia_smi())
     # one entry per kernel of the main paths' runs: qwen2-7b (phases 4-5),
     # the SSM and hybrid models (phase 12), the encoder-decoder and vision
-    # models (phase 13), the fleets (phase 14) and training (phases 15 (a)
-    # and 16 (a)): the GEMM's stream, wgmma and split-pair paths and the
+    # models (phase 13), the fleets (phase 14), tensor-parallel serving's
+    # ranks (phase 17) and training (phases 15 (a) and 16 (a)): the GEMM's
+    # stream, wgmma and split-pair paths and the
     # split pair's split kernel. No launch of those runs takes the general
     # path (every phase checks 0 there): it is the first version of the
     # kernel, and each GEMM entry's v3_ms times it at the same shapes
     launched = sum([*ssm["launches"].values(), *admit["launches"].values(),
-                    fleet["launches"], tp["launches"], train["launches"],
+                    fleet["launches"], tp["launches"],
+                    tp_families["launches"], train["launches"],
                     families["launches"]], collections.Counter(by_path))
     merged = _merge_entries([entries, *ssm["entries"].values(),
                              *admit["entries"].values(), fleet["entries"],

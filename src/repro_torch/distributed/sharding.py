@@ -17,6 +17,16 @@ needs the one sharded axis per leaf (`param_axes`, `state_axis`) and cuts
 each rank's contiguous local copy (`shard_params`): a shard never reaches
 the GEMM as a strided view of the whole.
 
+The reference is global: GSPMD may cut a concatenated leaf in one
+contiguous block and still computes the whole function. The port is
+local, and there such a block is the wrong function: Mamba1's `in_proj`
+is ``[x | z]`` and Mamba2's ``[z | x B C | dt]`` with B and C shared by
+every head. So a leaf's sharded axis is cut by its parts (`axis_parts`,
+from the config): a rank holds its block of each sharded part and the
+whole of each shared one, side by side. Decode state follows the same
+parts, on the axis that carries heads or channels, never the batch
+(`state_axis`).
+
 `set_mesh`/`current_mesh` hold the mesh on the thread, as the reference's
 `set_mesh_rules`/`current_mesh` do: the serving engine installs its own
 before every call (`ServingEngine._activate`), and the model code reads
@@ -113,6 +123,9 @@ GATHER_PARAM_RULES: list[tuple[str, tuple[str | None, ...]]] = [
     ("*shared_mlp/w_down", (None, "model")),
     ("*ssm/out_proj", (None, "model")),
     ("*ssm/x_proj", (None, None)),   # tiny; contracts the sharded di
+    # (the port's) Mamba2's gated RMSNorm takes its mean over the whole
+    # d_inner, so its input is gathered first and its scale stays whole
+    ("*ssm/norm_scale", (None,)),
 ]
 
 
@@ -143,11 +156,56 @@ def sanitize_spec(spec: tuple, shape: tuple[int, ...], tp: int) -> tuple:
                  for ax, dim in zip(axes, shape))
 
 
+# a part of a sharded axis: (its size, whether a rank holds a block of it
+# (True) or the whole of it (False))
+Parts = tuple[tuple[int, bool], ...]
+
+
+def axis_parts(leaf: str, n: int, cfg=None) -> Parts:
+    """The parts, in order, of the sharded axis (of size `n`) of the
+    parameter or decode-state leaf whose basename is `leaf`: one sharded
+    block unless `cfg` makes the axis a concatenation. Mamba1's `in_proj`
+    columns are ``[x | z]``, each cut by channel; Mamba2's (and the
+    hybrid's) ``[z | x | B C | dt]``, z and x cut by SSD head, B and C
+    (shared by every head: `ssm_ngroups` groups) whole, dt by head; the
+    Mamba2 conv (`conv_w`, `conv_b` and the conv history ``conv``) runs
+    over ``[x | B C]``. A `cfg` whose widths do not add up to `n` leaves
+    the axis one block."""
+    one = ((n, True),)
+    kind = getattr(cfg, "kind", None)
+    if kind not in ("mamba1", "mamba2", "hybrid"):
+        return one
+    di = cfg.d_inner
+    if kind == "mamba1":
+        parts = ((di, True), (di, True)) if leaf == "in_proj" else one
+    else:
+        bc = 2 * cfg.ssm_ngroups * cfg.ssm_state
+        heads = di // cfg.ssm_headdim
+        if leaf == "in_proj":
+            parts = ((di, True), (di, True), (bc, False), (heads, True))
+        elif leaf in ("conv_w", "conv_b", "conv"):
+            parts = ((di, True), (bc, False))
+        else:
+            parts = one
+    return parts if sum(size for size, _ in parts) == n else one
+
+
+def local_size(parts: Parts, tp: int) -> int | None:
+    """The axis's local size under tp (each sharded part divided), or
+    None where tp does not divide a sharded part (the axis stays
+    whole)."""
+    if any(cut and size % tp for size, cut in parts):
+        return None
+    return sum(size // tp if cut else size for size, cut in parts)
+
+
 def leaf_axis(path: str, shape: tuple[int, ...], tp: int,
-              tp_reduce: str = "psum") -> int | None:
+              tp_reduce: str = "psum", cfg=None) -> int | None:
     """The axis of a leaf of `shape` at `path` ("/"-separated, leading
     stacked-layer axes allowed) that a (1, tp) serving mesh shards over
-    "model", or None (replicated)."""
+    "model", or None (replicated). With `cfg`, an axis cut by parts
+    (`axis_parts`) is sharded only where tp divides every sharded
+    part."""
     if tp <= 1:
         return None
     logical = _match(path, tp_reduce)[:len(shape)]
@@ -155,7 +213,10 @@ def leaf_axis(path: str, shape: tuple[int, ...], tp: int,
     spec = sanitize_spec(tuple("model" if n in MODEL_AXIS_NAMES else None
                                for n in names), shape, tp)
     axes = [i for i, ax in enumerate(spec) if ax is not None]
-    return axes[0] if axes else None
+    if not axes:
+        return None
+    parts = axis_parts(path.rsplit("/", 1)[-1], shape[axes[0]], cfg)
+    return axes[0] if local_size(parts, tp) is not None else None
 
 
 def param_path(name: str) -> str:
@@ -165,58 +226,72 @@ def param_path(name: str) -> str:
 
 
 def param_axes(model: torch.nn.Module, tp: int,
-               tp_reduce: str = "gather") -> dict[str, int | None]:
+               tp_reduce: str = "gather", cfg=None) -> dict[str, int | None]:
     """{parameter name: its axis sharded over "model", or None} of an
     unsharded `model` (any device, ``meta`` included) on a (1, tp) mesh:
-    the port's `param_pspecs`."""
-    return {name: leaf_axis(param_path(name), tuple(p.shape), tp, tp_reduce)
+    the port's `param_pspecs` (with `cfg`, axes cut by parts)."""
+    return {name: leaf_axis(param_path(name), tuple(p.shape), tp, tp_reduce,
+                            cfg)
             for name, p in model.named_parameters()}
 
 
 def local_copy(full: torch.Tensor, axis: int | None, rank: int,
-               tp: int) -> torch.Tensor:
-    """Rank `rank`'s contiguous block of `full` along `axis` (the whole
-    tensor for None), as a fresh tensor. A matrix whose local rows are not
-    a multiple of 8 elements is stored on rows padded to one (the view is
-    the parameter), so the GEMM's fast paths still read it
+               tp: int, parts: Parts | None = None) -> torch.Tensor:
+    """Rank `rank`'s block of `full` along `axis` (the whole tensor for
+    None), as a fresh tensor: one contiguous block, or with `parts`
+    (`axis_parts`) its block of each sharded part and each shared part
+    whole, side by side in the parts' order. A matrix whose local rows are
+    not a multiple of 8 elements is stored on rows padded to one (the view
+    is the parameter), so the GEMM's fast paths still read it
     (`transformer.head_params`)."""
     if axis is None:
         return full
-    n = full.shape[axis] // tp
-    part = full.narrow(axis, rank * n, n)
+    blocks, lo = [], 0
+    for size, cut in parts or ((full.shape[axis], True),):
+        n = size // tp if cut else size
+        blocks.append(full.narrow(axis, lo + (rank * n if cut else 0), n))
+        lo += size
+    part = blocks[0] if len(blocks) == 1 else torch.cat(blocks, dim=axis)
     if part.dim() == 2 and part.shape[1] % 8:
         store = torch.empty((part.shape[0], -(-part.shape[1] // 8) * 8),
                             dtype=part.dtype, device=part.device)
         store[:, :part.shape[1]] = part
         return store[:, :part.shape[1]]
-    return part.contiguous()
+    # a copy even where the block is contiguous (a cut on axis 0: vocab
+    # rows, experts), so that no view keeps the whole tensor alive
+    return part.clone(memory_format=torch.contiguous_format)
 
 
 @torch.no_grad()
 def shard_params(model: torch.nn.Module, mesh, tp_reduce: str = "gather",
-                 whole: torch.nn.Module | None = None) -> torch.nn.Module:
+                 whole: torch.nn.Module | None = None,
+                 cfg=None) -> torch.nn.Module:
     """Cut `mesh`'s rank's shard of every parameter of `model`, in place:
-    each sharded parameter's data becomes its local copy (`local_copy`) and
-    the whole is released. `whole` is the unsharded model (on ``meta``
-    will do) when `model` may already hold this rank's shard (an earlier
-    engine cut it): a parameter of its shard's shape is kept, one of any
-    other shape raises ValueError. Returns `model`."""
+    each sharded parameter's data becomes its local copy (`local_copy`,
+    cut by the parts `cfg` gives its axis) and the whole is released.
+    `whole` is the unsharded model (on ``meta`` will do) when `model` may
+    already hold this rank's shard (an earlier engine cut it): a parameter
+    of its shard's shape is kept, one of any other shape raises
+    ValueError. Returns `model`."""
     tp = model_size(mesh)
     ref = model if whole is None else whole
-    axes = param_axes(ref, tp, tp_reduce)
+    axes = param_axes(ref, tp, tp_reduce, cfg)
     shapes = {n: tuple(p.shape) for n, p in ref.named_parameters()}
     cut = {}
     for name, p in model.named_parameters():
         ax, full = axes[name], shapes[name]
-        local = tuple(n // tp if i == ax else n for i, n in enumerate(full))
+        parts = (None if ax is None else
+                 axis_parts(name.rsplit(".", 1)[-1], full[ax], cfg))
+        local = tuple(local_size(parts, tp) if i == ax else n
+                      for i, n in enumerate(full))
         if tuple(p.shape) not in (full, local):
             raise ValueError(f"{name}: shape {tuple(p.shape)} is neither "
                              f"{full} nor its shard {local}")
         if ax is not None and tuple(p.shape) == full:
-            cut[name] = ax
-    for name, ax in cut.items():
+            cut[name] = (ax, parts)
+    for name, (ax, parts) in cut.items():
         p = model.get_parameter(name)
-        p.data = local_copy(p.data, ax, mesh.rank, tp)
+        p.data = local_copy(p.data, ax, mesh.rank, tp, parts)
     return model
 
 
@@ -224,48 +299,66 @@ def shard_params(model: torch.nn.Module, mesh, tp_reduce: str = "gather",
 # Serving-state sharding: decode caches sharded along their head axis.
 # ---------------------------------------------------------------------------
 
-# leaf basename -> axis carrying heads (or head-grouped channels). KV cache
-# leaves are (L, B, T, KV, hd) (dense) or (L, pages, page, KV, hd) (paged
-# pool): heads sit second-to-last. SSM conv history (L, B, K-1, channels)
-# shards its channel axis; SSM scan state is (L, B, di, ds) (mamba1) or
-# (L, B, H, ...) (mamba2) — axis 2 either way. MLA latent leaves are
-# rank-compressed, shared across heads: replicated. Enc-dec cross-KV
-# (xk/xv) is (L, B, T, KV, hd) like self-attn KV. Per-row scalars (src_len,
-# pos_off, index) have no rule and stay replicated. (The reference's table.)
+# leaf basename -> axis carrying heads (or head-grouped channels), counted
+# from the end. KV cache leaves are (L, B, T, KV, hd) (dense) or (L, pages,
+# page, KV, hd) (paged pool): heads sit second-to-last. SSM conv history
+# (..., B, K-1, channels) shards its channel axis (by parts: `axis_parts`).
+# MLA latent leaves are rank-compressed, shared across heads: replicated.
+# Enc-dec cross-KV (xk/xv) is (L, B, T, KV, hd) like self-attn KV. Per-row
+# scalars (src_len, pos_off, index) have no rule and stay replicated. The
+# reference's table gives the SSM scan state axis 2, which is d_inner or
+# the heads on a (L, B, ...) leaf but the batch on the hybrid's (G, E, B,
+# H, N, P): GSPMD may shard a batch without changing a number, a local
+# rank must hold every row. So the port counts the scan state's axis from
+# the end, by kind (`SSM_STATE_AXES`).
 SERVING_STATE_AXES: dict[str, int] = {"k": -2, "v": -2,
                                       "xk": -2, "xv": -2,
                                       "k_pages": -2, "v_pages": -2,
-                                      "conv": -1, "ssm": 2}
+                                      "conv": -1}
+
+# the SSM scan state ``ssm``'s channel or head axis: mamba1 (..., B, di,
+# ds), mamba2 and the hybrid (..., B, H, N, P)
+SSM_STATE_AXES: dict[str, int] = {"mamba1": -2, "mamba2": -3, "hybrid": -3}
 
 
-def state_axis(name: str, shape: tuple[int, ...], tp: int) -> int | None:
+def state_axis(name: str, shape: tuple[int, ...], tp: int,
+               cfg=None) -> int | None:
     """The axis a (1, tp) mesh shards of the decode-state leaf `name` of
-    `shape` (the reference's `serving_state_pspecs`), or None."""
-    ax = SERVING_STATE_AXES.get(name)
+    `shape`, or None: the reference's `serving_state_pspecs` for the KV
+    leaves, the SSM leaves' channel or head axis for `cfg`'s kind (the
+    ``ssm`` leaf needs `cfg`; the ``conv`` axis is cut by its parts)."""
+    if name == "ssm":
+        ax = SSM_STATE_AXES.get(getattr(cfg, "kind", None))
+    else:
+        ax = SERVING_STATE_AXES.get(name)
     if ax is None or not shape or tp <= 1:
         return None
     ax = ax % len(shape)
-    return ax if shape[ax] % tp == 0 else None
+    parts = axis_parts(name, shape[ax], cfg)
+    return ax if local_size(parts, tp) is not None else None
 
 
-def state_axes(tree, tp: int):
+def state_axes(tree, tp: int, cfg=None):
     """`state_axis` of every leaf of a decode-state tree (nested dicts of
     tensors), keyed like the tree."""
     def walk(t, name):
         if isinstance(t, dict):
             return {k: walk(v, k) for k, v in t.items()}
-        return state_axis(name, tuple(t.shape), tp)
+        return state_axis(name, tuple(t.shape), tp, cfg)
 
     return walk(tree, "")
 
 
-def local_state_shape(name: str, shape: tuple[int, ...]) -> tuple[int, ...]:
+def local_state_shape(name: str, shape: tuple[int, ...],
+                      cfg=None) -> tuple[int, ...]:
     """The local shape, under the current mesh, of the decode-state leaf
-    `name` whose whole shape is `shape`: its head axis divided by tp where
-    `state_axis` shards it. Every cache allocator of the port takes its
-    shape from here, so a rank holds only its heads' cache."""
+    `name` whose whole shape is `shape`: its head or channel axis cut to
+    this rank's heads or channels where `state_axis` shards it (by parts
+    for `cfg`'s SSM conv history). Every cache allocator of the port
+    takes its shape from here, so a rank holds only its heads' cache."""
     tp = model_size()
-    ax = state_axis(name, tuple(shape), tp)
+    ax = state_axis(name, tuple(shape), tp, cfg)
     if ax is None:
         return tuple(shape)
-    return tuple(n // tp if i == ax else n for i, n in enumerate(shape))
+    n = local_size(axis_parts(name, shape[ax], cfg), tp)
+    return tuple(n if i == ax else m for i, m in enumerate(shape))

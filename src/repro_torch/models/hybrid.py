@@ -1,6 +1,6 @@
 """Zamba2-style hybrid: a Mamba2 backbone with one shared attention block.
 
-The counterpart of the JAX package's `repro.models.hybrid` at tp=1.
+The counterpart of the JAX package's `repro.models.hybrid`.
 `n_layers` Mamba2 blocks run in `n_groups` groups of `attn_every`; after
 each group one *shared* attention + SwiGLU block runs, a single parameter
 set reused at every application. Each application has its own KV cache,
@@ -13,6 +13,11 @@ maps between the two. The decode state is ``{"cache": {"mamba": {"conv",
 "ssm"} leaves (G, E, B, ...) f32, "attn": {"k", "v"} (G, B, max_len, KV,
 hd) bf16}, "index"}``, written in place by the serving forwards;
 `hybrid_loss`, the training forward, runs the backbone with no cache.
+
+Under tensor-parallel serving the Mamba2 blocks hold their rank's SSD
+heads (`models.ssm`) and the shared block its attention heads and FFN
+columns (`models.layers`); the cache holds the same heads, its batch axis
+(axis 2 of the Mamba2 leaves) whole on every rank.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import local_state_shape
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
 from repro_torch.models import transformer as tfm
@@ -78,12 +84,13 @@ def init_hybrid_cache(cfg: ModelConfig, batch: int, max_len: int,
                       device: str | torch.device = "cuda") -> dict:
     """Zeroed hybrid cache: the Mamba2 state (G, E, B, ...) in f32 and one
     KV cache per application of the shared block, (G, B, max_len, KV,
-    hd)."""
+    hd); this rank's heads of each under tensor parallelism."""
     g, e = n_groups(cfg), cfg.attn_every
     dev = resolve_device(device)
     mamba = {k: v.reshape(g, e, *v.shape[1:]) for k, v in
              ssm.init_mamba2_cache(cfg, batch, device=dev).items()}
-    shape = (g, batch, max_len, cfg.kv_heads, cfg.hd)
+    shape = local_state_shape("k", (g, batch, max_len, cfg.kv_heads,
+                                    cfg.hd))
     return {"mamba": mamba,
             "attn": {"k": torch.zeros(shape, dtype=kv_dtype, device=dev),
                      "v": torch.zeros(shape, dtype=kv_dtype, device=dev)}}

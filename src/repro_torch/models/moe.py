@@ -19,7 +19,10 @@ ties go to the lower expert index as ``jax.lax.top_k`` sends them).
 Under tensor-parallel serving the experts are E-sharded and the router
 replicated: every rank routes every token, runs its own experts' slots
 and all-gathers their outputs (`_experts`), the path the JAX package's
-gather mode takes. Not ported here: the JAX package's explicit
+gather mode takes. MLA holds its rank's heads: w_uq's whole heads
+(column-parallel), w_uk's and w_uv's head columns (the decompression of
+the replicated latent cache, column-parallel) and wo gathered; the latent
+cache, w_dq, w_dkv and w_kpe stay whole on every rank. Not ported here: the JAX package's explicit
 expert-parallel path (`moe_ffn_shard_map`, ROADMAP A7); `moe_ffn` takes
 the dense-dispatch branch, the one the JAX package takes at tp=1 and in
 gather mode.
@@ -181,11 +184,72 @@ def moe_block_apply(blk, x: torch.Tensor, cfg: ModelConfig, *, positions,
 
 # ---------------- DeepSeek-V2 multi-head latent attention ----------------
 
-def _decompress(c: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _decompress(c: torch.Tensor, w: torch.Tensor, cfg: ModelConfig,
+                n: int) -> torch.Tensor:
     """c @ w in `c`'s dtype: the latent (possibly a bf16 cache under an f32
     config) is widened exactly to the weight's dtype, multiplied in f32 and
-    rounded back, as the JAX package's matmul of a bf16 cache does."""
-    return ops.matmul(c.to(w.dtype), w, out_dtype=c.dtype)
+    rounded back, as the JAX package's matmul of a bf16 cache does. `w` is
+    this rank's head columns of a projection `n` wide under tensor
+    parallelism (its K segments the whole projection's)."""
+    sharded = TP.tp_enabled(cfg) and w.shape[-1] != n
+    return ops.matmul(c.to(w.dtype), w, out_dtype=c.dtype,
+                      segments_n=n if sharded else None)
+
+
+def mla_attention(q_c: torch.Tensor, q_pe: torch.Tensor, k_c: torch.Tensor,
+                  v: torch.Tensor, k_pe: torch.Tensor, *, q_offset,
+                  kv_len, kv_valid, scale: float) -> torch.Tensor:
+    """MLA's attention over the heads of `q_c` (B, S, H, hd) and `q_pe`
+    (B, S, H, pe) against the decompressed `k_c`, `v` (B, Sk, H, hd) and
+    the shared RoPE key `k_pe` (B, Sk, 1, pe): f32 scores and softmax,
+    the weights rounded to the activation dtype before the PV product, in
+    query blocks of `layers.Q_CHUNK` for a long prefill. Returns (B, S, H,
+    hd) in `q_c`'s dtype. On the card, as in `layers._sdpa`, fewer than
+    `layers.Q_MIN_CUDA` queries are zero-padded to that many and a call
+    of one row and one head runs twice over: cuBLAS picks a short or
+    single batched product's kernel, and with it the order of each dot
+    product's sum, by the batch of (row, head) matrices, so a rank's
+    heads of a decode step summed otherwise than beside the other ranks'
+    (measured on the H100). So each head's result is its own: a rank's
+    heads give the whole call's bits for those heads (`chip_smoke.py`
+    phase 3)."""
+    B, S = q_c.shape[:2]
+    Sk = k_c.shape[1]
+    dt = q_c.dtype
+    kw = dict(q_offset=q_offset, kv_len=kv_len, kv_valid=kv_valid,
+              scale=scale)
+    if q_c.is_cuda and B * q_c.shape[2] < L.BATCH_MIN_CUDA:
+        twice = (L._twice(t) for t in (q_c, q_pe, k_c, v, k_pe))
+        return mla_attention(*twice, **{k: L._twice(t) for k, t in
+                                        kw.items()})[:1]
+    if q_c.is_cuda and S < L.Q_MIN_CUDA:
+        def pad(t):
+            return torch.cat([t, t.new_zeros(
+                (B, L.Q_MIN_CUDA - S, *t.shape[2:]))], dim=1)
+        return mla_attention(pad(q_c), pad(q_pe), k_c, v, k_pe,
+                             **kw)[:, :S]
+
+    def attend_block(q_c_b, q_pe_b, off):
+        Sq = q_c_b.shape[1]
+        scores = torch.einsum("bqhd,bkhd->bhqk", q_c_b.float(), k_c.float())
+        scores = scores + torch.einsum("bqhp,bkgp->bhqk", q_pe_b.float(),
+                                       k_pe.float())
+        scores = scores * scale
+        mask = L.attention_mask(Sq, Sk, causal=True, q_offset=off,
+                                kv_len=kv_len, device=q_c.device)
+        if kv_valid is not None:
+            mask = mask & kv_valid[:, None, :]
+        scores = torch.where(mask[:, None], scores, -1e30)
+        w = torch.softmax(scores, dim=-1)
+        return torch.einsum("bhqk,bkhd->bqhd", w.to(dt).float(),
+                            v.float()).to(dt)
+
+    qc = L.Q_CHUNK
+    if S <= qc or S % qc != 0:
+        return attend_block(q_c, q_pe, q_offset)
+    return torch.cat([attend_block(q_c[:, i:i + qc], q_pe[:, i:i + qc],
+                                   q_offset + i)
+                      for i in range(0, S, qc)], dim=1)
 
 
 def mla_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, positions,
@@ -198,14 +262,17 @@ def mla_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, positions,
     through the table and gathered back per row). The keys and values are
     decompressed from the whole cache view every call (``w_uk``/``w_uv``
     over B x cache-length rows), as in the JAX package. Returns (y, cache).
-    """
-    B, S, _ = x.shape
-    H, hd, pe = cfg.n_heads, cfg.hd, cfg.rope_head_dim
 
-    if cfg.q_lora_rank:
-        q = ops.matmul(ops.matmul(x, p["w_dq"]), p["w_uq"])
-    else:
-        q = ops.matmul(x, p["w_uq"])
+    Under tensor parallelism the head count is this rank's, read from
+    w_uq's width (whole heads of hd + pe columns), and the output
+    projection gathers the heads and its columns (`tp_row`).
+    """
+    B, S, d = x.shape
+    hd, pe = cfg.hd, cfg.rope_head_dim
+    H = p["w_uq"].shape[-1] // (hd + pe)          # this rank's heads
+
+    q_in = ops.matmul(x, p["w_dq"]) if cfg.q_lora_rank else x
+    q = TP.tp_column(q_in, p["w_uq"], cfg, cfg.n_heads * (hd + pe))
     q = q.reshape(B, S, H, hd + pe)
     q_c, q_pe = q[..., :hd], q[..., hd:]
     q_pe = L.apply_rope(q_pe, positions, cfg.rope_theta)
@@ -240,35 +307,13 @@ def mla_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, positions,
         kv_len, q_offset = None, 0
 
     Sk = c_kv_full.shape[1]
-    k_c = _decompress(c_kv_full, p["w_uk"]).reshape(B, Sk, H, hd)
-    v = _decompress(c_kv_full, p["w_uv"]).reshape(B, Sk, H, hd)
-    scale = 1.0 / math.sqrt(hd + pe)
-
-    def attend_block(q_c_b, q_pe_b, off):
-        """One query block: f32 scores and softmax, the weights rounded to
-        the activation dtype before the PV product."""
-        Sq = q_c_b.shape[1]
-        scores = torch.einsum("bqhd,bkhd->bhqk", q_c_b.float(), k_c.float())
-        scores = scores + torch.einsum("bqhp,bkgp->bhqk", q_pe_b.float(),
-                                       k_pe_full.float())
-        scores = scores * scale
-        mask = L.attention_mask(Sq, Sk, causal=True, q_offset=off,
-                                kv_len=kv_len, device=x.device)
-        if kv_valid is not None:
-            mask = mask & kv_valid[:, None, :]
-        scores = torch.where(mask[:, None], scores, -1e30)
-        w = torch.softmax(scores, dim=-1)
-        return torch.einsum("bhqk,bkhd->bqhd", w.to(x.dtype).float(),
-                            v.float()).to(x.dtype)
-
-    qc = L.Q_CHUNK
-    if S <= qc or S % qc != 0:
-        out = attend_block(q_c, q_pe, q_offset)
-    else:
-        out = torch.cat([attend_block(q_c[:, i:i + qc], q_pe[:, i:i + qc],
-                                      q_offset + i)
-                         for i in range(0, S, qc)], dim=1)
-    y = ops.matmul(out.reshape(B, S, H * hd), p["wo"])
+    n_uk = cfg.n_heads * hd
+    k_c = _decompress(c_kv_full, p["w_uk"], cfg, n_uk).reshape(B, Sk, H, hd)
+    v = _decompress(c_kv_full, p["w_uv"], cfg, n_uk).reshape(B, Sk, H, hd)
+    out = mla_attention(q_c, q_pe, k_c, v, k_pe_full, q_offset=q_offset,
+                        kv_len=kv_len, kv_valid=kv_valid,
+                        scale=1.0 / math.sqrt(hd + pe))
+    y = TP.tp_row(out.reshape(B, S, H * hd), p["wo"], cfg, d)
     return y, new_cache
 
 

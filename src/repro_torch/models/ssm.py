@@ -1,11 +1,26 @@
 """State-space blocks: Mamba1 (Falcon-Mamba) and Mamba2/SSD (Zamba2's
 backbone).
 
-The counterpart of the JAX package's `repro.models.ssm` at tp=1. Every
+The counterpart of the JAX package's `repro.models.ssm`. Every
 projection (in_proj, x_proj, dt_proj, out_proj) goes through
 `kernels.ops.matmul`, so on the card each is a launch of the hand-written
 GEMM; the causal conv and both scans are plain torch, as the reference
 leaves them to XLA.
+
+Under tensor-parallel serving (gather mode, `distributed.tp`) a rank holds
+its block of the channels (Mamba1) or SSD heads (Mamba2) of every leaf,
+cut by parts (`sharding.axis_parts`: in_proj's x and z, and Mamba2's dt,
+each cut apart; the group-shared B and C whole): in_proj is
+column-parallel, the conv and the scans run over the rank's channels or
+heads, and out_proj gathers its input and its columns. Two reductions run
+over the whole d_inner, in the reference's gather-mode order: Mamba1's
+x_proj, whose input is gathered first (the reference's
+`replicate_for_parity`), and Mamba2's gated RMSNorm, whose gated input is
+gathered before the mean (the concatenation of the ranks' heads is the
+tp=1 tensor, so the mean adds in tp=1's order, and out_proj then needs no
+gather of its own). The sizes a block runs at are its weights' shapes,
+never the config's, and the cache allocators take their local shapes
+from `sharding.local_state_shape`.
 
 The scans. The reference runs an associative scan inside each block of q
 steps and a sequential `lax.scan` across blocks. A literal port would issue
@@ -52,6 +67,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import tp as TP
+from repro_torch.distributed.sharding import local_state_shape
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig
@@ -251,21 +268,22 @@ def mamba1_scan(decay: torch.Tensor, inp: torch.Tensor, C: torch.Tensor,
 
 # ---------------- Mamba1 block ----------------
 
-def _mamba1_core(s, x_conv: torch.Tensor, cfg: ModelConfig, h0: torch.Tensor,
-                 *, single_step: bool = False,
-                 seq_mask: torch.Tensor | None = None, chunk: int = CHUNK):
-    """x_conv: post-conv activations (B, S, di). Returns (y f32, h_final).
+def selective_scan(x_conv: torch.Tensor, dt: torch.Tensor, s,
+                   Bm: torch.Tensor, Cm: torch.Tensor, h0: torch.Tensor, *,
+                   single_step: bool = False,
+                   seq_mask: torch.Tensor | None = None, chunk: int = CHUNK
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba1's selective scan over the channels of `x_conv` (B, S, di):
+    `dt` (B, S, di) is dt_proj's output, `s` holds the channels' dt_bias,
+    A_log (di, ds) and D, `Bm`/`Cm` (B, S, ds) are shared by every channel
+    and `h0` is (B, di, ds). Returns (y + D x in f32, h_final). Every
+    channel's arithmetic is its own, so a rank's channels give the whole
+    call's bits for them.
 
     `seq_mask` (B, S) marks the valid positions of a right-padded chunk: pad
     steps become the identity update (decay 1, input 0), so the carried
     state stops at each row's last valid token."""
-    di, ds = cfg.d_inner, cfg.ssm_state
-    r = max(1, cfg.d_model // 16)
-    proj = ops.matmul(x_conv, s["x_proj"])                 # (B, S, r+2ds)
-    # dt_low is a strided view of proj (row stride r + 2 ds)
-    dt_low, Bm, Cm = proj[..., :r], proj[..., r:r + ds], proj[..., r + ds:]
-    dtv = ops.matmul(dt_low, s["dt_proj"]).float()
-    dtv = F.softplus(dtv + s["dt_bias"].float())             # (B, S, di)
+    dtv = F.softplus(dt + s["dt_bias"].float())              # (B, S, di)
     A = -torch.exp(s["A_log"].float())                       # (di, ds)
     decay = torch.exp(dtv[..., None] * A)                    # (B, S, di, ds)
     xf = x_conv.float()
@@ -280,8 +298,23 @@ def _mamba1_core(s, x_conv: torch.Tensor, cfg: ModelConfig, h0: torch.Tensor,
         h_final = h
     else:
         y, h_final = mamba1_scan(decay, inp, Cm.float(), h0, chunk=chunk)
-    y = y + s["D"].float() * xf
-    return y, h_final
+    return y + s["D"].float() * xf, h_final
+
+
+def _mamba1_core(s, x_conv: torch.Tensor, cfg: ModelConfig, h0: torch.Tensor,
+                 **kw):
+    """x_conv: post-conv activations (B, S, di), this rank's channels under
+    tensor parallelism. Returns (y f32, h_final) over the same channels
+    (`selective_scan`, which takes `kw`)."""
+    ds = cfg.ssm_state
+    r = max(1, cfg.d_model // 16)
+    # x_proj contracts the whole d_inner: gathered first in gather mode
+    proj = ops.matmul(TP.replicate_for_parity(x_conv, -1, cfg),
+                      s["x_proj"])                            # (B, S, r+2ds)
+    # dt_low is a strided view of proj (row stride r + 2 ds)
+    dt_low, Bm, Cm = proj[..., :r], proj[..., r:r + ds], proj[..., r + ds:]
+    dt = TP.tp_column(dt_low, s["dt_proj"], cfg, cfg.d_inner).float()
+    return selective_scan(x_conv, dt, s, Bm, Cm, h0, **kw)
 
 
 def mamba1_block_apply(blk: Mamba1Block, x: torch.Tensor, cfg: ModelConfig,
@@ -291,11 +324,13 @@ def mamba1_block_apply(blk: Mamba1Block, x: torch.Tensor, cfg: ModelConfig,
     block API). `cache` {"conv": (B, K-1, di), "ssm": (B, di, ds)} is
     written in place. `seq_lens` (B,) marks each row's valid tokens in a
     right-padded chunk: conv history and SSM state advance over them
-    only."""
+    only. Under tensor parallelism `cache` and every activation between
+    in_proj and out_proj hold this rank's channels."""
     B, S, _ = x.shape
     s = blk.ssm
     h = L.rmsnorm(blk.ln, x, cfg.norm_eps)
-    x_, z = ops.matmul(h, s["in_proj"]).chunk(2, dim=-1)
+    x_, z = TP.tp_column(h, s["in_proj"], cfg,
+                         2 * cfg.d_inner).chunk(2, dim=-1)
     if cache is not None:
         x_conv = causal_conv(x_, s["conv_w"], s["conv_b"], cache["conv"])
         if seq_lens is None:
@@ -313,24 +348,24 @@ def mamba1_block_apply(blk: Mamba1Block, x: torch.Tensor, cfg: ModelConfig,
     else:
         x_conv = causal_conv(x_, s["conv_w"], s["conv_b"])
         x_conv = F.silu(x_conv.float()).to(x.dtype)
-        h0 = torch.zeros((B, cfg.d_inner, cfg.ssm_state),
+        h0 = torch.zeros((B, x_.shape[-1], cfg.ssm_state),
                          dtype=torch.float32, device=x.device)
         y, _ = _mamba1_core(s, x_conv, cfg, h0)
     y = y * F.silu(z.float())
-    out = ops.matmul(y.to(x.dtype), s["out_proj"])
+    out = TP.tp_row(y.to(x.dtype), s["out_proj"], cfg, cfg.d_model)
     return x + out, cache, 0.0
 
 
 def init_mamba1_cache(cfg: ModelConfig, batch: int, *,
                       device: str | torch.device = "cuda") -> dict:
-    """Zeroed f32 Mamba1 state, stacked on a leading layer axis."""
+    """Zeroed f32 Mamba1 state, stacked on a leading layer axis (this
+    rank's channels under tensor parallelism)."""
     dev = resolve_device(device)
     L_ = cfg.n_layers
-    return {
-        "conv": torch.zeros((L_, batch, cfg.d_conv - 1, cfg.d_inner),
-                            dtype=torch.float32, device=dev),
-        "ssm": torch.zeros((L_, batch, cfg.d_inner, cfg.ssm_state),
-                           dtype=torch.float32, device=dev)}
+    shapes = {"conv": (L_, batch, cfg.d_conv - 1, cfg.d_inner),
+              "ssm": (L_, batch, cfg.d_inner, cfg.ssm_state)}
+    return {k: torch.zeros(local_state_shape(k, v, cfg), dtype=torch.float32,
+                           device=dev) for k, v in shapes.items()}
 
 
 # ---------------- Mamba2 (SSD) ----------------
@@ -416,11 +451,47 @@ def ssd_scan(x: torch.Tensor, a_log: torch.Tensor, Bm: torch.Tensor,
     return y.reshape(Bsz, nc * q, H, P)[:, :S], h
 
 
-def _mamba2_split(cfg: ModelConfig, proj: torch.Tensor) -> tuple:
-    """in_proj's output as (z, xBC, dt)."""
-    di, ds, G = cfg.d_inner, cfg.ssm_state, cfg.ssm_ngroups
-    return proj.split([di, di + 2 * G * ds, proj.shape[-1] - 2 * di
-                       - 2 * G * ds], dim=-1)
+def _mamba2_split(cfg: ModelConfig, proj: torch.Tensor, heads: int
+                  ) -> tuple:
+    """in_proj's output over `heads` SSD heads (this rank's under tensor
+    parallelism) as (z, xBC, dt)."""
+    di = heads * cfg.ssm_headdim
+    return proj.split([di, di + 2 * cfg.ssm_ngroups * cfg.ssm_state, heads],
+                      dim=-1)
+
+
+def ssd_heads(xs: torch.Tensor, dt_raw: torch.Tensor, s, Bm: torch.Tensor,
+              Cm: torch.Tensor, h0: torch.Tensor, *, seq_lens=None,
+              single_step: bool = False, chunk: int = CHUNK,
+              rowwise: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2's SSD over the heads of `xs` (B, S, H, P): `dt_raw` (B, S,
+    H) is in_proj's dt, `s` holds the heads' dt_bias, A_log and D, `Bm`/
+    `Cm` (B, S, N) are shared by every head, `h0` is (B, H, N, P). One
+    step (`single_step`, a decode with a cache) or `ssd_scan` in blocks of
+    `chunk`. Returns (y + D x (B, S, H, P) in f32, h_final). Every head's
+    arithmetic is its own, so a rank's heads give the whole call's bits
+    for them. `seq_lens` (B,) masks a right-padded chunk: pad steps carry
+    zero input, B and log decay (the identity update)."""
+    S = xs.shape[1]
+    dtv = F.softplus(dt_raw.float() + s["dt_bias"].float())  # (B, S, H)
+    a_log = -torch.exp(s["A_log"].float()) * dtv
+    x_dt = xs.float() * dtv[..., None]
+    Bm_f = Bm.float()
+    if seq_lens is not None:
+        mask = _seq_mask(seq_lens, S)
+        a_log = torch.where(mask[..., None], a_log, 0.0)
+        x_dt = torch.where(mask[..., None, None], x_dt, 0.0)
+        Bm_f = torch.where(mask[..., None], Bm_f, 0.0)
+    if single_step:
+        decay = torch.exp(a_log[:, 0])[..., None, None]     # (B, H, 1, 1)
+        upd = Bm_f[:, 0][:, None, :, None] * x_dt[:, 0][:, :, None, :]
+        h_final = decay * h0 + upd                           # (B, H, N, P)
+        y = (Cm[:, 0].float()[:, None, None, :]
+             * h_final.transpose(-1, -2)).sum(-1)[:, None]   # (B, 1, H, P)
+    else:
+        y, h_final = ssd_scan(x_dt, a_log, Bm_f, Cm.float(), h0,
+                              chunk=chunk, rowwise=rowwise)
+    return y + s["D"].float()[None, None, :, None] * xs.float(), h_final
 
 
 def mamba2_block_apply(blk: Mamba2Block, x: torch.Tensor, cfg: ModelConfig,
@@ -429,14 +500,19 @@ def mamba2_block_apply(blk: Mamba2Block, x: torch.Tensor, cfg: ModelConfig,
     """One Mamba2 block; returns (x, cache, aux). `cache` {"conv": (B, K-1,
     conv_ch), "ssm": (B, H, N, P)} is written in place. `seq_lens` (B,)
     marks each row's valid tokens: pad steps carry zero input, B and log
-    decay (the identity update)."""
+    decay (the identity update). Under tensor parallelism `cache` and the
+    scan hold this rank's heads (B and C whole) and the gated norm's input
+    is gathered to the whole d_inner."""
     B, S, _ = x.shape
-    di, ds, G = cfg.d_inner, cfg.ssm_state, cfg.ssm_ngroups
+    ds, G = cfg.ssm_state, cfg.ssm_ngroups
     P = cfg.ssm_headdim
-    H = di // P
     s = blk.ssm
+    H = s["A_log"].shape[0]                 # this rank's heads
+    di = H * P
     hin = L.rmsnorm(blk.ln, x, cfg.norm_eps)
-    z, xBC, dt_raw = _mamba2_split(cfg, ops.matmul(hin, s["in_proj"]))
+    proj = TP.tp_column(hin, s["in_proj"], cfg, 2 * cfg.d_inner
+                        + 2 * G * ds + cfg.d_inner // P)
+    z, xBC, dt_raw = _mamba2_split(cfg, proj, H)
     hist = None
     if cache is not None:
         xBC_c = causal_conv(xBC, s["conv_w"], s["conv_b"], cache["conv"])
@@ -449,51 +525,36 @@ def mamba2_block_apply(blk: Mamba2Block, x: torch.Tensor, cfg: ModelConfig,
         xBC_c = causal_conv(xBC, s["conv_w"], s["conv_b"])
     xBC_c = F.silu(xBC_c.float()).to(x.dtype)
     xs, Bm, Cm = xBC_c.split([di, G * ds, G * ds], dim=-1)
-    xs = xs.reshape(B, S, H, P)
-    dtv = F.softplus(dt_raw.float() + s["dt_bias"].float())  # (B, S, H)
-    a_log = -torch.exp(s["A_log"].float()) * dtv
-    x_dt = xs.float() * dtv[..., None]
-    Bm_f = Bm.float()
-    if seq_lens is not None:
-        mask = _seq_mask(seq_lens, S)
-        a_log = torch.where(mask[..., None], a_log, 0.0)
-        x_dt = torch.where(mask[..., None, None], x_dt, 0.0)
-        Bm_f = torch.where(mask[..., None], Bm_f, 0.0)
     h0 = (cache["ssm"].float() if cache is not None else
           torch.zeros((B, H, ds, P), dtype=torch.float32, device=x.device))
-    if cache is not None and S == 1:
-        decay = torch.exp(a_log[:, 0])[..., None, None]     # (B, H, 1, 1)
-        upd = Bm_f[:, 0][:, None, :, None] * x_dt[:, 0][:, :, None, :]
-        h_final = decay * h0 + upd                           # (B, H, N, P)
-        y = (Cm[:, 0].float()[:, None, None, :]
-             * h_final.transpose(-1, -2)).sum(-1)[:, None]   # (B, 1, H, P)
-    else:
-        y, h_final = ssd_scan(x_dt, a_log, Bm_f, Cm.float(), h0,
-                              chunk=serve_chunk(cfg) if cache is not None
-                              else CHUNK, rowwise=cache is not None)
+    y, h_final = ssd_heads(xs.reshape(B, S, H, P), dt_raw, s, Bm, Cm, h0,
+                           seq_lens=seq_lens,
+                           single_step=cache is not None and S == 1,
+                           chunk=serve_chunk(cfg) if cache is not None
+                           else CHUNK, rowwise=cache is not None)
     if cache is not None:
         cache["conv"].copy_(hist)
         cache["ssm"].copy_(h_final)
-    y = y + s["D"].float()[None, None, :, None] * xs.float()
     y = y.reshape(B, S, di)
-    # gated RMSNorm (mamba2)
-    y = y * F.silu(z.float())
+    # gated RMSNorm (mamba2), its mean over the whole d_inner
+    y = TP.replicate_for_parity(y * F.silu(z.float()), -1, cfg)
     var = (y * y).mean(-1, keepdim=True)
     y = y * torch.rsqrt(var + cfg.norm_eps)
     y = y * s["norm_scale"].float()
-    out = ops.matmul(y.to(x.dtype), s["out_proj"])
+    out = TP.tp_row(y.to(x.dtype), s["out_proj"], cfg, cfg.d_model)
     return x + out, cache, 0.0
 
 
 def init_mamba2_cache(cfg: ModelConfig, batch: int, *,
                       device: str | torch.device = "cuda") -> dict:
-    """Zeroed f32 Mamba2 state, stacked on a leading layer axis."""
+    """Zeroed f32 Mamba2 state, stacked on a leading layer axis (this
+    rank's heads, and their x channels beside the whole B and C in the
+    conv history, under tensor parallelism)."""
     di, ds, G = cfg.d_inner, cfg.ssm_state, cfg.ssm_ngroups
     H = di // cfg.ssm_headdim
     L_ = cfg.n_layers
     dev = resolve_device(device)
-    return {
-        "conv": torch.zeros((L_, batch, cfg.d_conv - 1, di + 2 * G * ds),
-                            dtype=torch.float32, device=dev),
-        "ssm": torch.zeros((L_, batch, H, ds, cfg.ssm_headdim),
-                           dtype=torch.float32, device=dev)}
+    shapes = {"conv": (L_, batch, cfg.d_conv - 1, di + 2 * G * ds),
+              "ssm": (L_, batch, H, ds, cfg.ssm_headdim)}
+    return {k: torch.zeros(local_state_shape(k, v, cfg), dtype=torch.float32,
+                           device=dev) for k, v in shapes.items()}

@@ -95,13 +95,13 @@ it launched before.
 ``tp > 1`` serves tensor-parallel in gather mode, as the JAX engine does:
 one engine per rank process of a `launch.mesh.Mesh` (a `torch.distributed`
 group of `tp` ranks), each rank cutting its shard of the whole params
-(`distributed.sharding.shard_params`: heads, FFN columns, vocab and experts)
-and holding its heads' KV cache; the row-parallel projections gather their
-columns (`distributed.tp`), so every rank sees the whole logits and the
-host loop runs identically on every rank, its inputs being identical.
-Greedy streams equal tp=1's token for token. The SSM, hybrid and MLA
-families are not served at tp > 1 yet (ROADMAP A7): the engine refuses
-them.
+(`distributed.sharding.shard_params`: attention and MLA heads, FFN
+columns, vocab, experts, and the SSM channels or SSD heads, each part of a
+concatenated projection cut apart) and holding its heads' or channels'
+decode state (the MLA latent cache whole); the row-parallel projections
+gather their columns (`distributed.tp`), so every rank sees the whole
+logits and the host loop runs identically on every rank, its inputs being
+identical. Greedy streams equal tp=1's token for token, for every family.
 
 Where the JAX engine donates the decode state to its jitted calls, this
 engine updates the KV tensors and the page pool in place.
@@ -297,9 +297,8 @@ class ServingEngine:
         outputs are gathered in `tp_overlap_chunks` column chunks
         overlapping the next chunk's GEMM, and the energy model prices the
         per-rank fleet plus the ring traffic on `tp` chips. Whole heads
-        only: ``n_heads`` and ``kv_heads`` must be multiples of `tp`.
-        Kinds mamba1, mamba2, hybrid and mla_moe raise NotImplementedError
-        at tp > 1 (ROADMAP A7).
+        only: `tp` must divide what the family shards (`_tp_divides`), or
+        the engine raises ValueError.
 
         `pretune=True` batch-tunes the engine's GEMM fleet up front, as the
         JAX engine does: every shape the batched prefill, the decode step
@@ -463,32 +462,42 @@ class ServingEngine:
     # ------------------------------------------------------------------
     # mesh and model clock
     # ------------------------------------------------------------------
-    _TP_LATER = ("mamba1", "mamba2", "hybrid", "mla_moe")
+    @staticmethod
+    def _tp_divides(cfg: ModelConfig) -> dict[str, int]:
+        """What a rank holds a whole block of, by name, for `cfg`'s kind:
+        the attention heads and KV heads (the attention kinds and the
+        hybrid's shared block), MLA's heads (no KV heads of its own: its
+        latent cache is whole), Mamba1's d_inner channels and the SSD
+        heads of Mamba2 and the hybrid."""
+        ssd = {"ssd_heads": cfg.d_inner // max(cfg.ssm_headdim, 1)}
+        attn = {"n_heads": cfg.n_heads, "kv_heads": cfg.kv_heads}
+        return {"mamba1": {"d_inner": cfg.d_inner},
+                "mamba2": ssd, "hybrid": {**ssd, **attn},
+                "mla_moe": {"n_heads": cfg.n_heads}}.get(cfg.kind, attn)
 
     def _shard(self, model, params, cfg: ModelConfig, mesh,
                chunks: int) -> ModelConfig:
-        """Set up tensor parallelism at ``self._tp``: check the family and
-        the head counts, install the mesh, cut this rank's shard of
-        `params` in place and return the config flipped to gather-mode
-        explicit collectives (the JAX engine's flip)."""
+        """Set up tensor parallelism at ``self._tp``: check that tp
+        divides what the family shards, install the mesh, cut this rank's
+        shard of `params` in place and return the config flipped to
+        gather-mode explicit collectives (the JAX engine's flip)."""
         from repro_torch.distributed import sharding
         from repro_torch.launch.mesh import make_serving_mesh
 
         tp = self._tp
-        if cfg.kind in self._TP_LATER:
-            raise NotImplementedError(
-                f"tensor-parallel serving of kind={cfg.kind!r} is ROADMAP "
-                f"A7: the port serves {self._TP_LATER} at tp=1 only")
-        if cfg.n_heads % tp or cfg.kv_heads % tp:
+        counts = self._tp_divides(cfg)
+        if any(n % tp for n in counts.values()):
             raise ValueError(
-                f"tp={tp} must divide n_heads={cfg.n_heads} and kv_heads="
-                f"{cfg.kv_heads}: a rank holds whole heads")
+                f"tp={tp} must divide " + ", ".join(
+                    f"{k}={v}" for k, v in counts.items())
+                + ": a rank holds whole heads and channel blocks")
         self.mesh = mesh if mesh is not None else make_serving_mesh(tp)
         if self.mesh.shape["model"] != tp:
             raise ValueError(f"mesh {self.mesh.shape} must carry a 'model' "
                              f"axis of size tp={tp}")
         sharding.shard_params(params, self.mesh,
-                              whole=model.init(cfg, None, device="meta"))
+                              whole=model.init(cfg, None, device="meta"),
+                              cfg=cfg)
         return dataclasses.replace(cfg, tp_collectives="explicit",
                                    tp_reduce="gather",
                                    tp_overlap_chunks=chunks)

@@ -320,6 +320,110 @@ def test_a_shards_columns_are_the_whole_products(dev, n, k, out_dtype, tp):
     torch.cuda.synchronize()
 
 
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("kind", ["mamba1", "mamba2"])
+def test_a_ranks_scan_is_the_whole_scans(dev, kind, tp):
+    """Tensor-parallel SSM serving's bits: a rank's Mamba1 channels
+    (falcon-mamba-7b's 8192 of d_state 16) through `ssm.selective_scan`,
+    and a rank's SSD heads (zamba2-2.7b's 80 of headdim 64, d_state 64)
+    through `ssm.ssd_heads`, give bit for bit the whole scan's outputs and
+    states for those channels or heads: a 64-token prefill chunk of
+    right-padded rows from a carried state (the serve grain 8) and a
+    single decode step, at batch 1 and 4."""
+    from repro_torch.models import ssm
+
+    g = torch.Generator(dev).manual_seed(11)
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    bf16 = torch.bfloat16
+    for nb in (1, 4):
+        for S in (64, 1):
+            lens = torch.randint(1, S + 1, (nb,), generator=g, device=dev)
+            if kind == "mamba1":
+                cfg = get_config("falcon-mamba-7b")
+                n, ds = cfg.d_inner, cfg.ssm_state
+                x, dt = rnd(nb, S, n, dtype=bf16), rnd(nb, S, n)
+                s = {"dt_bias": rnd(n, dtype=bf16), "D": rnd(n),
+                     "A_log": torch.log(torch.arange(
+                         1, ds + 1, dtype=torch.float32,
+                         device=dev)).expand(n, ds).contiguous()}
+                Bm, Cm = rnd(nb, S, ds, dtype=bf16), rnd(nb, S, ds, dtype=bf16)
+                h0 = rnd(nb, n, ds)
+                mask = None if S == 1 else ssm._seq_mask(lens, S)
+
+                def run(sl):
+                    return ssm.selective_scan(
+                        x[..., sl], dt[..., sl],
+                        {k: v[sl] for k, v in s.items()}, Bm, Cm, h0[:, sl],
+                        single_step=S == 1, seq_mask=mask,
+                        chunk=ssm.SERVE_CHUNK)
+
+                def part(out, sl):
+                    return out[0][..., sl], out[1][:, sl]
+            else:
+                cfg = get_config("zamba2-2.7b")
+                P, N = cfg.ssm_headdim, cfg.ssm_state
+                n = cfg.d_inner // P
+                xs, dt = rnd(nb, S, n, P, dtype=bf16), rnd(nb, S, n, dtype=bf16)
+                s = {"dt_bias": rnd(n, dtype=bf16), "A_log": rnd(n) / 2,
+                     "D": rnd(n)}
+                Bm, Cm = rnd(nb, S, N, dtype=bf16), rnd(nb, S, N, dtype=bf16)
+                h0 = rnd(nb, n, N, P)
+
+                def run(sl):
+                    return ssm.ssd_heads(
+                        xs[:, :, sl], dt[..., sl],
+                        {k: v[sl] for k, v in s.items()}, Bm, Cm, h0[:, sl],
+                        seq_lens=None if S == 1 else lens,
+                        single_step=S == 1, chunk=ssm.SERVE_CHUNK)
+
+                def part(out, sl):
+                    return out[0][:, :, sl], out[1][:, sl]
+            whole = run(slice(None))
+            for r in range(tp):
+                sl = slice(r * n // tp, (r + 1) * n // tp)
+                for got, want in zip(run(sl), part(whole, sl)):
+                    assert torch.equal(got, want), (nb, S, r)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("kind", ["mamba2", "mla_moe"])
+def test_tp2_ranks_on_card_serve_tp1s_streams(dev, kind):
+    """Two gloo rank processes on the one card (NCCL refuses two ranks on
+    one device) serve the tensor-parallel CPU tests' smoke config of
+    `kind` in bf16 at tp=2 (SSD heads, or MLA heads, experts and the
+    shared experts' columns sharded) and give
+    the tp=1 engine's streams on the card, token for token, on both
+    ranks."""
+    import sys
+    from pathlib import Path
+
+    from repro_torch.launch.mesh import Mesh, RankPool
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch_tp_ranks as R
+
+    from repro_torch.models.config import ModelConfig
+
+    load_library()
+    cfg = ModelConfig(**R.config_kw(kind, param_dtype="bfloat16",
+                                    activation_dtype="bfloat16"))
+    api = get_model(cfg)
+    tree = params_to_numpy(api.init(cfg, torch.Generator().manual_seed(0),
+                                    device="cpu"))
+    reqs = R.requests(kind, cfg.d_model, cfg.vocab)
+    engine = dict(max_batch=2, max_len=64)
+    one = R.serve(Mesh(None, 0, 1), cfg, tree, reqs, engine, 1, "cuda")
+    with RankPool(2, backend="gloo", timeout_s=300) as pool:
+        ranks = pool.run(R.serve, cfg, tree, reqs, engine, 1, "cuda")
+    for out in ranks:
+        assert out["streams"] == one["streams"]
+        assert out["report"]["tp"] == 2
+    assert ranks[0]["params"]["embed.table"] == (cfg.vocab // 2, cfg.d_model)
+
+
 @pytest.mark.parametrize("m", [1, 4, 8, 9, 64])
 @pytest.mark.parametrize("n,k", [(65024, 4096), (200, 296)])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])

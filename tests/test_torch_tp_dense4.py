@@ -2,9 +2,10 @@
 the dense smoke config over the reference's 4-way head layout (8 query and
 4 KV heads, `tests/test_tp_serving.py`'s tp=4 case), served by four rank
 processes (one `RankPool` for the module), chunked and on the paged
-layout, must give the JAX tp=1 engine's streams token for token on every
-rank; and the tp layers at four ranks, with a chunk count that does not
-divide a rank's columns."""
+layout, and the mamba1 and mamba2 smoke configs (32 of 128 channels, 2 of
+8 SSD heads a rank), must give the JAX tp=1 engine's streams token for
+token on every rank; and the tp layers at four ranks, with a chunk count
+that does not divide a rank's columns."""
 
 from __future__ import annotations
 
@@ -64,6 +65,35 @@ def test_tp4_streams_equal_the_jax_engines(kw, pool, jax_served):
                                                      cfg.d_model // TP)
         assert out["params"]["blocks.0.attn.wo"] == (cfg.d_model,
                                                      cfg.d_model // TP)
+
+
+@pytest.mark.parametrize("kind", ["mamba1", "mamba2"])
+def test_tp4_ssm_streams_equal_the_jax_engines(kind, pool):
+    """Every rank's streams equal the JAX tp=1 engine's with a quarter of
+    the channels (mamba1) or SSD heads (mamba2) in each rank's leaves and
+    decode state."""
+    jcfg = JModelConfig(**R.config_kw(kind))
+    japi = jget_model(jcfg)
+    jparams = japi.init(jax.random.key(0), jcfg)
+    eng = JServingEngine(japi, jparams, jcfg, tp=1, **ENGINE)
+    for uid, p, mnt, ex in R.requests(kind, jcfg.d_model, jcfg.vocab):
+        eng.submit(JRequest(uid=uid, prompt=p, max_new_tokens=mnt,
+                            extras=ex))
+    want = {r.uid: r.tokens.tolist() for r in eng.run_until_empty()}
+    cfg = ModelConfig(**R.config_kw(kind))
+    reqs = R.requests(kind, cfg.d_model, cfg.vocab)
+    ranks = pool.run(R.serve, cfg, jax.tree.map(np.asarray, jparams), reqs,
+                     ENGINE)
+    heads = cfg.d_inner // cfg.ssm_headdim
+    for out in ranks:
+        assert out["streams"] == [want]
+        assert out["report"]["tp"] == TP
+        ssm = out["state"]["kv"]["ssm"]
+        if kind == "mamba1":
+            assert ssm[-2] == cfg.d_inner // TP
+        else:
+            assert ssm[-3] == heads // TP
+    assert ranks[0]["report"] == ranks[3]["report"]
 
 
 def test_tp4_primitives_match_the_unsharded_products(pool):

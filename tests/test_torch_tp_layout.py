@@ -6,7 +6,10 @@ abstract (1, tp) mesh, the per-rank GEMM fleet (`gemm_shape_counts(tp=)`)
 and ring traffic (`collective_wire_bytes`) against the reference's, the
 tp engine's step estimate against the reference's `gemm_fleet_energy`
 with the same terms, and the engine's refusals. The streams are
-`test_torch_tp_serving.py`'s and `test_torch_tp_dense4.py`'s.
+`test_torch_tp_serving.py`'s, `test_torch_tp_dense4.py`'s and
+`test_torch_tp_ssm.py`'s (which also holds the SSM leaves' part-wise cuts
+and decode-state shapes, where the port departs from the reference's
+global rules).
 """
 
 from __future__ import annotations
@@ -35,7 +38,11 @@ from repro_torch.models.config import collective_wire_bytes, gemm_shape_counts
 from repro_torch.models.registry import get_model
 from repro_torch.serving.engine import ServingEngine
 
-SERVED_TP = ("dense", "moe", "vlm", "encdec")
+# the families whose every leaf the reference's rules cut as the port
+# does (the SSM families' concatenated leaves are cut by parts)
+SERVED_TP = ("dense", "moe", "mla_moe", "vlm", "encdec")
+ALL_KINDS = ("dense", "moe", "mla_moe", "mamba1", "mamba2", "hybrid",
+             "encdec", "vlm")
 
 
 def _jax_tree(kind: str, **over):
@@ -97,10 +104,11 @@ def test_param_axes_are_the_references_pspecs(kind, tp, jax_specs):
     for the families served at tp > 1 (the rules are copied whole). At
     tp=4 the smoke config's 2 KV heads of 16 split inside a head in both
     packages' rules; the reference's global view serves that, the port's
-    engine refuses it (`test_engine_refuses_split_heads`). (The SSM
-    families wait: on their 1-D per-layer leaves, A_log and D, the
-    reference's rules shard a stacked layer axis, which a rank's per-layer
-    leaf cannot hold.)"""
+    engine refuses it (`test_engine_refuses_split_heads`). (Not the SSM
+    families: on their 1-D per-layer leaves, A_log and D, the reference's
+    rules shard a stacked layer axis, which a rank's per-layer leaf cannot
+    hold, and a contiguous block of a concatenated in_proj or conv is
+    another function on a local rank: `test_torch_tp_ssm.py`.)"""
     jcfg, jparams = _jax_tree(kind)
     shapes = jax.eval_shape(lambda: jparams)
     want = _flat(jax_specs(jsharding.param_pspecs, shapes, tp,
@@ -215,19 +223,22 @@ def _tp_engine(kind: str = "dense", tp: int = 2, **kw):
                          max_len=64, tp=tp, mesh=Mesh(None, 0, tp), **kw)
 
 
-@pytest.mark.parametrize("kind", SERVED_TP)
+@pytest.mark.parametrize("kind", ALL_KINDS)
 def test_step_estimate_is_the_references_with_the_tp_terms(kind):
     """A tp=2 engine's decode and chunk estimates (priced on the TPU v5e,
     where the two energy models agree) equal the reference's
     `gemm_fleet_energy` over its per-shard fleet with its ring bytes,
     collective count, tp chips, overlap chunks and the KV reads of one
-    rank; the fleet is priced on 2 chips with wire time, its idle floor
-    doubled."""
+    rank (the whole latent cache for MLA), for every family; the fleet
+    is priced on 2 chips with wire time, its idle floor doubled."""
     eng = _tp_engine(kind, chip="tpu_v5e")
     jcfg = dataclasses.replace(JModelConfig(**R.config_kw(kind)),
                                tp_collectives="explicit", tp_reduce="gather",
                                tp_overlap_chunks=4)
     scale = 2.0 if kind == "encdec" else 1.0
+    # a rank reads its heads' half of the KV cache; MLA's latent cache is
+    # whole on every rank, as the reference prices it
+    shard = 1 if kind == "mla_moe" else 2
     for key, n, head, rows in ((("decode", 2), 2, None, 2),
                                (("chunk", 2, 16), 32, 2, 2)):
         got = eng._step_energy(key, n, head, batch_rows=rows)
@@ -235,7 +246,7 @@ def test_step_estimate_is_the_references_with_the_tp_terms(kind):
         want = jenergy.gemm_fleet_energy(
             jcounts(jcfg, n, head_tokens=head, kv_rows=rows * 64, tp=2),
             chip="tpu_v5e", dtype=jcfg.activation_dtype,
-            extra_hbm_bytes=scale * jkv_bytes(jcfg, rows * 64) / 2, tp=2,
+            extra_hbm_bytes=scale * jkv_bytes(jcfg, rows * 64) / shard, tp=2,
             collective_bytes=wire, n_collectives=n_coll, overlap_chunks=4,
             name=f"{jcfg.name}:{key}")
         for f in ("energy_j", "step_s", "power_w", "n_chips",
@@ -245,14 +256,6 @@ def test_step_estimate_is_the_references_with_the_tp_terms(kind):
         assert got.n_chips == 2 and got.collective_s > 0
     assert eng.idle_power_w == 2 * eng.chip_spec.idle_power_w
     assert eng.tp == 2 and eng.cfg.tp_reduce == "gather"
-
-
-@pytest.mark.parametrize("kind", ["mamba1", "mamba2", "hybrid", "mla_moe"])
-def test_families_still_to_come_refuse_tp(kind):
-    """The SSM, hybrid and MLA families are not served at tp > 1 yet: the
-    engine raises at construction, naming ROADMAP A7."""
-    with pytest.raises(NotImplementedError, match="A7"):
-        _tp_engine(kind)
 
 
 def test_engine_refuses_split_heads():

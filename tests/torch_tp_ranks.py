@@ -81,16 +81,17 @@ REPORT_KEYS = ("tp", "requests", "generated_tokens", "decode_steps",
 
 
 def serve(mesh, cfg, tree: dict, requests: list, engine_kw: dict,
-          drains: int = 1) -> dict:
-    """Bridge the JAX parameter tree (numpy) into the port, build an engine
-    at the mesh's tp (the engine cuts this rank's shard) and serve
-    `requests` ((uid, prompt, max_new_tokens, extras)) to completion,
-    `drains` times over (uids shifted by 100 per repeat). Returns the
-    streams of each drain, the report's entries, the decode step's
-    estimate, each parameter's and decode-state leaf's local shape and, on
-    the paged layout, the allocator's counters after the last drain."""
-    params = params_from_numpy(tree, cfg, device="cpu")
-    eng = ServingEngine(get_model(cfg), params, cfg, device="cpu",
+          drains: int = 1, device: str = "cpu") -> dict:
+    """Bridge the JAX parameter tree (numpy) into the port on `device`,
+    build an engine at the mesh's tp (the engine cuts this rank's shard)
+    and serve `requests` ((uid, prompt, max_new_tokens, extras)) to
+    completion, `drains` times over (uids shifted by 100 per repeat).
+    Returns the streams of each drain, the report's entries, the decode
+    step's estimate, each parameter's and decode-state leaf's local shape
+    and, on the paged layout, the allocator's counters after the last
+    drain."""
+    params = params_from_numpy(tree, cfg, device=device)
+    eng = ServingEngine(get_model(cfg), params, cfg, device=device,
                         tp=mesh.tp, mesh=mesh if mesh.tp > 1 else None,
                         **engine_kw)
     streams = []
@@ -128,20 +129,31 @@ def _shapes(tree) -> dict:
     return tuple(tree.shape)
 
 
-def logits(mesh, cfg, tree: dict, tokens: np.ndarray) -> np.ndarray:
+def logits(mesh, cfg, tree: dict, tokens: np.ndarray,
+           f32_state: bool = False) -> np.ndarray:
     """The f32 logits of one chunk call over `tokens` (B, S) from a zero
-    state, at the mesh's tp (the whole vocabulary, gathered)."""
+    state (its caches widened to f32 with `f32_state`), at the mesh's tp
+    (the whole vocabulary, gathered)."""
     params = params_from_numpy(tree, cfg, device="cpu")
     eng = ServingEngine(get_model(cfg), params, cfg, device="cpu",
                         max_batch=tokens.shape[0], max_len=64,
                         tp=mesh.tp, mesh=mesh if mesh.tp > 1 else None)
     eng._activate()
+    state = eng._init_state(tokens.shape[0])
+    if f32_state:
+        state = _widen(state)
     with torch.no_grad():
         out, _ = eng.model.prefill_chunk(
             eng.params, torch.as_tensor(tokens),
-            torch.full((tokens.shape[0],), tokens.shape[1]),
-            eng._init_state(tokens.shape[0]), eng.cfg)
+            torch.full((tokens.shape[0],), tokens.shape[1]), state, eng.cfg)
     return out.numpy()
+
+
+def _widen(tree):
+    """A state tree with its floating leaves in f32."""
+    if isinstance(tree, dict):
+        return {k: _widen(v) for k, v in tree.items()}
+    return tree.float() if tree.is_floating_point() else tree
 
 
 # what `tp.tp_enabled` and `tp.replicate_for_parity` read of a config
