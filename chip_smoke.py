@@ -232,13 +232,28 @@ build of PyTorch. Phases, each fatal on failure:
    Mamba2's gated-norm input gather, the experts' output gather). While
    those ranks serve, the main process makes phases 15 (e)'s and 16 (d)'s
    meta analyses ahead (`_analyse_ahead`).
+18. training under tensor parallelism, last, once phases 15 and 16 have
+   handed their device memory back: full-width, full-depth starcoder2-3b
+   at tp = 2 in two rank processes on the one card (gloo), through the
+   launcher's tp path (psum mode: row-parallel products all-reduced, the
+   vocab-parallel loss), phase 15 (a)'s seed, batch, sequence and steps,
+   checkpoints in a directory of its own. Gates: step 1's loss within
+   1e-2 and its grad norm within 5e-2 (relative) of phase 15 (a)'s, every
+   step finite and printed beside tp=1's, per rank each step's launches
+   (721 wgmma, 2 split, 1 split3, none on stream or general) and
+   collectives (157); then every distinct shard GEMM of the step against
+   the plain version, timed (phase 15 (b)'s checks). It prints per rank
+   the step ms, tokens/s, peak device memory beside `train_memory_bytes`
+   at tp = 2, the collectives and their host time, and the phase's
+   seconds. Two ranks on one card give no multi-card speed figure.
 
 After phase 10, ``build/serving_shapes.json`` holds qwen2-7b's and
 qwen2.5-14b's serving launches by shape, for ``tools/gemm_sums.py``.
 
 It prints a JSON line of per-kernel numbers (launches summed over phases
-4, 12, 13, 14, 17 (both ranks, every model), 15 (a) and 16 (a), times
-over phases 5, 12, 13, 14, 15 (a) and 16 (a): the runs of the port's main
+4, 12, 13, 14, 17 (both ranks, every model), 15 (a), 16 (a) and 18 (both
+ranks), times over phases 5, 12, 13, 14, 15 (a), 16 (a) and 18: the runs
+of the port's main
 paths; the GEMM's stream, wgmma and split paths and the split kernel; no
 launch of those runs takes the general path, the yardstick in each
 entry's v3_ms) and, last, the device line.
@@ -4654,7 +4669,8 @@ def phase_train(dev) -> dict:
     _say(f"[train] phase 15 in {time.perf_counter() - t0:.1f} s; peak "
          f"device memory of (a) {peak / 1e9:.2f} GB, of (c)-(d) "
          f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
-    return {"launches": collections.Counter(by_path), "entries": entries}
+    return {"launches": collections.Counter(by_path), "entries": entries,
+            "summary": summary}
 
 
 # Phase 16: the other families' training at full width, (arch, batch rows,
@@ -4950,6 +4966,196 @@ def phase_families(dev) -> dict:
     return {"launches": launched, "entries": groups}
 
 
+# Phase 18: training under tensor parallelism. Full-width, full-depth
+# starcoder2-3b at tp = TP_RANKS through the launcher's tp path, in as many
+# rank processes on the one card (gloo), at phase 15 (a)'s seed, batch and
+# sequence for TRAIN_STEPS steps, checkpoints in a directory of its own
+# (phase 15's would be resumed). Gates against phase 15 (a)'s tp=1 run:
+# step 1's loss within TRAIN_TP_LOSS_REL and its grad norm within
+# TRAIN_TP_NORM_REL (the psum re-associates sums of bf16 partials, so the
+# bits need not match)
+TRAIN_TP_DIR = ROOT / "build" / "chip_smoke_train_tp"
+TRAIN_TP_LOSS_REL = 1e-2
+TRAIN_TP_NORM_REL = 5e-2
+
+
+def _tp_train_collectives_per_step(cfg, tp: int) -> int:
+    """One rank's collectives in one train step of a dense config at tp
+    in psum mode, one row chunk (`distributed.tp`), from the model's
+    structure: the vocab-sharded embedding's gather; per layer the two
+    row-parallel all-reduces (wo, w_down) in the forward, wo's again in
+    remat's recomputation (which stops after the block's last saved
+    tensor, w_down's input, before its all-reduce: checkpointing's early
+    stop), and the backward's all-reduce at each block's entry (attention,
+    FFN; two more for k and v where tp does not divide the KV heads); the
+    head's entry in the backward, the vocab-parallel loss's max, argmax,
+    sum of exponentials and target logit; and the global norm's sum over
+    "model": 157 for starcoder2-3b."""
+    kv = 2 if cfg.kv_heads % tp else 0
+    per_layer = 2 + (1 if cfg.remat else 0) + 2 + kv
+    return 1 + cfg.n_layers * per_layer + 1 + 4 + 1
+
+
+def _tp_train_rank(mesh, argv: list) -> dict:
+    """One rank of phase 18, in its own process: the launcher's rank
+    entry (`launch.train.train_rank`) on `argv`, every GEMM recorded by
+    shape and layout (`_train_recording`), the launch and collective
+    counters set to 0 just before and read after each step. Returns its
+    summary, launches per step, shapes, collectives, memory and times."""
+    from repro_torch.distributed import tp as TP
+    from repro_torch.kernels import ops
+    from repro_torch.kernels._build import load_library
+    from repro_torch.kernels.tiled_matmul import split3, tiled_matmul
+    from repro_torch.launch import train as launch
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    load_library()
+    shapes: collections.Counter = collections.Counter()
+    splits: collections.Counter = collections.Counter()
+    marks, colls = [], []
+
+    def on_log(line: str) -> None:
+        if line.startswith("step "):
+            marks.append(_launch_counts())
+            colls.append((TP.collectives.calls, TP.collectives.host_s))
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    recording, splitting = _train_recording(shapes, splits)
+    ops.tiled_matmul, ops.split3 = recording, splitting
+    try:
+        _zero_counts()
+        TP.collectives.calls, TP.collectives.host_s = 0, 0.0
+        marks.append(_launch_counts())
+        colls.append((0, 0.0))
+        state, summary = launch.train_rank(mesh, argv, log_fn=on_log,
+                                           every_rank=True)
+        torch.cuda.synchronize()
+    finally:
+        ops.tiled_matmul, ops.split3 = tiled_matmul, split3
+    held = sum(p.numel() * p.element_size()
+               for p in state["params"].parameters())
+    opt = sum(t.numel() * t.element_size() for k in ("master", "m", "v")
+              for t in state["opt"][k].values())
+    out = {"summary": {k: summary[k].tolist() for k in (
+               "loss_curve", "grad_norms", "step_times_s")},
+           "final_step": summary["final_step"],
+           "steps": [{p: b[p] - a[p] for p in a}
+                     for a, b in zip(marks, marks[1:])],
+           "collectives": [b[0] - a[0] for a, b in zip(colls, colls[1:])],
+           "collective_host_s": [b[1] - a[1]
+                                 for a, b in zip(colls, colls[1:])],
+           "shapes": dict(shapes), "splits": dict(splits),
+           "params_bytes": held, "opt_bytes": opt,
+           "peak_bytes": torch.cuda.max_memory_allocated(dev),
+           "seconds": time.perf_counter() - t0}
+    del state
+    _free()
+    return out
+
+
+def phase_train_tp(dev, tp1: dict) -> dict:
+    """Phase 18: training under tensor parallelism on the card, after
+    phases 15 and 16 have handed their memory back. Full-width,
+    full-depth starcoder2-3b at tp = `TP_RANKS` through the launcher's tp
+    path (`_tp_train_rank` in each rank process of a gloo `RankPool` on
+    the one card), TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens
+    from phase 15 (a)'s seed; `tp1` is phase 15 (a)'s summary. Gates: step
+    1's loss and grad norm near tp=1's (`TRAIN_TP_LOSS_REL`,
+    `TRAIN_TP_NORM_REL`), every step finite, per rank each step's
+    launches `_train_launches_per_step` (all on wgmma, the split pair and
+    split3) and collectives `_tp_train_collectives_per_step`; then (b)
+    every distinct shard GEMM of the step against the plain version
+    (`_train_shapes`). Returns {"launches": per path summed over the
+    ranks, "entries": (b)'s per-path JSON entries}."""
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train_memory_bytes
+
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    want = _train_launches_per_step(cfg)
+    coll_want = _tp_train_collectives_per_step(cfg, TP_RANKS)
+    state_b, acts_b = train_memory_bytes(cfg, TRAIN_BATCH, TRAIN_SEQ,
+                                         tp=TP_RANKS)
+    _say(f"[train tp (a)] {cfg.name} at tp={TP_RANKS} in {TP_RANKS} "
+         f"processes on one card (gloo), psum mode: a rank's training "
+         f"state {state_b / 1e9:.2f} GB, activations about "
+         f"{acts_b / 1e9:.2f} GB (`train_memory_bytes` at tp={TP_RANKS}); "
+         f"launches per step from the structure {want}, collectives "
+         f"{coll_want}")
+    shutil.rmtree(TRAIN_TP_DIR, ignore_errors=True)
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--log-every", "1",
+            "--ckpt-every", str(10 * TRAIN_STEPS), "--ckpt-dir",
+            str(TRAIN_TP_DIR), "--tp", str(TP_RANKS)]
+    try:
+        ranks = _tp_pool(lambda pool: pool.run(_tp_train_rank, argv))
+    finally:
+        shutil.rmtree(TRAIN_TP_DIR, ignore_errors=True)
+    t_ranks = time.perf_counter() - t0
+    losses1, norms1 = tp1["loss_curve"], tp1["grad_norms"]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    failed = []
+    launched: collections.Counter = collections.Counter()
+    for r, out in enumerate(ranks):
+        s = out["summary"]
+        times = s["step_times_s"]
+        for step in out["steps"]:
+            launched.update({p: step[p] for p in (*GEMM_PATHS, "split3")})
+        _say(f"[train tp (a)] rank {r}: step ms "
+             + ", ".join(f"{1e3 * t:.1f}" for t in times)
+             + f"; after the first: mean "
+             f"{1e3 * float(np.mean(times[1:])):.1f} ms, "
+             f"{tokens / float(np.mean(times[1:])):.1f} training tokens/s "
+             f"(the mesh's, {TP_RANKS} ranks sharing one card); peak "
+             f"device memory {out['peak_bytes'] / 1e9:.2f} GB beside "
+             f"`train_memory_bytes` {(state_b + acts_b) / 1e9:.2f} GB "
+             f"(params {out['params_bytes'] / 1e9:.2f} GB, master/m/v "
+             f"{out['opt_bytes'] / 1e9:.2f} GB); in {out['seconds']:.1f} s")
+        _say(f"[train tp (a)] rank {r}: launches per step {out['steps']} "
+             f"(expected {want} each); collectives per step "
+             f"{out['collectives']} (expected {coll_want}), host time "
+             + ", ".join(f"{t:.3f}" for t in out["collective_host_s"])
+             + f" s ({1e3 * sum(out['collective_host_s']) / max(1, sum(out['collectives'])):.3f}"
+             " ms a collective)")
+        for i, (l2, n2) in enumerate(zip(s["loss_curve"], s["grad_norms"])):
+            _say(f"[train tp (a)] rank {r} step {i + 1}: loss {l2:.4f} "
+                 f"(tp=1 {losses1[i]:.4f}, diff {l2 - losses1[i]:+.3e}), "
+                 f"grad norm {n2:.4f} (tp=1 {norms1[i]:.4f}, diff "
+                 f"{n2 - norms1[i]:+.3e})")
+        finite = bool(np.isfinite(s["loss_curve"]).all()
+                      and np.isfinite(s["grad_norms"]).all())
+        rel_l = abs(s["loss_curve"][0] - losses1[0]) / abs(losses1[0])
+        rel_n = abs(s["grad_norms"][0] - norms1[0]) / abs(norms1[0])
+        if (out["final_step"] != TRAIN_STEPS or not finite
+                or rel_l > TRAIN_TP_LOSS_REL or rel_n > TRAIN_TP_NORM_REL):
+            failed.append(f"rank {r}: {TRAIN_STEPS} finite steps, step 1's "
+                          f"loss {rel_l:.3e} and grad norm {rel_n:.3e} "
+                          "relative to tp=1's")
+        if (len(out["steps"]) != TRAIN_STEPS
+                or any(st != want for st in out["steps"])
+                or any(c != coll_want for c in out["collectives"])):
+            failed.append(f"rank {r}: launches {out['steps']}, "
+                          f"collectives {out['collectives']}")
+    if any(out["summary"]["loss_curve"] != ranks[0]["summary"]["loss_curve"]
+           for out in ranks):
+        failed.append("the ranks' losses differ")
+    if failed:
+        raise SystemExit("[train tp] " + "; ".join(failed))
+    _free()
+    shapes = collections.Counter(ranks[0]["shapes"])
+    entries = _train_shapes(dev, shapes, TRAIN_STEPS, tag="train tp (b)",
+                            splits=collections.Counter(ranks[0]["splits"]))
+    _say(f"[train tp] phase 18 in {time.perf_counter() - t0:.1f} s (ranks "
+         f"{t_ranks:.1f} s) on {_nvidia_smi()}; tp={TP_RANKS} on one card "
+         "gives no multi-card speed figure")
+    return {"launches": launched, "entries": entries}
+
+
 def _merge_entries(groups: list) -> dict:
     """Per-path JSON entries summed over `groups` (each phase 5's form):
     times and bounds added, the bound's kind from the summed operations and
@@ -5035,12 +5241,14 @@ def main() -> int:
     admit = phase_admit(dev)
     train = phase_train(dev)
     families = phase_families(dev)
+    _free()
+    train_tp = phase_train_tp(dev, train["summary"])
     _say(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s")
     _say(_nvidia_smi())
     # one entry per kernel of the main paths' runs: qwen2-7b (phases 4-5),
     # the SSM and hybrid models (phase 12), the encoder-decoder and vision
     # models (phase 13), the fleets (phase 14), tensor-parallel serving's
-    # ranks (phase 17) and training (phases 15 (a) and 16 (a)): the GEMM's
+    # ranks (phase 17) and training (phases 15 (a), 16 (a) and 18): the GEMM's
     # stream, wgmma and split-pair paths and the
     # split pair's split kernel. No launch of those runs takes the general
     # path (every phase checks 0 there): it is the first version of the
@@ -5048,10 +5256,12 @@ def main() -> int:
     launched = sum([*ssm["launches"].values(), *admit["launches"].values(),
                     fleet["launches"], tp["launches"],
                     tp_families["launches"], train["launches"],
-                    families["launches"]], collections.Counter(by_path))
+                    families["launches"], train_tp["launches"]],
+                   collections.Counter(by_path))
     merged = _merge_entries([entries, *ssm["entries"].values(),
                              *admit["entries"].values(), fleet["entries"],
-                             train["entries"], *families["entries"]])
+                             train["entries"], *families["entries"],
+                             train_tp["entries"]])
     if launched["general"]:
         raise SystemExit(f"{launched['general']} main-path launches took "
                          "the general path")

@@ -16,6 +16,16 @@ written (`wait` joins the writer before the next save); LATEST flips only
 after the step's directory is complete, so a crash mid-save never corrupts
 the restore point. `restore(into=state)` copies the leaves into an
 existing state's tensors, on their devices.
+
+Under a mesh (`layout`, a `distributed.sharding.TrainLayout`) every rank
+calls `save`, `latest_step` and `restore` in step: `save` makes whole
+leaves of the ranks' shards (each sharded leaf gathered over "model", a
+ZeRO-1 moment over "data" as well; collectives every rank joins) and only
+the process of global rank 0 writes them, so no two ranks ever write one
+``shard_<host>.npz``; `latest_step` and `restore` wait for that write
+(the writer joins its thread, then a barrier) and `restore` cuts this
+rank's shard of each whole leaf. A checkpoint so written holds whole
+leaves and restores onto any mesh (`launch.elastic`).
 """
 
 from __future__ import annotations
@@ -77,7 +87,8 @@ def _from_host(arr: np.ndarray, dtype: str) -> torch.Tensor:
 
 class CheckpointManager:
     def __init__(self, directory: str, *, keep: int = 3, host_id: int = 0,
-                 n_hosts: int = 1):
+                 n_hosts: int = 1, layout=None):
+        self.layout = layout
         self.dir = str(directory)
         self.keep = keep
         self.host_id = host_id
@@ -92,7 +103,12 @@ class CheckpointManager:
         """Copy every leaf of `state` to the host now, then write them (on
         a writer thread unless `blocking`)."""
         self.wait()
-        host = {k: _to_host(v) for k, v in _flatten(state).items()}
+        flat = _flatten(state)
+        if self.layout is not None:
+            flat = self.layout.gather(flat)
+            if not self._writer():
+                return
+        host = {k: _to_host(v) for k, v in flat.items()}
 
         def _write():
             d = os.path.join(self.dir, f"step_{step:09d}")
@@ -132,6 +148,23 @@ class CheckpointManager:
             self._thread = threading.Thread(target=_guarded, daemon=True)
             self._thread.start()
 
+    def _writer(self) -> bool:
+        """Whether this process writes (global rank 0, or no group)."""
+        import torch.distributed as dist
+
+        return not dist.is_initialized() or dist.get_rank() == 0
+
+    def _sync(self) -> None:
+        """Under a layout: the writer's last save on disk before any rank
+        reads (every rank calls it)."""
+        if self.layout is None:
+            return
+        import torch.distributed as dist
+
+        self.wait()
+        if dist.is_initialized():
+            dist.barrier()
+
     def wait(self) -> None:
         """Join the writer of the last save; raise what it raised."""
         if self._thread is not None:
@@ -156,6 +189,7 @@ class CheckpointManager:
         return sorted(out)
 
     def latest_step(self) -> int | None:
+        self._sync()
         path = os.path.join(self.dir, "LATEST")
         if not os.path.exists(path):
             return None
@@ -166,12 +200,14 @@ class CheckpointManager:
                 ) -> tuple[dict, dict | None]:
         """Returns (state, data_state). Without `into`, the state is the
         saved tree of CPU tensors (a module's parameters as a dict by
-        name). With `into`, every saved leaf is copied into the matching
+        name; under a layout, this rank's shards). With `into`, every
+        saved leaf is copied into the matching
         tensor of that state (keys, shapes and dtypes must agree), on its
         device, and `into` is returned."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.dir}")
+        self._sync()
         d = os.path.join(self.dir, f"step_{step:09d}")
         dtypes = {}
         mpath = os.path.join(d, "manifest.json")
@@ -180,6 +216,8 @@ class CheckpointManager:
                 dtypes = json.load(f).get("dtypes", {})
         with np.load(os.path.join(d, f"shard_{self.host_id}.npz")) as z:
             flat = {k: _from_host(z[k], dtypes.get(k, "")) for k in z.files}
+        if self.layout is not None:
+            flat = self.layout.cut(flat)
         if into is None:
             state = _unflatten(flat)
         else:

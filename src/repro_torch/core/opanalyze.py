@@ -26,7 +26,7 @@ tensors (the dry-run) it costs no device memory and computes nothing.
   three bf16 planes it reads), a `split3` launch its f32 matrix and the
   three planes it writes.
 * Collective bytes: 0. One card has no collective; counting the c10d ops
-  of a tensor-parallel step comes with ROADMAP A7.
+  of a tensor-parallel step comes with the dry-run's mesh (ROADMAP A7.3).
 * Memory, in place of XLA's ``memory_analysis``: the bytes of the
   arguments' and the outputs' distinct storages, and a peak-live
   estimate: the arguments plus the most bytes of storages made during the

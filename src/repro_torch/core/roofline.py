@@ -17,7 +17,7 @@ that chip's peak.
 dry-run's count of a step's ops) where the reference prices XLA's cost
 analysis and HLO text. The reference's `parse_collectives` reads HLO text
 and is not ported; `CollectiveStats` is, and holds zeros until a
-tensor-parallel step's c10d collectives are counted (ROADMAP A7).
+tensor-parallel step's c10d collectives are counted (ROADMAP A7.3).
 """
 
 from __future__ import annotations

@@ -27,6 +27,16 @@ whole of each shared one, side by side. Decode state follows the same
 parts, on the axis that carries heads or channels, never the batch
 (`state_axis`).
 
+Training (psum mode) takes `PARAM_RULES` as they are: ``wo`` and
+``w_down`` row-sharded. A rank holds whole heads: a head-carrying
+attention leaf is cut only where tp divides its heads (`HEAD_LEAVES`;
+GQA's ``wk``/``wv`` stay whole where tp does not divide the KV heads, and
+each rank then uses its query heads' KV heads). `gather_params` is the
+inverse of the cut (whole leaves from the ranks' shards: the checkpoint,
+elastic resume and the tests need it), `zero1_axes` the reference's
+`zero1_shardings` (the optimizer's f32 state cut further over "data"),
+and `TrainLayout` both for a flat training state.
+
 `set_mesh`/`current_mesh` hold the mesh on the thread, as the reference's
 `set_mesh_rules`/`current_mesh` do: the serving engine installs its own
 before every call (`ServingEngine._activate`), and the model code reads
@@ -36,6 +46,7 @@ sharded (`distributed.tp`).
 
 from __future__ import annotations
 
+import dataclasses
 import fnmatch
 import threading
 
@@ -199,13 +210,33 @@ def local_size(parts: Parts, tp: int) -> int | None:
     return sum(size // tp if cut else size for size, cut in parts)
 
 
+# attention leaves whose sharded axis carries heads, and the config field
+# counting them: a rank holds whole heads, so such a leaf is cut only where
+# tp divides that count (with `cfg`)
+HEAD_LEAVES = {"wq": "n_heads", "bq": "n_heads", "wo": "n_heads",
+               "wk": "kv_heads", "bk": "kv_heads", "wv": "kv_heads",
+               "bv": "kv_heads", "w_uq": "n_heads", "w_uk": "n_heads",
+               "w_uv": "n_heads"}
+
+
+def _heads_divide(path: str, tp: int, cfg) -> bool:
+    """False where `path` is an attention leaf of `HEAD_LEAVES` whose
+    heads (in `cfg`) tp does not divide."""
+    group, _, leaf = path.rpartition("/")
+    count = HEAD_LEAVES.get(leaf)
+    if cfg is None or count is None or not group.endswith("attn"):
+        return True
+    return getattr(cfg, count) % tp == 0
+
+
 def leaf_axis(path: str, shape: tuple[int, ...], tp: int,
               tp_reduce: str = "psum", cfg=None) -> int | None:
     """The axis of a leaf of `shape` at `path` ("/"-separated, leading
     stacked-layer axes allowed) that a (1, tp) serving mesh shards over
     "model", or None (replicated). With `cfg`, an axis cut by parts
     (`axis_parts`) is sharded only where tp divides every sharded
-    part."""
+    part, and a head-carrying attention leaf (`HEAD_LEAVES`) only where tp
+    divides its heads."""
     if tp <= 1:
         return None
     logical = _match(path, tp_reduce)[:len(shape)]
@@ -213,7 +244,7 @@ def leaf_axis(path: str, shape: tuple[int, ...], tp: int,
     spec = sanitize_spec(tuple("model" if n in MODEL_AXIS_NAMES else None
                                for n in names), shape, tp)
     axes = [i for i, ax in enumerate(spec) if ax is not None]
-    if not axes:
+    if not axes or not _heads_divide(path, tp, cfg):
         return None
     parts = axis_parts(path.rsplit("/", 1)[-1], shape[axes[0]], cfg)
     return axes[0] if local_size(parts, tp) is not None else None
@@ -293,6 +324,171 @@ def shard_params(model: torch.nn.Module, mesh, tp_reduce: str = "gather",
         p = model.get_parameter(name)
         p.data = local_copy(p.data, ax, mesh.rank, tp, parts)
     return model
+
+
+def _parts_of(name: str, full: tuple[int, ...], axis: int | None,
+              cfg=None) -> Parts | None:
+    """The parts of `name`'s sharded axis (None for a whole leaf)."""
+    if axis is None:
+        return None
+    return axis_parts(name.rsplit(".", 1)[-1], full[axis], cfg)
+
+
+def whole_from_blocks(blocks: list[torch.Tensor], axis: int,
+                      parts: Parts | None = None) -> torch.Tensor:
+    """The whole tensor from every rank's `local_copy` along `axis` (in
+    rank order): each sharded part's blocks side by side, each shared part
+    once (from rank 0)."""
+    tp = len(blocks)
+    if not parts or len(parts) == 1:
+        return torch.cat(blocks, dim=axis)
+    out, lo = [], 0
+    for size, cut in parts:
+        n = size // tp if cut else size
+        if cut:
+            out += [b.narrow(axis, lo, n) for b in blocks]
+        else:
+            out.append(blocks[0].narrow(axis, lo, n))
+        lo += n
+    return torch.cat(out, dim=axis)
+
+
+def _gather_axis(t: torch.Tensor, axis: int, group, n: int) -> list:
+    """Every rank's `t` of `group` (`n` ranks), in rank order."""
+    import torch.distributed as dist
+
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(n)]
+    dist.all_gather(parts, t, group=group)
+    return parts
+
+
+def gather_params(named, mesh, axes: dict[str, int | None], cfg=None,
+                  whole: dict[str, tuple] | None = None
+                  ) -> dict[str, torch.Tensor]:
+    """The whole leaves of a rank's shards: {name: tensor} (or a module's
+    parameters), each leaf that `axes` (`param_axes` of the whole model)
+    shards all-gathered over "model" and put back by its parts
+    (`whole_from_blocks`; `whole` gives the whole shapes the parts are
+    read from, default the gathered one), the others as they are. The
+    inverse of `shard_params`; every rank of the "model" group calls it,
+    in the same order."""
+    if isinstance(named, torch.nn.Module):
+        named = dict(named.named_parameters())
+    out = {}
+    for name, t in named.items():
+        ax = axes.get(name)
+        t = t.detach()
+        if ax is None or mesh is None or mesh.tp == 1:
+            out[name] = t
+            continue
+        blocks = _gather_axis(t, ax, mesh.group, mesh.tp)
+        full = tuple(whole[name]) if whole else tuple(
+            n * (mesh.tp if i == ax else 1) for i, n in enumerate(t.shape))
+        out[name] = whole_from_blocks(blocks, ax, _parts_of(name, full, ax,
+                                                            cfg))
+    return out
+
+
+def zero1_axes(shapes: dict[str, tuple], model_axes: dict[str, int | None],
+               data: int) -> dict[str, int | None]:
+    """The reference's `zero1_shardings` for the port's local leaves: the
+    axis over which "data" cuts each leaf's f32 optimizer state, the first
+    axis that "model" does not shard and that `data` divides, or None
+    (the state stays whole on every data rank; every leaf where `data` is
+    1)."""
+    out = {}
+    for name, shape in shapes.items():
+        out[name] = None
+        if data <= 1:
+            continue
+        for i, n in enumerate(shape):
+            if i != model_axes.get(name) and n > 0 and n % data == 0:
+                out[name] = i
+                break
+    return out
+
+
+def data_block(t: torch.Tensor, axis: int | None, mesh) -> torch.Tensor:
+    """This data rank's block of `t` along `axis` (ZeRO-1), a fresh
+    tensor; `t` itself for None."""
+    if axis is None or mesh is None or mesh.data == 1:
+        return t
+    n = t.shape[axis] // mesh.data
+    return t.narrow(axis, mesh.data_rank * n, n).clone(
+        memory_format=torch.contiguous_format)
+
+
+@dataclasses.dataclass
+class TrainLayout:
+    """Where each leaf of a training state lives on `mesh`: the "model"
+    axis of each parameter of the whole model (`axes`, psum mode's
+    `param_axes`), its parts (`parts`) and the "data" axis of its f32
+    optimizer state (`zero1`, `zero1_axes`; None without ZeRO-1). It maps
+    a flattened state (the checkpoint's "__"-joined keys: ``params__<name>``,
+    ``opt__{master,m,v}__<name>``, ``opt__step``, ``rng``) to whole leaves
+    (`gather`, a collective every rank calls) and back to this rank's
+    (`cut`)."""
+
+    mesh: object
+    axes: dict
+    parts: dict
+    zero1: dict
+
+    def _leaf(self, key: str) -> tuple:
+        head, _, name = key.partition("__")
+        if head == "params":
+            return name, None
+        if head == "opt":
+            kind, _, name = name.partition("__")
+            if kind in ("master", "m", "v"):
+                return name, self.zero1.get(name)
+        return None, None
+
+    def gather(self, flat: dict) -> dict:
+        """Whole leaves: each moment gathered over "data" on its ZeRO-1
+        axis, each sharded leaf over "model" on its axis."""
+        mesh, out = self.mesh, {}
+        for key, t in flat.items():
+            name, dax = self._leaf(key)
+            t = torch.as_tensor(t).detach()
+            if dax is not None and mesh.data > 1:
+                t = torch.cat(_gather_axis(t, dax, mesh.data_group,
+                                           mesh.data), dim=dax)
+            ax = self.axes.get(name) if name else None
+            if ax is not None and mesh.tp > 1:
+                t = whole_from_blocks(_gather_axis(t, ax, mesh.group,
+                                                   mesh.tp), ax,
+                                      self.parts.get(name))
+            out[key] = t
+        return out
+
+    def cut(self, flat: dict) -> dict:
+        """This rank's leaves of whole ones."""
+        mesh, out = self.mesh, {}
+        for key, t in flat.items():
+            name, dax = self._leaf(key)
+            ax = self.axes.get(name) if name else None
+            if ax is not None:
+                t = local_copy(t, ax, mesh.rank, mesh.tp,
+                               self.parts.get(name))
+            out[key] = data_block(t, dax, mesh)
+        return out
+
+
+def train_layout(model: torch.nn.Module, mesh, cfg=None,
+                 zero1: bool = False) -> TrainLayout:
+    """The `TrainLayout` of the whole `model` (``meta`` will do) on
+    `mesh` in psum mode, with ZeRO-1's axes where `zero1`."""
+    tp = model_size(mesh)
+    axes = param_axes(model, tp, "psum", cfg)
+    full = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    parts = {n: _parts_of(n, full[n], axes[n], cfg) for n in full}
+    local = {n: tuple(local_size(parts[n], tp) if i == axes[n] else d
+                      for i, d in enumerate(shape))
+             for n, shape in full.items()}
+    data = mesh.data if (zero1 and mesh is not None) else 1
+    return TrainLayout(mesh, axes, parts, zero1_axes(local, axes, data))
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,10 @@
 """Explicit-collective tensor-parallel layers over `torch.distributed`.
 
-The forward of the JAX package's `repro.distributed.tp` in PyTorch's SPMD
-idiom: every rank runs this code on its own shards (`distributed.sharding`)
-and the collectives are written out. The residual stream, the norms and
-every activation between blocks are whole on every rank; what is sharded
-is a projection's output columns and the attention heads behind them.
+The JAX package's `repro.distributed.tp` in PyTorch's SPMD idiom: every
+rank runs this code on its own shards (`distributed.sharding`) and the
+collectives are written out. The residual stream, the norms and every
+activation between blocks are whole on every rank; what is sharded is a
+projection's output columns and the attention heads behind them.
 
   column_parallel:  y_loc = x @ w_loc           (w column-sharded)
       no collective; y_loc is this rank's columns.
@@ -22,17 +22,38 @@ is a projection's output columns and the attention heads behind them.
       re-associates the fp32 accumulation).
 
 Both row-parallel forms split the local product into `_n_chunks` column
-chunks: chunk c's collective is posted (``async_op=True``) before chunk
-c+1's product is launched, so the wire overlaps the GEMM; the columns are
-then put back in the unsharded product's order (shard-major).
+chunks: in serving chunk c's collective is posted (``async_op=True``)
+before chunk c+1's product is launched, so the wire overlaps the GEMM; the
+columns are then put back in the unsharded product's order (shard-major).
 
-Every collective goes through `_Pending` or `all_reduce`, which count it
-and the host time spent posting and waiting for it (`collectives`). With
-gloo, a CUDA tensor is staged through host memory inside the collective:
-the transport of several ranks on one card (NCCL refuses two ranks on one
-device).
+The backward (training, psum mode) follows Megatron's split into four
+`torch.autograd.Function`s, each a collective one way and its transpose
+the other, so that every GEMM of the backward is `ops.matmul`'s own (a
+launch of the hand-written kernel) and every activation that is whole on
+every rank also has its whole gradient, the same on every rank:
 
-The backward (training under tp) is not ported yet (ROADMAP A7).
+  copy_to_model:     forward identity, backward all-reduce over "model"
+      (the entry of a column-parallel block: each rank's dx is partial);
+  reduce_from_model: forward all-reduce, backward identity (the exit of a
+      row-parallel block, the vocab-parallel loss's sums);
+  split_to_model:    forward this rank's block, backward all-gather;
+  gather_from_model: forward all-gather, backward this rank's block.
+
+A block enters through `enter` (a copy only where its weights are
+sharded), so the reference's `_col_bwd` (dx cast to the activation dtype,
+then summed over "model": the cotangent arrives in the activation's
+dtype), `_row_bwd` (no collective) and `_row_gather_bwd` (dx summed, then
+this rank's block) come out of the composition; dW stays sharded like W.
+The data-axis gradient reduction (the reference's psum of dW over the dp
+axes, in the gradient's dtype) is the train step's
+(`all_reduce_data`), and `reduce_over_data` sums a loss's parts over
+"data" (backward identity).
+
+Every collective goes through `_Pending`, `_all_reduce_` or `_gather`,
+which count it and the host time spent posting and waiting for it
+(`collectives`). With gloo, a CUDA tensor is staged through host memory
+inside the collective: the transport of several ranks on one card (NCCL
+refuses two ranks on one device).
 """
 
 from __future__ import annotations
@@ -81,30 +102,167 @@ class _Pending:
         return self.parts
 
 
+def _gather(x: torch.Tensor, dim: int, mesh, group=None,
+            n: int | None = None) -> torch.Tensor:
+    """The `n` ranks' `x` of `group` (default: the "model" group)
+    concatenated along `dim` in rank order."""
+    import torch.distributed as dist
+
+    group = mesh.group if group is None else group
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(n or mesh.tp)]
+    t = time.perf_counter()
+    dist.all_gather(parts, x, group=group)
+    collectives.calls += 1
+    collectives.host_s += time.perf_counter() - t
+    return torch.cat(parts, dim=dim)
+
+
+def _all_reduce_(y: torch.Tensor, group, op=None) -> torch.Tensor:
+    """All-reduce `y` in place over `group` (sum unless `op`), counted."""
+    import torch.distributed as dist
+
+    t = time.perf_counter()
+    dist.all_reduce(y, op=op or dist.ReduceOp.SUM, group=group)
+    collectives.calls += 1
+    collectives.host_s += time.perf_counter() - t
+    return y
+
+
 def all_gather(x: torch.Tensor, dim: int = -1, mesh=None) -> torch.Tensor:
     """The ranks' `x` concatenated along `dim` in rank order."""
     mesh = mesh or current_mesh()
     return torch.cat(_Pending(x, mesh).wait(), dim=dim)
 
 
-def all_reduce(x: torch.Tensor, mesh=None) -> torch.Tensor:
-    """The sum of the ranks' `x` (a new tensor)."""
-    import torch.distributed as dist
-
+def all_reduce(x: torch.Tensor, mesh=None, op=None) -> torch.Tensor:
+    """The sum (or `op`: ``torch.distributed.ReduceOp.MAX``, ...) of the
+    ranks' `x` over "model" (a new tensor; no gradient)."""
     mesh = mesh or current_mesh()
-    y = x.clone()
-    t = time.perf_counter()
-    dist.all_reduce(y, group=mesh.group)
-    collectives.calls += 1
-    collectives.host_s += time.perf_counter() - t
-    return y
+    return _all_reduce_(x.detach().clone(), mesh.group, op)
+
+
+def all_reduce_data(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The sum of the ranks' `x` over "data", in place and in `x`'s dtype
+    (the gradients' reduction; `x` as it is on a mesh of one data
+    rank)."""
+    mesh = mesh or current_mesh()
+    if mesh is None or mesh.data == 1:
+        return x
+    return _all_reduce_(x, mesh.data_group)
+
+
+def _block(x: torch.Tensor, dim: int, mesh) -> torch.Tensor:
+    """This rank's block of `x` along `dim`, a fresh tensor."""
+    n = x.shape[dim] // mesh.tp
+    return x.narrow(dim, mesh.rank * n, n).contiguous()
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; backward: the gradient all-reduced over the
+    group (in its own dtype)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce_(g.contiguous().clone(), ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """All-reduce over the group forward; identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce_(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SplitToModel(torch.autograd.Function):
+    """This rank's block along `dim` forward; backward: the blocks'
+    gradients all-gathered."""
+
+    @staticmethod
+    def forward(ctx, x, dim, mesh):
+        ctx.dim, ctx.mesh = dim, mesh
+        return _block(x, dim, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.dim, ctx.mesh), None, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """All-gather along `dim` forward; backward: this rank's block of the
+    gradient (which is whole, and the same, on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, mesh):
+        ctx.dim, ctx.mesh = dim, mesh
+        return _gather(x, dim, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _block(g, ctx.dim, ctx.mesh), None, None
+
+
+def copy_to_model(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """`x` as it is; its gradient is summed over "model"."""
+    mesh = mesh or current_mesh()
+    return _CopyToModel.apply(x, mesh.group)
+
+
+def reduce_from_model(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The sum of the ranks' `x` over "model"; its gradient passes as it
+    is."""
+    mesh = mesh or current_mesh()
+    return _ReduceFromModel.apply(x, mesh.group)
+
+
+def split_to_model(x: torch.Tensor, dim: int, mesh=None) -> torch.Tensor:
+    """This rank's block of `x` along `dim`; its gradient is gathered."""
+    return _SplitToModel.apply(x, dim, mesh or current_mesh())
+
+
+def gather_from_model(x: torch.Tensor, dim: int, mesh=None
+                      ) -> torch.Tensor:
+    """The ranks' `x` concatenated along `dim`; its gradient is this
+    rank's block."""
+    return _GatherFromModel.apply(x, dim, mesh or current_mesh())
+
+
+def reduce_over_data(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The sum of the ranks' `x` over "data" (its gradient passes as it
+    is; `x` as it is on a mesh of one data rank)."""
+    mesh = mesh or current_mesh()
+    if mesh is None or mesh.data == 1:
+        return x
+    return _ReduceFromModel.apply(x, mesh.data_group)
+
+
+def data_size(mesh=None) -> int:
+    """The size of the "data" axis of `mesh` (default: the current mesh);
+    1 without one."""
+    mesh = mesh if mesh is not None else current_mesh()
+    return 1 if mesh is None else int(mesh.data)
+
+
+def _differentiable(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
 def column_parallel(x: torch.Tensor, w: torch.Tensor, n: int
                     ) -> torch.Tensor:
-    """x: (..., K) whole; w: (K, N/tp) this rank's columns of a (K, n)
-    projection. Returns this rank's (..., N/tp) columns, each summed as
-    the whole product sums it."""
+    """x: (..., K) whole, as it enters the block (`enter`: in psum mode
+    its gradient is summed over "model" there); w: (K, N/tp) this rank's
+    columns of a (K, n) projection. Returns this rank's (..., N/tp)
+    columns, each summed as the whole product sums it."""
     return ops.matmul(x, w, segments_n=n)
 
 
@@ -115,14 +273,26 @@ def row_parallel_gather(x: torch.Tensor, w: torch.Tensor, n: int,
     whole (..., n) product, bit-identical to the unsharded one: each of
     the `_n_chunks` column chunks is one full-contraction product whose
     gather is posted while the next chunk's product runs, and the gathered
-    columns are restored to shard-major order."""
+    columns are restored to shard-major order. Differentiable (the
+    reference's `_row_gather_bwd`: dx summed over "model", then this
+    rank's block; dW this rank's columns), with the same forward bits and
+    collectives."""
     mesh = mesh or current_mesh()
     tp = mesh.tp
-    if x.shape[-1] != w.shape[0]:
-        x = all_gather(x, -1, mesh)
     n_loc = w.shape[-1]
     c = _n_chunks(n_loc, chunks)
     width = n_loc // c
+    if _differentiable(x, w):
+        if x.shape[-1] != w.shape[0]:
+            x = gather_from_model(x, -1, mesh)
+        x = copy_to_model(x, mesh)
+        outs = [gather_from_model(ops.matmul(
+            x, w[:, i * width:(i + 1) * width], segments_n=n), -1, mesh)
+            for i in range(c)]
+        return torch.cat([outs[i][..., j * width:(j + 1) * width]
+                          for j in range(tp) for i in range(c)], dim=-1)
+    if x.shape[-1] != w.shape[0]:
+        x = all_gather(x, -1, mesh)
     posted = [_Pending(ops.matmul(x, w[:, i * width:(i + 1) * width],
                                   segments_n=n), mesh)
               for i in range(c)]
@@ -136,13 +306,15 @@ def row_parallel_gather(x: torch.Tensor, w: torch.Tensor, n: int,
 def row_parallel(x: torch.Tensor, w: torch.Tensor, chunks: int = 1,
                  mesh=None) -> torch.Tensor:
     """x: (..., K/tp) sharded on its last axis; w: (K/tp, N) this rank's
-    rows. Returns the (..., N) all-reduced sum, chunk by chunk (psum mode:
-    the sum across ranks re-associates the fp32 accumulation, so the bits
-    may differ from the unsharded product's)."""
+    rows. Returns the (..., N) all-reduced sum, chunk by chunk, each cast
+    to x's dtype before the wire (psum mode: the sum across ranks
+    re-associates the fp32 accumulation, so the bits may differ from the
+    unsharded product's). Differentiable: the reference's `_row_bwd`, no
+    collective (the cotangent is whole on every rank)."""
     mesh = mesh or current_mesh()
     c = _n_chunks(w.shape[-1], chunks)
     width = w.shape[-1] // c
-    return torch.cat([all_reduce(ops.matmul(
+    return torch.cat([reduce_from_model(ops.matmul(
         x, w[:, i * width:(i + 1) * width]), mesh) for i in range(c)],
         dim=-1)
 
@@ -154,12 +326,33 @@ def tp_enabled(cfg) -> bool:
             and model_size() > 1)
 
 
+def psum_mode(cfg) -> bool:
+    """Tensor parallelism in psum mode (training): row-parallel products
+    all-reduce their partial sums, and blocks `enter` through a copy."""
+    return tp_enabled(cfg) and getattr(cfg, "tp_reduce", "psum") != "gather"
+
+
+def enter(x: torch.Tensor, cfg, w: torch.Tensor, n: int) -> torch.Tensor:
+    """`x` as it enters a column-parallel block whose first projection is
+    `w` of whole width `n`: in psum mode, where `w` is sharded, through
+    `copy_to_model` (each rank's gradient of it is partial: its columns'
+    share); `x` itself otherwise (gather mode, one rank, or a block tp
+    does not divide, which every rank computes whole)."""
+    if psum_mode(cfg) and w.shape[-1] != n:
+        return copy_to_model(x)
+    return x
+
+
 def replicate(x: torch.Tensor, dim: int, cfg) -> torch.Tensor:
     """`x` whole along `dim`: all-gathered where `x` holds this rank's
     block of it under tensor parallelism, else `x` as it is. (The
     reference's `replicate` constrains a GSPMD sharding; here a tensor is
     local, so the caller names the axis its shard lies on.)"""
-    return all_gather(x, dim) if tp_enabled(cfg) else x
+    if not tp_enabled(cfg):
+        return x
+    if _differentiable(x):
+        return gather_from_model(x, dim)
+    return all_gather(x, dim)
 
 
 def replicate_for_parity(x: torch.Tensor, dim: int, cfg) -> torch.Tensor:
@@ -174,32 +367,56 @@ def replicate_for_parity(x: torch.Tensor, dim: int, cfg) -> torch.Tensor:
 def tp_column(x: torch.Tensor, w: torch.Tensor, cfg, n: int
               ) -> torch.Tensor:
     """A column-parallel projection of whole width `n`: this rank's
-    columns of ``x @ w`` where `w` is sharded (narrower than `n`), the
-    plain product where it is whole (one rank, or a width tp does not
-    divide)."""
+    columns of ``x @ w`` where `w` is sharded (narrower than `n`; in psum
+    mode `x` came through `enter`), the plain product where it is whole
+    (one rank, or a width tp does not divide)."""
     if tp_enabled(cfg) and w.shape[-1] != n:
         return column_parallel(x, w, n)
     return ops.matmul(x, w)
 
 
-def tp_row(x: torch.Tensor, w: torch.Tensor, cfg, n: int) -> torch.Tensor:
+def tp_row(x: torch.Tensor, w: torch.Tensor, cfg, n: int,
+           k: int | None = None) -> torch.Tensor:
     """The projection that closes a sharded block, of whole output width
-    `n`, whole on every rank: gather mode's `row_parallel_gather` where `w`
-    is column-sharded, else the plain product of the all-gathered input.
-    psum mode (training under tp, whose row-sharded weights take
-    `row_parallel`) waits for the training slice (ROADMAP A7)."""
+    `n` and whole contraction width `k`, whole on every rank: gather
+    mode's `row_parallel_gather` where `w` is column-sharded, psum mode's
+    `row_parallel` where `w` holds fewer than `k` rows (`x` this rank's
+    block of the contraction), else the plain product of the all-gathered
+    input."""
     if not tp_enabled(cfg):
         return ops.matmul(x, w)
-    if getattr(cfg, "tp_reduce", "psum") != "gather":
-        raise NotImplementedError(
-            "tensor-parallel psum mode (training) is ROADMAP A7; serving "
-            "runs tp_reduce='gather'")
-    if w.shape[-1] != n:
-        chunks = max(int(getattr(cfg, "tp_overlap_chunks", 1)), 1)
-        return row_parallel_gather(x, w, n, chunks)
+    chunks = max(int(getattr(cfg, "tp_overlap_chunks", 1)), 1)
+    if getattr(cfg, "tp_reduce", "psum") == "gather":
+        if w.shape[-1] != n:
+            return row_parallel_gather(x, w, n, chunks)
+    elif k is not None and w.shape[0] != k:
+        return row_parallel(x, w, chunks)
     if x.shape[-1] != w.shape[0]:
-        x = all_gather(x, -1)
+        x = replicate(x, -1, cfg)
     return ops.matmul(x, w)
+
+
+class _OwnedRows(torch.autograd.Function):
+    """The vocab-sharded embedding's lookup: forward, every rank's rows
+    (the others zeroed) all-gathered and each token's owner picked (rows
+    copied, never summed: the whole table's bits); backward, the gradient
+    of this rank's rows is the cotangent of the tokens it owns (zero
+    elsewhere), with no collective: the cotangent is whole on every
+    rank."""
+
+    @staticmethod
+    def forward(ctx, local, owner, mesh):
+        ctx.save_for_backward(owner)
+        ctx.rank = mesh.rank
+        parts = torch.stack(_Pending(local, mesh).wait())
+        idx = owner[None, ..., None].expand(1, *local.shape)
+        return parts.gather(0, idx)[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        owner, = ctx.saved_tensors
+        mine = (owner == ctx.rank)[..., None]
+        return torch.where(mine, g, torch.zeros_like(g)), None, None
 
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, vocab: int
@@ -208,7 +425,8 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, vocab: int
     holds rows [rank V/tp, (rank + 1) V/tp) (or all of them). A sharded
     lookup takes each rank's rows with the others zeroed, all-gathers the
     ranks' results and picks each token's owner: rows are copied, never
-    summed, so the result is the whole table's bit for bit."""
+    summed, so the result is the whole table's bit for bit. Its backward
+    (`_OwnedRows`) gives each rank's rows the cotangent of its tokens."""
     rows = table.shape[0]
     if rows == vocab:
         return table[tokens]
@@ -218,10 +436,8 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, vocab: int
     mine = (tok >= lo) & (tok < lo + rows)
     local = table[(tok - lo).clamp(0, rows - 1)]
     local = torch.where(mine[..., None], local, torch.zeros_like(local))
-    parts = torch.stack(_Pending(local, mesh).wait())
     owner = torch.div(tok, rows, rounding_mode="floor")
-    idx = owner[None, ..., None].expand(1, *local.shape)
-    return parts.gather(0, idx)[0]
+    return _OwnedRows.apply(local, owner, mesh)
 
 
 def unembed(x: torch.Tensor, w: torch.Tensor, vocab: int, *,

@@ -18,7 +18,7 @@ GEMM's wrappers take meta operands on their shape-only path (the
 counterpart of the reference's ``ops.force_mode("xla")``): each product
 is recorded under the path, tile and K segments `plan` gives the card.
 
-Mesh: one card, ``h100x1``; tensor parallelism (a mesh) is ROADMAP A7.
+Mesh: one card, ``h100x1``; the dry-run's mesh is ROADMAP A7.3.
 One JSON per cell goes to ``artifacts/dryrun_torch/h100x1/<arch>_<shape>.json``
 with the reference's keys, less the XLA-only ones:
 ``lower_s`` and ``compile_s`` (here ``build_s`` and ``analyze_s``),
@@ -34,7 +34,7 @@ holds the arguments' and outputs' bytes and, as
 Only the reference's default cell runs (its ``variant`` key is null).
 ``--variant`` takes the reference's other variant names and refuses each:
 its sharding and collective variants change only a mesh and raise a
-ValueError naming ROADMAP A7; its cache-dtype variants (``kv_fp8``,
+ValueError naming ROADMAP A7.3; its cache-dtype variants (``kv_fp8``,
 ``kv_batch_fp8``) raise too, since the port's caches stay bf16 (the
 hand-written GEMM writes no float8, and MLA's latent decompression is a
 GEMM whose output takes the cache's dtype).
@@ -72,8 +72,8 @@ def refuse_variant(variant: str) -> None:
     """Raise a ValueError saying why the port runs no cell of `variant`."""
     if variant in MESH_VARIANTS:
         raise ValueError(f"variant {variant!r} changes a mesh's sharding or "
-                         "collectives; the port runs one card until tensor "
-                         "parallelism lands (ROADMAP A7)")
+                         "collectives; the port's dry-run runs one card "
+                         "until it has a mesh (ROADMAP A7.3)")
     if variant in FP8_VARIANTS:
         raise ValueError(f"variant {variant!r} stores the cache in float8; "
                          "the port's caches are bf16 (its GEMM writes no "

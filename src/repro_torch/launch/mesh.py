@@ -1,14 +1,18 @@
-"""Serving meshes and the rank processes that hold them.
+"""Meshes and the rank processes that hold them.
 
 The counterpart of the JAX package's `repro.launch.mesh` in PyTorch's SPMD
 idiom: one process per rank, each with a `torch.distributed` process group,
-instead of one process driving several devices. A `Mesh` is the process
-group, this rank, and the ("data", "model") axes at shape (1, tp): the
+instead of one process driving several devices. A `Mesh` is this rank's
+place on the ("data", "model") axes and a process group along each: the
+"model" group (its row: the ranks that hold the shards of one copy of the
+weights) and the "data" group (its column: the ranks that hold the same
+shard and see other rows of the batch). A serving mesh is (1, tp): the
 batch stays whole on every rank (decode-slot surgery stays local) and the
-`tp` ranks of the group are the "model" axis.
+`tp` ranks of the group are the "model" axis; training takes (data, tp)
+(`make_host_mesh`).
 
-`RankPool` starts `tp` rank processes (``spawn``) under a `FileStore` and
-runs functions in all of them at once. The backend is the caller's:
+`RankPool` starts ``data x tp`` rank processes (``spawn``) under a
+`FileStore` and runs functions in all of them at once. The backend is the caller's:
 "gloo" on the CPU, and also for several ranks on one card (gloo carries
 CUDA tensors, staged through host memory inside its collectives; NCCL
 refuses two ranks on one device); "nccl" is what a deployment with one
@@ -17,7 +21,7 @@ rank's device is its function's business: the entry points take
 ``device=``.
 
 The reference's `make_production_mesh` (256 TPU chips for the dry-run)
-has no counterpart yet (ROADMAP A7).
+waits for the dry-run's mesh (ROADMAP A7.3).
 """
 
 from __future__ import annotations
@@ -35,15 +39,18 @@ AXIS_NAMES = ("data", "model")
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A (data, tp) mesh over a process group: `group` (None: the default
-    group, or no group at all when the mesh has one rank), this process's
-    `rank` on the "model" axis, and the axis sizes."""
+    """A (data, tp) mesh: the "model" `group` (None: the default group, or
+    no group at all when the axis has one rank), this process's `rank` on
+    the "model" axis, the axis sizes, and the "data" axis's `data_group`
+    and this process's `data_rank` on it."""
 
     group: object
     rank: int
     tp: int
     data: int = 1
     axis_names: tuple[str, str] = AXIS_NAMES
+    data_group: object = None
+    data_rank: int = 0
 
     @property
     def shape(self) -> dict[str, int]:
@@ -69,34 +76,56 @@ def make_serving_mesh(tp: int = 1, group=None) -> Mesh:
     return Mesh(group, dist.get_rank(group), tp)
 
 
-def make_host_mesh(model_parallel: int = 1) -> Mesh:
-    """The mesh over every rank of the initialised default group (one rank
-    without one): (world / model_parallel, model_parallel), ranks laid out
-    row-major, this process's "model" group its row. Every rank must call
-    it (each row's group is created collectively)."""
+# the meshes `make_host_mesh` made in this process, by (model, data): a
+# process group is made collectively once and reused
+_HOST_MESHES: dict[tuple[int, int], Mesh] = {}
+
+
+def make_host_mesh(model_parallel: int = 1,
+                   data_parallel: int | None = None) -> Mesh:
+    """The (data_parallel, model_parallel) mesh over the ranks of the
+    initialised default group (one rank without one); `data_parallel`
+    defaults to world / model_parallel. Ranks are laid out row-major: rank
+    ``d * model_parallel + m`` sits at (d, m), its row the "model" group and
+    its column the "data" group. A world larger than data x model holds
+    that many independent copies of the mesh, one after the other (each
+    computes alone: the CPU tests run a tp=2 mesh on a pool of four). Every
+    rank must call it with the same arguments (the groups are made
+    collectively, once per process)."""
     import torch.distributed as dist
 
     if not dist.is_initialized():
-        if model_parallel != 1:
-            raise ValueError("model_parallel > 1 needs an initialised "
-                             "process group")
+        if model_parallel != 1 or (data_parallel or 1) != 1:
+            raise ValueError("a mesh of more than one rank needs an "
+                             "initialised process group")
         return Mesh(None, 0, 1)
     world, me = dist.get_world_size(), dist.get_rank()
-    if world % model_parallel:
-        raise ValueError(f"{world} ranks do not split into rows of "
-                         f"{model_parallel}")
-    mine = None
-    for row in range(world // model_parallel):
-        ranks = list(range(row * model_parallel, (row + 1) * model_parallel))
-        group = dist.new_group(ranks)
-        if me in ranks:
-            mine = group
-    return Mesh(mine, me % model_parallel, model_parallel,
-                data=world // model_parallel)
+    mp = int(model_parallel)
+    dp = int(data_parallel) if data_parallel else world // mp
+    if dp < 1 or world % (mp * dp):
+        raise ValueError(f"{world} ranks do not hold meshes of {dp} x {mp}")
+    key = (mp, dp)
+    if key not in _HOST_MESHES:
+        rows, cols = {}, {}
+        for base in range(0, world, mp * dp):
+            for d in range(dp):
+                ranks = [base + d * mp + m for m in range(mp)]
+                group = dist.new_group(ranks)
+                rows.update(dict.fromkeys(ranks, group))
+            for m in range(mp):
+                ranks = [base + d * mp + m for d in range(dp)]
+                group = dist.new_group(ranks)
+                cols.update(dict.fromkeys(ranks, group))
+        local = me % (mp * dp)
+        _HOST_MESHES[key] = Mesh(rows[me], local % mp, mp, data=dp,
+                                 data_group=cols[me],
+                                 data_rank=local // mp)
+    return _HOST_MESHES[key]
 
 
-def _rank_main(rank: int, tp: int, backend: str, store_path: str,
-               timeout_s: float, threads: int | None, inbox, outbox) -> None:
+def _rank_main(rank: int, tp: int, data: int, backend: str,
+               store_path: str, timeout_s: float, threads: int | None,
+               inbox, outbox) -> None:
     """A rank process: join the group, then run each (fn, args) from
     `inbox` as ``fn(mesh, *args)`` and put (rank, ok, result or
     traceback) on `outbox`, until None arrives."""
@@ -106,10 +135,12 @@ def _rank_main(rank: int, tp: int, backend: str, store_path: str,
     if threads:
         torch.set_num_threads(threads)
 
-    store = dist.FileStore(store_path, tp)
-    dist.init_process_group(backend, store=store, rank=rank, world_size=tp,
+    world = tp * data
+    store = dist.FileStore(store_path, world)
+    dist.init_process_group(backend, store=store, rank=rank,
+                            world_size=world,
                             timeout=datetime.timedelta(seconds=timeout_s))
-    mesh = make_serving_mesh(tp)
+    mesh = make_serving_mesh(tp) if data == 1 else make_host_mesh(tp, data)
     try:
         while True:
             job = inbox.get()
@@ -125,9 +156,10 @@ def _rank_main(rank: int, tp: int, backend: str, store_path: str,
 
 
 class RankPool:
-    """`tp` rank processes with one process group between them, started
-    once and reused: ``pool.run(fn, *args)`` runs ``fn(mesh, *args)`` on
-    every rank (`fn` importable by name, so that it pickles; the rank
+    """``data x tp`` rank processes with one process group between them,
+    started once and reused: ``pool.run(fn, *args)`` runs ``fn(mesh,
+    *args)`` on every rank (`mesh` the (1, tp) serving mesh, or the (data,
+    tp) `make_host_mesh` where `data` > 1) (`fn` importable by name, so that it pickles; the rank
     processes import nothing of the caller's module but `fn`'s) and
     returns the results in rank order. A rank that raises, dies or takes
     longer than `timeout_s` makes `run` raise RuntimeError; the pool is
@@ -137,8 +169,11 @@ class RankPool:
     context manager, or call `close`."""
 
     def __init__(self, tp: int, backend: str = "gloo",
-                 timeout_s: float = 300.0, threads: int | None = None):
+                 timeout_s: float = 300.0, threads: int | None = None,
+                 data: int = 1):
         self.tp = int(tp)
+        self.data = int(data)
+        self.world = self.tp * self.data
         self.backend = backend
         self.timeout_s = float(timeout_s)
         self.threads = threads
@@ -155,12 +190,12 @@ class RankPool:
         self._tmp = tempfile.TemporaryDirectory(prefix="rankpool")
         store = os.path.join(self._tmp.name, "store")
         self._outbox = ctx.Queue()
-        self._inboxes = [ctx.Queue() for _ in range(self.tp)]
+        self._inboxes = [ctx.Queue() for _ in range(self.world)]
         self._procs = [ctx.Process(
             target=_rank_main, daemon=True,
-            args=(r, self.tp, self.backend, store, self.timeout_s,
+            args=(r, self.tp, self.data, self.backend, store, self.timeout_s,
                   self.threads, self._inboxes[r], self._outbox))
-            for r in range(self.tp)]
+            for r in range(self.world)]
         for p in self._procs:
             p.start()
 
@@ -174,7 +209,7 @@ class RankPool:
         deadline = time.monotonic() + limit
         got: dict[int, object] = {}
         try:
-            while len(got) < self.tp:
+            while len(got) < self.world:
                 try:
                     rank, ok, res = self._outbox.get(timeout=1.0)
                 except queue.Empty:
@@ -193,7 +228,7 @@ class RankPool:
         except BaseException:
             self.close(kill=True)
             raise
-        return [got[r] for r in range(self.tp)]
+        return [got[r] for r in range(self.world)]
 
     def close(self, kill: bool = False) -> list:
         """Stop the rank processes (at once with `kill`, else after their

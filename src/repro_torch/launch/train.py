@@ -5,14 +5,24 @@
 
 Trains on the card (``--device cpu`` runs the kernels' plain versions);
 --smoke trains the reduced config, with the same code path (checkpoints,
-fault tolerance, resume). A full config trains whole on the one card: the
-JAX package refuses full configs without its 16-device production mesh,
-and this launcher refuses one whose training state (params and gradients
-in the param dtype, f32 master, m and v: 16 bytes a bf16 parameter) and
-activations (`train_memory_bytes`, by kind) do not fit the card's memory:
-at 8 x 512 starcoder2-3b, zamba2-2.7b and seamless-m4t-medium fit (and
-qwen2-vl-2b at 2 x 2048), while qwen2-7b, olmoe-1b-7b, falcon-mamba-7b and
+fault tolerance, resume). The JAX package refuses full configs without
+its 16-device production mesh; this launcher refuses one whose training
+state (params and gradients in the param dtype, f32 master, m and v: 16
+bytes a bf16 parameter) and activations (`train_memory_bytes`, by kind)
+do not fit a rank's share of the card's memory: at 8 x 512 on one rank
+starcoder2-3b, zamba2-2.7b and seamless-m4t-medium fit (and qwen2-vl-2b at
+2 x 2048), while qwen2-7b, olmoe-1b-7b, falcon-mamba-7b and
 deepseek-v2-236b (at any depth) are refused.
+
+``--tp N --dp M`` trains on a (data M, model N) mesh of N x M rank
+processes (`launch.mesh.RankPool`, gloo; ``--device cpu`` for the CPU,
+else rank r on card r modulo the cards, several ranks sharing one card
+where there are fewer): tensor parallelism in psum mode for the dense,
+moe and mla_moe kinds, the batch cut over "data", ``--zero1`` cutting the
+optimizer state over "data" (`train.step`). Every rank draws the whole
+model from the same seed and keeps its shard, so the weights are tp=1's;
+its checkpoints hold whole leaves (`checkpoint.manager`), written by rank
+0. The fit check sizes one rank's share.
 
 The launcher trains the LM kinds (dense, moe, mla_moe, mamba1, mamba2,
 hybrid) on the synthetic token pipeline, as the JAX package's does. Its
@@ -141,43 +151,68 @@ def _units(cfg: ModelConfig, batch: int, seq: int) -> list:
     return [(cfg.n_layers, batch * seq, _dense_block_bytes(cfg, batch, seq))]
 
 
-def train_memory_bytes(cfg: ModelConfig, batch: int, seq: int
+def _rank_params(cfg: ModelConfig, tp: int) -> int:
+    """One rank's parameters at tp: each leaf psum mode shards (`sharding.
+    param_axes` of the whole model, on ``meta``) a tp-th of it."""
+    from repro_torch.distributed.sharding import param_axes
+
+    if tp == 1:
+        return cfg.n_params()
+    model = get_model(cfg).init(cfg, None, device="meta")
+    axes = param_axes(model, tp, "psum", cfg)
+    return sum(p.numel() // (tp if axes[n] is not None else 1)
+               for n, p in model.named_parameters())
+
+
+def train_memory_bytes(cfg: ModelConfig, batch: int, seq: int, *,
+                       tp: int = 1, dp: int = 1, zero1: bool = False
                        ) -> tuple[int, int]:
     """(state bytes, activation bytes) of one train step of `cfg` over a
-    batch x seq token batch on one card (vlm: seq counts the patches too).
+    batch x seq token batch on one rank of a (dp, tp) mesh (vlm: seq
+    counts the patches too).
 
     State: params and gradients in ``cfg.param_dtype`` and the f32 master,
-    m and v. Activations, an estimate from the shapes (`_units`): each
-    unit's input where ``cfg.remat`` (the backward recomputes one unit at a
-    time) and one unit's working set, or every unit's working set where
-    not; plus the LM head's f32 logits four times over (logits, softmax,
-    their gradient, a spare) and the three bf16 terms of their gradient
+    m and v, of the rank's shards (`_rank_params`; the f32 state a dp-th
+    of it under ZeRO-1). Activations, an estimate from the shapes
+    (`_units`) of the rank's batch / dp rows: each unit's input where
+    ``cfg.remat`` (the backward recomputes one unit at a time; whole on
+    every rank) and one unit's working set (a tp-th of it: its heads and
+    hidden columns), or every unit's working set where not; plus the LM
+    head's f32 logits four times over (logits, softmax, their gradient, a
+    spare) and the three bf16 terms of their gradient
     (`kernels.tiled_matmul.split3`, 6 bytes a logit), which the head's
-    backward pair reads on the card."""
+    backward pair reads on the card, of the rank's vocab shard."""
     p = torch_dtype(cfg.param_dtype).itemsize
     a = torch_dtype(cfg.activation_dtype).itemsize
-    state = cfg.n_params() * (2 * p + 12)
+    params = _rank_params(cfg, tp)
+    state = params * 2 * p + params * 12 // (dp if zero1 else 1)
+    batch = max(batch // dp, 1)
     units = _units(cfg, batch, seq)
     if cfg.remat:
         acts = (sum(n * rows * cfg.d_model * a for n, rows, _ in units)
-                + max(ws for _, _, ws in units))
+                + max(ws for _, _, ws in units) // tp)
     else:
-        acts = sum(n * ws for n, _, ws in units)
-    return state, acts + (4 * 4 + SPLIT_BYTES) * batch * seq * cfg.vocab
+        acts = sum(n * ws for n, _, ws in units) // tp
+    return state, acts + (4 * 4 + SPLIT_BYTES) * batch * seq * cfg.vocab // tp
 
 
 def check_fits(cfg: ModelConfig, batch: int, seq: int,
-               capacity_bytes: int) -> None:
-    """Raise SystemExit, naming both sizes, where training `cfg` would not
-    fit `capacity_bytes` of device memory."""
-    state, acts = train_memory_bytes(cfg, batch, seq)
+               capacity_bytes: int, *, tp: int = 1, dp: int = 1,
+               zero1: bool = False) -> None:
+    """Raise SystemExit, naming both sizes, where one rank's share of
+    training `cfg` on a (dp, tp) mesh would not fit `capacity_bytes` of
+    device memory."""
+    state, acts = train_memory_bytes(cfg, batch, seq, tp=tp, dp=dp,
+                                     zero1=zero1)
     if state + acts > capacity_bytes:
+        where = ("on one card" if tp * dp == 1 else
+                 f"on a rank of a (data {dp}, model {tp}) mesh")
         raise SystemExit(
-            f"{cfg.name} does not train on one card: its training state is "
-            f"{state / 1e9:.1f} GB ({cfg.n_params() / 1e9:.2f} B params) and "
-            f"its activations at {batch} x {seq} about {acts / 1e9:.1f} GB, "
-            f"against the card's {capacity_bytes / 1e9:.1f} GB; use --smoke "
-            "or a smaller config (tensor parallelism is ROADMAP A7)")
+            f"{cfg.name} does not train {where}: its training state is "
+            f"{state / 1e9:.1f} GB ({cfg.n_params() / 1e9:.2f} B params in "
+            f"all) and its activations at {batch} x {seq} about "
+            f"{acts / 1e9:.1f} GB, against {capacity_bytes / 1e9:.1f} GB; "
+            "use --smoke, a smaller config or a larger --tp")
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -195,21 +230,48 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the kernels' plain "
                          "versions)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel ranks (the mesh's model axis)")
+    ap.add_argument("--dp", type=int, default=1,
+                    help="data-parallel ranks (the mesh's data axis)")
+    ap.add_argument("--zero1", action="store_true",
+                    help="cut the optimizer state over the data axis")
     return ap
 
 
-def main(argv: list[str] | None = None,
-         log_fn: Callable[[str], None] = print) -> tuple[dict, dict]:
-    """Parse `argv`, train, and return (final state, loop summary)."""
+def train_rank(mesh, argv: list[str] | None = None,
+               log_fn: Callable[[str], None] | None = print, *,
+               every_rank: bool = False) -> tuple[dict, dict]:
+    """One rank's training run of the launcher's `argv` on `mesh` (None:
+    one process, no mesh): returns (this rank's final state, the loop's
+    summary). Only global rank 0 logs, unless `every_rank` (`log_fn`
+    None: none). Every rank of the mesh runs it at once (`RankPool`, or
+    `main`)."""
     args = _parser().parse_args(argv)
+    world = args.tp * args.dp
+    if mesh is not None and (mesh.tp, mesh.data) != (args.tp, args.dp):
+        raise ValueError(f"mesh {mesh.shape} for --tp {args.tp} --dp "
+                         f"{args.dp}")
+    rank = 0
+    if mesh is not None:
+        import torch.distributed as dist
+
+        rank = dist.get_rank()
     dev = resolve_device(args.device)
+    if dev.type == "cuda" and world > 1:
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    say = (log_fn if log_fn is not None and (rank == 0 or every_rank)
+           else (lambda _: None))
     cfg = get_config(args.arch, smoke=args.smoke)
     if not args.smoke:
         if dev.type != "cuda":
             raise SystemExit("full configs train on the card; use --smoke "
                              "with --device cpu")
-        check_fits(cfg, args.batch, args.seq,
-                   torch.cuda.get_device_properties(dev).total_memory)
+        share = torch.cuda.get_device_properties(dev).total_memory
+        share //= max(world // torch.cuda.device_count(), 1)
+        check_fits(cfg, args.batch, args.seq, share, tp=args.tp,
+                   dp=args.dp, zero1=args.zero1)
     if cfg.kind in ("encdec", "vlm"):
         raise SystemExit(
             f"{cfg.name} ({cfg.kind}) trains on batches with "
@@ -218,31 +280,74 @@ def main(argv: list[str] | None = None,
             + "; the launcher's synthetic pipeline makes token batches "
             "only: use train.step.make_train_step")
     model = get_model(cfg)
-    log_fn(f"arch={cfg.name} params~{cfg.n_params() / 1e9:.2f}B "
-           f"device={dev}")
+    layout = None
+    if mesh is not None:
+        from repro_torch.distributed.sharding import train_layout
+        from repro_torch.train.step import train_config
+
+        tcfg = train_config(cfg, mesh)
+        layout = train_layout(model.init(tcfg, None, device="meta"), mesh,
+                              tcfg, args.zero1)
+    say(f"arch={cfg.name} params~{cfg.n_params() / 1e9:.2f}B "
+        f"device={dev}" + (f" mesh={mesh.shape}" if mesh else ""))
     ds = SyntheticLMDataset(DataConfig(seq_len=args.seq,
                                        global_batch=args.batch,
                                        vocab=cfg.vocab))
     loader = DataLoader(ds)
-    ckpt = CheckpointManager(args.ckpt_dir, keep=3)
+    ckpt = CheckpointManager(args.ckpt_dir, keep=3, layout=layout)
     step_fn = make_train_step(
         model, cfg, AdamWConfig(lr=args.lr, warmup_steps=10,
-                                decay_steps=args.steps))
+                                decay_steps=args.steps),
+        mesh=mesh, zero1=args.zero1)
     state, start = resume_or_init(
         ckpt=ckpt,
         init_fn=lambda: init_train_state(
             torch.Generator(dev).manual_seed(0), model, cfg,
-            device=dev),
+            device=dev, mesh=mesh, zero1=args.zero1),
         loader=loader)
     state, summary = run_train_loop(
         train_step=step_fn, state=state, loader=loader, ckpt=ckpt,
         loop_cfg=LoopConfig(total_steps=args.steps,
                             ckpt_every=args.ckpt_every,
                             log_every=args.log_every),
-        start_step=start, log_fn=log_fn)
-    log_fn(f"final step={summary['final_step']} "
-           f"loss={summary['final_loss']:.4f}")
+        start_step=start, log_fn=say,
+        install_signal_handlers=mesh is None)
+    say(f"final step={summary['final_step']} "
+        f"loss={summary['final_loss']:.4f}")
     return state, summary
+
+
+def _pool_rank(mesh, argv: list[str]) -> dict:
+    """A rank process's run (`RankPool`): the summary, its logs from rank
+    0 only, printed there."""
+    return train_rank(mesh, argv)[1]
+
+
+def main(argv: list[str] | None = None,
+         log_fn: Callable[[str], None] = print) -> tuple[dict | None, dict]:
+    """Parse `argv`, train, and return (final state, loop summary). With
+    ``--tp``/``--dp`` above 1 the ranks train in their own processes
+    (rank 0 prints the log) and the state stays there: (None, rank 0's
+    summary); a rank that fails or exits with another code than 0 raises
+    RuntimeError."""
+    import sys
+
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = _parser().parse_args(argv)
+    if args.tp * args.dp == 1:
+        return train_rank(None, argv, log_fn)
+    from repro_torch.launch.mesh import RankPool
+
+    pool = RankPool(args.tp, data=args.dp, backend="gloo",
+                    threads=1 if args.device == "cpu" else None,
+                    timeout_s=3600.0)
+    try:
+        summaries = pool.run(_pool_rank, argv)
+    finally:
+        codes = pool.close()
+    if any(codes):
+        raise RuntimeError(f"rank processes exited with {codes}")
+    return None, summaries[0]
 
 
 if __name__ == "__main__":

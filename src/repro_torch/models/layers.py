@@ -381,18 +381,38 @@ def attention_apply(
     Under tensor parallelism (`distributed.tp`) q, k and v are this rank's
     heads' columns (the weights, biases and cache hold H/tp and KV/tp
     heads, whole heads, contiguous), attention runs over the local heads,
-    and the output projection gathers the heads back and the whole output
-    to every rank (`tp_row`)."""
+    and the output projection makes the whole output on every rank
+    (`tp_row`: gathered in gather mode, summed in psum mode). In psum mode
+    the block's input enters through `tp.enter`, and where tp does not
+    divide the KV heads (training only) ``wk`` and ``wv`` are whole and a
+    rank uses its query heads' KV heads."""
     B, S, d = x.shape
     hd = config.hd
-    q = TP.tp_column(x, p["wq"], config, config.n_heads * hd)
-    k = TP.tp_column(x, p["wk"], config, config.kv_heads * hd)
-    v = TP.tp_column(x, p["wv"], config, config.kv_heads * hd)
-    H, KV = q.shape[-1] // hd, k.shape[-1] // hd     # this rank's heads
+    n_q, n_kv = config.n_heads * hd, config.kv_heads * hd
+    xe = TP.enter(x, config, p["wq"], n_q)
+    q = TP.tp_column(xe, p["wq"], config, n_q)
+    H = q.shape[-1] // hd                            # this rank's heads
+    # psum mode where tp does not divide the KV heads (training only,
+    # `sharding.HEAD_LEAVES`): wk and wv are whole, every rank computes the
+    # whole keys and values from the block's input and takes its query
+    # heads' KV heads, entering there (its gradient of them is its share)
+    whole_kv = (TP.psum_mode(config) and H != config.n_heads
+                and p["wk"].shape[-1] == n_kv)
+    kv_in = x if whole_kv else xe
+    k = TP.tp_column(kv_in, p["wk"], config, n_kv)
+    v = TP.tp_column(kv_in, p["wv"], config, n_kv)
     if config.qkv_bias:
         q = q + p["bq"].to(q.dtype)
         k = k + p["bk"].to(k.dtype)
         v = v + p["bv"].to(v.dtype)
+    if whole_kv:
+        group = config.n_heads // config.kv_heads
+        rank = TP.current_mesh().rank
+        span = slice(rank * H // group * hd,
+                     (((rank + 1) * H - 1) // group + 1) * hd)
+        k = TP.copy_to_model(k)[..., span]
+        v = TP.copy_to_model(v)[..., span]
+    KV = k.shape[-1] // hd
     def rope(t):
         if config.mrope:
             return apply_mrope(t, positions, config.rope_theta,
@@ -425,26 +445,29 @@ def attention_apply(
                     q_offset=cache_index, kv_len=cache_index + S)
     else:
         out = _sdpa(q, k, v, causal=causal, kv_len=kv_lens)
-    y = TP.tp_row(out.reshape(B, S, H * hd), p["wo"], config, d)
+    y = TP.tp_row(out.reshape(B, S, H * hd), p["wo"], config, d, n_q)
     return y, new_cache
 
 
 # ---------------- MLPs ----------------
 
 def swiglu_apply(p: Params, x: torch.Tensor,
-                 config: ModelConfig | None = None) -> torch.Tensor:
+                 config: ModelConfig | None = None,
+                 d_ff: int | None = None) -> torch.Tensor:
     """SwiGLU FFN (plain GELU FFN when there is no `w_gate`). Under tensor
     parallelism the up and gate projections are column-parallel and the
-    down projection row-parallel (`distributed.tp`); the hidden width is
-    ``w_down``'s rows, which gather mode keeps whole."""
-    d_ff = p["w_down"].shape[0]
+    down projection row-parallel (`distributed.tp`); `d_ff` is the whole
+    hidden width (default ``w_down``'s rows, which gather mode and one
+    rank keep whole; psum mode cuts them, so its callers pass it)."""
+    d_ff = d_ff or p["w_down"].shape[0]
+    x = TP.enter(x, config, p["w_up"], d_ff)
     u = TP.tp_column(x, p["w_up"], config, d_ff)
     if "w_gate" in p:
         g = TP.tp_column(x, p["w_gate"], config, d_ff)
         h = F.silu(g.float()).to(x.dtype) * u
     else:
         h = F.gelu(u.float(), approximate="tanh").to(x.dtype)
-    return TP.tp_row(h, p["w_down"], config, x.shape[-1])
+    return TP.tp_row(h, p["w_down"], config, x.shape[-1], d_ff)
 
 
 # ---------------- decode-state slot surgery ----------------
@@ -513,20 +536,57 @@ def state_structures_match(a, b) -> bool:
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: torch.Tensor | None = None,
-                  z_loss: float = 1e-4) -> tuple[torch.Tensor, dict]:
+                  z_loss: float = 1e-4, vocab_start: int | None = None
+                  ) -> tuple[torch.Tensor, dict]:
     """Token-level cross entropy with a z-loss (``z_loss * lse**2``), the
     softmax in f32; `mask` (B, S) weights each token (default: all 1).
-    Returns (loss, {"nll", "accuracy"}), the metrics detached."""
+    Returns (loss, {"nll", "accuracy"}), the metrics detached.
+
+    With `vocab_start`, `logits` are this rank's vocab shard, columns
+    [vocab_start, vocab_start + V/tp) (the vocab-parallel head: no rank
+    holds the whole logits): the max, the sum of exponentials and the
+    target logit are all-reduced over "model" (`tp.reduce_from_model`:
+    each rank's gradient of its shard's logits comes out of its own
+    terms), and accuracy's argmax across shards sends a tie to the lower
+    index, as one argmax over the whole row does. Under a mesh whose
+    "data" axis has more than one rank, the mean over tokens is global:
+    the masked sums and the mask count are summed over "data" before the
+    division (a mean of the shards' means is wrong wherever their counts
+    differ), and each data rank's gradient is its tokens' share."""
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    ll = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    lab = labels.long()
+    if vocab_start is None:
+        lse = torch.logsumexp(lf, dim=-1)
+        ll = torch.gather(lf, -1, lab[..., None])[..., 0]
+        with torch.no_grad():
+            pred = lf.argmax(-1)
+    else:
+        import torch.distributed as dist
+
+        n_loc = lf.shape[-1]
+        with torch.no_grad():
+            top, arg = lf.max(-1)
+            m = TP.all_reduce(top, op=dist.ReduceOp.MAX)
+            cand = torch.where(top == m, arg + vocab_start,
+                               torch.iinfo(torch.long).max)
+            pred = TP.all_reduce(cand, op=dist.ReduceOp.MIN)
+        total = TP.reduce_from_model(torch.exp(lf - m[..., None]).sum(-1))
+        lse = m + torch.log(total)
+        own = (lab >= vocab_start) & (lab < vocab_start + n_loc)
+        mine = torch.gather(lf, -1, (lab - vocab_start).clamp(
+            0, n_loc - 1)[..., None])[..., 0]
+        ll = TP.reduce_from_model(torch.where(own, mine,
+                                              torch.zeros_like(mine)))
     nll = lse - ll
     per_tok = nll + z_loss * lse ** 2
     mask = torch.ones_like(per_tok) if mask is None else mask.float()
-    denom = mask.sum().clamp_min(1.0)
-    loss = (per_tok * mask).sum() / denom
     with torch.no_grad():
-        hits = (lf.argmax(-1) == labels.long()).float()
-        metrics = {"nll": (nll * mask).sum() / denom,
-                   "accuracy": (hits * mask).sum() / denom}
+        hits = (pred == lab).float()
+        sums = torch.stack([mask.sum(), (nll * mask).sum(),
+                            (hits * mask).sum()])
+        if TP.data_size() > 1:
+            sums = TP.all_reduce_data(sums.contiguous())
+        denom = sums[0].clamp_min(1.0)
+    loss = TP.reduce_over_data((per_tok * mask).sum()) / denom
+    metrics = {"nll": sums[1] / denom, "accuracy": sums[2] / denom}
     return loss, metrics

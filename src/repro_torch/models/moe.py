@@ -16,16 +16,20 @@ independence per-row capacity exists for): the gate-weighted sum over a
 token's top-k experts, and the top-k itself (a stable descending sort, so
 ties go to the lower expert index as ``jax.lax.top_k`` sends them).
 
-Under tensor-parallel serving the experts are E-sharded and the router
-replicated: every rank routes every token, runs its own experts' slots
-and all-gathers their outputs (`_experts`), the path the JAX package's
-gather mode takes. MLA holds its rank's heads: w_uq's whole heads
+Under tensor parallelism the experts are E-sharded and the router
+replicated. In the dense-dispatch path (`moe_ffn_apply`, the JAX
+package's at tp=1 and in gather mode) every rank routes every token, runs
+its own experts' slots and all-gathers their outputs (`_experts`; in
+training the gather's backward is this rank's block and the dispatch
+buffer's split gathers its gradient). The explicit expert-parallel path
+(`moe_ffn_shard_map`, ``moe_impl="shard_map"`` on a training mesh) keeps
+only this rank's experts' slots and sums the partial outputs over
+"model". MLA holds its rank's heads: w_uq's whole heads
 (column-parallel), w_uk's and w_uv's head columns (the decompression of
-the replicated latent cache, column-parallel) and wo gathered; the latent
-cache, w_dq, w_dkv and w_kpe stay whole on every rank. Not ported here: the JAX package's explicit
-expert-parallel path (`moe_ffn_shard_map`, ROADMAP A7); `moe_ffn` takes
-the dense-dispatch branch, the one the JAX package takes at tp=1 and in
-gather mode.
+the replicated latent cache, column-parallel) and wo (gathered in gather
+mode, summed in psum mode); the latent cache, w_dq, w_dkv and w_kpe stay
+whole on every rank, and in psum mode their outputs enter the sharded
+heads through `tp.enter`.
 """
 
 from __future__ import annotations
@@ -99,22 +103,67 @@ def route(logits: torch.Tensor, cfg: ModelConfig, n_rows: int) -> dict:
 
 # ---------------- the MoE FFN ----------------
 
+def _expert_ffn(w: Params, xe: torch.Tensor) -> torch.Tensor:
+    """The experts' SwiGLU over a dispatch buffer (E', C, d) of the
+    experts `w` holds (E', d, f)."""
+    g = torch.einsum("ecd,edf->ecf", xe, w["w_gate"])
+    u = torch.einsum("ecd,edf->ecf", xe, w["w_up"])
+    h = F.silu(g.float()).to(xe.dtype) * u
+    return torch.einsum("ecf,efd->ecd", h, w["w_down"])
+
+
 def _experts(w: Params, xe: torch.Tensor) -> torch.Tensor:
     """The experts' SwiGLU over the dispatch buffer xe (E, C, d) -> (E, C,
     d). Under tensor parallelism the experts are E-sharded (the rank holds
     E/tp of them, `sharding.PARAM_RULES`' "expert" axis): each rank runs
     its own experts' slots and the outputs are all-gathered on E before the
     unchanged combine, never summed across ranks (the JAX package's
-    reason, `moe.py` `moe_ffn`: a psum would re-associate the fp32 sum)."""
+    reason, `moe.py` `moe_ffn`: a psum would re-associate the fp32 sum).
+    In training the buffer, whole on every rank, is split (`tp.
+    split_to_model`: its gradient gathered) and the outputs gathered
+    (`tp.gather_from_model`: their gradient this rank's block)."""
     e_loc = w["w_gate"].shape[0]
-    sharded = e_loc != xe.shape[0]
-    if sharded:
-        xe = xe.narrow(0, current_mesh().rank * e_loc, e_loc)
-    g = torch.einsum("ecd,edf->ecf", xe, w["w_gate"])
-    u = torch.einsum("ecd,edf->ecf", xe, w["w_up"])
-    h = F.silu(g.float()).to(xe.dtype) * u
-    ye = torch.einsum("ecf,efd->ecd", h, w["w_down"])
-    return TP.all_gather(ye, 0) if sharded else ye
+    if e_loc == xe.shape[0]:
+        return _expert_ffn(w, xe)
+    if torch.is_grad_enabled() and (xe.requires_grad
+                                    or w["w_gate"].requires_grad):
+        return TP.gather_from_model(
+            _expert_ffn(w, TP.split_to_model(xe, 0)), 0)
+    xe = xe.narrow(0, current_mesh().rank * e_loc, e_loc)
+    return TP.all_gather(_expert_ffn(w, xe), 0)
+
+
+def _aux_loss(cfg: ModelConfig, idx: torch.Tensor, probs: torch.Tensor,
+              n_tokens: int) -> torch.Tensor:
+    """The Switch-transformer load-balancing loss of `n_tokens` tokens
+    routed to experts `idx` (T*K,) with router probabilities `probs`
+    (T, E): integer counts, exact in f32 (a static-shape count, which a
+    meta tensor can take: bincount's output size depends on the data).
+    On a mesh with a data axis of more than one rank the counts and the
+    probabilities' sums are the whole batch's (summed over "data"), as
+    the reference's global dense path computes them."""
+    E, K = cfg.n_experts, cfg.top_k
+    counts = torch.zeros(E, dtype=torch.long, device=idx.device).index_add_(
+        0, idx, torch.ones_like(idx))
+    data = TP.data_size()
+    if data == 1:
+        mean = probs.mean(0)
+    else:
+        counts = TP.all_reduce_data(counts)
+        n_tokens *= data
+        mean = TP.reduce_over_data(probs.sum(0)) / n_tokens
+    density = counts.float() / (n_tokens * K)
+    return cfg.router_aux_coef * E * torch.sum(density * mean)
+
+
+def _combine(y_tok: torch.Tensor, T: int, K: int) -> torch.Tensor:
+    """The sum over each token's K expert outputs (TK, d) -> (T, d), in a
+    fixed order for every row."""
+    y_tok = y_tok.reshape(T, K, -1)
+    out = y_tok[:, 0]
+    for j in range(1, K):
+        out = out + y_tok[:, j]
+    return out
 
 
 def moe_ffn_apply(p: Params, x: torch.Tensor, cfg: ModelConfig
@@ -143,28 +192,91 @@ def moe_ffn_apply(p: Params, x: torch.Tensor, cfg: ModelConfig
 
     ye = _experts(p["experts"], xe)                               # (E, C, d)
 
-    y_tok = (ye[idx, slot].float() * r["gate"][:, None]).reshape(T, K, d)
-    out = y_tok[:, 0]
-    for j in range(1, K):                    # a fixed order for every row
-        out = out + y_tok[:, j]
+    out = _combine(ye[idx, slot].float() * r["gate"][:, None], T, K)
     out = out.to(x.dtype)
     if "shared_mlp" in p:
-        out = out + L.swiglu_apply(p["shared_mlp"], xt, cfg)
-
-    # Switch-transformer load-balancing loss: integer counts, exact in f32
-    # (a static-shape count, which a meta tensor can take: bincount's
-    # output size depends on the data)
-    counts = torch.zeros(E, dtype=torch.long, device=x.device).index_add_(
-        0, idx, torch.ones_like(idx))
-    density = counts.float() / (T * K)
-    aux = cfg.router_aux_coef * E * torch.sum(density * r["probs"].mean(0))
+        out = out + L.swiglu_apply(p["shared_mlp"], xt, cfg,
+                                   cfg.d_ff_expert * cfg.n_shared_experts)
+    aux = _aux_loss(cfg, idx, r["probs"], T)
     return out.reshape(B, S, d), aux
 
 
+def moe_ffn_shard_map(p: Params, x: torch.Tensor, cfg: ModelConfig
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's explicit expert-parallel MoE (`moe_ffn_shard_map`,
+    its `_local_dispatch`) on the current (data, model) mesh: this rank's
+    tokens (the batch is cut over "data" by the train step) whole on
+    every "model" rank, its E/tp experts, and one all-reduce of the
+    partial outputs over "model". Every rank routes every one of its
+    tokens (capacity per row of its rows, so data sharding changes no
+    routing), dispatches only the slots of its own experts, runs them and
+    the shared experts' column block, and sums the gate-weighted outputs
+    of its experts into an f32 partial, which `tp.reduce_from_model`
+    completes. Returns (out, aux): aux is each data shard's own
+    load-balancing loss averaged over "data" (the reference's ``pmean``
+    over data, then over model, where it is the same on every rank) — not
+    the dense path's whole-batch aux when data > 1.
+
+    The tokens enter the partial region through `tp.copy_to_model` (each
+    rank's gradient of them is its experts' share); the router is whole
+    and used partially by each rank, so its logits enter there too, while
+    the aux loss, the same on every rank, reads them as they are: the
+    router's gradient is then summed over "model" (the reference's
+    shard_map sums a replicated input's cotangent)."""
+    mesh = current_mesh()
+    B, S, d = x.shape
+    T = B * S
+    E, K = cfg.n_experts, cfg.top_k
+    w = p["experts"]
+    e_loc = w["w_gate"].shape[0]
+    tp = mesh.tp
+    if e_loc * tp != E:
+        raise ValueError(f"moe_impl='shard_map' needs n_experts={E} "
+                         f"divisible by the model axis, {tp}")
+    xt = x.reshape(T, d)
+    logits = ops.matmul(xt, p["router"]["w"], out_dtype=torch.float32)
+    if tp > 1:
+        xt_in, lg = TP.copy_to_model(xt), TP.copy_to_model(logits)
+    else:
+        xt_in, lg = xt, logits
+    r = route(lg, cfg, B)
+    idx, slot, keep, cap = r["idx"], r["slot"], r["keep"], r["capacity"]
+    rel = idx - mesh.rank * e_loc
+    mine = (rel >= 0) & (rel < e_loc)
+    rel = rel.clamp(0, e_loc - 1)
+    contrib = torch.where((keep & mine)[:, None],
+                          xt_in.repeat_interleave(K, dim=0).float(), 0.0)
+    xe = torch.zeros((e_loc, B * cap, d), dtype=torch.float32,
+                     device=x.device)
+    xe.index_put_((rel, slot), contrib, accumulate=True)
+    ye = _expert_ffn(w, xe.to(x.dtype))
+    y_tok = torch.where(mine[:, None], ye[rel, slot].float(), 0.0)
+    partial = _combine(y_tok * r["gate"][:, None], T, K)
+    if "shared_mlp" in p:
+        sm = p["shared_mlp"]
+        f = cfg.d_ff_expert * cfg.n_shared_experts
+        u = TP.tp_column(xt_in, sm["w_up"], cfg, f)
+        g = TP.tp_column(xt_in, sm["w_gate"], cfg, f)
+        h = F.silu(g.float()).to(x.dtype) * u
+        partial = partial + ops.matmul(h, sm["w_down"]).float()
+    out = TP.reduce_from_model(partial, mesh) if tp > 1 else partial
+    probs = torch.softmax(logits, dim=-1)
+    counts = torch.zeros(E, dtype=torch.long, device=x.device).index_add_(
+        0, idx, torch.ones_like(idx))
+    aux = (cfg.router_aux_coef * E
+           * torch.sum(counts.float() / (T * K) * probs.mean(0)))
+    aux = TP.reduce_over_data(aux, mesh) / mesh.data
+    return out.to(x.dtype).reshape(B, S, d), aux
+
+
 def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig):
-    """The MoE FFN the blocks call: the dense-dispatch `moe_ffn_apply`.
-    (The JAX package takes its explicit expert-parallel `moe_ffn_shard_map`
-    on a (data, model) mesh; that path waits for ROADMAP A7.)"""
+    """The MoE FFN the blocks call: the explicit expert-parallel
+    `moe_ffn_shard_map` under ``moe_impl="shard_map"`` on a training mesh
+    (outside gather mode, as the reference's `moe_ffn` decides), else the
+    dense-dispatch `moe_ffn_apply`."""
+    if (cfg.moe_impl == "shard_map" and current_mesh() is not None
+            and getattr(cfg, "tp_reduce", "psum") != "gather"):
+        return moe_ffn_shard_map(p, x, cfg)
     return moe_ffn_apply(p, x, cfg)
 
 
@@ -271,8 +383,10 @@ def mla_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, positions,
     hd, pe = cfg.hd, cfg.rope_head_dim
     H = p["w_uq"].shape[-1] // (hd + pe)          # this rank's heads
 
+    n_uq = cfg.n_heads * (hd + pe)
     q_in = ops.matmul(x, p["w_dq"]) if cfg.q_lora_rank else x
-    q = TP.tp_column(q_in, p["w_uq"], cfg, cfg.n_heads * (hd + pe))
+    q = TP.tp_column(TP.enter(q_in, cfg, p["w_uq"], n_uq), p["w_uq"], cfg,
+                     n_uq)
     q = q.reshape(B, S, H, hd + pe)
     q_c, q_pe = q[..., :hd], q[..., hd:]
     q_pe = L.apply_rope(q_pe, positions, cfg.rope_theta)
@@ -308,12 +422,15 @@ def mla_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, positions,
 
     Sk = c_kv_full.shape[1]
     n_uk = cfg.n_heads * hd
+    # psum mode: the whole latent and RoPE key enter the sharded heads
+    c_kv_full = TP.enter(c_kv_full, cfg, p["w_uq"], n_uq)
+    k_pe_full = TP.enter(k_pe_full, cfg, p["w_uq"], n_uq)
     k_c = _decompress(c_kv_full, p["w_uk"], cfg, n_uk).reshape(B, Sk, H, hd)
     v = _decompress(c_kv_full, p["w_uv"], cfg, n_uk).reshape(B, Sk, H, hd)
     out = mla_attention(q_c, q_pe, k_c, v, k_pe_full, q_offset=q_offset,
                         kv_len=kv_len, kv_valid=kv_valid,
                         scale=1.0 / math.sqrt(hd + pe))
-    y = TP.tp_row(out.reshape(B, S, H * hd), p["wo"], cfg, d)
+    y = TP.tp_row(out.reshape(B, S, H * hd), p["wo"], cfg, d, n_uk)
     return y, new_cache
 
 

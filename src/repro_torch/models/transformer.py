@@ -26,7 +26,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.distributed import tp as TP
-from repro_torch.distributed.sharding import local_state_shape
+from repro_torch.distributed.sharding import (current_mesh,
+                                              local_state_shape, set_mesh)
+from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
 from repro_torch.models.config import ModelConfig
@@ -225,7 +227,7 @@ def dense_block_apply(blk: DenseBlock, x: torch.Tensor, cfg: ModelConfig, *,
         cache_index=cache_index, seq_lens=seq_lens)
     x = x + attn_out
     h = L.rmsnorm(blk.ln2, x, cfg.norm_eps)
-    return x + L.swiglu_apply(blk.mlp, h, cfg), new_cache, 0.0
+    return x + L.swiglu_apply(blk.mlp, h, cfg, cfg.d_ff), new_cache, 0.0
 
 
 def block_apply(cfg: ModelConfig):
@@ -278,16 +280,30 @@ def _run_blocks(model: TransformerLM, x: torch.Tensor, cfg: ModelConfig, *,
     return x
 
 
+def _under_mesh(mesh, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` with `mesh` installed on this thread."""
+    prev = current_mesh()
+    set_mesh(mesh)
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        set_mesh(prev)
+
+
 def remat(cfg: ModelConfig, fn, *args, **kwargs):
     """``fn(*args, **kwargs)``, under non-reentrant activation
     checkpointing where ``cfg.remat`` and autograd records (the counterpart
     of the JAX package's ``jax.checkpoint`` around a scan body): only the
     inputs stay live, and the backward recomputes the forward, whose GEMM
     launches come out bit for bit as the first time (the kernel is
-    deterministic)."""
+    deterministic). The recomputation runs under the mesh of the first
+    forward: on the card autograd runs the backward in a thread of its
+    own, where the thread's mesh (`sharding.current_mesh`) is not set, and
+    a block recomputed without it would drop its collectives."""
     if cfg.remat and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False,
-                          preserve_rng_state=False, **kwargs)
+        return checkpoint(_under_mesh, current_mesh(), fn, *args,
+                          use_reentrant=False, preserve_rng_state=False,
+                          **kwargs)
     return fn(*args, **kwargs)
 
 
@@ -313,8 +329,21 @@ def head_loss(model: nn.Module, x: torch.Tensor, batch: dict,
               cfg: ModelConfig) -> tuple[torch.Tensor, dict]:
     """``ln_f``, the LM head over every position, and
     `layers.cross_entropy` against ``batch["labels"]`` (weighted by
-    ``batch["loss_mask"]`` where given): (loss, {"nll", "accuracy"})."""
+    ``batch["loss_mask"]`` where given): (loss, {"nll", "accuracy"}).
+    In psum mode a vocab-sharded head is vocab-parallel: this rank's f32
+    logits of its vocab columns go into the sharded cross entropy, and no
+    rank gathers the whole logits."""
     x = L.rmsnorm(model.ln_f, x, cfg.norm_eps)
+    tied = cfg.tie_embeddings
+    w = model.embed["table"] if tied else model.head["w"]
+    cols = w.shape[0] if tied else w.shape[-1]
+    if TP.psum_mode(cfg) and cols != cfg.vocab:
+        xe = TP.copy_to_model(x)
+        logits = ops.matmul(xe, w, transpose_b=tied,
+                            out_dtype=torch.float32, segments_n=cfg.vocab)
+        return L.cross_entropy(logits, batch["labels"],
+                               batch.get("loss_mask"),
+                               vocab_start=TP.current_mesh().rank * cols)
     return L.cross_entropy(_unembed(model, x, cfg), batch["labels"],
                            batch.get("loss_mask"))
 

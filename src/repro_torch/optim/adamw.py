@@ -6,9 +6,16 @@ are per layer where the JAX package stacks them on a leading L axis. Where
 the JAX package returns new trees, `apply_updates` updates the moments and
 the master copies in place and copies the master back into the params in
 place: at full size the optimizer state is three f32 copies of the model,
-and a functional update would hold a fourth. (ZeRO-1 sharding of the state,
-the reference's `zero1_shardings`, comes with tensor parallelism, ROADMAP
-A7.)
+and a functional update would hold a fourth.
+
+On a mesh (`launch.mesh`) each rank holds its shards' state. The global
+norm sums the squares of the leaves "model" shards over the "model" group
+and counts every whole leaf once, so the clip scale is the same on every
+rank. ZeRO-1 (the reference's `zero1_shardings`; `zero1` below, from
+`distributed.sharding.zero1_axes`) cuts master, m and v further over
+"data": each data rank updates its block of a leaf, an elementwise update
+whose bits are the whole leaf's, and the updated params are all-gathered
+over "data" in the param dtype.
 """
 
 from __future__ import annotations
@@ -52,46 +59,74 @@ def named_params(params) -> dict[str, torch.Tensor]:
     return dict(params)
 
 
-def init_opt_state(params) -> dict:
+def init_opt_state(params, zero1: dict | None = None, mesh=None) -> dict:
     """Step 0, f32 master copies (cloned, so an f32 param never aliases its
-    master) and zero moments, keyed as `named_params`."""
+    master) and zero moments, keyed as `named_params`; with `zero1`
+    ({name: axis or None}) each leaf's state is this data rank's block of
+    it on that axis (`sharding.data_block`)."""
+    from repro_torch.distributed.sharding import data_block
+
     named = named_params(params)
     dev = next(iter(named.values())).device
+    zero1 = zero1 or {}
+    master = {n: data_block(p.detach().float(), zero1.get(n), mesh).clone()
+              for n, p in named.items()}
     return {
         "step": torch.zeros((), dtype=torch.int32, device=dev),
-        "master": {n: p.detach().float().clone() for n, p in named.items()},
-        "m": {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-              for n, p in named.items()},
-        "v": {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-              for n, p in named.items()},
+        "master": master,
+        "m": {n: torch.zeros_like(t) for n, t in master.items()},
+        "v": {n: torch.zeros_like(t) for n, t in master.items()},
     }
 
 
-def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    """The f32 L2 norm over every leaf."""
-    return torch.sqrt(torch.stack(
-        [x.float().square().sum() for x in tree.values()]).sum())
+def global_norm(tree: Mapping[str, torch.Tensor], mesh=None,
+                sharded=()) -> torch.Tensor:
+    """The f32 L2 norm over every leaf; on a mesh whose "model" axis has
+    more than one rank, of the whole leaves: the squares of the leaves
+    named in `sharded` (this rank's shards) summed over "model", every
+    other leaf (whole, the same on every rank) counted once."""
+    if mesh is None or mesh.tp == 1:
+        return torch.sqrt(torch.stack(
+            [x.float().square().sum() for x in tree.values()]).sum())
+    from repro_torch.distributed import tp as TP
+
+    sq = {n: x.float().square().sum() for n, x in tree.items()}
+    zero = torch.zeros((), dtype=torch.float32,
+                       device=next(iter(tree.values())).device)
+    part = sum((v for n, v in sq.items() if n in sharded), zero)
+    whole = sum((v for n, v in sq.items() if n not in sharded), zero)
+    return torch.sqrt(TP.all_reduce(part.reshape(1), mesh)[0] + whole)
 
 
 @torch.no_grad()
 def apply_updates(params, grads: Mapping[str, torch.Tensor], opt_state: dict,
-                  cfg: AdamWConfig) -> tuple:
+                  cfg: AdamWConfig, *, mesh=None, sharded=(),
+                  zero1: dict | None = None) -> tuple:
     """One AdamW step: the gradients (any float dtype, keyed as the
     params) clipped to ``cfg.grad_clip`` by their global norm, moments with
     bias correction, decoupled weight decay on the f32 master, the params
     cast back from the master. Moments, master and params are updated in
     place; returns (params, opt_state with ``step + 1``, metrics: grad_norm,
-    lr, clip_scale)."""
+    lr, clip_scale). On `mesh`, `sharded` names the leaves "model" shards
+    (`global_norm`), and `zero1` ({name: axis or None}) the leaves whose
+    state is this data rank's block: their update runs on that block of
+    the gradient and the params are all-gathered over "data"."""
     named = named_params(params)
+    zero1 = zero1 or {}
     step = opt_state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, mesh, sharded)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     lr = lr_at(cfg, step)
     b1, b2 = cfg.b1, cfg.b2
     bc1 = 1 - b1 ** step.float()
     bc2 = 1 - b2 ** step.float()
     for name, p in named.items():
-        g = grads[name].float() * scale
+        ax = zero1.get(name) if mesh is not None and mesh.data > 1 else None
+        g = grads[name]
+        if ax is not None:
+            n = g.shape[ax] // mesh.data
+            g = g.narrow(ax, mesh.data_rank * n, n)
+        g = g.float() * scale
         m, v = opt_state["m"][name], opt_state["v"][name]
         master = opt_state["master"][name]
         m.mul_(b1).add_((1 - b1) * g)
@@ -99,7 +134,13 @@ def apply_updates(params, grads: Mapping[str, torch.Tensor], opt_state: dict,
         mhat, vhat = m / bc1, v / bc2
         master.sub_(lr * (mhat / (torch.sqrt(vhat) + cfg.eps)
                           + cfg.weight_decay * master))
-        p.copy_(master)
+        if ax is None:
+            p.copy_(master)
+        else:
+            from repro_torch.distributed import tp as TP
+
+            p.copy_(TP._gather(master.to(p.dtype), ax, mesh,
+                               group=mesh.data_group, n=mesh.data))
     opt_state["step"] = step
     metrics = {"grad_norm": gnorm, "lr": lr, "clip_scale": scale}
     return params, opt_state, metrics

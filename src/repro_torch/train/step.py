@@ -6,29 +6,90 @@ metrics) function with microbatch gradient accumulation. The state is
 JAX donates it and returns a new one, the port updates it in place and
 returns it. Every GEMM of the forward and of the backward is a launch of
 the hand-written kernel (`kernels.ops.matmul`'s autograd function).
+
+On a ("data", "model") mesh (`launch.mesh`; one process per rank) the
+step is the reference's under its mesh, written out: the config takes
+explicit collectives in psum mode (`train_config`), each rank holds its
+shard of the state (`init_train_state(mesh=)`), the global batch is cut
+over "data" (each data rank its rows), the loss is the whole batch's
+(`layers.cross_entropy`'s global mean), and each data rank's gradient
+(its tokens' share of the global loss's) is summed over "data" in the
+gradient's dtype before the update, which cuts the optimizer state over
+"data" where ``zero1`` (ZeRO-1). Tensor parallelism trains the dense, moe
+and mla_moe kinds; the others raise at tp > 1 (ROADMAP A7.2b).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable
 
 import torch
 
+from repro_torch.distributed import sharding
+from repro_torch.distributed import tp as TP
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim.adamw import AdamWConfig, apply_updates, init_opt_state
 
 State = dict[str, Any]
 
 
+# the kinds whose training runs under tensor parallelism (psum mode)
+TP_TRAIN_KINDS = ("dense", "moe", "mla_moe")
+
+
+def train_config(cfg: ModelConfig, mesh=None) -> ModelConfig:
+    """`cfg` as a train step on `mesh` runs it: explicit collectives in
+    psum mode where the "model" axis has more than one rank (raising
+    NotImplementedError for a kind outside `TP_TRAIN_KINDS`, and
+    ValueError where a rank would not hold whole query heads), else `cfg`
+    as it is."""
+    tp = sharding.model_size(mesh)
+    if tp == 1:
+        return cfg
+    if cfg.kind not in TP_TRAIN_KINDS:
+        raise NotImplementedError(
+            f"training {cfg.kind} under tensor parallelism is ROADMAP "
+            f"A7.2b (its reductions over a sharded d_inner or the encoder "
+            f"are not written out in psum mode); tp > 1 trains "
+            f"{TP_TRAIN_KINDS}")
+    h_loc = cfg.n_heads // tp
+    group = cfg.n_heads // cfg.kv_heads
+    if cfg.n_heads % tp or (cfg.kv_heads % tp and group % h_loc):
+        raise ValueError(f"tp={tp} must divide n_heads={cfg.n_heads}, and "
+                         f"a rank's heads share KV heads "
+                         f"(kv_heads={cfg.kv_heads})")
+    return dataclasses.replace(cfg, tp_collectives="explicit",
+                               tp_reduce="psum")
+
+
 def init_train_state(generator: torch.Generator, model, cfg: ModelConfig, *,
-                     device: str | torch.device = "cuda") -> State:
+                     device: str | torch.device = "cuda", mesh=None,
+                     zero1: bool = False) -> State:
     """Random params from `generator` (on `device`), made trainable, with a
     fresh optimizer state and the JAX package's ``rng`` leaf (the key data
-    of ``jax.random.key(0)``: two zero uint32 words), carried unchanged."""
+    of ``jax.random.key(0)``: two zero uint32 words), carried unchanged.
+    On `mesh` every rank draws the whole model from the same generator
+    state and keeps its shard (`shard_state`), so the weights are tp=1's."""
     params = model.init(cfg, generator, device=device)
+    return shard_state(params, model, cfg, mesh, zero1)
+
+
+def shard_state(params, model, cfg: ModelConfig, mesh=None,
+                zero1: bool = False) -> State:
+    """A fresh train state of whole `params` (a module; cut in place to
+    `mesh`'s rank's shards in psum mode, `sharding.shard_params`), made
+    trainable, its optimizer state cut over "data" where `zero1`."""
+    layout = None
+    if mesh is not None:
+        cfg = train_config(cfg, mesh)
+        whole = model.init(cfg, None, device="meta")
+        sharding.shard_params(params, mesh, "psum", whole=whole, cfg=cfg)
+        layout = sharding.train_layout(whole, mesh, cfg, zero1)
     for p in params.parameters():
         p.requires_grad_(True)
-    return {"params": params, "opt": init_opt_state(params),
+    return {"params": params,
+            "opt": init_opt_state(params, layout and layout.zero1, mesh),
             "rng": torch.zeros(2, dtype=torch.uint32,
                                device=next(params.parameters()).device)}
 
@@ -44,38 +105,74 @@ def _value_and_grad(model, params, names, batch, cfg):
     return loss.detach(), metrics, dict(zip(names, grads))
 
 
+def _data_rows(batch: dict, mesh) -> dict:
+    """This data rank's rows of the global batch (every leaf cut on its
+    leading axis)."""
+    if mesh is None or mesh.data == 1:
+        return batch
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % mesh.data:
+            raise ValueError(f"batch leaf {k} of {v.shape[0]} rows does not "
+                             f"split over {mesh.data} data ranks")
+        n = v.shape[0] // mesh.data
+        out[k] = v[mesh.data_rank * n:(mesh.data_rank + 1) * n]
+    return out
+
+
 def make_train_step(model, cfg: ModelConfig, opt_cfg: AdamWConfig,
-                    microbatches: int = 1) -> Callable:
+                    microbatches: int = 1, *, mesh=None,
+                    zero1: bool = False) -> Callable:
     """The train step of `model` (a `ModelApi` whose `loss` is ported).
     With `microbatches` > 1 the batch's leading axis is cut into that many
     splits whose gradients are summed in f32 and averaged, as the JAX
-    package's scan does; the metrics are the last split's."""
+    package's scan does; the metrics are the last split's. On `mesh` (a
+    state from `init_train_state(mesh=, zero1=)`, the same `zero1`) the
+    step runs as the module docstring says; the mesh is installed
+    (`sharding.set_mesh`) for the step's duration."""
+    layout = None
+    if mesh is not None:
+        cfg = train_config(cfg, mesh)
+        layout = sharding.train_layout(model.init(cfg, None, device="meta"),
+                                       mesh, cfg, zero1)
+    sharded = {n for n, ax in (layout.axes if layout else {}).items()
+               if ax is not None}
+
+    def grads_of(params, names, batch):
+        if microbatches == 1:
+            return _value_and_grad(model, params, names, batch, cfg)
+        grads = {n: torch.zeros(p.shape, dtype=torch.float32,
+                                device=p.device)
+                 for n, p in params.named_parameters()}
+        loss = 0.0
+        for i in range(microbatches):
+            mb = {k: v.reshape(microbatches, v.shape[0] // microbatches,
+                               *v.shape[1:])[i]
+                  for k, v in batch.items()}
+            l, metrics, g = _value_and_grad(model, params, names, mb, cfg)
+            for n in names:
+                grads[n] += g[n]
+            loss = loss + l
+            del g
+        return (loss / microbatches, metrics,
+                {n: g / microbatches for n, g in grads.items()})
 
     def train_step(state: State, batch: dict) -> tuple[State, dict]:
         params = state["params"]
         names = [n for n, _ in params.named_parameters()]
         batch = _to_device(batch, next(params.parameters()).device)
-        if microbatches == 1:
-            loss, metrics, grads = _value_and_grad(model, params, names,
-                                                   batch, cfg)
-        else:
-            grads = {n: torch.zeros(p.shape, dtype=torch.float32,
-                                    device=p.device)
-                     for n, p in params.named_parameters()}
-            loss = 0.0
-            for i in range(microbatches):
-                mb = {k: v.reshape(microbatches, v.shape[0] // microbatches,
-                                   *v.shape[1:])[i]
-                      for k, v in batch.items()}
-                l, metrics, g = _value_and_grad(model, params, names, mb, cfg)
-                for n in names:
-                    grads[n] += g[n]
-                loss = loss + l
-                del g
-            grads = {n: g / microbatches for n, g in grads.items()}
-            loss = loss / microbatches
-        _, opt, opt_metrics = apply_updates(params, grads, state["opt"],
-                                            opt_cfg)
+        prev = sharding.current_mesh()
+        sharding.set_mesh(mesh)
+        try:
+            loss, metrics, grads = grads_of(params, names,
+                                            _data_rows(batch, mesh))
+            for g in grads.values():
+                TP.all_reduce_data(g, mesh)
+            _, opt, opt_metrics = apply_updates(
+                params, grads, state["opt"], opt_cfg, mesh=mesh,
+                sharded=sharded, zero1=layout and layout.zero1)
+        finally:
+            sharding.set_mesh(prev)
         del grads
         metrics = dict(metrics)
         metrics.update(opt_metrics)

@@ -424,6 +424,40 @@ def test_tp2_ranks_on_card_serve_tp1s_streams(dev, kind):
     assert ranks[0]["params"]["embed.table"] == (cfg.vocab // 2, cfg.d_model)
 
 
+def test_tp2_column_and_row_backward_on_card_give_tp1s_gradients(dev):
+    """Psum mode's autograd collectives at tp=2 (two gloo rank processes
+    on the one card): a column-parallel product entered through
+    `tp.copy_to_model`, GELU and a row-parallel product, in bf16; the
+    output and the gradients of the input (summed over "model" at the
+    block's entry) and of both weights (each rank's shard, gathered) equal
+    tp=1's through the kernel within the bf16 tolerance (a psum
+    re-associates the sum of bf16 partials), every launch on wgmma."""
+    import sys
+    from pathlib import Path
+
+    from repro_torch.launch.mesh import Mesh, RankPool
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch_tp_train_ranks as R
+
+    load_library()
+    rng = np.random.default_rng(2)
+    arrays = {"x": rng.normal(size=(256, 512)),
+              "w_up": rng.normal(size=(512, 1024)) / 512 ** 0.5,
+              "w_down": rng.normal(size=(1024, 512)) / 1024 ** 0.5,
+              "cot": rng.normal(size=(256, 512))}
+    one = R.block_grads(Mesh(None, 0, 1), arrays, "cuda")
+    with RankPool(2, backend="gloo", timeout_s=300) as pool:
+        ranks = pool.run(R.block_grads, arrays, "cuda")
+    for out in (one, *ranks):
+        assert out["launches"]["wgmma"] == 6, out["launches"]
+        assert sum(out["launches"].values()) == 6, out["launches"]
+    for out in ranks:
+        for k in ("y", "gx", "w_up", "w_down"):
+            err = np.abs(out[k] - one[k]).max() / np.abs(one[k]).max()
+            assert err <= 2e-2, (k, err)
+
+
 @pytest.mark.parametrize("m", [1, 4, 8, 9, 64])
 @pytest.mark.parametrize("n,k", [(65024, 4096), (200, 296)])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
