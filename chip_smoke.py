@@ -236,16 +236,27 @@ build of PyTorch. Phases, each fatal on failure:
    handed their device memory back: full-width, full-depth starcoder2-3b
    at tp = 2 in two rank processes on the one card (gloo), through the
    launcher's tp path (psum mode: row-parallel products all-reduced, the
-   vocab-parallel loss), phase 15 (a)'s seed, batch, sequence and steps,
-   checkpoints in a directory of its own. Gates: step 1's loss within
-   1e-2 and its grad norm within 5e-2 (relative) of phase 15 (a)'s, every
-   step finite and printed beside tp=1's, per rank each step's launches
-   (721 wgmma, 2 split, 1 split3, none on stream or general) and
-   collectives (157); then every distinct shard GEMM of the step against
-   the plain version, timed (phase 15 (b)'s checks). It prints per rank
-   the step ms, tokens/s, peak device memory beside `train_memory_bytes`
-   at tp = 2, the collectives and their host time, and the phase's
-   seconds. Two ranks on one card give no multi-card speed figure.
+   vocab-parallel loss), phase 15 (a)'s seed, batch and sequence, 2 of
+   its 4 steps, checkpoints in a directory of its own. Gates: step 1's
+   loss within 1e-2 and its grad norm within 5e-2 (relative) of phase 15
+   (a)'s, every step finite and printed beside tp=1's, per rank each
+   step's launches (721 wgmma, 2 split, 1 split3, none on stream or
+   general) and collectives (157); then every distinct shard GEMM of the
+   step against the plain version, timed (phase 15 (b)'s checks). (c) on
+   the same two ranks, falcon-mamba-7b (4 of 64 layers), zamba2-2.7b (12
+   of 54), seamless-m4t-medium (full) and qwen2-vl-2b (4 of 28) at full
+   width, 2 steps each of `make_train_step` at tp = 2, each against one
+   tp=1 step of the same cut, seed and batch in the main process: step
+   1's loss and grad norm within the same limits, both ranks' losses
+   equal, master leaves and weight matrices moved, launches per step from
+   the structure (65, 153, 769 and 113 wgmma, 2 split, 1 split3), the
+   collectives per step from the structure (27, 90, 175, 27), zamba2's B
+   and C gradients bit-identical on both ranks (a hash of their first
+   moment), and each distinct shard GEMM new to the phase against the
+   plain version. It prints per rank the step ms, tokens/s (a), peak
+   device memory beside `train_memory_bytes` at tp = 2, the collectives
+   and their host time, and the phase's seconds. Two ranks on one card
+   give no multi-card speed figure.
 
 After phase 10, ``build/serving_shapes.json`` holds qwen2-7b's and
 qwen2.5-14b's serving launches by shape, for ``tools/gemm_sums.py``.
@@ -310,12 +321,16 @@ PAPER_RUNTIME_R2, PAPER_RUNTIME_MEAN_PCT = 0.98, 15.57
 # against about 100 s in others, brought the whole script to 1,194 s: 200
 # rows fewer at that run's 0.556 s a row take 111 s off, 1,083 s, under the
 # 1,100 s cap; phase 9 prints where the tuner's time goes; 450 since phase
-# 17, tensor-parallel serving, added about 27 s: 50 rows take it back), and
-# the held-out power R2 below which the pipeline is broken (swapped columns
-# or the simulator's power give about 0 or below). The paper's power figures
-# on its RTX 4070 are printed beside the card's.
-POWER_ROWS = 450
-POWER_SWEEP_BUDGET_S = 390.0
+# 17, tensor-parallel serving, added about 27 s: 50 rows take it back; 200
+# since phase 18 (c) added 15-22 s and runs on slow hosts took 1,237.8 s
+# (450 rows, phase 4 at 24.05 tokens/s) and 1,213.9 s (300 rows, held-out
+# power R2 0.9107; the host's collectives twice a fast host's): at 0.55 s a
+# row, 250 rows fewer take about 137 s off), and the held-out power R2
+# below which the pipeline is broken (swapped columns or the simulator's
+# power give about 0 or below). The paper's power figures on its RTX 4070
+# are printed beside the card's.
+POWER_ROWS = 200
+POWER_SWEEP_BUDGET_S = 180.0
 POWER_MIN_R2 = 0.5
 # the largest compute- and memory-bound rows are measured again over this
 # many counter periods, beside their sweep window
@@ -4147,42 +4162,27 @@ def _term_errs(a, b, ka, kb, kw, k: int) -> list:
     return out
 
 
-def _train_shapes(dev, shapes: collections.Counter, runs: int,
-                  tag: str = "train (b)",
-                  splits: collections.Counter | None = None) -> dict:
-    """(b): hold the kernel against its plain version at every distinct
-    training GEMM of one step (forward, recompute, both backward layouts,
-    the f32-out products' split pairs) and time it beside the general path
-    (timed once: the first kernel, the yardstick), the plain version,
-    torch.matmul on the same layout (for the split pair its f32 product,
-    the bf16 operand cast beforehand) and the bound; a split pair's GEMM is
-    timed on its f32 operand split beforehand, as the backward splits it
-    once for both gradients, and the split kernel (`splits`, by the f32
-    matrix's shape) apart, against its plain version bit for bit. A split
-    pair is also run one term at a time at f32 out (`_term_errs`). Sums per
-    path per step, the bf16 backward's and the split pairs' ratios to
-    torch.matmul, and per-kernel JSON entries over the `runs` steps of
-    (a)."""
-    from repro_torch.core.opanalyze import gemm_bound_s
-    from repro_torch.core.profiler import time_ms
+def _check_train_shapes(dev, shapes, splits=(), tag: str = "train (b)"
+                        ) -> tuple:
+    """Hold the kernel against its plain version at every distinct training
+    GEMM in `shapes` (keys (M, N, K, A's dtype, B's dtype, out dtype,
+    layout), as `_train_recording` logs them): the product within the
+    stated tolerance and, for a split pair (its f32 operand split first, as
+    the backward splits it), each term apart at f32 out (`_term_errs`);
+    and the split kernel at every f32 matrix shape in `splits` bit for bit
+    against its plain version. A disagreement fails the phase. Returns
+    ({key: (path, max abs error, relative L2, the terms' text)}, {split
+    shape: bit-equal}, the worst error per path, per split term and of
+    split3)."""
     from repro_torch.kernels.ref import matmul_ref, split3_ref
-    from repro_torch.kernels.tiled_matmul import (DEFAULT_CONFIG,
-                                                  HBM_BYTES_PER_S, split3,
-                                                  tiled_matmul)
+    from repro_torch.kernels.tiled_matmul import split3, tiled_matmul
 
     g = torch.Generator(dev).manual_seed(4)
-    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
-    tot: dict = collections.defaultdict(collections.Counter)
-    worst: dict = collections.Counter()
-    failed = []
     bf16, f32 = torch.bfloat16, torch.float32
-    _say(f"[{tag}] M N K a b out layout per-step path kernel_ms v3_ms "
-         "plain_ms library_ms bound_ms bound_by bound/kernel "
-         "library/kernel max_abs rel_l2")
-    for key, count in sorted(shapes.items(), key=lambda kv: (
-            kv[0][6], kv[0][:3])):
+    checks, split_checks, failed = {}, {}, []
+    worst: collections.Counter = collections.Counter()
+    for key in sorted(shapes, key=lambda key: (key[6], key[:3])):
         m, n, k, a_dt, b_dt, out_dt, layout = key
-        per_step = count // runs
         a, b, kw = _layout_call(dev, g, m, n, k, a_dt, b_dt, layout)
         kw["out_dtype"] = out_dt
         mixed = a_dt != b_dt
@@ -4208,6 +4208,74 @@ def _train_shapes(dev, shapes: collections.Counter, runs: int,
             terms = (" terms one at a time at f32 out, rel_l2 " + " ".join(
                 f"{e:.3g}" for e, _ in errs)
                 + f" (limit {_term_rel_l2(k):.3g})")
+        checks[key] = (path, err, rel, terms)
+        del a, b, ka, kb
+    for r, c in sorted(splits):
+        x = torch.randn((r, c), generator=g, device=dev)
+        got, want = split3(x).terms, split3_ref(x)
+        split_checks[(r, c)] = torch.equal(got, want)
+        worst["split3"] = max(worst["split3"],
+                              (got.float() - want.float()).abs().max().item())
+        if not split_checks[(r, c)]:
+            failed.append((r, c, "split3"))
+        del x, got, want
+    _say(f"[{tag}] {len(checks)} distinct GEMMs held to the plain version: "
+         "worst abs error per path "
+         + ", ".join(f"{p} {worst[p]:.3g}" for p in sorted(worst)
+                     if p not in ("split terms", "split3"))
+         + (f"; the split pairs one term at a time at f32 out: worst "
+            f"relative L2 {worst['split terms']:.3g} (limit "
+            f"max({TOL[f32]:g}, {K_SUM_ULPS} sqrt(K) 2^-24))"
+            if "split terms" in worst else "")
+         + (f"; split3 at {len(split_checks)} shapes bit-equal to the plain "
+            f"version {all(split_checks.values())}" if split_checks else ""))
+    if failed:
+        raise SystemExit(f"[{tag}] kernel disagrees at training shapes "
+                         f"{failed}")
+    return checks, split_checks, worst
+
+
+def _train_shapes(dev, shapes: collections.Counter, runs: int,
+                  tag: str = "train (b)",
+                  splits: collections.Counter | None = None) -> dict:
+    """(b): `_check_train_shapes` at every distinct training GEMM of one
+    step (forward, recompute, both backward layouts, the f32-out products'
+    split pairs) and the split kernel's shapes (`splits`, by the f32
+    matrix's shape), then time the kernel beside the general path (timed
+    once: the first kernel, the yardstick), the plain version, torch.matmul
+    on the same layout (for the split pair its f32 product, the bf16
+    operand cast beforehand) and the bound; a split pair's GEMM is timed on
+    its f32 operand split beforehand, as the backward splits it once for
+    both gradients, and the split kernel apart. Sums per path per step, the
+    bf16 backward's and the split pairs' ratios to torch.matmul, and
+    per-kernel JSON entries over the `runs` steps of (a)."""
+    from repro_torch.core.opanalyze import gemm_bound_s
+    from repro_torch.core.profiler import time_ms
+    from repro_torch.kernels.ref import matmul_ref, split3_ref
+    from repro_torch.kernels.tiled_matmul import (DEFAULT_CONFIG,
+                                                  HBM_BYTES_PER_S, split3,
+                                                  tiled_matmul)
+
+    splits = splits or collections.Counter()
+    checks, split_checks, worst = _check_train_shapes(dev, shapes, splits,
+                                                      tag)
+    g = torch.Generator(dev).manual_seed(4)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    tot: dict = collections.defaultdict(collections.Counter)
+    f32 = torch.float32
+    _say(f"[{tag}] M N K a b out layout per-step path kernel_ms v3_ms "
+         "plain_ms library_ms bound_ms bound_by bound/kernel "
+         "library/kernel max_abs rel_l2")
+    for key, count in sorted(shapes.items(), key=lambda kv: (
+            kv[0][6], kv[0][:3])):
+        m, n, k, a_dt, b_dt, out_dt, layout = key
+        path, err, rel, terms = checks[key]
+        per_step = count // runs
+        a, b, kw = _layout_call(dev, g, m, n, k, a_dt, b_dt, layout)
+        kw["out_dtype"] = out_dt
+        mixed = a_dt != b_dt
+        ka = split3(a) if mixed and a_dt == f32 else a
+        kb = split3(b) if mixed and b_dt == f32 else b
         kernel_ms = time_ms(lambda: tiled_matmul(ka, kb, **kw), flush, 5)
         del ka, kb
         ga, gb = (a.float(), b.float()) if mixed else (a, b)
@@ -4244,16 +4312,9 @@ def _train_shapes(dev, shapes: collections.Counter, runs: int,
             t["bound_ms"] += per_step * bound_ms
             t["ops_ms"] += per_step * 1e3 * ops_s
             t["bytes_ms"] += per_step * 1e3 * bytes_s
-    for (r, c), count in sorted((splits or {}).items()):
+    for (r, c), count in sorted(splits.items()):
         per_step = count // runs
         x = torch.randn((r, c), generator=g, device=dev)
-        got, want = split3(x).terms, split3_ref(x)
-        exact = torch.equal(got, want)
-        err = (got.float() - want.float()).abs().max().item()
-        worst["split3"] = max(worst["split3"], err)
-        if not exact:
-            failed.append((r, c, "split3"))
-        del got, want
         kernel_ms = time_ms(lambda: split3(x), flush, 5)
         plain_ms = time_ms(lambda: split3_ref(x), flush, 3)
         bytes_s = r * c * (4 + 3 * 2) / HBM_BYTES_PER_S   # read x, write 3
@@ -4261,19 +4322,13 @@ def _train_shapes(dev, shapes: collections.Counter, runs: int,
              f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
              f"{1e3 * bytes_s:.4f} ms (bytes), bound/kernel "
              f"{1e3 * bytes_s / kernel_ms:.3f}, bit-equal to the plain "
-             f"version {exact}")
+             f"version {split_checks[(r, c)]}")
         del x
         for t in (tot["split3"],):
             t["ms"] += per_step * kernel_ms
             t["plain_ms"] += per_step * plain_ms
             t["bound_ms"] += per_step * 1e3 * bytes_s
             t["bytes_ms"] += per_step * 1e3 * bytes_s
-    if "split terms" in worst:
-        _say(f"[{tag}] the split pairs one term at a time at f32 out: worst "
-             f"relative L2 {worst['split terms']:.3g} (limit "
-             f"max({TOL[torch.float32]:g}, {K_SUM_ULPS} sqrt(K) 2^-24))")
-    if failed:
-        raise SystemExit(f"kernel disagrees at training shapes {failed}")
     for kind in ("bf16 backward", "split pair"):
         t = tot.get(kind)
         if t:
@@ -4966,38 +5021,74 @@ def phase_families(dev) -> dict:
     return {"launches": launched, "entries": groups}
 
 
-# Phase 18: training under tensor parallelism. Full-width, full-depth
+# Phase 18: training under tensor parallelism. (a) full-width, full-depth
 # starcoder2-3b at tp = TP_RANKS through the launcher's tp path, in as many
 # rank processes on the one card (gloo), at phase 15 (a)'s seed, batch and
-# sequence for TRAIN_STEPS steps, checkpoints in a directory of its own
-# (phase 15's would be resumed). Gates against phase 15 (a)'s tp=1 run:
-# step 1's loss within TRAIN_TP_LOSS_REL and its grad norm within
-# TRAIN_TP_NORM_REL (the psum re-associates sums of bf16 partials, so the
-# bits need not match)
+# sequence for TRAIN_TP_STEPS steps (fewer than TRAIN_STEPS: step 1 is the
+# gate; run for four, steps 2-4 lay within 3.9e-3 of tp=1's loss),
+# checkpoints in a directory of its own (phase 15's would be resumed). Gates
+# against phase 15 (a)'s tp=1 run: step 1's loss within TRAIN_TP_LOSS_REL and
+# its grad norm within TRAIN_TP_NORM_REL (the psum re-associates sums of bf16
+# partials, so the bits need not match). (c) the SSM, hybrid, encoder-decoder
+# and vision families at tp = TP_RANKS on the same rank pool,
+# `TP_FAMILY_TRAIN`: (arch, layers or None for full depth, rows, sequence),
+# full width, remat on, TP_FAMILY_STEPS steps of `make_train_step` each,
+# against one tp=1 step of the same cut, seed and batch in this process
 TRAIN_TP_DIR = ROOT / "build" / "chip_smoke_train_tp"
 TRAIN_TP_LOSS_REL = 1e-2
 TRAIN_TP_NORM_REL = 5e-2
+TRAIN_TP_STEPS = 2
+TP_FAMILY_TRAIN = (("falcon-mamba-7b", 4, 2, 512), ("zamba2-2.7b", 12, 2, 512),
+                   ("seamless-m4t-medium", None, 2, 512),
+                   ("qwen2-vl-2b", 4, 1, 2048))
+TP_FAMILY_STEPS = 2
 
 
 def _tp_train_collectives_per_step(cfg, tp: int) -> int:
-    """One rank's collectives in one train step of a dense config at tp
-    in psum mode, one row chunk (`distributed.tp`), from the model's
-    structure: the vocab-sharded embedding's gather; per layer the two
-    row-parallel all-reduces (wo, w_down) in the forward, wo's again in
-    remat's recomputation (which stops after the block's last saved
-    tensor, w_down's input, before its all-reduce: checkpointing's early
-    stop), and the backward's all-reduce at each block's entry (attention,
-    FFN; two more for k and v where tp does not divide the KV heads); the
-    head's entry in the backward, the vocab-parallel loss's max, argmax,
-    sum of exponentials and target logit; and the global norm's sum over
-    "model": 157 for starcoder2-3b."""
+    """One rank's collectives in one train step at tp in psum mode, one
+    row chunk (`distributed.tp`), from the model's structure, for the
+    dense, vlm, SSM, hybrid and encoder-decoder kinds. Each unit remat
+    recomputes (a block; the hybrid's group of Mamba2 blocks and its
+    shared block; an encoder layer; a decoder layer with its cross KV)
+    makes its forward's all-reduces again up to its last saved tensor
+    (checkpointing's early stop: the unit's last row-parallel all-reduce
+    lies past it). Per block, forward / backward: attention with its FFN
+    2 (wo, w_down) / 2 (each entry), two more in the backward for k and v
+    where tp does not divide the KV heads; Mamba1 2 (x_proj's partial
+    product, out_proj) / 2 (its entry, x_proj's sum again); Mamba2 2 (the
+    gated norm's sum of squares, out_proj) / 2 (its entry, the sum again);
+    a decoder layer 3 (self-attention's wo, cross-attention's wo, w_down)
+    / 4 (the self-attention, query, cross KV and FFN entries). Per step:
+    the vocab-sharded embedding's gather (where tp divides the vocab),
+    the head's entry in the backward and the vocab-parallel loss's max,
+    argmax, sum of exponentials and target logit (the same), the B and C
+    gradients' sum over "model" (Mamba2, hybrid) and the global norm's.
+    157 for starcoder2-3b; 27 for falcon-mamba-7b at 4 layers, 90 for
+    zamba2-2.7b at 12, 175 for seamless-m4t-medium, 27 for qwen2-vl-2b at
+    4."""
+    rc = 1 if cfg.remat else 0
     kv = 2 if cfg.kv_heads % tp else 0
-    per_layer = 2 + (1 if cfg.remat else 0) + 2 + kv
-    return 1 + cfg.n_layers * per_layer + 1 + 4 + 1
+    attn = 2 + rc + 2 + kv                 # a block ending its unit
+    ssm = 2 + rc + 2
+    kind = cfg.kind
+    if kind in ("mamba1", "mamba2"):
+        units = cfg.n_layers * ssm
+    elif kind == "hybrid":
+        E = cfg.attn_every
+        units = cfg.n_layers // E * (E * (2 + 2 * rc + 2) + attn)
+    elif kind == "encdec":
+        units = cfg.n_encoder_layers * attn + cfg.n_layers * (3 + 2 * rc + 4)
+    elif kind in ("dense", "vlm"):
+        units = cfg.n_layers * attn
+    else:
+        raise ValueError(f"no collective count for kind {kind!r}")
+    vocab = 1 + 1 + 4 if cfg.vocab % tp == 0 else 0
+    parts = 1 if kind in ("mamba2", "hybrid") else 0
+    return units + vocab + parts + 1
 
 
 def _tp_train_rank(mesh, argv: list) -> dict:
-    """One rank of phase 18, in its own process: the launcher's rank
+    """One rank of phase 18 (a), in its own process: the launcher's rank
     entry (`launch.train.train_rank`) on `argv`, every GEMM recorded by
     shape and layout (`_train_recording`), the launch and collective
     counters set to 0 just before and read after each step. Returns its
@@ -5056,20 +5147,240 @@ def _tp_train_rank(mesh, argv: list) -> dict:
     return out
 
 
+def _tp_family_cfg(arch: str, layers: int | None):
+    """(c)'s config of `arch`: full width, `layers` deep (None: full)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def _tp_family_steps(dev, cfg, rows: int, seq: int, steps: int,
+                     mesh=None) -> dict:
+    """`steps` steps of `make_train_step` (on `mesh`, or at tp=1) from the
+    seeded init on `_family_batch`es, every GEMM recorded by shape and
+    layout, the launch and collective counters set to 0 just before and
+    read just after each step. Returns the losses, grad norms, step times,
+    launches and collectives per step, the shapes, the peak memory, the
+    master leaves and weight matrices that did not move, and the hash of the B and C
+    gradients' first moment after step 1 ((1 - b1) times the clipped
+    gradient, elementwise: equal bits on every rank iff the gradients'
+    are)."""
+    import hashlib
+
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed import tp as TP
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.tiled_matmul import split3, tiled_matmul
+    from repro_torch.models.registry import get_model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import (init_train_state, make_train_step,
+                                        train_config)
+
+    api = get_model(cfg)
+    state = init_train_state(torch.Generator(dev).manual_seed(0), api, cfg,
+                             device=dev, mesh=mesh)
+    torch.cuda.reset_peak_memory_stats(dev)
+    step = make_train_step(api, cfg, AdamWConfig(
+        lr=3e-4, warmup_steps=10, decay_steps=steps), mesh=mesh)
+    def sums() -> dict:
+        """{(name, "master" or "param"): the leaf's float64 sum}: every
+        master leaf and weight matrix (the ones a step must move)."""
+        out = {(n, "master"): t.double().sum().item()
+               for n, t in state["opt"]["master"].items()}
+        out.update({(n, "param"): p.double().sum().item()
+                    for n, p in state["params"].named_parameters()
+                    if p.dim() == 2})
+        return out
+
+    before = sums()
+    parts = {}
+    if mesh is not None:
+        tcfg = train_config(cfg, mesh)
+        parts = sharding.train_layout(api.init(tcfg, None, device="meta"),
+                                      mesh, tcfg).whole_parts()
+    shapes: collections.Counter = collections.Counter()
+    splits: collections.Counter = collections.Counter()
+    out = {"loss_curve": [], "grad_norms": [], "step_times_s": [],
+           "steps": [], "collectives": [], "collective_host_s": []}
+    recording, splitting = _train_recording(shapes, splits)
+    ops.tiled_matmul, ops.split3 = recording, splitting
+    try:
+        for i in range(steps):
+            batch = _family_batch(dev, cfg, rows, seq, i)
+            torch.cuda.synchronize()
+            _zero_counts()
+            TP.collectives.calls, TP.collectives.host_s = 0, 0.0
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            out["loss_curve"].append(float(m["loss"]))
+            out["step_times_s"].append(time.perf_counter() - t0)
+            out["grad_norms"].append(float(m["grad_norm"]))
+            out["steps"].append(_launch_counts())
+            out["collectives"].append(TP.collectives.calls)
+            out["collective_host_s"].append(TP.collectives.host_s)
+            if i == 0 and parts:
+                h = hashlib.sha256()
+                for name, (axis, local) in sorted(parts.items()):
+                    for lo, size in sharding.whole_spans(local):
+                        h.update(state["opt"]["m"][name].narrow(
+                            axis, lo, size).float().cpu().numpy().tobytes())
+                out["bc_hash"] = h.hexdigest()
+        torch.cuda.synchronize()
+    finally:
+        ops.tiled_matmul, ops.split3 = tiled_matmul, split3
+    after = sums()
+    out["unmoved"] = [key for key, v in before.items() if after[key] == v]
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    out["shapes"], out["splits"] = dict(shapes), dict(splits)
+    del state, step
+    _free()
+    return out
+
+
+def _tp_family_rank(mesh, arch: str, layers, rows: int, seq: int) -> dict:
+    """One rank of phase 18 (c), in its own process: `_tp_family_steps` of
+    `arch`'s cut on the pool's mesh."""
+    from repro_torch.kernels._build import load_library
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    load_library()
+    out = _tp_family_steps(dev, _tp_family_cfg(arch, layers), rows, seq,
+                           TP_FAMILY_STEPS, mesh)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _tp_families(dev, pool) -> list:
+    """(c)'s runs: for each of `TP_FAMILY_TRAIN`, one tp=1 step of the cut
+    in this process (its memory freed before the ranks build), then its
+    TP_FAMILY_STEPS steps on every rank of `pool`. Returns [(arch, cut
+    config, rows, seq, the tp=1 step, the ranks' runs)]."""
+    out = []
+    for arch, layers, rows, seq in TP_FAMILY_TRAIN:
+        cfg = _tp_family_cfg(arch, layers)
+        t0 = time.perf_counter()
+        one = _tp_family_steps(dev, cfg, rows, seq, 1)
+        one["seconds"] = time.perf_counter() - t0
+        ranks = pool.run(_tp_family_rank, arch, layers, rows, seq)
+        out.append((arch, cfg, rows, seq, one, ranks))
+    return out
+
+
+def _tp_family_gates(dev, runs: list, checked: set,
+                     checked_splits: set) -> collections.Counter:
+    """(c)'s lines and gates, per model and rank: step 1's loss and grad
+    norm near the tp=1 step's (`TRAIN_TP_LOSS_REL`, `TRAIN_TP_NORM_REL`),
+    every loss and norm finite, every master leaf and weight matrix moved
+    from the seeded init, the launches per step and path from the
+    structure (`_family_launches_per_step`: all on wgmma and the split
+    pair), the collectives per step `_tp_train_collectives_per_step`,
+    both ranks' losses equal and the B and C gradients' hashes equal;
+    then each distinct shard GEMM not in `checked`, and split kernel shape
+    not in `checked_splits`, held to the plain version as (b)'s are
+    (`_check_train_shapes`). Returns the launches per path summed over the models, ranks
+    and steps."""
+    from repro_torch.launch.train import train_memory_bytes
+
+    launched: collections.Counter = collections.Counter()
+    failed = []
+    new: set = set()
+    new_splits: set = set()
+    for arch, cfg, rows, seq, one, ranks in runs:
+        want = _family_launches_per_step(cfg)
+        coll = _tp_train_collectives_per_step(cfg, TP_RANKS)
+        state_b, acts_b = train_memory_bytes(cfg, rows, seq, tp=TP_RANKS)
+        state_1, acts_1 = train_memory_bytes(cfg, rows, seq)
+        depth = (f"{cfg.n_encoder_layers} + {cfg.n_layers}"
+                 if cfg.kind == "encdec" else f"{cfg.n_layers}")
+        _say(f"[train tp (c)] {arch} ({cfg.kind}, {depth} layers, {rows} x "
+             f"{seq}) at tp=1 in this process: step 1 loss "
+             f"{one['loss_curve'][0]:.4f}, grad norm "
+             f"{one['grad_norms'][0]:.4f}, "
+             f"{1e3 * one['step_times_s'][0]:.1f} ms, peak "
+             f"{one['peak_bytes'] / 1e9:.2f} GB beside `train_memory_bytes` "
+             f"{(state_1 + acts_1) / 1e9:.2f} GB, {one['seconds']:.1f} s "
+             f"with init; launches {one['steps'][0]} (expected {want})")
+        if one["steps"][0] != want:
+            failed.append(f"{arch} tp=1: launches {one['steps'][0]}")
+        for r, out in enumerate(ranks):
+            for step in out["steps"]:
+                launched.update({p: step[p] for p in (*GEMM_PATHS,
+                                                      "split3")})
+            new |= {tuple(key) for key in out["shapes"]} - checked
+            new_splits |= ({tuple(key) for key in out["splits"]}
+                           - checked_splits)
+            _say(f"[train tp (c)] {arch} rank {r}: step ms "
+                 + ", ".join(f"{1e3 * t:.1f}" for t in out["step_times_s"])
+                 + f"; collectives per step {out['collectives']} (expected "
+                 f"{coll}), host time "
+                 + ", ".join(f"{t:.3f}" for t in out["collective_host_s"])
+                 + f" s; peak {out['peak_bytes'] / 1e9:.2f} GB beside "
+                 f"`train_memory_bytes(tp={TP_RANKS})` "
+                 f"{(state_b + acts_b) / 1e9:.2f} GB; launches per step "
+                 f"{out['steps']}; in {out['seconds']:.1f} s")
+            for i, (l2, n2) in enumerate(zip(out["loss_curve"],
+                                             out["grad_norms"])):
+                ref = (f" (tp=1 {one['loss_curve'][0]:.4f}, diff "
+                       f"{l2 - one['loss_curve'][0]:+.3e}; grad norm tp=1 "
+                       f"{one['grad_norms'][0]:.4f}, diff "
+                       f"{n2 - one['grad_norms'][0]:+.3e})" if i == 0 else "")
+                _say(f"[train tp (c)] {arch} rank {r} step {i + 1}: loss "
+                     f"{l2:.4f}, grad norm {n2:.4f}{ref}")
+            finite = bool(np.isfinite(out["loss_curve"]).all()
+                          and np.isfinite(out["grad_norms"]).all())
+            rel_l = (abs(out["loss_curve"][0] - one["loss_curve"][0])
+                     / abs(one["loss_curve"][0]))
+            rel_n = (abs(out["grad_norms"][0] - one["grad_norms"][0])
+                     / abs(one["grad_norms"][0]))
+            if (not finite or rel_l > TRAIN_TP_LOSS_REL
+                    or rel_n > TRAIN_TP_NORM_REL or out["unmoved"]):
+                failed.append(f"{arch} rank {r}: finite {finite}, step 1's "
+                              f"loss {rel_l:.3e} and grad norm {rel_n:.3e} "
+                              f"relative to tp=1's, unmoved "
+                              f"{out['unmoved'][:4]}")
+            if (any(st != want for st in out["steps"])
+                    or any(c != coll for c in out["collectives"])):
+                failed.append(f"{arch} rank {r}: launches {out['steps']}, "
+                              f"collectives {out['collectives']}")
+        if any(out["loss_curve"] != ranks[0]["loss_curve"] for out in ranks):
+            failed.append(f"{arch}: the ranks' losses differ")
+        hashes = {out.get("bc_hash") for out in ranks}
+        if cfg.kind in ("mamba2", "hybrid"):
+            _say(f"[train tp (c)] {arch}: the B and C gradients' first "
+                 f"moment after step 1, sha256 per rank "
+                 f"{[out['bc_hash'][:16] for out in ranks]}: equal "
+                 f"{len(hashes) == 1}")
+            if len(hashes) != 1 or None in hashes:
+                failed.append(f"{arch}: the B and C gradients differ "
+                              "between the ranks")
+    if failed:
+        raise SystemExit("[train tp (c)] " + "; ".join(failed))
+    _check_train_shapes(dev, new, new_splits, "train tp (c)")
+    return launched
+
+
 def phase_train_tp(dev, tp1: dict) -> dict:
     """Phase 18: training under tensor parallelism on the card, after
-    phases 15 and 16 have handed their memory back. Full-width,
+    phases 15 and 16 have handed their memory back, on one gloo
+    `RankPool` of `TP_RANKS` ranks on the one card. (a) full-width,
     full-depth starcoder2-3b at tp = `TP_RANKS` through the launcher's tp
-    path (`_tp_train_rank` in each rank process of a gloo `RankPool` on
-    the one card), TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens
-    from phase 15 (a)'s seed; `tp1` is phase 15 (a)'s summary. Gates: step
-    1's loss and grad norm near tp=1's (`TRAIN_TP_LOSS_REL`,
-    `TRAIN_TP_NORM_REL`), every step finite, per rank each step's
-    launches `_train_launches_per_step` (all on wgmma, the split pair and
-    split3) and collectives `_tp_train_collectives_per_step`; then (b)
-    every distinct shard GEMM of the step against the plain version
-    (`_train_shapes`). Returns {"launches": per path summed over the
-    ranks, "entries": (b)'s per-path JSON entries}."""
+    path (`_tp_train_rank` in each rank process), TRAIN_TP_STEPS steps of
+    TRAIN_BATCH x TRAIN_SEQ tokens from phase 15 (a)'s seed; `tp1` is
+    phase 15 (a)'s summary. Gates: step 1's loss and grad norm near tp=1's
+    (`TRAIN_TP_LOSS_REL`, `TRAIN_TP_NORM_REL`), every step finite, per
+    rank each step's launches `_train_launches_per_step` (all on wgmma,
+    the split pair and split3) and collectives
+    `_tp_train_collectives_per_step`. (c) the SSM, hybrid,
+    encoder-decoder and vision families on the same pool
+    (`_tp_families`, `_tp_family_gates`). Then (b) every distinct shard
+    GEMM of (a)'s step against the plain version (`_train_shapes`), and
+    (c)'s new ones. Returns {"launches": per path summed over the ranks,
+    "entries": (b)'s per-path JSON entries}."""
     import shutil
 
     from repro_torch.configs import get_config
@@ -5088,29 +5399,37 @@ def phase_train_tp(dev, tp1: dict) -> dict:
          f"launches per step from the structure {want}, collectives "
          f"{coll_want}")
     shutil.rmtree(TRAIN_TP_DIR, ignore_errors=True)
-    argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_TP_STEPS), "--batch",
             str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--log-every", "1",
-            "--ckpt-every", str(10 * TRAIN_STEPS), "--ckpt-dir",
+            "--ckpt-every", str(10 * TRAIN_TP_STEPS), "--ckpt-dir",
             str(TRAIN_TP_DIR), "--tp", str(TP_RANKS)]
-    try:
-        ranks = _tp_pool(lambda pool: pool.run(_tp_train_rank, argv))
-    finally:
-        shutil.rmtree(TRAIN_TP_DIR, ignore_errors=True)
-    t_ranks = time.perf_counter() - t0
+    times = {}
+
+    def run(pool):
+        try:
+            ranks = pool.run(_tp_train_rank, argv)
+        finally:
+            shutil.rmtree(TRAIN_TP_DIR, ignore_errors=True)
+        times["a"] = time.perf_counter() - t0
+        families = _tp_families(dev, pool)
+        times["c"] = time.perf_counter() - t0 - times["a"]
+        return ranks, families
+
+    ranks, families = _tp_pool(run)
     losses1, norms1 = tp1["loss_curve"], tp1["grad_norms"]
     tokens = TRAIN_BATCH * TRAIN_SEQ
     failed = []
     launched: collections.Counter = collections.Counter()
     for r, out in enumerate(ranks):
         s = out["summary"]
-        times = s["step_times_s"]
+        times_s = s["step_times_s"]
         for step in out["steps"]:
             launched.update({p: step[p] for p in (*GEMM_PATHS, "split3")})
         _say(f"[train tp (a)] rank {r}: step ms "
-             + ", ".join(f"{1e3 * t:.1f}" for t in times)
+             + ", ".join(f"{1e3 * t:.1f}" for t in times_s)
              + f"; after the first: mean "
-             f"{1e3 * float(np.mean(times[1:])):.1f} ms, "
-             f"{tokens / float(np.mean(times[1:])):.1f} training tokens/s "
+             f"{1e3 * float(np.mean(times_s[1:])):.1f} ms, "
+             f"{tokens / float(np.mean(times_s[1:])):.1f} training tokens/s "
              f"(the mesh's, {TP_RANKS} ranks sharing one card); peak "
              f"device memory {out['peak_bytes'] / 1e9:.2f} GB beside "
              f"`train_memory_bytes` {(state_b + acts_b) / 1e9:.2f} GB "
@@ -5131,12 +5450,12 @@ def phase_train_tp(dev, tp1: dict) -> dict:
                       and np.isfinite(s["grad_norms"]).all())
         rel_l = abs(s["loss_curve"][0] - losses1[0]) / abs(losses1[0])
         rel_n = abs(s["grad_norms"][0] - norms1[0]) / abs(norms1[0])
-        if (out["final_step"] != TRAIN_STEPS or not finite
+        if (out["final_step"] != TRAIN_TP_STEPS or not finite
                 or rel_l > TRAIN_TP_LOSS_REL or rel_n > TRAIN_TP_NORM_REL):
-            failed.append(f"rank {r}: {TRAIN_STEPS} finite steps, step 1's "
-                          f"loss {rel_l:.3e} and grad norm {rel_n:.3e} "
+            failed.append(f"rank {r}: {TRAIN_TP_STEPS} finite steps, step "
+                          f"1's loss {rel_l:.3e} and grad norm {rel_n:.3e} "
                           "relative to tp=1's")
-        if (len(out["steps"]) != TRAIN_STEPS
+        if (len(out["steps"]) != TRAIN_TP_STEPS
                 or any(st != want for st in out["steps"])
                 or any(c != coll_want for c in out["collectives"])):
             failed.append(f"rank {r}: launches {out['steps']}, "
@@ -5148,11 +5467,17 @@ def phase_train_tp(dev, tp1: dict) -> dict:
         raise SystemExit("[train tp] " + "; ".join(failed))
     _free()
     shapes = collections.Counter(ranks[0]["shapes"])
-    entries = _train_shapes(dev, shapes, TRAIN_STEPS, tag="train tp (b)",
+    entries = _train_shapes(dev, shapes, TRAIN_TP_STEPS, tag="train tp (b)",
                             splits=collections.Counter(ranks[0]["splits"]))
+    t_c = time.perf_counter()
+    launched += _tp_family_gates(dev, families,
+                                 {tuple(key) for key in shapes},
+                                 {tuple(key) for key in ranks[0]["splits"]})
     _say(f"[train tp] phase 18 in {time.perf_counter() - t0:.1f} s (ranks "
-         f"{t_ranks:.1f} s) on {_nvidia_smi()}; tp={TP_RANKS} on one card "
-         "gives no multi-card speed figure")
+         f"and pool start (a) {times['a']:.1f} s, (c)'s four families "
+         f"{times['c'] + time.perf_counter() - t_c:.1f} s with their shard "
+         f"GEMM checks) on {_nvidia_smi()}; tp={TP_RANKS} on one card gives "
+         "no multi-card speed figure")
     return {"launches": launched, "entries": entries}
 
 

@@ -34,8 +34,12 @@ GQA's ``wk``/``wv`` stay whole where tp does not divide the KV heads, and
 each rank then uses its query heads' KV heads). `gather_params` is the
 inverse of the cut (whole leaves from the ranks' shards: the checkpoint,
 elastic resume and the tests need it), `zero1_axes` the reference's
-`zero1_shardings` (the optimizer's f32 state cut further over "data"),
-and `TrainLayout` both for a flat training state.
+`zero1_shardings` (the optimizer's f32 state cut further over "data", on
+another axis than the one cut by parts, so never across a part), and
+`TrainLayout` both for a flat training state (`whole_parts`: the parts a
+rank holds whole, whose gradients the train step sums over "model").
+What a rank holds whole blocks of, by kind, is one rule for serving and
+training (`tp_divides`, `check_tp`).
 
 `set_mesh`/`current_mesh` hold the mesh on the thread, as the reference's
 `set_mesh_rules`/`current_mesh` do: the serving engine installs its own
@@ -183,22 +187,56 @@ def axis_parts(leaf: str, n: int, cfg=None) -> Parts:
     over ``[x | B C]``. A `cfg` whose widths do not add up to `n` leaves
     the axis one block."""
     one = ((n, True),)
+    parts = _config_parts(leaf, cfg)
+    return parts if parts and sum(size for size, _ in parts) == n else one
+
+
+def _config_parts(leaf: str, cfg) -> Parts | None:
+    """The parts `cfg` makes of the leaf `leaf`'s sharded axis (see
+    `axis_parts`), or None where it is one block."""
     kind = getattr(cfg, "kind", None)
     if kind not in ("mamba1", "mamba2", "hybrid"):
-        return one
+        return None
     di = cfg.d_inner
     if kind == "mamba1":
-        parts = ((di, True), (di, True)) if leaf == "in_proj" else one
-    else:
-        bc = 2 * cfg.ssm_ngroups * cfg.ssm_state
-        heads = di // cfg.ssm_headdim
-        if leaf == "in_proj":
-            parts = ((di, True), (di, True), (bc, False), (heads, True))
-        elif leaf in ("conv_w", "conv_b", "conv"):
-            parts = ((di, True), (bc, False))
-        else:
-            parts = one
-    return parts if sum(size for size, _ in parts) == n else one
+        return ((di, True), (di, True)) if leaf == "in_proj" else None
+    bc = 2 * cfg.ssm_ngroups * cfg.ssm_state
+    heads = di // cfg.ssm_headdim
+    if leaf == "in_proj":
+        return ((di, True), (di, True), (bc, False), (heads, True))
+    if leaf in ("conv_w", "conv_b", "conv"):
+        return ((di, True), (bc, False))
+    return None
+
+
+def whole_size(leaf: str, local: int, tp: int, cfg=None) -> int:
+    """The whole size of a sharded axis of the leaf `leaf` whose size on
+    a rank is `local`: its parts' sum where `cfg` cuts it by parts whose
+    local size under tp is `local` (a whole part is held whole), else
+    ``local * tp``."""
+    parts = _config_parts(leaf, cfg)
+    if parts and local_size(parts, tp) == local:
+        return sum(size for size, _ in parts)
+    return local * tp
+
+
+def local_parts(parts: Parts | None, tp: int) -> Parts | None:
+    """`parts` at a rank's sizes under tp (each sharded part divided), or
+    None where no part is held whole (one block, or every part cut)."""
+    if not parts or all(cut for _, cut in parts):
+        return None
+    return tuple((size // tp if cut else size, cut) for size, cut in parts)
+
+
+def whole_spans(parts: Parts) -> list[tuple[int, int]]:
+    """(offset, size) along the axis of each part of `parts` held whole
+    (`parts` at a rank's sizes: `local_parts`)."""
+    out, lo = [], 0
+    for size, cut in parts:
+        if not cut:
+            out.append((lo, size))
+        lo += size
+    return out
 
 
 def local_size(parts: Parts, tp: int) -> int | None:
@@ -217,6 +255,39 @@ HEAD_LEAVES = {"wq": "n_heads", "bq": "n_heads", "wo": "n_heads",
                "wk": "kv_heads", "bk": "kv_heads", "wv": "kv_heads",
                "bv": "kv_heads", "w_uq": "n_heads", "w_uk": "n_heads",
                "w_uv": "n_heads"}
+
+
+def tp_divides(cfg) -> dict[str, int]:
+    """What a rank holds a whole block of, by name, for `cfg`'s kind: the
+    attention heads and KV heads (the attention kinds and the hybrid's
+    shared block), MLA's heads (no KV heads of its own: its latent cache
+    is whole), Mamba1's d_inner channels (its ``n_heads`` is unused) and
+    the SSD heads of Mamba2 and the hybrid."""
+    ssd = {"ssd_heads": cfg.d_inner // max(cfg.ssm_headdim, 1)}
+    attn = {"n_heads": cfg.n_heads, "kv_heads": cfg.kv_heads}
+    return {"mamba1": {"d_inner": cfg.d_inner},
+            "mamba2": ssd, "hybrid": {**ssd, **attn},
+            "mla_moe": {"n_heads": cfg.n_heads}}.get(cfg.kind, attn)
+
+
+def check_tp(cfg, tp: int, tp_reduce: str = "gather") -> None:
+    """Raise ValueError, naming each quantity, where tp does not divide
+    what `cfg`'s kind shards (`tp_divides`): a rank holds whole heads and
+    channel blocks. In psum mode (training) the KV heads of an attention
+    block may stay whole where a rank's query heads share their KV heads
+    (`HEAD_LEAVES`: each rank then uses its query heads' KV heads of the
+    whole projections), except the encoder-decoder's, whose
+    cross-attention projects only the KV heads it holds."""
+    counts = tp_divides(cfg)
+    if (tp_reduce != "gather" and "kv_heads" in counts
+            and cfg.kind != "encdec" and cfg.n_heads % tp == 0
+            and (cfg.n_heads // cfg.kv_heads) % (cfg.n_heads // tp) == 0):
+        counts.pop("kv_heads")
+    if any(n % tp for n in counts.values()):
+        raise ValueError(
+            f"tp={tp} must divide " + ", ".join(
+                f"{k}={v}" for k, v in counts.items())
+            + ": a rank holds whole heads and channel blocks")
 
 
 def _heads_divide(path: str, tp: int, cfg) -> bool:
@@ -370,9 +441,10 @@ def gather_params(named, mesh, axes: dict[str, int | None], cfg=None,
     parameters), each leaf that `axes` (`param_axes` of the whole model)
     shards all-gathered over "model" and put back by its parts
     (`whole_from_blocks`; `whole` gives the whole shapes the parts are
-    read from, default the gathered one), the others as they are. The
-    inverse of `shard_params`; every rank of the "model" group calls it,
-    in the same order."""
+    read from, default the one `cfg`'s parts give the local shape,
+    `whole_size`), the others as they are. The inverse of
+    `shard_params`; every rank of the "model" group calls it, in the same
+    order."""
     if isinstance(named, torch.nn.Module):
         named = dict(named.named_parameters())
     out = {}
@@ -383,8 +455,10 @@ def gather_params(named, mesh, axes: dict[str, int | None], cfg=None,
             out[name] = t
             continue
         blocks = _gather_axis(t, ax, mesh.group, mesh.tp)
+        leaf = name.rsplit(".", 1)[-1]
         full = tuple(whole[name]) if whole else tuple(
-            n * (mesh.tp if i == ax else 1) for i, n in enumerate(t.shape))
+            whole_size(leaf, n, mesh.tp, cfg) if i == ax else n
+            for i, n in enumerate(t.shape))
         out[name] = whole_from_blocks(blocks, ax, _parts_of(name, full, ax,
                                                             cfg))
     return out
@@ -434,6 +508,26 @@ class TrainLayout:
     axes: dict
     parts: dict
     zero1: dict
+
+    def whole_parts(self) -> dict:
+        """{name: (its "model" axis, its parts at a rank's sizes)} of each
+        leaf cut by parts that holds a part whole (Mamba2's in_proj and
+        conv: B and C, `axis_parts`): the gradient of such a part is each
+        rank's heads' share until summed over "model"."""
+        tp = model_size(self.mesh)
+        out = {}
+        for name, parts in self.parts.items():
+            loc = local_parts(parts, tp)
+            if loc is not None:
+                out[name] = (self.axes[name], loc)
+        return out
+
+    def sharded(self) -> dict:
+        """{name: None, or its `whole_parts` entry} of each leaf "model"
+        shards: `optim.adamw.global_norm`'s `sharded`."""
+        parts = self.whole_parts()
+        return {n: parts.get(n) for n, ax in self.axes.items()
+                if ax is not None}
 
     def _leaf(self, key: str) -> tuple:
         head, _, name = key.partition("__")

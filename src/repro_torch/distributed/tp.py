@@ -37,7 +37,28 @@ every rank also has its whole gradient, the same on every rank:
   reduce_from_model: forward all-reduce, backward identity (the exit of a
       row-parallel block, the vocab-parallel loss's sums);
   split_to_model:    forward this rank's block, backward all-gather;
-  gather_from_model: forward all-gather, backward this rank's block.
+  gather_from_model: forward all-gather, backward this rank's block;
+
+and one of the port's own, which Megatron's blocks never need:
+
+  reduce_to_model:   forward all-reduce, backward all-reduce (a partial
+      sum over a sharded contraction whose whole result every rank then
+      uses only in part: Mamba1's x_proj, whose dt, B and C feed this
+      rank's dt_proj columns and scan channels, and Mamba2's gated-norm
+      sum of squares, which scales this rank's channels). Each rank's
+      gradient of the whole result is its own consumers' share, so it is
+      summed before it flows back into the sharded producer;
+      `reduce_from_model`'s identity backward is right only where the
+      result is used whole.
+
+Two invariants hold the backward to tp=1's: an activation whole on every
+rank has its whole gradient, the same on every rank; and a tensor whole
+on every rank whose consumers on each rank are partial has a partial
+gradient there, summed over "model" before it flows back into a sharded
+producer (`enter`, `reduce_to_model`). A weight part that every rank
+holds whole inside a sharded leaf (Mamba2's B and C columns of in_proj
+and rows of its conv) is such a tensor too: its gradient is each rank's
+heads' share, summed after the backward (`sum_whole_parts`).
 
 A block enters through `enter` (a copy only where its weights are
 sharded), so the reference's `_col_bwd` (dx cast to the activation dtype,
@@ -63,7 +84,8 @@ import types
 
 import torch
 
-from repro_torch.distributed.sharding import current_mesh, model_size
+from repro_torch.distributed.sharding import (current_mesh, model_size,
+                                              whole_spans)
 from repro_torch.kernels import ops
 
 
@@ -212,6 +234,20 @@ class _GatherFromModel(torch.autograd.Function):
         return _block(g, ctx.dim, ctx.mesh), None, None
 
 
+class _ReduceToModel(torch.autograd.Function):
+    """All-reduce over the group forward, and the gradient all-reduced
+    over it backward (in its own dtype)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce_(x.contiguous().clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce_(g.contiguous().clone(), ctx.group), None
+
+
 def copy_to_model(x: torch.Tensor, mesh=None) -> torch.Tensor:
     """`x` as it is; its gradient is summed over "model"."""
     mesh = mesh or current_mesh()
@@ -223,6 +259,36 @@ def reduce_from_model(x: torch.Tensor, mesh=None) -> torch.Tensor:
     is."""
     mesh = mesh or current_mesh()
     return _ReduceFromModel.apply(x, mesh.group)
+
+
+def reduce_to_model(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The sum of the ranks' partial `x` over "model", a whole tensor that
+    each rank then uses only in part: its gradient, each rank's share, is
+    summed over "model" too."""
+    mesh = mesh or current_mesh()
+    return _ReduceToModel.apply(x, mesh.group)
+
+
+def sum_whole_parts(grads: dict, parts: dict, mesh=None) -> None:
+    """Sum over "model", in place, each gradient's slices of the parts
+    its leaf holds whole: `parts` is {name: (axis, parts at a rank's
+    sizes)} (`sharding.TrainLayout.whole_parts`). A rank's gradient of
+    such a part is its heads' share (Mamba2's B and C, which every head
+    reads); the sums are one all-reduce per dtype of all the slices
+    packed, equal on every rank."""
+    mesh = mesh or current_mesh()
+    if mesh is None or mesh.tp == 1 or not parts:
+        return
+    views: dict = {}
+    for name, (axis, local) in parts.items():
+        g = grads[name]
+        for lo, size in whole_spans(local):
+            views.setdefault(g.dtype, []).append(g.narrow(axis, lo, size))
+    for group in views.values():
+        flat = _all_reduce_(torch.cat([v.reshape(-1) for v in group]),
+                            mesh.group)
+        for v, part in zip(group, flat.split([v.numel() for v in group])):
+            v.copy_(part.view(v.shape))
 
 
 def split_to_model(x: torch.Tensor, dim: int, mesh=None) -> torch.Tensor:

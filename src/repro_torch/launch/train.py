@@ -17,8 +17,8 @@ deepseek-v2-236b (at any depth) are refused.
 ``--tp N --dp M`` trains on a (data M, model N) mesh of N x M rank
 processes (`launch.mesh.RankPool`, gloo; ``--device cpu`` for the CPU,
 else rank r on card r modulo the cards, several ranks sharing one card
-where there are fewer): tensor parallelism in psum mode for the dense,
-moe and mla_moe kinds, the batch cut over "data", ``--zero1`` cutting the
+where there are fewer): tensor parallelism in psum mode for every kind
+the launcher trains, the batch cut over "data", ``--zero1`` cutting the
 optimizer state over "data" (`train.step`). Every rank draws the whole
 model from the same seed and keeps its shard, so the weights are tp=1's;
 its checkpoints hold whole leaves (`checkpoint.manager`), written by rank
@@ -153,15 +153,25 @@ def _units(cfg: ModelConfig, batch: int, seq: int) -> list:
 
 def _rank_params(cfg: ModelConfig, tp: int) -> int:
     """One rank's parameters at tp: each leaf psum mode shards (`sharding.
-    param_axes` of the whole model, on ``meta``) a tp-th of it."""
-    from repro_torch.distributed.sharding import param_axes
+    param_axes` of the whole model, on ``meta``) a tp-th of each part it
+    cuts, and the whole of each part it holds whole (`sharding.
+    axis_parts`: Mamba2's B and C)."""
+    from repro_torch.distributed.sharding import (axis_parts, local_size,
+                                                  param_axes)
 
     if tp == 1:
         return cfg.n_params()
     model = get_model(cfg).init(cfg, None, device="meta")
     axes = param_axes(model, tp, "psum", cfg)
-    return sum(p.numel() // (tp if axes[n] is not None else 1)
-               for n, p in model.named_parameters())
+    total = 0
+    for n, p in model.named_parameters():
+        ax = axes[n]
+        if ax is None:
+            total += p.numel()
+            continue
+        parts = axis_parts(n.rsplit(".", 1)[-1], p.shape[ax], cfg)
+        total += p.numel() // p.shape[ax] * local_size(parts, tp)
+    return total
 
 
 def train_memory_bytes(cfg: ModelConfig, batch: int, seq: int, *,
@@ -181,7 +191,8 @@ def train_memory_bytes(cfg: ModelConfig, batch: int, seq: int, *,
     head's f32 logits four times over (logits, softmax, their gradient, a
     spare) and the three bf16 terms of their gradient
     (`kernels.tiled_matmul.split3`, 6 bytes a logit), which the head's
-    backward pair reads on the card, of the rank's vocab shard."""
+    backward pair reads on the card, of the rank's vocab shard (the whole
+    vocab where tp does not divide it: the head stays whole)."""
     p = torch_dtype(cfg.param_dtype).itemsize
     a = torch_dtype(cfg.activation_dtype).itemsize
     params = _rank_params(cfg, tp)
@@ -193,7 +204,8 @@ def train_memory_bytes(cfg: ModelConfig, batch: int, seq: int, *,
                 + max(ws for _, _, ws in units) // tp)
     else:
         acts = sum(n * ws for n, _, ws in units) // tp
-    return state, acts + (4 * 4 + SPLIT_BYTES) * batch * seq * cfg.vocab // tp
+    vocab = cfg.vocab // tp if cfg.vocab % tp == 0 else cfg.vocab
+    return state, acts + (4 * 4 + SPLIT_BYTES) * batch * seq * vocab
 
 
 def check_fits(cfg: ModelConfig, batch: int, seq: int,

@@ -20,7 +20,10 @@ through `kernels.ops.matmul`, by way of the tensor-parallel wrappers
 (`distributed.tp`), so under tp the cross-KV holds this rank's heads.
 `encdec_loss`, the training forward, encodes the source and runs the
 decoder with no cache, each layer projecting its cross-attention KV from
-the encoder output.
+the encoder output. Under tensor-parallel training (psum mode) every
+block's input, the cross-attention's query input and each layer's
+encoder output enter their sharded projections (`tp.enter`), and the
+row-parallel ``wo`` and ``w_down`` take their whole contraction widths.
 """
 
 from __future__ import annotations
@@ -121,7 +124,7 @@ def enc_block_apply(blk: EncBlock, x: torch.Tensor, cfg: ModelConfig, *,
                                 causal=False, kv_lens=src_lens)
     x = x + attn
     h = L.rmsnorm(blk.ln2, x, cfg.norm_eps)
-    return x + L.swiglu_apply(blk.mlp, h, cfg)
+    return x + L.swiglu_apply(blk.mlp, h, cfg, cfg.d_ff)
 
 
 def encode(model: EncDecLM, src_embeds: torch.Tensor, cfg: ModelConfig,
@@ -141,11 +144,15 @@ def encode(model: EncDecLM, src_embeds: torch.Tensor, cfg: ModelConfig,
 def _cross_kv(p, memory: torch.Tensor, cfg: ModelConfig) -> dict:
     """One decoder layer's cross-attention keys and values over the
     encoder output: (B, T, KV, hd) each (this rank's KV/tp heads under
-    tensor parallelism: column-parallel projections, `tp.tp_column`)."""
+    tensor parallelism: column-parallel projections, `tp.tp_column`; in
+    psum mode `memory` enters them, so its gradient, each rank's heads'
+    share, is summed over "model" in every layer)."""
     B, T, _ = memory.shape
     hd = cfg.hd
-    k = TP.tp_column(memory, p["wk"], cfg, cfg.kv_heads * hd)
-    v = TP.tp_column(memory, p["wv"], cfg, cfg.kv_heads * hd)
+    n_kv = cfg.kv_heads * hd
+    memory = TP.enter(memory, cfg, p["wk"], n_kv)
+    k = TP.tp_column(memory, p["wk"], cfg, n_kv)
+    v = TP.tp_column(memory, p["wv"], cfg, n_kv)
     if cfg.qkv_bias:
         k = k + p["bk"].to(k.dtype)
         v = v + p["bv"].to(v.dtype)
@@ -160,13 +167,14 @@ def _cross_attend(p, x: torch.Tensor, ckv: dict, cfg: ModelConfig, *,
     depends on the call."""
     B, S, d = x.shape
     hd = cfg.hd
-    q = TP.tp_column(x, p["wq"], cfg, cfg.n_heads * hd)
+    n_q = cfg.n_heads * hd
+    q = TP.tp_column(TP.enter(x, cfg, p["wq"], n_q), p["wq"], cfg, n_q)
     if cfg.qkv_bias:
         q = q + p["bq"].to(q.dtype)
     q = q.reshape(B, S, -1, hd)
     out = L._sdpa(q, ckv["k"].to(q.dtype), ckv["v"].to(q.dtype),
                   causal=False, kv_len=kv_len)
-    return TP.tp_row(out.reshape(B, S, -1), p["wo"], cfg, d)
+    return TP.tp_row(out.reshape(B, S, -1), p["wo"], cfg, d, n_q)
 
 
 def dec_block_apply(blk: DecBlock, x: torch.Tensor, cfg: ModelConfig, *,
@@ -184,7 +192,7 @@ def dec_block_apply(blk: DecBlock, x: torch.Tensor, cfg: ModelConfig, *,
     h = L.rmsnorm(blk.ln_x, x, cfg.norm_eps)
     x = x + _cross_attend(blk.cross_attn, h, cross_kv, cfg, kv_len=src_lens)
     h = L.rmsnorm(blk.ln2, x, cfg.norm_eps)
-    return x + L.swiglu_apply(blk.mlp, h, cfg), new_cache
+    return x + L.swiglu_apply(blk.mlp, h, cfg, cfg.d_ff), new_cache
 
 
 def dec_serve_block(blk: DecBlock, x: torch.Tensor, cfg: ModelConfig, *,

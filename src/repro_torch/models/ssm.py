@@ -22,6 +22,15 @@ gather of its own). The sizes a block runs at are its weights' shapes,
 never the config's, and the cache allocators take their local shapes
 from `sharding.local_state_shape`.
 
+Under tensor-parallel training (psum mode) the block's input enters
+in_proj (`tp.enter`), x_proj's rows and the gated norm's scale are this
+rank's channels, and both reductions over d_inner are sums across ranks
+whose gradients are summed too (`tp.reduce_to_model`: x_proj's partial
+product, the norm's sum of squares); out_proj's rows are cut and its
+partial products all-reduced (`tp.tp_row`). Mamba2's B and C, whole on
+every rank, get each rank's heads' share of their weights' gradient,
+which the train step sums (`tp.sum_whole_parts`).
+
 The scans. The reference runs an associative scan inside each block of q
 steps and a sequential `lax.scan` across blocks. A literal port would issue
 O(S / q) small launches per op per layer, so the port reorders the same
@@ -308,9 +317,16 @@ def _mamba1_core(s, x_conv: torch.Tensor, cfg: ModelConfig, h0: torch.Tensor,
     (`selective_scan`, which takes `kw`)."""
     ds = cfg.ssm_state
     r = max(1, cfg.d_model // 16)
-    # x_proj contracts the whole d_inner: gathered first in gather mode
-    proj = ops.matmul(TP.replicate_for_parity(x_conv, -1, cfg),
-                      s["x_proj"])                            # (B, S, r+2ds)
+    if TP.psum_mode(cfg) and s["x_proj"].shape[0] != cfg.d_inner:
+        # psum mode: x_proj's rows are this rank's channels, so each rank's
+        # product is a partial sum; every rank uses the whole sum only in
+        # part (its dt_proj columns, its channels' scan), so the sum's
+        # gradient is summed as well (`tp.reduce_to_model`)
+        proj = TP.reduce_to_model(ops.matmul(x_conv, s["x_proj"]))
+    else:
+        # x_proj contracts the whole d_inner: gathered first in gather mode
+        proj = ops.matmul(TP.replicate_for_parity(x_conv, -1, cfg),
+                          s["x_proj"])                        # (B, S, r+2ds)
     # dt_low is a strided view of proj (row stride r + 2 ds)
     dt_low, Bm, Cm = proj[..., :r], proj[..., r:r + ds], proj[..., r + ds:]
     dt = TP.tp_column(dt_low, s["dt_proj"], cfg, cfg.d_inner).float()
@@ -328,7 +344,8 @@ def mamba1_block_apply(blk: Mamba1Block, x: torch.Tensor, cfg: ModelConfig,
     in_proj and out_proj hold this rank's channels."""
     B, S, _ = x.shape
     s = blk.ssm
-    h = L.rmsnorm(blk.ln, x, cfg.norm_eps)
+    h = TP.enter(L.rmsnorm(blk.ln, x, cfg.norm_eps), cfg, s["in_proj"],
+                 2 * cfg.d_inner)
     x_, z = TP.tp_column(h, s["in_proj"], cfg,
                          2 * cfg.d_inner).chunk(2, dim=-1)
     if cache is not None:
@@ -352,7 +369,8 @@ def mamba1_block_apply(blk: Mamba1Block, x: torch.Tensor, cfg: ModelConfig,
                          dtype=torch.float32, device=x.device)
         y, _ = _mamba1_core(s, x_conv, cfg, h0)
     y = y * F.silu(z.float())
-    out = TP.tp_row(y.to(x.dtype), s["out_proj"], cfg, cfg.d_model)
+    out = TP.tp_row(y.to(x.dtype), s["out_proj"], cfg, cfg.d_model,
+                    cfg.d_inner)
     return x + out, cache, 0.0
 
 
@@ -509,9 +527,14 @@ def mamba2_block_apply(blk: Mamba2Block, x: torch.Tensor, cfg: ModelConfig,
     s = blk.ssm
     H = s["A_log"].shape[0]                 # this rank's heads
     di = H * P
-    hin = L.rmsnorm(blk.ln, x, cfg.norm_eps)
-    proj = TP.tp_column(hin, s["in_proj"], cfg, 2 * cfg.d_inner
-                        + 2 * G * ds + cfg.d_inner // P)
+    n_proj = 2 * cfg.d_inner + 2 * G * ds + cfg.d_inner // P
+    # in psum mode a rank's gradient of hin is its columns' share, B and
+    # C's included (each rank's is its heads' share of theirs): `enter`
+    # sums it once, and (sum_r dBC_r) W_BC^T is what the sum of the ranks'
+    # dBC_r W_BC^T gives, so B and C's input gradient is not summed again
+    hin = TP.enter(L.rmsnorm(blk.ln, x, cfg.norm_eps), cfg, s["in_proj"],
+                   n_proj)
+    proj = TP.tp_column(hin, s["in_proj"], cfg, n_proj)
     z, xBC, dt_raw = _mamba2_split(cfg, proj, H)
     hist = None
     if cache is not None:
@@ -535,13 +558,20 @@ def mamba2_block_apply(blk: Mamba2Block, x: torch.Tensor, cfg: ModelConfig,
     if cache is not None:
         cache["conv"].copy_(hist)
         cache["ssm"].copy_(h_final)
-    y = y.reshape(B, S, di)
+    y = y.reshape(B, S, di) * F.silu(z.float())
     # gated RMSNorm (mamba2), its mean over the whole d_inner
-    y = TP.replicate_for_parity(y * F.silu(z.float()), -1, cfg)
-    var = (y * y).mean(-1, keepdim=True)
+    if TP.psum_mode(cfg) and di != cfg.d_inner:
+        # psum mode: this rank's channels; the sum of squares is summed
+        # over "model", and since each rank scales only its own channels
+        # by it, so is its gradient (`tp.reduce_to_model`)
+        var = TP.reduce_to_model((y * y).sum(-1, keepdim=True)) / cfg.d_inner
+    else:
+        y = TP.replicate_for_parity(y, -1, cfg)
+        var = (y * y).mean(-1, keepdim=True)
     y = y * torch.rsqrt(var + cfg.norm_eps)
     y = y * s["norm_scale"].float()
-    out = TP.tp_row(y.to(x.dtype), s["out_proj"], cfg, cfg.d_model)
+    out = TP.tp_row(y.to(x.dtype), s["out_proj"], cfg, cfg.d_model,
+                    cfg.d_inner)
     return x + out, cache, 0.0
 
 

@@ -11,7 +11,8 @@ and a functional update would hold a fourth.
 On a mesh (`launch.mesh`) each rank holds its shards' state. The global
 norm sums the squares of the leaves "model" shards over the "model" group
 and counts every whole leaf once, so the clip scale is the same on every
-rank. ZeRO-1 (the reference's `zero1_shardings`; `zero1` below, from
+rank (a leaf cut by parts counts the parts it holds whole once).
+ZeRO-1 (the reference's `zero1_shardings`; `zero1` below, from
 `distributed.sharding.zero1_axes`) cuts master, m and v further over
 "data": each data rank updates its block of a leaf, an elementwise update
 whose bits are the whole leaf's, and the updated params are all-gathered
@@ -80,27 +81,45 @@ def init_opt_state(params, zero1: dict | None = None, mesh=None) -> dict:
 
 
 def global_norm(tree: Mapping[str, torch.Tensor], mesh=None,
-                sharded=()) -> torch.Tensor:
+                sharded: Mapping | None = None) -> torch.Tensor:
     """The f32 L2 norm over every leaf; on a mesh whose "model" axis has
     more than one rank, of the whole leaves: the squares of the leaves
     named in `sharded` (this rank's shards) summed over "model", every
-    other leaf (whole, the same on every rank) counted once."""
+    other leaf (whole, the same on every rank) counted once. `sharded`
+    maps each such name to None, or to (axis, parts at this rank's sizes)
+    for a leaf cut by parts that holds some whole
+    (`sharding.TrainLayout.sharded`): its cut parts are summed over
+    "model" and its whole parts counted once."""
     if mesh is None or mesh.tp == 1:
         return torch.sqrt(torch.stack(
             [x.float().square().sum() for x in tree.values()]).sum())
     from repro_torch.distributed import tp as TP
+    from repro_torch.distributed.sharding import whole_spans
 
-    sq = {n: x.float().square().sum() for n, x in tree.items()}
+    spec = sharded or {}
     zero = torch.zeros((), dtype=torch.float32,
                        device=next(iter(tree.values())).device)
-    part = sum((v for n, v in sq.items() if n in sharded), zero)
-    whole = sum((v for n, v in sq.items() if n not in sharded), zero)
+    part, whole = zero, zero
+    for n, x in tree.items():
+        sq = x.float().square()
+        if n not in spec:
+            whole = whole + sq.sum()
+        elif spec[n] is None:
+            part = part + sq.sum()
+        else:
+            axis, parts = spec[n]
+            for lo, size in whole_spans(parts):
+                block = sq.narrow(axis, lo, size)
+                whole = whole + block.sum()
+                block.zero_()        # what is left is the cut parts
+            part = part + sq.sum()
     return torch.sqrt(TP.all_reduce(part.reshape(1), mesh)[0] + whole)
 
 
 @torch.no_grad()
 def apply_updates(params, grads: Mapping[str, torch.Tensor], opt_state: dict,
-                  cfg: AdamWConfig, *, mesh=None, sharded=(),
+                  cfg: AdamWConfig, *, mesh=None,
+                  sharded: Mapping | None = None,
                   zero1: dict | None = None) -> tuple:
     """One AdamW step: the gradients (any float dtype, keyed as the
     params) clipped to ``cfg.grad_clip`` by their global norm, moments with

@@ -297,8 +297,8 @@ class ServingEngine:
         outputs are gathered in `tp_overlap_chunks` column chunks
         overlapping the next chunk's GEMM, and the energy model prices the
         per-rank fleet plus the ring traffic on `tp` chips. Whole heads
-        only: `tp` must divide what the family shards (`_tp_divides`), or
-        the engine raises ValueError.
+        only: `tp` must divide what the family shards (`sharding.check_tp`,
+        the rule training shares), or the engine raises ValueError.
 
         `pretune=True` batch-tunes the engine's GEMM fleet up front, as the
         JAX engine does: every shape the batched prefill, the decode step
@@ -462,19 +462,6 @@ class ServingEngine:
     # ------------------------------------------------------------------
     # mesh and model clock
     # ------------------------------------------------------------------
-    @staticmethod
-    def _tp_divides(cfg: ModelConfig) -> dict[str, int]:
-        """What a rank holds a whole block of, by name, for `cfg`'s kind:
-        the attention heads and KV heads (the attention kinds and the
-        hybrid's shared block), MLA's heads (no KV heads of its own: its
-        latent cache is whole), Mamba1's d_inner channels and the SSD
-        heads of Mamba2 and the hybrid."""
-        ssd = {"ssd_heads": cfg.d_inner // max(cfg.ssm_headdim, 1)}
-        attn = {"n_heads": cfg.n_heads, "kv_heads": cfg.kv_heads}
-        return {"mamba1": {"d_inner": cfg.d_inner},
-                "mamba2": ssd, "hybrid": {**ssd, **attn},
-                "mla_moe": {"n_heads": cfg.n_heads}}.get(cfg.kind, attn)
-
     def _shard(self, model, params, cfg: ModelConfig, mesh,
                chunks: int) -> ModelConfig:
         """Set up tensor parallelism at ``self._tp``: check that tp
@@ -485,12 +472,7 @@ class ServingEngine:
         from repro_torch.launch.mesh import make_serving_mesh
 
         tp = self._tp
-        counts = self._tp_divides(cfg)
-        if any(n % tp for n in counts.values()):
-            raise ValueError(
-                f"tp={tp} must divide " + ", ".join(
-                    f"{k}={v}" for k, v in counts.items())
-                + ": a rank holds whole heads and channel blocks")
+        sharding.check_tp(cfg, tp)
         self.mesh = mesh if mesh is not None else make_serving_mesh(tp)
         if self.mesh.shape["model"] != tp:
             raise ValueError(f"mesh {self.mesh.shape} must carry a 'model' "

@@ -15,8 +15,11 @@ over "data" (each data rank its rows), the loss is the whole batch's
 (`layers.cross_entropy`'s global mean), and each data rank's gradient
 (its tokens' share of the global loss's) is summed over "data" in the
 gradient's dtype before the update, which cuts the optimizer state over
-"data" where ``zero1`` (ZeRO-1). Tensor parallelism trains the dense, moe
-and mla_moe kinds; the others raise at tp > 1 (ROADMAP A7.2b).
+"data" where ``zero1`` (ZeRO-1). Tensor parallelism trains every kind
+where tp divides what the kind shards (`sharding.check_tp`, the rule the
+serving engine shares); before the update, the gradient of each part a
+rank holds whole in a leaf cut by parts (Mamba2's B and C) is summed
+over "model" (`reduce_gradients`).
 """
 
 from __future__ import annotations
@@ -34,31 +37,15 @@ from repro_torch.optim.adamw import AdamWConfig, apply_updates, init_opt_state
 State = dict[str, Any]
 
 
-# the kinds whose training runs under tensor parallelism (psum mode)
-TP_TRAIN_KINDS = ("dense", "moe", "mla_moe")
-
-
 def train_config(cfg: ModelConfig, mesh=None) -> ModelConfig:
     """`cfg` as a train step on `mesh` runs it: explicit collectives in
     psum mode where the "model" axis has more than one rank (raising
-    NotImplementedError for a kind outside `TP_TRAIN_KINDS`, and
-    ValueError where a rank would not hold whole query heads), else `cfg`
-    as it is."""
+    ValueError, naming the quantity, where tp does not divide what the
+    kind shards: `sharding.check_tp`), else `cfg` as it is."""
     tp = sharding.model_size(mesh)
     if tp == 1:
         return cfg
-    if cfg.kind not in TP_TRAIN_KINDS:
-        raise NotImplementedError(
-            f"training {cfg.kind} under tensor parallelism is ROADMAP "
-            f"A7.2b (its reductions over a sharded d_inner or the encoder "
-            f"are not written out in psum mode); tp > 1 trains "
-            f"{TP_TRAIN_KINDS}")
-    h_loc = cfg.n_heads // tp
-    group = cfg.n_heads // cfg.kv_heads
-    if cfg.n_heads % tp or (cfg.kv_heads % tp and group % h_loc):
-        raise ValueError(f"tp={tp} must divide n_heads={cfg.n_heads}, and "
-                         f"a rank's heads share KV heads "
-                         f"(kv_heads={cfg.kv_heads})")
+    sharding.check_tp(cfg, tp, "psum")
     return dataclasses.replace(cfg, tp_collectives="explicit",
                                tp_reduce="psum")
 
@@ -105,6 +92,17 @@ def _value_and_grad(model, params, names, batch, cfg):
     return loss.detach(), metrics, dict(zip(names, grads))
 
 
+def reduce_gradients(grads: dict, layout, mesh) -> None:
+    """The step's reductions of this rank's gradients, in place, before
+    the update: the parts a rank holds whole in a leaf cut by parts
+    summed over "model" (each rank's is its heads' share:
+    `tp.sum_whole_parts`), then every leaf summed over "data"."""
+    if layout is not None:
+        TP.sum_whole_parts(grads, layout.whole_parts(), mesh)
+    for g in grads.values():
+        TP.all_reduce_data(g, mesh)
+
+
 def _data_rows(batch: dict, mesh) -> dict:
     """This data rank's rows of the global batch (every leaf cut on its
     leading axis)."""
@@ -135,8 +133,7 @@ def make_train_step(model, cfg: ModelConfig, opt_cfg: AdamWConfig,
         cfg = train_config(cfg, mesh)
         layout = sharding.train_layout(model.init(cfg, None, device="meta"),
                                        mesh, cfg, zero1)
-    sharded = {n for n, ax in (layout.axes if layout else {}).items()
-               if ax is not None}
+    sharded = layout.sharded() if layout else {}
 
     def grads_of(params, names, batch):
         if microbatches == 1:
@@ -166,8 +163,7 @@ def make_train_step(model, cfg: ModelConfig, opt_cfg: AdamWConfig,
         try:
             loss, metrics, grads = grads_of(params, names,
                                             _data_rows(batch, mesh))
-            for g in grads.values():
-                TP.all_reduce_data(g, mesh)
+            reduce_gradients(grads, layout, mesh)
             _, opt, opt_metrics = apply_updates(
                 params, grads, state["opt"], opt_cfg, mesh=mesh,
                 sharded=sharded, zero1=layout and layout.zero1)

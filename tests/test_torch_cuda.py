@@ -1161,6 +1161,52 @@ def test_backward_layouts_match_the_plain_version(dev, layout):
     _assert_close(dw, want_dw, TOL[torch.bfloat16])
 
 
+# the tensor-parallel training shards of the SSM and encoder-decoder
+# families at full width: (K, N, the whole projection's N for its K
+# segments, or None for a row shard)
+FAMILY_SHARDS = {
+    # falcon-mamba-7b's x_proj, rows cut: K = d_inner / tp, N = 256 + 2 x 16
+    "mamba1 x_proj tp=2": (4096, 288, None),
+    "mamba1 x_proj tp=4": (2048, 288, None),
+    # zamba2-2.7b's in_proj cut by parts at tp=2: z and x 1280 each, B and C
+    # 128 whole, dt 40, of the whole 5288 columns
+    "mamba2 in_proj parts tp=2": (2560, 2728, 5288),
+    # seamless-m4t-medium's cross-attention wo, rows cut: 8 of 16 heads
+    "cross-attention wo tp=2": (512, 1024, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FAMILY_SHARDS))
+def test_family_shard_gemms_and_their_backward_match_the_plain_version(
+        dev, case):
+    """The shard shapes tensor-parallel training gives the SSM and
+    encoder-decoder families (Mamba1's row-sharded x_proj at tp=2 and 4,
+    Mamba2's in_proj cut by parts, the cross-attention's row-parallel wo)
+    through `ops.matmul` over 512 rows: the forward, ``da`` and ``dW`` are
+    each one launch on wgmma and equal `matmul_ref` within the bf16
+    tolerance."""
+    from repro_torch.kernels import ops
+
+    k, n, whole = FAMILY_SHARDS[case]
+    g = torch.Generator(dev).manual_seed(7)
+    m = 512
+    x = torch.randn((m, k), generator=g, device=dev).bfloat16()
+    w = (torch.randn((k, n), generator=g, device=dev) / k ** 0.5).bfloat16()
+    x.requires_grad_(True)
+    w.requires_grad_(True)
+    before = dict(tiled_matmul.launches_by_path)
+    out = ops.matmul(x, w, segments_n=whole)
+    dout = torch.randn((m, n), generator=g, device=dev).bfloat16()
+    dx, dw = torch.autograd.grad(out, [x, w], dout)
+    torch.cuda.synchronize()
+    moved = {p: tiled_matmul.launches_by_path[p] - before[p] for p in before}
+    assert moved == {"general": 0, "stream": 0, "wgmma": 3, "split": 0}
+    tol = TOL[torch.bfloat16]
+    _assert_close(out, matmul_ref(x.detach(), w.detach()), tol)
+    _assert_close(dx, matmul_ref(dout, w.detach(), transpose_b=True), tol)
+    _assert_close(dw, matmul_ref(x.detach(), dout, transpose_a=True), tol)
+
+
 def _train_smoke(dev):
     """starcoder2-3b's smoke config in bf16 (its forward takes the fast
     paths, its backward the general one) and a seeded data set."""

@@ -22,7 +22,7 @@ from repro_torch.kernels import ops
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.bridge import params_from_numpy
 from repro_torch.models.registry import get_model
-from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.optim.adamw import AdamWConfig, global_norm
 from repro_torch.train import step as tstep
 
 
@@ -99,17 +99,23 @@ def loss_and_grads(_, shape, cfg, tree: dict, batch: dict,
             loss, metrics, grads = tstep._value_and_grad(
                 get_model(cfg), params, names, rows, tcfg)
             calls = None
-        for g in grads.values():
-            TP.all_reduce_data(g, mesh)
         layout = _layout(mesh, cfg)
+        tstep.reduce_gradients(grads, layout, mesh)
         whole = sharding.gather_params(grads, mesh, layout.axes, tcfg)
+        norm = float(global_norm(grads, mesh, layout.sharded()))
     finally:
         sharding.set_mesh(None)
     return {"loss": float(loss), "backward_collectives": calls,
             "metrics": {k: float(v) for k, v in metrics.items()},
             "grads": {n: _np(g) for n, g in whole.items()},
+            "grad_norm": norm,
             "whole_leaves": {n: _np(grads[n]) for n in names
-                             if layout.axes[n] is None}}
+                             if layout.axes[n] is None},
+            "whole_parts": {n: [_np(g.narrow(ax, lo, size)) for lo, size
+                                in sharding.whole_spans(parts)]
+                            for n, (ax, parts) in
+                            layout.whole_parts().items()
+                            for g in (grads[n],)}}
 
 
 def train_steps(_, shape, cfg, tree: dict, batches: list, opt: dict,
