@@ -122,13 +122,14 @@ build of PyTorch. Phases, each fatal on failure:
    chunk call's bucket, which the other requests move); each
    with the logits check, launches per forward from the model's structure
    (81; 11 L + 1) and its serving shapes timed;
-12. SSM and hybrid serving at `plan`'s tiles: full-width, full-depth
-   falcon-mamba-7b (64 Mamba1 layers, the tied LM head on `stream`'s (N, K)
-   layout) and zamba2-2.7b (54 Mamba2 layers in 9 groups, each followed by
-   one shared attention block), each with the logits check (torch.matmul's
-   distance beside it), the 10 requests chunked, serially and in the wave
-   loop (streams identical to the chunked run's), launches per forward from
-   the model's structure (257 and 172), none on general, and its serving
+12. SSM and hybrid serving at `plan`'s tiles: full-width falcon-mamba-7b
+   (32 of its 64 Mamba1 layers, the tied LM head on `stream`'s (N, K)
+   layout) and zamba2-2.7b (30 of its 54 Mamba2 layers, 5 groups, each
+   followed by one shared attention block; `SSM_LAYERS`, cut since phase
+   18 (d) came), each with the logits check (torch.matmul's distance
+   beside it), the 10 requests chunked, serially and in the wave loop
+   (streams identical to the chunked run's), launches per forward from
+   the model's structure, none on general, and its serving
    shapes timed; for falcon-mamba-7b also one 700-token prompt past
    max_len = 512, chunked and in the wave loop (identical streams). The
    phase prints its seconds and each model's peak device memory;
@@ -218,20 +219,26 @@ build of PyTorch. Phases, each fatal on failure:
    head's shard) x its forwards, none on general; its collectives = 282
    per forward. It prints per rank the tokens, forwards and seconds, the
    collectives and their host time, the weights it holds and its peak
-   device memory while serving, and the phase's seconds. After phase 12,
-   the same for falcon-mamba-7b and zamba2-2.7b at full width and depth
+   device memory while serving, and the phase's seconds. Then each rank
+   runs one decode step over the engine's slots and one 4 x 64 chunk call
+   (`_tp_probe`), its collectives counted by op. After phase 12, the same
+   for falcon-mamba-7b and zamba2-2.7b at full width and phase 12's depth
    (both ranks building at once) and deepseek-v2-236b at full width and
    phase 11's depth (the ranks building in turn), on one pool of two
    ranks, against phases 12's chunked streams and phase 11's streams of
-   the same four requests: launches 449, 388
-   and 69 per forward (Mamba1's in_proj, x_proj whole, dt_proj and 4
-   out_proj chunks a layer; Mamba2's in_proj and 4 out_proj chunks, the
-   hybrid's shared block as a dense layer; MLA's projections, 4 wo chunks,
-   the router and the shared experts' gate, up and 4 down chunks), and
-   collectives 386, 362 and 46 (Mamba1's x_conv gather beside out_proj's,
-   Mamba2's gated-norm input gather, the experts' output gather). While
-   those ranks serve, the main process makes phases 15 (e)'s and 16 (d)'s
-   meta analyses ahead (`_analyse_ahead`).
+   the same four requests: launches and collectives per forward from the
+   structure (Mamba1's in_proj, x_proj whole, dt_proj and 4 out_proj
+   chunks a layer; Mamba2's in_proj and 4 out_proj chunks, the hybrid's
+   shared block as a dense layer; MLA's projections, 4 wo chunks, the
+   router and the shared experts' gate, up and 4 down chunks; Mamba1's
+   x_conv gather beside out_proj's, Mamba2's gated-norm input gather, the
+   experts' output gather; 69 and 46 for deepseek-v2-236b). While those
+   ranks serve, the main process makes phases 15 (e)'s and 16 (d)'s meta
+   analyses ahead (`_analyse_ahead`), and the mesh dry counts: the probe
+   forwards on a dry (1, 2) mesh in gather mode, and the dry-run rank's
+   step of 18 (a) and (d) (`_mesh_checks`). After the join, each rank's
+   probe collectives (calls and operand bytes by op) must equal the dry
+   count (`phase_tp_mesh`).
 18. training under tensor parallelism, last, once phases 15 and 16 have
    handed their device memory back: full-width, full-depth starcoder2-3b
    at tp = 2 in two rank processes on the one card (gloo), through the
@@ -253,10 +260,20 @@ build of PyTorch. Phases, each fatal on failure:
    collectives per step from the structure (27, 90, 175, 27), zamba2's B
    and C gradients bit-identical on both ranks (a hash of their first
    moment), and each distinct shard GEMM new to the phase against the
-   plain version. It prints per rank the step ms, tokens/s (a), peak
-   device memory beside `train_memory_bytes` at tp = 2, the collectives
-   and their host time, and the phase's seconds. Two ranks on one card
-   give no multi-card speed figure.
+   plain version. Each (a) step's collectives by op must equal the dry
+   count of the dry-run's rank on a dry (1, 2) mesh. (d) on the same two
+   ranks, FSDP: full-width qwen2.5-14b (`FSDP_LAYERS` = 2 of 48 layers,
+   its published ``fsdp=True``) at (data 2, model 1) with ZeRO-1, 2 steps
+   of 4 x 512 tokens, against one step of one rank in the main process
+   over the same rows in one backward: step 1's loss and grad norm
+   within 1e-4 (relative), both ranks' losses equal, leaves moved,
+   launches per step from the structure, each step's collectives (calls
+   and operand bytes by op) the dry count on a dry (2, 1) mesh, and each
+   distinct GEMM shape new to the phase against the plain version. It
+   prints per rank the step ms, tokens/s (a), peak device memory beside
+   `train_memory_bytes` at tp = 2, the collectives and their host time,
+   and the phase's seconds. Two ranks on one card give no multi-card
+   speed figure.
 
 After phase 10, ``build/serving_shapes.json`` holds qwen2-7b's and
 qwen2.5-14b's serving launches by shape, for ``tools/gemm_sums.py``.
@@ -3185,10 +3202,16 @@ def phase_moe(dev) -> dict:
 LONG_PROMPT, LONG_BUDGET = 700, 16
 
 
+# phases 12 and 17's SSM and hybrid depths: cut (64 and 54 layers
+# published) to win back the seconds of phase 18 (d)
+SSM_LAYERS = {"falcon-mamba-7b": 32, "zamba2-2.7b": 30}
+
+
 def phase_ssm(dev) -> dict:
-    """SSM and hybrid serving at `plan`'s tiles: full-width, full-depth
+    """SSM and hybrid serving at `plan`'s tiles: full-width
     falcon-mamba-7b (its tied LM head on `stream`'s (N, K) layout) and
-    zamba2-2.7b, one model on the card at a time. Each: the logits check
+    zamba2-2.7b at `SSM_LAYERS` layers, one model on the card at a
+    time. Each: the logits check
     (with torch.matmul's distance beside it), the 10 requests chunked,
     serially and in the wave loop (streams identical to the chunked ones:
     `_stream_gate`, with `_row_probe` behind it), launches per forward from
@@ -3221,7 +3244,7 @@ def phase_ssm(dev) -> dict:
     for arch in ("falcon-mamba-7b", "zamba2-2.7b"):
         t_model = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
-        cfg, api, params = _init_model(dev, arch, "ssm")
+        cfg, api, params = _init_model(dev, arch, "ssm", SSM_LAYERS[arch])
         name = cfg.name
 
         def engine(**kw):
@@ -3776,8 +3799,42 @@ def _tp_collectives_per_forward(cfg, tp: int, chunks: int) -> int:
     return 1 + cfg.n_layers * per_layer + shared + 1
 
 
+# phase 17's probe forwards on each rank after its run (`_tp_probe`): a
+# decode step over the engine's slots and one W x C chunk call
+TP_PROBE_W, TP_PROBE_C = 4, 64
+# {arch: each rank's posted collectives in the probe forwards}
+_TP_PROBES: dict = {}
+
+
+def _by_op() -> dict:
+    """A copy of the collectives this process posted, by op."""
+    from repro_torch.distributed import tp as TP
+
+    return {op: dict(t) for op, t in TP.collectives.by_op.items()}
+
+
+def _tp_probe(dev, eng, params) -> dict:
+    """{"decode", "chunk"}: the collectives (calls and operand bytes by
+    op) one rank posts in `_forward_fns`' decode step over the engine's
+    slots and its `TP_PROBE_W` x `TP_PROBE_C` chunk call, each counted
+    alone; the engine's mesh installed, its gather-mode config."""
+    from repro_torch.distributed import tp as TP
+
+    eng._activate()
+    fns = _forward_fns(dev, eng, params, eng.cfg, TP_PROBE_W, TP_PROBE_C,
+                       np.random.default_rng(17))
+    out = {}
+    for name, fn in zip(("decode", "chunk"), fns):
+        torch.cuda.synchronize()
+        TP.reset_collectives()
+        fn()
+        torch.cuda.synchronize()
+        out[name] = _by_op()
+    return out
+
+
 def _tp_rank(mesh, arch: str, layers: int | None, uids: tuple, chunks: int,
-             in_turn: bool = False) -> dict:
+             in_turn: bool = False, probe: bool = False) -> dict:
     """One rank of phase 17, in its own process: the seeded weights of
     `arch` (cut to `layers` layers) on the card that phase 4, 11 or 12
     serves, this rank's shard cut (the rest freed), then the requests
@@ -3785,8 +3842,9 @@ def _tp_rank(mesh, arch: str, layers: int | None, uids: tuple, chunks: int,
     the launch and collective counters set to 0 just before the run and
     read just after. With `in_turn` the ranks build and cut one after the
     other (a barrier between), so that one whole model and the other
-    rank's shard share the card. Returns the streams and the counts,
-    memory and times."""
+    rank's shard share the card. With `probe`, `_tp_probe`'s forwards
+    after the run. Returns the streams and the counts, memory and
+    times."""
     import torch.distributed as dist
 
     from repro_torch.configs import get_config
@@ -3845,13 +3903,16 @@ def _tp_rank(mesh, arch: str, layers: int | None, uids: tuple, chunks: int,
            "ready_s": t_ready, "serve_s": serve_s,
            "collective_wire_s": rep["collective_wire_s"],
            "model_s": rep["model_s"]}
+    if probe:
+        out["probe"] = _tp_probe(dev, eng, params)
     del eng, params, results
     _free()
     return out
 
 
 def _tp_model(pool, arch: str, want: dict, layers: int | None = None,
-              in_turn: bool = False) -> collections.Counter:
+              in_turn: bool = False, probe: bool = False
+              ) -> collections.Counter:
     """Serve `TP_UIDS` of `arch` (cut to `layers`) at tp = `TP_RANKS` on
     `pool`'s ranks with `TP_CHUNKS` row-parallel chunks and check it.
     Gates: every stream on every rank equals the card's tp=1 stream
@@ -3865,7 +3926,10 @@ def _tp_model(pool, arch: str, want: dict, layers: int | None = None,
     cfg = get_config(arch)
     if layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=layers)
-    ranks = pool.run(_tp_rank, arch, layers, TP_UIDS, TP_CHUNKS, in_turn)
+    ranks = pool.run(_tp_rank, arch, layers, TP_UIDS, TP_CHUNKS, in_turn,
+                     probe)
+    if probe:
+        _TP_PROBES[arch] = [out["probe"] for out in ranks]
     per_fwd = _tp_gemms_per_forward(cfg, TP_RANKS, TP_CHUNKS)
     coll_fwd = _tp_collectives_per_forward(cfg, TP_RANKS, TP_CHUNKS)
     launched = collections.Counter()
@@ -3939,7 +4003,8 @@ def phase_tp(want: dict) -> dict:
     with another code than 0 fails the phase. Returns the launches per
     path summed over the ranks."""
     t0 = time.perf_counter()
-    launched = _tp_pool(lambda pool: _tp_model(pool, "qwen2-7b", want))
+    launched = _tp_pool(lambda pool: _tp_model(pool, "qwen2-7b", want,
+                                               probe=True))
     _say(f"[tp] phase 17 (qwen2-7b) took {time.perf_counter() - t0:.1f} s")
     return {"launches": launched}
 
@@ -3947,22 +4012,43 @@ def phase_tp(want: dict) -> dict:
 def phase_tp_families(wants: dict) -> dict:
     """Phase 17, second part, after phases 11 and 12: the SSM, hybrid and
     MLA families at tp = `TP_RANKS` on one pool of rank processes,
-    falcon-mamba-7b and zamba2-2.7b at full width and depth (both ranks
-    building at once), deepseek-v2-236b at full width cut to
+    falcon-mamba-7b and zamba2-2.7b at full width, `SSM_LAYERS` deep (both
+    ranks building at once), deepseek-v2-236b at full width cut to
     `DEEPSEEK_LAYERS` layers (the ranks building in turn), each against
     the card's tp=1 streams of phases 12 and 11, `wants[name]`, with
     `_tp_model`'s gates. Returns the launches per path summed over the
     models and ranks."""
     t0 = time.perf_counter()
-    runs = (("falcon-mamba-7b", None, False), ("zamba2-2.7b", None, False),
+    runs = (("falcon-mamba-7b", SSM_LAYERS["falcon-mamba-7b"], False),
+            ("zamba2-2.7b", SSM_LAYERS["zamba2-2.7b"], False),
             ("deepseek-v2-236b", DEEPSEEK_LAYERS, True))
     launched = _tp_pool(lambda pool: sum(
         (_tp_model(pool, arch, wants[arch], layers, in_turn)
          for arch, layers, in_turn in runs), collections.Counter()))
-    _say(f"[tp] phase 17 (falcon-mamba-7b, zamba2-2.7b, deepseek-v2-236b at "
-         f"{DEEPSEEK_LAYERS} layers) took {time.perf_counter() - t0:.1f} s "
+    _say(f"[tp] phase 17 (falcon-mamba-7b, zamba2-2.7b at {SSM_LAYERS} "
+         f"layers, deepseek-v2-236b at {DEEPSEEK_LAYERS}) took {time.perf_counter() - t0:.1f} s "
          f"on {_nvidia_smi()}")
     return {"launches": launched}
+
+
+def phase_tp_mesh() -> None:
+    """Phase 17's mesh check, after `_analyse_ahead`'s thread is joined:
+    each rank's collectives in `_tp_probe`'s decode step and chunk call
+    (calls and operand bytes by op) equal the dry count of the same
+    forwards on a dry (1, `TP_RANKS`) mesh (`_dry_tp_forward`)."""
+    failed = []
+    for r, probe in enumerate(_TP_PROBES.get("qwen2-7b", [])):
+        for name in ("decode", "chunk"):
+            dry = _DRY_AHEAD.get("mesh tp forward")
+            want = None if dry is None else dry[0][name]
+            same = want == probe[name]
+            _say(f"[mesh] qwen2-7b tp={TP_RANKS} rank {r} {name} forward: "
+                 f"posted {probe[name]}, dry count {want}: equal {same}")
+            if not same:
+                failed.append(f"rank {r} {name}")
+    if not _TP_PROBES.get("qwen2-7b") or failed:
+        raise SystemExit(f"[mesh] phase 17's posted collectives differ from "
+                         f"the dry count: {failed or 'no probe'}")
 
 
 def _f32_outs(cfg) -> int:
@@ -4529,10 +4615,98 @@ def _train_checks(dev) -> list:
     return out
 
 
+def _cost_by_op(cost) -> dict:
+    """A `StepCost`'s dry collectives as {op: {"calls", "bytes"}}."""
+    return {op: {"calls": n, "bytes": int(cost.collective_operand_bytes[op])}
+            for op, n in cost.collective_calls.items()}
+
+
+def _dry_tp_forward() -> dict:
+    """The mesh dry count of `_tp_probe`'s forwards: qwen2-7b at full
+    width on a dry (1, `TP_RANKS`) mesh in the engine's gather mode
+    (`TP_CHUNKS` chunks), its shard cut on meta, the decode step over 4
+    slots of 512 and the `TP_PROBE_W` x `TP_PROBE_C` chunk call."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.common import INDEX_DTYPE
+    from repro_torch.core.opanalyze import analyze_step
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_dry_mesh
+    from repro_torch.models.registry import get_model
+
+    cfg = get_config("qwen2-7b")
+    api = get_model(cfg)
+    mesh = make_dry_mesh((1, TP_RANKS))
+    params = api.init(cfg, None, device="meta")
+    sharding.shard_params(params, mesh, whole=api.init(cfg, None,
+                                                       device="meta"),
+                          cfg=cfg)
+    gcfg = dataclasses.replace(cfg, tp_collectives="explicit",
+                               tp_reduce="gather",
+                               tp_overlap_chunks=TP_CHUNKS)
+    W, C = TP_PROBE_W, TP_PROBE_C
+    sharding.set_mesh(mesh)
+    try:
+        dstate = api.init_state(cfg, 4, 512, device="meta")
+        cstate = api.init_state(cfg, W, 512, device="meta")
+        tok = torch.empty(4, dtype=INDEX_DTYPE, device="meta")
+        toks = torch.empty((W, C), dtype=INDEX_DTYPE, device="meta")
+        lens = torch.empty(W, dtype=INDEX_DTYPE, device="meta")
+        return {"decode": _cost_by_op(analyze_step(
+                    api.decode_step, params, tok, dstate, gcfg)),
+                "chunk": _cost_by_op(analyze_step(
+                    api.prefill_chunk, params, toks, lens, cstate, gcfg))}
+    finally:
+        sharding.set_mesh(None)
+
+
+def _dry_train(arch: str, cfg, shape: tuple, rows: int, seq: int) -> dict:
+    """The mesh dry count of one train step of `cfg` on a dry (data,
+    model) = `shape` mesh (the dry-run's rank: psum mode, ZeRO-1) over a
+    global batch of `rows` x `seq` tokens."""
+    from repro_torch.configs.common import Spec
+    from repro_torch.core.opanalyze import analyze_step
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_dry_mesh
+
+    tokens = Spec((rows, seq), torch.int32)
+    fn, args, _ = dryrun.build_cell(
+        arch, "train_4k", make_dry_mesh(shape), cfg=cfg,
+        specs={"tokens": tokens, "labels": tokens})
+    return _cost_by_op(analyze_step(fn, *args))
+
+
+def _mesh_checks() -> list:
+    """(tag, fn) of the mesh dry counts the card's ranks are held to:
+    phase 17's probe forwards, one step of phase 18 (a) and of 18 (d)."""
+    from repro_torch.configs import get_config
+
+    return [("mesh tp forward", _dry_tp_forward),
+            ("mesh train tp (a)", lambda: _dry_train(
+                TRAIN_ARCH, get_config(TRAIN_ARCH), (1, TP_RANKS),
+                TRAIN_BATCH, TRAIN_SEQ)),
+            ("mesh fsdp (d)", lambda: _dry_train(
+                FSDP_ARCH, _fsdp_cfg(), (TP_RANKS, 1), FSDP_ROWS,
+                FSDP_SEQ))]
+
+
+def _mesh_gate(tag: str, posted: dict) -> bool:
+    """Print the mesh dry count `tag` (from `_DRY_AHEAD`) beside what a
+    rank posted; whether they are equal, op for op."""
+    dry = _DRY_AHEAD.get(tag)
+    want = None if dry is None else dry[0]
+    same = want == posted
+    _say(f"[mesh] {tag}: dry count {want} (made in "
+         f"{dry[1] if dry else float('nan'):.1f} s); posted {posted}"
+         f": equal {same}")
+    return same
+
+
 def _analyse_ahead(dev):
-    """Start a thread that makes `_train_checks`' meta analyses into
-    `_DRY_AHEAD` (host work, nothing on the card); the caller joins it.
-    A check whose analysis failed here analyses again in its phase."""
+    """Start a thread that makes `_train_checks`' meta analyses and the
+    mesh dry counts of `_mesh_checks` into `_DRY_AHEAD` (host work,
+    nothing on the card); the caller joins it. A check whose analysis
+    failed here analyses again in its phase (a mesh count is missing:
+    its gate fails)."""
     import threading
 
     from repro_torch.core.opanalyze import analyze_step
@@ -4540,6 +4714,12 @@ def _analyse_ahead(dev):
     checks = _train_checks(dev)
 
     def work():
+        for tag, fn in _mesh_checks():
+            t0 = time.perf_counter()
+            try:
+                _DRY_AHEAD[tag] = (fn(), time.perf_counter() - t0)
+            except Exception as e:
+                _DRY_AHEAD[tag + " failed"] = repr(e)
         for tag, cfg, batch in checks:
             t0 = time.perf_counter()
             try:
@@ -5044,6 +5224,133 @@ TP_FAMILY_TRAIN = (("falcon-mamba-7b", 4, 2, 512), ("zamba2-2.7b", 12, 2, 512),
 TP_FAMILY_STEPS = 2
 
 
+# phase 18 (d): FSDP training of full-width qwen2.5-14b cut to FSDP_LAYERS
+# layers at (data 2, model 1) in the pool's two gloo ranks on the card, step
+# 1 against one rank's step of the same model
+FSDP_ARCH = "qwen2.5-14b"
+FSDP_LAYERS = 2
+FSDP_ROWS, FSDP_SEQ = 4, 512
+FSDP_STEPS = 2
+FSDP_REL = 1e-4
+
+
+def _fsdp_cfg():
+    """(d)'s config: `FSDP_ARCH` at full width, `FSDP_LAYERS` deep, with
+    its published ``fsdp=True``."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(FSDP_ARCH), n_layers=FSDP_LAYERS)
+    assert cfg.fsdp
+    return cfg
+
+
+def _fsdp_rank(mesh) -> dict:
+    """One rank of phase 18 (d), in its own process: `_tp_family_steps`
+    of `_fsdp_cfg` on the (data `TP_RANKS`, model 1) mesh over the pool's
+    ranks, with ZeRO-1 (as the dry-run's rank trains)."""
+    from repro_torch.kernels._build import load_library
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    load_library()
+    fsdp = make_host_mesh(1, mesh.tp * mesh.data)
+    out = _tp_family_steps(dev, _fsdp_cfg(), FSDP_ROWS, FSDP_SEQ,
+                           FSDP_STEPS, fsdp, zero1=True)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _fsdp_run(dev, pool) -> tuple:
+    """(d)'s runs: one whole-batch step of `_fsdp_cfg` at one rank in this
+    process (its memory freed before the ranks build), then `FSDP_STEPS`
+    steps on every rank of `pool` under FSDP. Returns (the one-rank step,
+    the ranks' runs)."""
+    t0 = time.perf_counter()
+    one = _tp_family_steps(dev, _fsdp_cfg(), FSDP_ROWS, FSDP_SEQ, 1)
+    one["seconds"] = time.perf_counter() - t0
+    return one, pool.run(_fsdp_rank)
+
+
+def _fsdp_gates(dev, one: dict, ranks: list, checked: set,
+                checked_splits: set) -> collections.Counter:
+    """(d)'s lines and gates: per rank step 1's loss and grad norm within
+    `FSDP_REL` (relative) of the one-rank step's (`_fsdp_run`), every loss
+    and norm finite, every master leaf and weight matrix moved, the
+    launches per step from the structure (`_family_launches_per_step`,
+    the one-rank step's too; none on general), each step's collectives
+    (calls and operand bytes by op) the dry count of the dry-run's rank
+    on a dry (`TP_RANKS`, 1) mesh, both ranks' losses equal; then each
+    distinct GEMM shape not in `checked` (and split kernel shape not in
+    `checked_splits`) held to the plain version (`_check_train_shapes`).
+    Returns the launches per path summed over the ranks and steps."""
+    from repro_torch.launch.train import train_memory_bytes
+
+    cfg = _fsdp_cfg()
+    want = _family_launches_per_step(cfg)
+    launched: collections.Counter = collections.Counter()
+    failed = []
+    if one["steps"][0] != want:
+        failed.append(f"one rank: launches {one['steps'][0]}")
+    new: set = set()
+    new_splits: set = set()
+    state_1, acts_1 = train_memory_bytes(cfg, FSDP_ROWS, FSDP_SEQ)
+    _say(f"[train fsdp (d)] {cfg.name} at {cfg.n_layers} of 48 layers, "
+         f"full width, {FSDP_ROWS} x {FSDP_SEQ} tokens, one rank in this "
+         f"process (one backward): step 1 loss "
+         f"{one['loss_curve'][0]:.6f}, grad norm "
+         f"{one['grad_norms'][0]:.6f}, {1e3 * one['step_times_s'][0]:.1f} "
+         f"ms, peak {one['peak_bytes'] / 1e9:.2f} GB beside "
+         f"`train_memory_bytes` {(state_1 + acts_1) / 1e9:.2f} GB, "
+         f"{one['seconds']:.1f} s with init; launches {one['steps'][0]}")
+    for r, out in enumerate(ranks):
+        for step in out["steps"]:
+            launched.update({p: step[p] for p in (*GEMM_PATHS, "split3")})
+        new |= {tuple(key) for key in out["shapes"]} - checked
+        new_splits |= {tuple(key) for key in out["splits"]} - checked_splits
+        _say(f"[train fsdp (d)] rank {r} (data {TP_RANKS}, model 1, FSDP "
+             f"and ZeRO-1): step ms "
+             + ", ".join(f"{1e3 * t:.1f}" for t in out["step_times_s"])
+             + f"; collectives per step {out['collectives']}, host time "
+             + ", ".join(f"{t:.3f}" for t in out["collective_host_s"])
+             + f" s; peak {out['peak_bytes'] / 1e9:.2f} GB; launches per "
+             f"step {out['steps']}; in {out['seconds']:.1f} s")
+        for i, (l2, n2) in enumerate(zip(out["loss_curve"],
+                                         out["grad_norms"])):
+            ref = (f" (one rank {one['loss_curve'][0]:.6f}, diff "
+                   f"{l2 - one['loss_curve'][0]:+.3e}; grad norm one rank "
+                   f"{one['grad_norms'][0]:.6f}, diff "
+                   f"{n2 - one['grad_norms'][0]:+.3e})" if i == 0 else "")
+            _say(f"[train fsdp (d)] rank {r} step {i + 1}: loss {l2:.6f}, "
+                 f"grad norm {n2:.6f}{ref}")
+        finite = bool(np.isfinite(out["loss_curve"]).all()
+                      and np.isfinite(out["grad_norms"]).all())
+        rel_l = (abs(out["loss_curve"][0] - one["loss_curve"][0])
+                 / abs(one["loss_curve"][0]))
+        rel_n = (abs(out["grad_norms"][0] - one["grad_norms"][0])
+                 / abs(one["grad_norms"][0]))
+        if (not finite or rel_l > FSDP_REL or rel_n > FSDP_REL
+                or out["unmoved"]):
+            failed.append(f"rank {r}: finite {finite}, step 1's loss "
+                          f"{rel_l:.3e} and grad norm {rel_n:.3e} relative "
+                          f"to one rank's, unmoved {out['unmoved'][:4]}")
+        if any(st != want for st in out["steps"]):
+            failed.append(f"rank {r}: launches {out['steps']} (expected "
+                          f"{want})")
+        for i, posted in enumerate(out["by_op"]):
+            if not _mesh_gate("mesh fsdp (d)", posted):
+                failed.append(f"rank {r} step {i + 1}: collectives "
+                              f"{posted}")
+    if any(out["loss_curve"] != ranks[0]["loss_curve"] for out in ranks):
+        failed.append("the ranks' losses differ")
+    if failed:
+        raise SystemExit("[train fsdp (d)] " + "; ".join(failed))
+    _check_train_shapes(dev, new, new_splits, "train fsdp (d)")
+    return launched
+
+
 def _tp_train_collectives_per_step(cfg, tp: int) -> int:
     """One rank's collectives in one train step at tp in psum mode, one
     row chunk (`distributed.tp`), from the model's structure, for the
@@ -5106,21 +5413,23 @@ def _tp_train_rank(mesh, argv: list) -> dict:
     load_library()
     shapes: collections.Counter = collections.Counter()
     splits: collections.Counter = collections.Counter()
-    marks, colls = [], []
+    marks, colls, by_op = [], [], []
 
     def on_log(line: str) -> None:
         if line.startswith("step "):
             marks.append(_launch_counts())
             colls.append((TP.collectives.calls, TP.collectives.host_s))
+            by_op.append(_by_op())
 
     torch.cuda.reset_peak_memory_stats(dev)
     recording, splitting = _train_recording(shapes, splits)
     ops.tiled_matmul, ops.split3 = recording, splitting
     try:
         _zero_counts()
-        TP.collectives.calls, TP.collectives.host_s = 0, 0.0
+        TP.reset_collectives()
         marks.append(_launch_counts())
         colls.append((0, 0.0))
+        by_op.append({})
         state, summary = launch.train_rank(mesh, argv, log_fn=on_log,
                                            every_rank=True)
         torch.cuda.synchronize()
@@ -5138,6 +5447,7 @@ def _tp_train_rank(mesh, argv: list) -> dict:
            "collectives": [b[0] - a[0] for a, b in zip(colls, colls[1:])],
            "collective_host_s": [b[1] - a[1]
                                  for a, b in zip(colls, colls[1:])],
+           "by_op": [_op_delta(a, b) for a, b in zip(by_op, by_op[1:])],
            "shapes": dict(shapes), "splits": dict(splits),
            "params_bytes": held, "opt_bytes": opt,
            "peak_bytes": torch.cuda.max_memory_allocated(dev),
@@ -5145,6 +5455,13 @@ def _tp_train_rank(mesh, argv: list) -> dict:
     del state
     _free()
     return out
+
+
+def _op_delta(a: dict, b: dict) -> dict:
+    """The collectives by op posted between two `_by_op` copies."""
+    return {op: {k: t[k] - a.get(op, {}).get(k, 0) for k in t}
+            for op, t in b.items()
+            if t["calls"] != a.get(op, {}).get("calls", 0)}
 
 
 def _tp_family_cfg(arch: str, layers: int | None):
@@ -5157,12 +5474,13 @@ def _tp_family_cfg(arch: str, layers: int | None):
 
 
 def _tp_family_steps(dev, cfg, rows: int, seq: int, steps: int,
-                     mesh=None) -> dict:
-    """`steps` steps of `make_train_step` (on `mesh`, or at tp=1) from the
-    seeded init on `_family_batch`es, every GEMM recorded by shape and
-    layout, the launch and collective counters set to 0 just before and
-    read just after each step. Returns the losses, grad norms, step times,
-    launches and collectives per step, the shapes, the peak memory, the
+                     mesh=None, zero1: bool = False) -> dict:
+    """`steps` steps of `make_train_step` (on `mesh`, or at tp=1; ZeRO-1
+    where `zero1`) from the seeded init on `_family_batch`es, every GEMM
+    recorded by shape and layout, the launch and collective counters set
+    to 0 just before and read just after each step. Returns the losses,
+    grad norms, step times, launches and collectives per step (also by
+    op), the shapes, the peak memory, the
     master leaves and weight matrices that did not move, and the hash of the B and C
     gradients' first moment after step 1 ((1 - b1) times the clipped
     gradient, elementwise: equal bits on every rank iff the gradients'
@@ -5180,10 +5498,11 @@ def _tp_family_steps(dev, cfg, rows: int, seq: int, steps: int,
 
     api = get_model(cfg)
     state = init_train_state(torch.Generator(dev).manual_seed(0), api, cfg,
-                             device=dev, mesh=mesh)
+                             device=dev, mesh=mesh, zero1=zero1)
     torch.cuda.reset_peak_memory_stats(dev)
     step = make_train_step(api, cfg, AdamWConfig(
-        lr=3e-4, warmup_steps=10, decay_steps=steps), mesh=mesh)
+        lr=3e-4, warmup_steps=10, decay_steps=steps),
+        mesh=mesh, zero1=zero1)
     def sums() -> dict:
         """{(name, "master" or "param"): the leaf's float64 sum}: every
         master leaf and weight matrix (the ones a step must move)."""
@@ -5203,7 +5522,8 @@ def _tp_family_steps(dev, cfg, rows: int, seq: int, steps: int,
     shapes: collections.Counter = collections.Counter()
     splits: collections.Counter = collections.Counter()
     out = {"loss_curve": [], "grad_norms": [], "step_times_s": [],
-           "steps": [], "collectives": [], "collective_host_s": []}
+           "steps": [], "collectives": [], "collective_host_s": [],
+           "by_op": []}
     recording, splitting = _train_recording(shapes, splits)
     ops.tiled_matmul, ops.split3 = recording, splitting
     try:
@@ -5211,7 +5531,7 @@ def _tp_family_steps(dev, cfg, rows: int, seq: int, steps: int,
             batch = _family_batch(dev, cfg, rows, seq, i)
             torch.cuda.synchronize()
             _zero_counts()
-            TP.collectives.calls, TP.collectives.host_s = 0, 0.0
+            TP.reset_collectives()
             t0 = time.perf_counter()
             state, m = step(state, batch)
             out["loss_curve"].append(float(m["loss"]))
@@ -5220,6 +5540,7 @@ def _tp_family_steps(dev, cfg, rows: int, seq: int, steps: int,
             out["steps"].append(_launch_counts())
             out["collectives"].append(TP.collectives.calls)
             out["collective_host_s"].append(TP.collectives.host_s)
+            out["by_op"].append(_by_op())
             if i == 0 and parts:
                 h = hashlib.sha256()
                 for name, (axis, local) in sorted(parts.items()):
@@ -5377,9 +5698,12 @@ def phase_train_tp(dev, tp1: dict) -> dict:
     the split pair and split3) and collectives
     `_tp_train_collectives_per_step`. (c) the SSM, hybrid,
     encoder-decoder and vision families on the same pool
-    (`_tp_families`, `_tp_family_gates`). Then (b) every distinct shard
-    GEMM of (a)'s step against the plain version (`_train_shapes`), and
-    (c)'s new ones. Returns {"launches": per path summed over the ranks,
+    (`_tp_families`, `_tp_family_gates`), and (d) FSDP training of
+    qwen2.5-14b at (data 2, model 1) on the same pool (`_fsdp_run`,
+    `_fsdp_gates`). (a)'s and (d)'s steps post the collectives the mesh
+    dry counts give (`_mesh_gate`). Then (b) every distinct shard GEMM of
+    (a)'s step against the plain version (`_train_shapes`), and (c)'s and
+    (d)'s new ones. Returns {"launches": per path summed over the ranks,
     "entries": (b)'s per-path JSON entries}."""
     import shutil
 
@@ -5413,9 +5737,11 @@ def phase_train_tp(dev, tp1: dict) -> dict:
         times["a"] = time.perf_counter() - t0
         families = _tp_families(dev, pool)
         times["c"] = time.perf_counter() - t0 - times["a"]
-        return ranks, families
+        fsdp = _fsdp_run(dev, pool)
+        times["d"] = time.perf_counter() - t0 - times["a"] - times["c"]
+        return ranks, families, fsdp
 
-    ranks, families = _tp_pool(run)
+    ranks, families, fsdp = _tp_pool(run)
     losses1, norms1 = tp1["loss_curve"], tp1["grad_norms"]
     tokens = TRAIN_BATCH * TRAIN_SEQ
     failed = []
@@ -5460,6 +5786,10 @@ def phase_train_tp(dev, tp1: dict) -> dict:
                 or any(c != coll_want for c in out["collectives"])):
             failed.append(f"rank {r}: launches {out['steps']}, "
                           f"collectives {out['collectives']}")
+        for i, posted in enumerate(out["by_op"]):
+            if not _mesh_gate("mesh train tp (a)", posted):
+                failed.append(f"rank {r} step {i + 1}: collectives by op "
+                              f"{posted} differ from the dry count")
     if any(out["summary"]["loss_curve"] != ranks[0]["summary"]["loss_curve"]
            for out in ranks):
         failed.append("the ranks' losses differ")
@@ -5470,12 +5800,19 @@ def phase_train_tp(dev, tp1: dict) -> dict:
     entries = _train_shapes(dev, shapes, TRAIN_TP_STEPS, tag="train tp (b)",
                             splits=collections.Counter(ranks[0]["splits"]))
     t_c = time.perf_counter()
-    launched += _tp_family_gates(dev, families,
-                                 {tuple(key) for key in shapes},
-                                 {tuple(key) for key in ranks[0]["splits"]})
+    checked = {tuple(key) for key in shapes}
+    checked_splits = {tuple(key) for key in ranks[0]["splits"]}
+    launched += _tp_family_gates(dev, families, checked, checked_splits)
+    t_d = time.perf_counter()
+    for _, _, _, _, _, fam in families:
+        for out in fam:
+            checked |= {tuple(key) for key in out["shapes"]}
+            checked_splits |= {tuple(key) for key in out["splits"]}
+    launched += _fsdp_gates(dev, *fsdp, checked, checked_splits)
     _say(f"[train tp] phase 18 in {time.perf_counter() - t0:.1f} s (ranks "
          f"and pool start (a) {times['a']:.1f} s, (c)'s four families "
-         f"{times['c'] + time.perf_counter() - t_c:.1f} s with their shard "
+         f"{times['c'] + t_d - t_c:.1f} s with their shard GEMM checks, "
+         f"(d) FSDP {times['d'] + time.perf_counter() - t_d:.1f} s with its "
          f"GEMM checks) on {_nvidia_smi()}; tp={TP_RANKS} on one card gives "
          "no multi-card speed figure")
     return {"launches": launched, "entries": entries}
@@ -5559,10 +5896,12 @@ def main() -> int:
     tp_families = phase_tp_families({**moe["streams"], **ssm["streams"]})
     t_join = time.perf_counter()
     ahead.join()
-    _say(f"[dry-run] phases 15 (e) and 16 (d)'s analyses made during phase "
-         f"17: {sorted(k for k in _DRY_AHEAD if ' failed' not in k)}, "
+    _say(f"[dry-run] phases 15 (e) and 16 (d)'s analyses and the mesh dry "
+         f"counts made during phase 17: "
+         f"{sorted(k for k in _DRY_AHEAD if ' failed' not in k)}, "
          f"waited {time.perf_counter() - t_join:.1f} s after it; failed "
          f"{ {k: v for k, v in _DRY_AHEAD.items() if ' failed' in k} }")
+    phase_tp_mesh()
     admit = phase_admit(dev)
     train = phase_train(dev)
     families = phase_families(dev)

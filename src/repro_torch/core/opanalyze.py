@@ -25,8 +25,15 @@ tensors (the dry-run) it costs no device memory and computes nothing.
   launch charges A + B (+ C) + out (the split pair's f32 operand as the
   three bf16 planes it reads), a `split3` launch its f32 matrix and the
   three planes it writes.
-* Collective bytes: 0. One card has no collective; counting the c10d ops
-  of a tensor-parallel step comes with the dry-run's mesh (ROADMAP A7.3).
+* Collectives: every collective the step posts on a dry mesh
+  (`launch.mesh.make_production_mesh`; `distributed.tp` logs each one's
+  op, operand bytes and group size instead of posting it), per chip:
+  calls and operand bytes by op, and wire bytes by the reference's ring
+  model (`hloanalyze._collective_wire`, copied in `collective_wire`): an
+  all-reduce 2 x operand x (g-1)/g, an all-gather operand x (g-1), a
+  reduce-scatter operand x (g-1)/g (its operand the whole input). A step
+  on one card, or on real ranks, counts none here (real ranks count
+  what they post in `tp.collectives`).
 * Memory, in place of XLA's ``memory_analysis``: the bytes of the
   arguments' and the outputs' distinct storages, and a peak-live
   estimate: the arguments plus the most bytes of storages made during the
@@ -54,6 +61,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import flop_registry
 
+from repro_torch.distributed import tp as TP
 from repro_torch.kernels.tiled_matmul import (HBM_BYTES_PER_S,
                                               PEAK_BF16_FLOPS, MetaLaunch,
                                               record_meta)
@@ -122,6 +130,23 @@ def launch_cost(rec: MetaLaunch) -> tuple[float, int, float]:
             max(gemm_bound_s(rec.m, rec.n, rec.k, **dt)))
 
 
+def collective_wire(op: str, operand: float, group: int) -> float:
+    """Wire bytes per chip of one collective of `operand` bytes over a
+    group of `group` ranks: the reference's ring model
+    (`repro.core.hloanalyze._collective_wire`)."""
+    g = group
+    ring = (g - 1) / g if g > 1 else 0.0
+    if op == "all-reduce":
+        return 2.0 * operand * ring
+    if op == "all-gather":
+        return operand * (g - 1)
+    if op == "reduce-scatter":
+        return operand * ring
+    if op == "all-to-all":
+        return operand * ring
+    return operand  # collective-permute
+
+
 def _touched(t: torch.Tensor) -> int:
     """The bytes of the elements `t` holds: a broadcast (stride 0) axis
     counts once."""
@@ -169,7 +194,10 @@ class GemmTally:
 @dataclasses.dataclass
 class StepCost:
     """One step's cost (`analyze_step`). ``flops``, ``hbm_bytes``,
-    ``collective_bytes`` and ``collective_by_op`` are `HloCost`'s fields;
+    ``collective_bytes`` and ``collective_by_op`` (wire bytes per chip)
+    are `HloCost`'s fields; ``collective_calls`` and
+    ``collective_operand_bytes`` count the collectives by op, and
+    ``collective_log`` lists each as `tp.record_collectives` logs it;
     ``gemm_flops`` is the hand-written GEMM's share of ``flops`` and
     ``gemms`` its launches by path ("stream", "wgmma", "split",
     "general", and "split3" for the split kernel)."""
@@ -178,6 +206,9 @@ class StepCost:
     hbm_bytes: float = 0.0
     collective_bytes: float = 0.0
     collective_by_op: dict = dataclasses.field(default_factory=dict)
+    collective_calls: dict = dataclasses.field(default_factory=dict)
+    collective_operand_bytes: dict = dataclasses.field(default_factory=dict)
+    collective_log: list = dataclasses.field(default_factory=list)
     gemm_flops: float = 0.0
     gemms: dict = dataclasses.field(default_factory=dict)
     n_ops: int = 0
@@ -259,7 +290,7 @@ def analyze_step(fn, *args, **kwargs) -> StepCost:
     cost = StepCost()
     known, cost.argument_bytes = _storage_bytes(_tensors((args, kwargs)))
     mode = _Counter(cost, known)
-    with record_meta() as log, mode:
+    with record_meta() as log, TP.record_collectives() as posted, mode:
         out = fn(*args, **kwargs)
     _, cost.output_bytes = _storage_bytes(_tensors(out))
     cost.peak_live_bytes += cost.argument_bytes
@@ -274,4 +305,12 @@ def analyze_step(fn, *args, **kwargs) -> StepCost:
         cost.gemm_flops += flops
         cost.hbm_bytes += nbytes
     cost.flops += cost.gemm_flops
+    cost.collective_log = list(posted)
+    for op, nbytes, group, *_ in posted:
+        wire = collective_wire(op, nbytes, group)
+        cost.collective_calls[op] = cost.collective_calls.get(op, 0) + 1
+        cost.collective_operand_bytes[op] = (
+            cost.collective_operand_bytes.get(op, 0) + nbytes)
+        cost.collective_by_op[op] = cost.collective_by_op.get(op, 0.0) + wire
+        cost.collective_bytes += wire
     return cost

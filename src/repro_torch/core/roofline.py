@@ -16,8 +16,10 @@ that chip's peak.
 `roofline_from_artifacts`: it prices a `core.opanalyze.StepCost` (the
 dry-run's count of a step's ops) where the reference prices XLA's cost
 analysis and HLO text. The reference's `parse_collectives` reads HLO text
-and is not ported; `CollectiveStats` is, and holds zeros until a
-tensor-parallel step's c10d collectives are counted (ROADMAP A7.3).
+and is not ported; `CollectiveStats` is, and holds the collectives the
+step posted on the dry-run's mesh (`StepCost.collective_calls`,
+``collective_operand_bytes`` and ``collective_by_op``), priced at the
+chip's ``ici_link_bw`` as the reference prices them.
 """
 
 from __future__ import annotations
@@ -124,8 +126,9 @@ def roofline_from_cost(name: str, cost, *, n_chips: int = 1,
                        model_flops: float = 0.0, dtype: str = "bf16",
                        chip: ChipSpec | str = "h100") -> RooflineReport:
     """The report of one step from its `core.opanalyze.StepCost` (counted
-    per chip): FLOPs at `chip`'s `dtype` peak, bytes at its HBM rate,
-    collective wire bytes (0 at one chip) at its link rate, and the
+    per chip, on `n_chips` chips): FLOPs at `chip`'s `dtype` peak, bytes
+    at its HBM rate, collective wire bytes (0 at one chip) at its link
+    rate (the reference's ``coll / ici_link_bw``), and the
     peak-live estimate as ``bytes_per_device``. Every dot FLOP is priced at
     the `dtype` peak, so a step whose products run slower (the port's f32
     attention einsums) gets a lower bound, never a higher one."""
@@ -142,7 +145,10 @@ def roofline_from_cost(name: str, cost, *, n_chips: int = 1,
         memory_s=cost.hbm_bytes / spec.hbm_bw,
         collective_s=cost.collective_bytes / link if link else 0.0,
         model_flops=model_flops,
-        collectives=CollectiveStats({}, {}, dict(cost.collective_by_op)),
+        collectives=CollectiveStats(
+            dict(getattr(cost, "collective_calls", {})),
+            dict(getattr(cost, "collective_operand_bytes", {})),
+            dict(cost.collective_by_op)),
         bytes_per_device=float(cost.peak_live_bytes),
         chip=spec.name,
     )

@@ -41,6 +41,15 @@ rank holds whole, whose gradients the train step sums over "model").
 What a rank holds whole blocks of, by kind, is one rule for serving and
 training (`tp_divides`, `check_tp`).
 
+On a (data, model) or (pod, data, model) mesh (the dry-run's, and FSDP's
+on real ranks) the reference's `_logical_to_mesh` is copied whole
+(`logical_to_mesh`): `mesh_spec` is its sanitised `PartitionSpec` of a
+leaf, each axis checked against its own size, `reference_shape` the local
+shape it gives. The port's rank takes its "model" axis from `leaf_axis`
+(whole heads) and its "data" axis from the same rules (`fsdp_axes`: a
+leaf FSDP cuts over "data", which `distributed.fsdp` gathers before
+use).
+
 `set_mesh`/`current_mesh` hold the mesh on the thread, as the reference's
 `set_mesh_rules`/`current_mesh` do: the serving engine installs its own
 before every call (`ServingEngine._activate`), and the model code reads
@@ -155,6 +164,112 @@ def _match(path: str, tp_reduce: str = "psum") -> tuple[str | None, ...]:
         if fnmatch.fnmatch(path, pat):
             return spec
     return ()
+
+
+def axis_size(mesh_shape: dict, ax) -> int:
+    """The ranks of mesh axis `ax` (a name, a tuple of names or None) of a
+    mesh of `mesh_shape` ({axis name: size})."""
+    if ax is None:
+        return 1
+    if isinstance(ax, (tuple, list)):
+        n = 1
+        for a in ax:
+            n *= mesh_shape[a]
+        return n
+    return mesh_shape[ax]
+
+
+def logical_to_mesh(name: str | None, axis_names: tuple, fsdp: bool = False,
+                    expert_axis: str = "model"):
+    """The mesh axis (or axes) the logical `name` lands on: the
+    reference's `_logical_to_mesh`, its thread state (`fsdp`,
+    `expert_axis`) passed in."""
+    if name is None:
+        return None
+    if name == "batch":
+        ax = tuple(a for a in ("pod", "data") if a in axis_names)
+        return ax if len(ax) > 1 else (ax[0] if ax else None)
+    if name == "model":
+        return "model" if "model" in axis_names else None
+    if name == "fsdp":
+        if fsdp and "data" in axis_names:
+            return "data"
+        return None
+    if name == "seq_shard":
+        return "data" if "data" in axis_names else None
+    if name == "seq_tp":
+        return "model" if "model" in axis_names else None
+    if name == "expert":
+        return expert_axis if expert_axis in axis_names else None
+    if name == "fsdp_or_tp":
+        if expert_axis == "model":
+            return logical_to_mesh("fsdp", axis_names, fsdp, expert_axis)
+        return None
+    if name == "tp_if_ep_data":
+        if expert_axis == "data":
+            return "model" if "model" in axis_names else None
+        return None
+    return None
+
+
+def sanitize_mesh_spec(spec: tuple, shape: tuple[int, ...],
+                       mesh_shape: dict) -> tuple:
+    """Drop each mesh axis whose size does not divide its dim (the
+    reference's `sanitize_spec`)."""
+    axes = list(spec) + [None] * (len(shape) - len(spec))
+    return tuple(ax if (ax is not None
+                        and dim % axis_size(mesh_shape, ax) == 0) else None
+                 for ax, dim in zip(axes, shape))
+
+
+def mesh_spec(path: str, shape: tuple[int, ...], mesh_shape: dict,
+              fsdp: bool = False, expert_axis: str = "model",
+              tp_reduce: str = "psum") -> tuple:
+    """The reference's sanitised partition spec of the parameter at `path`
+    of `shape` on a mesh of `mesh_shape` (`param_pspecs`' leaf spec)."""
+    logical = _match(path, tp_reduce)[:len(shape)]
+    names = (None,) * (len(shape) - len(logical)) + tuple(logical)
+    spec = tuple(logical_to_mesh(n, tuple(mesh_shape), fsdp, expert_axis)
+                 for n in names)
+    return sanitize_mesh_spec(spec, shape, mesh_shape)
+
+
+def spec_shape(spec: tuple, shape: tuple[int, ...],
+               mesh_shape: dict) -> tuple[int, ...]:
+    """The local shape a partition spec gives a leaf of `shape`
+    (``NamedSharding.shard_shape``)."""
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return tuple(n // axis_size(mesh_shape, ax) for ax, n in zip(spec, shape))
+
+
+def reference_shape(path: str, shape: tuple[int, ...], mesh_shape: dict,
+                    fsdp: bool = False) -> tuple[int, ...]:
+    """The local shape the reference's rules give the parameter at
+    `path` on a mesh of `mesh_shape` (psum mode)."""
+    return spec_shape(mesh_spec(path, shape, mesh_shape, fsdp), shape,
+                      mesh_shape)
+
+
+def fsdp_axis(path: str, shape: tuple[int, ...], mesh_shape: dict,
+              fsdp: bool) -> int | None:
+    """The axis of the parameter at `path` that FSDP cuts over "data" on a
+    mesh of `mesh_shape`, or None: the dim the reference's rules put on
+    "data" (its "fsdp" and "fsdp_or_tp" names)."""
+    if not fsdp or mesh_shape.get("data", 1) <= 1:
+        return None
+    spec = mesh_spec(path, shape, mesh_shape, fsdp)
+    return next((i for i, ax in enumerate(spec) if ax == "data"), None)
+
+
+def fsdp_axes(model: torch.nn.Module, mesh, cfg=None) -> dict:
+    """{parameter name: its axis cut over "data", or None} of an
+    unsharded `model` on `mesh` where ``cfg.fsdp`` (all None
+    otherwise)."""
+    on = bool(getattr(cfg, "fsdp", False)) and mesh is not None
+    shape = mesh.shape if on else {}
+    return {name: (fsdp_axis(param_path(name), tuple(p.shape), shape, True)
+                   if on else None)
+            for name, p in model.named_parameters()}
 
 
 # the logical names a (1, tp) serving mesh puts on "model": the reference's
@@ -465,16 +580,18 @@ def gather_params(named, mesh, axes: dict[str, int | None], cfg=None,
 
 
 def zero1_axes(shapes: dict[str, tuple], model_axes: dict[str, int | None],
-               data: int) -> dict[str, int | None]:
+               data: int, cut: dict | None = None) -> dict[str, int | None]:
     """The reference's `zero1_shardings` for the port's local leaves: the
     axis over which "data" cuts each leaf's f32 optimizer state, the first
     axis that "model" does not shard and that `data` divides, or None
     (the state stays whole on every data rank; every leaf where `data` is
-    1)."""
+    1, and every leaf `cut` ({name: axis or None}, FSDP's) already cuts
+    over "data": its state is cut with it)."""
     out = {}
+    cut = cut or {}
     for name, shape in shapes.items():
         out[name] = None
-        if data <= 1:
+        if data <= 1 or cut.get(name) is not None:
             continue
         for i, n in enumerate(shape):
             if i != model_axes.get(name) and n > 0 and n % data == 0:
@@ -497,8 +614,10 @@ def data_block(t: torch.Tensor, axis: int | None, mesh) -> torch.Tensor:
 class TrainLayout:
     """Where each leaf of a training state lives on `mesh`: the "model"
     axis of each parameter of the whole model (`axes`, psum mode's
-    `param_axes`), its parts (`parts`) and the "data" axis of its f32
-    optimizer state (`zero1`, `zero1_axes`; None without ZeRO-1). It maps
+    `param_axes`), its parts (`parts`), the "data" axis of its f32
+    optimizer state (`zero1`, `zero1_axes`; None without ZeRO-1) and the
+    "data" axis FSDP cuts the leaf itself on, and its state with it
+    (`fsdp`, `fsdp_axes`; empty without FSDP). It maps
     a flattened state (the checkpoint's "__"-joined keys: ``params__<name>``,
     ``opt__{master,m,v}__<name>``, ``opt__step``, ``rng``) to whole leaves
     (`gather`, a collective every rank calls) and back to this rank's
@@ -508,6 +627,11 @@ class TrainLayout:
     axes: dict
     parts: dict
     zero1: dict
+    fsdp: dict = dataclasses.field(default_factory=dict)
+
+    def data_cut(self) -> set:
+        """The names of the leaves FSDP cuts over "data"."""
+        return {n for n, ax in self.fsdp.items() if ax is not None}
 
     def whole_parts(self) -> dict:
         """{name: (its "model" axis, its parts at a rank's sizes)} of each
@@ -532,16 +656,17 @@ class TrainLayout:
     def _leaf(self, key: str) -> tuple:
         head, _, name = key.partition("__")
         if head == "params":
-            return name, None
+            return name, self.fsdp.get(name)
         if head == "opt":
             kind, _, name = name.partition("__")
             if kind in ("master", "m", "v"):
-                return name, self.zero1.get(name)
+                ax = self.fsdp.get(name)
+                return name, ax if ax is not None else self.zero1.get(name)
         return None, None
 
     def gather(self, flat: dict) -> dict:
-        """Whole leaves: each moment gathered over "data" on its ZeRO-1
-        axis, each sharded leaf over "model" on its axis."""
+        """Whole leaves: each leaf FSDP cuts and each moment gathered over
+        "data" on its axis, each sharded leaf over "model" on its axis."""
         mesh, out = self.mesh, {}
         for key, t in flat.items():
             name, dax = self._leaf(key)
@@ -573,7 +698,8 @@ class TrainLayout:
 def train_layout(model: torch.nn.Module, mesh, cfg=None,
                  zero1: bool = False) -> TrainLayout:
     """The `TrainLayout` of the whole `model` (``meta`` will do) on
-    `mesh` in psum mode, with ZeRO-1's axes where `zero1`."""
+    `mesh` in psum mode, with ZeRO-1's axes where `zero1` and FSDP's
+    where ``cfg.fsdp``."""
     tp = model_size(mesh)
     axes = param_axes(model, tp, "psum", cfg)
     full = {n: tuple(p.shape) for n, p in model.named_parameters()}
@@ -581,8 +707,36 @@ def train_layout(model: torch.nn.Module, mesh, cfg=None,
     local = {n: tuple(local_size(parts[n], tp) if i == axes[n] else d
                       for i, d in enumerate(shape))
              for n, shape in full.items()}
+    fsdp = fsdp_axes(model, mesh, cfg)
     data = mesh.data if (zero1 and mesh is not None) else 1
-    return TrainLayout(mesh, axes, parts, zero1_axes(local, axes, data))
+    return TrainLayout(mesh, axes, parts,
+                       zero1_axes(local, axes, data, fsdp), fsdp)
+
+
+def fsdp_leaf_axis(p: torch.Tensor) -> int | None:
+    """The axis over which FSDP cut the parameter `p` over "data"
+    (`cut_over_data`), or None."""
+    return getattr(p, "fsdp_axis", None)
+
+
+@torch.no_grad()
+def cut_over_data(model: torch.nn.Module, axes: dict, mesh) -> None:
+    """Cut each parameter of `model` that `axes` ({name: "data" axis or
+    None}, `fsdp_axes`) names to this data rank's block, in place, and
+    mark it with its axis (`fsdp_leaf_axis`: `distributed.fsdp` gathers it
+    before use) and each module that holds it with ``fsdp_cut`` (so a
+    model FSDP did not cut costs `distributed.fsdp` one attribute read a
+    block)."""
+    for name, p in model.named_parameters():
+        ax = axes.get(name)
+        if (ax is None or mesh is None or mesh.data == 1
+                or fsdp_leaf_axis(p) is not None):
+            continue
+        p.data = data_block(p.data, ax, mesh)
+        p.fsdp_axis = ax
+        path = name.split(".")[:-1]
+        for i in range(len(path) + 1):
+            model.get_submodule(".".join(path[:i])).fsdp_cut = True
 
 
 # ---------------------------------------------------------------------------
@@ -639,14 +793,34 @@ def state_axes(tree, tp: int, cfg=None):
     return walk(tree, "")
 
 
+def query_kv_heads(cfg, tp: int, rank: int) -> int | None:
+    """In psum mode where tp divides the query heads and not the KV heads
+    (`HEAD_LEAVES`: ``wk`` and ``wv`` whole), the KV heads rank `rank`'s
+    query heads read (`layers.attention_apply`'s span), which its cache
+    holds; None otherwise."""
+    if (getattr(cfg, "tp_reduce", "psum") == "gather" or tp <= 1
+            or getattr(cfg, "tp_collectives", "auto") != "explicit"
+            or cfg.n_heads % tp or cfg.kv_heads % tp == 0):
+        return None
+    H, group = cfg.n_heads // tp, cfg.n_heads // cfg.kv_heads
+    return ((rank + 1) * H - 1) // group + 1 - rank * H // group
+
+
 def local_state_shape(name: str, shape: tuple[int, ...],
                       cfg=None) -> tuple[int, ...]:
     """The local shape, under the current mesh, of the decode-state leaf
     `name` whose whole shape is `shape`: its head or channel axis cut to
     this rank's heads or channels where `state_axis` shards it (by parts
-    for `cfg`'s SSM conv history). Every cache allocator of the port
-    takes its shape from here, so a rank holds only its heads' cache."""
+    for `cfg`'s SSM conv history), or, in psum mode where tp divides the
+    query heads and not the KV heads, a KV cache's heads to those its
+    query heads read (`query_kv_heads`). Every cache allocator of the
+    port takes its shape from here, so a rank holds only its heads'
+    cache."""
     tp = model_size()
+    if name in ("k", "v", "k_pages", "v_pages") and cfg is not None:
+        n = query_kv_heads(cfg, tp, current_mesh().rank if tp > 1 else 0)
+        if n is not None and shape[-2] == cfg.kv_heads:
+            return (*shape[:-2], n, shape[-1])
     ax = state_axis(name, tuple(shape), tp, cfg)
     if ax is None:
         return tuple(shape)

@@ -70,15 +70,27 @@ axes, in the gradient's dtype) is the train step's
 (`all_reduce_data`), and `reduce_over_data` sums a loss's parts over
 "data" (backward identity).
 
-Every collective goes through `_Pending`, `_all_reduce_` or `_gather`,
-which count it and the host time spent posting and waiting for it
-(`collectives`). With gloo, a CUDA tensor is staged through host memory
-inside the collective: the transport of several ranks on one card (NCCL
-refuses two ranks on one device).
+FSDP (``cfg.fsdp`` on a mesh whose "data" axis has more than one rank)
+cuts a leaf over "data" as well (`sharding.fsdp_axes`); `gather_from_data`
+all-gathers such a leaf over "data" before use, and its backward
+reduce-scatters the gradient (`distributed.fsdp` applies it a block at a
+time).
+
+Every collective goes through `_Pending`, `_all_reduce_`, `_gather` or
+`_reduce_scatter_`, which count it (calls and operand bytes by op) and the
+host time spent posting and waiting for it (`collectives`). On a dry mesh (`launch.mesh.DryGroup`
+groups) nothing is posted: each collective makes its output's meta tensor
+and appends (op, operand bytes, group size, axis, elements) to the log of
+`record_collectives` (the dry-run's count; `collectives` is not touched).
+With gloo, a CUDA tensor is staged through host memory inside the
+collective: the transport of several ranks on one card (NCCL refuses two
+ranks on one device).
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 import time
 import types
 
@@ -87,11 +99,59 @@ import torch
 from repro_torch.distributed.sharding import (current_mesh, model_size,
                                               whole_spans)
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import DryGroup
 
 
-# the collectives this process posted and the host seconds spent posting
-# and waiting for them (set both to 0 before a run to read its own)
-collectives = types.SimpleNamespace(calls=0, host_s=0.0)
+# the collectives this process posted: calls, the host seconds spent
+# posting and waiting for them, and {op: {"calls", "bytes"}} (operand
+# bytes: an all-gather's input, an all-reduce's tensor, a reduce-scatter's
+# whole input); `reset_collectives` sets them to 0 before a run
+collectives = types.SimpleNamespace(calls=0, host_s=0.0, by_op={})
+
+# the thread's dry collectives' log while `record_collectives` is open
+_DRY = threading.local()
+
+
+def reset_collectives() -> None:
+    """Set `collectives` to 0."""
+    collectives.calls, collectives.host_s = 0, 0.0
+    collectives.by_op = {}
+
+
+@contextlib.contextmanager
+def record_collectives():
+    """A list that collects (op, operand bytes, group size, axis, operand
+    elements) of every collective this thread posts on a dry mesh while
+    the context is open."""
+    prev = getattr(_DRY, "log", None)
+    _DRY.log = []
+    try:
+        yield _DRY.log
+    finally:
+        _DRY.log = prev
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
+def _count(op: str, x: torch.Tensor, t0: float) -> None:
+    """Count a posted collective of operand `x`."""
+    collectives.calls += 1
+    collectives.host_s += time.perf_counter() - t0
+    tally = collectives.by_op.setdefault(op, {"calls": 0, "bytes": 0})
+    tally["calls"] += 1
+    tally["bytes"] += _nbytes(x)
+
+
+def _dry(group, op: str, x: torch.Tensor) -> bool:
+    """Whether `group` is a dry mesh's; if so, log the collective."""
+    if not isinstance(group, DryGroup):
+        return False
+    log = getattr(_DRY, "log", None)
+    if log is not None:
+        log.append((op, _nbytes(x), group.size, group.axis, x.numel()))
+    return True
 
 
 def _n_chunks(n_cols: int, chunks: int) -> int:
@@ -111,16 +171,19 @@ class _Pending:
 
         x = x.contiguous()
         self.parts = [torch.empty_like(x) for _ in range(mesh.tp)]
+        self.work = None
+        if _dry(mesh.group, "all-gather", x):
+            return
         t = time.perf_counter()
         self.work = dist.all_gather(self.parts, x, group=mesh.group,
                                     async_op=True)
-        collectives.calls += 1
-        collectives.host_s += time.perf_counter() - t
+        _count("all-gather", x, t)
 
     def wait(self) -> list[torch.Tensor]:
-        t = time.perf_counter()
-        self.work.wait()
-        collectives.host_s += time.perf_counter() - t
+        if self.work is not None:
+            t = time.perf_counter()
+            self.work.wait()
+            collectives.host_s += time.perf_counter() - t
         return self.parts
 
 
@@ -133,10 +196,10 @@ def _gather(x: torch.Tensor, dim: int, mesh, group=None,
     group = mesh.group if group is None else group
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(n or mesh.tp)]
-    t = time.perf_counter()
-    dist.all_gather(parts, x, group=group)
-    collectives.calls += 1
-    collectives.host_s += time.perf_counter() - t
+    if not _dry(group, "all-gather", x):
+        t = time.perf_counter()
+        dist.all_gather(parts, x, group=group)
+        _count("all-gather", x, t)
     return torch.cat(parts, dim=dim)
 
 
@@ -144,11 +207,30 @@ def _all_reduce_(y: torch.Tensor, group, op=None) -> torch.Tensor:
     """All-reduce `y` in place over `group` (sum unless `op`), counted."""
     import torch.distributed as dist
 
+    if _dry(group, "all-reduce", y):
+        return y
     t = time.perf_counter()
     dist.all_reduce(y, op=op or dist.ReduceOp.SUM, group=group)
-    collectives.calls += 1
-    collectives.host_s += time.perf_counter() - t
+    _count("all-reduce", y, t)
     return y
+
+
+def _reduce_scatter_(x: torch.Tensor, dim: int, group, n: int
+                     ) -> torch.Tensor:
+    """This rank's block (of `n` in `group`) along `dim` of the sum of the
+    ranks' `x`."""
+    import torch.distributed as dist
+
+    size = x.shape[dim] // n
+    if _dry(group, "reduce-scatter", x):
+        return torch.empty_like(x.narrow(dim, 0, size),
+                                memory_format=torch.contiguous_format)
+    front = x.movedim(dim, 0).contiguous()
+    out = front.new_empty((size, *front.shape[1:]))
+    t = time.perf_counter()
+    dist.reduce_scatter_tensor(out, front, group=group)
+    _count("reduce-scatter", front, t)
+    return out.movedim(0, dim).contiguous()
 
 
 def all_gather(x: torch.Tensor, dim: int = -1, mesh=None) -> torch.Tensor:
@@ -165,13 +247,22 @@ def all_reduce(x: torch.Tensor, mesh=None, op=None) -> torch.Tensor:
 
 
 def all_reduce_data(x: torch.Tensor, mesh=None) -> torch.Tensor:
-    """The sum of the ranks' `x` over "data", in place and in `x`'s dtype
-    (the gradients' reduction; `x` as it is on a mesh of one data
-    rank)."""
+    """The sum of the ranks' `x` over the data-parallel axes ("pod" and
+    "data"), in place and in `x`'s dtype (the gradients' reduction; `x` as
+    it is on a mesh of one data rank)."""
     mesh = mesh or current_mesh()
-    if mesh is None or mesh.data == 1:
+    if mesh is None or mesh.dp == 1:
         return x
-    return _all_reduce_(x, mesh.data_group)
+    return _all_reduce_(x, mesh.batch_group)
+
+
+def all_reduce_pod(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The sum of the ranks' `x` over "pod", in place (`x` as it is on a
+    mesh of one pod)."""
+    mesh = mesh or current_mesh()
+    if mesh is None or mesh.pod == 1:
+        return x
+    return _all_reduce_(x, mesh.pod_group)
 
 
 def _block(x: torch.Tensor, dim: int, mesh) -> torch.Tensor:
@@ -304,19 +395,46 @@ def gather_from_model(x: torch.Tensor, dim: int, mesh=None
 
 
 def reduce_over_data(x: torch.Tensor, mesh=None) -> torch.Tensor:
-    """The sum of the ranks' `x` over "data" (its gradient passes as it
-    is; `x` as it is on a mesh of one data rank)."""
+    """The sum of the ranks' `x` over the data-parallel axes (its gradient
+    passes as it is; `x` as it is on a mesh of one data rank)."""
     mesh = mesh or current_mesh()
-    if mesh is None or mesh.data == 1:
+    if mesh is None or mesh.dp == 1:
         return x
-    return _ReduceFromModel.apply(x, mesh.data_group)
+    return _ReduceFromModel.apply(x, mesh.batch_group)
 
 
 def data_size(mesh=None) -> int:
-    """The size of the "data" axis of `mesh` (default: the current mesh);
-    1 without one."""
+    """The ranks over the data-parallel axes of `mesh` (default: the
+    current mesh); 1 without one."""
     mesh = mesh if mesh is not None else current_mesh()
-    return 1 if mesh is None else int(mesh.data)
+    return 1 if mesh is None else int(mesh.dp)
+
+
+class _GatherFromData(torch.autograd.Function):
+    """FSDP's use of a leaf cut over "data": all-gather along `dim`
+    forward; backward, the gradient reduce-scattered over "data" (each
+    data rank's share of the whole leaf's gradient summed, this rank's
+    block kept)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, mesh):
+        ctx.dim, ctx.mesh = dim, mesh
+        return _gather(x, dim, mesh, mesh.data_group, mesh.data)
+
+    @staticmethod
+    def backward(ctx, g):
+        m = ctx.mesh
+        return (_reduce_scatter_(g, ctx.dim, m.data_group, m.data),
+                None, None)
+
+
+def gather_from_data(x: torch.Tensor, dim: int, mesh=None) -> torch.Tensor:
+    """The whole of a leaf cut over "data" along `dim` (FSDP): its
+    gradient is reduce-scattered back to this rank's block."""
+    mesh = mesh or current_mesh()
+    if _differentiable(x):
+        return _GatherFromData.apply(x, dim, mesh)
+    return _gather(x, dim, mesh, mesh.data_group, mesh.data)
 
 
 def _differentiable(*ts) -> bool:
@@ -485,6 +603,48 @@ class _OwnedRows(torch.autograd.Function):
         return torch.where(mine, g, torch.zeros_like(g)), None, None
 
 
+class _TakeRows(torch.autograd.Function):
+    """``table[idx]`` whose backward sums each row's cotangents in f32 and
+    rounds the sum once to the table's dtype. Indexing's own backward adds
+    a repeated row's cotangents in the table's dtype one at a time: in
+    bf16 a token repeated across a batch (the Zipf-drawn training data's
+    frequent ones) loses the small addends: the embedding's gradient of
+    qwen2.5-14b (2 layers, 4 x 512 tokens) read 1.9% low in norm against
+    f32 on an H100 (``tools/grad_gap.py``). The rows are sorted and summed by segment
+    (fixed shapes, so the dry-run's meta tensors take it too)."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.shape = table.shape
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        flat = idx.reshape(-1).long()
+        g = g.reshape(flat.numel(), *ctx.shape[1:])
+        rows, order = torch.sort(flat)
+        new = torch.ones_like(rows, dtype=torch.bool)
+        new[1:] = rows[1:] != rows[:-1]
+        seg = torch.cumsum(new, 0) - 1
+        sums = torch.zeros(g.shape, dtype=torch.float32, device=g.device)
+        sums.index_put_((seg,), g[order].float(), accumulate=True)
+        # each segment's row; a segment past the last holds a zero sum
+        row_of = torch.zeros_like(rows).scatter_(0, seg, rows)
+        out = torch.zeros(ctx.shape, dtype=g.dtype, device=g.device)
+        out.index_put_((row_of,), sums.to(g.dtype), accumulate=True)
+        return out, None
+
+
+def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]``; where autograd records, with the backward of
+    `_TakeRows` (each row's cotangents summed in f32)."""
+    if _differentiable(table):
+        return _TakeRows.apply(table, idx)
+    return table[idx]
+
+
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, vocab: int
                  ) -> torch.Tensor:
     """Rows `tokens` of an embedding table of `vocab` rows: this rank
@@ -495,12 +655,12 @@ def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, vocab: int
     (`_OwnedRows`) gives each rank's rows the cotangent of its tokens."""
     rows = table.shape[0]
     if rows == vocab:
-        return table[tokens]
+        return take_rows(table, tokens)
     mesh = current_mesh()
     tok = tokens.long()
     lo = mesh.rank * rows
     mine = (tok >= lo) & (tok < lo + rows)
-    local = table[(tok - lo).clamp(0, rows - 1)]
+    local = take_rows(table, (tok - lo).clamp(0, rows - 1))
     local = torch.where(mine[..., None], local, torch.zeros_like(local))
     owner = torch.div(tok, rows, rounding_mode="floor")
     return _OwnedRows.apply(local, owner, mesh)

@@ -20,8 +20,15 @@ card per rank passes, and no test or script of the repository runs it. A
 rank's device is its function's business: the entry points take
 ``device=``.
 
-The reference's `make_production_mesh` (256 TPU chips for the dry-run)
-waits for the dry-run's mesh (ROADMAP A7.3).
+`make_production_mesh` is the reference's dry-run mesh, (16, 16) over
+("data", "model") or (2, 16, 16) over ("pod", "data", "model"), as one
+rank sees it: a *dry* `Mesh` at rank (0, ..., 0) whose groups are
+`DryGroup` sentinels naming an axis and its size. It makes no
+`torch.distributed` call; `distributed.tp` records each collective posted
+on a dry group (op, operand bytes, group size) and makes its output's
+meta tensor instead (`core.opanalyze.analyze_step` counts them). The
+batch and the gradients go over `dp_axes` ("pod" and "data"); FSDP and
+ZeRO-1 cut over "data" alone, as the reference's rules do.
 """
 
 from __future__ import annotations
@@ -35,27 +42,91 @@ import time
 import traceback
 
 AXIS_NAMES = ("data", "model")
+POD_AXIS_NAMES = ("pod", "data", "model")
+
+
+@dataclasses.dataclass(frozen=True)
+class DryGroup:
+    """The group along `axis` of a dry mesh: `size` ranks that no process
+    holds (`distributed.tp` records what is posted on it)."""
+
+    axis: str
+    size: int
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A (data, tp) mesh: the "model" `group` (None: the default group, or
-    no group at all when the axis has one rank), this process's `rank` on
-    the "model" axis, the axis sizes, and the "data" axis's `data_group`
-    and this process's `data_rank` on it."""
+    """A (data, tp) or (pod, data, tp) mesh: the "model" `group` (None:
+    the default group, or no group at all when the axis has one rank),
+    this process's `rank` on the "model" axis, the axis sizes, the "data"
+    axis's `data_group` and this process's `data_rank` on it, and the
+    "pod" axis's. `dp_group` spans "pod" and "data" (the batch's axes,
+    `dp_axes`); on a mesh without pods it is the "data" group."""
 
     group: object
     rank: int
     tp: int
     data: int = 1
-    axis_names: tuple[str, str] = AXIS_NAMES
+    axis_names: tuple[str, ...] = AXIS_NAMES
     data_group: object = None
     data_rank: int = 0
+    pod: int = 1
+    pod_group: object = None
+    pod_rank: int = 0
+    dp_group: object = None
 
     @property
     def shape(self) -> dict[str, int]:
         """{axis name: size}, as a JAX mesh's ``shape``."""
-        return {"data": self.data, "model": self.tp}
+        sizes = {"pod": self.pod, "data": self.data, "model": self.tp}
+        return {a: sizes[a] for a in self.axis_names}
+
+    @property
+    def size(self) -> int:
+        """The ranks of the mesh."""
+        return self.pod * self.data * self.tp
+
+    @property
+    def dp(self) -> int:
+        """The ranks over `dp_axes`: the batch's and the gradients'."""
+        return self.pod * self.data
+
+    @property
+    def dp_rank(self) -> int:
+        """This rank's place over `dp_axes` (pod-major)."""
+        return self.pod_rank * self.data + self.data_rank
+
+    @property
+    def batch_group(self):
+        """The group over `dp_axes`."""
+        return self.data_group if self.pod == 1 else self.dp_group
+
+
+def dp_axes(mesh) -> tuple[str, ...]:
+    """The data-parallel axes of `mesh`: "pod" and "data" where present
+    (the reference's `dp_axes`)."""
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def make_dry_mesh(shape: tuple[int, ...]) -> Mesh:
+    """The dry mesh of `shape`, (data, model) or (pod, data, model), at
+    rank (0, ..., 0): no process group, no `torch.distributed` call."""
+    if len(shape) not in (2, 3):
+        raise ValueError(f"a dry mesh is 2-D or 3-D, not {shape}")
+    names = AXIS_NAMES if len(shape) == 2 else POD_AXIS_NAMES
+    sizes = dict(zip(names, (int(n) for n in shape)))
+    pod, data, tp = sizes.get("pod", 1), sizes["data"], sizes["model"]
+    return Mesh(DryGroup("model", tp), 0, tp, data=data, axis_names=names,
+                data_group=DryGroup("data", data), pod=pod,
+                pod_group=DryGroup("pod", pod) if pod > 1 else None,
+                dp_group=DryGroup("dp", pod * data))
+
+
+def make_production_mesh(multi_pod: bool = False) -> Mesh:
+    """The reference's production mesh as rank (0, ..., 0) sees it, dry:
+    (16, 16) over ("data", "model"), or (2, 16, 16) over ("pod", "data",
+    "model") with `multi_pod`."""
+    return make_dry_mesh((2, 16, 16) if multi_pod else (16, 16))
 
 
 def make_serving_mesh(tp: int = 1, group=None) -> Mesh:
@@ -119,7 +190,7 @@ def make_host_mesh(model_parallel: int = 1,
         local = me % (mp * dp)
         _HOST_MESHES[key] = Mesh(rows[me], local % mp, mp, data=dp,
                                  data_group=cols[me],
-                                 data_rank=local // mp)
+                                 data_rank=local // mp, dp_group=cols[me])
     return _HOST_MESHES[key]
 
 

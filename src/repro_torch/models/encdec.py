@@ -35,6 +35,7 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import fsdp
 from repro_torch.distributed import tp as TP
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as tfm
@@ -127,6 +128,14 @@ def enc_block_apply(blk: EncBlock, x: torch.Tensor, cfg: ModelConfig, *,
     return x + L.swiglu_apply(blk.mlp, h, cfg, cfg.d_ff)
 
 
+def _enc_layer(blk: EncBlock, x: torch.Tensor, cfg: ModelConfig, *,
+               positions, src_lens=None) -> torch.Tensor:
+    """One encoder block, its leaves cut over "data" gathered first,
+    inside what `remat` recomputes (FSDP: `distributed.fsdp`)."""
+    return enc_block_apply(fsdp.gathered(blk), x, cfg, positions=positions,
+                           src_lens=src_lens)
+
+
 def encode(model: EncDecLM, src_embeds: torch.Tensor, cfg: ModelConfig,
            src_lens: torch.Tensor | None = None) -> torch.Tensor:
     """The encoder over (B, T, d) source embeddings: every block (each
@@ -136,8 +145,8 @@ def encode(model: EncDecLM, src_embeds: torch.Tensor, cfg: ModelConfig,
     positions = torch.arange(T, device=src_embeds.device).expand(B, T)
     x = src_embeds.to(L.torch_dtype(cfg.activation_dtype))
     for blk in model.encoder:
-        x = tfm.remat(cfg, enc_block_apply, blk, x, cfg,
-                      positions=positions, src_lens=src_lens)
+        x = tfm.remat(cfg, _enc_layer, blk, x, cfg, positions=positions,
+                      src_lens=src_lens)
     return L.rmsnorm(model.enc_ln_f, x, cfg.norm_eps)
 
 
@@ -214,7 +223,9 @@ def dec_serve_block(blk: DecBlock, x: torch.Tensor, cfg: ModelConfig, *,
 def _dec_train_layer(blk: DecBlock, x: torch.Tensor, memory: torch.Tensor,
                      cfg: ModelConfig, positions) -> torch.Tensor:
     """One decoder layer of the training forward: its cross-attention KV
-    from the encoder output, then the block with no cache."""
+    from the encoder output, then the block with no cache (its leaves cut
+    over "data" gathered first, inside what `remat` recomputes)."""
+    blk = fsdp.gathered(blk)
     return dec_block_apply(blk, x, cfg, positions=positions,
                            cross_kv=_cross_kv(blk.cross_attn, memory,
                                               cfg))[0]
@@ -308,7 +319,7 @@ def encdec_admit(model: EncDecLM, packed: dict, state: dict,
     memory = encode(model, packed["src_embeds"], cfg, src_lens=src_len)
     T = memory.shape[1]
     for i, blk in enumerate(model.decoder):
-        cross = _cross_kv(blk.cross_attn, memory, cfg)
+        cross = _cross_kv(fsdp.gathered(blk.cross_attn), memory, cfg)
         kv["xk"][i, :, :T] = cross["k"]
         kv["xv"][i, :, :T] = cross["v"]
     return {**state, "src_len": src_len}

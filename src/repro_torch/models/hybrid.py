@@ -26,6 +26,7 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import fsdp
 from repro_torch.distributed.sharding import local_state_shape
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
@@ -109,16 +110,19 @@ def _group(model: HybridLM, g: int, x: torch.Tensor, cfg: ModelConfig,
            positions, cache: dict | None = None, cache_index=None,
            seq_lens=None) -> torch.Tensor:
     """Group `g`: its Mamba2 blocks, then the shared block, over the
-    group's views of `cache` (written in place), or with no cache."""
+    group's views of `cache` (written in place), or with no cache. Each
+    block's leaves cut over "data" are gathered here, inside what `remat`
+    recomputes (FSDP: `distributed.fsdp`)."""
     E = cfg.attn_every
     for e in range(E):
         x = ssm.mamba2_block_apply(
-            model.blocks[g * E + e], x, cfg, positions=positions,
+            fsdp.gathered(model.blocks[g * E + e]), x, cfg,
+            positions=positions,
             cache=None if cache is None else {
                 k: v[g, e] for k, v in cache["mamba"].items()},
             cache_index=cache_index, seq_lens=seq_lens)[0]
     return tfm.dense_block_apply(
-        model.shared_attn, x, cfg, positions=positions,
+        fsdp.gathered(model.shared_attn), x, cfg, positions=positions,
         cache=None if cache is None else {
             k: v[g] for k, v in cache["attn"].items()},
         cache_index=cache_index, seq_lens=seq_lens)[0]

@@ -265,7 +265,7 @@ def moe_ffn_shard_map(p: Params, x: torch.Tensor, cfg: ModelConfig
         0, idx, torch.ones_like(idx))
     aux = (cfg.router_aux_coef * E
            * torch.sum(counts.float() / (T * K) * probs.mean(0)))
-    aux = TP.reduce_over_data(aux, mesh) / mesh.data
+    aux = TP.reduce_over_data(aux, mesh) / mesh.dp
     return out.to(x.dtype).reshape(B, S, d), aux
 
 

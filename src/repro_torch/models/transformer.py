@@ -25,6 +25,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import fsdp
 from repro_torch.distributed import tp as TP
 from repro_torch.distributed.sharding import (current_mesh,
                                               local_state_shape, set_mesh)
@@ -247,7 +248,8 @@ def _embed(model: TransformerLM, tokens: torch.Tensor,
            cfg: ModelConfig) -> torch.Tensor:
     """The token embeddings in the activation dtype (a vocab-sharded table
     looks up through `tp.embed_lookup`)."""
-    return TP.embed_lookup(model.embed["table"], tokens, cfg.vocab).to(
+    table = fsdp.leaf(model.embed["table"])
+    return TP.embed_lookup(table, tokens, cfg.vocab).to(
         _dtype(cfg.activation_dtype))
 
 
@@ -256,9 +258,9 @@ def _unembed(model: TransformerLM, x: torch.Tensor,
     """f32 logits over the whole vocabulary (a vocab-sharded head gathers
     its columns, `tp.unembed`)."""
     if cfg.tie_embeddings:
-        return TP.unembed(x, model.embed["table"], cfg.vocab,
+        return TP.unembed(x, fsdp.leaf(model.embed["table"]), cfg.vocab,
                           transpose_b=True)
-    return TP.unembed(x, model.head["w"], cfg.vocab)
+    return TP.unembed(x, fsdp.leaf(model.head["w"]), cfg.vocab)
 
 
 def _run_blocks(model: TransformerLM, x: torch.Tensor, cfg: ModelConfig, *,
@@ -275,8 +277,9 @@ def _run_blocks(model: TransformerLM, x: torch.Tensor, cfg: ModelConfig, *,
     apply = block or block_apply(cfg)
     for i, blk in enumerate(model.blocks if blocks is None else blocks):
         layer_cache = {name: leaf[i] for name, leaf in cache.items()}
-        x = apply(blk, x, cfg, positions=positions, cache=layer_cache,
-                  cache_index=cache_index, seq_lens=seq_lens)[0]
+        x = apply(fsdp.gathered(blk), x, cfg, positions=positions,
+                  cache=layer_cache, cache_index=cache_index,
+                  seq_lens=seq_lens)[0]
     return x
 
 
@@ -309,8 +312,10 @@ def remat(cfg: ModelConfig, fn, *args, **kwargs):
 
 def _train_block(apply, blk, x: torch.Tensor, cfg: ModelConfig,
                  positions: torch.Tensor) -> tuple:
-    """One block of the training forward (no cache): (x, aux loss)."""
-    x, _, aux = apply(blk, x, cfg, positions=positions)
+    """One block of the training forward (no cache): (x, aux loss). Its
+    leaves cut over "data" are gathered here, inside what `remat`
+    recomputes (FSDP: `distributed.fsdp`)."""
+    x, _, aux = apply(fsdp.gathered(blk), x, cfg, positions=positions)
     return x, aux
 
 
@@ -335,7 +340,7 @@ def head_loss(model: nn.Module, x: torch.Tensor, batch: dict,
     rank gathers the whole logits."""
     x = L.rmsnorm(model.ln_f, x, cfg.norm_eps)
     tied = cfg.tie_embeddings
-    w = model.embed["table"] if tied else model.head["w"]
+    w = fsdp.leaf(model.embed["table"] if tied else model.head["w"])
     cols = w.shape[0] if tied else w.shape[-1]
     if TP.psum_mode(cfg) and cols != cfg.vocab:
         xe = TP.copy_to_model(x)

@@ -9,9 +9,11 @@ place: at full size the optimizer state is three f32 copies of the model,
 and a functional update would hold a fourth.
 
 On a mesh (`launch.mesh`) each rank holds its shards' state. The global
-norm sums the squares of the leaves "model" shards over the "model" group
-and counts every whole leaf once, so the clip scale is the same on every
-rank (a leaf cut by parts counts the parts it holds whole once).
+norm sums the squares of the leaves "model" shards over the "model" group,
+those FSDP cuts over "data" over the "data" group, and counts every whole
+leaf once, so the clip scale is the same on every rank (a leaf cut by
+parts counts the parts it holds whole once). A leaf FSDP cuts keeps its
+state cut with it, so ZeRO-1 leaves it alone.
 ZeRO-1 (the reference's `zero1_shardings`; `zero1` below, from
 `distributed.sharding.zero1_axes`) cuts master, m and v further over
 "data": each data rank updates its block of a leaf, an elementwise update
@@ -81,16 +83,19 @@ def init_opt_state(params, zero1: dict | None = None, mesh=None) -> dict:
 
 
 def global_norm(tree: Mapping[str, torch.Tensor], mesh=None,
-                sharded: Mapping | None = None) -> torch.Tensor:
+                sharded: Mapping | None = None,
+                data_cut=()) -> torch.Tensor:
     """The f32 L2 norm over every leaf; on a mesh whose "model" axis has
-    more than one rank, of the whole leaves: the squares of the leaves
-    named in `sharded` (this rank's shards) summed over "model", every
-    other leaf (whole, the same on every rank) counted once. `sharded`
-    maps each such name to None, or to (axis, parts at this rank's sizes)
-    for a leaf cut by parts that holds some whole
-    (`sharding.TrainLayout.sharded`): its cut parts are summed over
+    more than one rank, or with leaves cut over "data", of the whole
+    leaves: the squares of the leaves named in `sharded` (this rank's
+    shards) summed over "model", those of the leaves in `data_cut`
+    (FSDP's) over "data", every other leaf (whole, the same on every rank)
+    counted once. `sharded` maps each such name to None, or to (axis,
+    parts at this rank's sizes) for a leaf cut by parts that holds some
+    whole (`sharding.TrainLayout.sharded`): its cut parts are summed over
     "model" and its whole parts counted once."""
-    if mesh is None or mesh.tp == 1:
+    cut_d = set(data_cut) if mesh is not None and mesh.data > 1 else set()
+    if mesh is None or (mesh.tp == 1 and not cut_d):
         return torch.sqrt(torch.stack(
             [x.float().square().sum() for x in tree.values()]).sum())
     from repro_torch.distributed import tp as TP
@@ -99,41 +104,59 @@ def global_norm(tree: Mapping[str, torch.Tensor], mesh=None,
     spec = sharded or {}
     zero = torch.zeros((), dtype=torch.float32,
                        device=next(iter(tree.values())).device)
-    part, whole = zero, zero
+    # (summed over "model", counted once) x (summed over "data" or not)
+    part, whole, part_d, whole_d = zero, zero, zero, zero
     for n, x in tree.items():
         sq = x.float().square()
+        d = n in cut_d
         if n not in spec:
-            whole = whole + sq.sum()
-        elif spec[n] is None:
-            part = part + sq.sum()
-        else:
+            if d:
+                whole_d = whole_d + sq.sum()
+            else:
+                whole = whole + sq.sum()
+            continue
+        if spec[n] is not None:
             axis, parts = spec[n]
             for lo, size in whole_spans(parts):
                 block = sq.narrow(axis, lo, size)
-                whole = whole + block.sum()
+                if d:
+                    whole_d = whole_d + block.sum()
+                else:
+                    whole = whole + block.sum()
                 block.zero_()        # what is left is the cut parts
+        if d:
+            part_d = part_d + sq.sum()
+        else:
             part = part + sq.sum()
-    return torch.sqrt(TP.all_reduce(part.reshape(1), mesh)[0] + whole)
+    if cut_d:
+        both = TP._all_reduce_(torch.stack([part_d, whole_d]),
+                               mesh.data_group)
+        part, whole = part + both[0], whole + both[1]
+    if mesh.tp > 1:
+        part = TP.all_reduce(part.reshape(1), mesh)[0]
+    return torch.sqrt(part + whole)
 
 
 @torch.no_grad()
 def apply_updates(params, grads: Mapping[str, torch.Tensor], opt_state: dict,
                   cfg: AdamWConfig, *, mesh=None,
                   sharded: Mapping | None = None,
-                  zero1: dict | None = None) -> tuple:
+                  zero1: dict | None = None, data_cut=()) -> tuple:
     """One AdamW step: the gradients (any float dtype, keyed as the
     params) clipped to ``cfg.grad_clip`` by their global norm, moments with
     bias correction, decoupled weight decay on the f32 master, the params
     cast back from the master. Moments, master and params are updated in
     place; returns (params, opt_state with ``step + 1``, metrics: grad_norm,
     lr, clip_scale). On `mesh`, `sharded` names the leaves "model" shards
-    (`global_norm`), and `zero1` ({name: axis or None}) the leaves whose
-    state is this data rank's block: their update runs on that block of
-    the gradient and the params are all-gathered over "data"."""
+    and `data_cut` those FSDP cuts over "data" (`global_norm`; a leaf cut
+    over "data", its state and its gradient are this rank's blocks), and
+    `zero1` ({name: axis or None}) the leaves whose state is this data
+    rank's block of a whole leaf: their update runs on that block of the
+    gradient and the params are all-gathered over "data"."""
     named = named_params(params)
     zero1 = zero1 or {}
     step = opt_state["step"] + 1
-    gnorm = global_norm(grads, mesh, sharded)
+    gnorm = global_norm(grads, mesh, sharded, data_cut)
     scale = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     lr = lr_at(cfg, step)
     b1, b2 = cfg.b1, cfg.b2

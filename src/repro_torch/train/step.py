@@ -19,7 +19,14 @@ gradient's dtype before the update, which cuts the optimizer state over
 where tp divides what the kind shards (`sharding.check_tp`, the rule the
 serving engine shares); before the update, the gradient of each part a
 rank holds whole in a leaf cut by parts (Mamba2's B and C) is summed
-over "model" (`reduce_gradients`).
+over "model" (`reduce_gradients`). With ``cfg.fsdp`` on a mesh of more
+than one data rank, FSDP cuts each leaf the reference's rules put on
+"data" to this rank's block (`sharding.cut_over_data`), with its
+optimizer state; the block loops gather it before use
+(`distributed.fsdp`) and the backward reduce-scatters its gradient, so the
+step sums only the other leaves' over "data" (and FSDP's over "pod").
+The batch and the gradients go over both data-parallel axes, "pod" and
+"data" (`launch.mesh.dp_axes`).
 """
 
 from __future__ import annotations
@@ -37,42 +44,48 @@ from repro_torch.optim.adamw import AdamWConfig, apply_updates, init_opt_state
 State = dict[str, Any]
 
 
-def train_config(cfg: ModelConfig, mesh=None) -> ModelConfig:
+def train_config(cfg: ModelConfig, mesh=None, check: bool = True
+                 ) -> ModelConfig:
     """`cfg` as a train step on `mesh` runs it: explicit collectives in
     psum mode where the "model" axis has more than one rank (raising
     ValueError, naming the quantity, where tp does not divide what the
-    kind shards: `sharding.check_tp`), else `cfg` as it is."""
+    kind shards: `sharding.check_tp`, unless not `check`: the dry-run's
+    rank then holds such leaves whole), else `cfg` as it is."""
     tp = sharding.model_size(mesh)
     if tp == 1:
         return cfg
-    sharding.check_tp(cfg, tp, "psum")
+    if check:
+        sharding.check_tp(cfg, tp, "psum")
     return dataclasses.replace(cfg, tp_collectives="explicit",
                                tp_reduce="psum")
 
 
 def init_train_state(generator: torch.Generator, model, cfg: ModelConfig, *,
                      device: str | torch.device = "cuda", mesh=None,
-                     zero1: bool = False) -> State:
+                     zero1: bool = False, check: bool = True) -> State:
     """Random params from `generator` (on `device`), made trainable, with a
     fresh optimizer state and the JAX package's ``rng`` leaf (the key data
     of ``jax.random.key(0)``: two zero uint32 words), carried unchanged.
     On `mesh` every rank draws the whole model from the same generator
-    state and keeps its shard (`shard_state`), so the weights are tp=1's."""
+    state and keeps its shard (`shard_state`), so the weights are tp=1's.
+    `check` as in `train_config`."""
     params = model.init(cfg, generator, device=device)
-    return shard_state(params, model, cfg, mesh, zero1)
+    return shard_state(params, model, cfg, mesh, zero1, check)
 
 
 def shard_state(params, model, cfg: ModelConfig, mesh=None,
-                zero1: bool = False) -> State:
+                zero1: bool = False, check: bool = True) -> State:
     """A fresh train state of whole `params` (a module; cut in place to
-    `mesh`'s rank's shards in psum mode, `sharding.shard_params`), made
-    trainable, its optimizer state cut over "data" where `zero1`."""
+    `mesh`'s rank's shards in psum mode, `sharding.shard_params`, and over
+    "data" where ``cfg.fsdp``, `sharding.cut_over_data`), made trainable,
+    its optimizer state cut over "data" where `zero1`."""
     layout = None
     if mesh is not None:
-        cfg = train_config(cfg, mesh)
+        cfg = train_config(cfg, mesh, check)
         whole = model.init(cfg, None, device="meta")
         sharding.shard_params(params, mesh, "psum", whole=whole, cfg=cfg)
         layout = sharding.train_layout(whole, mesh, cfg, zero1)
+        sharding.cut_over_data(params, layout.fsdp, mesh)
     for p in params.parameters():
         p.requires_grad_(True)
     return {"params": params,
@@ -96,44 +109,54 @@ def reduce_gradients(grads: dict, layout, mesh) -> None:
     """The step's reductions of this rank's gradients, in place, before
     the update: the parts a rank holds whole in a leaf cut by parts
     summed over "model" (each rank's is its heads' share:
-    `tp.sum_whole_parts`), then every leaf summed over "data"."""
+    `tp.sum_whole_parts`), then every leaf summed over the data-parallel
+    axes, but a leaf FSDP cuts over "data" (its backward reduce-scattered
+    it there) only over "pod"."""
+    cut = layout.data_cut() if layout is not None else set()
     if layout is not None:
         TP.sum_whole_parts(grads, layout.whole_parts(), mesh)
-    for g in grads.values():
-        TP.all_reduce_data(g, mesh)
+    for name, g in grads.items():
+        if name in cut:
+            TP.all_reduce_pod(g, mesh)
+        else:
+            TP.all_reduce_data(g, mesh)
 
 
 def _data_rows(batch: dict, mesh) -> dict:
     """This data rank's rows of the global batch (every leaf cut on its
-    leading axis)."""
-    if mesh is None or mesh.data == 1:
+    leading axis over the data-parallel axes)."""
+    if mesh is None or mesh.dp == 1:
         return batch
     out = {}
     for k, v in batch.items():
-        if v.shape[0] % mesh.data:
+        if v.shape[0] % mesh.dp:
             raise ValueError(f"batch leaf {k} of {v.shape[0]} rows does not "
-                             f"split over {mesh.data} data ranks")
-        n = v.shape[0] // mesh.data
-        out[k] = v[mesh.data_rank * n:(mesh.data_rank + 1) * n]
+                             f"split over {mesh.dp} data ranks")
+        n = v.shape[0] // mesh.dp
+        out[k] = v[mesh.dp_rank * n:(mesh.dp_rank + 1) * n]
     return out
 
 
 def make_train_step(model, cfg: ModelConfig, opt_cfg: AdamWConfig,
                     microbatches: int = 1, *, mesh=None,
-                    zero1: bool = False) -> Callable:
+                    zero1: bool = False, local_batch: bool = False,
+                    check: bool = True) -> Callable:
     """The train step of `model` (a `ModelApi` whose `loss` is ported).
     With `microbatches` > 1 the batch's leading axis is cut into that many
     splits whose gradients are summed in f32 and averaged, as the JAX
     package's scan does; the metrics are the last split's. On `mesh` (a
     state from `init_train_state(mesh=, zero1=)`, the same `zero1`) the
     step runs as the module docstring says; the mesh is installed
-    (`sharding.set_mesh`) for the step's duration."""
+    (`sharding.set_mesh`) for the step's duration. With `local_batch` the
+    batch given is this data rank's rows already (the dry-run's); `check`
+    as in `train_config`."""
     layout = None
     if mesh is not None:
-        cfg = train_config(cfg, mesh)
+        cfg = train_config(cfg, mesh, check)
         layout = sharding.train_layout(model.init(cfg, None, device="meta"),
                                        mesh, cfg, zero1)
     sharded = layout.sharded() if layout else {}
+    data_cut = layout.data_cut() if layout else set()
 
     def grads_of(params, names, batch):
         if microbatches == 1:
@@ -161,12 +184,13 @@ def make_train_step(model, cfg: ModelConfig, opt_cfg: AdamWConfig,
         prev = sharding.current_mesh()
         sharding.set_mesh(mesh)
         try:
-            loss, metrics, grads = grads_of(params, names,
-                                            _data_rows(batch, mesh))
+            rows = batch if local_batch else _data_rows(batch, mesh)
+            loss, metrics, grads = grads_of(params, names, rows)
             reduce_gradients(grads, layout, mesh)
             _, opt, opt_metrics = apply_updates(
                 params, grads, state["opt"], opt_cfg, mesh=mesh,
-                sharded=sharded, zero1=layout and layout.zero1)
+                sharded=sharded, zero1=layout and layout.zero1,
+                data_cut=data_cut)
         finally:
             sharding.set_mesh(prev)
         del grads

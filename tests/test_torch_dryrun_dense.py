@@ -139,11 +139,40 @@ def test_run_cell_writes_the_reference_keys(tmp_path):
     assert dryrun.run_cell("qwen2-7b", "decode_32k", out_dir=tmp_path) == r
 
 
-@pytest.mark.parametrize("variant", dryrun.MESH_VARIANTS)
+@pytest.mark.parametrize("variant", dryrun.HONOURED_VARIANTS)
+def test_honoured_variants_run_on_the_mesh(variant, tmp_path):
+    """``tpx``, ``kv_batch`` and ``moe_smap`` run a full-size decode cell
+    on the 16x16 mesh. ``tpx`` is the port's own psum mode: its artifact
+    is the default cell's but for ``variant`` and the times. ``kv_batch``
+    cuts the cache on the batch alone: qwen2-7b's 4 KV heads do not divide
+    tp = 16, so the default's sequence cut over "model" is a departure and
+    kv_batch's is not."""
+    arch = "olmoe-1b-7b" if variant == "moe_smap" else "qwen2-7b"
+    assert dryrun.main(["--arch", arch, "--shape", "decode_32k", "--mesh",
+                        "single", "--variant", variant, "--out",
+                        str(tmp_path)]) == 0
+    got = dryrun.run_cell(arch, "decode_32k", mesh="single",
+                          variant=variant, out_dir=tmp_path)
+    assert got["variant"] == variant and got["n_chips"] == 256
+    assert got["collective_wire_bytes_per_chip"] > 0
+    base = dryrun.run_cell(arch, "decode_32k", mesh="single",
+                           out_dir=tmp_path)
+    timing = {"variant", "build_s", "analyze_s", "roofline"}
+    if variant == "tpx":
+        assert ({k: v for k, v in got.items() if k not in timing}
+                == {k: v for k, v in base.items() if k not in timing})
+    if variant == "kv_batch":
+        leaves = {d["leaf"] for d in base["departures"]}
+        assert {"state/kv/k", "state/kv/v"} <= leaves
+        assert not {"state/kv/k", "state/kv/v"} & {
+            d["leaf"] for d in got["departures"]}
+
+
+@pytest.mark.parametrize("variant", dryrun.DEFERRED_VARIANTS)
 def test_mesh_variants_wait_for_tensor_parallelism(variant):
-    with pytest.raises(ValueError, match="A7"):
+    with pytest.raises(ValueError, match="A7.3b"):
         dryrun.main(["--arch", "qwen2-7b", "--shape", "decode_32k",
-                     "--variant", variant])
+                     "--mesh", "single", "--variant", variant])
 
 
 @pytest.mark.parametrize("variant", dryrun.FP8_VARIANTS)
