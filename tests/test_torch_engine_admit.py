@@ -117,16 +117,22 @@ def _assert_same(got: dict, want: dict) -> None:
             (want[uid].steps, want[uid].n_tokens)
 
 
-def _serve_both(pair, reqs, **kw) -> tuple:
-    """(port engine, {uid: Result}) after checking its streams and counts
-    equal the JAX engine's under the same options and requests."""
-    eng, got = _serve(pair, reqs, True, **kw)
-    jeng, want = _serve(pair, reqs, False, **kw)
+def _check_same(eng, got: dict, jeng, want: dict) -> None:
+    """The port engine's streams, counts and allocator report equal the
+    JAX engine's."""
     _assert_same(got, want)
     for key in ("chunk_steps", "decode_steps", "generated_tokens",
                 "requests", "lane_rebuilds"):
         assert eng.report()[key] == jeng.report()[key], key
     assert eng.report().get("paging") == jeng.report().get("paging")
+
+
+def _serve_both(pair, reqs, **kw) -> tuple:
+    """(port engine, {uid: Result}) after checking its streams and counts
+    equal the JAX engine's under the same options and requests."""
+    eng, got = _serve(pair, reqs, True, **kw)
+    jeng, want = _serve(pair, reqs, False, **kw)
+    _check_same(eng, got, jeng, want)
     return eng, got
 
 
@@ -138,12 +144,30 @@ MODES = {
 }
 
 
+@pytest.fixture(scope="module")
+def runs(families):
+    """(kind, mode, port) -> (engine, {uid: Result}) of `workload()` in
+    `mode`, served once for the module and read by every test that needs
+    that run: priced on the TPU v5e (what the energy test reads; the
+    streams and counts do not depend on the chip)."""
+    memo = {}
+
+    def get(kind: str, mode: str, port: bool = True) -> tuple:
+        if (kind, mode, port) not in memo:
+            memo[kind, mode, port] = _serve(families[kind], workload(), port,
+                                            chip="tpu_v5e", **MODES[mode])
+        return memo[kind, mode, port]
+
+    return get
+
+
 @pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("mode", sorted(MODES))
-def test_streams_equal_jax_engine(families, kind, mode):
+def test_streams_equal_jax_engine(runs, kind, mode):
     """Greedy streams, step and token counts (and the paged allocator's
     report) of every serving mode equal the JAX engine's."""
-    eng, got = _serve_both(families[kind], workload(), **MODES[mode])
+    eng, got = runs(kind, mode)
+    _check_same(eng, got, *runs(kind, mode, False))
     for uid, _, mnt in workload():
         assert got[uid].n_tokens == mnt
     assert eng.report()["admit_calls"] > 0
@@ -158,24 +182,25 @@ def test_seeded_streams_equal_jax_engine(families, kind):
 
 
 @pytest.mark.parametrize("kind", KINDS)
-def test_every_mode_equals_chunked_inside_the_port(families, kind):
+def test_every_mode_equals_chunked_inside_the_port(runs, kind):
     """The reference's parity contract inside the port: serial, wave and
     paged streams equal chunked dense ones token for token."""
-    _, rc = _serve(families[kind], workload(), **MODES["chunked"])
+    _, rc = runs(kind, "chunked")
     for mode in ("serial", "wave", "paged"):
-        _, r = _serve(families[kind], workload(), **MODES[mode])
+        _, r = runs(kind, mode)
         for uid, _, _ in workload():
             np.testing.assert_array_equal(r[uid].tokens, rc[uid].tokens,
                                           err_msg=f"{mode} uid {uid}")
 
 
 @pytest.mark.parametrize("kind", KINDS)
-def test_chunk_size_invariance(families, kind):
+def test_chunk_size_invariance(families, runs, kind):
     """The stream does not depend on the chunk grid (8, 16, whole-prompt
     chunks)."""
     streams = []
     for ct in (8, 16, 64):
-        _, r = _serve(families[kind], workload(), chunk_tokens=ct)
+        _, r = (runs(kind, "chunked") if ct == ENGINE_KW["chunk_tokens"]
+                else _serve(families[kind], workload(), chunk_tokens=ct))
         streams.append([r[uid].tokens for uid, _, _ in workload()])
     for other in streams[1:]:
         for a, b in zip(streams[0], other):
@@ -258,17 +283,15 @@ def test_submit_refuses_what_a_row_cannot_hold(families, case):
 
 @pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("mode", sorted(MODES))
-def test_energy_and_model_clock_equal_jax_engine(families, kind, mode):
+def test_energy_and_model_clock_equal_jax_engine(runs, kind, mode):
     """Priced on the same chip (the TPU v5e, where the port's energy model
     is the reference's), every request's joules, J/token and model-clock
     TTFT and the report's model seconds and joules equal the JAX engine's
     to 1e-9 relative: the admission calls (encdec's encoder and cross-KV
     over the source rows, vlm's patch prefix without the head) and encdec's
     cross-KV reads are priced alike."""
-    eng, got = _serve(families[kind], workload(), True, chip="tpu_v5e",
-                      **MODES[mode])
-    jeng, want = _serve(families[kind], workload(), False, chip="tpu_v5e",
-                        **MODES[mode])
+    eng, got = runs(kind, mode)
+    jeng, want = runs(kind, mode, False)
     _assert_same(got, want)
     for uid, w in want.items():
         g = got[uid]

@@ -171,10 +171,18 @@ def test_page_boundary_prompts_equal_jax_engine(served):
 # ---------------------------------------------------------------------------
 
 
+@pytest.fixture(scope="module")
+def chunked_dense(served):
+    """The port's chunked dense streams of ``workload(seed=5)``, served
+    once for the module: every mode of the next test is held to them."""
+    return serve(port_engine(served), workload(seed=5), Request, waves=(1,))
+
+
 @pytest.mark.parametrize("mode", sorted(MODES))
-def test_every_mode_gives_the_chunked_dense_streams(served, mode):
+def test_every_mode_gives_the_chunked_dense_streams(served, chunked_dense,
+                                                    mode):
     reqs = workload(seed=5)
-    want = serve(port_engine(served), reqs, Request, waves=(1,))
+    want = chunked_dense
     got = serve(port_engine(served, **MODES[mode]), reqs, Request,
                 waves=(1,))
     assert set(got) == set(want)

@@ -113,15 +113,36 @@ def _assert_same(got: dict, want: dict) -> None:
 # test_chunked_prefill.py: chunked vs serial vs wave, against JAX
 # ---------------------------------------------------------------------------
 
+@pytest.fixture(scope="module")
+def chunked(families):
+    """kind -> ((port engine, {uid: Result}), (JAX engine, {uid:
+    Result})) of `workload()` served greedy in the default chunked loop,
+    once for the module: the three tests that read that run share it."""
+    memo = {}
+
+    def get(kind: str) -> tuple:
+        if kind not in memo:
+            memo[kind] = tuple(_serve(families[kind], workload(), port)
+                               for port in (True, False))
+        return memo[kind]
+
+    return get
+
+
 @pytest.mark.parametrize("kind", KINDS)
 @pytest.mark.parametrize("greedy", [True, False])
-def test_chunked_serial_and_wave_streams_equal_jax(families, kind, greedy):
+def test_chunked_serial_and_wave_streams_equal_jax(families, chunked, kind,
+                                                   greedy):
     """Greedy and seeded streams in the three loops equal the JAX engine's,
     and, inside the port, chunked equals serial and wave (the reference's
     bit-parity contract)."""
     reqs = workload()
     kw = {} if greedy else dict(greedy=False, seed=7)
-    rc, _ = _serve_both(families[kind], reqs, admission="chunked", **kw)
+    if greedy:
+        (_, rc), (_, jc) = chunked(kind)
+        _assert_same(rc, jc)
+    else:
+        rc, _ = _serve_both(families[kind], reqs, admission="chunked", **kw)
     rs, _ = _serve_both(families[kind], reqs, admission="serial", **kw)
     rw, _ = _serve_both(families[kind], reqs, mode="wave", **kw)
     for uid, _, mnt in reqs:
@@ -131,10 +152,8 @@ def test_chunked_serial_and_wave_streams_equal_jax(families, kind, greedy):
 
 
 @pytest.mark.parametrize("kind", KINDS)
-def test_chunked_counts_steps_as_jax(families, kind):
-    reqs = workload()
-    ec, _ = _serve(families[kind], reqs, True)
-    jc, _ = _serve(families[kind], reqs, False)
+def test_chunked_counts_steps_as_jax(chunked, kind):
+    (ec, _), (jc, _) = chunked(kind)
     for key in ("chunk_steps", "decode_steps", "generated_tokens",
                 "requests", "lane_rebuilds"):
         assert ec.report()[key] == jc.report()[key], key
@@ -142,13 +161,14 @@ def test_chunked_counts_steps_as_jax(families, kind):
 
 
 @pytest.mark.parametrize("kind", ["mamba2", "hybrid"])
-def test_chunk_size_invariance(families, kind):
+def test_chunk_size_invariance(families, chunked, kind):
     """The stream does not depend on the chunk grid (8, 16, whole-prompt
     chunks)."""
     reqs = workload()
     streams = []
     for ct in (8, 16, 64):
-        _, r = _serve(families[kind], reqs, chunk_tokens=ct)
+        _, r = (chunked(kind)[0] if ct == ENGINE_KW["chunk_tokens"]
+                else _serve(families[kind], reqs, chunk_tokens=ct))
         streams.append([r[uid].tokens for uid, _, _ in reqs])
     for other in streams[1:]:
         for a, b in zip(streams[0], other):
