@@ -232,13 +232,13 @@ build of PyTorch. Phases, each fatal on failure:
    shared block as a dense layer; MLA's projections, 4 wo chunks, the
    router and the shared experts' gate, up and 4 down chunks; Mamba1's
    x_conv gather beside out_proj's, Mamba2's gated-norm input gather, the
-   experts' output gather; 69 and 46 for deepseek-v2-236b). While those
-   ranks serve, the main process makes phases 15 (e)'s and 16 (d)'s meta
+   experts' output gather; 69 and 46 for deepseek-v2-236b). A process
+   started before the build makes phases 15 (e)'s and 16 (d)'s meta
    analyses ahead (`_analyse_ahead`), and the mesh dry counts: the probe
    forwards on a dry (1, 2) mesh in gather mode, and the dry-run rank's
-   step of 18 (a) and (d) (`_mesh_checks`). After the join, each rank's
-   probe collectives (calls and operand bytes by op) must equal the dry
-   count (`phase_tp_mesh`).
+   step of 18 (a), (d), (e) and (f) (`_mesh_checks`). After it is joined
+   (here), each rank's probe collectives (calls and operand bytes by op)
+   must equal the dry count (`phase_tp_mesh`).
 18. training under tensor parallelism, last, once phases 15 and 16 have
    handed their device memory back: full-width, full-depth starcoder2-3b
    at tp = 2 in two rank processes on the one card (gloo), through the
@@ -269,7 +269,19 @@ build of PyTorch. Phases, each fatal on failure:
    within 1e-4 (relative), both ranks' losses equal, leaves moved,
    launches per step from the structure, each step's collectives (calls
    and operand bytes by op) the dry count on a dry (2, 1) mesh, and each
-   distinct GEMM shape new to the phase against the plain version. It
+   distinct GEMM shape new to the phase against the plain version. (e)
+   on the same two ranks, Megatron sequence parallelism: (a)'s model,
+   seed and batch through the launcher's --sequence-parallel, 1 step:
+   step 1's loss within 1e-4 and grad norm within 1e-3 (relative) of
+   (a)'s, both ranks' losses equal, (a)'s launches, the collectives the
+   dry count on a dry (1, 2) mesh. (f) on the same two ranks, experts
+   over "data": full-width olmoe-1b-7b (`EP_LAYERS` = 2 of 16 layers) at
+   (data 2, model 1) with ZeRO-1, 2 steps of 4 x 512 tokens, against one
+   step of one rank in the main process (the dense dispatch): step 1's
+   loss and grad norm within 1e-4, 32 of 64 experts a rank, no expert
+   gradient all-reduced, launches from the structure, collectives the
+   dry count on a dry (2, 1) mesh; (e)'s and (f)'s new GEMM shapes
+   against the plain version. It
    prints per rank the step ms, tokens/s (a), peak device memory beside
    `train_memory_bytes` at tp = 2, the collectives and their host time,
    and the phase's seconds. Two ranks on one card give no multi-card
@@ -4137,7 +4149,7 @@ def _dry_check(tag: str, fn, args: tuple, card: dict, measured_s: float,
     cost, secs = ahead or (analyze_step(fn, *args), None)
     when = (f"analysed on meta in {time.perf_counter() - t0:.1f} s"
             if secs is None else
-            f"analysed on meta ahead, during phase 17, in {secs:.1f} s")
+            f"analysed on meta ahead, in a process of its own, in {secs:.1f} s")
     dry = {p: (g.launches, g.flops) for p, g in cost.gemms.items()}
     rep = roofline_from_cost(tag, cost, model_flops=model_flops)
     ratio = rep.bound_s / measured_s
@@ -4597,13 +4609,12 @@ def _train_dry_check(tag: str, cfg, batch: dict, card: dict,
 _DRY_AHEAD: dict = {}
 
 
-def _train_checks(dev) -> list:
+def _train_checks(cap: int) -> list:
     """(tag, cfg, batch) of phases 15 (e)'s and 16 (d)'s dry-run checks:
     the configs at the depth those phases train (`_fit_depth` on the
-    card's memory) and their batches' shapes."""
+    card's memory `cap`) and their batches' shapes."""
     from repro_torch.configs import get_config
 
-    cap = torch.cuda.get_device_properties(dev).total_memory
     tokens = (TRAIN_BATCH, TRAIN_SEQ)
     out = [(f"train (e) {TRAIN_ARCH}", get_config(TRAIN_ARCH),
             {"tokens": (tokens, torch.int32),
@@ -4677,7 +4688,8 @@ def _dry_train(arch: str, cfg, shape: tuple, rows: int, seq: int) -> dict:
 
 def _mesh_checks() -> list:
     """(tag, fn) of the mesh dry counts the card's ranks are held to:
-    phase 17's probe forwards, one step of phase 18 (a) and of 18 (d)."""
+    phase 17's probe forwards, one step of phase 18 (a), (d), (e) and
+    (f)."""
     from repro_torch.configs import get_config
 
     return [("mesh tp forward", _dry_tp_forward),
@@ -4686,7 +4698,13 @@ def _mesh_checks() -> list:
                 TRAIN_BATCH, TRAIN_SEQ)),
             ("mesh fsdp (d)", lambda: _dry_train(
                 FSDP_ARCH, _fsdp_cfg(), (TP_RANKS, 1), FSDP_ROWS,
-                FSDP_SEQ))]
+                FSDP_SEQ)),
+            ("mesh train sp (e)", lambda: _dry_train(
+                TRAIN_ARCH, dataclasses.replace(get_config(TRAIN_ARCH),
+                                                sequence_parallel=True),
+                (1, TP_RANKS), TRAIN_BATCH, TRAIN_SEQ)),
+            ("mesh ep (f)", lambda: _dry_train(
+                EP_ARCH, _ep_cfg(), (TP_RANKS, 1), EP_ROWS, EP_SEQ))]
 
 
 def _mesh_gate(tag: str, posted: dict) -> bool:
@@ -4701,38 +4719,66 @@ def _mesh_gate(tag: str, posted: dict) -> bool:
     return same
 
 
-def _analyse_ahead(dev):
-    """Start a thread that makes `_train_checks`' meta analyses and the
-    mesh dry counts of `_mesh_checks` into `_DRY_AHEAD` (host work,
-    nothing on the card); the caller joins it. A check whose analysis
-    failed here analyses again in its phase (a mesh count is missing:
-    its gate fails)."""
-    import threading
-
+def _ahead_work(cap: int) -> dict:
+    """`_analyse_ahead`'s analyses, in a process of its own (host work on
+    meta tensors, no card): {tag: (the cost, its seconds), or tag + "
+    failed": the error}. `cap` is the card's memory, which sets the
+    families' depths (`_fit_depth`)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.set_num_threads(1)
     from repro_torch.core.opanalyze import analyze_step
 
-    checks = _train_checks(dev)
+    out = {}
+    for tag, fn in _mesh_checks():
+        t0 = time.perf_counter()
+        try:
+            out[tag] = (fn(), time.perf_counter() - t0)
+        except Exception as e:
+            out[tag + " failed"] = repr(e)
+    for tag, cfg, batch in _train_checks(cap):
+        t0 = time.perf_counter()
+        try:
+            fn, args = _train_cell(cfg, batch)
+            cost = analyze_step(fn, *args)
+        except Exception as e:                        # made again later
+            out[tag + " failed"] = repr(e)
+            continue
+        out[tag] = (cost, time.perf_counter() - t0)
+    return out
 
-    def work():
-        for tag, fn in _mesh_checks():
-            t0 = time.perf_counter()
-            try:
-                _DRY_AHEAD[tag] = (fn(), time.perf_counter() - t0)
-            except Exception as e:
-                _DRY_AHEAD[tag + " failed"] = repr(e)
-        for tag, cfg, batch in checks:
-            t0 = time.perf_counter()
-            try:
-                fn, args = _train_cell(cfg, batch)
-                cost = analyze_step(fn, *args)
-            except Exception as e:                    # made again later
-                _DRY_AHEAD[tag + " failed"] = repr(e)
-                continue
-            _DRY_AHEAD[tag] = (cost, time.perf_counter() - t0)
 
-    th = threading.Thread(target=work, name="dry-run ahead", daemon=True)
-    th.start()
-    return th
+class _Ahead:
+    """`_ahead_work` running in a spawned process; `join` waits for it,
+    puts its results into `_DRY_AHEAD` and stops the process."""
+
+    def __init__(self, cap: int):
+        import multiprocessing as mp
+
+        self.pool = mp.get_context("spawn").Pool(1)
+        self.result = self.pool.apply_async(_ahead_work, (cap,))
+
+    def join(self) -> None:
+        try:
+            _DRY_AHEAD.update(self.result.get(timeout=AHEAD_TIMEOUT_S))
+        except Exception as e:                        # made again later
+            _DRY_AHEAD["ahead failed"] = repr(e)
+        finally:
+            self.pool.terminate()
+            self.pool.join()
+
+
+# how long `_Ahead.join` waits for the analyses
+AHEAD_TIMEOUT_S = 600
+
+
+def _analyse_ahead(dev) -> _Ahead:
+    """Start the process that makes `_train_checks`' meta analyses and the
+    mesh dry counts of `_mesh_checks` into `_DRY_AHEAD` (host work,
+    nothing on the card: in a process of its own, so it takes no time
+    from this one's host-bound phases); the caller joins it. A check
+    whose analysis failed there analyses again in its phase (a mesh
+    count is missing: its gate fails)."""
+    return _Ahead(torch.cuda.get_device_properties(dev).total_memory)
 
 
 def _cut_state(dev, cfg, seed: int = 0) -> dict:
@@ -5233,6 +5279,22 @@ FSDP_ROWS, FSDP_SEQ = 4, 512
 FSDP_STEPS = 2
 FSDP_REL = 1e-4
 
+# phase 18 (e): Megatron sequence parallelism on (a)'s ranks, model, seed
+# and batch (starcoder2-3b at tp=2, full width and depth) through the
+# launcher's --sequence-parallel, SP_STEPS steps, step 1 against (a)'s
+SP_DIR = ROOT / "build" / "chip_smoke_train_sp"
+SP_STEPS = 1
+SP_LOSS_REL, SP_NORM_REL = 1e-4, 1e-3
+
+# phase 18 (f): experts over "data": full-width olmoe-1b-7b cut to
+# EP_LAYERS of its 16 layers at (data 2, model 1) on the pool, step 1
+# against one rank's whole-batch step of the same model
+EP_ARCH = "olmoe-1b-7b"
+EP_LAYERS = 2
+EP_ROWS, EP_SEQ = 4, 512
+EP_STEPS = 2
+EP_REL = 1e-4
+
 
 def _fsdp_cfg():
     """(d)'s config: `FSDP_ARCH` at full width, `FSDP_LAYERS` deep, with
@@ -5349,6 +5411,188 @@ def _fsdp_gates(dev, one: dict, ranks: list, checked: set,
         raise SystemExit("[train fsdp (d)] " + "; ".join(failed))
     _check_train_shapes(dev, new, new_splits, "train fsdp (d)")
     return launched
+
+
+def _sp_gates(ranks: list, tp_ranks: list, checked: set,
+              checked_splits: set) -> tuple:
+    """(e)'s lines and gates: per rank step 1's loss within `SP_LOSS_REL`
+    and grad norm within `SP_NORM_REL` (relative) of (a)'s tp=2 step 1
+    (`tp_ranks`), every step finite, the launches per step (a)'s from the
+    structure (`_train_launches_per_step`: SP gathers the sequence before
+    every product, so the GEMMs are (a)'s), each step's collectives by op
+    the dry count of the dry-run's rank on a dry (1, `TP_RANKS`) mesh,
+    both ranks' losses equal. Returns (the launches per path summed over
+    the ranks and steps, the GEMM shapes not in `checked`, the split
+    shapes not in `checked_splits`)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(TRAIN_ARCH)
+    want = _train_launches_per_step(cfg)
+    loss1 = tp_ranks[0]["summary"]["loss_curve"][0]
+    norm1 = tp_ranks[0]["summary"]["grad_norms"][0]
+    launched: collections.Counter = collections.Counter()
+    new, new_splits, failed = set(), set(), []
+    for r, out in enumerate(ranks):
+        s = out["summary"]
+        for step in out["steps"]:
+            launched.update({p: step[p] for p in (*GEMM_PATHS, "split3")})
+        new |= {tuple(key) for key in out["shapes"]} - checked
+        new_splits |= {tuple(key) for key in out["splits"]} - checked_splits
+        _say(f"[train sp (e)] rank {r} of {TP_RANKS} on one card (gloo), "
+             f"{cfg.name} at tp={TP_RANKS} with sequence parallelism: step "
+             "ms " + ", ".join(f"{1e3 * t:.1f}" for t in s["step_times_s"])
+             + f"; peak {out['peak_bytes'] / 1e9:.2f} GB; collectives per "
+             f"step {out['collectives']}, host time "
+             + ", ".join(f"{t:.3f}" for t in out["collective_host_s"])
+             + f" s; launches per step {out['steps']} (expected {want}); in "
+             f"{out['seconds']:.1f} s")
+        l1, n1 = s["loss_curve"][0], s["grad_norms"][0]
+        rel_l, rel_n = abs(l1 - loss1) / abs(loss1), abs(n1 - norm1) / norm1
+        _say(f"[train sp (e)] rank {r} step 1: loss {l1:.6f} ((a) "
+             f"{loss1:.6f}, relative {rel_l:.3e}), grad norm {n1:.6f} ((a) "
+             f"{norm1:.6f}, relative {rel_n:.3e})")
+        finite = bool(np.isfinite(s["loss_curve"]).all()
+                      and np.isfinite(s["grad_norms"]).all())
+        if (out["final_step"] != SP_STEPS or not finite
+                or rel_l > SP_LOSS_REL or rel_n > SP_NORM_REL):
+            failed.append(f"rank {r}: {SP_STEPS} finite steps, step 1's "
+                          f"loss {rel_l:.3e} and grad norm {rel_n:.3e} "
+                          "relative to (a)'s")
+        if any(st != want for st in out["steps"]):
+            failed.append(f"rank {r}: launches {out['steps']}")
+        for i, posted in enumerate(out["by_op"]):
+            if not _mesh_gate("mesh train sp (e)", posted):
+                failed.append(f"rank {r} step {i + 1}: collectives by op "
+                              f"{posted} differ from the dry count")
+    if any(out["summary"]["loss_curve"] != ranks[0]["summary"]["loss_curve"]
+           for out in ranks):
+        failed.append("the ranks' losses differ")
+    if failed:
+        raise SystemExit("[train sp (e)] " + "; ".join(failed))
+    return launched, new, new_splits
+
+
+def _ep_cfg():
+    """(f)'s config: `EP_ARCH` at full width, `EP_LAYERS` deep, its
+    experts over "data"."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(EP_ARCH), n_layers=EP_LAYERS,
+                               moe_expert_axis="data")
+
+
+def _ep_rank(mesh) -> dict:
+    """One rank of phase 18 (f), in its own process: `_tp_family_steps`
+    of `_ep_cfg` on the (data `TP_RANKS`, model 1) mesh over the pool's
+    ranks, with ZeRO-1 (as the dry-run's rank trains)."""
+    from repro_torch.kernels._build import load_library
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    load_library()
+    ep = make_host_mesh(1, mesh.tp * mesh.data)
+    out = _tp_family_steps(dev, _ep_cfg(), EP_ROWS, EP_SEQ, EP_STEPS, ep,
+                           zero1=True)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _ep_run(dev, pool) -> tuple:
+    """(f)'s runs: one whole-batch step of `_ep_cfg` at one rank in this
+    process (the dense dispatch: no mesh; its memory freed before the
+    ranks build), then `EP_STEPS` steps on every rank of `pool` with the
+    experts over "data". Returns (the one-rank step, the ranks' runs)."""
+    t0 = time.perf_counter()
+    one = _tp_family_steps(dev, _ep_cfg(), EP_ROWS, EP_SEQ, 1)
+    one["seconds"] = time.perf_counter() - t0
+    return one, pool.run(_ep_rank)
+
+
+def _ep_gates(one: dict, ranks: list, checked: set,
+              checked_splits: set) -> tuple:
+    """(f)'s lines and gates: per rank step 1's loss and grad norm within
+    `EP_REL` (relative) of the one-rank step's (`_ep_run`), every loss and
+    norm finite, every master leaf and weight matrix moved, the rank
+    holding E/`TP_RANKS` experts of each expert leaf, its all-reduces
+    carrying every gradient but the experts' (whose gradient is whole
+    after the all-to-all's backward: the operand bytes a step less the
+    non-expert gradients' are under 1 MB, the loss's and norm's sums),
+    the launches per step the one-rank step's from the structure
+    (`_family_launches_per_step`), each step's collectives by op the dry
+    count on a dry (`TP_RANKS`, 1) mesh, both ranks' losses equal.
+    Returns (the launches per path summed over the ranks and steps, the
+    GEMM shapes not in `checked`, the split shapes not in
+    `checked_splits`)."""
+    cfg = _ep_cfg()
+    E = cfg.n_experts
+    want = _family_launches_per_step(cfg)
+    launched: collections.Counter = collections.Counter()
+    new, new_splits, failed = set(), set(), []
+    if one["steps"][0] != want:
+        failed.append(f"one rank: launches {one['steps'][0]}")
+    _say(f"[train ep (f)] {cfg.name} at {cfg.n_layers} of 16 layers, full "
+         f"width, {EP_ROWS} x {EP_SEQ} tokens, one rank in this process "
+         f"(the dense dispatch): step 1 loss {one['loss_curve'][0]:.6f}, "
+         f"grad norm {one['grad_norms'][0]:.6f}, "
+         f"{1e3 * one['step_times_s'][0]:.1f} ms, peak "
+         f"{one['peak_bytes'] / 1e9:.2f} GB, {one['seconds']:.1f} s with "
+         f"init; launches {one['steps'][0]}")
+    for r, out in enumerate(ranks):
+        for step in out["steps"]:
+            launched.update({p: step[p] for p in (*GEMM_PATHS, "split3")})
+        new |= {tuple(key) for key in out["shapes"]} - checked
+        new_splits |= {tuple(key) for key in out["splits"]} - checked_splits
+        held = {out["experts"][n][0] for n in out["experts"]}
+        rest = out["grad_bytes"] - out["expert_bytes"]
+        extra = [st.get("all-reduce", {}).get("bytes", 0) - rest
+                 for st in out["by_op"]]
+        _say(f"[train ep (f)] rank {r} of {TP_RANKS} on one card (gloo), "
+             f"(data {TP_RANKS}, model 1), experts over data, ZeRO-1: step "
+             "ms " + ", ".join(f"{1e3 * t:.1f}" for t in out["step_times_s"])
+             + f"; collectives per step {out['by_op']}, host time "
+             + ", ".join(f"{t:.3f}" for t in out["collective_host_s"])
+             + f" s; peak {out['peak_bytes'] / 1e9:.2f} GB; experts held "
+             f"{sorted(held)} of {E}; all-reduce bytes a step less the "
+             f"non-expert gradients' {rest} B: {extra}; launches per step "
+             f"{out['steps']}; in {out['seconds']:.1f} s")
+        for i, (l2, n2) in enumerate(zip(out["loss_curve"],
+                                         out["grad_norms"])):
+            ref = (f" (one rank {one['loss_curve'][0]:.6f}, diff "
+                   f"{l2 - one['loss_curve'][0]:+.3e}; grad norm one rank "
+                   f"{one['grad_norms'][0]:.6f}, diff "
+                   f"{n2 - one['grad_norms'][0]:+.3e})" if i == 0 else "")
+            _say(f"[train ep (f)] rank {r} step {i + 1}: loss {l2:.6f}, "
+                 f"grad norm {n2:.6f}{ref}")
+        finite = bool(np.isfinite(out["loss_curve"]).all()
+                      and np.isfinite(out["grad_norms"]).all())
+        rel_l = (abs(out["loss_curve"][0] - one["loss_curve"][0])
+                 / abs(one["loss_curve"][0]))
+        rel_n = (abs(out["grad_norms"][0] - one["grad_norms"][0])
+                 / abs(one["grad_norms"][0]))
+        if (not finite or rel_l > EP_REL or rel_n > EP_REL
+                or out["unmoved"]):
+            failed.append(f"rank {r}: finite {finite}, step 1's loss "
+                          f"{rel_l:.3e} and grad norm {rel_n:.3e} relative "
+                          f"to one rank's, unmoved {out['unmoved'][:4]}")
+        if held != {E // TP_RANKS} or not all(0 <= x < 1 << 20
+                                              for x in extra):
+            failed.append(f"rank {r}: experts held {held}, all-reduce bytes "
+                          f"past the non-expert gradients {extra}")
+        if any(st != want for st in out["steps"]):
+            failed.append(f"rank {r}: launches {out['steps']} (expected "
+                          f"{want})")
+        for i, posted in enumerate(out["by_op"]):
+            if not _mesh_gate("mesh ep (f)", posted):
+                failed.append(f"rank {r} step {i + 1}: collectives "
+                              f"{posted}")
+    if any(out["loss_curve"] != ranks[0]["loss_curve"] for out in ranks):
+        failed.append("the ranks' losses differ")
+    if failed:
+        raise SystemExit("[train ep (f)] " + "; ".join(failed))
+    return launched, new, new_splits
 
 
 def _tp_train_collectives_per_step(cfg, tp: int) -> int:
@@ -5514,6 +5758,10 @@ def _tp_family_steps(dev, cfg, rows: int, seq: int, steps: int,
         return out
 
     before = sums()
+    named = dict(state["params"].named_parameters())
+    experts = {n: tuple(p.shape) for n, p in named.items()
+               if ".experts." in n}
+    nbytes = {n: p.numel() * p.element_size() for n, p in named.items()}
     parts = {}
     if mesh is not None:
         tcfg = train_config(cfg, mesh)
@@ -5523,7 +5771,9 @@ def _tp_family_steps(dev, cfg, rows: int, seq: int, steps: int,
     splits: collections.Counter = collections.Counter()
     out = {"loss_curve": [], "grad_norms": [], "step_times_s": [],
            "steps": [], "collectives": [], "collective_host_s": [],
-           "by_op": []}
+           "by_op": [], "experts": experts,
+           "grad_bytes": sum(nbytes.values()),
+           "expert_bytes": sum(nbytes[n] for n in experts)}
     recording, splitting = _train_recording(shapes, splits)
     ops.tiled_matmul, ops.split3 = recording, splitting
     try:
@@ -5700,10 +5950,15 @@ def phase_train_tp(dev, tp1: dict) -> dict:
     encoder-decoder and vision families on the same pool
     (`_tp_families`, `_tp_family_gates`), and (d) FSDP training of
     qwen2.5-14b at (data 2, model 1) on the same pool (`_fsdp_run`,
-    `_fsdp_gates`). (a)'s and (d)'s steps post the collectives the mesh
-    dry counts give (`_mesh_gate`). Then (b) every distinct shard GEMM of
-    (a)'s step against the plain version (`_train_shapes`), and (c)'s and
-    (d)'s new ones. Returns {"launches": per path summed over the ranks,
+    `_fsdp_gates`), (e) Megatron sequence parallelism on (a)'s ranks,
+    model, seed and batch through the launcher's --sequence-parallel
+    (`_sp_gates`: step 1 against (a)'s), and (f) full-width olmoe-1b-7b at
+    `EP_LAYERS` layers with its experts over "data" at (data 2, model 1)
+    on the same pool (`_ep_run`, `_ep_gates`: step 1 against one rank's).
+    (a)'s, (d)'s, (e)'s and (f)'s steps post the collectives the mesh dry
+    counts give (`_mesh_gate`). Then (b) every distinct shard GEMM of
+    (a)'s step against the plain version (`_train_shapes`), and (c)'s,
+    (d)'s, (e)'s and (f)'s new ones. Returns {"launches": per path summed over the ranks,
     "entries": (b)'s per-path JSON entries}."""
     import shutil
 
@@ -5727,21 +5982,36 @@ def phase_train_tp(dev, tp1: dict) -> dict:
             str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--log-every", "1",
             "--ckpt-every", str(10 * TRAIN_TP_STEPS), "--ckpt-dir",
             str(TRAIN_TP_DIR), "--tp", str(TP_RANKS)]
+    argv_sp = ["--arch", TRAIN_ARCH, "--steps", str(SP_STEPS), "--batch",
+               str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--log-every",
+               "1", "--ckpt-every", str(10 * SP_STEPS), "--ckpt-dir",
+               str(SP_DIR), "--tp", str(TP_RANKS), "--sequence-parallel"]
     times = {}
+
+    def lap(key: str) -> None:
+        times[key] = time.perf_counter() - t0 - sum(times.values())
 
     def run(pool):
         try:
             ranks = pool.run(_tp_train_rank, argv)
         finally:
             shutil.rmtree(TRAIN_TP_DIR, ignore_errors=True)
-        times["a"] = time.perf_counter() - t0
+        lap("a")
+        shutil.rmtree(SP_DIR, ignore_errors=True)
+        try:
+            sp = pool.run(_tp_train_rank, argv_sp)
+        finally:
+            shutil.rmtree(SP_DIR, ignore_errors=True)
+        lap("e")
         families = _tp_families(dev, pool)
-        times["c"] = time.perf_counter() - t0 - times["a"]
+        lap("c")
         fsdp = _fsdp_run(dev, pool)
-        times["d"] = time.perf_counter() - t0 - times["a"] - times["c"]
-        return ranks, families, fsdp
+        lap("d")
+        ep = _ep_run(dev, pool)
+        lap("f")
+        return ranks, sp, families, fsdp, ep
 
-    ranks, families, fsdp = _tp_pool(run)
+    ranks, sp, families, fsdp, ep = _tp_pool(run)
     losses1, norms1 = tp1["loss_curve"], tp1["grad_norms"]
     tokens = TRAIN_BATCH * TRAIN_SEQ
     failed = []
@@ -5809,12 +6079,27 @@ def phase_train_tp(dev, tp1: dict) -> dict:
             checked |= {tuple(key) for key in out["shapes"]}
             checked_splits |= {tuple(key) for key in out["splits"]}
     launched += _fsdp_gates(dev, *fsdp, checked, checked_splits)
+    for out in fsdp[1]:
+        checked |= {tuple(key) for key in out["shapes"]}
+        checked_splits |= {tuple(key) for key in out["splits"]}
+    t_e = time.perf_counter()
+    # (e) and (f): each shape new to the phase held to the plain version
+    more, new, new_splits = _sp_gates(sp, ranks, checked, checked_splits)
+    launched += more
+    more, new_f, splits_f = _ep_gates(*ep, checked | new,
+                                      checked_splits | new_splits)
+    launched += more
+    _check_train_shapes(dev, new | new_f, new_splits | splits_f,
+                        "train sp (e), ep (f)")
     _say(f"[train tp] phase 18 in {time.perf_counter() - t0:.1f} s (ranks "
-         f"and pool start (a) {times['a']:.1f} s, (c)'s four families "
-         f"{times['c'] + t_d - t_c:.1f} s with their shard GEMM checks, "
-         f"(d) FSDP {times['d'] + time.perf_counter() - t_d:.1f} s with its "
-         f"GEMM checks) on {_nvidia_smi()}; tp={TP_RANKS} on one card gives "
-         "no multi-card speed figure")
+         f"and pool start (a) {times['a']:.1f} s, (e) SP {times['e']:.1f} "
+         f"s, (c)'s four families {times['c'] + t_d - t_c:.1f} s with "
+         f"their shard GEMM checks, (d) FSDP {times['d'] + t_e - t_d:.1f} s "
+         f"with its GEMM checks, (f) experts over data {times['f']:.1f} s; "
+         f"(e) and (f)'s {len(new | new_f)} new GEMM shapes checked in "
+         f"{time.perf_counter() - t_e:.1f} s) on {_nvidia_smi()}; two ranks "
+         f"on one card (tp={TP_RANKS} or data={TP_RANKS}) give no "
+         "multi-card speed figure")
     return {"launches": launched, "entries": entries}
 
 
@@ -5876,6 +6161,7 @@ def main() -> int:
          f"{torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
          f"{torch.cuda.device_count()}")
     t0 = time.perf_counter()
+    ahead = _analyse_ahead(dev)
     phase_build()
     phase_kernel_cases(dev)
     eng, api, params, cfg, shapes, by_path, streams = phase_serve(dev)
@@ -5892,12 +6178,11 @@ def main() -> int:
     _write_shapes({"qwen2-7b": shapes, **dense["shapes"]})
     moe = phase_moe(dev)
     ssm = phase_ssm(dev)
-    ahead = _analyse_ahead(dev)
     tp_families = phase_tp_families({**moe["streams"], **ssm["streams"]})
     t_join = time.perf_counter()
     ahead.join()
     _say(f"[dry-run] phases 15 (e) and 16 (d)'s analyses and the mesh dry "
-         f"counts made during phase 17: "
+         f"counts made in a process of their own from the start: "
          f"{sorted(k for k in _DRY_AHEAD if ' failed' not in k)}, "
          f"waited {time.perf_counter() - t_join:.1f} s after it; failed "
          f"{ {k: v for k, v in _DRY_AHEAD.items() if ' failed' in k} }")

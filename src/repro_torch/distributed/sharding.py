@@ -48,7 +48,14 @@ leaf, each axis checked against its own size, `reference_shape` the local
 shape it gives. The port's rank takes its "model" axis from `leaf_axis`
 (whole heads) and its "data" axis from the same rules (`fsdp_axes`: a
 leaf FSDP cuts over "data", which `distributed.fsdp` gathers before
-use).
+use). Under ``moe_expert_axis="data"`` (psum mode) the experts follow the
+reference's ``expert`` and ``tp_if_ep_data`` names: E over "data"
+(`expert_axes`; the tokens come to them by an all-to-all, never the
+weights) and d_ff over "model" (`leaf_axis`), and FSDP's
+``fsdp_or_tp`` leaves them alone. Under sequence parallelism the
+gradient of every leaf "model" does not cut, in the blocks that take it,
+is each rank's share (`sequence_partial`), summed over "model" by the
+train step.
 
 `set_mesh`/`current_mesh` hold the mesh on the thread, as the reference's
 `set_mesh_rules`/`current_mesh` do: the serving engine installs its own
@@ -243,22 +250,41 @@ def spec_shape(spec: tuple, shape: tuple[int, ...],
 
 
 def reference_shape(path: str, shape: tuple[int, ...], mesh_shape: dict,
-                    fsdp: bool = False) -> tuple[int, ...]:
+                    fsdp: bool = False, expert_axis: str = "model"
+                    ) -> tuple[int, ...]:
     """The local shape the reference's rules give the parameter at
     `path` on a mesh of `mesh_shape` (psum mode)."""
-    return spec_shape(mesh_spec(path, shape, mesh_shape, fsdp), shape,
-                      mesh_shape)
+    return spec_shape(mesh_spec(path, shape, mesh_shape, fsdp, expert_axis),
+                      shape, mesh_shape)
+
+
+def _data_axis(path: str, shape: tuple[int, ...], mesh_shape: dict,
+               fsdp: bool, expert_axis: str, names: tuple) -> int | None:
+    """The axis of the parameter at `path` whose logical name (one of
+    `names`) the reference's rules put on "data", sanitised, or None."""
+    if mesh_shape.get("data", 1) <= 1:
+        return None
+    logical = _match(path)[:len(shape)]
+    logical = (None,) * (len(shape) - len(logical)) + tuple(logical)
+    spec = mesh_spec(path, shape, mesh_shape, fsdp, expert_axis)
+    return next((i for i, (n, ax) in enumerate(zip(logical, spec))
+                 if ax == "data" and n in names), None)
 
 
 def fsdp_axis(path: str, shape: tuple[int, ...], mesh_shape: dict,
-              fsdp: bool) -> int | None:
+              fsdp: bool, expert_axis: str = "model") -> int | None:
     """The axis of the parameter at `path` that FSDP cuts over "data" on a
     mesh of `mesh_shape`, or None: the dim the reference's rules put on
-    "data" (its "fsdp" and "fsdp_or_tp" names)."""
-    if not fsdp or mesh_shape.get("data", 1) <= 1:
+    "data" under its "fsdp" and "fsdp_or_tp" names (the experts' E under
+    ``expert_axis="data"`` is `expert_axes`' cut, not FSDP's)."""
+    if not fsdp:
         return None
-    spec = mesh_spec(path, shape, mesh_shape, fsdp)
-    return next((i for i, ax in enumerate(spec) if ax == "data"), None)
+    return _data_axis(path, shape, mesh_shape, True, expert_axis,
+                      ("fsdp", "fsdp_or_tp"))
+
+
+def _expert_axis(cfg) -> str:
+    return getattr(cfg, "moe_expert_axis", "model")
 
 
 def fsdp_axes(model: torch.nn.Module, mesh, cfg=None) -> dict:
@@ -267,15 +293,51 @@ def fsdp_axes(model: torch.nn.Module, mesh, cfg=None) -> dict:
     otherwise)."""
     on = bool(getattr(cfg, "fsdp", False)) and mesh is not None
     shape = mesh.shape if on else {}
-    return {name: (fsdp_axis(param_path(name), tuple(p.shape), shape, True)
-                   if on else None)
+    return {name: (fsdp_axis(param_path(name), tuple(p.shape), shape, True,
+                             _expert_axis(cfg)) if on else None)
             for name, p in model.named_parameters()}
+
+
+def expert_axes(model: torch.nn.Module, mesh, cfg=None) -> dict:
+    """{parameter name: its axis cut over "data" as the experts' E, or
+    None} of an unsharded `model` on `mesh` under
+    ``cfg.moe_expert_axis="data"`` (the reference's "expert" name; all
+    None otherwise, or where "data" does not divide E)."""
+    on = (_expert_axis(cfg) == "data" and mesh is not None
+          and getattr(cfg, "tp_reduce", "psum") != "gather")
+    shape = mesh.shape if on else {}
+    return {name: (_data_axis(param_path(name), tuple(p.shape), shape,
+                              bool(getattr(cfg, "fsdp", False)), "data",
+                              ("expert",)) if on else None)
+            for name, p in model.named_parameters()}
+
+
+# the kinds whose every block takes sequence parallelism (the hybrid:
+# only its shared block, `SP_SHARED`; the others ignore the flag)
+SP_STACK_KINDS = ("dense", "moe", "mla_moe", "vlm")
+SP_SHARED = "shared_attn."
+
+
+def sequence_partial(axes: dict, cfg=None) -> set:
+    """The names of the leaves whose gradient is each "model" rank's
+    share under sequence parallelism (`axes`: the "model" axis of each,
+    `param_axes`): every leaf "model" does not cut, of a kind in
+    `SP_STACK_KINDS`, or of the hybrid's shared block (the blocks that
+    run on this rank's block of the sequence, `distributed.tp`)."""
+    if not getattr(cfg, "sequence_parallel", False):
+        return set()
+    kind = getattr(cfg, "kind", None)
+    return {n for n, ax in axes.items() if ax is None and (
+        kind in SP_STACK_KINDS
+        or (kind == "hybrid" and n.startswith(SP_SHARED)))}
 
 
 # the logical names a (1, tp) serving mesh puts on "model": the reference's
 # `_logical_to_mesh` as `param_pspecs` calls it (no fsdp, experts on the
-# "model" axis); every other name is replicated
+# "model" axis); every other name is replicated. With the experts on
+# "data" (psum mode) their d_ff is "model"'s instead
 MODEL_AXIS_NAMES = ("model", "expert")
+EP_DATA_MODEL_AXIS_NAMES = ("model", "tp_if_ep_data")
 
 
 def sanitize_spec(spec: tuple, shape: tuple[int, ...], tp: int) -> tuple:
@@ -422,12 +484,16 @@ def leaf_axis(path: str, shape: tuple[int, ...], tp: int,
     "model", or None (replicated). With `cfg`, an axis cut by parts
     (`axis_parts`) is sharded only where tp divides every sharded
     part, and a head-carrying attention leaf (`HEAD_LEAVES`) only where tp
-    divides its heads."""
+    divides its heads. With ``cfg.moe_expert_axis="data"`` in psum mode
+    an expert leaf's "model" axis is its d_ff (the reference's
+    ``tp_if_ep_data``), not E."""
     if tp <= 1:
         return None
     logical = _match(path, tp_reduce)[:len(shape)]
     names = (None,) * (len(shape) - len(logical)) + tuple(logical)
-    spec = sanitize_spec(tuple("model" if n in MODEL_AXIS_NAMES else None
+    on_model = (EP_DATA_MODEL_AXIS_NAMES if tp_reduce != "gather"
+                and _expert_axis(cfg) == "data" else MODEL_AXIS_NAMES)
+    spec = sanitize_spec(tuple("model" if n in on_model else None
                                for n in names), shape, tp)
     axes = [i for i, ax in enumerate(spec) if ax is not None]
     if not axes or not _heads_divide(path, tp, cfg):
@@ -615,9 +681,13 @@ class TrainLayout:
     """Where each leaf of a training state lives on `mesh`: the "model"
     axis of each parameter of the whole model (`axes`, psum mode's
     `param_axes`), its parts (`parts`), the "data" axis of its f32
-    optimizer state (`zero1`, `zero1_axes`; None without ZeRO-1) and the
+    optimizer state (`zero1`, `zero1_axes`; None without ZeRO-1), the
     "data" axis FSDP cuts the leaf itself on, and its state with it
-    (`fsdp`, `fsdp_axes`; empty without FSDP). It maps
+    (`fsdp`, `fsdp_axes`; empty without FSDP), the "data" axis of an
+    expert leaf cut over "data" as its E (`experts`, `expert_axes`;
+    empty unless ``moe_expert_axis="data"``) and the leaves whose
+    gradient is each "model" rank's share under sequence parallelism
+    (`sp_partial`, `sequence_partial`). It maps
     a flattened state (the checkpoint's "__"-joined keys: ``params__<name>``,
     ``opt__{master,m,v}__<name>``, ``opt__step``, ``rng``) to whole leaves
     (`gather`, a collective every rank calls) and back to this rank's
@@ -628,10 +698,20 @@ class TrainLayout:
     parts: dict
     zero1: dict
     fsdp: dict = dataclasses.field(default_factory=dict)
+    experts: dict = dataclasses.field(default_factory=dict)
+    sp_partial: set = dataclasses.field(default_factory=set)
+
+    def data_axes(self) -> dict:
+        """{name: the "data" axis the leaf itself is cut on, by FSDP or as
+        experts over "data", or None}."""
+        return {n: ax if ax is not None else self.experts.get(n)
+                for n, ax in {**self.experts, **self.fsdp}.items()}
 
     def data_cut(self) -> set:
-        """The names of the leaves FSDP cuts over "data"."""
-        return {n for n, ax in self.fsdp.items() if ax is not None}
+        """The names of the leaves cut over "data" (by FSDP or as experts
+        over "data"): their gradients are whole over "data" after the
+        backward, and their optimizer state is cut with them."""
+        return {n for n, ax in self.data_axes().items() if ax is not None}
 
     def whole_parts(self) -> dict:
         """{name: (its "model" axis, its parts at a rank's sizes)} of each
@@ -655,12 +735,13 @@ class TrainLayout:
 
     def _leaf(self, key: str) -> tuple:
         head, _, name = key.partition("__")
+        data = self.data_axes()
         if head == "params":
-            return name, self.fsdp.get(name)
+            return name, data.get(name)
         if head == "opt":
             kind, _, name = name.partition("__")
             if kind in ("master", "m", "v"):
-                ax = self.fsdp.get(name)
+                ax = data.get(name)
                 return name, ax if ax is not None else self.zero1.get(name)
         return None, None
 
@@ -698,8 +779,10 @@ class TrainLayout:
 def train_layout(model: torch.nn.Module, mesh, cfg=None,
                  zero1: bool = False) -> TrainLayout:
     """The `TrainLayout` of the whole `model` (``meta`` will do) on
-    `mesh` in psum mode, with ZeRO-1's axes where `zero1` and FSDP's
-    where ``cfg.fsdp``."""
+    `mesh` in psum mode, with ZeRO-1's axes where `zero1`, FSDP's where
+    ``cfg.fsdp``, the experts' "data" axes under
+    ``moe_expert_axis="data"`` and the leaves summed over "model" under
+    sequence parallelism."""
     tp = model_size(mesh)
     axes = param_axes(model, tp, "psum", cfg)
     full = {n: tuple(p.shape) for n, p in model.named_parameters()}
@@ -708,9 +791,12 @@ def train_layout(model: torch.nn.Module, mesh, cfg=None,
                       for i, d in enumerate(shape))
              for n, shape in full.items()}
     fsdp = fsdp_axes(model, mesh, cfg)
+    experts = expert_axes(model, mesh, cfg)
+    cut = {n: ax if ax is not None else experts[n] for n, ax in fsdp.items()}
     data = mesh.data if (zero1 and mesh is not None) else 1
     return TrainLayout(mesh, axes, parts,
-                       zero1_axes(local, axes, data, fsdp), fsdp)
+                       zero1_axes(local, axes, data, cut), fsdp, experts,
+                       sequence_partial(axes, cfg) if tp > 1 else set())
 
 
 def fsdp_leaf_axis(p: torch.Tensor) -> int | None:
@@ -720,17 +806,25 @@ def fsdp_leaf_axis(p: torch.Tensor) -> int | None:
 
 
 @torch.no_grad()
-def cut_over_data(model: torch.nn.Module, axes: dict, mesh) -> None:
+def cut_over_data(model: torch.nn.Module, axes: dict, mesh,
+                  gathered: bool = True) -> None:
     """Cut each parameter of `model` that `axes` ({name: "data" axis or
     None}, `fsdp_axes`) names to this data rank's block, in place, and
     mark it with its axis (`fsdp_leaf_axis`: `distributed.fsdp` gathers it
     before use) and each module that holds it with ``fsdp_cut`` (so a
     model FSDP did not cut costs `distributed.fsdp` one attribute read a
-    block)."""
+    block). With `gathered` False (experts over "data", `expert_axes`,
+    which stay cut) nothing is marked, and a parameter already cut to its
+    block is left as it is."""
     for name, p in model.named_parameters():
         ax = axes.get(name)
         if (ax is None or mesh is None or mesh.data == 1
                 or fsdp_leaf_axis(p) is not None):
+            continue
+        if not gathered:
+            if not getattr(p, "expert_cut", False):
+                p.data = data_block(p.data, ax, mesh)
+                p.expert_cut = True
             continue
         p.data = data_block(p.data, ax, mesh)
         p.fsdp_axis = ax

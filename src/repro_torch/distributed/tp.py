@@ -70,14 +70,33 @@ axes, in the gradient's dtype) is the train step's
 (`all_reduce_data`), and `reduce_over_data` sums a loss's parts over
 "data" (backward identity).
 
+Megatron sequence parallelism (``cfg.sequence_parallel`` in psum mode,
+`sequence_parallel`) keeps the residual stream and the norms on this
+rank's 1/tp of the sequence between the sharded products:
+
+  gather_from_sequence:  forward all-gather on the sequence, backward
+      reduce-scatter (each rank's gradient of the whole sequence is its
+      heads' or columns' share: summed, this rank's block kept);
+  scatter_to_sequence:   forward reduce-scatter (a row-parallel product's
+      partial sums, this rank's block of the sum), backward all-gather.
+
+They replace a block's `enter` and `tp_row`'s all-reduce. A computation
+every rank repeats whole on the whole sequence (a head or a block tp does
+not divide, the router, the aux loss) passes its gradient only through
+this rank's block (`sequence_block`, `sequence_share`), so that the
+gradient of every leaf "model" does not cut is each rank's share under SP,
+summed over "model" by the train step. Experts cut over "data"
+(``cfg.moe_expert_axis="data"``) take their tokens by `all_to_all_data`,
+whose backward is the same exchange back.
+
 FSDP (``cfg.fsdp`` on a mesh whose "data" axis has more than one rank)
 cuts a leaf over "data" as well (`sharding.fsdp_axes`); `gather_from_data`
 all-gathers such a leaf over "data" before use, and its backward
 reduce-scatters the gradient (`distributed.fsdp` applies it a block at a
 time).
 
-Every collective goes through `_Pending`, `_all_reduce_`, `_gather` or
-`_reduce_scatter_`, which count it (calls and operand bytes by op) and the
+Every collective goes through `_Pending`, `_all_reduce_`, `_gather`,
+`_reduce_scatter_` or `_all_to_all`, which count it (calls and operand bytes by op) and the
 host time spent posting and waiting for it (`collectives`). On a dry mesh (`launch.mesh.DryGroup`
 groups) nothing is posted: each collective makes its output's meta tensor
 and appends (op, operand bytes, group size, axis, elements) to the log of
@@ -96,8 +115,8 @@ import types
 
 import torch
 
-from repro_torch.distributed.sharding import (current_mesh, model_size,
-                                              whole_spans)
+from repro_torch.distributed.sharding import (SP_STACK_KINDS, current_mesh,
+                                              model_size, whole_spans)
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import DryGroup
 
@@ -233,6 +252,23 @@ def _reduce_scatter_(x: torch.Tensor, dim: int, group, n: int
     return out.movedim(0, dim).contiguous()
 
 
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """The exchange of equal blocks of `x`'s leading axis over `group`:
+    block j goes to rank j, and the output's block i is rank i's block
+    for this rank (``all_to_all_single``), counted as one all-to-all of
+    the whole operand."""
+    import torch.distributed as dist
+
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    if _dry(group, "all-to-all", x):
+        return out
+    t = time.perf_counter()
+    dist.all_to_all_single(out, x, group=group)
+    _count("all-to-all", x, t)
+    return out
+
+
 def all_gather(x: torch.Tensor, dim: int = -1, mesh=None) -> torch.Tensor:
     """The ranks' `x` concatenated along `dim` in rank order."""
     mesh = mesh or current_mesh()
@@ -339,6 +375,142 @@ class _ReduceToModel(torch.autograd.Function):
         return _all_reduce_(g.contiguous().clone(), ctx.group), None
 
 
+class _GatherFromSequence(torch.autograd.Function):
+    """All-gather along `dim` over "model" forward; backward: the ranks'
+    gradients reduce-scattered along `dim` (each rank's is its share of
+    the whole, partial: summed, and this rank's block kept)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, mesh):
+        ctx.dim, ctx.mesh = dim, mesh
+        return _gather(x, dim, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        m = ctx.mesh
+        return _reduce_scatter_(g, ctx.dim, m.group, m.tp), None, None
+
+
+class _ScatterToSequence(torch.autograd.Function):
+    """Reduce-scatter along `dim` over "model" forward (this rank's block
+    of the ranks' sum); backward: the blocks' gradients all-gathered."""
+
+    @staticmethod
+    def forward(ctx, x, dim, mesh):
+        ctx.dim, ctx.mesh = dim, mesh
+        return _reduce_scatter_(x, dim, mesh.group, mesh.tp)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather(g, ctx.dim, ctx.mesh), None, None
+
+
+class _SequenceShare(torch.autograd.Function):
+    """Identity forward; backward: the gradient within this rank's block
+    along `dim`, zero outside it."""
+
+    @staticmethod
+    def forward(ctx, x, dim, mesh):
+        ctx.dim, ctx.mesh = dim, mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = g.shape[ctx.dim] // ctx.mesh.tp
+        lo = ctx.mesh.rank * n
+        out = torch.zeros_like(g)
+        out.narrow(ctx.dim, lo, n).copy_(g.narrow(ctx.dim, lo, n))
+        return out, None, None
+
+
+class _AllToAllData(torch.autograd.Function):
+    """`_all_to_all` over "data" forward; backward: the gradient's blocks
+    sent back the same way (the exchange is its own transpose)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return _all_to_all(x, mesh.data_group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.mesh.data_group), None
+
+
+def sequence_parallel(cfg, seq_len: int) -> bool:
+    """Whether a stack over `seq_len` positions runs under Megatron-SP:
+    ``cfg.sequence_parallel`` in psum mode on more than one "model" rank,
+    for a kind whose blocks take it (dense, moe, mla_moe, vlm, and the
+    hybrid's shared block; Mamba1, Mamba2 and the encoder-decoder ignore
+    the flag, as their reference blocks do), more than one position, and
+    tp dividing them. Otherwise the call runs without it, as the
+    reference's `sanitize_spec` drops the sequence's axis (decode, a
+    prefill chunk tp does not divide)."""
+    return (bool(getattr(cfg, "sequence_parallel", False))
+            and getattr(cfg, "kind", None) in SP_KINDS
+            and psum_mode(cfg) and seq_len > 1
+            and seq_len % model_size() == 0)
+
+
+# the kinds whose blocks run under sequence parallelism (the hybrid: its
+# shared block)
+SP_KINDS = SP_STACK_KINDS + ("hybrid",)
+
+
+def sequence_slice(x: torch.Tensor, positions: torch.Tensor) -> bool:
+    """Whether a block's input `x` (B, S', d) is this rank's block of the
+    sequence: its sequence axis is shorter than that of the positions
+    (B, S[, 3]), which every block gets whole."""
+    return x.dim() == 3 and x.shape[1] != positions.shape[1]
+
+
+def gather_from_sequence(x: torch.Tensor, dim: int = 1, mesh=None
+                         ) -> torch.Tensor:
+    """The whole sequence (the ranks' blocks along `dim` concatenated)
+    before the column-parallel products; its gradient, each rank's
+    partial share, is reduce-scattered back to this rank's block. The
+    dense MoE gathers its experts' outputs on E the same way under SP."""
+    return _GatherFromSequence.apply(x, dim, mesh or current_mesh())
+
+
+def scatter_to_sequence(x: torch.Tensor, dim: int = 1, mesh=None
+                        ) -> torch.Tensor:
+    """This rank's block along `dim` of the ranks' sum of `x` (a
+    row-parallel product's partial sums, reduce-scattered in `x`'s
+    dtype); its gradient is all-gathered."""
+    return _ScatterToSequence.apply(x, dim, mesh or current_mesh())
+
+
+def sequence_block(x: torch.Tensor, dim: int = 1, mesh=None
+                   ) -> torch.Tensor:
+    """This rank's block of `x` along `dim` with no collective (`x` whole
+    on every rank); its gradient is zero outside the block."""
+    mesh = mesh or current_mesh()
+    n = x.shape[dim] // mesh.tp
+    return x.narrow(dim, mesh.rank * n, n)
+
+
+def sequence_share(x: torch.Tensor, dim: int = 1, mesh=None
+                   ) -> torch.Tensor:
+    """`x` as it is (whole, the same on every rank); its gradient passes
+    only within this rank's block along `dim` (`_SequenceShare`), so a
+    leaf that every rank uses whole on the whole sequence gets each
+    rank's share, summed over "model" by the train step."""
+    return _SequenceShare.apply(x, dim, mesh or current_mesh())
+
+
+def all_to_all_data(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The exchange over "data" of the equal blocks of `x`'s leading axis
+    (block j to data rank j; the output's block i from data rank i):
+    the dispatch of tokens to the ranks holding their experts, and back.
+    Its gradient goes back the same way. `x` as it is on a mesh of one
+    data rank."""
+    mesh = mesh or current_mesh()
+    if mesh is None or mesh.data == 1:
+        return x
+    return _AllToAllData.apply(x, mesh)
+
+
 def copy_to_model(x: torch.Tensor, mesh=None) -> torch.Tensor:
     """`x` as it is; its gradient is summed over "model"."""
     mesh = mesh or current_mesh()
@@ -358,6 +530,23 @@ def reduce_to_model(x: torch.Tensor, mesh=None) -> torch.Tensor:
     summed over "model" too."""
     mesh = mesh or current_mesh()
     return _ReduceToModel.apply(x, mesh.group)
+
+
+def sum_over_model(grads: dict, names, mesh=None) -> None:
+    """Sum over "model", in place, the gradients of the leaves `names`
+    (each rank's share: the leaves "model" does not cut, used under
+    sequence parallelism), one all-reduce per dtype of them all packed."""
+    mesh = mesh or current_mesh()
+    if mesh is None or mesh.tp == 1 or not names:
+        return
+    views: dict = {}
+    for name in sorted(names):
+        views.setdefault(grads[name].dtype, []).append(grads[name])
+    for group in views.values():
+        flat = _all_reduce_(torch.cat([v.reshape(-1) for v in group]),
+                            mesh.group)
+        for v, part in zip(group, flat.split([v.numel() for v in group])):
+            v.copy_(part.view(v.shape))
 
 
 def sum_whole_parts(grads: dict, parts: dict, mesh=None) -> None:
@@ -516,13 +705,15 @@ def psum_mode(cfg) -> bool:
     return tp_enabled(cfg) and getattr(cfg, "tp_reduce", "psum") != "gather"
 
 
-def enter(x: torch.Tensor, cfg, w: torch.Tensor, n: int) -> torch.Tensor:
+def enter(x: torch.Tensor, cfg, w: torch.Tensor, n: int,
+          sp: bool = False) -> torch.Tensor:
     """`x` as it enters a column-parallel block whose first projection is
     `w` of whole width `n`: in psum mode, where `w` is sharded, through
     `copy_to_model` (each rank's gradient of it is partial: its columns'
-    share); `x` itself otherwise (gather mode, one rank, or a block tp
-    does not divide, which every rank computes whole)."""
-    if psum_mode(cfg) and w.shape[-1] != n:
+    share); `x` itself otherwise (gather mode, one rank, a block tp does
+    not divide, which every rank computes whole, or under `sp`, where
+    `gather_from_sequence`'s backward sums the shares)."""
+    if psum_mode(cfg) and not sp and w.shape[-1] != n:
         return copy_to_model(x)
     return x
 
@@ -560,13 +751,15 @@ def tp_column(x: torch.Tensor, w: torch.Tensor, cfg, n: int
 
 
 def tp_row(x: torch.Tensor, w: torch.Tensor, cfg, n: int,
-           k: int | None = None) -> torch.Tensor:
+           k: int | None = None, sp: bool = False) -> torch.Tensor:
     """The projection that closes a sharded block, of whole output width
     `n` and whole contraction width `k`, whole on every rank: gather
     mode's `row_parallel_gather` where `w` is column-sharded, psum mode's
     `row_parallel` where `w` holds fewer than `k` rows (`x` this rank's
     block of the contraction), else the plain product of the all-gathered
-    input."""
+    input. Under `sp` (`x` over the whole sequence) the result is this
+    rank's block of the sequence: the row-parallel sum reduce-scattered
+    (`scatter_to_sequence`), a whole product cut (`sequence_block`)."""
     if not tp_enabled(cfg):
         return ops.matmul(x, w)
     chunks = max(int(getattr(cfg, "tp_overlap_chunks", 1)), 1)
@@ -574,10 +767,13 @@ def tp_row(x: torch.Tensor, w: torch.Tensor, cfg, n: int,
         if w.shape[-1] != n:
             return row_parallel_gather(x, w, n, chunks)
     elif k is not None and w.shape[0] != k:
+        if sp:
+            return scatter_to_sequence(ops.matmul(x, w))
         return row_parallel(x, w, chunks)
     if x.shape[-1] != w.shape[0]:
         x = replicate(x, -1, cfg)
-    return ops.matmul(x, w)
+    y = ops.matmul(x, w)
+    return sequence_block(y) if sp else y
 
 
 class _OwnedRows(torch.autograd.Function):

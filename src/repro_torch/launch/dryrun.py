@@ -40,7 +40,7 @@ goes into the JSON's ``departures``: heads that tp does not divide, and
 the caches the reference cuts by GSPMD's split attention (the sequence
 over "model" where tp does not divide the KV heads, over "data" at
 ``long_500k``; MLA's latent ``c_kv`` over "model"), which the rank keeps
-whole (ROADMAP A7.3b).
+whole (ROADMAP A7.3c).
 
 One JSON per cell goes to ``artifacts/dryrun_torch/<mesh>/<arch>_<shape>[__<variant>].json``
 (``h100x1``, ``h100_16x16`` or ``h100_2x16x16``) with the reference's
@@ -57,17 +57,21 @@ and ``n_ops``; on a mesh also ``collective_calls_by_op``,
 ``collective_operand_bytes_by_op`` and ``departures``. Every figure is
 modelled from the ``h100`` data sheet's rates, not measured.
 
-Variants (``--variant``, a mesh only): ``tpx`` (the reference's explicit
-collectives: the port's own psum mode, so its artifact equals the
-default's apart from ``variant``), ``kv_batch`` (the decode caches cut on
-the batch alone, the sequence never) and ``moe_smap`` (the MoE FFN's
-explicit expert parallelism, `models.moe.moe_ffn_shard_map`) run. ``sp``,
-``ep_data``, ``sp_ep_data``, ``moe_smap_sp`` and ``tpx_sp`` (Megatron-SP,
-experts over "data") raise a ValueError naming ROADMAP A7.3b. The
-cache-dtype variants (``kv_fp8``, ``kv_batch_fp8``) raise too, since the
-port's caches stay bf16 (the hand-written GEMM writes no float8, and
-MLA's latent decompression is a GEMM whose output takes the cache's
-dtype).
+Variants (``--variant``, a mesh only), the reference's config transforms:
+``tpx`` (the reference's explicit collectives: the port's own psum mode,
+so its artifact equals the default's apart from ``variant``),
+``kv_batch`` (the decode caches cut on the batch alone, the sequence
+never), ``moe_smap`` (the MoE FFN's explicit expert parallelism,
+`models.moe.moe_ffn_shard_map`), ``sp`` and ``tpx_sp`` (Megatron
+sequence parallelism: the residual stream on the rank's 1/tp of the
+sequence, all-gathers before the column products and reduce-scatters
+after the row products, in training and prefill; decode never), ``ep_data``
+(experts over "data" with their d_ff over "model", tokens exchanged by
+all-to-all over "data", FSDP off), ``sp_ep_data`` (both) and
+``moe_smap_sp`` (``moe_smap`` under SP) run. The cache-dtype variants
+(``kv_fp8``, ``kv_batch_fp8``) raise a ValueError, since the port's
+caches stay bf16 (the hand-written GEMM writes no float8, and MLA's
+latent decompression is a GEMM whose output takes the cache's dtype).
 """
 
 from __future__ import annotations
@@ -98,31 +102,37 @@ MESH = "h100x1"
 # --mesh: the directory of each mesh's artifacts
 MESHES = {"card": MESH, "single": "h100_16x16", "multi": "h100_2x16x16"}
 
-# the reference's variants: those the port runs (on a mesh), those that
-# wait for Megatron-SP and experts over "data", and the float8 caches
-HONOURED_VARIANTS = ("tpx", "kv_batch", "moe_smap")
-DEFERRED_VARIANTS = ("sp", "ep_data", "sp_ep_data", "moe_smap_sp", "tpx_sp")
+# the reference's variants (its `VARIANTS` transforms): those the port
+# runs on a mesh, among them Megatron-SP's and the experts over "data"
+# (`SP_EP_VARIANTS`), and the float8 caches, which it refuses
+SP_EP_VARIANTS = ("sp", "ep_data", "sp_ep_data", "moe_smap_sp", "tpx_sp")
+HONOURED_VARIANTS = ("tpx", "kv_batch", "moe_smap") + SP_EP_VARIANTS
 FP8_VARIANTS = ("kv_fp8", "kv_batch_fp8")
 VARIANTS = {
     None: lambda cfg: cfg,
     "tpx": lambda cfg: dataclasses.replace(cfg, tp_collectives="explicit"),
     "kv_batch": lambda cfg: cfg,
     "moe_smap": lambda cfg: dataclasses.replace(cfg, moe_impl="shard_map"),
+    "sp": lambda cfg: dataclasses.replace(cfg, sequence_parallel=True),
+    "ep_data": lambda cfg: dataclasses.replace(
+        cfg, moe_expert_axis="data", fsdp=False),
+    "sp_ep_data": lambda cfg: dataclasses.replace(
+        cfg, sequence_parallel=True, moe_expert_axis="data", fsdp=False),
+    "moe_smap_sp": lambda cfg: dataclasses.replace(
+        cfg, moe_impl="shard_map", sequence_parallel=True),
+    "tpx_sp": lambda cfg: dataclasses.replace(
+        cfg, tp_collectives="explicit", sequence_parallel=True),
 }
 
 
 def refuse_variant(variant: str) -> None:
     """Raise a ValueError saying why the port runs no cell of `variant`
     (one it does not honour)."""
-    if variant in DEFERRED_VARIANTS:
-        raise ValueError(f"variant {variant!r} needs Megatron-SP or experts "
-                         "over 'data', which the port's mesh does not have "
-                         "yet (ROADMAP A7.3b)")
     if variant in FP8_VARIANTS:
         raise ValueError(f"variant {variant!r} stores the cache in float8; "
                          "the port's caches are bf16 (its GEMM writes no "
                          "float8)")
-    known = HONOURED_VARIANTS + DEFERRED_VARIANTS + FP8_VARIANTS
+    known = HONOURED_VARIANTS + FP8_VARIANTS
     raise ValueError(f"unknown variant {variant!r}; the reference's are "
                      f"{list(known)}")
 
@@ -288,7 +298,8 @@ def departures(params, cfg, mesh, inputs: dict, want: dict) -> list:
         stack = _stacked(name, cfg)
         ref = sharding.reference_shape(sharding.param_path(name),
                                        stack + shapes[name], mesh.shape,
-                                       cfg.fsdp)[len(stack):]
+                                       cfg.fsdp, cfg.moe_expert_axis
+                                       )[len(stack):]
         if tuple(p.shape) != ref:
             out.setdefault(_layer_name(name), {
                 "leaf": _layer_name(name), "port": list(p.shape),
@@ -315,6 +326,8 @@ def _rank_params(api, cfg, mesh, device, generator=None):
     sharding.shard_params(params, mesh, "psum", whole=whole, cfg=rcfg)
     sharding.cut_over_data(params, sharding.fsdp_axes(whole, mesh, rcfg),
                            mesh)
+    sharding.cut_over_data(params, sharding.expert_axes(whole, mesh, rcfg),
+                           mesh, gathered=False)
     return params
 
 

@@ -27,6 +27,7 @@ from torch import nn
 
 from repro_torch.device import resolve_device
 from repro_torch.distributed import fsdp
+from repro_torch.distributed import tp as TP
 from repro_torch.distributed.sharding import local_state_shape
 from repro_torch.models import layers as L
 from repro_torch.models import ssm
@@ -112,7 +113,12 @@ def _group(model: HybridLM, g: int, x: torch.Tensor, cfg: ModelConfig,
     """Group `g`: its Mamba2 blocks, then the shared block, over the
     group's views of `cache` (written in place), or with no cache. Each
     block's leaves cut over "data" are gathered here, inside what `remat`
-    recomputes (FSDP: `distributed.fsdp`)."""
+    recomputes (FSDP: `distributed.fsdp`). Under sequence parallelism
+    the Mamba2 blocks, whose scans need the whole sequence, run on it
+    whole, and the shared block on this rank's block of it: cut at its
+    entry (`tp.split_to_model`: the gradient gathered) and gathered at
+    the group's edge (`tp.gather_from_model`: the gradient's block
+    kept), so the backbone around it sees no sequence parallelism."""
     E = cfg.attn_every
     for e in range(E):
         x = ssm.mamba2_block_apply(
@@ -121,11 +127,15 @@ def _group(model: HybridLM, g: int, x: torch.Tensor, cfg: ModelConfig,
             cache=None if cache is None else {
                 k: v[g, e] for k, v in cache["mamba"].items()},
             cache_index=cache_index, seq_lens=seq_lens)[0]
-    return tfm.dense_block_apply(
+    sp = TP.sequence_parallel(cfg, x.shape[1])
+    if sp:
+        x = TP.split_to_model(x, 1)
+    x = tfm.dense_block_apply(
         fsdp.gathered(model.shared_attn), x, cfg, positions=positions,
         cache=None if cache is None else {
             k: v[g] for k, v in cache["attn"].items()},
         cache_index=cache_index, seq_lens=seq_lens)[0]
+    return TP.gather_from_model(x, 1) if sp else x
 
 
 def _backbone(model: HybridLM, x: torch.Tensor, cfg: ModelConfig, *,

@@ -360,6 +360,7 @@ def attention_apply(
     cache_index: torch.Tensor | int | None = None,
     seq_lens: torch.Tensor | None = None,
     kv_lens: torch.Tensor | None = None,
+    sp: bool = False,
 ) -> tuple[torch.Tensor, dict | None]:
     """GQA self-attention with RoPE (M-RoPE where ``config.mrope``, with
     (B, S, 3) `positions`) and an optional KV cache, dense or paged.
@@ -385,11 +386,15 @@ def attention_apply(
     (`tp_row`: gathered in gather mode, summed in psum mode). In psum mode
     the block's input enters through `tp.enter`, and where tp does not
     divide the KV heads (training only) ``wk`` and ``wv`` are whole and a
-    rank uses its query heads' KV heads."""
+    rank uses its query heads' KV heads. Under `sp` (sequence
+    parallelism: `x` is the whole sequence, gathered by
+    `tp.gather_from_sequence`, whose backward sums the ranks' shares) no
+    input enters through a copy, and the output is this rank's block of
+    the sequence (`tp_row`'s reduce-scatter)."""
     B, S, d = x.shape
     hd = config.hd
     n_q, n_kv = config.n_heads * hd, config.kv_heads * hd
-    xe = TP.enter(x, config, p["wq"], n_q)
+    xe = TP.enter(x, config, p["wq"], n_q, sp)
     q = TP.tp_column(xe, p["wq"], config, n_q)
     H = q.shape[-1] // hd                            # this rank's heads
     # psum mode where tp does not divide the KV heads (training only,
@@ -410,8 +415,9 @@ def attention_apply(
         rank = TP.current_mesh().rank
         span = slice(rank * H // group * hd,
                      (((rank + 1) * H - 1) // group + 1) * hd)
-        k = TP.copy_to_model(k)[..., span]
-        v = TP.copy_to_model(v)[..., span]
+        if not sp:
+            k, v = TP.copy_to_model(k), TP.copy_to_model(v)
+        k, v = k[..., span], v[..., span]
     KV = k.shape[-1] // hd
     def rope(t):
         if config.mrope:
@@ -445,7 +451,8 @@ def attention_apply(
                     q_offset=cache_index, kv_len=cache_index + S)
     else:
         out = _sdpa(q, k, v, causal=causal, kv_len=kv_lens)
-    y = TP.tp_row(out.reshape(B, S, H * hd), p["wo"], config, d, n_q)
+    y = TP.tp_row(out.reshape(B, S, H * hd), p["wo"], config, d, n_q,
+                  sp=sp)
     return y, new_cache
 
 
@@ -453,21 +460,23 @@ def attention_apply(
 
 def swiglu_apply(p: Params, x: torch.Tensor,
                  config: ModelConfig | None = None,
-                 d_ff: int | None = None) -> torch.Tensor:
+                 d_ff: int | None = None, sp: bool = False) -> torch.Tensor:
     """SwiGLU FFN (plain GELU FFN when there is no `w_gate`). Under tensor
     parallelism the up and gate projections are column-parallel and the
     down projection row-parallel (`distributed.tp`); `d_ff` is the whole
     hidden width (default ``w_down``'s rows, which gather mode and one
-    rank keep whole; psum mode cuts them, so its callers pass it)."""
+    rank keep whole; psum mode cuts them, so its callers pass it). Under
+    `sp`, `x` (B, S, d) is the gathered sequence and the output this
+    rank's block of it, as in `attention_apply`."""
     d_ff = d_ff or p["w_down"].shape[0]
-    x = TP.enter(x, config, p["w_up"], d_ff)
+    x = TP.enter(x, config, p["w_up"], d_ff, sp)
     u = TP.tp_column(x, p["w_up"], config, d_ff)
     if "w_gate" in p:
         g = TP.tp_column(x, p["w_gate"], config, d_ff)
         h = F.silu(g.float()).to(x.dtype) * u
     else:
         h = F.gelu(u.float(), approximate="tanh").to(x.dtype)
-    return TP.tp_row(h, p["w_down"], config, x.shape[-1], d_ff)
+    return TP.tp_row(h, p["w_down"], config, x.shape[-1], d_ff, sp=sp)
 
 
 # ---------------- decode-state slot surgery ----------------

@@ -29,7 +29,12 @@ only this rank's experts' slots and sums the partial outputs over
 the replicated latent cache, column-parallel) and wo (gathered in gather
 mode, summed in psum mode); the latent cache, w_dq, w_dkv and w_kpe stay
 whole on every rank, and in psum mode their outputs enter the sharded
-heads through `tp.enter`.
+heads through `tp.enter`. Under sequence parallelism the blocks take this
+rank's block of the sequence and gather it before attention and the FFN
+(`transformer.dense_block_apply`); each MoE path's output goes back to the
+block (a cut, or the partial sum reduce-scattered). Experts over "data"
+(``moe_expert_axis="data"``, `moe_ffn_ep_data`) send their tokens to the
+experts' owners by an all-to-all over "data" and cut d_ff over "model".
 """
 
 from __future__ import annotations
@@ -112,7 +117,7 @@ def _expert_ffn(w: Params, xe: torch.Tensor) -> torch.Tensor:
     return torch.einsum("ecf,efd->ecd", h, w["w_down"])
 
 
-def _experts(w: Params, xe: torch.Tensor) -> torch.Tensor:
+def _experts(w: Params, xe: torch.Tensor, sp: bool = False) -> torch.Tensor:
     """The experts' SwiGLU over the dispatch buffer xe (E, C, d) -> (E, C,
     d). Under tensor parallelism the experts are E-sharded (the rank holds
     E/tp of them, `sharding.PARAM_RULES`' "expert" axis): each rank runs
@@ -121,12 +126,19 @@ def _experts(w: Params, xe: torch.Tensor) -> torch.Tensor:
     reason, `moe.py` `moe_ffn`: a psum would re-associate the fp32 sum).
     In training the buffer, whole on every rank, is split (`tp.
     split_to_model`: its gradient gathered) and the outputs gathered
-    (`tp.gather_from_model`: their gradient this rank's block)."""
+    (`tp.gather_from_model`: their gradient this rank's block). Under
+    `sp` each rank's gradient of the outputs is its rows' share: the
+    buffer is cut with its gradient zero outside the rank's experts
+    (`tp.sequence_block`) and the outputs gathered with their gradient
+    reduce-scattered (`tp.gather_from_sequence` on E)."""
     e_loc = w["w_gate"].shape[0]
     if e_loc == xe.shape[0]:
         return _expert_ffn(w, xe)
     if torch.is_grad_enabled() and (xe.requires_grad
                                     or w["w_gate"].requires_grad):
+        if sp:
+            return TP.gather_from_sequence(
+                _expert_ffn(w, TP.sequence_block(xe, 0)), 0)
         return TP.gather_from_model(
             _expert_ffn(w, TP.split_to_model(xe, 0)), 0)
     xe = xe.narrow(0, current_mesh().rank * e_loc, e_loc)
@@ -134,15 +146,21 @@ def _experts(w: Params, xe: torch.Tensor) -> torch.Tensor:
 
 
 def _aux_loss(cfg: ModelConfig, idx: torch.Tensor, probs: torch.Tensor,
-              n_tokens: int) -> torch.Tensor:
+              n_tokens: int, sp_rows: int = 0) -> torch.Tensor:
     """The Switch-transformer load-balancing loss of `n_tokens` tokens
     routed to experts `idx` (T*K,) with router probabilities `probs`
     (T, E): integer counts, exact in f32 (a static-shape count, which a
     meta tensor can take: bincount's output size depends on the data).
     On a mesh with a data axis of more than one rank the counts and the
     probabilities' sums are the whole batch's (summed over "data"), as
-    the reference's global dense path computes them."""
+    the reference's global dense path computes them. Under sequence
+    parallelism (`sp_rows`, the batch rows of the whole sequences every
+    rank routes) the probabilities pass their gradient only within this
+    rank's block of each row (`tp.sequence_share`)."""
     E, K = cfg.n_experts, cfg.top_k
+    if sp_rows:
+        probs = TP.sequence_share(probs.reshape(sp_rows, -1, E)
+                                  ).reshape(-1, E)
     counts = torch.zeros(E, dtype=torch.long, device=idx.device).index_add_(
         0, idx, torch.ones_like(idx))
     data = TP.data_size()
@@ -166,8 +184,8 @@ def _combine(y_tok: torch.Tensor, T: int, K: int) -> torch.Tensor:
     return out
 
 
-def moe_ffn_apply(p: Params, x: torch.Tensor, cfg: ModelConfig
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
+def moe_ffn_apply(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                  sp: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (out (B, S, d), aux loss). `p` holds ``router.w`` (d, E),
     ``experts.{w_gate, w_up}`` (E, d, f) and ``experts.w_down`` (E, f, d),
     and ``shared_mlp`` when the config has shared experts.
@@ -175,7 +193,13 @@ def moe_ffn_apply(p: Params, x: torch.Tensor, cfg: ModelConfig
     Dispatch scatters each kept token into its expert's slot of an f32
     (E, B * capacity, d) buffer with ``index_put_(accumulate=True)``: a
     kept token owns its slot, and only the zeros of dropped tokens (sent to
-    their row's slot 0) ever land beside it, so the sum is exact."""
+    their row's slot 0) ever land beside it, so the sum is exact.
+
+    Under `sp` (`x` the gathered sequence) every rank routes and combines
+    every token as before and its output is cut to its block of the
+    sequence with no collective (`tp.sequence_block`): each rank's
+    gradient is then its block's share, gathered into the experts by
+    `_experts` and into the router by the gates and the aux loss."""
     B, S, d = x.shape
     T = B * S
     E, K = cfg.n_experts, cfg.top_k
@@ -190,18 +214,22 @@ def moe_ffn_apply(p: Params, x: torch.Tensor, cfg: ModelConfig
     xe.index_put_((idx, slot), contrib, accumulate=True)
     xe = xe.to(x.dtype)
 
-    ye = _experts(p["experts"], xe)                               # (E, C, d)
+    ye = _experts(p["experts"], xe, sp)                           # (E, C, d)
 
     out = _combine(ye[idx, slot].float() * r["gate"][:, None], T, K)
-    out = out.to(x.dtype)
+    out = out.to(x.dtype).reshape(B, S, d)
+    if sp:
+        out = TP.sequence_block(out)
     if "shared_mlp" in p:
-        out = out + L.swiglu_apply(p["shared_mlp"], xt, cfg,
-                                   cfg.d_ff_expert * cfg.n_shared_experts)
-    aux = _aux_loss(cfg, idx, r["probs"], T)
-    return out.reshape(B, S, d), aux
+        f = cfg.d_ff_expert * cfg.n_shared_experts
+        out = out + L.swiglu_apply(p["shared_mlp"], x if sp else xt, cfg, f,
+                                   sp=sp).reshape(out.shape)
+    aux = _aux_loss(cfg, idx, r["probs"], T, B if sp else 0)
+    return out, aux
 
 
-def moe_ffn_shard_map(p: Params, x: torch.Tensor, cfg: ModelConfig
+def moe_ffn_shard_map(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                      sp: bool = False
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """The reference's explicit expert-parallel MoE (`moe_ffn_shard_map`,
     its `_local_dispatch`) on the current (data, model) mesh: this rank's
@@ -222,7 +250,13 @@ def moe_ffn_shard_map(p: Params, x: torch.Tensor, cfg: ModelConfig
     and used partially by each rank, so its logits enter there too, while
     the aux loss, the same on every rank, reads them as they are: the
     router's gradient is then summed over "model" (the reference's
-    shard_map sums a replicated input's cotangent)."""
+    shard_map sums a replicated input's cotangent).
+
+    Under `sp` (`x` the gathered sequence, whose gradient is
+    reduce-scattered) nothing enters through a copy, the aux loss's
+    probabilities pass their gradient within this rank's block of the
+    sequence, and the f32 partial sum is reduce-scattered to the block
+    (`tp.scatter_to_sequence`)."""
     mesh = current_mesh()
     B, S, d = x.shape
     T = B * S
@@ -235,7 +269,7 @@ def moe_ffn_shard_map(p: Params, x: torch.Tensor, cfg: ModelConfig
                          f"divisible by the model axis, {tp}")
     xt = x.reshape(T, d)
     logits = ops.matmul(xt, p["router"]["w"], out_dtype=torch.float32)
-    if tp > 1:
+    if tp > 1 and not sp:
         xt_in, lg = TP.copy_to_model(xt), TP.copy_to_model(logits)
     else:
         xt_in, lg = xt, logits
@@ -259,38 +293,125 @@ def moe_ffn_shard_map(p: Params, x: torch.Tensor, cfg: ModelConfig
         g = TP.tp_column(xt_in, sm["w_gate"], cfg, f)
         h = F.silu(g.float()).to(x.dtype) * u
         partial = partial + ops.matmul(h, sm["w_down"]).float()
-    out = TP.reduce_from_model(partial, mesh) if tp > 1 else partial
+    if sp:
+        out = TP.scatter_to_sequence(partial.reshape(B, S, d), 1, mesh)
+    else:
+        out = TP.reduce_from_model(partial, mesh) if tp > 1 else partial
     probs = torch.softmax(logits, dim=-1)
+    if sp:
+        probs = TP.sequence_share(probs.reshape(B, S, E)).reshape(T, E)
     counts = torch.zeros(E, dtype=torch.long, device=x.device).index_add_(
         0, idx, torch.ones_like(idx))
     aux = (cfg.router_aux_coef * E
            * torch.sum(counts.float() / (T * K) * probs.mean(0)))
     aux = TP.reduce_over_data(aux, mesh) / mesh.dp
-    return out.to(x.dtype).reshape(B, S, d), aux
+    return out.to(x.dtype).reshape(B, -1, d), aux
 
 
-def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig):
-    """The MoE FFN the blocks call: the explicit expert-parallel
-    `moe_ffn_shard_map` under ``moe_impl="shard_map"`` on a training mesh
-    (outside gather mode, as the reference's `moe_ffn` decides), else the
-    dense-dispatch `moe_ffn_apply`."""
-    if (cfg.moe_impl == "shard_map" and current_mesh() is not None
-            and getattr(cfg, "tp_reduce", "psum") != "gather"):
-        return moe_ffn_shard_map(p, x, cfg)
-    return moe_ffn_apply(p, x, cfg)
+def moe_ffn_ep_data(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                    sp: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """Experts over "data" (``moe_expert_axis="data"``, the reference's
+    ``expert``/``tp_if_ep_data`` rules): this rank holds E/data experts,
+    each with its block of d_ff over "model". Every rank routes its own
+    rows (capacity per row, `route`: a row's kept tokens do not change)
+    into the (E, B x capacity, d) buffer, whose expert blocks go to their
+    owners by `tp.all_to_all_data`; the owner runs its experts over every
+    data rank's slots, gate and up column-parallel and w_down a partial
+    sum over its d_ff block, and the outputs come back the same way. The
+    gate-weighted combine and the shared experts' column block (as in
+    `moe_ffn_shard_map`) make an f32 partial, all-reduced over "model"
+    (`tp.reduce_from_model`), or under `sp` reduce-scattered to this
+    rank's block of the sequence. The aux loss is the whole batch's
+    (`_aux_loss`' sums over "data"). The tokens and the routing logits
+    enter the partial region through `tp.copy_to_model` where "model" has
+    more than one rank and `sp` is off; the aux loss reads the logits as
+    they are. An expert leaf's gradient is whole over "data" after the
+    exchange's backward: the train step does not sum it there."""
+    mesh = current_mesh()
+    B, S, d = x.shape
+    T = B * S
+    E, K = cfg.n_experts, cfg.top_k
+    w = p["experts"]
+    e_loc = w["w_gate"].shape[0]
+    n, tp = mesh.data, mesh.tp
+    if e_loc * n != E or (tp > 1 and w["w_gate"].shape[-1] * tp
+                          != cfg.d_ff_expert):
+        raise ValueError(f"experts over 'data' need n_experts={E} cut over "
+                         f"{n} data ranks and d_ff_expert="
+                         f"{cfg.d_ff_expert} over {tp} model ranks")
+    xt = x.reshape(T, d)
+    logits = ops.matmul(xt, p["router"]["w"], out_dtype=torch.float32)
+    if tp > 1 and not sp:
+        xt_in, lg = TP.copy_to_model(xt), TP.copy_to_model(logits)
+    else:
+        xt_in, lg = xt, logits
+    r = route(lg, cfg, B)
+    idx, slot, keep, cap = r["idx"], r["slot"], r["keep"], r["capacity"]
+    C = B * cap
+    contrib = torch.where(keep[:, None],
+                          xt_in.repeat_interleave(K, dim=0).float(), 0.0)
+    xe = torch.zeros((E, C, d), dtype=torch.float32, device=x.device)
+    xe.index_put_((idx, slot), contrib, accumulate=True)
+    # (E, C, d): block j of experts to data rank j; back, data rank i's
+    # slots of this rank's experts, side by side on the capacity axis
+    xe = TP.all_to_all_data(xe.to(x.dtype), mesh)
+    xe = xe.reshape(n, e_loc, C, d).transpose(0, 1).reshape(e_loc, n * C, d)
+    ye = _expert_ffn(w, xe)
+    ye = ye.reshape(e_loc, n, C, d).transpose(0, 1).reshape(E, C, d)
+    ye = TP.all_to_all_data(ye, mesh)
+    partial = _combine(ye[idx, slot].float() * r["gate"][:, None], T, K)
+    if "shared_mlp" in p:
+        sm = p["shared_mlp"]
+        f = cfg.d_ff_expert * cfg.n_shared_experts
+        u = TP.tp_column(xt_in, sm["w_up"], cfg, f)
+        g = TP.tp_column(xt_in, sm["w_gate"], cfg, f)
+        h = F.silu(g.float()).to(x.dtype) * u
+        partial = partial + ops.matmul(h, sm["w_down"]).float()
+    partial = partial.reshape(B, S, d)
+    if sp:
+        out = TP.scatter_to_sequence(partial, 1, mesh)
+    else:
+        out = TP.reduce_from_model(partial, mesh) if tp > 1 else partial
+    probs = r["probs"] if lg is logits else torch.softmax(logits, dim=-1)
+    aux = _aux_loss(cfg, idx, probs, T, B if sp else 0)
+    return out.to(x.dtype), aux
+
+
+def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig, sp: bool = False):
+    """The MoE FFN the blocks call, outside gather mode on a mesh: the
+    experts-over-"data" `moe_ffn_ep_data` under
+    ``moe_expert_axis="data"`` (whatever ``moe_impl``: the experts live on
+    "data"), the explicit expert-parallel `moe_ffn_shard_map` under
+    ``moe_impl="shard_map"`` (as the reference's `moe_ffn` decides); else
+    the dense-dispatch `moe_ffn_apply`. `sp`: `x` is the gathered
+    sequence and the output this rank's block of it."""
+    mesh = current_mesh()
+    if mesh is not None and getattr(cfg, "tp_reduce", "psum") != "gather":
+        if getattr(cfg, "moe_expert_axis", "model") == "data":
+            return moe_ffn_ep_data(p, x, cfg, sp)
+        if cfg.moe_impl == "shard_map":
+            return moe_ffn_shard_map(p, x, cfg, sp)
+    return moe_ffn_apply(p, x, cfg, sp)
+
 
 
 def moe_block_apply(blk, x: torch.Tensor, cfg: ModelConfig, *, positions,
                     cache=None, cache_index=None, seq_lens=None):
     """OLMoE block: RMSNorm -> GQA attention -> RMSNorm -> MoE FFN.
-    Returns (x, cache, aux)."""
+    Returns (x, cache, aux). Under sequence parallelism as
+    `transformer.dense_block_apply`."""
+    sp = TP.sequence_slice(x, positions)
     h = L.rmsnorm(blk.ln1, x, cfg.norm_eps)
+    if sp:
+        h = TP.gather_from_sequence(h)
     attn_out, new_cache = L.attention_apply(
         blk.attn, h, cfg, positions=positions, kv_cache=cache,
-        cache_index=cache_index, seq_lens=seq_lens)
+        cache_index=cache_index, seq_lens=seq_lens, sp=sp)
     x = x + attn_out
     h = L.rmsnorm(blk.ln2, x, cfg.norm_eps)
-    moe_out, aux = moe_ffn(blk.moe, h, cfg)
+    if sp:
+        h = TP.gather_from_sequence(h)
+    moe_out, aux = moe_ffn(blk.moe, h, cfg, sp)
     return x + moe_out, new_cache, aux
 
 
@@ -366,7 +487,8 @@ def mla_attention(q_c: torch.Tensor, q_pe: torch.Tensor, k_c: torch.Tensor,
 
 def mla_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, positions,
               kv_cache: dict | None = None, cache_index=None,
-              seq_lens=None) -> tuple[torch.Tensor, dict | None]:
+              seq_lens=None, sp: bool = False
+              ) -> tuple[torch.Tensor, dict | None]:
     """Multi-head latent attention. The cache holds the rank-r latent
     ``c_kv`` and the shared RoPE key ``k_pe``: dense ({"c_kv", "k_pe"},
     (B, max_len, r | pe), written in place at `cache_index`) or paged
@@ -377,7 +499,10 @@ def mla_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, positions,
 
     Under tensor parallelism the head count is this rank's, read from
     w_uq's width (whole heads of hd + pe columns), and the output
-    projection gathers the heads and its columns (`tp_row`).
+    projection gathers the heads and its columns (`tp_row`). Under `sp`
+    (`x` the gathered sequence) nothing enters the heads through a copy
+    and the output is this rank's block of the sequence, as in
+    `layers.attention_apply`.
     """
     B, S, d = x.shape
     hd, pe = cfg.hd, cfg.rope_head_dim
@@ -385,8 +510,8 @@ def mla_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, positions,
 
     n_uq = cfg.n_heads * (hd + pe)
     q_in = ops.matmul(x, p["w_dq"]) if cfg.q_lora_rank else x
-    q = TP.tp_column(TP.enter(q_in, cfg, p["w_uq"], n_uq), p["w_uq"], cfg,
-                     n_uq)
+    q = TP.tp_column(TP.enter(q_in, cfg, p["w_uq"], n_uq, sp), p["w_uq"],
+                     cfg, n_uq)
     q = q.reshape(B, S, H, hd + pe)
     q_c, q_pe = q[..., :hd], q[..., hd:]
     q_pe = L.apply_rope(q_pe, positions, cfg.rope_theta)
@@ -423,14 +548,14 @@ def mla_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *, positions,
     Sk = c_kv_full.shape[1]
     n_uk = cfg.n_heads * hd
     # psum mode: the whole latent and RoPE key enter the sharded heads
-    c_kv_full = TP.enter(c_kv_full, cfg, p["w_uq"], n_uq)
-    k_pe_full = TP.enter(k_pe_full, cfg, p["w_uq"], n_uq)
+    c_kv_full = TP.enter(c_kv_full, cfg, p["w_uq"], n_uq, sp)
+    k_pe_full = TP.enter(k_pe_full, cfg, p["w_uq"], n_uq, sp)
     k_c = _decompress(c_kv_full, p["w_uk"], cfg, n_uk).reshape(B, Sk, H, hd)
     v = _decompress(c_kv_full, p["w_uv"], cfg, n_uk).reshape(B, Sk, H, hd)
     out = mla_attention(q_c, q_pe, k_c, v, k_pe_full, q_offset=q_offset,
                         kv_len=kv_len, kv_valid=kv_valid,
                         scale=1.0 / math.sqrt(hd + pe))
-    y = TP.tp_row(out.reshape(B, S, H * hd), p["wo"], cfg, d, n_uk)
+    y = TP.tp_row(out.reshape(B, S, H * hd), p["wo"], cfg, d, n_uk, sp=sp)
     return y, new_cache
 
 
@@ -438,14 +563,20 @@ def mla_moe_block_apply(blk, x: torch.Tensor, cfg: ModelConfig, *,
                         positions, cache=None, cache_index=None,
                         seq_lens=None):
     """DeepSeek-V2 block: RMSNorm -> MLA -> RMSNorm -> MoE FFN with shared
-    experts. Returns (x, cache, aux)."""
+    experts. Returns (x, cache, aux). Under sequence parallelism as
+    `transformer.dense_block_apply`."""
+    sp = TP.sequence_slice(x, positions)
     h = L.rmsnorm(blk.ln1, x, cfg.norm_eps)
+    if sp:
+        h = TP.gather_from_sequence(h)
     attn_out, new_cache = mla_apply(blk.attn, h, cfg, positions=positions,
                                     kv_cache=cache, cache_index=cache_index,
-                                    seq_lens=seq_lens)
+                                    seq_lens=seq_lens, sp=sp)
     x = x + attn_out
     h = L.rmsnorm(blk.ln2, x, cfg.norm_eps)
-    moe_out, aux = moe_ffn(blk.moe, h, cfg)
+    if sp:
+        h = TP.gather_from_sequence(h)
+    moe_out, aux = moe_ffn(blk.moe, h, cfg, sp)
     return x + moe_out, new_cache, aux
 
 

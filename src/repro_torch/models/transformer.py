@@ -221,14 +221,27 @@ def dense_block_apply(blk: DenseBlock, x: torch.Tensor, cfg: ModelConfig, *,
                       cache_index=None, seq_lens=None):
     """One block; returns (x, cache, aux) (aux is 0: the uniform block
     API of the JAX package). `seq_lens` masks a right-padded chunk's KV
-    write to each row's valid tokens."""
+    write to each row's valid tokens.
+
+    Under sequence parallelism (`x` this rank's block of the sequence,
+    `tp.sequence_slice`) the reference's Megatron-SP structure: the
+    residual stream and both norms on the block, the normed activations
+    all-gathered before the qkv and gate/up products
+    (`tp.gather_from_sequence`), and the wo and w_down partial sums
+    reduce-scattered back to the block before the residual add."""
+    sp = TP.sequence_slice(x, positions)
     h = L.rmsnorm(blk.ln1, x, cfg.norm_eps)
+    if sp:
+        h = TP.gather_from_sequence(h)
     attn_out, new_cache = L.attention_apply(
         blk.attn, h, cfg, positions=positions, kv_cache=cache,
-        cache_index=cache_index, seq_lens=seq_lens)
+        cache_index=cache_index, seq_lens=seq_lens, sp=sp)
     x = x + attn_out
     h = L.rmsnorm(blk.ln2, x, cfg.norm_eps)
-    return x + L.swiglu_apply(blk.mlp, h, cfg, cfg.d_ff), new_cache, 0.0
+    if sp:
+        h = TP.gather_from_sequence(h)
+    return (x + L.swiglu_apply(blk.mlp, h, cfg, cfg.d_ff, sp=sp),
+            new_cache, 0.0)
 
 
 def block_apply(cfg: ModelConfig):
@@ -253,6 +266,21 @@ def _embed(model: TransformerLM, tokens: torch.Tensor,
         _dtype(cfg.activation_dtype))
 
 
+def enter_sequence(model: nn.Module, x: torch.Tensor,
+                   cfg: ModelConfig) -> torch.Tensor:
+    """The embeddings `x` (B, S, d) as the block stack takes them: under
+    sequence parallelism (`tp.sequence_parallel`) this rank's block of
+    the sequence, cut with its gradient zero outside the block where the
+    table is whole (each rank's share of the table's gradient), or
+    gathered back (`tp.split_to_model`) where the table is cut by vocab
+    (each rank's rows take every token's cotangent), else `x`."""
+    if not TP.sequence_parallel(cfg, x.shape[1]):
+        return x
+    if model.embed["table"].shape[0] == cfg.vocab:
+        return TP.sequence_block(x)
+    return TP.split_to_model(x, 1)
+
+
 def _unembed(model: TransformerLM, x: torch.Tensor,
              cfg: ModelConfig) -> torch.Tensor:
     """f32 logits over the whole vocabulary (a vocab-sharded head gathers
@@ -273,14 +301,19 @@ def _run_blocks(model: TransformerLM, x: torch.Tensor, cfg: ModelConfig, *,
     "c_kv"/"k_pe"), or the paged cache's pools ("k_pages"/"v_pages", MLA:
     "c_kv_pages"/"k_pe_pages") and its "table" (one table per layer, as in
     the JAX package, usually a broadcast view of one). The blocks' aux
-    losses are dropped: serving has no use for them."""
+    losses are dropped: serving has no use for them. Under sequence
+    parallelism (a prefill on the dry-run's psum-mode rank) the blocks
+    run on this rank's block of the sequence, gathered at the end."""
     apply = block or block_apply(cfg)
+    sp = TP.sequence_parallel(cfg, x.shape[1])
+    if sp:
+        x = TP.sequence_block(x)
     for i, blk in enumerate(model.blocks if blocks is None else blocks):
         layer_cache = {name: leaf[i] for name, leaf in cache.items()}
         x = apply(fsdp.gathered(blk), x, cfg, positions=positions,
                   cache=layer_cache, cache_index=cache_index,
                   seq_lens=seq_lens)[0]
-    return x
+    return TP.gather_from_model(x, 1) if sp else x
 
 
 def _under_mesh(mesh, fn, *args, **kwargs):
@@ -337,20 +370,30 @@ def head_loss(model: nn.Module, x: torch.Tensor, batch: dict,
     ``batch["loss_mask"]`` where given): (loss, {"nll", "accuracy"}).
     In psum mode a vocab-sharded head is vocab-parallel: this rank's f32
     logits of its vocab columns go into the sharded cross entropy, and no
-    rank gathers the whole logits."""
+    rank gathers the whole logits. Under sequence parallelism `x` is this
+    rank's block of the sequence (shorter than the labels): ``ln_f`` runs
+    on it, and it is gathered before the head (`tp.gather_from_sequence`
+    into a vocab-sharded head; into a whole head `tp.gather_from_model`,
+    the logits passing their gradient only within the block,
+    `tp.sequence_share`)."""
+    sp = x.shape[1] != batch["labels"].shape[1]
     x = L.rmsnorm(model.ln_f, x, cfg.norm_eps)
     tied = cfg.tie_embeddings
     w = fsdp.leaf(model.embed["table"] if tied else model.head["w"])
     cols = w.shape[0] if tied else w.shape[-1]
     if TP.psum_mode(cfg) and cols != cfg.vocab:
-        xe = TP.copy_to_model(x)
+        xe = TP.gather_from_sequence(x) if sp else TP.copy_to_model(x)
         logits = ops.matmul(xe, w, transpose_b=tied,
                             out_dtype=torch.float32, segments_n=cfg.vocab)
         return L.cross_entropy(logits, batch["labels"],
                                batch.get("loss_mask"),
                                vocab_start=TP.current_mesh().rank * cols)
-    return L.cross_entropy(_unembed(model, x, cfg), batch["labels"],
-                           batch.get("loss_mask"))
+    if sp:
+        logits = TP.sequence_share(
+            _unembed(model, TP.gather_from_model(x, 1), cfg))
+    else:
+        logits = _unembed(model, x, cfg)
+    return L.cross_entropy(logits, batch["labels"], batch.get("loss_mask"))
 
 
 def lm_loss(model: TransformerLM, batch: dict, cfg: ModelConfig,
@@ -365,7 +408,9 @@ def lm_loss(model: TransformerLM, batch: dict, cfg: ModelConfig,
     positions = batch.get("positions")
     if positions is None:
         positions = torch.arange(S, device=tokens.device).expand(B, S)
-    x, aux = train_stack(model.blocks, _embed(model, tokens, cfg), cfg,
+    x, aux = train_stack(model.blocks,
+                         enter_sequence(model, _embed(model, tokens, cfg),
+                                        cfg), cfg,
                          positions=positions,
                          block=block or block_apply(cfg))
     loss, metrics = head_loss(model, x, batch, cfg)

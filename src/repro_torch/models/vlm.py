@@ -71,7 +71,8 @@ def vlm_loss(model: tfm.TransformerLM, batch: dict, cfg: ModelConfig
     patches). The dense blocks with M-RoPE, each under
     `transformer.remat`, then `transformer.head_loss`. Returns (loss,
     metrics: nll, accuracy, loss), the metrics detached."""
-    x, _ = tfm.train_stack(model.blocks, _vlm_embed(model, batch, cfg), cfg,
+    x = tfm.enter_sequence(model, _vlm_embed(model, batch, cfg), cfg)
+    x, _ = tfm.train_stack(model.blocks, x, cfg,
                            positions=batch["positions_3d"].long(),
                            block=tfm.dense_block_apply)
     loss, metrics = tfm.head_loss(model, x, batch, cfg)

@@ -26,7 +26,15 @@ optimizer state; the block loops gather it before use
 (`distributed.fsdp`) and the backward reduce-scatters its gradient, so the
 step sums only the other leaves' over "data" (and FSDP's over "pod").
 The batch and the gradients go over both data-parallel axes, "pod" and
-"data" (`launch.mesh.dp_axes`).
+"data" (`launch.mesh.dp_axes`). Under ``moe_expert_axis="data"`` the
+experts are cut over "data" as their E (`sharding.expert_axes`): each
+rank's expert gradients are whole over "data" after the token exchange's
+backward, so they are summed over "pod" only, like FSDP's. Under
+``sequence_parallel`` (where it runs: `tp.sequence_parallel` of the
+batch's sequence) the gradient of each leaf "model" does not cut in the
+blocks that take it is each rank's share of it (the norms, the router,
+``ln_f``, a head or block tp does not divide: `sharding.sequence_partial`)
+and is summed over "model" first.
 """
 
 from __future__ import annotations
@@ -52,6 +60,11 @@ def train_config(cfg: ModelConfig, mesh=None, check: bool = True
     kind shards: `sharding.check_tp`, unless not `check`: the dry-run's
     rank then holds such leaves whole), else `cfg` as it is."""
     tp = sharding.model_size(mesh)
+    if check and getattr(cfg, "moe_expert_axis", "model") == "data" and \
+            mesh is not None and cfg.n_experts % mesh.data:
+        raise ValueError(f"experts over 'data' need n_experts="
+                         f"{cfg.n_experts} divisible by the data axis, "
+                         f"{mesh.data}")
     if tp == 1:
         return cfg
     if check:
@@ -77,8 +90,9 @@ def shard_state(params, model, cfg: ModelConfig, mesh=None,
                 zero1: bool = False, check: bool = True) -> State:
     """A fresh train state of whole `params` (a module; cut in place to
     `mesh`'s rank's shards in psum mode, `sharding.shard_params`, and over
-    "data" where ``cfg.fsdp``, `sharding.cut_over_data`), made trainable,
-    its optimizer state cut over "data" where `zero1`."""
+    "data" where ``cfg.fsdp``, `sharding.cut_over_data`, and its experts'
+    E over "data" under ``moe_expert_axis="data"``), made trainable, its
+    optimizer state cut over "data" where `zero1`."""
     layout = None
     if mesh is not None:
         cfg = train_config(cfg, mesh, check)
@@ -86,6 +100,7 @@ def shard_state(params, model, cfg: ModelConfig, mesh=None,
         sharding.shard_params(params, mesh, "psum", whole=whole, cfg=cfg)
         layout = sharding.train_layout(whole, mesh, cfg, zero1)
         sharding.cut_over_data(params, layout.fsdp, mesh)
+        sharding.cut_over_data(params, layout.experts, mesh, gathered=False)
     for p in params.parameters():
         p.requires_grad_(True)
     return {"params": params,
@@ -105,15 +120,20 @@ def _value_and_grad(model, params, names, batch, cfg):
     return loss.detach(), metrics, dict(zip(names, grads))
 
 
-def reduce_gradients(grads: dict, layout, mesh) -> None:
+def reduce_gradients(grads: dict, layout, mesh, sp: bool = False) -> None:
     """The step's reductions of this rank's gradients, in place, before
-    the update: the parts a rank holds whole in a leaf cut by parts
-    summed over "model" (each rank's is its heads' share:
-    `tp.sum_whole_parts`), then every leaf summed over the data-parallel
-    axes, but a leaf FSDP cuts over "data" (its backward reduce-scattered
-    it there) only over "pod"."""
+    the update: under sequence parallelism (`sp`: the step ran under it)
+    the leaves whose gradient is each rank's share (`TrainLayout.
+    sp_partial`) summed over "model" (`tp.sum_over_model`), the parts a
+    rank holds whole in a leaf cut by parts summed over "model" (each
+    rank's is its heads' share: `tp.sum_whole_parts`), then every leaf
+    summed over the data-parallel axes, but a leaf cut over "data" (by
+    FSDP, whose backward reduce-scattered it there, or an expert whose
+    tokens came to it by all-to-all) only over "pod"."""
     cut = layout.data_cut() if layout is not None else set()
     if layout is not None:
+        if sp:
+            TP.sum_over_model(grads, layout.sp_partial, mesh)
         TP.sum_whole_parts(grads, layout.whole_parts(), mesh)
     for name, g in grads.items():
         if name in cut:
@@ -186,7 +206,8 @@ def make_train_step(model, cfg: ModelConfig, opt_cfg: AdamWConfig,
         try:
             rows = batch if local_batch else _data_rows(batch, mesh)
             loss, metrics, grads = grads_of(params, names, rows)
-            reduce_gradients(grads, layout, mesh)
+            reduce_gradients(grads, layout, mesh, TP.sequence_parallel(
+                cfg, rows["labels"].shape[1]))
             _, opt, opt_metrics = apply_updates(
                 params, grads, state["opt"], opt_cfg, mesh=mesh,
                 sharded=sharded, zero1=layout and layout.zero1,

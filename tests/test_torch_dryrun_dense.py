@@ -139,7 +139,7 @@ def test_run_cell_writes_the_reference_keys(tmp_path):
     assert dryrun.run_cell("qwen2-7b", "decode_32k", out_dir=tmp_path) == r
 
 
-@pytest.mark.parametrize("variant", dryrun.HONOURED_VARIANTS)
+@pytest.mark.parametrize("variant", ["tpx", "kv_batch", "moe_smap"])
 def test_honoured_variants_run_on_the_mesh(variant, tmp_path):
     """``tpx``, ``kv_batch`` and ``moe_smap`` run a full-size decode cell
     on the 16x16 mesh. ``tpx`` is the port's own psum mode: its artifact
@@ -168,11 +168,25 @@ def test_honoured_variants_run_on_the_mesh(variant, tmp_path):
             d["leaf"] for d in got["departures"]}
 
 
-@pytest.mark.parametrize("variant", dryrun.DEFERRED_VARIANTS)
-def test_mesh_variants_wait_for_tensor_parallelism(variant):
-    with pytest.raises(ValueError, match="A7.3b"):
-        dryrun.main(["--arch", "qwen2-7b", "--shape", "decode_32k",
-                     "--mesh", "single", "--variant", variant])
+@pytest.mark.parametrize("variant", dryrun.SP_EP_VARIANTS)
+def test_mesh_variants_wait_for_tensor_parallelism(variant, tmp_path):
+    """The reference's Megatron-SP and experts-over-"data" variants run a
+    full-size olmoe-1b-7b cell on the 16x16 mesh (a prefill; ``ep_data``
+    a decode step, which SP never takes): the SP variants post
+    reduce-scatters, the experts-over-"data" ones all-to-alls, and the
+    rank holds every leaf as the reference's chip does (the experts' E
+    over "data" and d_ff over "model" under ``ep_data``)."""
+    shape = "decode_32k" if variant == "ep_data" else "prefill_32k"
+    assert dryrun.main(["--arch", "olmoe-1b-7b", "--shape", shape, "--mesh",
+                        "single", "--variant", variant, "--out",
+                        str(tmp_path)]) == 0
+    got = dryrun.run_cell("olmoe-1b-7b", shape, mesh="single",
+                          variant=variant, out_dir=tmp_path)
+    assert got["variant"] == variant and got["n_chips"] == 256
+    calls = got["collective_calls_by_op"]
+    assert ("reduce-scatter" in calls) == ("sp" in variant)
+    assert ("all-to-all" in calls) == ("ep_data" in variant)
+    assert got["departures"] == []
 
 
 @pytest.mark.parametrize("variant", dryrun.FP8_VARIANTS)

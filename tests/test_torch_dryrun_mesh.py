@@ -21,7 +21,11 @@ of rank (d, m) has the local shape of the reference's
 ``departures`` list. (d) Four gloo ranks run the same steps for real: each
 rank's posted collectives (op, calls, operand bytes) equal the dry count.
 (e) Where tp does not divide the attention heads the rank computes them
-whole and gives tp=1's logits and loss. The copies the port keeps of the
+whole and gives tp=1's logits and loss. The reference's five Megatron-SP
+and experts-over-"data" variants (``sp``, ``tpx_sp``, ``moe_smap_sp``,
+``sp_ep_data`` on prefill cells, ``ep_data`` on a training cell) are
+cases of every test above, their differences named in
+`variant_differences` and `train_differences`. The copies the port keeps of the
 reference's rules (`sharding.logical_to_mesh`, `dp_axes`) and of its ring
 formulas (`opanalyze.collective_wire`) are held to the originals.
 """
@@ -67,7 +71,23 @@ CASES = {
     "hybrid-decode": ("zamba2-2.7b", "decode_32k", {}),
     "encdec-prefill": ("seamless-m4t-medium", "prefill_32k", {}),
     "vlm-train": ("qwen2-vl-2b", "train_4k", {}),
+    # the reference's variants (`launch.dryrun.VARIANTS`)
+    "sp-prefill": ("qwen2-7b", "prefill_32k", {"sequence_parallel": True}),
+    "tpx-sp-prefill": ("qwen2-7b", "prefill_32k",
+                       {"tp_collectives": "explicit",
+                        "sequence_parallel": True}),
+    "smap-sp-prefill": ("olmoe-1b-7b", "prefill_32k",
+                        {"moe_impl": "shard_map",
+                         "sequence_parallel": True}),
+    "sp-ep-prefill": ("olmoe-1b-7b", "prefill_32k",
+                      {"sequence_parallel": True, "moe_expert_axis": "data",
+                       "fsdp": False}),
+    "ep-train": ("olmoe-1b-7b", "train_4k",
+                 {"moe_expert_axis": "data", "fsdp": False}),
 }
+# the variant cases whose wire bytes `variant_differences` names
+VARIANT_SERVING = ("sp-prefill", "tpx-sp-prefill", "smap-sp-prefill",
+                   "sp-ep-prefill")
 
 
 def _cfg(case: str):
@@ -150,7 +170,10 @@ def mla_fsdp_weight_grads(case: str) -> float:
 def ref_only_flops(case: str) -> float:
     """The reference's FLOPs per chip the port's rank does not compute."""
     cfg = _cfg(case)
-    if case == "moe-spmd":
+    if case == "sp-ep-prefill":
+        # the forward's three expert GEMMs on the whole capacity buffer
+        return 3 * cfg.n_layers * expert_capacity_gemm(case) * (1 - 1 / DP)
+    if case in ("moe-spmd", "ep-train"):
         # the forward's three expert GEMMs and the backward's six, all on
         # the whole capacity buffer: (1 - 1/dp) of each is the reference's
         # alone
@@ -170,6 +193,14 @@ def ref_only_flops(case: str) -> float:
 def port_only_flops(case: str) -> float:
     if case == "mla-fsdp":
         return mla_fsdp_weight_grads(case)
+    if case == "sp-ep-prefill":
+        # the router over the gathered sequence, where GSPMD routes the
+        # chip's 1/tp of it: 2 (T - T/tp) d E a layer
+        cfg = _cfg(case)
+        B, S = _rows(case)
+        T = B // DP * S
+        return (cfg.n_layers * 2 * T * (1 - 1 / TP) * cfg.d_model
+                * cfg.n_experts)
     return 0.0
 
 
@@ -239,7 +270,8 @@ def _zero1_vectors(case: str) -> float:
 # per block (MLA's attention enters its latents, counted on its own below;
 # GSPMD's MoE dispatch and Mamba1's one in_proj add none)
 EXTRA_INPUT_GRADS = {"dense-train": 3, "vlm-train": 3, "moe-smap": 3,
-                     "moe-spmd": 2, "mamba1-fsdp": 0, "mla-fsdp": 1}
+                     "moe-spmd": 2, "mamba1-fsdp": 0, "mla-fsdp": 1,
+                     "ep-train": 2}
 
 
 def train_differences(case: str) -> list:
@@ -325,6 +357,7 @@ def train_differences(case: str) -> list:
              "collective-permute", 0.0,
              3 * sum(W / DP for _, W, cut in blocks if not cut)),
         ]
+    ep = cfg.moe_expert_axis == "data"
     if cfg.kind in ("moe", "mla_moe") and cfg.moe_impl == "spmd":
         C = rows * moe.capacity(cfg, S)
         Et = E // TP
@@ -332,10 +365,10 @@ def train_differences(case: str) -> list:
         grad = RS if fsdp else AR
         out += [
             ("MoE dispatch: the port gathers the experts' outputs and "
-             "their input gradient over 'model', GSPMD all-reduces the "
-             "combine over 'model' on the global rows, forward and "
-             "backward", "all-gather",
-             2 * L * AG(Et * C * d * act, TP), 0.0),
+             "their input gradient over 'model' (experts over 'data': "
+             "none), GSPMD all-reduces the combine over 'model' on the "
+             "global rows, forward and backward", "all-gather",
+             0.0 if ep else 2 * L * AG(Et * C * d * act, TP), 0.0),
             ("", "all-reduce", 0.0, 2 * L * AR(B * S * d * act, TP)),
             ("MoE routing over the global capacity buffer: the reference "
              "gathers the router logits and the top-k ids over 'data' and "
@@ -343,15 +376,38 @@ def train_differences(case: str) -> list:
              L * (AG(T * E * 4, DP) + AG(T * cfg.top_k * 4, DP))),
             ("", "all-reduce", 0.0, L * AR(B * S * cfg.top_k * 4, DP)),
             ("expert gradients: the port reduces each expert weight's over "
-             "'data', GSPMD the capacity buffer's two cotangents (dispatch "
-             "and combine) and computes the weights' whole",
+             "'data' (experts over 'data': whole after the exchange), "
+             "GSPMD the capacity buffer's two cotangents (dispatch and "
+             "combine) and computes the weights' whole",
              "reduce-scatter" if fsdp else "all-reduce",
-             0.0 if fsdp else 3 * L * grad(W_e, DP), 0.0),
+             0.0 if fsdp or ep else 3 * L * grad(W_e, DP), 0.0),
             ("", "all-reduce", 0.0,
              2 * L * AR(Et * B * moe.capacity(cfg, S) * d * act, DP)),
             ("the aux loss's per-expert sums over 'data': the port's "
              "counts are int64", "all-reduce", L * AR(E * (4 + 8), DP),
              L * AR(E * 2 * 4, DP)),
+        ]
+    if ep:
+        out += [
+            ("experts over 'data': the port sends each expert block of "
+             "the rows' dispatch buffer to its owner and the outputs back, "
+             "and their cotangents the same way (four all-to-alls a "
+             "layer); GSPMD keeps the global capacity buffer",
+             "all-to-all",
+             4 * L * A2A(E * rows * moe.capacity(cfg, S) * d * act, DP),
+             0.0),
+            ("experts over 'data', d_ff over 'model': the port sums the "
+             "f32 partial output over 'model' and, in the backward, its "
+             "d_ff blocks' shares of the tokens' and routing logits' "
+             "gradients", "all-reduce",
+             L * (AR(T * d * 4, TP) + AR(T * d * act, TP)
+                  + AR(T * E * 4, TP)), 0.0),
+            ("ZeRO-1 of the experts: the reference's compiled cell holds "
+             "them (E/tp, d, f) over 'model' (`test_local_shapes_are_the_"
+             "references_shard_shapes`), cuts their state over 'data' and "
+             "gathers the updated params; the port's experts are cut over "
+             "'data' already, their state with them", "all-gather", 0.0,
+             3 * L * AG(E // TP * d * cfg.d_ff_expert * 4 // DP, DP)),
         ]
     if case == "moe-smap":
         r = d * E * 4
@@ -400,6 +456,92 @@ SERVING = ("dense-prefill", "dense-decode", "encdec-prefill",
            "hybrid-decode")
 
 
+def variant_differences(case: str) -> list:
+    """Every difference between the port's and the reference's collective
+    wire bytes per chip in a sequence-parallel prefill cell
+    (`VARIANT_SERVING`), op by op, from the config and the cell: [(what,
+    op, port only, reference only)], as `train_differences`. GSPMD on the
+    CPU lowers a sequence-parallel reduce-scatter point as an all-reduce
+    and a slice, and for olmoe-1b-7b keeps the attention on the sequence
+    shard (gathering the weights and the keys) where the port gathers
+    the sequence."""
+    cfg = _cfg(case)
+    arch, cell, _ = CASES[case]
+    B, S = configs.input_specs(arch, cell, smoke=True)["tokens"].shape
+    rows = B // DP
+    T = rows * S
+    d, L, E, K = cfg.d_model, cfg.n_layers, cfg.n_experts, cfg.top_k
+    H, KV, hd = cfg.n_heads, cfg.kv_heads, cfg.hd
+    act = 4 if cfg.activation_dtype == "float32" else 2
+    AG = lambda nb, g: _wire("all-gather", nb, g)      # noqa: E731
+    AR = lambda nb, g: _wire("all-reduce", nb, g)      # noqa: E731
+    RS = lambda nb, g: _wire("reduce-scatter", nb, g)  # noqa: E731
+    A2A = lambda nb, g: _wire("all-to-all", nb, g)     # noqa: E731
+    emb, logits = embedding_and_logits(case)
+    block = AG(T // TP * d * act, TP)         # one gather of the sequence
+    out = [
+        ("the embedding and the logits (`embedding_and_logits`)",
+         "all-gather", emb + logits, 0.0),
+        ("", "all-reduce", 0.0, emb),
+        ("the last position's row: the port gathers the sequence before "
+         "the head, GSPMD moves the last block's row (a permute) and "
+         "reduces it over 'model'", "all-gather", block, 0.0),
+        ("", "collective-permute", 0.0, rows * d * act),
+        ("", "all-reduce", 0.0, AR(rows * d * act, TP)),
+        ("attention's wo: the port reduce-scatters its partial sums to "
+         "the sequence block, GSPMD all-reduces them", "reduce-scatter",
+         L * RS(T * d * act, TP), 0.0),
+    ]
+    if cfg.kind == "dense":
+        out += [("the MLP's w_down: the same", "reduce-scatter",
+                 L * RS(T * d * act, TP), 0.0),
+                ("", "all-reduce", 0.0,
+                 2 * L * AR(T * d * act, TP))]
+        return out
+    out += [
+        ("attention on the sequence shard: GSPMD gathers wq, wk, wv and "
+         "wo's 'model' blocks and the keys' sequence where the port "
+         "gathers the block's input", "all-gather", L * block,
+         L * (4 * AG(d * H * hd // TP * act, TP)
+              + AG(rows * S // TP * KV * hd * act, TP))),
+        ("GSPMD's split-key attention: the softmax's max and sum and "
+         "the probabilities-times-values partial sums reduced over "
+         "'model'", "all-reduce", 0.0,
+         L * (2 * AR(rows * H * S * 4, TP)
+              + AR(rows * H * hd * S * act, TP))),
+        ("the MoE's f32 partial output: the port reduce-scatters it, "
+         "GSPMD all-reduces it (shard_map's psum)", "reduce-scatter",
+         L * RS(T * d * 4, TP), 0.0),
+    ]
+    if cfg.moe_impl == "shard_map" and cfg.moe_expert_axis != "data":
+        out.append(("", "all-reduce", 0.0, L * AR(T * d * 4, TP)))
+        return out
+    C = rows * moe.capacity(cfg, S)
+    out += [
+        ("experts over 'data': the port sends each expert block of the "
+         "rows' dispatch buffer to its owner and the outputs back",
+         "all-to-all", 2 * L * A2A(E * C * d * act, DP), 0.0),
+        ("the aux loss's per-expert sums over 'data' (int64 counts, f32 "
+         "probabilities), which GSPMD's prefill drops", "all-reduce",
+         L * AR(E * (8 + 4), DP), 0.0),
+        ("GSPMD's dense dispatch over the global capacity buffer: the "
+         "block's input gathered by the shard_map-less MoE over 'model' "
+         "(the port's gather before the MoE) against the data shard's "
+         "tokens over 'data', the chip's 1/tp routing logits and top-k "
+         "ids over all chips, the tokens' ids twice over 'data'",
+         "all-gather", L * block,
+         L * (AG(T * d * act, DP) + AG(T // TP * E * 4, TP * DP)
+              + AG(T // TP * K * 4, TP * DP) + 2 * AG(T * K * 4, DP))),
+        ("GSPMD's dense dispatch: the global slot counts over all chips, "
+         "the capacity buffer's expert block over 'data' and the "
+         "combine over 'model' on the global rows", "all-reduce", 0.0,
+         L * (AR(B * S * K * 4, TP * DP)
+              + AR(E // TP * B * moe.capacity(cfg, S) * d * act, DP)
+              + AR(B * S * d * act, TP))),
+    ]
+    return out
+
+
 def mamba2_relayout_bound(case: str) -> float:
     """A bound on the bytes GSPMD moves to re-lay a Mamba2 layer's
     concatenated in_proj output [z | x | B C | dt] and conv history from
@@ -435,6 +577,11 @@ def test_collective_bytes_by_op(case, reference):
         assert want.get(op, [0, 0])[1] <= 4 * n_leaves + 32, op
     tensor = {op: v[0] for op, v in got.items()}
     ref = {op: v[0] for op, v in want.items() if v[0]}
+    if case in VARIANT_SERVING:
+        for what, op, port_only, ref_only in variant_differences(case):
+            tensor[op] = tensor.get(op, 0.0) - port_only + ref_only
+        assert {op: v for op, v in tensor.items() if v} == ref
+        return
     if case in SERVING:
         emb, logits = embedding_and_logits(case)
         assert tensor["all-gather"] == emb + logits
@@ -495,18 +642,34 @@ def _flat(tree, prefix=()) -> dict:
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_local_shapes_are_the_references_shard_shapes(case, reference):
+    """Every leaf's local shape is the reference's shard shape, but the
+    departures the rank names and, under ``moe_expert_axis="data"``, the
+    experts: the port cuts E over "data" and d_ff over "model" as the
+    reference's rules say (`sharding.reference_shape`, no departure),
+    while its compiled cell holds them (E/tp, d, f) over "model"
+    (`param_pspecs` calls ``set_mesh_rules(mesh, fsdp)`` for each leaf,
+    which puts the rules' expert axis back to "model")."""
     _, args = port(case)
     params, inputs = _params_inputs(case, args)
     departed = _departed(case)
     ref = reference[case]
+    cfg = _cfg(case)
     whole = {n: tuple(p.shape) for n, p in dryrun.get_model(
-        _cfg(case)).init(_cfg(case), None, device="meta").named_parameters()}
+        cfg).init(cfg, None, device="meta").named_parameters()}
     checked = 0
     for name, p in params.named_parameters():
         if dryrun._layer_name(name) in departed:
             continue
         g, s = ref["params"][_ref_path(name)]
         n = len(p.shape)
+        if cfg.moe_expert_axis == "data" and ".experts." in name:
+            E, a, b = whole[name]
+            assert tuple(s[-n:]) == (E // TP, a, b), name
+            ff = 2 if name.endswith("w_gate") or name.endswith("w_up") else 1
+            assert tuple(p.shape) == tuple(
+                m // (DP if i == 0 else TP if i == ff else 1)
+                for i, m in enumerate(whole[name])), name
+            continue
         assert tuple(s[-n:]) == tuple(p.shape), name
         assert tuple(g[-n:]) == whole[name], name
         checked += 1
