@@ -233,7 +233,7 @@ build of PyTorch. Phases, each fatal on failure:
    router and the shared experts' gate, up and 4 down chunks; Mamba1's
    x_conv gather beside out_proj's, Mamba2's gated-norm input gather, the
    experts' output gather; 69 and 46 for deepseek-v2-236b). A process
-   started before the build makes phases 15 (e)'s and 16 (d)'s meta
+   started after phase 4 makes phases 15 (e)'s and 16 (d)'s meta
    analyses ahead (`_analyse_ahead`), and the mesh dry counts: the probe
    forwards on a dry (1, 2) mesh in gather mode, and the dry-run rank's
    step of 18 (a), (d), (e) and (f) (`_mesh_checks`). After it is joined
@@ -6161,10 +6161,11 @@ def main() -> int:
          f"{torch.version.cuda}, {torch.cuda.get_device_name(0)} x "
          f"{torch.cuda.device_count()}")
     t0 = time.perf_counter()
-    ahead = _analyse_ahead(dev)
     phase_build()
     phase_kernel_cases(dev)
     eng, api, params, cfg, shapes, by_path, streams = phase_serve(dev)
+    # after phase 4, whose tokens/s is the host's yardstick
+    ahead = _analyse_ahead(dev)
     entries = phase_serving_shapes(dev, shapes)
     untraced = phase_forwards(dev, eng, params, cfg)
     phase_logits(dev, eng, params, cfg)
@@ -6182,7 +6183,7 @@ def main() -> int:
     t_join = time.perf_counter()
     ahead.join()
     _say(f"[dry-run] phases 15 (e) and 16 (d)'s analyses and the mesh dry "
-         f"counts made in a process of their own from the start: "
+         f"counts made in a process of their own from phase 5 on: "
          f"{sorted(k for k in _DRY_AHEAD if ' failed' not in k)}, "
          f"waited {time.perf_counter() - t_join:.1f} s after it; failed "
          f"{ {k: v for k, v in _DRY_AHEAD.items() if ' failed' in k} }")

@@ -676,6 +676,14 @@ def data_block(t: torch.Tensor, axis: int | None, mesh) -> torch.Tensor:
         memory_format=torch.contiguous_format)
 
 
+def data_axes(fsdp: dict, experts: dict) -> dict:
+    """{name: the "data" axis the leaf itself is cut on, by FSDP (`fsdp`,
+    `fsdp_axes`) or as experts over "data" (`experts`, `expert_axes`; no
+    leaf is cut by both), or None}."""
+    return {n: ax if ax is not None else experts.get(n)
+            for n, ax in {**experts, **fsdp}.items()}
+
+
 @dataclasses.dataclass
 class TrainLayout:
     """Where each leaf of a training state lives on `mesh`: the "model"
@@ -702,10 +710,8 @@ class TrainLayout:
     sp_partial: set = dataclasses.field(default_factory=set)
 
     def data_axes(self) -> dict:
-        """{name: the "data" axis the leaf itself is cut on, by FSDP or as
-        experts over "data", or None}."""
-        return {n: ax if ax is not None else self.experts.get(n)
-                for n, ax in {**self.experts, **self.fsdp}.items()}
+        """`data_axes` of the layout's FSDP and expert cuts."""
+        return data_axes(self.fsdp, self.experts)
 
     def data_cut(self) -> set:
         """The names of the leaves cut over "data" (by FSDP or as experts
@@ -792,10 +798,10 @@ def train_layout(model: torch.nn.Module, mesh, cfg=None,
              for n, shape in full.items()}
     fsdp = fsdp_axes(model, mesh, cfg)
     experts = expert_axes(model, mesh, cfg)
-    cut = {n: ax if ax is not None else experts[n] for n, ax in fsdp.items()}
     data = mesh.data if (zero1 and mesh is not None) else 1
     return TrainLayout(mesh, axes, parts,
-                       zero1_axes(local, axes, data, cut), fsdp, experts,
+                       zero1_axes(local, axes, data,
+                                  data_axes(fsdp, experts)), fsdp, experts,
                        sequence_partial(axes, cfg) if tp > 1 else set())
 
 
@@ -806,31 +812,38 @@ def fsdp_leaf_axis(p: torch.Tensor) -> int | None:
 
 
 @torch.no_grad()
-def cut_over_data(model: torch.nn.Module, axes: dict, mesh,
-                  gathered: bool = True) -> None:
+def cut_over_data(model: torch.nn.Module, axes: dict, mesh) -> None:
     """Cut each parameter of `model` that `axes` ({name: "data" axis or
     None}, `fsdp_axes`) names to this data rank's block, in place, and
     mark it with its axis (`fsdp_leaf_axis`: `distributed.fsdp` gathers it
     before use) and each module that holds it with ``fsdp_cut`` (so a
     model FSDP did not cut costs `distributed.fsdp` one attribute read a
-    block). With `gathered` False (experts over "data", `expert_axes`,
-    which stay cut) nothing is marked, and a parameter already cut to its
-    block is left as it is."""
+    block)."""
     for name, p in model.named_parameters():
         ax = axes.get(name)
         if (ax is None or mesh is None or mesh.data == 1
                 or fsdp_leaf_axis(p) is not None):
-            continue
-        if not gathered:
-            if not getattr(p, "expert_cut", False):
-                p.data = data_block(p.data, ax, mesh)
-                p.expert_cut = True
             continue
         p.data = data_block(p.data, ax, mesh)
         p.fsdp_axis = ax
         path = name.split(".")[:-1]
         for i in range(len(path) + 1):
             model.get_submodule(".".join(path[:i])).fsdp_cut = True
+
+
+@torch.no_grad()
+def cut_experts_over_data(model: torch.nn.Module, axes: dict, mesh) -> None:
+    """Cut each expert leaf of `model` that `axes` (`expert_axes`) names
+    to this data rank's block of the experts, in place. The leaves stay
+    cut (the tokens go to them, `moe.moe_ffn_ep_data`); one already cut
+    (``expert_cut``) is left as it is."""
+    for name, p in model.named_parameters():
+        ax = axes.get(name)
+        if (ax is None or mesh is None or mesh.data == 1
+                or getattr(p, "expert_cut", False)):
+            continue
+        p.data = data_block(p.data, ax, mesh)
+        p.expert_cut = True
 
 
 # ---------------------------------------------------------------------------

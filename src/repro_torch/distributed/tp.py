@@ -437,31 +437,28 @@ class _AllToAllData(torch.autograd.Function):
         return _all_to_all(g, ctx.mesh.data_group), None
 
 
-def sequence_parallel(cfg, seq_len: int) -> bool:
-    """Whether a stack over `seq_len` positions runs under Megatron-SP:
-    ``cfg.sequence_parallel`` in psum mode on more than one "model" rank,
-    for a kind whose blocks take it (dense, moe, mla_moe, vlm, and the
-    hybrid's shared block; Mamba1, Mamba2 and the encoder-decoder ignore
-    the flag, as their reference blocks do), more than one position, and
-    tp dividing them. Otherwise the call runs without it, as the
-    reference's `sanitize_spec` drops the sequence's axis (decode, a
-    prefill chunk tp does not divide)."""
-    return (bool(getattr(cfg, "sequence_parallel", False))
-            and getattr(cfg, "kind", None) in SP_KINDS
-            and psum_mode(cfg) and seq_len > 1
-            and seq_len % model_size() == 0)
-
-
 # the kinds whose blocks run under sequence parallelism (the hybrid: its
 # shared block)
 SP_KINDS = SP_STACK_KINDS + ("hybrid",)
 
 
-def sequence_slice(x: torch.Tensor, positions: torch.Tensor) -> bool:
-    """Whether a block's input `x` (B, S', d) is this rank's block of the
-    sequence: its sequence axis is shorter than that of the positions
-    (B, S[, 3]), which every block gets whole."""
-    return x.dim() == 3 and x.shape[1] != positions.shape[1]
+def sequence_parallel(cfg, seq_len: int, kinds: tuple = SP_KINDS) -> bool:
+    """Whether a call over `seq_len` positions runs under Megatron-SP:
+    ``cfg.sequence_parallel`` in psum mode on more than one "model" rank,
+    for a kind in `kinds` (default `SP_KINDS`, the kinds whose blocks take
+    it: dense, moe, mla_moe, vlm, and the hybrid's shared block; Mamba1,
+    Mamba2 and the encoder-decoder ignore the flag, as their reference
+    blocks do; `SP_STACK_KINDS` where the question is whether the stack
+    between the embedding and the head runs on the block, which the
+    hybrid gathers at each group's edge), more than one position, and tp
+    dividing them. Otherwise the call runs without it, as the reference's
+    `sanitize_spec` drops the sequence's axis (decode, a prefill chunk tp
+    does not divide). Every block, the stack's ends and the train step
+    decide it here."""
+    return (bool(getattr(cfg, "sequence_parallel", False))
+            and getattr(cfg, "kind", None) in kinds
+            and psum_mode(cfg) and seq_len > 1
+            and seq_len % model_size() == 0)
 
 
 def gather_from_sequence(x: torch.Tensor, dim: int = 1, mesh=None

@@ -40,7 +40,9 @@ goes into the JSON's ``departures``: heads that tp does not divide, and
 the caches the reference cuts by GSPMD's split attention (the sequence
 over "model" where tp does not divide the KV heads, over "data" at
 ``long_500k``; MLA's latent ``c_kv`` over "model"), which the rank keeps
-whole (ROADMAP A7.3c).
+whole (ROADMAP A7.3c), and under ``moe_expert_axis="data"`` the expert
+leaves, which the reference's compiled cells hold over "model" whatever
+its rules say (`departures`).
 
 One JSON per cell goes to ``artifacts/dryrun_torch/<mesh>/<arch>_<shape>[__<variant>].json``
 (``h100x1``, ``h100_16x16`` or ``h100_2x16x16``) with the reference's
@@ -284,13 +286,24 @@ def _stacked(name: str, cfg) -> tuple[int, ...]:
     return (cfg.n_layers,)
 
 
+# why an expert leaf departs under moe_expert_axis="data" (`departures`)
+EXPERTS_RESET = ("the reference's param_pspecs resets the expert axis to "
+                 "\"model\" for each leaf; the rank cuts E over \"data\" "
+                 "and d_ff over \"model\" as its rules say")
+
+
 def departures(params, cfg, mesh, inputs: dict, want: dict) -> list:
     """Each leaf the rank holds otherwise than the reference's chip: the
     parameters (by name, their layers folded into ``*``) against the
-    reference's rules on its stacked leaves (`sharding.reference_shape`;
-    the hybrid's per-head ``A_log`` is one such, whose stacked rule lands
-    on the layer axis), the inputs and decode state against
-    `local_specs`' reference shapes."""
+    reference's rules on its stacked leaves as its `param_pspecs` applies
+    them (`sharding.reference_shape`; the hybrid's per-head ``A_log`` is
+    one such, whose stacked rule lands on the layer axis), the inputs and
+    decode state against `local_specs`' reference shapes. `param_pspecs`
+    sets its rules again for each leaf with the experts over "model"
+    (``set_mesh_rules(mesh, fsdp)``), so under ``moe_expert_axis="data"``
+    its chip holds every expert leaf (E/tp, d, f) where the rank holds
+    (E/dp, d, f/tp) as the rules say: each such leaf is listed with that
+    ``reason``."""
     out = {}
     whole = get_model(cfg).init(cfg, None, device="meta")
     shapes = {n: tuple(p.shape) for n, p in whole.named_parameters()}
@@ -298,12 +311,13 @@ def departures(params, cfg, mesh, inputs: dict, want: dict) -> list:
         stack = _stacked(name, cfg)
         ref = sharding.reference_shape(sharding.param_path(name),
                                        stack + shapes[name], mesh.shape,
-                                       cfg.fsdp, cfg.moe_expert_axis
-                                       )[len(stack):]
+                                       cfg.fsdp)[len(stack):]
         if tuple(p.shape) != ref:
-            out.setdefault(_layer_name(name), {
+            entry = out.setdefault(_layer_name(name), {
                 "leaf": _layer_name(name), "port": list(p.shape),
                 "reference": list(ref)})
+            if cfg.moe_expert_axis == "data" and ".experts." in name:
+                entry["reason"] = EXPERTS_RESET
 
     def check(path, t):
         ref = tuple(_get(want, path))
@@ -318,16 +332,18 @@ def departures(params, cfg, mesh, inputs: dict, want: dict) -> list:
 
 def _rank_params(api, cfg, mesh, device, generator=None):
     """The rank's parameters: the whole model from `generator` (shapes
-    only on meta) cut to its shard over "model" and, where ``cfg.fsdp``,
-    over "data" (`train.step.shard_state`'s cut, without an optimizer)."""
+    only on meta) cut to its shard over "model", over "data" where
+    ``cfg.fsdp``, and its experts' E over "data" under
+    ``moe_expert_axis="data"`` (`train.step.shard_state`'s cut, without an
+    optimizer)."""
     params = api.init(cfg, generator, device=device)
     rcfg = train_config(cfg, mesh, check=False)
     whole = api.init(rcfg, None, device="meta")
     sharding.shard_params(params, mesh, "psum", whole=whole, cfg=rcfg)
     sharding.cut_over_data(params, sharding.fsdp_axes(whole, mesh, rcfg),
                            mesh)
-    sharding.cut_over_data(params, sharding.expert_axes(whole, mesh, rcfg),
-                           mesh, gathered=False)
+    sharding.cut_experts_over_data(
+        params, sharding.expert_axes(whole, mesh, rcfg), mesh)
     return params
 
 

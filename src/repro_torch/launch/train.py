@@ -19,13 +19,12 @@ processes (`launch.mesh.RankPool`, gloo; ``--device cpu`` for the CPU,
 else rank r on card r modulo the cards, several ranks sharing one card
 where there are fewer): tensor parallelism in psum mode for every kind
 the launcher trains, the batch cut over "data", ``--zero1`` cutting the
-optimizer state over "data" (`train.step`), ``--sequence-parallel``
+optimizer state over "data" (`train.step`) and ``--sequence-parallel``
 running the residual stream on each rank's 1/tp of the sequence
-(Megatron-SP) and ``--experts-over-data`` cutting a MoE kind's experts
-over "data" (their tokens exchanged by all-to-all). Every rank draws
-the whole model from the same seed and keeps its shard, so the weights
-are tp=1's; its checkpoints hold whole leaves (`checkpoint.manager`),
-written by rank 0. The fit check sizes one rank's share.
+(Megatron-SP). Every rank draws the whole model from the same seed and
+keeps its shard, so the weights are tp=1's; its checkpoints hold whole
+leaves (`checkpoint.manager`), written by rank 0. The fit check sizes
+one rank's share.
 
 The launcher trains the LM kinds (dense, moe, mla_moe, mamba1, mamba2,
 hybrid) on the synthetic token pipeline, as the JAX package's does. Its
@@ -254,8 +253,6 @@ def _parser() -> argparse.ArgumentParser:
                     help="cut the optimizer state over the data axis")
     ap.add_argument("--sequence-parallel", action="store_true",
                     help="Megatron sequence parallelism over the model axis")
-    ap.add_argument("--experts-over-data", action="store_true",
-                    help="cut the experts over the data axis (MoE kinds)")
     return ap
 
 
@@ -284,11 +281,8 @@ def train_rank(mesh, argv: list[str] | None = None,
     say = (log_fn if log_fn is not None and (rank == 0 or every_rank)
            else (lambda _: None))
     cfg = get_config(args.arch, smoke=args.smoke)
-    if args.sequence_parallel or args.experts_over_data:
-        cfg = dataclasses.replace(
-            cfg, sequence_parallel=args.sequence_parallel,
-            moe_expert_axis="data" if args.experts_over_data
-            else cfg.moe_expert_axis)
+    if args.sequence_parallel:
+        cfg = dataclasses.replace(cfg, sequence_parallel=True)
     if not args.smoke:
         if dev.type != "cuda":
             raise SystemExit("full configs train on the card; use --smoke "

@@ -400,7 +400,7 @@ def moe_block_apply(blk, x: torch.Tensor, cfg: ModelConfig, *, positions,
     """OLMoE block: RMSNorm -> GQA attention -> RMSNorm -> MoE FFN.
     Returns (x, cache, aux). Under sequence parallelism as
     `transformer.dense_block_apply`."""
-    sp = TP.sequence_slice(x, positions)
+    sp = TP.sequence_parallel(cfg, positions.shape[1])
     h = L.rmsnorm(blk.ln1, x, cfg.norm_eps)
     if sp:
         h = TP.gather_from_sequence(h)
@@ -565,7 +565,7 @@ def mla_moe_block_apply(blk, x: torch.Tensor, cfg: ModelConfig, *,
     """DeepSeek-V2 block: RMSNorm -> MLA -> RMSNorm -> MoE FFN with shared
     experts. Returns (x, cache, aux). Under sequence parallelism as
     `transformer.dense_block_apply`."""
-    sp = TP.sequence_slice(x, positions)
+    sp = TP.sequence_parallel(cfg, positions.shape[1])
     h = L.rmsnorm(blk.ln1, x, cfg.norm_eps)
     if sp:
         h = TP.gather_from_sequence(h)

@@ -223,13 +223,14 @@ def dense_block_apply(blk: DenseBlock, x: torch.Tensor, cfg: ModelConfig, *,
     API of the JAX package). `seq_lens` masks a right-padded chunk's KV
     write to each row's valid tokens.
 
-    Under sequence parallelism (`x` this rank's block of the sequence,
-    `tp.sequence_slice`) the reference's Megatron-SP structure: the
+    Under sequence parallelism (`tp.sequence_parallel` over the
+    positions: `x` is this rank's block of the sequence) the reference's
+    Megatron-SP structure: the
     residual stream and both norms on the block, the normed activations
     all-gathered before the qkv and gate/up products
     (`tp.gather_from_sequence`), and the wo and w_down partial sums
     reduce-scattered back to the block before the residual add."""
-    sp = TP.sequence_slice(x, positions)
+    sp = TP.sequence_parallel(cfg, positions.shape[1])
     h = L.rmsnorm(blk.ln1, x, cfg.norm_eps)
     if sp:
         h = TP.gather_from_sequence(h)
@@ -274,7 +275,7 @@ def enter_sequence(model: nn.Module, x: torch.Tensor,
     table is whole (each rank's share of the table's gradient), or
     gathered back (`tp.split_to_model`) where the table is cut by vocab
     (each rank's rows take every token's cotangent), else `x`."""
-    if not TP.sequence_parallel(cfg, x.shape[1]):
+    if not TP.sequence_parallel(cfg, x.shape[1], TP.SP_STACK_KINDS):
         return x
     if model.embed["table"].shape[0] == cfg.vocab:
         return TP.sequence_block(x)
@@ -305,7 +306,7 @@ def _run_blocks(model: TransformerLM, x: torch.Tensor, cfg: ModelConfig, *,
     parallelism (a prefill on the dry-run's psum-mode rank) the blocks
     run on this rank's block of the sequence, gathered at the end."""
     apply = block or block_apply(cfg)
-    sp = TP.sequence_parallel(cfg, x.shape[1])
+    sp = TP.sequence_parallel(cfg, x.shape[1], TP.SP_STACK_KINDS)
     if sp:
         x = TP.sequence_block(x)
     for i, blk in enumerate(model.blocks if blocks is None else blocks):
@@ -370,13 +371,14 @@ def head_loss(model: nn.Module, x: torch.Tensor, batch: dict,
     ``batch["loss_mask"]`` where given): (loss, {"nll", "accuracy"}).
     In psum mode a vocab-sharded head is vocab-parallel: this rank's f32
     logits of its vocab columns go into the sharded cross entropy, and no
-    rank gathers the whole logits. Under sequence parallelism `x` is this
-    rank's block of the sequence (shorter than the labels): ``ln_f`` runs
-    on it, and it is gathered before the head (`tp.gather_from_sequence`
-    into a vocab-sharded head; into a whole head `tp.gather_from_model`,
-    the logits passing their gradient only within the block,
-    `tp.sequence_share`)."""
-    sp = x.shape[1] != batch["labels"].shape[1]
+    rank gathers the whole logits. Under sequence parallelism of the stack
+    (`tp.sequence_parallel` over the labels, `SP_STACK_KINDS`) `x` is this
+    rank's block of the sequence: ``ln_f`` runs on it, and it is gathered
+    before the head (`tp.gather_from_sequence` into a vocab-sharded head;
+    into a whole head `tp.gather_from_model`, the logits passing their
+    gradient only within the block, `tp.sequence_share`)."""
+    sp = TP.sequence_parallel(cfg, batch["labels"].shape[1],
+                              TP.SP_STACK_KINDS)
     x = L.rmsnorm(model.ln_f, x, cfg.norm_eps)
     tied = cfg.tie_embeddings
     w = fsdp.leaf(model.embed["table"] if tied else model.head["w"])

@@ -100,7 +100,7 @@ def shard_state(params, model, cfg: ModelConfig, mesh=None,
         sharding.shard_params(params, mesh, "psum", whole=whole, cfg=cfg)
         layout = sharding.train_layout(whole, mesh, cfg, zero1)
         sharding.cut_over_data(params, layout.fsdp, mesh)
-        sharding.cut_over_data(params, layout.experts, mesh, gathered=False)
+        sharding.cut_experts_over_data(params, layout.experts, mesh)
     for p in params.parameters():
         p.requires_grad_(True)
     return {"params": params,

@@ -170,12 +170,15 @@ def test_honoured_variants_run_on_the_mesh(variant, tmp_path):
 
 @pytest.mark.parametrize("variant", dryrun.SP_EP_VARIANTS)
 def test_mesh_variants_wait_for_tensor_parallelism(variant, tmp_path):
-    """The reference's Megatron-SP and experts-over-"data" variants run a
-    full-size olmoe-1b-7b cell on the 16x16 mesh (a prefill; ``ep_data``
-    a decode step, which SP never takes): the SP variants post
-    reduce-scatters, the experts-over-"data" ones all-to-alls, and the
-    rank holds every leaf as the reference's chip does (the experts' E
-    over "data" and d_ff over "model" under ``ep_data``)."""
+    """The reference's Megatron-SP and experts-over-"data" variants,
+    which waited for the port's sequence parallelism and experts over
+    "data", run a full-size olmoe-1b-7b cell on the 16x16 mesh (a
+    prefill; ``ep_data`` a decode step, which SP never takes): the SP
+    variants post reduce-scatters, the experts-over-"data" ones
+    all-to-alls. The rank holds every leaf as the reference's chip does
+    but, under experts over "data", the three expert leaves: it holds
+    them (E/dp, d, f/tp) as the reference's rules say, its compiled chip
+    (E/tp, d, f), and ``departures`` lists them with that reason."""
     shape = "decode_32k" if variant == "ep_data" else "prefill_32k"
     assert dryrun.main(["--arch", "olmoe-1b-7b", "--shape", shape, "--mesh",
                         "single", "--variant", variant, "--out",
@@ -186,7 +189,17 @@ def test_mesh_variants_wait_for_tensor_parallelism(variant, tmp_path):
     calls = got["collective_calls_by_op"]
     assert ("reduce-scatter" in calls) == ("sp" in variant)
     assert ("all-to-all" in calls) == ("ep_data" in variant)
-    assert got["departures"] == []
+    want = []
+    if "ep_data" in variant:
+        cfg = configs.get_config("olmoe-1b-7b")
+        E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff_expert
+        want = [{"leaf": f"blocks.*.moe.experts.{w}", "port": port,
+                 "reference": ref, "reason": dryrun.EXPERTS_RESET}
+                for w, port, ref in (
+                    ("w_down", [E // 16, f // 16, d], [E // 16, f, d]),
+                    ("w_gate", [E // 16, d, f // 16], [E // 16, d, f]),
+                    ("w_up", [E // 16, d, f // 16], [E // 16, d, f]))]
+    assert sorted(got["departures"], key=lambda r: r["leaf"]) == want
 
 
 @pytest.mark.parametrize("variant", dryrun.FP8_VARIANTS)

@@ -611,15 +611,16 @@ def _divisors(global_shape, local) -> tuple:
     return tuple(g // n for g, n in zip(global_shape, local))
 
 
-def _departed(case: str) -> set:
+def _departures(case: str) -> dict:
+    """{leaf: its `dryrun.departures` entry} of the case's rank."""
     cost, args = port(case)
     arch, cell, _ = CASES[case]
     specs = configs.input_specs(arch, cell, smoke=True)
     mesh = make_dry_mesh(MESH)
     _, want = dryrun.local_specs(cell, mesh, specs, _cfg(case))
     params, inputs = _params_inputs(case, args)
-    return {d["leaf"] for d in dryrun.departures(params, _cfg(case), mesh,
-                                                 inputs, want)}
+    return {d["leaf"]: d for d in dryrun.departures(params, _cfg(case),
+                                                    mesh, inputs, want)}
 
 
 def _params_inputs(case: str, args: tuple):
@@ -643,32 +644,36 @@ def _flat(tree, prefix=()) -> dict:
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_local_shapes_are_the_references_shard_shapes(case, reference):
     """Every leaf's local shape is the reference's shard shape, but the
-    departures the rank names and, under ``moe_expert_axis="data"``, the
-    experts: the port cuts E over "data" and d_ff over "model" as the
-    reference's rules say (`sharding.reference_shape`, no departure),
-    while its compiled cell holds them (E/tp, d, f) over "model"
-    (`param_pspecs` calls ``set_mesh_rules(mesh, fsdp)`` for each leaf,
-    which puts the rules' expert axis back to "model")."""
+    departures the rank names, whose ``reference`` is the shard shape of
+    the reference's compiled cell. Under ``moe_expert_axis="data"`` they
+    are the experts: the port cuts E over "data" and d_ff over "model" as
+    the reference's rules say, while its compiled cell holds them (E/tp,
+    d, f) over "model" (`param_pspecs` calls ``set_mesh_rules(mesh,
+    fsdp)`` for each leaf, which puts the rules' expert axis back to
+    "model")."""
     _, args = port(case)
     params, inputs = _params_inputs(case, args)
-    departed = _departed(case)
+    departed = _departures(case)
     ref = reference[case]
     cfg = _cfg(case)
     whole = {n: tuple(p.shape) for n, p in dryrun.get_model(
         cfg).init(cfg, None, device="meta").named_parameters()}
     checked = 0
     for name, p in params.named_parameters():
-        if dryrun._layer_name(name) in departed:
-            continue
         g, s = ref["params"][_ref_path(name)]
         n = len(p.shape)
-        if cfg.moe_expert_axis == "data" and ".experts." in name:
-            E, a, b = whole[name]
-            assert tuple(s[-n:]) == (E // TP, a, b), name
-            ff = 2 if name.endswith("w_gate") or name.endswith("w_up") else 1
-            assert tuple(p.shape) == tuple(
-                m // (DP if i == 0 else TP if i == ff else 1)
-                for i, m in enumerate(whole[name])), name
+        experts = cfg.moe_expert_axis == "data" and ".experts." in name
+        dep = departed.get(dryrun._layer_name(name))
+        assert dep is not None or not experts, name
+        if dep is not None:
+            assert tuple(dep["reference"]) == tuple(s[-n:]), name
+            assert tuple(dep["port"]) == tuple(p.shape), name
+            if experts:
+                ff = 2 if name.endswith(("w_gate", "w_up")) else 1
+                assert tuple(p.shape) == tuple(
+                    m // (DP if i == 0 else TP if i == ff else 1)
+                    for i, m in enumerate(whole[name])), name
+                assert dep["reason"] == dryrun.EXPERTS_RESET, name
             continue
         assert tuple(s[-n:]) == tuple(p.shape), name
         assert tuple(g[-n:]) == whole[name], name
@@ -692,7 +697,7 @@ def test_departures_are_empty_at_smoke_and_name_whole_heads():
     cache's sequence, which the reference cuts over "model", stays
     whole."""
     for case in ("dense-decode", "mla-fsdp", "vlm-train"):
-        assert _departed(case) == set()
+        assert _departures(case) == {}
     mesh = dryrun.make_production_mesh()
     cfg = configs.get_config("qwen2-7b")
     specs = configs.input_specs("qwen2-7b", "decode_32k")

@@ -155,17 +155,17 @@ def test_layout_cuts_experts_over_data_and_d_ff_over_model():
                      make_dry_mesh((4, 1)))
 
 
-def test_the_launcher_trains_with_sp_and_experts_over_data(tmp_path):
+def test_the_launcher_trains_with_sequence_parallelism(tmp_path):
     """``python -m repro_torch.launch.train --tp 2 --dp 2
-    --sequence-parallel --experts-over-data`` (four CPU ranks) logs the
-    losses and grad norms of the same run without the two flags."""
+    --sequence-parallel`` (four CPU ranks, a MoE kind) logs the losses and
+    grad norms of the same run without the flag."""
     from repro_torch.launch import train as launch
 
     argv = ["--arch", "olmoe-1b-7b", "--smoke", "--device", "cpu", "--tp",
             "2", "--dp", "2", "--steps", "2", "--batch", "4", "--seq", "32",
             "--log-every", "1", "--ckpt-every", "10"]
     runs = []
-    for extra in ([], ["--sequence-parallel", "--experts-over-data"]):
+    for extra in ([], ["--sequence-parallel"]):
         _, summary = launch.main(argv + extra + [
             "--ckpt-dir", str(tmp_path / str(len(extra)))], log_fn=None)
         runs.append(summary)
